@@ -1,0 +1,82 @@
+"""The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "viddet_tpu_torch"
+FORBIDDEN = ("jax", "flax", "viddet_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys, viddet_tpu_torch.cli.common, viddet_tpu_torch.infer.service, "
+        "viddet_tpu_torch.weights, viddet_tpu_torch.kernels.build; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viddet_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from viddet_tpu_torch.core.platform import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from viddet_tpu_torch.models.zoo import get_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        get_model("yolo3_tiny_darknet_coco")
+
+
+def test_wrappers_never_fall_back_for_cuda_tensors():
+    """A wrapper given a non-CPU tensor it cannot launch on raises; it
+    never runs the plain version instead."""
+    from viddet_tpu_torch.ops import nms_cuda, topk_cuda
+
+    meta = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_cuda.topk_indices(meta, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_cuda.nms_keep_mask(torch.zeros((2, 8, 4), device="meta"),
+                               torch.zeros((2, 8), dtype=torch.bool, device="meta"), 0.5)

@@ -1,0 +1,106 @@
+"""Shared building blocks (counterpart of ``viddet_tpu/models/common.py``).
+
+Modules take NCHW tensors in ``torch.channels_last`` memory format, which
+is the JAX package's NHWC layout in memory.  Parameters are float32; each
+conv runs on a compute-dtype copy of its weights, as Flax does at apply
+time.  Inference only: BatchNorm always uses its running statistics.
+
+Every module that owns parameters records its Flax scope (``scope``), e.g.
+``"Darknet53_0/DarknetResidual_3/ConvBNLeaky_1"``, so that ``weights.py``
+maps the JAX package's ``.npz`` keys onto it.  ``FlaxNames`` reproduces
+Flax's automatic names (class name + per-class counter, in creation order).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+
+BN_EPS = 1e-5
+LEAKY_SLOPE = 0.1
+
+
+class FlaxNames:
+    """Flax's automatic submodule names under ``prefix``, in creation order."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self.counts: dict[str, int] = {}
+
+    def __call__(self, cls_name: str) -> str:
+        i = self.counts.get(cls_name, 0)
+        self.counts[cls_name] = i + 1
+        return f"{self.prefix}/{cls_name}_{i}"
+
+
+def same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
+    """(low, high) padding of XLA's "SAME": the extra pixel goes high.
+
+    A stride-2 3x3 conv on an even size pads (0, 1), where torch's
+    ``padding=1`` would pad (1, 1).
+    """
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, window: int, stride: int, value: float = 0.0):
+    """Pad H and W of an NCHW tensor as "SAME" would; returns (x, pad)
+    where ``pad`` is a symmetric padding left for the op itself."""
+    ph = same_pads(x.shape[2], window, stride)
+    pw = same_pads(x.shape[3], window, stride)
+    if ph[0] == ph[1] == pw[0] == pw[1]:
+        return x, ph[0]
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
+
+
+class ConvBNLeaky(nn.Module):
+    """kxk conv ("SAME", no bias) -> inference BatchNorm -> LeakyReLU(0.1)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 policy: Policy = DEFAULT_POLICY, scope: str = ""):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.policy, self.scope = policy, scope
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.policy.compute_dtype
+        x, pad = _pad_same(x, self.kernel_size, self.stride)
+        x = F.conv2d(x, self.conv.weight.to(cd), stride=self.stride, padding=pad)
+        # (x - mean) * (scale * rsqrt(var + eps)) + bias, computed in float32
+        # inside the op and rounded to the compute dtype, as Flax does.
+        bn = self.bn
+        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         training=False, eps=BN_EPS)
+        return F.leaky_relu(x, LEAKY_SLOPE, inplace=True)
+
+
+class DarknetResidual(nn.Module):
+    """1x1 (c/2) -> 3x3 (c) with additive skip: the Darknet-53 residual unit."""
+
+    def __init__(self, channels: int, policy: Policy = DEFAULT_POLICY, scope: str = ""):
+        super().__init__()
+        names = FlaxNames(scope)
+        self.reduce = ConvBNLeaky(channels, channels // 2, 1, policy=policy,
+                                  scope=names("ConvBNLeaky"))
+        self.expand = ConvBNLeaky(channels // 2, channels, 3, policy=policy,
+                                  scope=names("ConvBNLeaky"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.expand(self.reduce(x)) + x
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsample of an NCHW tensor."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
+def maxpool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """"SAME" max-pool of an NCHW tensor; padding is -inf, high side first."""
+    x, pad = _pad_same(x, window, stride, value=float("-inf"))
+    return F.max_pool2d(x, window, stride, padding=pad)

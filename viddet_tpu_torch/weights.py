@@ -1,0 +1,103 @@
+"""Weight bridge between the JAX package's ``.npz`` schema and the port.
+
+The schema is ``viddet_tpu/train/state.py:122-134``: flat keys
+``params/<flax scope>/<leaf>`` and ``batch_stats/<flax scope>/<leaf>``
+holding numpy arrays.  Each ``ConvBNLeaky`` and head ``OutputConv`` of the
+port records its Flax scope, so the mapping is per module:
+
+* ``Conv_0/kernel`` (HWIO) -> ``conv.weight`` (OIHW);
+* ``BatchNorm_0/scale``, ``bias`` -> ``bn.weight``, ``bn.bias``;
+  batch_stats ``mean``, ``var`` -> ``bn.running_mean``, ``bn.running_var``;
+* ``output_{i}/kernel`` / ``bias`` -> the output conv's weight / bias.
+
+A key the model lacks, or a key the model needs and the file lacks, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from viddet_tpu_torch.models.common import ConvBNLeaky
+from viddet_tpu_torch.models.yolo3 import OutputConv
+
+
+def _leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
+    """(npz key, tensor, kind) for every parameter and statistic, where kind
+    is "conv" for an OIHW conv kernel and "vec" for everything else."""
+    for m in model.modules():
+        if isinstance(m, ConvBNLeaky):
+            p, s = f"params/{m.scope}", f"batch_stats/{m.scope}"
+            yield f"{p}/Conv_0/kernel", m.conv.weight, "conv"
+            yield f"{p}/BatchNorm_0/scale", m.bn.weight, "vec"
+            yield f"{p}/BatchNorm_0/bias", m.bn.bias, "vec"
+            yield f"{s}/BatchNorm_0/mean", m.bn.running_mean, "vec"
+            yield f"{s}/BatchNorm_0/var", m.bn.running_var, "vec"
+        elif isinstance(m, OutputConv):
+            yield f"params/{m.scope}/kernel", m.weight, "conv"
+            yield f"params/{m.scope}/bias", m.bias, "vec"
+
+
+def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Copy a flat ``.npz``-schema dict into the model, in place."""
+    expected = {key for key, _, _ in _leaves(model)}
+    missing = sorted(expected - set(flat))
+    extra = sorted(set(flat) - expected)
+    if missing or extra:
+        raise KeyError(f"weight keys do not match the model: missing {missing[:5]} "
+                       f"({len(missing)}), unmapped {extra[:5]} ({len(extra)})")
+    with torch.no_grad():
+        for key, t, kind in _leaves(model):
+            value = np.asarray(flat[key])
+            if kind == "conv":
+                value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            if tuple(value.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: shape {value.shape}, model has {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(value)))  # a writable, contiguous copy
+
+
+def to_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The model's weights as a flat ``.npz``-schema dict (float32 numpy)."""
+    flat = {}
+    for key, t, kind in _leaves(model):
+        value = t.detach().to("cpu", torch.float32).numpy()
+        if kind == "conv":
+            value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        flat[key] = np.ascontiguousarray(value)
+    return flat
+
+
+def _lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Flax's default conv init: truncated normal (+-2 std) with variance
+    1/fan_in, fan_in = H*W*I of an HWIO kernel."""
+    fan_in = int(np.prod(shape[:-1]))
+    std = np.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncation correction
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2.0
+    return (x * std).astype(np.float32)
+
+
+def init_flat(model_name: str, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Seeded random weights for a registered model, in the ``.npz`` schema
+    (Flax's initialisers: lecun-normal kernels, zero biases, BN scale 1,
+    running mean 0 and var 1).  Needs no JAX and no download."""
+    from viddet_tpu_torch.models.zoo import _REGISTRY
+
+    with torch.device("meta"):
+        model, _ = _REGISTRY[model_name]()
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, t, kind in _leaves(model):
+        if kind == "conv":
+            o, i, h, w = t.shape
+            flat[key] = _lecun_normal(rng, (h, w, i, o))
+        elif key.endswith(("/scale", "/var")):
+            flat[key] = np.ones(tuple(t.shape), np.float32)
+        else:
+            flat[key] = np.zeros(tuple(t.shape), np.float32)
+    return flat
