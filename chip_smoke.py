@@ -14,13 +14,20 @@ Phases, each printed as one JSON line:
             version's time, a PyTorch library call's time where one computes
             the same function, and its bound;
 4. main path: YOLOv3-416 / Darknet-53 / COCO at full width in bf16 with
-            seeded weights, batch 32, through ``make_predictor``; the kernel
-            launch counts of that one call; the kernel tail equal to the
-            plain tail on the same head outputs; time per batch and frames/s
-            at batch 32 and 128;
-5. serving: ``DetectionService`` answers 16 requests from 4 threads, each
+            seeded weights, batch 32, through ``make_predictor`` under the
+            default (hierarchical) ranking; the kernel launch counts of that
+            one call; the kernel tail equal to the plain tail on the same
+            head outputs; then the deterministic tail
+            (``VIDDET_PAIR_TOPK=det``) on those head outputs, its launch
+            counts and its equality to its plain tail; time per batch and
+            frames/s at batch 32 and 128;
+5. conv:    the same model under ``VIDDET_CONV_BACKEND=pallas`` (K8 on the
+            three shallow downsamples), its launch counts, well-formed
+            detections, head outputs close to the default path's, frames/s
+            at batch 32;
+6. serving: ``DetectionService`` answers 16 requests from 4 threads, each
             equal to the direct batched call;
-6. kernels: one line listing every ported kernel;
+7. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -30,6 +37,7 @@ line.  It needs no network and imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -38,14 +46,37 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.
+# H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.  Each
+# row names the operation peak it uses.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # outside the tensor cores; also used for int32 compares
+BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
+PEAKS = {"f32": F32_OPS_PER_S, "bf16_tensor": BF16_TC_OPS_PER_S}
 B, N, K, PAIRS, TOPK, POST = 32, 10647, 400, 32000, 400, 100
 CELLS = (169, 676, 2704)  # 13x13, 26x26, 52x52 at 416 px
 NA, NUM_PRED = 3, 85
+C = NUM_PRED - 5
+TOP_M, HOT_J = 9, 45  # the hierarchical ranking's m and J at topk 400
 K1_MAX_ULP = 0  # every chip run measured 0
+# K8 on Darknet-53 at 416 px: (Cin, Cout, input H = W) of the three
+# stride-2 layers it takes, and one narrow edge shape (batch, Cin, Cout, H).
+K8_LAYERS = ((32, 64, 416), (64, 128, 208), (128, 256, 104))
+K8_EDGE = (2, 8, 16, 18)
+K8_F32_RTOL = 1e-5
+# Head outputs of the K8 configuration against the default conv path:
+# relative L2 distance per scale.  bf16 keeps 8 bits (a relative 2**-9 per
+# rounding) and the two paths round the three layers' outputs differently;
+# the difference then passes through the ~70 layers above them.
+CONV_HEAD_REL_L2 = 5e-2
 MODEL, IMAGE_SIZE, E2E_BATCHES = "yolo3_darknet53_coco", 416, (32, 128)
+
+# Launches per main-path batch of each path; a kernel missing from a path
+# must not launch there.
+HIER_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_top_m": 1,
+                 "finalize_candidates": 1, "nms_keep_mask": 1, "compact_and_pad": 1}
+DET_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_pairs": 1,
+                "nms_keep_mask": 1, "compact_and_pad": 1}
+CONV_LAUNCHES = dict(HIER_LAUNCHES, conv_down2_bn_leaky=3)
 
 
 def emit(obj) -> None:
@@ -111,9 +142,10 @@ def timings(kernel, plain, library=None, plain_reps: int = 10) -> dict:
     return out
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, ops: float, peak: str = "f32"):
+    """(least ms, what bounds it, the operation peak used)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAKS[peak] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), peak
 
 
 def nvidia_smi_line() -> str:
@@ -130,6 +162,64 @@ def equal(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
+def set_launches(kernels, value: int = 0) -> None:
+    for fn in kernels.values():
+        fn.launches = value
+
+
+def read_launches(kernels, want: dict, what: str) -> dict:
+    """The counts since ``set_launches``; each must equal ``want`` (0 for a
+    kernel not in it)."""
+    got = {name: fn.launches for name, fn in kernels.items()}
+    check(got == {name: want.get(name, 0) for name in kernels},
+          f"{what} launches {got}, expected {want}")
+    return got
+
+
+def k8_compare(got, want, x, weight, a) -> dict:
+    """K8 against its plain version, elementwise.
+
+    Both sides sum the same 9*Cin exact products (bf16 products are exact
+    in float32) in float32 in another order, then apply the same affine
+    and leaky ReLU and round once.  So an element is held within one bf16
+    ulp (float32: ``K8_F32_RTOL`` relative) of the plain version, except
+    where the sum nearly cancels: there the two orders may differ by up to
+    the float32 summation bound, 2 * K * 2**-24 * sum|x*w| * |a|, which is
+    then more than an ulp of the small result.  Such elements must lie
+    within that bound plus one rounding of the result.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    k = 9 * x.shape[1]
+    sums = F.conv2d(F.pad(x.float().abs(), (0, 1, 0, 1)),
+                    weight.to(x.dtype).float().abs(), stride=2)
+    acc_bound = 2 * k * 2.0 ** -24 * sums * a.abs()[:, None, None]
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        def key(t):  # bf16 bit patterns on a line: adjacent values differ by 1
+            v = t.view(torch.int16).int()
+            return torch.where(v < 0, -(v & 0x7FFF), v)
+
+        ulp = (key(got) - key(want)).abs()
+        near = ulp <= 1
+        rounding = 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+        out = {"max_ulp": int(ulp.max().item())}
+    else:
+        near = d <= K8_F32_RTOL * w.abs()
+        rounding = 2.0 ** -22 * torch.maximum(g.abs(), w.abs())
+        out = {"max_rel": float((d / w.abs().clamp_min(1e-30)).max().item())}
+    far = ~near
+    ratio = d[far] / (acc_bound[far] + rounding[far])
+    out.update(max_abs_err=float(d.max().item()), share_differ=float((d > 0).float().mean().item()),
+               beyond_tolerance=int(far.sum().item()),
+               beyond_max_of_sum_bound=float(ratio.max().item()) if ratio.numel() else 0.0)
+    check(bool((ratio <= 1).all()),
+          f"K8 {got.dtype} within tolerance or the float32 summation bound: {out}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -138,6 +228,7 @@ def equal(a, b) -> bool:
 def kernel_phase(dev):
     import torch
 
+    from viddet_tpu_torch.kernels import build
     from viddet_tpu_torch.models.yolo3 import ANCHORS_DARKNET53, STRIDES_DARKNET53
     from viddet_tpu_torch.ops import nms_cuda, nms_gather_cuda, topk_cuda
     from viddet_tpu_torch.ops.nms import _class_offset, _pair_top_k_det
@@ -185,17 +276,22 @@ def kernel_phase(dev):
     pair = (obj_k * torch.sigmoid(torch.randn((B, K, PAIRS // K), generator=g))).view(B, PAIRS)
     pair = pair.to(dev)
     k2 = {}
-    for name, x in (("stage1", hard_rows(stage1)), ("stage2", hard_rows(pair))):
+
+    def k2_case(name, x):
         got = topk_cuda.topk_indices(x, K)
         want = topk_cuda.topk_indices_plain(x, K)
         check(equal(got, want), f"K2 {name} equal to plain")
         check(bool((got[:, 1:] > got[:, :-1]).all()), f"K2 {name} ascending")
         k2[name] = dict(
+            width=x.shape[1],
             bound=bound_ms(x.numel() * 4 + B * K * 8, x.numel() * 34),  # 31 + 3 passes
             **timings(lambda: topk_cuda.topk_indices(x, K),
                       lambda: topk_cuda.topk_indices_plain(x, K),
                       lambda: torch.topk(x, K, dim=1, sorted=False)),
         )
+
+    k2_case("stage1", hard_rows(stage1))
+    k2_case("stage2_det", hard_rows(pair))
     # K3: the stage-1 winners of those heads in lax.top_k order, as the tail
     # ranks them, plus repeats and the first and last flat index.
     meta = tuple((c, int(round(c ** 0.5)), s, a)
@@ -221,13 +317,75 @@ def kernel_phase(dev):
                   lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_idx, meta)),
     )
 
-    rows["topk_indices"] = dict(  # per main-path batch: both calls
+    # K3, extract_m=9 (the hierarchical form): winners in K2's ascending
+    # order, as the hierarchical tail passes them, with the repeat and
+    # first/last-index rows above, and image 3 made so that its boxes tie on
+    # their 9th value (objectness all equal, class logits on three levels).
+    tie_cells = [c.clone() for c in cells]
+    for x in tie_cells:
+        v = x[3].view(x.shape[1], NA, NUM_PRED)
+        v[..., 4] = 1.0
+        v[..., 5:] = v[..., 5:].float().round().clamp(-1, 1).to(x.dtype)
+    h_idx = topk_cuda.topk_indices(nms_gather_cuda.anchor_scores(tie_cells, NA), K)
+    h_idx[1, :K // 2] = h_idx[1, K // 2:]
+    h_idx[2, 0], h_idx[2, 1] = 0, N - 1
+    worst_abs, ninth_ties = 0.0, 0
+    for xs in (tie_cells, [c.float() for c in tie_cells]):
+        got9 = nms_gather_cuda.gather_decode_top_m(xs, h_idx, meta, TOP_M, HOT_J)
+        want9 = nms_gather_cuda.gather_decode_pairs_plain(xs, h_idx, meta, TOP_M, HOT_J)
+        check([tuple(t.shape) for t in got9] == [(B, K, 4), (B, K, TOP_M), (B, K, TOP_M),
+                                                 (B, HOT_J, C), (B, 1, HOT_J)], "K3-m9 shapes")
+        check(all(equal(a, b) for a, b in zip(got9, want9)), "K3-m9 equal to plain")
+        worst_abs = max(worst_abs, max(float((a - b).abs().max().item())
+                                       for a, b in zip(got9, want9)))
+        ninth = got9[1][3, :, TOP_M - 1]
+        ninth_ties = max(ninth_ties, int((ninth == ninth[got9[4][3, 0, -1]]).sum().item()))
+    check(ninth_ties > HOT_J, f"K3-m9: image 3 ties on the 9th value ({ninth_ties} boxes)")
+    a_hier = topk_cuda.topk_indices(stage1, K)  # the main path's winners, ascending
+    rows["gather_decode_top_m"] = dict(
+        max_abs_err=worst_abs, ninth_value_ties=ninth_ties,
+        # each winner's 5+C bf16 lanes and its index read; boxes, v_m, i_m
+        # and the hot rows and ids written; per winner 4 operations a class
+        # lane, about 30 for the box, 2 a class lane per top-m step, and 3
+        # a pair of the per-image rank
+        bound=bound_ms(B * K * (NUM_PRED * 2 + 8) + B * K * (16 + TOP_M * 12)
+                       + B * HOT_J * (C * 4 + 8),
+                       B * K * (C * 4 + 30 + TOP_M * C * 2) + B * K * K * 3),
+        **timings(lambda: nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M, HOT_J),
+                  lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_hier, meta, TOP_M,
+                                                                    HOT_J)),
+    )
+
+    # K4: the main path's merged stage-2 ranking of those heads, with winners
+    # forced into both sections (the first and last of each).
+    boxes_k, v_m, i_m, hot_flat, hot_idx = nms_gather_cuda.gather_decode_top_m(
+        cells, a_hier, meta, TOP_M, HOT_J)
+    width = K * (TOP_M - 1)
+    merged = torch.cat([v_m[..., : TOP_M - 1].reshape(B, width), hot_flat.reshape(B, -1)], 1)
+    k2_case("stage2_hier", hard_rows(merged))  # its -1.0 sentinels kept
+    q = _pair_top_k_det(merged, TOPK)[1].contiguous()
+    from_repair = int((q >= width).sum().item())
+    q[0, :4] = torch.tensor([0, width - 1, width, width + HOT_J * C - 1], device=dev)
+    got4 = nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes_k, C)
+    want4 = nms_gather_cuda.finalize_candidates_plain(i_m, hot_idx, q, boxes_k, C)
+    check(all(equal(a, b) for a, b in zip(got4, want4)), "K4 equal to plain")
+    rows["finalize_candidates"] = dict(
+        max_abs_err=max(float((a - b).abs().max().item()) for a, b in zip(got4, want4)),
+        main_path_winners_from_repair=from_repair,
+        # per winner: q, one class id or hot id, one box read; class, box written
+        bound=bound_ms(B * TOPK * (8 + 8 + 16 + 4 + 16), B * TOPK * 10),
+        **timings(lambda: nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes_k, C),
+                  lambda: nms_gather_cuda.finalize_candidates_plain(i_m, hot_idx, q, boxes_k, C)),
+    )
+
+    main_calls = [k2[name] for name in ("stage1", "stage2_hier")]
+    rows["topk_indices"] = dict(  # per main-path (hierarchical) batch: both calls
         max_abs_err=0.0, per_call=k2,
-        **{key: sum(v[key] for v in k2.values())
+        **{key: sum(v[key] for v in main_calls)
            for key in ("ms", "plain_ms", "library_ms", "call_ms", "plain_call_ms",
                        "library_call_ms")},
-        bound=bound_ms(sum(x.numel() * 4 + B * K * 8 for x in (stage1, pair)),
-                       sum(x.numel() * 34 for x in (stage1, pair))),
+        bound=bound_ms(sum(x.numel() * 4 + B * K * 8 for x in (stage1, merged)),
+                       sum(x.numel() * 34 for x in (stage1, merged))),
     )
 
     # K5: class-offset candidate boxes with duplicates, nested boxes, and
@@ -252,10 +410,13 @@ def kernel_phase(dev):
     check(equal(got, want), "K5 equal to plain")
     check(got[3].sum().item() == 0 and got[5].sum().item() == 1, "K5 edge rows")
     pairs = K * (K - 1) // 2
+    round_ns = scan_round_ns(dev, build)
     rows["nms_keep_mask"] = dict(
-        # the bound counts bytes and operations only; the K dependent steps
-        # of the greedy scan, which bound the kernel, are not in it
-        max_abs_err=0.0, serial_steps=K,
+        # ``bound`` counts bytes and operations only; the K dependent rounds
+        # of the greedy scan bound the kernel, and ``serial_bound_ms`` is K
+        # times one round's latency as csrc/latency_probe.cu measures it
+        max_abs_err=0.0, serial_steps=K, scan_round_ns=round_ns,
+        serial_bound_ms=K * round_ns * 1e-6,
         bound=bound_ms(B * K * (16 + 1 + 4), B * pairs * 24),
         **timings(lambda: nms_cuda.nms_keep_mask(offset, valid, 0.45),
                   lambda: nms_cuda.nms_keep_mask_plain(offset, valid, 0.45), plain_reps=5),
@@ -279,6 +440,85 @@ def kernel_phase(dev):
     return rows
 
 
+def scan_round_ns(dev, build) -> float:
+    """Latency of one dependent round of K5's greedy scan, in ns: the probe
+    timed at 1 and 101 passes of K rounds, the difference over 100 K."""
+    import torch
+
+    lib = build.library()
+    out = torch.empty(32, dtype=torch.int64, device=dev)
+
+    def run(passes):
+        build.check(lib.viddet_scan_round_probe(K, passes, out.data_ptr(), build.stream_of(out)),
+                    "scan_round_probe")
+
+    one, many = median_ms(lambda: run(1)), median_ms(lambda: run(101))
+    return (many - one) / (100 * K) * 1e6
+
+
+def conv_kernel_phase(dev) -> dict:
+    """K8 at the three Darknet-53 layers it takes at batch 32 and 416 px and
+    at one narrow edge shape, in bf16 and float32, against its plain
+    version; times summed over the three layers (and the kernel's and the
+    library call's per layer), with the present
+    ``ConvBNLeaky`` path (cuDNN convolution, BatchNorm, leaky ReLU) as the
+    library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from viddet_tpu_torch.models.common import ConvBNLeaky
+    from viddet_tpu_torch.ops import conv_cuda
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def case(b, cin, cout, hw):
+        x = F.leaky_relu(torch.randn((b, cin, hw, hw), generator=g, device=dev), 0.1)
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = torch.randn((cout, cin, 3, 3), generator=g, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        scale = torch.rand(cout, generator=g, device=dev) + 0.5
+        bias = torch.randn(cout, generator=g, device=dev)
+        mean = torch.randn(cout, generator=g, device=dev) * 0.1
+        var = torch.rand(cout, generator=g, device=dev) * 1.5 + 0.5
+        return x, w, scale, bias, mean, var
+
+    checks, per_layer, kernel_fns, plain_fns, library_fns = [], [], [], [], []
+    nbytes = ops = 0
+    for b, cin, cout, hw in [(B,) + layer for layer in K8_LAYERS] + [K8_EDGE]:
+        args = case(b, cin, cout, hw)
+        a = conv_cuda.fold_bn(*args[2:], 1e-5)[0]
+        for x in (args[0], args[0].float().contiguous(memory_format=torch.channels_last)):
+            xa = (x,) + args[1:]
+            got = conv_cuda.conv_down2_bn_leaky(*xa)
+            check(tuple(got.shape) == (b, cout, hw // 2, hw // 2) and got.dtype == x.dtype
+                  and got.is_contiguous(memory_format=torch.channels_last), "K8 output")
+            checks.append(dict(shape=[b, cin, cout, hw], dtype=str(x.dtype).split(".")[-1],
+                               **k8_compare(got, conv_cuda.conv_down2_bn_leaky_plain(*xa),
+                                            x, args[1], a)))
+        if b != B:
+            continue
+        layer = ConvBNLeaky(cin, cout, 3, stride=2).to(dev).eval()
+        layer.conv.weight.copy_(args[1])
+        for p, v in zip((layer.bn.weight, layer.bn.bias, layer.bn.running_mean,
+                         layer.bn.running_var), args[2:]):
+            p.copy_(v)
+        kernel_fns.append(lambda args=args: conv_cuda.conv_down2_bn_leaky(*args))
+        plain_fns.append(lambda args=args: conv_cuda.conv_down2_bn_leaky_plain(*args))
+        library_fns.append(lambda layer=layer, x=args[0]: layer(x))
+        per_layer.append(dict(shape=[b, cin, cout, hw],
+                              **timings(kernel_fns[-1], None, library_fns[-1])))
+        m = b * (hw // 2) ** 2
+        nbytes += b * hw * hw * cin * 2 + 9 * cin * cout * 2 + cout * 8 + m * cout * 2
+        ops += 2 * m * cout * 9 * cin
+    worst = max(checks, key=lambda r: r["max_abs_err"])
+    return dict(
+        max_abs_err=worst["max_abs_err"], checks=checks, per_layer=per_layer,
+        bound=bound_ms(nbytes, ops, "bf16_tensor"),
+        **timings(lambda: [f() for f in kernel_fns], lambda: [f() for f in plain_fns],
+                  lambda: [f() for f in library_fns], plain_reps=5),
+        library="ConvBNLeaky default path: F.pad, cuDNN F.conv2d, F.batch_norm, F.leaky_relu",
+    )
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -286,7 +526,8 @@ def kernel_phase(dev):
 # Kernel-name substrings per group, for the main path's device-time breakdown.
 KERNEL_GROUPS = (
     ("port kernels", ("anchor_scores_kernel", "topk_select_kernel", "gather_decode_kernel",
-                      "nms_keep_kernel", "compact_kernel")),
+                      "gather_decode_top_m_kernel", "hot_rows_kernel", "finalize_kernel",
+                      "nms_keep_kernel", "compact_kernel", "conv_bf16_kernel")),
     ("convolution", ("conv", "gemm", "xmma", "cutlass", "sm90", "implicit", "winograd")),
     ("batch_norm", ("batch_norm",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "leaky", "pad", "copy",
@@ -356,63 +597,144 @@ def main_path_phase(dev, kernels):
     predictor(batch)  # warm-up: cuDNN heuristics, caching allocator
     torch.cuda.synchronize()
 
-    for fn in kernels.values():
-        fn.launches = 0
+    set_launches(kernels)
     ids, scores, boxes = predictor(batch)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    check(all(n > 0 for n in launches.values()), f"every kernel launched: {launches}")
+    launches = {"hier": read_launches(kernels, HIER_LAUNCHES, "main path (hier)")}
     kept = check_detections(ids, scores, boxes, main_b, len(classes), NMSConfig().valid_thresh)
 
-    # The head once; its outputs through the kernel tail and the plain tail.
+    # The head once; its outputs through the kernel tail and the plain tail,
+    # under the default ranking and then under VIDDET_PAIR_TOPK=det.
     with torch.inference_mode():
         mean, std = (torch.as_tensor(v, device=dev) for v in (IMAGENET_MEAN, IMAGENET_STD))
         x = (batch.float() / 255.0 - mean) / std  # as make_predictor does
         out = model(x)
-        tails = {b: multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"], backend=b)
-                 for b in ("auto", "plain")}
+
+        def tail(backend):
+            return multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"],
+                                                    backend=backend)
+
+        tails = {b: tail(b) for b in ("auto", "plain")}
         check(all(equal(a, b) for a, b in zip(tails["auto"], tails["plain"])),
               "kernel tail equal to plain tail")
         check(all(equal(a, b) for a, b in zip(tails["auto"], (ids, scores, boxes))),
               "predictor equal to head + kernel tail")
         head_ms = median_ms(lambda: model(x), reps=10)
-        tail_ms = median_ms(lambda: multiclass_nms_late_decode_cells(
-            out["raws_cells"], out["meta"], backend="auto"), reps=10)
-        plain_tail_ms = median_ms(lambda: multiclass_nms_late_decode_cells(
-            out["raws_cells"], out["meta"], backend="plain"), reps=5)
+        tail_ms = median_ms(lambda: tail("auto"), reps=10)
+        plain_tail_ms = median_ms(lambda: tail("plain"), reps=5)
+        tail_device_ms = device_ms(lambda: tail("auto"))
+
+        os.environ["VIDDET_PAIR_TOPK"] = "det"
+        try:
+            set_launches(kernels)
+            det = tail("auto")
+            torch.cuda.synchronize()
+            launches["det"] = read_launches(kernels, DET_LAUNCHES, "det tail")
+            check(all(equal(a, b) for a, b in zip(det, tail("plain"))),
+                  "det kernel tail equal to det plain tail")
+            check_detections(*det, main_b, len(classes), NMSConfig().valid_thresh)
+            det_tail_ms = median_ms(lambda: tail("auto"), reps=10)
+            det_plain_tail_ms = median_ms(lambda: tail("plain"), reps=5)
+            det_tail_device_ms = device_ms(lambda: tail("auto"))
+        finally:
+            del os.environ["VIDDET_PAIR_TOPK"]
+        same_ids = bool(torch.equal(det[0], ids))
     step_ms = median_ms(lambda: predictor(batch), reps=10)  # images already on the card
     breakdown = kernel_breakdown(lambda: predictor(batch))
     breakdown["step_ms"] = step_ms
     breakdown["idle_share"] = 1.0 - breakdown["device_ms"] / step_ms
 
-    timings = {}
-    for bs in E2E_BATCHES:
-        host = images[:bs]
-
-        def step():
-            return [t.cpu() for t in predictor(host.to(dev, non_blocking=True))]
-
-        for _ in range(2):
-            step()
-        torch.cuda.reset_peak_memory_stats()
-        walls = []
-        for _ in range(10 if bs == main_b else 5):
-            t = time.perf_counter()
-            step()
-            walls.append((time.perf_counter() - t) * 1e3)
-        ms = statistics.median(walls)
-        timings[str(bs)] = dict(ms_per_batch=ms, frames_per_s=bs / ms * 1e3,
-                                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    timings = {str(bs): end_to_end(dev, predictor, images, bs, 10 if bs == main_b else 5)
+               for bs in E2E_BATCHES}
     emit({"phase": "main_path", "model": MODEL, "size": IMAGE_SIZE,
-          "dtype": "bfloat16", "batch": main_b, "setup_s": setup_s, "launches": launches,
-          "kept_detections": kept, "tail_equal_plain": True,
+          "dtype": "bfloat16", "batch": main_b, "setup_s": setup_s, "ranking": "hier",
+          "launches": launches, "kept_detections": kept, "tail_equal_plain": True,
+          "det_tail_equal_plain": True, "det_ids_equal_hier": same_ids,
           "head_ms": head_ms, "tail_ms": tail_ms, "plain_tail_ms": plain_tail_ms,
+          "tail_device_ms": tail_device_ms, "det_tail_ms": det_tail_ms,
+          "det_plain_tail_ms": det_plain_tail_ms, "det_tail_device_ms": det_tail_device_ms,
           "end_to_end": timings, "device_breakdown": breakdown})
-    return model, predictor, launches
+    return model, predictor, images, launches, out
+
+
+def end_to_end(dev, predictor, images, bs: int, reps: int) -> dict:
+    """Median host-clock time of ``reps`` steps of uint8 frames from pinned
+    host memory to detections on the host, after 2 warm-up steps."""
+    import torch
+
+    host = images[:bs]
+
+    def step():
+        return [t.cpu() for t in predictor(host.to(dev, non_blocking=True))]
+
+    for _ in range(2):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(walls)
+    return dict(ms_per_batch=ms, frames_per_s=bs / ms * 1e3,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: serving
+# Phase 5: the conv-kernel configuration
+# ---------------------------------------------------------------------------
+
+
+def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
+    """``VIDDET_CONV_BACKEND=pallas`` through ``set_conv_backend``: the same
+    model and frames at batch 32, its launches (K8 three times), its
+    detections, its head outputs against the default path's, frames/s."""
+    import torch
+
+    from viddet_tpu_torch.core.platform import set_conv_backend
+    from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from viddet_tpu_torch.models.yolo3 import NMSConfig
+
+    bs = E2E_BATCHES[0]
+    batch = images[:bs].to(dev)
+    set_conv_backend("pallas")
+    try:
+        predictor(batch)
+        torch.cuda.synchronize()
+        set_launches(kernels)
+        ids, scores, boxes = predictor(batch)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels, CONV_LAUNCHES, "conv configuration")
+        kept = check_detections(ids, scores, boxes, bs, C, NMSConfig().valid_thresh)
+        with torch.inference_mode():
+            mean, std = (torch.as_tensor(v, device=dev) for v in (IMAGENET_MEAN, IMAGENET_STD))
+            out = model((batch.float() / 255.0 - mean) / std)
+        heads = []
+        for got, want in zip(out["raws_cells"], head_out["raws_cells"]):
+            g, w = got.float(), want.float()
+            heads.append(dict(rel_l2=float(((g - w).norm() / w.norm()).item()),
+                              max_abs_diff=float((g - w).abs().max().item()),
+                              max_abs=float(w.abs().max().item()),
+                              share_differ=float((g != w).float().mean().item())))
+        check(all(h["rel_l2"] <= CONV_HEAD_REL_L2 for h in heads),
+              f"K8 heads within {CONV_HEAD_REL_L2} relative L2 of the default path: {heads}")
+        step_ms = median_ms(lambda: predictor(batch), reps=10)
+        timing = end_to_end(dev, predictor, images, bs, 10)
+    finally:
+        set_conv_backend("auto")
+    # the default path again, right after, for a comparison within one run
+    default_step_ms = median_ms(lambda: predictor(batch), reps=10)
+    default_timing = end_to_end(dev, predictor, images, bs, 10)
+    result = {"phase": "conv_configuration", "conv_backend": "pallas", "batch": bs,
+              "launches": launches, "kept_detections": kept, "heads_vs_default": heads,
+              "head_rel_l2_limit": CONV_HEAD_REL_L2, "step_ms": step_ms, "end_to_end": timing,
+              "default_step_ms_after": default_step_ms, "default_end_to_end_after": default_timing}
+    emit(result)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serving
 # ---------------------------------------------------------------------------
 
 
@@ -471,7 +793,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from viddet_tpu_torch.kernels import build
-    from viddet_tpu_torch.ops import nms_cuda, nms_gather_cuda, topk_cuda
+    from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, topk_cuda
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -487,37 +809,40 @@ def main() -> int:
     emit({"phase": "build", "library": str(lib.relative_to(build.BUILD_ROOT.parents[1])),
           "seconds": time.perf_counter() - t0})
 
-    kernels = {
-        "anchor_scores": nms_gather_cuda.anchor_scores,
-        "topk_indices": topk_cuda.topk_indices,
-        "gather_decode_pairs": nms_gather_cuda.gather_decode_pairs,
-        "nms_keep_mask": nms_cuda.nms_keep_mask,
-        "compact_and_pad": nms_cuda.compact_and_pad,
+    # (wrapper, source, the TPU kernel it replaces, the path its launches are read on)
+    table = {
+        "anchor_scores": (nms_gather_cuda.anchor_scores, "anchor_scores.cu",
+                          "nms_gather_pallas.py:611", "hier"),
+        "topk_indices": (topk_cuda.topk_indices, "topk_select.cu", "topk_pallas.py:237", "hier"),
+        "gather_decode_pairs": (nms_gather_cuda.gather_decode_pairs, "gather_decode.cu",
+                                "nms_gather_pallas.py:698", "det"),
+        "gather_decode_top_m": (nms_gather_cuda.gather_decode_top_m, "gather_decode.cu",
+                                "nms_gather_pallas.py:698", "hier"),
+        "finalize_candidates": (nms_gather_cuda.finalize_candidates, "finalize.cu",
+                                "nms_gather_pallas.py:480", "hier"),
+        "nms_keep_mask": (nms_cuda.nms_keep_mask, "nms.cu", "nms_pallas.py:212", "hier"),
+        "compact_and_pad": (nms_cuda.compact_and_pad, "nms.cu", "nms_pallas.py:156", "hier"),
+        "conv_down2_bn_leaky": (conv_cuda.conv_down2_bn_leaky, "conv_down2.cu",
+                                "conv_pallas.py:91", "conv"),
     }
+    kernels = {name: row[0] for name, row in table.items()}
     with torch.inference_mode():
         rows = kernel_phase(dev)
+        rows["conv_down2_bn_leaky"] = conv_kernel_phase(dev)
     emit({"phase": "kernels_vs_plain", "nvidia_smi": smi, "rows": rows})
 
-    _, predictor, launches = main_path_phase(dev, kernels)
+    model, predictor, images, launches, head_out = main_path_phase(dev, kernels)
+    launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
     serving_phase(dev, predictor)
 
-    meta = {
-        "anchor_scores": ("viddet_tpu_torch/csrc/anchor_scores.cu",
-                          "viddet_tpu/ops/nms_gather_pallas.py:611"),
-        "topk_indices": ("viddet_tpu_torch/csrc/topk_select.cu",
-                         "viddet_tpu/ops/topk_pallas.py:237"),
-        "gather_decode_pairs": ("viddet_tpu_torch/csrc/gather_decode.cu",
-                                "viddet_tpu/ops/nms_gather_pallas.py:698"),
-        "nms_keep_mask": ("viddet_tpu_torch/csrc/nms.cu", "viddet_tpu/ops/nms_pallas.py:212"),
-        "compact_and_pad": ("viddet_tpu_torch/csrc/nms.cu", "viddet_tpu/ops/nms_pallas.py:156"),
-    }
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
-         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-         "bound_ms": rows[name]["bound"][0], "bound_by": rows[name]["bound"][1],
+        {"name": name, "route": "cuda", "source": f"viddet_tpu_torch/csrc/{src}",
+         "replaces": f"viddet_tpu/ops/{tpu}", "path": path, "launches": launches[path][name],
+         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
+         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
+         "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],
          "library_ms": rows[name]["library_ms"]}
-        for name in kernels
+        for name, (_, src, tpu, path) in table.items()
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

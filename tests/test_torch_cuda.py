@@ -6,14 +6,20 @@ These need a CUDA card and skip without one.  On a machine with an H100:
 
 ``chip_smoke.py`` holds the kernels at the main path's shapes; this file
 covers the shapes around them (K not a multiple of 64, k = N, one scale,
-float32 heads, few classes) and the wrappers' refusals.  Every comparison is exact.
+float32 heads, few classes, m > C, channel counts that are not multiples
+of 8) and the wrappers' refusals.  Every comparison is exact, except K8's,
+which ``chip_smoke.k8_compare`` holds within one bf16 ulp (float32: 1e-5
+relative) or, where the sum cancels, the float32 summation bound.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from viddet_tpu_torch.ops import nms_cuda, nms_gather_cuda, topk_cuda
+from chip_smoke import k8_compare
+from viddet_tpu_torch.core.platform import set_conv_backend
+from viddet_tpu_torch.models.common import ConvBNLeaky
+from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, topk_cuda
 from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
 
 pytestmark = pytest.mark.cuda
@@ -161,3 +167,144 @@ def test_tail_cuda_equals_plain(dev, num_classes, topk, post):
     got = multiclass_nms_late_decode_cells(cells, meta, topk=topk, post_nms=post, backend="auto")
     want = multiclass_nms_late_decode_cells(cells, meta, topk=topk, post_nms=post, backend="plain")
     assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("ranking", ["hier", "det"])
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_tail_rankings_cuda_equal_plain(dev, ranking, data):
+    rng = np.random.default_rng(7)
+    anchors = ((116.0, 90.0), (156.0, 198.0), (373.0, 326.0))
+    meta = tuple((w * w, w, 32 // (2 ** i), anchors) for i, w in enumerate((13, 26, 52)))
+    cells = []
+    for m in meta:
+        x = rng.normal(0, 2, (3, m[0], 3 * 85)).astype(np.float32)
+        if data == "ties":
+            x = np.round(x)
+        cells.append(torch.from_numpy(x).to(dev, torch.bfloat16))
+    got = multiclass_nms_late_decode_cells(cells, meta, backend="auto", ranking=ranking)
+    want = multiclass_nms_late_decode_cells(cells, meta, backend="plain", ranking=ranking)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def _meta(cells):
+    anchors = ((10.0, 13.0), (33.0, 23.0), (373.0, 326.0))
+    return tuple((c, int(round(c ** 0.5)), 32 // 2 ** i, anchors) for i, c in enumerate(cells))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cells,num_pred,k,m,hot_j", [
+    ((9, 36), 9, 17, 9, 2),  # C = 4 < m: the steps past C give (-inf, 0)
+    ((169,), 25, 400, 9, 45),
+    ((169, 676, 2704), 85, 400, 9, 45),
+    ((16, 64), 133, 100, 32, 100),  # C = 128, m = 32, hot_j = k
+])
+def test_gather_decode_top_m_equals_plain(dev, dtype, cells, num_pred, k, m, hot_j):
+    g = _gen(len(cells) + num_pred + k + m)
+    meta = _meta(cells)
+    xs = [torch.randn((3, c, 3 * num_pred), generator=g).mul_(3).to(dev, dtype) for c in cells]
+    xs[0][1] = xs[0][1].round().clamp(-1, 1)  # image 1: ties within rows and across boxes
+    idx = torch.randint(0, sum(cells) * 3, (3, k), generator=g).to(dev)
+    idx[2, : k // 2] = idx[2, k - k // 2 :]
+    got = nms_gather_cuda.gather_decode_top_m(xs, idx, meta, m, hot_j)
+    torch.cuda.synchronize()
+    want = nms_gather_cuda.gather_decode_pairs_plain(xs, idx, meta, m, hot_j)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_gather_decode_top_m_refusals(dev):
+    meta = _meta((4,))
+    x = torch.rand((2, 4, 3 * 9), device=dev)
+    idx = torch.zeros((2, 5), dtype=torch.int64, device=dev)
+    for m, hot_j in ((0, 2), (33, 2), (9, 0), (9, 6)):
+        with pytest.raises(ValueError):
+            nms_gather_cuda.gather_decode_top_m([x], idx, meta, m, hot_j)
+    wide = torch.rand((2, 4, 3 * 134), device=dev)  # C = 129
+    with pytest.raises(ValueError):
+        nms_gather_cuda.gather_decode_top_m([wide], idx, meta, 9, 2)
+
+
+@pytest.mark.parametrize("b,k,m,c,hot_j,topk", [(2, 40, 9, 20, 5, 40), (3, 400, 9, 80, 45, 400),
+                                                 (1, 7, 2, 3, 7, 12)])
+def test_finalize_candidates_equals_plain(dev, b, k, m, c, hot_j, topk):
+    g = _gen(k + c + topk)
+    width = k * (m - 1)
+    i_m = torch.randint(0, c, (b, k, m), generator=g)
+    hot_idx = torch.randint(0, k, (b, 1, hot_j), generator=g)
+    q = torch.randint(0, width + hot_j * c, (b, topk), generator=g)
+    q[:, :4] = torch.tensor([0, width - 1, width, width + hot_j * c - 1])
+    boxes_k = torch.rand((b, k, 4), generator=g) * 400
+    args = [t.to(dev) for t in (i_m, hot_idx, q, boxes_k)]
+    got = nms_gather_cuda.finalize_candidates(*args, c)
+    torch.cuda.synchronize()
+    want = nms_gather_cuda.finalize_candidates_plain(*args, c)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_finalize_candidates_refusals(dev):
+    i_m = torch.zeros((2, 5, 9), dtype=torch.int64, device=dev)
+    hot_idx = torch.zeros((2, 1, 2), dtype=torch.int64, device=dev)
+    q = torch.zeros((2, 5), dtype=torch.int64, device=dev)
+    boxes = torch.zeros((2, 5, 4), device=dev)
+    with pytest.raises(TypeError):
+        nms_gather_cuda.finalize_candidates(i_m.int(), hot_idx, q, boxes, 20)
+    with pytest.raises(ValueError):
+        nms_gather_cuda.finalize_candidates(i_m, hot_idx[:1], q, boxes, 20)
+    with pytest.raises(ValueError):
+        nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes[:, :4], 20)
+
+
+def _conv_case(dev, b, cin, cout, h, w, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, cin, h, w), generator=g, device=dev).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    weight = torch.randn((cout, cin, 3, 3), generator=g, device=dev) * 0.2
+    vecs = (torch.rand(cout, generator=g, device=dev) + 0.5,
+            torch.randn(cout, generator=g, device=dev),
+            torch.randn(cout, generator=g, device=dev) * 0.1,
+            torch.rand(cout, generator=g, device=dev) + 0.5)
+    return x, weight, vecs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,cin,cout,h,w", [
+    (2, 8, 16, 18, 18), (1, 3, 5, 6, 10),  # Cin, Cout not multiples of 8: scalar loads
+    (3, 24, 40, 34, 12), (1, 255, 72, 8, 8), (2, 64, 136, 130, 66),
+])
+def test_conv_down2_equals_plain(dev, dtype, b, cin, cout, h, w):
+    x, weight, vecs = _conv_case(dev, b, cin, cout, h, w, dtype, cin + cout)
+    got = conv_cuda.conv_down2_bn_leaky(x, weight, *vecs)
+    torch.cuda.synchronize()
+    want = conv_cuda.conv_down2_bn_leaky_plain(x, weight, *vecs)
+    assert got.shape == want.shape == (b, cout, h // 2, w // 2) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    k8_compare(got, want, x, weight, conv_cuda.fold_bn(*vecs, 1e-5)[0])
+
+
+def test_conv_down2_refusals(dev):
+    x, weight, vecs = _conv_case(dev, 1, 8, 16, 8, 8, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="even"):
+        conv_cuda.conv_down2_bn_leaky(x[:, :, :7], weight, *vecs)
+    with pytest.raises(TypeError):
+        conv_cuda.conv_down2_bn_leaky(x.half(), weight, *vecs)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_cuda.conv_down2_bn_leaky(x.contiguous(), weight, *vecs)
+    with pytest.raises(ValueError):
+        conv_cuda.conv_down2_bn_leaky(x, weight[:, :4], *vecs)
+    wide, wide_w, wide_vecs = _conv_case(dev, 1, 256, 8, 4, 4, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="Cin"):
+        conv_cuda.conv_down2_bn_leaky(wide, wide_w, *wide_vecs)
+
+
+def test_conv_bn_leaky_pallas_backend_launches_k8(dev):
+    layer = ConvBNLeaky(32, 64, 3, stride=2).to(dev).eval()
+    x = torch.randn((2, 32, 16, 16), device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = conv_cuda.conv_down2_bn_leaky.launches
+    set_conv_backend("pallas")
+    try:
+        with torch.inference_mode():
+            got = layer(x)
+    finally:
+        set_conv_backend("auto")
+    assert conv_cuda.conv_down2_bn_leaky.launches == before + 1
+    assert got.shape == (2, 64, 8, 8) and got.dtype == torch.bfloat16

@@ -72,7 +72,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_wrappers_never_fall_back_for_cuda_tensors():
     """A wrapper given a non-CPU tensor it cannot launch on raises; it
     never runs the plain version instead."""
-    from viddet_tpu_torch.ops import nms_cuda, topk_cuda
+    from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, topk_cuda
 
     meta = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -80,3 +80,18 @@ def test_wrappers_never_fall_back_for_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         nms_cuda.nms_keep_mask(torch.zeros((2, 8, 4), device="meta"),
                                torch.zeros((2, 8), dtype=torch.bool, device="meta"), 0.5)
+    cells = [torch.zeros((2, 4, 3 * 25), device="meta")]
+    anchors = ((10.0, 13.0), (33.0, 23.0), (373.0, 326.0))
+    idx = torch.zeros((2, 5), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_gather_cuda.gather_decode_pairs(cells, idx, ((4, 2, 32, anchors),), 9, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_gather_cuda.finalize_candidates(
+            torch.zeros((2, 5, 9), dtype=torch.int64, device="meta"),
+            torch.zeros((2, 1, 2), dtype=torch.int64, device="meta"), idx,
+            torch.zeros((2, 5, 4), device="meta"), 20)
+    x = torch.zeros((1, 8, 4, 4), device="meta").contiguous(memory_format=torch.channels_last)
+    vec = torch.ones(16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_cuda.conv_down2_bn_leaky(x, torch.zeros((16, 8, 3, 3), device="meta"),
+                                      vec, vec, vec, vec)

@@ -34,9 +34,10 @@ LIB_NAME = "libviddet_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# No --use_fast_math anywhere.  The NMS file reproduces float expressions
-# of the reference (IoU), so it also forbids multiply-add contraction.
-SOURCE_FLAGS = {"nms.cu": ["-fmad=false"]}
+# No --use_fast_math anywhere.  The NMS file and the conv epilogue
+# reproduce float expressions of their plain versions (the IoU; the
+# affine then leaky), so they also forbid multiply-add contraction.
+SOURCE_FLAGS = {"nms.cu": ["-fmad=false"], "conv_down2.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +58,18 @@ SIGNATURES = {
     # pairs, stream
     "viddet_gather_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # as viddet_gather_decode up to idx, then m, hot_j, boxes, v_m, i_m,
+    # hot_flat, hot_idx, stream
+    "viddet_gather_decode_top_m": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                                   _P],
+    # i_m, hot_idx, q, boxes_k, batch, k, m, c, hot_j, topk, cls, cand, stream
+    "viddet_finalize_candidates": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # x (NHWC), w (9*Cin, Cout), a, b (Cout float32), batch, h, w, cin, cout,
+    # slope, is_bf16, out (NHWC), stream
+    "viddet_conv_down2_bn_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P],
+    # a measurement probe (csrc/latency_probe.cu): k, passes, out, stream
+    "viddet_scan_round_probe": [_I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

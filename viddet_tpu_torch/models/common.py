@@ -17,7 +17,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from viddet_tpu_torch.core.platform import conv_backend
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from viddet_tpu_torch.ops.conv_cuda import conv_down2_bn_leaky
 
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.1
@@ -58,7 +60,15 @@ def _pad_same(x: torch.Tensor, window: int, stride: int, value: float = 0.0):
 
 
 class ConvBNLeaky(nn.Module):
-    """kxk conv ("SAME", no bias) -> inference BatchNorm -> LeakyReLU(0.1)."""
+    """kxk conv ("SAME", no bias) -> inference BatchNorm -> LeakyReLU(0.1).
+
+    As in ``viddet_tpu/models/common.py:106-138``, a stride-2 3x3 layer
+    with Cin < 256 on an even H and W runs K8 ``conv_down2_bn_leaky``
+    (``ops/conv_cuda.py``) with its own conv and BN parameters when
+    ``conv_backend()`` is "pallas": on Darknet-53 at 416 px the 32->64,
+    64->128 and 128->256 downsamples.  The default ("xla") is PyTorch's
+    convolution, BatchNorm and leaky ReLU.
+    """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                  policy: Policy = DEFAULT_POLICY, scope: str = ""):
@@ -68,7 +78,17 @@ class ConvBNLeaky(nn.Module):
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
 
+    def fused_down2(self, x: torch.Tensor) -> bool:
+        """Whether this call runs K8 (the JAX package's routing condition)."""
+        return (self.stride == 2 and self.kernel_size == 3 and x.shape[1] < 256
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+                and conv_backend() == "pallas")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_down2(x):
+            bn = self.bn
+            return conv_down2_bn_leaky(x, self.conv.weight, bn.weight, bn.bias,
+                                       bn.running_mean, bn.running_var, BN_EPS, LEAKY_SLOPE)
         cd = self.policy.compute_dtype
         x, pad = _pad_same(x, self.kernel_size, self.stride)
         x = F.conv2d(x, self.conv.weight.to(cd), stride=self.stride, padding=pad)

@@ -206,6 +206,10 @@ class NMSConfig:
     backend: "auto" launches each kernel for CUDA tensors and runs its plain
     version for CPU tensors; "plain" runs the plain versions on any device
     (the chain the kernels are held against).
+    ranking: the stage-2 ranking of ``forward_and_postprocess``'s tail
+    (``ops/nms.py``): "hier" (K1, K2 twice, K3 ``extract_m=9``, K4, K5, K6),
+    "det" (K1, K2 twice, K3 ``extract_m=0``, K5, K6), or None to read
+    ``VIDDET_PAIR_TOPK`` on every call (unset or "approx": hier).
     """
 
     iou_thresh: float = 0.45
@@ -213,6 +217,7 @@ class NMSConfig:
     topk: int = 400
     post_nms: int = 100
     backend: str = "auto"
+    ranking: str | None = None
 
     def kwargs(self) -> dict:
         return dict(iou_thresh=self.iou_thresh, valid_thresh=self.valid_thresh,
@@ -234,6 +239,12 @@ def postprocess(outputs: Dict[str, torch.Tensor], nms: NMSConfig = NMSConfig()):
 def forward_and_postprocess(model: YOLOv3, images: torch.Tensor,
                             nms: NMSConfig = NMSConfig()) -> Tuple[torch.Tensor, ...]:
     """One inference step: NHWC images -> (ids, scores, boxes) through the
-    cell-layout tail (K1, K2, K3, K5, K6 on a CUDA device)."""
+    cell-layout tail, under ``nms.ranking``: on a CUDA device the
+    hierarchical ranking runs K1, K2 (twice), K3 in its ``extract_m=9``
+    form, K4, K5 and K6; the deterministic one K1, K2 (twice), K3 in its
+    ``extract_m=0`` form, K5 and K6.  Under ``VIDDET_CONV_BACKEND=pallas``
+    the backbone's three shallow downsample convs run K8
+    (``models/common.py``)."""
     out = model(images)
-    return multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"], **nms.kwargs())
+    return multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"], **nms.kwargs(),
+                                            ranking=nms.ranking)
