@@ -10,9 +10,10 @@ Phases, each printed as one JSON line:
 1. device:  the card's name and power limit (``nvidia-smi``);
 2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-            the main path's shapes plus edge cases, with its time, the plain
-            version's time, a PyTorch library call's time where one computes
-            the same function, and its bound;
+            the main paths' shapes plus edge cases (K7, K5 at K = 1000 and
+            K2 at N = 24,000 at the Faster R-CNN path's), with its time, the
+            plain version's time, a PyTorch library call's time where one
+            computes the same function, and its bound;
 4. main path: YOLOv3-416 / Darknet-53 / COCO at full width in bf16 with
             seeded weights, batch 32, through ``make_predictor`` under the
             default (hierarchical) ranking; the kernel launch counts of that
@@ -27,7 +28,16 @@ Phases, each printed as one JSON line:
             at batch 32;
 6. serving: ``DetectionService`` answers 16 requests from 4 threads, each
             equal to the direct batched call;
-7. kernels: one line listing every ported kernel;
+7. frcnn:   Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
+            8, bf16, seeded weights) through ``make_predictor``: its kernel
+            launch counts (K7 once, K5 twice, K2 and K6 once), the kernel
+            tail equal to the plain tail on the same head outputs and
+            proposals, the head outputs under the plain ROIAlign close to
+            the kernel's, K7 on the path's own pyramid and proposals, time
+            per batch, frames/s, peak memory and a device breakdown; then
+            ``DetectionService`` answers 8 requests, each equal to the direct
+            call;
+8. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -70,6 +80,22 @@ K8_F32_RTOL = 1e-5
 CONV_HEAD_REL_L2 = 5e-2
 MODEL, IMAGE_SIZE, E2E_BATCHES = "yolo3_darknet53_coco", 416, (32, 128)
 
+# The Faster R-CNN path: tools/frcnn_bench.py's configuration (512 px, batch
+# 8, bf16), FRCNNConfig() and frcnn_postprocess defaults.
+FRCNN_MODEL, FRCNN_SIZE, FRCNN_B = "faster_rcnn_resnet50_fpn_coco", 512, 8
+FRCNN_R, FRCNN_NMS_K, FRCNN_TOPK, FPN_C = 300, 1000, 400, 256
+FRCNN_LEVELS = tuple(FRCNN_SIZE // s for s in (4, 8, 16, 32))  # P2..P5 sides
+FRCNN_PAIRS = FRCNN_R * C  # the detection ranking's width, 24,000
+# K7 against its plain version on unit-scale features: the two share every
+# float expression and its order (csrc/roi_align.cu), so the bound is far
+# above what a difference of summation order could give.
+ROI_ALIGN_ATOL = 1e-5
+# Head outputs under the kernel ROIAlign against the plain one: relative L2
+# per output.  Equal ROIAlign outputs give 0; the limit admits the bf16
+# rounding of the box head (a relative 2**-9 per rounding) over a few
+# differently rounded inputs.
+FRCNN_HEAD_REL_L2 = 1e-3
+
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
 HIER_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_top_m": 1,
@@ -77,6 +103,8 @@ HIER_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_top_m": 1
 DET_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_pairs": 1,
                 "nms_keep_mask": 1, "compact_and_pad": 1}
 CONV_LAUNCHES = dict(HIER_LAUNCHES, conv_down2_bn_leaky=3)
+FRCNN_LAUNCHES = {"multilevel_roi_align": 1, "nms_keep_mask": 2, "topk_indices": 1,
+                  "compact_and_pad": 1}
 
 
 def emit(obj) -> None:
@@ -519,6 +547,153 @@ def conv_kernel_phase(dev) -> dict:
     )
 
 
+def roi_align_cells(pyramid, rois, strides) -> int:
+    """The distinct pyramid cells (image, level, row, column) that the
+    rois' valid samples read: what this run's data needs read."""
+    import torch
+
+    from viddet_tpu_torch.ops.roi_align import fpn_roi_level, sample_grid
+
+    dev = rois.device
+    b = rois.shape[0]
+    lvl = (fpn_roi_level(rois, k_max=len(pyramid) + 1) - 2).long()
+    ys, xs = sample_grid(rois, lvl, strides, 7, 2)
+    hs = torch.tensor([p.shape[1] for p in pyramid], device=dev)[lvl][..., None]
+    ws = torch.tensor([p.shape[2] for p in pyramid], device=dev)[lvl][..., None]
+    sizes = [p.shape[1] * p.shape[2] for p in pyramid]
+    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
+
+    def taps(coord, ext):
+        ok = (coord > -1.0) & (coord < ext.float())
+        c0 = torch.minimum(coord.clamp_min(0.0), ext.float() - 1.0).floor().long()
+        return ok, c0, torch.minimum(c0 + 1, ext - 1)
+
+    oky, y0, y1 = taps(ys, hs)
+    okx, x0, x1 = taps(xs, ws)
+    base = (torch.arange(b, device=dev)[:, None] * sum(sizes) + offsets[lvl])[..., None, None]
+    ok = oky[..., :, None] & okx[..., None, :]
+    cells = [(base + (yi * ws)[..., :, None] + xi[..., None, :])[ok]
+             for yi in (y0, y1) for xi in (x0, x1)]
+    return int(torch.unique(torch.cat(cells)).numel())
+
+
+def frcnn_rois(g, dev):
+    """(FRCNN_B, FRCNN_R, 4) rois over the 512-px image: sizes 8 to 700 px,
+    aspects 1:4 to 4:1, centres up to 20 px outside; image 0 starts with
+    edge rois: wholly and partly outside, 1e-3 wide, exactly on each level
+    boundary (square and 4:1), clamped to levels 2 and 5, and 8:1 / 1:8
+    rois at the top of the level-2 and level-4 bands, wider than the TPU
+    kernel's 48-cell window.  Returns (rois, the boundary rois' indices)."""
+    import torch
+
+    shape = (FRCNN_B, FRCNN_R)
+    size = torch.exp(torch.rand(shape, generator=g) * np.log(700 / 8)) * 8
+    aspect = torch.exp((torch.rand(shape, generator=g) * 2 - 1) * np.log(4))
+    cx, cy = (torch.rand((2,) + shape, generator=g) * (FRCNN_SIZE + 40) - 20)
+    w, h = size * aspect.sqrt(), size / aspect.sqrt()
+    rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+    r8 = 8 ** 0.5
+    edge = [[-90.0, -60.0, -10.0, -5.0], [480.0, -30.0, 560.0, 40.0],
+            [200.0, 200.0, 200.001, 200.001]]
+    boundary = []
+    for side in (56.0, 112.0, 224.0, 448.0):
+        boundary += [len(edge), len(edge) + 1]
+        edge += [[10.0, 20.0, 10.0 + side, 20.0 + side],
+                 [30.0, 5.0, 30.0 + 2 * side, 5.0 + side / 2]]
+    edge += [[100.0, 100.0, 104.0, 104.0], [-200.0, -200.0, 800.0, 800.0],
+             [4.0, 40.0, 4.0 + 111.0 * r8, 40.0 + 111.0 / r8],
+             [40.0, 4.0, 40.0 + 111.0 / r8, 4.0 + 111.0 * r8],
+             [2.0, 300.0, 2.0 + 447.0 * r8, 300.0 + 447.0 / r8]]
+    rois[0, : len(edge)] = torch.tensor(edge)
+    return rois.to(dev).contiguous(), boundary
+
+
+def frcnn_kernel_phase(dev, round_ns) -> dict:
+    """K7 at the Faster R-CNN path's shapes (P2..P5 of batch 8 at 512 px,
+    300 rois an image, C = 256) on unit-scale features in bf16 and float32;
+    K5 at K = 1000 (class-agnostic proposal NMS, IoU 0.7); K2 at the
+    detection ranking's N = 24,000, k = 400."""
+    import torch
+
+    from viddet_tpu_torch.ops import nms_cuda, roi_align_cuda, topk_cuda
+    from viddet_tpu_torch.ops.roi_align import fpn_roi_level, multilevel_roi_align_packed
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    strides = (4, 8, 16, 32)
+    pyr32 = [torch.randn((FRCNN_B, s, s, FPN_C), generator=g).to(dev) for s in FRCNN_LEVELS]
+    pyr16 = [p.to(torch.bfloat16) for p in pyr32]
+    rois, boundary = frcnn_rois(g, dev)
+    levels = fpn_roi_level(rois)
+    check(levels[0, boundary].tolist() == [2, 2, 3, 3, 4, 4, 5, 5],
+          f"K7 level boundaries: {levels[0, boundary].tolist()}")
+    checks = []
+    for pyr in (pyr16, pyr32):
+        got = roi_align_cuda.multilevel_roi_align(pyr, rois, strides)
+        want = multilevel_roi_align_packed(pyr, rois, strides)
+        check(got.shape == (FRCNN_B, FRCNN_R, 7, 7, FPN_C), "K7 shape")
+        err = float((got - want).abs().max().item())
+        checks.append(dict(dtype=str(pyr[0].dtype).split(".")[-1], max_abs_err=err,
+                           bit_equal=equal(got, want)))
+        check(err <= ROI_ALIGN_ATOL, f"K7 within {ROI_ALIGN_ATOL} of plain: {checks[-1]}")
+    cells = roi_align_cells(pyr16, rois, strides)
+    out_bytes = FRCNN_B * FRCNN_R * 49 * FPN_C * 4
+    pyramid_bytes = sum(p.numel() * 2 for p in pyr16)
+    rows = {"multilevel_roi_align": dict(
+        max_abs_err=max(c["max_abs_err"] for c in checks), checks=checks,
+        levels=torch.bincount(levels.flatten(), minlength=6)[2:].tolist(),
+        cells_read=cells,
+        # the output, the cells the valid samples read (bf16) and the rois
+        # once; about 36 operations an output element (4 samples of 4
+        # products and 3 sums, 3 sums and a scale)
+        bound=bound_ms(out_bytes + cells * FPN_C * 2 + rois.numel() * 4,
+                       out_bytes / 4 * 36),
+        bound_output_only_ms=out_bytes / HBM_BYTES_PER_S * 1e3,
+        bound_whole_pyramid_ms=(out_bytes + pyramid_bytes) / HBM_BYTES_PER_S * 1e3,
+        **timings(lambda: roi_align_cuda.multilevel_roi_align(pyr16, rois, strides),
+                  lambda: multilevel_roi_align_packed(pyr16, rois, strides), plain_reps=5),
+    )}
+
+    # K5 at K = 1000: proposal boxes (8 to 400 px) in rank order, a few
+    # degenerate, image 1 with duplicated runs, image 2 all invalid.
+    k = FRCNN_NMS_K
+    size = torch.exp(torch.rand((FRCNN_B, k, 2), generator=g) * np.log(50)) * 8
+    lo = torch.rand((FRCNN_B, k, 2), generator=g) * FRCNN_SIZE
+    boxes = torch.cat([lo, (lo + size).clamp_max(FRCNN_SIZE)], dim=-1)
+    boxes[1, 1::4] = boxes[1, 0::4]
+    valid = ((boxes[..., 2] - boxes[..., 0] > 1.0) & (boxes[..., 3] - boxes[..., 1] > 1.0)
+             & (torch.rand((FRCNN_B, k), generator=g) > 0.05))
+    valid[2] = False
+    boxes, valid = boxes.to(dev).contiguous(), valid.to(dev)
+    got = nms_cuda.nms_keep_mask(boxes, valid, 0.7)
+    want = nms_cuda.nms_keep_mask_plain(boxes, valid, 0.7)
+    check(equal(got, want), "K5 at K = 1000 equal to plain")
+    rows["nms_keep_mask_k1000"] = dict(
+        max_abs_err=0.0, k=k, kept_per_image=got.sum(1).int().tolist(), serial_steps=k,
+        serial_bound_ms=k * round_ns * 1e-6,
+        bound=bound_ms(FRCNN_B * k * (16 + 1 + 4), FRCNN_B * k * (k - 1) // 2 * 24),
+        **timings(lambda: nms_cuda.nms_keep_mask(boxes, valid, 0.7),
+                  lambda: nms_cuda.nms_keep_mask_plain(boxes, valid, 0.7), plain_reps=3),
+    )
+
+    # K2 at the detection ranking: softmax probabilities of 300 rois x 81
+    # classes, background dropped; image 1 with tied rows, image 2 all equal.
+    logits = torch.randn((FRCNN_B, FRCNN_R, C + 1), generator=g) * 2
+    logits[1] = logits[1].round()
+    logits[2] = 0.0
+    probs = torch.softmax(logits, -1)[..., 1:].reshape(FRCNN_B, FRCNN_PAIRS).to(dev)
+    got = topk_cuda.topk_indices(probs, FRCNN_TOPK)
+    check(equal(got, topk_cuda.topk_indices_plain(probs, FRCNN_TOPK)),
+          "K2 at N = 24,000 equal to plain")
+    rows["topk_indices_frcnn"] = dict(
+        max_abs_err=0.0, width=FRCNN_PAIRS,
+        bound=bound_ms(probs.numel() * 4 + FRCNN_B * FRCNN_TOPK * 8, probs.numel() * 34),
+        **timings(lambda: topk_cuda.topk_indices(probs, FRCNN_TOPK),
+                  lambda: topk_cuda.topk_indices_plain(probs, FRCNN_TOPK),
+                  lambda: torch.topk(probs, FRCNN_TOPK, dim=1, sorted=False)),
+    )
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -527,9 +702,11 @@ def conv_kernel_phase(dev) -> dict:
 KERNEL_GROUPS = (
     ("port kernels", ("anchor_scores_kernel", "topk_select_kernel", "gather_decode_kernel",
                       "gather_decode_top_m_kernel", "hot_rows_kernel", "finalize_kernel",
-                      "nms_keep_kernel", "compact_kernel", "conv_bf16_kernel")),
+                      "nms_keep_kernel", "compact_kernel", "conv_bf16_kernel",
+                      "roi_align_kernel")),
     ("convolution", ("conv", "gemm", "xmma", "cutlass", "sm90", "implicit", "winograd")),
     ("batch_norm", ("batch_norm",)),
+    ("sort", ("Sort", "sort")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "leaky", "pad", "copy",
                      "cat", "upsample", "CatArray")),
 )
@@ -734,11 +911,130 @@ def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: Faster R-CNN
+# ---------------------------------------------------------------------------
+
+
+def rel_l2(got, want) -> float:
+    return float(((got.float() - want.float()).norm() / want.float().norm()).item())
+
+
+def frcnn_path_phase(dev, kernels):
+    """Faster R-CNN ResNet-50 FPN / COCO at 512 px, batch 8, bf16, seeded
+    weights, through ``make_predictor``."""
+    import dataclasses
+
+    import torch
+
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from viddet_tpu_torch.models.faster_rcnn import FPN_STRIDES, frcnn_postprocess
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.ops import roi_align_cuda
+    from viddet_tpu_torch.ops.roi_align import fpn_roi_level, multilevel_roi_align_packed
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    t0 = time.perf_counter()
+    model, classes = get_model(FRCNN_MODEL)
+    load_flat(model, init_flat(FRCNN_MODEL, seed=0))
+    setup_s = time.perf_counter() - t0
+    predictor = make_predictor(model)
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.integers(0, 256, (FRCNN_B, FRCNN_SIZE, FRCNN_SIZE, 3),
+                                           dtype=np.uint8)).pin_memory()
+    batch = images.to(dev)
+    predictor(batch)  # warm-up: cuDNN heuristics, caching allocator
+    torch.cuda.synchronize()
+
+    set_launches(kernels)
+    ids, scores, boxes = predictor(batch)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels, FRCNN_LAUNCHES, "Faster R-CNN path")
+    kept = check_detections(ids, scores, boxes, FRCNN_B, len(classes), 0.05)
+    kept_per_image = (ids >= 0).sum(1).tolist()
+
+    with torch.inference_mode():
+        mean, std = (torch.as_tensor(v, device=dev) for v in (IMAGENET_MEAN, IMAGENET_STD))
+        x = (batch.float() / 255.0 - mean) / std  # as make_predictor does
+        out = model(x)
+
+        def tail(backend, valid=0.05):
+            return frcnn_postprocess(out["proposals"], out["roi_cls_logits"],
+                                     out["roi_box_deltas"], (FRCNN_SIZE, FRCNN_SIZE),
+                                     valid_thresh=valid, backend=backend)
+
+        check(all(equal(a, b) for a, b in zip(tail("auto"), (ids, scores, boxes))),
+              "predictor equal to head + kernel tail")
+        tails_equal = {}
+        for valid in (0.05, 0.001):  # 0.001 also, in case 0.05 keeps nothing
+            got = tail("auto", valid)
+            check(all(equal(a, b) for a, b in zip(got, tail("plain", valid))),
+                  f"Faster R-CNN kernel tail equal to plain tail at valid {valid}")
+            tails_equal[str(valid)] = dict(
+                equal=True, kept=check_detections(*got, FRCNN_B, len(classes), valid))
+
+        # K7 on the path's own pyramid and proposals
+        feats = model.backbone(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        maps = [p.permute(0, 2, 3, 1).contiguous() for p in model.fpn(feats)[:4]]
+        props = out["proposals"]
+        strides = FPN_STRIDES[:4]
+        got = roi_align_cuda.multilevel_roi_align(maps, props, strides)
+        want = multilevel_roi_align_packed(maps, props, strides)
+        err = float((got - want).abs().max().item())
+        check(err <= ROI_ALIGN_ATOL, f"K7 on the path's proposals within {ROI_ALIGN_ATOL}: {err}")
+        cells = roi_align_cells(maps, props, strides)
+        out_bytes = got.numel() * 4
+        k7_path = dict(
+            max_abs_err=err, bit_equal=equal(got, want), cells_read=cells,
+            levels=torch.bincount(fpn_roi_level(props).flatten(), minlength=6)[2:].tolist(),
+            proposals_valid=int(out["proposal_valid"].sum().item()),
+            bound=bound_ms(out_bytes + cells * FPN_C * 2 + props.numel() * 4,
+                           out_bytes / 4 * 36),
+            **timings(lambda: roi_align_cuda.multilevel_roi_align(maps, props, strides),
+                      lambda: multilevel_roi_align_packed(maps, props, strides), plain_reps=5))
+
+        # the head under the plain ROIAlign against the kernel's
+        cfg = model.config
+        model.config = dataclasses.replace(cfg, roi_backend="plain")
+        try:
+            plain_out = model(x)
+        finally:
+            model.config = cfg
+        check(equal(plain_out["proposals"], out["proposals"]), "same proposals under both ROIAligns")
+        heads = {k: rel_l2(out[k], plain_out[k]) for k in ("roi_cls_logits", "roi_box_deltas")}
+        check(all(v <= FRCNN_HEAD_REL_L2 for v in heads.values()),
+              f"head outputs under the kernel ROIAlign within {FRCNN_HEAD_REL_L2} relative L2 "
+              f"of the plain one: {heads}")
+        head_ms = median_ms(lambda: model(x), reps=10)
+        tail_ms = median_ms(lambda: tail("auto"), reps=10)
+        plain_tail_ms = median_ms(lambda: tail("plain"), reps=3)
+        tail_device_ms = device_ms(lambda: tail("auto"))
+    step_ms = median_ms(lambda: predictor(batch), reps=10)  # images already on the card
+    breakdown = kernel_breakdown(lambda: predictor(batch))
+    breakdown["step_ms"] = step_ms
+    breakdown["idle_share"] = 1.0 - breakdown["device_ms"] / step_ms
+    emit({"phase": "frcnn_path", "model": FRCNN_MODEL, "size": FRCNN_SIZE, "dtype": "bfloat16",
+          "batch": FRCNN_B, "setup_s": setup_s, "launches": launches,
+          "kept_detections": kept, "kept_per_image": kept_per_image,
+          "tails_equal_plain": tails_equal, "k7_on_path": k7_path,
+          "heads_plain_roi_align_rel_l2": heads, "head_rel_l2_limit": FRCNN_HEAD_REL_L2,
+          "head_ms": head_ms, "tail_ms": tail_ms, "plain_tail_ms": plain_tail_ms,
+          "tail_device_ms": tail_device_ms,
+          "end_to_end": {str(FRCNN_B): end_to_end(dev, predictor, images, FRCNN_B, 10)},
+          "device_breakdown": breakdown})
+    return predictor, launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: serving
 # ---------------------------------------------------------------------------
 
 
-def serving_phase(dev, predictor):
+def serving_phase(dev, predictor, model: str = MODEL, size: int = IMAGE_SIZE,
+                  requests: int = 16):
+    """``requests`` frames of four sizes from 4 client threads through a
+    ``DetectionService`` of batch 8, each answer equal to the direct
+    batched call on the same transformed frames."""
     import torch
 
     from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
@@ -747,8 +1043,9 @@ def serving_phase(dev, predictor):
     bs = 8
     rng = np.random.default_rng(1)
     sizes = [(480, 640), (360, 500), (416, 416), (600, 400)]
-    frames = [rng.integers(0, 256, sizes[i % 4] + (3,), dtype=np.uint8) for i in range(16)]
-    transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), normalize=False)
+    frames = [rng.integers(0, 256, sizes[i % 4] + (3,), dtype=np.uint8)
+              for i in range(requests)]
+    transform = ValTransform((size, size), normalize=False)
 
     answers = [None] * len(frames)
     errors = []
@@ -782,8 +1079,9 @@ def serving_phase(dev, predictor):
             got = answers[start + j]
             check(all(np.array_equal(a, b) for a, b in zip(got, want)),
                   f"request {start + j} equal to the direct batched call")
-    emit({"phase": "serving", "requests": len(frames), "threads": 4, "batch_size": bs,
-          "wall_s": wall, "stats": stats, "all_equal_direct": True})
+    emit({"phase": "serving", "model": model, "size": size, "requests": len(frames),
+          "threads": 4, "batch_size": bs, "wall_s": wall, "stats": stats,
+          "all_equal_direct": True})
 
 
 def main() -> int:
@@ -793,7 +1091,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from viddet_tpu_torch.kernels import build
-    from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, topk_cuda
+    from viddet_tpu_torch.ops import (
+        conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda,
+    )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -824,20 +1124,27 @@ def main() -> int:
         "compact_and_pad": (nms_cuda.compact_and_pad, "nms.cu", "nms_pallas.py:156", "hier"),
         "conv_down2_bn_leaky": (conv_cuda.conv_down2_bn_leaky, "conv_down2.cu",
                                 "conv_pallas.py:91", "conv"),
+        "multilevel_roi_align": (roi_align_cuda.multilevel_roi_align, "roi_align.cu",
+                                 "roi_align_pallas.py:143", "frcnn"),
     }
     kernels = {name: row[0] for name, row in table.items()}
     with torch.inference_mode():
         rows = kernel_phase(dev)
         rows["conv_down2_bn_leaky"] = conv_kernel_phase(dev)
+        rows.update(frcnn_kernel_phase(dev, rows["nms_keep_mask"]["scan_round_ns"]))
     emit({"phase": "kernels_vs_plain", "nvidia_smi": smi, "rows": rows})
 
     model, predictor, images, launches, head_out = main_path_phase(dev, kernels)
     launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
     serving_phase(dev, predictor)
+    del model, predictor, images, head_out
+    frcnn_predictor, launches["frcnn"] = frcnn_path_phase(dev, kernels)
+    serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"viddet_tpu_torch/csrc/{src}",
          "replaces": f"viddet_tpu/ops/{tpu}", "path": path, "launches": launches[path][name],
+         "launches_by_path": {p: n[name] for p, n in launches.items() if n[name]},
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
          "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],

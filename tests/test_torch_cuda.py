@@ -4,10 +4,12 @@ These need a CUDA card and skip without one.  On a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-``chip_smoke.py`` holds the kernels at the main path's shapes; this file
-covers the shapes around them (K not a multiple of 64, k = N, one scale,
-float32 heads, few classes, m > C, channel counts that are not multiples
-of 8) and the wrappers' refusals.  Every comparison is exact, except K8's,
+``chip_smoke.py`` holds the kernels at the main paths' shapes; this file
+covers the shapes around them (K not a multiple of 64, K = 1000 for
+proposal NMS, k = N, one scale, float32 heads, few classes, m > C,
+channel counts that are not multiples of 8, ROIAlign on one to four
+levels with rois outside the image, on level boundaries and wider than
+the TPU kernel's window) and the wrappers' refusals.  Every comparison is exact, except K8's,
 which ``chip_smoke.k8_compare`` holds within one bf16 ulp (float32: 1e-5
 relative) or, where the sum cancels, the float32 summation bound.
 """
@@ -18,9 +20,11 @@ import torch
 
 from chip_smoke import k8_compare
 from viddet_tpu_torch.core.platform import set_conv_backend
+from viddet_tpu_torch.models import faster_rcnn
 from viddet_tpu_torch.models.common import ConvBNLeaky
-from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, topk_cuda
+from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda
 from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
+from viddet_tpu_torch.ops.roi_align import fpn_roi_level, multilevel_roi_align_packed
 
 pytestmark = pytest.mark.cuda
 
@@ -114,7 +118,7 @@ def test_topk_indices_marks_rows_that_break_the_precondition(dev):
     assert torch.equal(got[1:], topk_cuda.topk_indices_plain(x[1:], 20))
 
 
-@pytest.mark.parametrize("k", [1, 63, 64, 65, 400, 1024])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 400, 1000, 1024])
 def test_nms_keep_mask_equals_plain(dev, k):
     g = _gen(k)
     pts = torch.rand((3, k, 2, 2), generator=g) * 100
@@ -308,3 +312,80 @@ def test_conv_bn_leaky_pallas_backend_launches_k8(dev):
         set_conv_backend("auto")
     assert conv_cuda.conv_down2_bn_leaky.launches == before + 1
     assert got.shape == (2, 64, 8, 8) and got.dtype == torch.bfloat16
+
+
+def _roi_case(dev, b, r, c, image, levels, dtype, seed):
+    """A pyramid of ``levels`` maps and rois of every kind: random, outside
+    the image, 1e-3 wide, exactly on each level boundary, far below level 2
+    and above level 5, and 8:1 / 1:8 wider than the TPU kernel's window."""
+    g = _gen(seed)
+    pyramid = [torch.randn((b, image // s, image // s, c), generator=g).to(dev, dtype)
+               for s in (4, 8, 16, 32)[:levels]]
+    pts = torch.rand((b, r, 2, 2), generator=g) * (image + 60) - 30
+    rois = torch.cat([pts.amin(2), pts.amax(2)], dim=-1)
+    edge = [[-50.0, -40.0, -10.0, -5.0], [image - 20.0, -30.0, image + 40.0, 25.0],
+            [10.0, 10.0, 10.001, 10.001], [5.0, 5.0, 61.0, 61.0], [5.0, 5.0, 117.0, 117.0],
+            [0.0, 0.0, 224.0, 224.0], [1.0, 2.0, 449.0, 450.0], [3.0, 3.0, 9.0, 9.0],
+            [0.0, 0.0, 900.0, 900.0], [4.0, 8.0, 4.0 + 111.0 * 8 ** 0.5, 8.0 + 111.0 / 8 ** 0.5],
+            [8.0, 4.0, 8.0 + 111.0 / 8 ** 0.5, 4.0 + 111.0 * 8 ** 0.5]]
+    n = min(len(edge), r)
+    rois[0, :n] = torch.tensor(edge[:n])
+    return pyramid, rois.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,r,c,image,levels", [
+    (2, 300, 256, 512, 4),  # the Faster R-CNN path's shape at batch 2
+    (1, 11, 2, 64, 1), (3, 50, 8, 128, 2), (2, 37, 258, 96, 3), (1, 20, 64, 640, 4),
+])
+def test_roi_align_equals_plain(dev, dtype, b, r, c, image, levels):
+    pyramid, rois = _roi_case(dev, b, r, c, image, levels, dtype, b + r + c + image)
+    strides = (4, 8, 16, 32)[:levels]
+    before = roi_align_cuda.multilevel_roi_align.launches
+    got = roi_align_cuda.multilevel_roi_align(pyramid, rois, strides)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.multilevel_roi_align.launches == before + 1
+    want = multilevel_roi_align_packed(pyramid, rois, strides)
+    assert got.shape == want.shape == (b, r, 7, 7, c) and got.dtype == torch.float32
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_fpn_roi_level_at_the_boundaries_on_the_card(dev):
+    sides = torch.tensor([56.0, 112.0, 224.0, 448.0], device=dev)
+    zeros = torch.zeros_like(sides)
+    rois = torch.stack([zeros, zeros, sides, sides], -1)
+    assert fpn_roi_level(rois).tolist() == [2, 3, 4, 5]
+    assert torch.equal(fpn_roi_level(rois).cpu(), fpn_roi_level(rois.cpu()))
+
+
+def test_roi_align_refusals(dev):
+    pyramid, rois = _roi_case(dev, 1, 4, 8, 64, 2, torch.float32, 0)
+    with pytest.raises(ValueError, match="odd"):
+        roi_align_cuda.multilevel_roi_align([p[..., :7].contiguous() for p in pyramid], rois,
+                                            (4, 8))
+    with pytest.raises(TypeError):
+        roi_align_cuda.multilevel_roi_align([pyramid[0], pyramid[1].bfloat16()], rois, (4, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align_cuda.multilevel_roi_align([pyramid[0].transpose(1, 2), pyramid[1]], rois,
+                                            (4, 8))
+    with pytest.raises(ValueError, match="output_size"):
+        roi_align_cuda.multilevel_roi_align(pyramid, rois, (4, 8), output_size=14)
+    with pytest.raises(ValueError, match="levels"):
+        roi_align_cuda.multilevel_roi_align(pyramid * 3, rois, (4, 8) * 3)
+    with pytest.raises(TypeError):
+        roi_align_cuda.multilevel_roi_align(pyramid, rois.double(), (4, 8))
+
+
+def test_frcnn_tail_cuda_equals_plain(dev):
+    g = _gen(5)
+    b, r, c = 2, 300, 80
+    pts = torch.rand((b, r, 2, 2), generator=g) * 512
+    proposals = torch.cat([pts.amin(2), pts.amax(2) + 2], dim=-1).to(dev)
+    logits = torch.randn((b, r, c + 1), generator=g).mul(3).round().to(dev)  # ties
+    deltas = torch.randn((b, r, c, 4), generator=g).to(dev)
+    for valid in (0.05, 0.001):
+        got = faster_rcnn.frcnn_postprocess(proposals, logits, deltas, (512, 512),
+                                            valid_thresh=valid, backend="auto")
+        want = faster_rcnn.frcnn_postprocess(proposals, logits, deltas, (512, 512),
+                                             valid_thresh=valid, backend="plain")
+        assert all(torch.equal(a, w) for a, w in zip(got, want))

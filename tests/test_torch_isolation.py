@@ -65,14 +65,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from viddet_tpu_torch.models.zoo import get_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError):
-        get_model("yolo3_tiny_darknet_coco")
+    for name in ("yolo3_tiny_darknet_coco", "faster_rcnn_resnet50_fpn_coco"):
+        with pytest.raises(RuntimeError):
+            get_model(name)
 
 
 def test_wrappers_never_fall_back_for_cuda_tensors():
     """A wrapper given a non-CPU tensor it cannot launch on raises; it
     never runs the plain version instead."""
-    from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, topk_cuda
+    from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda
 
     meta = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -95,3 +96,7 @@ def test_wrappers_never_fall_back_for_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         conv_cuda.conv_down2_bn_leaky(x, torch.zeros((16, 8, 3, 3), device="meta"),
                                       vec, vec, vec, vec)
+    pyramid = [torch.zeros((2, 8 // s, 8 // s, 16), device="meta") for s in (1, 2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_cuda.multilevel_roi_align(pyramid, torch.zeros((2, 3, 4), device="meta"),
+                                            (4, 8))

@@ -34,10 +34,12 @@ LIB_NAME = "libviddet_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# No --use_fast_math anywhere.  The NMS file and the conv epilogue
-# reproduce float expressions of their plain versions (the IoU; the
-# affine then leaky), so they also forbid multiply-add contraction.
-SOURCE_FLAGS = {"nms.cu": ["-fmad=false"], "conv_down2.cu": ["-fmad=false"]}
+# No --use_fast_math anywhere.  The NMS file, the conv epilogue and the
+# ROIAlign reproduce float expressions of their plain versions (the IoU;
+# the affine then leaky; the bilinear taps and bin mean), so they also
+# forbid multiply-add contraction.
+SOURCE_FLAGS = {"nms.cu": ["-fmad=false"], "conv_down2.cu": ["-fmad=false"],
+                "roi_align.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +70,9 @@ SIGNATURES = {
     # x (NHWC), w (9*Cin, Cout), a, b (Cout float32), batch, h, w, cin, cout,
     # slope, is_bf16, out (NHWC), stream
     "viddet_conv_down2_bn_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P],
+    # feat0..feat3, heights, widths, strides (host arrays), nlevels, batch,
+    # rois per image, c, is_bf16, rois, levels, out, stream
+    "viddet_roi_align": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # a measurement probe (csrc/latency_probe.cu): k, passes, out, stream
     "viddet_scan_round_probe": [_I, _I, _P, _P],
 }

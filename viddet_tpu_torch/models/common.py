@@ -100,6 +100,25 @@ class ConvBNLeaky(nn.Module):
         return F.leaky_relu(x, LEAKY_SLOPE, inplace=True)
 
 
+class BiasConv(nn.Module):
+    """kxk stride-1 "SAME" conv with bias (Flax ``nn.Conv``), in the
+    compute dtype: the conv rounds to it, then the bias is added in it, as
+    Flax does.  Weights ``params/<scope>/{kernel,bias}``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 1,
+                 policy: Policy = DEFAULT_POLICY, scope: str = ""):
+        super().__init__()
+        self.kernel_size, self.policy, self.scope = kernel_size, policy, scope
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.policy.compute_dtype
+        x, pad = _pad_same(x, self.kernel_size, 1)
+        return F.conv2d(x, self.weight.to(cd), padding=pad) + self.bias.to(cd)[:, None, None]
+
+
 class DarknetResidual(nn.Module):
     """1x1 (c/2) -> 3x3 (c) with additive skip: the Darknet-53 residual unit."""
 

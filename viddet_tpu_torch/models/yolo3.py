@@ -16,10 +16,9 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
-from viddet_tpu_torch.models.common import ConvBNLeaky, FlaxNames, upsample2x_nearest
+from viddet_tpu_torch.models.common import BiasConv, ConvBNLeaky, FlaxNames, upsample2x_nearest
 from viddet_tpu_torch.models.darknet import Darknet53, DarknetTiny
 from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode, multiclass_nms_late_decode_cells
 from viddet_tpu_torch.ops.nms_gather_cuda import decode_constants
@@ -88,22 +87,6 @@ class TinyBlock(nn.Module):
         return route, self.tip(x if route is None else route)
 
 
-class OutputConv(nn.Module):
-    """1x1 conv with bias (Flax ``nn.Conv``), in the compute dtype: the
-    conv rounds to it, then the bias is added in it, as Flax does."""
-
-    def __init__(self, cin: int, cout: int, policy: Policy, scope: str):
-        super().__init__()
-        self.policy, self.scope = policy, scope
-        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
-        self.bias = nn.Parameter(torch.zeros(cout))
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
-
-    def forward(self, x):
-        cd = self.policy.compute_dtype
-        return F.conv2d(x, self.weight.to(cd)) + self.bias.to(cd)[:, None, None]
-
-
 class YOLOv3Head(nn.Module):
     """FPN-lite neck + per-scale output convs.  Consumes features deepest
     first; returns the per-scale cell tensors and their meta."""
@@ -129,8 +112,8 @@ class YOLOv3Head(nn.Module):
             else:
                 blocks.append(YOLODetectionBlock(cin, ch, policy, names("YOLODetectionBlock")))
                 route_ch = ch
-            outputs.append(OutputConv(ch * 2, len(anchors[i]) * num_pred, policy,
-                                      f"{scope}/output_{i}"))
+            outputs.append(BiasConv(ch * 2, len(anchors[i]) * num_pred, 1, policy,
+                                    f"{scope}/output_{i}"))
         self.laterals = nn.ModuleList(laterals)
         self.blocks = nn.ModuleList(blocks)
         self.outputs = nn.ModuleList(outputs)

@@ -1,4 +1,4 @@
-"""Model factory (counterpart of ``viddet_tpu/models/zoo.py:32-60``).
+"""Model factory (counterpart of ``viddet_tpu/models/zoo.py:32-153``).
 
 ``get_model(name)`` builds the module on ``cuda:0`` unless ``device`` says
 otherwise, in eval mode and channels_last.  Its parameters come from
@@ -15,9 +15,10 @@ import torch
 from viddet_tpu_torch.core.platform import resolve_device
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY
 from viddet_tpu_torch.data.names import COCO_CLASSES
+from viddet_tpu_torch.models.faster_rcnn import FasterRCNN
 from viddet_tpu_torch.models.yolo3 import YOLOv3
 
-_REGISTRY: Dict[str, Callable[..., Tuple[YOLOv3, Sequence[str]]]] = {}
+_REGISTRY: Dict[str, Callable[..., Tuple[torch.nn.Module, Sequence[str]]]] = {}
 
 
 def register(name: str):
@@ -54,3 +55,8 @@ def yolo3_darknet53_coco(**kw):
 @register("yolo3_tiny_darknet_coco")
 def yolo3_tiny_darknet_coco(**kw):
     return _yolo("tiny", COCO_CLASSES, **kw)
+
+
+@register("faster_rcnn_resnet50_fpn_coco")
+def faster_rcnn_resnet50_fpn_coco(policy=DEFAULT_POLICY, **kw):
+    return FasterRCNN(num_classes=len(COCO_CLASSES), policy=policy, **kw), tuple(COCO_CLASSES)

@@ -2,13 +2,18 @@
 
 The schema is ``viddet_tpu/train/state.py:122-134``: flat keys
 ``params/<flax scope>/<leaf>`` and ``batch_stats/<flax scope>/<leaf>``
-holding numpy arrays.  Each ``ConvBNLeaky`` and head ``OutputConv`` of the
-port records its Flax scope, so the mapping is per module:
+holding numpy arrays.  Each module of the port that owns parameters
+records its Flax scope, so the mapping is per module:
 
-* ``Conv_0/kernel`` (HWIO) -> ``conv.weight`` (OIHW);
-* ``BatchNorm_0/scale``, ``bias`` -> ``bn.weight``, ``bn.bias``;
-  batch_stats ``mean``, ``var`` -> ``bn.running_mean``, ``bn.running_var``;
-* ``output_{i}/kernel`` / ``bias`` -> the output conv's weight / bias.
+* ``ConvBNLeaky`` and ``ConvBN``: ``Conv_0/kernel`` (HWIO) ->
+  ``conv.weight`` (OIHW); ``BatchNorm_0/scale``, ``bias`` -> ``bn.weight``,
+  ``bn.bias``; batch_stats ``mean``, ``var`` -> ``bn.running_mean``,
+  ``bn.running_var``;
+* ``BiasConv`` (YOLO's ``output_{i}``, the FPN's ``lateral_{i}`` /
+  ``post_{i}``, the RPN's convs): ``kernel`` (HWIO) / ``bias`` -> its
+  weight (OIHW) / bias;
+* ``Dense`` (the Faster R-CNN box head): ``kernel`` (in, out) -> its
+  weight (out, in), ``bias`` -> bias.
 
 A key the model lacks, or a key the model needs and the file lacks, raises.
 """
@@ -20,23 +25,25 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-from viddet_tpu_torch.models.common import ConvBNLeaky
-from viddet_tpu_torch.models.yolo3 import OutputConv
+from viddet_tpu_torch.models.common import BiasConv, ConvBNLeaky
+from viddet_tpu_torch.models.faster_rcnn import Dense
+from viddet_tpu_torch.models.resnet import ConvBN
 
 
 def _leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
     """(npz key, tensor, kind) for every parameter and statistic, where kind
-    is "conv" for an OIHW conv kernel and "vec" for everything else."""
+    is "conv" for an OIHW conv kernel, "dense" for an (out, in) dense
+    weight and "vec" for everything else."""
     for m in model.modules():
-        if isinstance(m, ConvBNLeaky):
+        if isinstance(m, (ConvBNLeaky, ConvBN)):
             p, s = f"params/{m.scope}", f"batch_stats/{m.scope}"
             yield f"{p}/Conv_0/kernel", m.conv.weight, "conv"
             yield f"{p}/BatchNorm_0/scale", m.bn.weight, "vec"
             yield f"{p}/BatchNorm_0/bias", m.bn.bias, "vec"
             yield f"{s}/BatchNorm_0/mean", m.bn.running_mean, "vec"
             yield f"{s}/BatchNorm_0/var", m.bn.running_var, "vec"
-        elif isinstance(m, OutputConv):
-            yield f"params/{m.scope}/kernel", m.weight, "conv"
+        elif isinstance(m, (BiasConv, Dense)):
+            yield f"params/{m.scope}/kernel", m.weight, "conv" if m.weight.dim() == 4 else "dense"
             yield f"params/{m.scope}/bias", m.bias, "vec"
 
 
@@ -53,6 +60,8 @@ def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
             value = np.asarray(flat[key])
             if kind == "conv":
                 value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif kind == "dense":
+                value = value.T  # (in, out) -> (out, in)
             if tuple(value.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: shape {value.shape}, model has {tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(value)))  # a writable, contiguous copy
@@ -65,13 +74,16 @@ def to_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
         value = t.detach().to("cpu", torch.float32).numpy()
         if kind == "conv":
             value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif kind == "dense":
+            value = value.T
         flat[key] = np.ascontiguousarray(value)
     return flat
 
 
 def _lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:
-    """Flax's default conv init: truncated normal (+-2 std) with variance
-    1/fan_in, fan_in = H*W*I of an HWIO kernel."""
+    """Flax's default conv and dense init: truncated normal (+-2 std) with
+    variance 1/fan_in, fan_in = H*W*I of an HWIO kernel, I of an (I, O)
+    one."""
     fan_in = int(np.prod(shape[:-1]))
     std = np.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncation correction
     x = rng.standard_normal(shape)
@@ -96,6 +108,8 @@ def init_flat(model_name: str, seed: int = 0) -> Dict[str, np.ndarray]:
         if kind == "conv":
             o, i, h, w = t.shape
             flat[key] = _lecun_normal(rng, (h, w, i, o))
+        elif kind == "dense":
+            flat[key] = _lecun_normal(rng, tuple(t.shape[::-1]))
         elif key.endswith(("/scale", "/var")):
             flat[key] = np.ones(tuple(t.shape), np.float32)
         else:
