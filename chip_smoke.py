@@ -11,17 +11,23 @@ Phases, each printed as one JSON line:
 2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the main paths' shapes plus edge cases (K7, K5 at K = 1000 and
-            K2 at N = 24,000 at the Faster R-CNN path's), with its time, the
+            at K = 400 at batch 8, and K2 at N = 24,000 at the Faster R-CNN
+            path's), with its time (K5's mask and scan kernels apart), the
             plain version's time, a PyTorch library call's time where one
-            computes the same function, and its bound;
+            computes the same function, and its bound (K5 also beside its
+            scan's chain of tile rounds); each time from torch.profiler
+            windows checked to hold every launch, the kernel's and the
+            library call's also from CUDA events around calls queued back
+            to back;
 4. main path: YOLOv3-416 / Darknet-53 / COCO at full width in bf16 with
             seeded weights, batch 32, through ``make_predictor`` under the
             default (hierarchical) ranking; the kernel launch counts of that
             one call; the kernel tail equal to the plain tail on the same
             head outputs; then the deterministic tail
             (``VIDDET_PAIR_TOPK=det``) on those head outputs, its launch
-            counts and its equality to its plain tail; time per batch and
-            frames/s at batch 32 and 128;
+            counts and its equality to its plain tail; at batch 128, K2's
+            two calls, the kernel tail and the predictor against their
+            plain versions; time per batch and frames/s at batch 32 and 128;
 5. conv:    the same model under ``VIDDET_CONV_BACKEND=pallas`` (K8 on the
             three shallow downsamples), its launch counts, well-formed
             detections, head outputs close to the default path's, frames/s
@@ -37,7 +43,9 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-8. kernels: one line listing every ported kernel;
+8. profiler: the profiler windows that missed a launch and were taken
+            again;
+9. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -105,6 +113,26 @@ DET_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_pairs": 1,
 CONV_LAUNCHES = dict(HIER_LAUNCHES, conv_down2_bn_leaky=3)
 FRCNN_LAUNCHES = {"multilevel_roi_align": 1, "nms_keep_mask": 2, "topk_indices": 1,
                   "compact_and_pad": 1}
+# The CUDA kernels each wrapper launches (substrings of the names the
+# profiler gives them): a profiler window of a call must hold them all.
+KERNEL_NAMES = {
+    "anchor_scores": ("anchor_scores_kernel",),
+    "topk_indices": ("topk_radix_select_kernel",),
+    "gather_decode_pairs": ("gather_decode_kernel",),
+    "gather_decode_top_m": ("gather_decode_top_m_kernel", "hot_rows_kernel"),
+    "finalize_candidates": ("finalize_kernel",),
+    "nms_keep_mask": ("nms_mask_kernel", "nms_scan_kernel"),
+    "compact_and_pad": ("compact_kernel",),
+    "conv_down2_bn_leaky": ("conv_bf16_kernel",),
+    "multilevel_roi_align": ("roi_align_kernel",),
+}
+# torch.profiler windows a timing may take before the run fails; a window
+# that misses a kernel launch is logged here and taken again.
+PROFILER_WINDOWS = 3
+INCOMPLETE_WINDOWS: list = []
+# The spin kernel (``torch.cuda._sleep``) runs about this many cycles a ms
+# (the H100's 1.98 GHz boost clock; a lower clock only spins longer).
+SPIN_CYCLES_PER_MS = 2_000_000
 
 
 def emit(obj) -> None:
@@ -135,38 +163,103 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10):
-    """Device time per call of ``fn``: the time of the kernels it runs as
-    torch.profiler records them, or None when it records none."""
+def profile_kernels(fn, reps: int = 10, names=()) -> dict:
+    """The device activity of ``reps`` calls of ``fn`` under torch.profiler:
+    {kernel name: (device ms in all, times run)}.
+
+    A window is complete when each kernel in it ran a whole multiple of
+    ``reps`` times and each of ``names`` (substrings of the names of the
+    kernels ``fn`` must launch) is among them.  The profiler can leave
+    launches out of a window; a spin kernel and a synchronisation before
+    the calls have kept it from doing so.  An incomplete window is logged
+    in INCOMPLETE_WINDOWS and taken again, and the run fails after
+    PROFILER_WINDOWS of them.
+    """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / reps if total_us > 0 else None
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES_PER_MS // 10)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
+        missing = [n for n in names if not any(n in key for key in events)]
+        partial = [[key[:120], count] for key, (_, count) in events.items() if count % reps]
+        if events and not missing and not partial:
+            return events
+        INCOMPLETE_WINDOWS.append(dict(names=list(names), reps=reps, kernels=len(events),
+                                       missing=missing, partial=partial))
+    raise RuntimeError(f"check failed: {PROFILER_WINDOWS} incomplete profiler windows: "
+                       f"{INCOMPLETE_WINDOWS[-PROFILER_WINDOWS:]}")
 
 
-def timings(kernel, plain, library=None, plain_reps: int = 10) -> dict:
-    """``ms`` / ``plain_ms`` / ``library_ms``: device time per call (the
-    profiler's; CUDA events where it records nothing, named in ``timer``).
+def device_ms(fn, reps: int = 10, names=()) -> float:
+    """Device time per call of ``fn``: the time of the kernels it runs as
+    torch.profiler records them (see ``profile_kernels``)."""
+    return sum(ms for ms, _ in profile_kernels(fn, reps, names).values()) / reps
+
+
+def queued_ms(fn, reps: int = 20):
+    """Device time per call of ``fn`` on CUDA events, without the profiler:
+    ``reps`` calls queued behind a spin kernel that outlasts twice the
+    host's time to queue them, so that they run back to back once it ends
+    (the gaps between kernels included).  None where the host still took
+    longer than the spin, as it does where ``fn`` synchronises."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_one_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = min(2 * reps * host_one_ms + 1.0, 500.0)
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+    start.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    end.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        return None
+    return start.elapsed_time(end) / reps
+
+
+def k5_parts(fn) -> dict:
+    """K5's two kernels' device times per call, by name."""
+    reps = 10
+    events = profile_kernels(fn, reps, KERNEL_NAMES["nms_keep_mask"])
+    return {f"{part}_ms": sum(ms for key, (ms, _) in events.items()
+                              if f"nms_{part}_kernel" in key) / reps
+            for part in ("mask", "scan")}
+
+
+def timings(kernel, plain, library=None, plain_reps: int = 10, names=()) -> dict:
+    """``ms`` / ``plain_ms`` / ``library_ms``: device time per call from the
+    profiler, each window holding every kernel in ``names`` that ``kernel``
+    launches; ``queued_ms`` / ``library_queued_ms`` the same time from CUDA
+    events around calls queued back to back (``queued_ms``);
     ``*call_ms``: CUDA-event time per call, launch overhead included."""
     out = {"library_ms": None}
-    for key, fn, reps in (("", kernel, 20), ("plain_", plain, plain_reps),
-                          ("library_", library, 20)):
+    for key, fn, reps, want in (("", kernel, 20, names), ("plain_", plain, plain_reps, ()),
+                                ("library_", library, 20, ())):
         if fn is None:
             continue
-        call = median_ms(fn, reps=reps)
-        dev = device_ms(fn, reps=min(reps, 10))
-        out[f"{key}call_ms"] = call
-        out[f"{key}ms"] = call if dev is None else dev
-        out[f"{key}timer"] = "events" if dev is None else "profiler"
+        out[f"{key}call_ms"] = median_ms(fn, reps=reps)
+        out[f"{key}ms"] = device_ms(fn, min(reps, 10), want)
+        if key != "plain_":  # the plain versions synchronise
+            out[f"{key}queued_ms"] = queued_ms(fn)
     return out
 
 
@@ -283,7 +376,7 @@ def kernel_phase(dev):
         **timings(lambda: nms_gather_cuda.anchor_scores(cells, NA),
                   lambda: nms_gather_cuda.anchor_scores_plain(cells, NA),
                   lambda: [torch.sigmoid(c.view(B, -1, NA, NUM_PRED)[..., 5:].amax(-1))
-                           for c in cells]),
+                           for c in cells], names=KERNEL_NAMES["anchor_scores"]),
     )
     stage1 = nms_gather_cuda.anchor_scores(cells, NA)
 
@@ -304,6 +397,7 @@ def kernel_phase(dev):
     pair = (obj_k * torch.sigmoid(torch.randn((B, K, PAIRS // K), generator=g))).view(B, PAIRS)
     pair = pair.to(dev)
     k2 = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def k2_case(name, x):
         got = topk_cuda.topk_indices(x, K)
@@ -311,11 +405,12 @@ def kernel_phase(dev):
         check(equal(got, want), f"K2 {name} equal to plain")
         check(bool((got[:, 1:] > got[:, :-1]).all()), f"K2 {name} ascending")
         k2[name] = dict(
-            width=x.shape[1],
+            width=x.shape[1], cluster=topk_cuda.cluster_size(B, x.shape[1], sms),
             bound=bound_ms(x.numel() * 4 + B * K * 8, x.numel() * 34),  # 31 + 3 passes
             **timings(lambda: topk_cuda.topk_indices(x, K),
                       lambda: topk_cuda.topk_indices_plain(x, K),
-                      lambda: torch.topk(x, K, dim=1, sorted=False)),
+                      lambda: torch.topk(x, K, dim=1, sorted=False),
+                      names=KERNEL_NAMES["topk_indices"]),
         )
 
     k2_case("stage1", hard_rows(stage1))
@@ -342,7 +437,8 @@ def kernel_phase(dev):
         bound=bound_ms(B * K * (NUM_PRED * 2 + 8) + B * K * (4 + NUM_PRED - 5) * 4,
                        B * K * ((NUM_PRED - 5) * 4 + 30)),
         **timings(lambda: nms_gather_cuda.gather_decode_pairs(cells, a_idx, meta),
-                  lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_idx, meta)),
+                  lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_idx, meta),
+                  names=KERNEL_NAMES["gather_decode_pairs"]),
     )
 
     # K3, extract_m=9 (the hierarchical form): winners in K2's ascending
@@ -381,7 +477,8 @@ def kernel_phase(dev):
                        B * K * (C * 4 + 30 + TOP_M * C * 2) + B * K * K * 3),
         **timings(lambda: nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M, HOT_J),
                   lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_hier, meta, TOP_M,
-                                                                    HOT_J)),
+                                                                    HOT_J),
+                  names=KERNEL_NAMES["gather_decode_top_m"]),
     )
 
     # K4: the main path's merged stage-2 ranking of those heads, with winners
@@ -403,15 +500,17 @@ def kernel_phase(dev):
         # per winner: q, one class id or hot id, one box read; class, box written
         bound=bound_ms(B * TOPK * (8 + 8 + 16 + 4 + 16), B * TOPK * 10),
         **timings(lambda: nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes_k, C),
-                  lambda: nms_gather_cuda.finalize_candidates_plain(i_m, hot_idx, q, boxes_k, C)),
+                  lambda: nms_gather_cuda.finalize_candidates_plain(i_m, hot_idx, q, boxes_k, C),
+                  names=KERNEL_NAMES["finalize_candidates"]),
     )
 
     main_calls = [k2[name] for name in ("stage1", "stage2_hier")]
     rows["topk_indices"] = dict(  # per main-path (hierarchical) batch: both calls
         max_abs_err=0.0, per_call=k2,
-        **{key: sum(v[key] for v in main_calls)
+        **{key: None if any(v[key] is None for v in main_calls)
+           else sum(v[key] for v in main_calls)
            for key in ("ms", "plain_ms", "library_ms", "call_ms", "plain_call_ms",
-                       "library_call_ms")},
+                       "library_call_ms", "queued_ms", "library_queued_ms")},
         bound=bound_ms(sum(x.numel() * 4 + B * K * 8 for x in (stage1, merged)),
                        sum(x.numel() * 34 for x in (stage1, merged))),
     )
@@ -438,16 +537,13 @@ def kernel_phase(dev):
     check(equal(got, want), "K5 equal to plain")
     check(got[3].sum().item() == 0 and got[5].sum().item() == 1, "K5 edge rows")
     pairs = K * (K - 1) // 2
-    round_ns = scan_round_ns(dev, build)
     rows["nms_keep_mask"] = dict(
-        # ``bound`` counts bytes and operations only; the K dependent rounds
-        # of the greedy scan bound the kernel, and ``serial_bound_ms`` is K
-        # times one round's latency as csrc/latency_probe.cu measures it
-        max_abs_err=0.0, serial_steps=K, scan_round_ns=round_ns,
-        serial_bound_ms=K * round_ns * 1e-6,
+        max_abs_err=0.0, **k5_serial_bound(dev, build, K),
         bound=bound_ms(B * K * (16 + 1 + 4), B * pairs * 24),
         **timings(lambda: nms_cuda.nms_keep_mask(offset, valid, 0.45),
-                  lambda: nms_cuda.nms_keep_mask_plain(offset, valid, 0.45), plain_reps=5),
+                  lambda: nms_cuda.nms_keep_mask_plain(offset, valid, 0.45), plain_reps=5,
+                  names=KERNEL_NAMES["nms_keep_mask"]),
+        **k5_parts(lambda: nms_cuda.nms_keep_mask(offset, valid, 0.45)),
     )
 
     # K6: the keep mask above, with an all-kept and a none-kept row.
@@ -463,25 +559,37 @@ def kernel_phase(dev):
         max_abs_err=0.0,
         bound=bound_ms(B * K * (4 * 3 + 16) + B * POST * 24, B * K * 4),
         **timings(lambda: nms_cuda.compact_and_pad(keep, scores, cls, boxes, POST),
-                  lambda: nms_cuda.compact_and_pad_plain(keep, scores, cls, boxes, POST)),
+                  lambda: nms_cuda.compact_and_pad_plain(keep, scores, cls, boxes, POST),
+                  names=KERNEL_NAMES["compact_and_pad"]),
     )
     return rows
 
 
-def scan_round_ns(dev, build) -> float:
-    """Latency of one dependent round of K5's greedy scan, in ns: the probe
-    timed at 1 and 101 passes of K rounds, the difference over 100 K."""
+def scan_round_ns(dev, build, k: int) -> float:
+    """Latency of one tile round of K5's greedy scan at ``k`` boxes, in ns:
+    the probe (csrc/latency_probe.cu) timed at 1 and 101 passes of
+    ceil(k/64) rounds, the difference over 100 passes' rounds."""
     import torch
 
     lib = build.library()
     out = torch.empty(32, dtype=torch.int64, device=dev)
 
     def run(passes):
-        build.check(lib.viddet_scan_round_probe(K, passes, out.data_ptr(), build.stream_of(out)),
+        build.check(lib.viddet_scan_round_probe(k, passes, out.data_ptr(), build.stream_of(out)),
                     "scan_round_probe")
 
     one, many = median_ms(lambda: run(1)), median_ms(lambda: run(101))
-    return (many - one) / (100 * K) * 1e6
+    return (many - one) / (100 * -(-k // 64)) * 1e6
+
+
+def k5_serial_bound(dev, build, k: int) -> dict:
+    """K5's chain bound, which ``bound`` (bytes and operations) leaves out:
+    the scan's ceil(k/64) dependent tile rounds (64 register steps and two
+    barriers each) times one round's latency."""
+    words = -(-k // 64)
+    round_ns = scan_round_ns(dev, build, k)
+    return dict(serial_steps=words, scan_round_ns=round_ns,
+                serial_bound_ms=words * round_ns * 1e-6)
 
 
 def conv_kernel_phase(dev) -> dict:
@@ -533,7 +641,8 @@ def conv_kernel_phase(dev) -> dict:
         plain_fns.append(lambda args=args: conv_cuda.conv_down2_bn_leaky_plain(*args))
         library_fns.append(lambda layer=layer, x=args[0]: layer(x))
         per_layer.append(dict(shape=[b, cin, cout, hw],
-                              **timings(kernel_fns[-1], None, library_fns[-1])))
+                              **timings(kernel_fns[-1], None, library_fns[-1],
+                                        names=KERNEL_NAMES["conv_down2_bn_leaky"])))
         m = b * (hw // 2) ** 2
         nbytes += b * hw * hw * cin * 2 + 9 * cin * cout * 2 + cout * 8 + m * cout * 2
         ops += 2 * m * cout * 9 * cin
@@ -542,7 +651,8 @@ def conv_kernel_phase(dev) -> dict:
         max_abs_err=worst["max_abs_err"], checks=checks, per_layer=per_layer,
         bound=bound_ms(nbytes, ops, "bf16_tensor"),
         **timings(lambda: [f() for f in kernel_fns], lambda: [f() for f in plain_fns],
-                  lambda: [f() for f in library_fns], plain_reps=5),
+                  lambda: [f() for f in library_fns], plain_reps=5,
+                  names=KERNEL_NAMES["conv_down2_bn_leaky"]),
         library="ConvBNLeaky default path: F.pad, cuDNN F.conv2d, F.batch_norm, F.leaky_relu",
     )
 
@@ -608,13 +718,15 @@ def frcnn_rois(g, dev):
     return rois.to(dev).contiguous(), boundary
 
 
-def frcnn_kernel_phase(dev, round_ns) -> dict:
+def frcnn_kernel_phase(dev) -> dict:
     """K7 at the Faster R-CNN path's shapes (P2..P5 of batch 8 at 512 px,
     300 rois an image, C = 256) on unit-scale features in bf16 and float32;
-    K5 at K = 1000 (class-agnostic proposal NMS, IoU 0.7); K2 at the
-    detection ranking's N = 24,000, k = 400."""
+    K5 at K = 1000 (class-agnostic proposal NMS, IoU 0.7) and at K = 400
+    (the detections' NMS, IoU 0.5); K2 at the detection ranking's N =
+    24,000, k = 400."""
     import torch
 
+    from viddet_tpu_torch.kernels import build
     from viddet_tpu_torch.ops import nms_cuda, roi_align_cuda, topk_cuda
     from viddet_tpu_torch.ops.roi_align import fpn_roi_level, multilevel_roi_align_packed
 
@@ -650,7 +762,8 @@ def frcnn_kernel_phase(dev, round_ns) -> dict:
         bound_output_only_ms=out_bytes / HBM_BYTES_PER_S * 1e3,
         bound_whole_pyramid_ms=(out_bytes + pyramid_bytes) / HBM_BYTES_PER_S * 1e3,
         **timings(lambda: roi_align_cuda.multilevel_roi_align(pyr16, rois, strides),
-                  lambda: multilevel_roi_align_packed(pyr16, rois, strides), plain_reps=5),
+                  lambda: multilevel_roi_align_packed(pyr16, rois, strides), plain_reps=5,
+                  names=KERNEL_NAMES["multilevel_roi_align"]),
     )}
 
     # K5 at K = 1000: proposal boxes (8 to 400 px) in rank order, a few
@@ -668,11 +781,28 @@ def frcnn_kernel_phase(dev, round_ns) -> dict:
     want = nms_cuda.nms_keep_mask_plain(boxes, valid, 0.7)
     check(equal(got, want), "K5 at K = 1000 equal to plain")
     rows["nms_keep_mask_k1000"] = dict(
-        max_abs_err=0.0, k=k, kept_per_image=got.sum(1).int().tolist(), serial_steps=k,
-        serial_bound_ms=k * round_ns * 1e-6,
+        max_abs_err=0.0, k=k, kept_per_image=got.sum(1).int().tolist(),
+        **k5_serial_bound(dev, build, k),
         bound=bound_ms(FRCNN_B * k * (16 + 1 + 4), FRCNN_B * k * (k - 1) // 2 * 24),
         **timings(lambda: nms_cuda.nms_keep_mask(boxes, valid, 0.7),
-                  lambda: nms_cuda.nms_keep_mask_plain(boxes, valid, 0.7), plain_reps=3),
+                  lambda: nms_cuda.nms_keep_mask_plain(boxes, valid, 0.7), plain_reps=3,
+                  names=KERNEL_NAMES["nms_keep_mask"]),
+        **k5_parts(lambda: nms_cuda.nms_keep_mask(boxes, valid, 0.7)),
+    )
+    # K5 at K = 400, batch 8, IoU 0.5 (the detections' NMS): the first 400
+    # of those boxes, with image 1's duplicates and image 2 all invalid.
+    b400, v400 = boxes[:, :FRCNN_TOPK].contiguous(), valid[:, :FRCNN_TOPK].contiguous()
+    got = nms_cuda.nms_keep_mask(b400, v400, 0.5)
+    check(equal(got, nms_cuda.nms_keep_mask_plain(b400, v400, 0.5)),
+          "K5 at K = 400, batch 8 equal to plain")
+    rows["nms_keep_mask_k400_b8"] = dict(
+        max_abs_err=0.0, k=FRCNN_TOPK, **k5_serial_bound(dev, build, FRCNN_TOPK),
+        bound=bound_ms(FRCNN_B * FRCNN_TOPK * (16 + 1 + 4),
+                       FRCNN_B * FRCNN_TOPK * (FRCNN_TOPK - 1) // 2 * 24),
+        **timings(lambda: nms_cuda.nms_keep_mask(b400, v400, 0.5),
+                  lambda: nms_cuda.nms_keep_mask_plain(b400, v400, 0.5), plain_reps=3,
+                  names=KERNEL_NAMES["nms_keep_mask"]),
+        **k5_parts(lambda: nms_cuda.nms_keep_mask(b400, v400, 0.5)),
     )
 
     # K2 at the detection ranking: softmax probabilities of 300 rois x 81
@@ -686,10 +816,13 @@ def frcnn_kernel_phase(dev, round_ns) -> dict:
           "K2 at N = 24,000 equal to plain")
     rows["topk_indices_frcnn"] = dict(
         max_abs_err=0.0, width=FRCNN_PAIRS,
+        cluster=topk_cuda.cluster_size(FRCNN_B, FRCNN_PAIRS,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count),
         bound=bound_ms(probs.numel() * 4 + FRCNN_B * FRCNN_TOPK * 8, probs.numel() * 34),
         **timings(lambda: topk_cuda.topk_indices(probs, FRCNN_TOPK),
                   lambda: topk_cuda.topk_indices_plain(probs, FRCNN_TOPK),
-                  lambda: torch.topk(probs, FRCNN_TOPK, dim=1, sorted=False)),
+                  lambda: torch.topk(probs, FRCNN_TOPK, dim=1, sorted=False),
+                  names=KERNEL_NAMES["topk_indices"]),
     )
     return rows
 
@@ -700,10 +833,7 @@ def frcnn_kernel_phase(dev, round_ns) -> dict:
 
 # Kernel-name substrings per group, for the main path's device-time breakdown.
 KERNEL_GROUPS = (
-    ("port kernels", ("anchor_scores_kernel", "topk_select_kernel", "gather_decode_kernel",
-                      "gather_decode_top_m_kernel", "hot_rows_kernel", "finalize_kernel",
-                      "nms_keep_kernel", "compact_kernel", "conv_bf16_kernel",
-                      "roi_align_kernel")),
+    ("port kernels", tuple(n for names in KERNEL_NAMES.values() for n in names)),
     ("convolution", ("conv", "gemm", "xmma", "cutlass", "sm90", "implicit", "winograd")),
     ("batch_norm", ("batch_norm",)),
     ("sort", ("Sort", "sort")),
@@ -712,25 +842,22 @@ KERNEL_GROUPS = (
 )
 
 
-def kernel_breakdown(fn, top: int = 12) -> dict:
-    """Device time of one call of ``fn``, by kernel group and top kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def path_kernel_names(launches: dict) -> tuple:
+    """The CUDA kernels that a path with this launch table must run."""
+    return tuple(n for name in launches for n in KERNEL_NAMES[name])
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+def kernel_breakdown(fn, names, top: int = 12) -> dict:
+    """Device time of one call of ``fn``, by kernel group and top kernels;
+    the profiler's window must hold every kernel in ``names``."""
+    events = profile_kernels(fn, 1, names)
     groups: dict = {}
-    for e in events:
-        group = next((g for g, subs in KERNEL_GROUPS if any(x in e.key for x in subs)), "other")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    for key, (ms, _) in events.items():
+        group = next((g for g, subs in KERNEL_GROUPS if any(x in key for x in subs)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    ranked = sorted(events.items(), key=lambda item: -item[1][0])[:top]
     return {"device_ms": sum(groups.values()), "groups": groups,
-            "top": [[e.key[:90], e.count, e.self_device_time_total / 1e3] for e in ranked]}
+            "top": [[key[:90], count, ms] for key, (ms, count) in ranked]}
 
 
 def check_detections(ids, scores, boxes, batch, num_classes, valid_thresh) -> int:
@@ -757,6 +884,7 @@ def main_path_phase(dev, kernels):
     from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
     from viddet_tpu_torch.models.yolo3 import NMSConfig
     from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.ops import nms_gather_cuda, topk_cuda
     from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
     from viddet_tpu_torch.weights import init_flat, load_flat
 
@@ -799,7 +927,7 @@ def main_path_phase(dev, kernels):
         head_ms = median_ms(lambda: model(x), reps=10)
         tail_ms = median_ms(lambda: tail("auto"), reps=10)
         plain_tail_ms = median_ms(lambda: tail("plain"), reps=5)
-        tail_device_ms = device_ms(lambda: tail("auto"))
+        tail_device_ms = device_ms(lambda: tail("auto"), names=path_kernel_names(HIER_LAUNCHES))
 
         os.environ["VIDDET_PAIR_TOPK"] = "det"
         try:
@@ -812,12 +940,43 @@ def main_path_phase(dev, kernels):
             check_detections(*det, main_b, len(classes), NMSConfig().valid_thresh)
             det_tail_ms = median_ms(lambda: tail("auto"), reps=10)
             det_plain_tail_ms = median_ms(lambda: tail("plain"), reps=5)
-            det_tail_device_ms = device_ms(lambda: tail("auto"))
+            det_tail_device_ms = device_ms(lambda: tail("auto"),
+                                           names=path_kernel_names(DET_LAUNCHES))
         finally:
             del os.environ["VIDDET_PAIR_TOPK"]
         same_ids = bool(torch.equal(det[0], ids))
+
+        # The largest batch runs K2 at another cluster size
+        # (topk_cuda.cluster_size): its two hier calls and the whole tail
+        # against their plain versions there too.
+        big_b = max(E2E_BATCHES)
+        big = images[:big_b].to(dev)
+        big_out = model((big.float() / 255.0 - mean) / std)
+        cells, meta = big_out["raws_cells"], big_out["meta"]
+        stage1 = nms_gather_cuda.anchor_scores(cells, NA)
+        a_hier = topk_cuda.topk_indices(stage1, K)
+        _, v_m, _, hot_flat, _ = nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M,
+                                                                     HOT_J)
+        merged = torch.cat([v_m[..., : TOP_M - 1].reshape(big_b, -1),
+                            hot_flat.reshape(big_b, -1)], 1)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        big_k2 = {}
+        for name, x, got in (("stage1", stage1, a_hier),
+                             ("stage2_hier", merged, topk_cuda.topk_indices(merged, TOPK))):
+            check(equal(got, topk_cuda.topk_indices_plain(x, got.shape[1])),
+                  f"K2 {name} at batch {big_b} equal to plain")
+            big_k2[name] = dict(width=x.shape[1],
+                                cluster=topk_cuda.cluster_size(big_b, x.shape[1], sms))
+        big_tail = multiclass_nms_late_decode_cells(cells, meta)
+        check(all(equal(a, b) for a, b in
+                  zip(big_tail, multiclass_nms_late_decode_cells(cells, meta, backend="plain"))),
+              f"kernel tail equal to plain tail at batch {big_b}")
+        check(all(equal(a, b) for a, b in zip(big_tail, predictor(big))),
+              f"predictor at batch {big_b} equal to head + kernel tail")
+        check_detections(*big_tail, big_b, len(classes), NMSConfig().valid_thresh)
+        del big, big_out, cells, stage1, merged
     step_ms = median_ms(lambda: predictor(batch), reps=10)  # images already on the card
-    breakdown = kernel_breakdown(lambda: predictor(batch))
+    breakdown = kernel_breakdown(lambda: predictor(batch), path_kernel_names(HIER_LAUNCHES))
     breakdown["step_ms"] = step_ms
     breakdown["idle_share"] = 1.0 - breakdown["device_ms"] / step_ms
 
@@ -827,6 +986,7 @@ def main_path_phase(dev, kernels):
           "dtype": "bfloat16", "batch": main_b, "setup_s": setup_s, "ranking": "hier",
           "launches": launches, "kept_detections": kept, "tail_equal_plain": True,
           "det_tail_equal_plain": True, "det_ids_equal_hier": same_ids,
+          "tail_equal_plain_at_batch": {str(big_b): True, "k2": big_k2},
           "head_ms": head_ms, "tail_ms": tail_ms, "plain_tail_ms": plain_tail_ms,
           "tail_device_ms": tail_device_ms, "det_tail_ms": det_tail_ms,
           "det_plain_tail_ms": det_plain_tail_ms, "det_tail_device_ms": det_tail_device_ms,
@@ -991,7 +1151,8 @@ def frcnn_path_phase(dev, kernels):
             bound=bound_ms(out_bytes + cells * FPN_C * 2 + props.numel() * 4,
                            out_bytes / 4 * 36),
             **timings(lambda: roi_align_cuda.multilevel_roi_align(maps, props, strides),
-                      lambda: multilevel_roi_align_packed(maps, props, strides), plain_reps=5))
+                      lambda: multilevel_roi_align_packed(maps, props, strides), plain_reps=5,
+                      names=KERNEL_NAMES["multilevel_roi_align"]))
 
         # the head under the plain ROIAlign against the kernel's
         cfg = model.config
@@ -1008,9 +1169,11 @@ def frcnn_path_phase(dev, kernels):
         head_ms = median_ms(lambda: model(x), reps=10)
         tail_ms = median_ms(lambda: tail("auto"), reps=10)
         plain_tail_ms = median_ms(lambda: tail("plain"), reps=3)
-        tail_device_ms = device_ms(lambda: tail("auto"))
+        tail_names = path_kernel_names({n: 1 for n in FRCNN_LAUNCHES
+                                        if n != "multilevel_roi_align"})
+        tail_device_ms = device_ms(lambda: tail("auto"), names=tail_names)
     step_ms = median_ms(lambda: predictor(batch), reps=10)  # images already on the card
-    breakdown = kernel_breakdown(lambda: predictor(batch))
+    breakdown = kernel_breakdown(lambda: predictor(batch), path_kernel_names(FRCNN_LAUNCHES))
     breakdown["step_ms"] = step_ms
     breakdown["idle_share"] = 1.0 - breakdown["device_ms"] / step_ms
     emit({"phase": "frcnn_path", "model": FRCNN_MODEL, "size": FRCNN_SIZE, "dtype": "bfloat16",
@@ -1131,7 +1294,7 @@ def main() -> int:
     with torch.inference_mode():
         rows = kernel_phase(dev)
         rows["conv_down2_bn_leaky"] = conv_kernel_phase(dev)
-        rows.update(frcnn_kernel_phase(dev, rows["nms_keep_mask"]["scan_round_ns"]))
+        rows.update(frcnn_kernel_phase(dev))
     emit({"phase": "kernels_vs_plain", "nvidia_smi": smi, "rows": rows})
 
     model, predictor, images, launches, head_out = main_path_phase(dev, kernels)
@@ -1140,6 +1303,7 @@ def main() -> int:
     del model, predictor, images, head_out
     frcnn_predictor, launches["frcnn"] = frcnn_path_phase(dev, kernels)
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
+    emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"viddet_tpu_torch/csrc/{src}",
@@ -1148,7 +1312,9 @@ def main() -> int:
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
          "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],
-         "library_ms": rows[name]["library_ms"]}
+         "library_ms": rows[name]["library_ms"],
+         **{key: rows[name][key] for key in ("mask_ms", "scan_ms", "queued_ms",
+                                             "library_queued_ms") if key in rows[name]}}
         for name, (_, src, tpu, path) in table.items()
     ]})
     print(smi, flush=True)

@@ -80,16 +80,44 @@ def test_gather_decode_pairs_refusals(dev):
                                                                 device=dev), meta)
 
 
-@pytest.mark.parametrize("n,k", [(7, 3), (130, 130), (1000, 1), (10647, 400), (56 * 1024, 400)])
-@pytest.mark.parametrize("data", ["random", "ties", "padded"])
-def test_topk_indices_equals_plain(dev, n, k, data):
-    g = _gen(n + k)
-    x = torch.rand((4, n), generator=g)
+def _topk_rows(g, b, n, data):
+    """(b, n) scores: random, tie-heavy, -1-padded, or each row one edge
+    case in turn (+0.0 beside -0.0, subnormals among zeros, all equal,
+    padded, random)."""
+    x = torch.rand((b, n), generator=g)
     if data == "ties":
-        x = torch.randint(0, 3, (4, n), generator=g).float() / 2
+        x = torch.randint(0, 3, (b, n), generator=g).float() / 2
     elif data == "padded":
         x[:, 1::3] = -1.0
-        k = min(k, n - (n - 1 + 2) // 3)
+    elif data == "edge":
+        for r in range(b):
+            case = r % 5
+            if case == 0:
+                x[r, ::3] = 0.0
+                x[r, 1::3] = -0.0
+            elif case == 1:
+                x[r] = 0.0
+                x[r, : min(n, 20)] = torch.rand(min(n, 20), generator=g) * 1e-38
+                x[r, n // 2 :: 7] = torch.rand(len(range(n // 2, n, 7)), generator=g)
+            elif case == 2:
+                x[r] = 0.25
+            elif case == 3:
+                x[r, ::2] = -1.0
+    return x
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 48, 128])
+@pytest.mark.parametrize("n,k", [(7, 3), (130, 130), (1000, 1), (6800, 400), (10647, 400),
+                                 (24000, 400), (24001, 400), (56 * 1024, 400)])
+@pytest.mark.parametrize("data", ["random", "ties", "padded", "edge"])
+def test_topk_indices_equals_plain(dev, b, n, k, data):
+    """On an H100 (132 SMs) the batches run clusters of 8, 8, 4, 2 and 1
+    blocks a row (``topk_cuda.cluster_size``; N = 56 Ki raises 1 to 2).
+    N = 7, 10647 and 24001 are not multiples of any cluster size; k is
+    capped at the fewest non-negative scores of a row (k = N where none is
+    padding)."""
+    x = _topk_rows(_gen(n + k + b), b, n, data)
+    k = min(k, int((x.view(torch.int32) >= 0).sum(1).min()))
     x = x.to(dev)
     got = topk_cuda.topk_indices(x, k)
     torch.cuda.synchronize()
@@ -109,28 +137,52 @@ def test_topk_indices_refusals(dev):
         topk_cuda.topk_indices(torch.rand((1, topk_cuda.MAX_N + 1), device=dev), 4)
 
 
-def test_topk_indices_marks_rows_that_break_the_precondition(dev):
-    x = torch.full((2, 50), -1.0, device=dev)
+@pytest.mark.parametrize("b,n", [(2, 50), (1, 24000), (8, 24001), (32, 10647), (48, 6800),
+                                 (128, 10647)])
+def test_topk_indices_marks_rows_that_break_the_precondition(dev, b, n):
+    k = 20
+    x = torch.rand((b, n), device=dev)
+    x[0] = -1.0
     x[0, :10] = 0.5
-    x[1] = torch.rand(50, device=dev)
-    got = topk_cuda.topk_indices(x, 20)
+    x[0, n - 3 :] = -0.0
+    got = topk_cuda.topk_indices(x, k)
     assert bool((got[0, 10:] == -1).all()) and bool((got[0, :10] == torch.arange(10, device=dev)).all())
-    assert torch.equal(got[1:], topk_cuda.topk_indices_plain(x[1:], 20))
+    assert torch.equal(got[1:], topk_cuda.topk_indices_plain(x[1:], k))
 
 
-@pytest.mark.parametrize("k", [1, 63, 64, 65, 400, 1000, 1024])
-def test_nms_keep_mask_equals_plain(dev, k):
-    g = _gen(k)
-    pts = torch.rand((3, k, 2, 2), generator=g) * 100
+def _nms_rows(g, b, k):
+    """(b, k, 4) boxes and (b, k) valid, each image one case in turn:
+    random, duplicated runs, all invalid, all valid and heavily
+    overlapping, one box repeated."""
+    pts = torch.rand((b, k, 2, 2), generator=g) * 100
     boxes = torch.cat([pts.amin(2), pts.amax(2)], dim=-1)
-    boxes[1, 1::3] = boxes[1, 0::3][: boxes[1, 1::3].shape[0]]
-    valid = torch.rand((3, k), generator=g) > 0.1
-    valid[2] = False
+    valid = torch.rand((b, k), generator=g) > 0.1
+    for r in range(b):
+        case = r % 5
+        if case == 1:
+            boxes[r, 1::3] = boxes[r, 0::3][: boxes[r, 1::3].shape[0]]
+        elif case == 2:
+            valid[r] = False
+        elif case == 3:
+            boxes[r] = torch.tensor([20.0, 20.0, 60.0, 60.0]) + torch.rand((k, 4), generator=g) * 8
+            valid[r] = True
+        elif case == 4:
+            boxes[r] = boxes[r, :1]
+            valid[r] = True
+    return boxes, valid
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 400, 1000, 1024])
+def test_nms_keep_mask_equals_plain(dev, b, k):
+    boxes, valid = _nms_rows(_gen(k + b), b, k)
     boxes, valid = boxes.to(dev), valid.to(dev)
     for thresh in (0.3, 0.45, 0.7):
         got = nms_cuda.nms_keep_mask(boxes, valid, thresh)
         torch.cuda.synchronize()
         assert torch.equal(got, nms_cuda.nms_keep_mask_plain(boxes, valid, thresh))
+    if b >= 5:
+        assert got[2].sum().item() == 0 and got[4].sum().item() == 1
 
 
 def test_nms_keep_mask_refusals(dev):
@@ -141,6 +193,26 @@ def test_nms_keep_mask_refusals(dev):
     with pytest.raises(TypeError):
         nms_cuda.nms_keep_mask(torch.rand((1, 8, 4), device=dev),
                                torch.ones((1, 8), device=dev), 0.5)
+
+
+def test_nms_keep_mask_takes_boxes_at_any_float_offset(dev):
+    boxes, valid = _nms_rows(_gen(3), 4, 65)
+    flat = torch.empty(boxes.numel() + 1, device=dev)
+    flat[1:] = boxes.reshape(-1).to(dev)
+    unaligned = flat[1:].view(boxes.shape)  # each box starts 4 bytes off 16
+    valid = valid.to(dev)
+    got = nms_cuda.nms_keep_mask(unaligned, valid, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_cuda.nms_keep_mask_plain(unaligned, valid, 0.45))
+
+
+def test_nms_keep_mask_batch_past_65535(dev):
+    """The mask kernel's grid holds the batch in x, whose limit is 2**31 - 1."""
+    boxes, valid = _nms_rows(_gen(4), 70_000, 3)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = nms_cuda.nms_keep_mask(boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_cuda.nms_keep_mask_plain(boxes, valid, 0.45))
 
 
 @pytest.mark.parametrize("k,post", [(400, 100), (37, 100), (1, 1), (300, 299)])

@@ -1,49 +1,53 @@
-// A measurement probe, not a port kernel: the time of one dependent round
-// of K5's greedy scan (csrc/nms.cu, nms_keep_kernel), so that K5's time can
-// be set beside the bound its serial scan imposes (its k dependent rounds
-// times this latency), which a bound from bytes and operations leaves out.
+// A measurement probe, not a port kernel: the time of one tile round of
+// K5's greedy scan (viddet::greedy_scan in csrc/nms_scan.cuh, which
+// csrc/nms.cu's nms_scan_kernel runs), so that K5's time can be set beside
+// the bound its dependent chain imposes (ceil(k/64) tile rounds times this
+// latency), which a bound from bytes and operations leaves out.
 //
-// One warp runs K5's scan loop `passes` times over k steps: a 64-bit
-// shuffle of the keep word that owns step i, a bit test, and a masked AND
-// with one shared-memory word per lane, with K5's shared layout (k rows of
-// `words` words).  The keep words start all ones and the suppression words
-// are zero, so every round takes the branch and each round's shuffle reads
-// the word the previous round wrote.  Time two pass counts with CUDA
-// events and divide the difference by the rounds between them.
+// One block of K5's scan width runs greedy_scan `passes` times over k boxes
+// with K5's shared layout.  Every box is kept and the suppression words are
+// zero, so each of the 64 diagonal steps of a tile takes its branch and
+// every warp of the OR step loads both of its rows: the longest chain.
+// Time two pass counts with CUDA events and divide the difference by the
+// tile rounds between them.
 #include <cuda_runtime.h>
+
+#include "nms_scan.cuh"
 
 namespace {
 
-constexpr int kMaxK = 512;  // 32 KB of static shared memory
-constexpr int kMaxWords = kMaxK / 64;
+constexpr int kThreads = 512;  // as nms_scan_kernel
 
-__global__ void scan_round_kernel(int k, int passes, unsigned long long* out) {
-  __shared__ unsigned long long sup[kMaxK * kMaxWords];
-  const int lane = threadIdx.x;
-  const int words = (k + 63) / 64;
-  // Zero, from a value the compiler cannot fold (the host keeps k <= kMaxK),
-  // so the loop below keeps its loads.
-  const unsigned long long zero = k > kMaxK ? ~0ull : 0ull;
-  for (int i = lane; i < k * words; i += 32) sup[i] = zero;
-  __syncwarp();
-  unsigned long long kw = lane < words ? ~0ull : 0ull;
-  for (int p = 0; p < passes; ++p) {
-    for (int i = 0; i < k; ++i) {
-      const unsigned long long owner = __shfl_sync(0xffffffffu, kw, i >> 6);
-      if ((owner >> (i & 63)) & 1ull) {
-        if (lane < words) kw &= ~sup[(size_t)i * words + lane];
-      }
-    }
+__global__ void __launch_bounds__(kThreads)
+scan_tile_probe_kernel(int k, int passes, unsigned long long* out) {
+  extern __shared__ unsigned long long smem[];
+  const int words = (k + 63) / 64, kp = words * 64;
+  unsigned long long* cols = smem;
+  unsigned long long* kw = smem + (size_t)words * kp;
+  // Zero, from a value the compiler cannot fold (the host keeps k >= 1),
+  // so the scan keeps its loads.
+  const unsigned long long zero = k < 1 ? ~0ull : 0ull;
+  for (int i = threadIdx.x; i < words * kp; i += blockDim.x) cols[i] = zero;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    const int left = k - 64 * w;
+    kw[w] = left >= 64 ? ~0ull : (1ull << left) - 1ull;
   }
-  out[lane] = kw;
+  __syncthreads();
+  for (int p = 0; p < passes; ++p) viddet::greedy_scan(cols, kp, words, kw);
+  for (int w = threadIdx.x; w < words; w += blockDim.x) out[w] = kw[w];
 }
 
 }  // namespace
 
-// One block of one warp; 1 <= k <= 512; out: 32 words of device memory.
+// One block; 1 <= k <= 1024; out: ceil(k/64) words of device memory.
 extern "C" int viddet_scan_round_probe(int k, int passes, void* out, void* stream) {
-  if (k < 1 || k > kMaxK || passes < 0) return (int)cudaErrorInvalidValue;
-  scan_round_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (k < 1 || k > 1024 || passes < 0) return (int)cudaErrorInvalidValue;
+  const int words = (k + 63) / 64;
+  const size_t smem = ((size_t)words * 64 * words + words) * sizeof(unsigned long long);
+  cudaError_t err = cudaFuncSetAttribute(scan_tile_probe_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  scan_tile_probe_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       k, passes, static_cast<unsigned long long*>(out));
   return (int)cudaGetLastError();
 }

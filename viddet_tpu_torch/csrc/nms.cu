@@ -5,14 +5,28 @@
 // wrapper builds at nms_pallas.py:230-248).  Over score-sorted,
 // class-offset boxes: sup[i][j] = IoU(i, j) > thresh and j > i; in rank
 // order keep[j] &= !(keep[i] && sup[i][j]); keep starts as `valid`.
-// Bound on an H100: the 400-step serial scan, not bytes (a 400-box image
-// is 6.4 KB) and not the 80k IoUs.  Design: one block per image.  The
-// block computes the IoUs with the reference's exact expression (no
-// multiply-add contraction: explicit round-to-nearest intrinsics, and the
-// file is built with -fmad=false) into a K x ceil(K/64) word suppression
-// bitmask in shared memory (22 KB at K = 400).  One warp then runs the
-// scan: lane w holds keep word w in a register, and each rank costs one
-// shuffle and at most one shared-memory word per lane.
+// Bound on an H100: not bytes (a 1000-box image is 16 KB) and hardly
+// operations (K^2 / 2 IoUs, 0.5 M an image at K = 1000), but the greedy
+// scan's dependent chain, and how many SMs do the rest.  Design, two
+// kernels on the stream:
+//   - nms_mask_kernel: the grid covers (image, 64-row tile, 64-column
+//     word) over the upper triangle only, all in grid x: about 1,100
+//     blocks at batch 8 and K = 1000.  The block stages its 64 row and 64
+//     column boxes (four scalar loads each: any 4-byte alignment) and
+//     their areas in shared memory; each warp takes 8 rows, a lane one
+//     column of each half-word, and a ballot makes 32 bits of a row's
+//     word.  The 64 words go to a word-major scratch tensor in global
+//     memory, (B, ceil(K/64), K) (1 MB at batch 8 and K = 1000; it stays
+//     in L2), so the block's stores are contiguous.  The IoU is the
+//     reference's exact expression (no multiply-add contraction: explicit
+//     round-to-nearest intrinsics, and the file is built with -fmad=false);
+//   - nms_scan_kernel: one block an image copies the words its scan reads
+//     (the upper triangle, 68 KB at K = 1000) into shared memory with
+//     cp.async, every copy in flight at once, and runs
+//     viddet::greedy_scan (csrc/nms_scan.cuh): per 64-box tile, 64 serial
+//     register steps on the diagonal, then one warp per later word ORs the
+//     kept rows' words into it: a chain of K register steps and 2 K / 64
+//     barriers, which csrc/latency_probe.cu times.
 //
 // K6 replaces `compact_and_pad_pallas` (`_compact_kernel`): the kept rows
 // move, in order, to the first post_nms slots (slot = inclusive count of
@@ -23,73 +37,117 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "nms_scan.cuh"
 
 namespace {
 
-constexpr int kNmsThreads = 512;
+constexpr int kMaskThreads = 256;  // 8 warps, 8 rows of a 64-row tile each
+constexpr int kScanThreads = 512;  // 16 warps: one per later word at K <= 1024
 constexpr int kCompactThreads = 256;
 
-// IoU of boxes a and c exactly as viddet_tpu/ops/nms_pallas.py:237-247
-// (and ops/boxes.py box_iou): each product and sum rounded on its own.
-__device__ __forceinline__ float iou(const float* a, const float* c) {
-  const float w = fmaxf(__fsub_rn(fminf(a[2], c[2]), fmaxf(a[0], c[0])), 0.0f);
-  const float h = fmaxf(__fsub_rn(fminf(a[3], c[3]), fmaxf(a[1], c[1])), 0.0f);
-  const float inter = __fmul_rn(w, h);
-  const float area_a = __fmul_rn(fmaxf(__fsub_rn(a[2], a[0]), 0.0f),
-                                 fmaxf(__fsub_rn(a[3], a[1]), 0.0f));
-  const float area_c = __fmul_rn(fmaxf(__fsub_rn(c[2], c[0]), 0.0f),
-                                 fmaxf(__fsub_rn(c[3], c[1]), 0.0f));
-  const float uni = fmaxf(__fsub_rn(__fadd_rn(area_a, area_c), inter), 1e-12f);
-  return __fdiv_rn(inter, uni);
+// Area of a box exactly as viddet_tpu/ops/boxes.py box_area.
+__device__ __forceinline__ float area(float4 a) {
+  return __fmul_rn(fmaxf(__fsub_rn(a.z, a.x), 0.0f), fmaxf(__fsub_rn(a.w, a.y), 0.0f));
 }
 
-__global__ void __launch_bounds__(kNmsThreads)
-nms_keep_kernel(const float* __restrict__ boxes, const bool* __restrict__ valid, int k,
-                float thresh, float* __restrict__ keep_out) {
-  extern __shared__ unsigned long long smem[];
-  const int words = (k + 63) / 64;
-  unsigned long long* sup = smem;                    // k * words
-  float* bx = reinterpret_cast<float*>(sup + (size_t)k * words);  // k * 4
-  const float* img = boxes + (size_t)blockIdx.x * k * 4;
-  for (int i = threadIdx.x; i < 4 * k; i += blockDim.x) bx[i] = img[i];
-  __syncthreads();
+// IoU of boxes a and c exactly as viddet_tpu/ops/nms_pallas.py:237-247
+// (and ops/boxes.py box_iou), given their areas: each product and sum
+// rounded on its own.
+__device__ __forceinline__ float iou(float4 a, float area_a, float4 c, float area_c) {
+  const float w = fmaxf(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)), 0.0f);
+  const float h = fmaxf(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)), 0.0f);
+  const float inter = __fmul_rn(w, h);
+  const float uni = fmaxf(__fsub_rn(__fadd_rn(area_a, area_c), inter), 1e-12f);
+  // 0 / uni is +0 exactly (uni >= 1e-12): most pairs do not overlap, and a
+  // zero dividend would take the division's slow path.
+  return inter > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
+}
 
-  for (int task = threadIdx.x; task < k * words; task += blockDim.x) {
-    const int i = task / words, w = task - i * words;
-    const float* a = bx + 4 * i;
-    unsigned long long m = 0ull;
-    const int j0 = max(w * 64, i + 1), j1 = min(w * 64 + 64, k);
-    for (int j = j0; j < j1; ++j) {
-      if (iou(a, bx + 4 * j) > thresh) m |= 1ull << (j - w * 64);
-    }
-    sup[task] = m;
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask_kernel(const float* __restrict__ boxes, int k, int words, float thresh,
+                unsigned long long* __restrict__ mask) {
+  // blockIdx.x: the image, then a (row tile, column word >= row tile) pair.
+  const int pairs = words * (words + 1) / 2;
+  const size_t image = blockIdx.x / pairs;
+  int q = blockIdx.x % pairs, rt = 0;
+  while (q >= words - rt) {
+    q -= words - rt;
+    ++rt;
+  }
+  const int w = rt + q;
+  __shared__ float4 box[2][64];  // the tile's rows, the word's columns
+  __shared__ float box_area[2][64];
+  __shared__ unsigned bits[64][2];
+  const float* img = boxes + image * k * 4;
+  if (threadIdx.x < 128) {
+    const int side = threadIdx.x >> 6, x = threadIdx.x & 63;
+    const int j = (side ? w : rt) * 64 + x;
+    const float4 c = j < k ? make_float4(img[4 * j], img[4 * j + 1], img[4 * j + 2], img[4 * j + 3])
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    box[side][x] = c;
+    box_area[side][x] = area(c);
   }
   __syncthreads();
+  // Warp v takes rows 8v .. 8v + 7 of the tile; lane l the columns l and
+  // 32 + l of the word: one ballot gives 32 bits of a row's word.
+  const int lane = threadIdx.x & 31, v = threadIdx.x >> 5;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int jj = half * 32 + lane, j = w * 64 + jj;
+    const float4 c = box[1][jj];
+    const float area_c = box_area[1][jj];
+#pragma unroll
+    for (int r = 8 * v; r < 8 * v + 8; ++r) {
+      const int i = rt * 64 + r;
+      const bool sup = j > i && j < k && iou(box[0][r], box_area[0][r], c, area_c) > thresh;
+      const unsigned ballot = __ballot_sync(0xffffffffu, sup);
+      if (lane == 0) bits[r][half] = ballot;
+    }
+  }
+  __syncthreads();
+  const int i = rt * 64 + threadIdx.x;
+  if (threadIdx.x < 64 && i < k) {
+    mask[(image * words + w) * k + i] =
+        (static_cast<unsigned long long>(bits[threadIdx.x][1]) << 32) | bits[threadIdx.x][0];
+  }
+}
 
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const bool* v = valid + (size_t)blockIdx.x * k;
-    float* out = keep_out + (size_t)blockIdx.x * k;
-    // The wrapper caps k at 1024, so words <= 16 and lane w owns word w.
-    unsigned long long kw = 0ull;
-    if (lane < words) {
-      for (int jj = 0; jj < 64; ++jj) {
-        const int j = lane * 64 + jj;
-        if (j < k && v[j]) kw |= 1ull << jj;
-      }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+nms_scan_kernel(const unsigned long long* __restrict__ mask, const bool* __restrict__ valid,
+                int k, int words, float* __restrict__ keep_out) {
+  extern __shared__ unsigned long long smem[];
+  const int kp = words * 64;
+  unsigned long long* cols = smem;                      // words x kp, word-major
+  unsigned long long* kw = smem + (size_t)words * kp;  // words keep words
+  // Word w is read for the rows of tiles 0..w only: copy those, all loads
+  // in flight at once.
+  const unsigned long long* src = mask + (size_t)blockIdx.x * words * k;
+  for (int w = 0; w < words; ++w) {
+    const int rows = min(k, (w + 1) * 64);
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      cp_async8(cols + (size_t)w * kp + i, src + (size_t)w * k + i);
     }
-    for (int i = 0; i < k; ++i) {
-      const unsigned long long owner = __shfl_sync(0xffffffffu, kw, i >> 6);
-      if ((owner >> (i & 63)) & 1ull) {
-        if (lane < words) kw &= ~sup[(size_t)i * words + lane];
-      }
-    }
-    if (lane < words) {
-      for (int jj = 0; jj < 64; ++jj) {
-        const int j = lane * 64 + jj;
-        if (j < k) out[j] = ((kw >> jj) & 1ull) ? 1.0f : 0.0f;
-      }
-    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  const bool* v = valid + (size_t)blockIdx.x * k;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int w = warp; w < words; w += kScanThreads / 32) {
+    const int j = w * 64 + lane;
+    const unsigned lo = __ballot_sync(0xffffffffu, j < k && v[j]);
+    const unsigned hi = __ballot_sync(0xffffffffu, j + 32 < k && v[j + 32]);
+    if (lane == 0) kw[w] = (static_cast<unsigned long long>(hi) << 32) | lo;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  viddet::greedy_scan(cols, kp, words, kw);
+  float* out = keep_out + (size_t)blockIdx.x * k;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    out[j] = ((kw[j >> 6] >> (j & 63)) & 1ull) ? 1.0f : 0.0f;
   }
 }
 
@@ -123,17 +181,24 @@ compact_kernel(const float* __restrict__ keep, const float* __restrict__ scores,
 
 }  // namespace
 
+// mask: (batch, ceil(k/64), k) 64-bit scratch words, written then read
+// here; the wrapper allocates it.
 extern "C" int viddet_nms_keep_mask(const void* boxes, const void* valid, int batch, int k,
-                                    float iou_thresh, void* keep, void* stream) {
+                                    float iou_thresh, void* mask, void* keep, void* stream) {
   const int words = (k + 63) / 64;
-  const size_t smem = (size_t)k * words * sizeof(unsigned long long) + (size_t)k * 4 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(nms_keep_kernel,
+  const size_t smem = ((size_t)words * 64 * words + words) * sizeof(unsigned long long);
+  cudaError_t err = cudaFuncSetAttribute(nms_scan_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0 && k > 0) {
-    nms_keep_kernel<<<batch, kNmsThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(boxes), static_cast<const bool*>(valid), k, iou_thresh,
-        static_cast<float*>(keep));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    auto* m = static_cast<unsigned long long*>(mask);
+    nms_mask_kernel<<<batch * (words * (words + 1) / 2), kMaskThreads, 0, s>>>(
+        static_cast<const float*>(boxes), k, words, iou_thresh, m);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    nms_scan_kernel<<<batch, kScanThreads, smem, s>>>(m, static_cast<const bool*>(valid), k, words,
+                                                     static_cast<float*>(keep));
   }
   return (int)cudaGetLastError();
 }

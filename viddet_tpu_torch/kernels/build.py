@@ -49,10 +49,10 @@ SIGNATURES = {
     "viddet_error_string": [_I],
     # raw0..raw2, cells0..cells2, nscales, batch, na, num_pred, is_bf16, out, stream
     "viddet_anchor_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # scores, batch, n, k, out, stream
-    "viddet_topk_indices": [_P, _I, _I, _I, _P, _P],
-    # boxes, valid, batch, k, iou_thresh, keep, stream
-    "viddet_nms_keep_mask": [_P, _P, _I, _I, _F, _P, _P],
+    # scores, batch, n, k, cluster, out, stream
+    "viddet_topk_indices": [_P, _I, _I, _I, _I, _P, _P],
+    # boxes, valid, batch, k, iou_thresh, mask (scratch), keep, stream
+    "viddet_nms_keep_mask": [_P, _P, _I, _I, _F, _P, _P, _P],
     # keep, scores, cls, boxes, batch, k, post, ids, out_scores, out_boxes, stream
     "viddet_compact_and_pad": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # raw0..raw2, cells0..cells2, width0..width2, strides, anchors (host

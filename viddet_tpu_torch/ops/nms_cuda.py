@@ -2,7 +2,9 @@
 
 Replace ``viddet_tpu/ops/nms_pallas.py:212`` ``nms_keep_mask_pallas``
 (``_greedy_rows_kernel``, ``:32``) and ``:156`` ``compact_and_pad_pallas``
-(``_compact_kernel``, ``:84``).  Both CUDA kernels are in ``csrc/nms.cu``.
+(``_compact_kernel``, ``:84``).  The CUDA kernels are in ``csrc/nms.cu``:
+K5 is a mask kernel over the whole card and a scan kernel per image, one
+wrapper call launching both.
 The plain versions are the JAX package's references
 (``viddet_tpu/ops/nms.py:38`` ``nms_keep_mask`` and ``:70``
 ``_compact_and_pad``) written batched; ``ops/nms.py`` exports them under
@@ -16,8 +18,15 @@ import torch
 from viddet_tpu_torch.kernels import build, require
 from viddet_tpu_torch.ops.boxes import box_iou
 
-# The suppression bitmask (K * ceil(K/64) words) lives in shared memory.
+# The scan kernel keeps an image's suppression bitmask (ceil(K/64)^2 * 64
+# words, 128 KB at K = 1024) in shared memory.
 MAX_K = 1024
+
+
+def mask_shape(b: int, k: int) -> tuple[int, int, int]:
+    """Shape of K5's scratch suppression bitmask: (B, ceil(K/64), K) 64-bit
+    words, word-major so that the mask kernel's stores are contiguous."""
+    return (b, -(-k // 64), k)
 
 
 def nms_keep_mask_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -51,9 +60,10 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -
     require(boxes, "boxes", torch.float32)
     require(valid, "valid", torch.bool, shape=(b, k), device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.float32, device=boxes.device)
+    mask = torch.empty(mask_shape(b, k), dtype=torch.int64, device=boxes.device)
     err = build.library().viddet_nms_keep_mask(
         boxes.data_ptr(), valid.data_ptr(), b, k, float(iou_thresh),
-        keep.data_ptr(), build.stream_of(keep),
+        mask.data_ptr(), keep.data_ptr(), build.stream_of(keep),
     )
     build.check(err, "nms_keep_mask")
     nms_keep_mask.launches += 1

@@ -1,7 +1,8 @@
 """K2 ``topk_indices``: exact top-k index set per row, ascending indices.
 
 Replaces ``viddet_tpu/ops/topk_pallas.py:237`` ``topk_indices_pallas``
-(``_select_kernel``, ``:62``).  The CUDA kernel is ``csrc/topk_select.cu``.
+(``_select_kernel``, ``:62``).  The CUDA kernel is ``csrc/topk_select.cu``:
+a radix select over a thread-block cluster per row (``cluster_size``).
 The result is the index SET of ``lax.top_k`` (ties at the k-th value taken
 lowest index first), in ascending index order.
 
@@ -20,9 +21,13 @@ from viddet_tpu_torch.kernels import build, require
 
 _HI_BITS = 0x7F800000 + 1  # exclusive bound of the search: +inf's bit pattern
 _SEARCH_ITERS = 31
-# One row lives in shared memory: 4 bytes per score within the 227 KB a
-# block may use on an H100.
 MAX_N = 56 * 1024
+# The kernel runs a cluster of up to MAX_CLUSTER blocks per row (the
+# portable cluster size); each block keeps its slice of the row in shared
+# memory, at most SLICE_MAX scores (4 bytes each, beside ~10 KB of
+# histograms, within the 227 KB a block may use on an H100).
+MAX_CLUSTER = 8
+SLICE_MAX = 48 * 1024
 
 
 def _check_k(n: int, k: int) -> None:
@@ -50,6 +55,18 @@ def topk_indices_plain(scores: torch.Tensor, k: int) -> torch.Tensor:
     return mask.nonzero()[:, 1].reshape(b, k)
 
 
+def cluster_size(b: int, n: int, num_sms: int) -> int:
+    """Blocks per row: the largest power of two up to MAX_CLUSTER with
+    ``b * size <= num_sms`` (at least 1), so that the batch fills the SMs
+    in one wave, raised until a row's slice fits in shared memory."""
+    size = 1
+    while size < MAX_CLUSTER and b * size * 2 <= num_sms:
+        size *= 2
+    while size < MAX_CLUSTER and -(-n // size) > SLICE_MAX:
+        size *= 2
+    return size
+
+
 def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     """K2 wrapper: the kernel for CUDA tensors, the plain version on the CPU."""
     if scores.device.type == "cpu":
@@ -62,8 +79,9 @@ def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"topk_indices: N={n} exceeds the kernel's {MAX_N}")
     require(scores, "scores", torch.float32)
     out = torch.empty((b, k), dtype=torch.int64, device=scores.device)
+    sms = torch.cuda.get_device_properties(scores.device).multi_processor_count
     err = build.library().viddet_topk_indices(
-        scores.data_ptr(), b, n, k, out.data_ptr(), build.stream_of(out)
+        scores.data_ptr(), b, n, k, cluster_size(b, n, sms), out.data_ptr(), build.stream_of(out)
     )
     build.check(err, "topk_indices")
     topk_indices.launches += 1
