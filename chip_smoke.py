@@ -10,9 +10,10 @@ Phases, each printed as one JSON line:
 1. device:  the card's name and power limit (``nvidia-smi``);
 2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-            the main paths' shapes plus edge cases (K7, K5 at K = 1000 and
-            at K = 400 at batch 8, and K2 at N = 24,000 at the Faster R-CNN
-            path's), with its time (K5's mask and scan kernels apart), the
+            the main paths' shapes plus edge cases (K1 also at batch 128;
+            K7 with the cells and L2 bytes its rois read, K5 at K = 1000
+            and at K = 400 at batch 8, and K2 at N = 24,000 at the Faster
+            R-CNN path's), with its time (K5's mask and scan kernels apart), the
             plain version's time, a PyTorch library call's time where one
             computes the same function, and its bound (K5 also beside its
             scan's chain of tile rounds); each time from torch.profiler
@@ -94,10 +95,6 @@ FRCNN_MODEL, FRCNN_SIZE, FRCNN_B = "faster_rcnn_resnet50_fpn_coco", 512, 8
 FRCNN_R, FRCNN_NMS_K, FRCNN_TOPK, FPN_C = 300, 1000, 400, 256
 FRCNN_LEVELS = tuple(FRCNN_SIZE // s for s in (4, 8, 16, 32))  # P2..P5 sides
 FRCNN_PAIRS = FRCNN_R * C  # the detection ranking's width, 24,000
-# K7 against its plain version on unit-scale features: the two share every
-# float expression and its order (csrc/roi_align.cu), so the bound is far
-# above what a difference of summation order could give.
-ROI_ALIGN_ATOL = 1e-5
 # Head outputs under the kernel ROIAlign against the plain one: relative L2
 # per output.  Equal ROIAlign outputs give 0; the limit admits the bf16
 # rounding of the box head (a relative 2**-9 per rounding) over a few
@@ -357,27 +354,38 @@ def kernel_phase(dev):
     g = torch.Generator(device="cpu").manual_seed(0)
     rows = {}
 
-    # K1: per-scale bf16 cell tensors of the 416-px head; an f32 copy too.
+    def k1_row(cells):
+        """K1 on bf16 cells and their float32 copy against its plain
+        version, and its times on the bf16 cells."""
+        b = cells[0].shape[0]
+        worst_ulp, worst_abs = 0, 0.0
+        for xs in (cells, [c.float() for c in cells]):
+            got = nms_gather_cuda.anchor_scores(xs, NA)
+            want = nms_gather_cuda.anchor_scores_plain(xs, NA)
+            check(got.shape == (b, N), "K1 shape")
+            ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
+            worst_ulp = max(worst_ulp, int(ulp))
+            worst_abs = max(worst_abs, float((got - want).abs().max().item()))
+        check(worst_ulp <= K1_MAX_ULP, f"K1 at batch {b} within {K1_MAX_ULP} ulp (max {worst_ulp})")
+        k1_bytes = sum(c.numel() * 2 for c in cells) + b * N * 4
+        return dict(
+            batch=b, max_abs_err=worst_abs, max_ulp=worst_ulp,
+            bound=bound_ms(k1_bytes, b * N * (NUM_PRED - 5 + 8)),
+            **timings(lambda: nms_gather_cuda.anchor_scores(cells, NA),
+                      lambda: nms_gather_cuda.anchor_scores_plain(cells, NA),
+                      lambda: [torch.sigmoid(c.view(b, -1, NA, NUM_PRED)[..., 5:].amax(-1))
+                               for c in cells], names=KERNEL_NAMES["anchor_scores"]),
+        )
+
+    # K1: per-scale bf16 cell tensors of the 416-px head at batch 32 and at
+    # bench.py's 128 (its own generator, so later rows see the same data).
     cells = [torch.randn((B, c, NA * NUM_PRED), generator=g).mul_(3).to(dev, torch.bfloat16)
              for c in CELLS]
-    worst_ulp, worst_abs = 0, 0.0
-    for xs in (cells, [c.float() for c in cells]):
-        got = nms_gather_cuda.anchor_scores(xs, NA)
-        want = nms_gather_cuda.anchor_scores_plain(xs, NA)
-        check(got.shape == (B, N), "K1 shape")
-        ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
-        worst_ulp = max(worst_ulp, int(ulp))
-        worst_abs = max(worst_abs, float((got - want).abs().max().item()))
-    check(worst_ulp <= K1_MAX_ULP, f"K1 within {K1_MAX_ULP} ulp (max {worst_ulp})")
-    k1_bytes = sum(c.numel() * 2 for c in cells) + B * N * 4
-    rows["anchor_scores"] = dict(
-        max_abs_err=worst_abs, max_ulp=worst_ulp,
-        bound=bound_ms(k1_bytes, B * N * (NUM_PRED - 5 + 8)),
-        **timings(lambda: nms_gather_cuda.anchor_scores(cells, NA),
-                  lambda: nms_gather_cuda.anchor_scores_plain(cells, NA),
-                  lambda: [torch.sigmoid(c.view(B, -1, NA, NUM_PRED)[..., 5:].amax(-1))
-                           for c in cells], names=KERNEL_NAMES["anchor_scores"]),
-    )
+    rows["anchor_scores"] = k1_row(cells)
+    g128 = torch.Generator(device="cpu").manual_seed(128)
+    rows["anchor_scores_b128"] = k1_row([
+        torch.randn((4 * B, c, NA * NUM_PRED), generator=g128).mul_(3).to(dev, torch.bfloat16)
+        for c in CELLS])
     stage1 = nms_gather_cuda.anchor_scores(cells, NA)
 
     # K2: stage-1 scores (bf16 logits: many exact ties) and stage-2 pair
@@ -657,9 +665,15 @@ def conv_kernel_phase(dev) -> dict:
     )
 
 
-def roi_align_cells(pyramid, rois, strides) -> int:
-    """The distinct pyramid cells (image, level, row, column) that the
-    rois' valid samples read: what this run's data needs read."""
+def roi_align_traffic(pyramid, rois, strides) -> dict:
+    """What K7 reads for these rois, counted from the same sample indices:
+    ``taps`` (valid samples x 4 neighbours), ``cells_per_roi`` (each roi's
+    distinct cells, summed), ``cells_batch`` (the batch's distinct cells,
+    (image, level, row, column): what the bound counts), and the bytes that
+    reach the SMs from L2 when every tap is a load of its own channel row
+    (``l2_bytes_per_tap``) and when L1 serves every repeat of a cell within
+    its roi's block, as the kernel's design intends (``l2_bytes_design``,
+    csrc/roi_align.cu)."""
     import torch
 
     from viddet_tpu_torch.ops.roi_align import fpn_roi_level, sample_grid
@@ -672,11 +686,19 @@ def roi_align_cells(pyramid, rois, strides) -> int:
     ws = torch.tensor([p.shape[2] for p in pyramid], device=dev)[lvl][..., None]
     sizes = [p.shape[1] * p.shape[2] for p in pyramid]
     offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
+    row_bytes = pyramid[0].shape[-1] * pyramid[0].element_size()
 
     def taps(coord, ext):
         ok = (coord > -1.0) & (coord < ext.float())
         c0 = torch.minimum(coord.clamp_min(0.0), ext.float() - 1.0).floor().long()
         return ok, c0, torch.minimum(c0 + 1, ext - 1)
+
+    def distinct(vals, ok):
+        """Distinct values among the valid ones, along the last axis."""
+        v = torch.where(ok, vals, -1).sort(-1).values
+        new = torch.ones_like(v, dtype=torch.bool)
+        new[..., 1:] = v[..., 1:] != v[..., :-1]
+        return (new & (v >= 0)).sum(-1)
 
     oky, y0, y1 = taps(ys, hs)
     okx, x0, x1 = taps(xs, ws)
@@ -684,7 +706,13 @@ def roi_align_cells(pyramid, rois, strides) -> int:
     ok = oky[..., :, None] & okx[..., None, :]
     cells = [(base + (yi * ws)[..., :, None] + xi[..., None, :])[ok]
              for yi in (y0, y1) for xi in (x0, x1)]
-    return int(torch.unique(torch.cat(cells)).numel())
+    rows = distinct(torch.cat([y0, y1], -1), torch.cat([oky, oky], -1))
+    cols = distinct(torch.cat([x0, x1], -1), torch.cat([okx, okx], -1))
+    n_taps = int((4 * oky.sum(-1) * okx.sum(-1)).sum().item())
+    per_roi = int((rows * cols).sum().item())
+    return dict(taps=n_taps, cells_per_roi=per_roi,
+                cells_batch=int(torch.unique(torch.cat(cells)).numel()),
+                l2_bytes_per_tap=n_taps * row_bytes, l2_bytes_design=per_roi * row_bytes)
 
 
 def frcnn_rois(g, dev):
@@ -743,21 +771,21 @@ def frcnn_kernel_phase(dev) -> dict:
         got = roi_align_cuda.multilevel_roi_align(pyr, rois, strides)
         want = multilevel_roi_align_packed(pyr, rois, strides)
         check(got.shape == (FRCNN_B, FRCNN_R, 7, 7, FPN_C), "K7 shape")
-        err = float((got - want).abs().max().item())
-        checks.append(dict(dtype=str(pyr[0].dtype).split(".")[-1], max_abs_err=err,
+        checks.append(dict(dtype=str(pyr[0].dtype).split(".")[-1],
+                           max_abs_err=float((got - want).abs().max().item()),
                            bit_equal=equal(got, want)))
-        check(err <= ROI_ALIGN_ATOL, f"K7 within {ROI_ALIGN_ATOL} of plain: {checks[-1]}")
-    cells = roi_align_cells(pyr16, rois, strides)
+        check(checks[-1]["bit_equal"], f"K7 equal to plain: {checks[-1]}")
+    traffic = roi_align_traffic(pyr16, rois, strides)
     out_bytes = FRCNN_B * FRCNN_R * 49 * FPN_C * 4
     pyramid_bytes = sum(p.numel() * 2 for p in pyr16)
     rows = {"multilevel_roi_align": dict(
         max_abs_err=max(c["max_abs_err"] for c in checks), checks=checks,
         levels=torch.bincount(levels.flatten(), minlength=6)[2:].tolist(),
-        cells_read=cells,
+        **traffic,
         # the output, the cells the valid samples read (bf16) and the rois
         # once; about 36 operations an output element (4 samples of 4
         # products and 3 sums, 3 sums and a scale)
-        bound=bound_ms(out_bytes + cells * FPN_C * 2 + rois.numel() * 4,
+        bound=bound_ms(out_bytes + traffic["cells_batch"] * FPN_C * 2 + rois.numel() * 4,
                        out_bytes / 4 * 36),
         bound_output_only_ms=out_bytes / HBM_BYTES_PER_S * 1e3,
         bound_whole_pyramid_ms=(out_bytes + pyramid_bytes) / HBM_BYTES_PER_S * 1e3,
@@ -1141,14 +1169,14 @@ def frcnn_path_phase(dev, kernels):
         got = roi_align_cuda.multilevel_roi_align(maps, props, strides)
         want = multilevel_roi_align_packed(maps, props, strides)
         err = float((got - want).abs().max().item())
-        check(err <= ROI_ALIGN_ATOL, f"K7 on the path's proposals within {ROI_ALIGN_ATOL}: {err}")
-        cells = roi_align_cells(maps, props, strides)
+        check(equal(got, want), f"K7 on the path's proposals equal to plain: {err}")
+        traffic = roi_align_traffic(maps, props, strides)
         out_bytes = got.numel() * 4
         k7_path = dict(
-            max_abs_err=err, bit_equal=equal(got, want), cells_read=cells,
+            max_abs_err=err, bit_equal=True, **traffic,
             levels=torch.bincount(fpn_roi_level(props).flatten(), minlength=6)[2:].tolist(),
             proposals_valid=int(out["proposal_valid"].sum().item()),
-            bound=bound_ms(out_bytes + cells * FPN_C * 2 + props.numel() * 4,
+            bound=bound_ms(out_bytes + traffic["cells_batch"] * FPN_C * 2 + props.numel() * 4,
                            out_bytes / 4 * 36),
             **timings(lambda: roi_align_cuda.multilevel_roi_align(maps, props, strides),
                       lambda: multilevel_roi_align_packed(maps, props, strides), plain_reps=5,

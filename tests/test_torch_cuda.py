@@ -7,9 +7,11 @@ These need a CUDA card and skip without one.  On a machine with an H100:
 ``chip_smoke.py`` holds the kernels at the main paths' shapes; this file
 covers the shapes around them (K not a multiple of 64, K = 1000 for
 proposal NMS, k = N, one scale, float32 heads, few classes, m > C,
-channel counts that are not multiples of 8, ROIAlign on one to four
-levels with rois outside the image, on level boundaries and wider than
-the TPU kernel's window) and the wrappers' refusals.  Every comparison is exact, except K8's,
+heads at any storage offset and with NaN, channel counts that are not
+multiples of 8, ROIAlign on one to four levels with rois outside the
+image, on level boundaries, wider than the TPU kernel's window and
+reading the most distinct cells a roi can, levels at a 4-byte offset)
+and the wrappers' refusals.  Every comparison is exact, except K8's,
 which ``chip_smoke.k8_compare`` holds within one bf16 ulp (float32: 1e-5
 relative) or, where the sum cancels, the float32 summation bound.
 """
@@ -24,7 +26,9 @@ from viddet_tpu_torch.models import faster_rcnn
 from viddet_tpu_torch.models.common import ConvBNLeaky
 from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda
 from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
-from viddet_tpu_torch.ops.roi_align import fpn_roi_level, multilevel_roi_align_packed
+from viddet_tpu_torch.ops.roi_align import (
+    fpn_roi_level, multilevel_roi_align_packed, sample_grid,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -40,14 +44,56 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
+CELLS_416 = (169, 676, 2704)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cells,num_pred", [((9, 36), 9), ((169,), 85), ((4, 16, 64), 85)])
-def test_anchor_scores_equals_plain(dev, dtype, cells, num_pred):
-    g = _gen(len(cells) + num_pred)
-    xs = [torch.randn((3, c, 3 * num_pred), generator=g).mul_(4).to(dev, dtype) for c in cells]
+@pytest.mark.parametrize("b,cells,num_pred", [
+    (3, (9, 36), 9), (3, (169,), 85), (3, (4, 16, 64), 85),
+    (1, CELLS_416, 85), (32, CELLS_416, 85), (128, CELLS_416, 85), (32, CELLS_416, 9),
+])
+def test_anchor_scores_equals_plain(dev, dtype, b, cells, num_pred):
+    g = _gen(b + len(cells) + num_pred)
+    xs = [torch.randn((b, c, 3 * num_pred), generator=g).mul_(4).to(dev, dtype) for c in cells]
     got = nms_gather_cuda.anchor_scores(xs, 3)
     torch.cuda.synchronize()
     assert torch.equal(got, nms_gather_cuda.anchor_scores_plain(xs, 3))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("num_pred", [9, 85])
+def test_anchor_scores_at_any_storage_offset(dev, offset, num_pred):
+    """bf16 cells viewed ``offset`` elements into their storage, so the
+    blocks' spans start at every misalignment to 16 bytes."""
+    g = _gen(offset + num_pred)
+    xs = []
+    for c in (13, 52, 100):
+        n = 4 * c * 3 * num_pred
+        flat = torch.randn(n + 8, generator=g).mul_(4).to(dev, torch.bfloat16)
+        xs.append(flat[offset:offset + n].view(4, c, 3 * num_pred))
+        assert xs[-1].is_contiguous() and xs[-1].storage_offset() == offset
+    got = nms_gather_cuda.anchor_scores(xs, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_gather_cuda.anchor_scores_plain(xs, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_anchor_scores_nan_signed_zero_and_ties(dev, dtype):
+    g = _gen(3)
+    x = torch.randn((2, 169, 3 * 85), generator=g).round()  # many tied class maxima
+    v = x.view(2, 169, 3, 85)
+    v[0, 0, 0, 40] = float("nan")  # a NaN class logit wins the max
+    v[0, 1, 1, 5:] = -0.0
+    v[0, 1, 2, 5:] = 0.0
+    v[0, 2, 0, 5::2] = -0.0  # -0.0 and 0.0 tied for the max
+    v[0, 3, 1, 4] = float("nan")  # a NaN objectness
+    v[1, :, :, 5:] = 2.0  # every class tied
+    xs = [x.to(dev, dtype)]
+    got = nms_gather_cuda.anchor_scores(xs, 3)
+    torch.cuda.synchronize()
+    want = nms_gather_cuda.anchor_scores_plain(xs, 3)
+    assert torch.equal(got.isnan(), want.isnan()) and got[0, 0].isnan()
+    assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -407,10 +453,16 @@ def _roi_case(dev, b, r, c, image, levels, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,r,c,image,levels", [
-    (2, 300, 256, 512, 4),  # the Faster R-CNN path's shape at batch 2
+    (8, 300, 256, 512, 4),  # the Faster R-CNN path's shape
+    (2, 300, 256, 512, 4),
     (1, 11, 2, 64, 1), (3, 50, 8, 128, 2), (2, 37, 258, 96, 3), (1, 20, 64, 640, 4),
 ])
 def test_roi_align_equals_plain(dev, dtype, b, r, c, image, levels):
+    """Every channel-slice geometry of the kernel (512 bytes a block: C = 2,
+    8 and 64 in one partial slice, 256 in one whole bf16 slice or two
+    float32 ones, 258 with a ragged last slice read 4 bytes at a time),
+    rois with every sample outside the image, larger than the image and
+    8:1 / 1:8, at the path's batch 8 x 300."""
     pyramid, rois = _roi_case(dev, b, r, c, image, levels, dtype, b + r + c + image)
     strides = (4, 8, 16, 32)[:levels]
     before = roi_align_cuda.multilevel_roi_align.launches
@@ -420,6 +472,44 @@ def test_roi_align_equals_plain(dev, dtype, b, r, c, image, levels):
     want = multilevel_roi_align_packed(pyramid, rois, strides)
     assert got.shape == want.shape == (b, r, 7, 7, c) and got.dtype == torch.float32
     assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [256, 258])
+def test_roi_align_widest_roi_reads_28_rows_and_columns(dev, dtype, c):
+    """Rois whose 14 samples per side are over two cells apart on a one-level
+    pyramid: each reads 28 distinct rows and 28 distinct columns, the most a
+    roi can, so no two taps share a cell."""
+    g = _gen(c)
+    pyramid = [torch.randn((2, 64, 64, c), generator=g).to(dev, dtype)]
+    rois = torch.tensor([[[8.0, 8.0, 128.0, 128.0], [3.0, 5.0, 130.0, 127.0]],
+                         [[120.0, 2.0, 250.0, 140.0], [0.5, 100.0, 125.0, 254.0]]], device=dev)
+    ys, xs = sample_grid(rois, torch.zeros((2, 2), dtype=torch.long, device=dev), (4,), 7, 2)
+    for coord in (ys, xs):
+        lo = coord.clamp(0, 63).floor().long()
+        taps = torch.stack([lo, (lo + 1).clamp_max(63)], -1).flatten(-2)
+        assert all(len(set(t.tolist())) == 28 for t in taps.flatten(0, 1))
+    got = roi_align_cuda.multilevel_roi_align(pyramid, rois, (4,))
+    torch.cuda.synchronize()
+    assert torch.equal(got, multilevel_roi_align_packed(pyramid, rois, (4,)))
+
+
+@pytest.mark.parametrize("offset", [2, 6])
+def test_roi_align_takes_a_level_at_a_4_byte_offset(dev, offset):
+    """A bf16 level viewed ``offset`` elements into its storage: its cells
+    are 4-byte but not 16-byte aligned, so the kernel reads them 4 bytes at
+    a time."""
+    pyramid, rois = _roi_case(dev, 2, 60, 256, 256, 4, torch.bfloat16, offset)
+    shifted = []
+    for p in pyramid:
+        flat = torch.empty(p.numel() + 8, dtype=p.dtype, device=dev)
+        view = flat[offset:offset + p.numel()].view(p.shape)
+        view.copy_(p)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 2 * offset
+        shifted.append(view)
+    got = roi_align_cuda.multilevel_roi_align(shifted, rois, (4, 8, 16, 32))
+    torch.cuda.synchronize()
+    assert torch.equal(got, multilevel_roi_align_packed(pyramid, rois, (4, 8, 16, 32)))
 
 
 def test_fpn_roi_level_at_the_boundaries_on_the_card(dev):

@@ -9,22 +9,39 @@
 //
 // Bound on an H100: bytes.  Each anchor reads 1 + C raw values (81 bf16
 // lanes at COCO width) and writes one float; there are a handful of
-// flops per byte.  Design: one thread per (image, cell, anchor), so a
-// warp reads 32 neighbouring anchor rows, which are contiguous in memory;
-// the row's lanes stream through L1.  The sigmoid is PyTorch's own CUDA
-// formula, 1 / (1 + expf(-x)) in float32, so the kernel can equal the
-// plain PyTorch version bit for bit.
+// flops per byte.  A thread that walks its own anchor row in global
+// memory makes every load instruction of a warp touch 32 rows 170 bytes
+// apart, 2 bytes each: the loads are bound by L1 wavefronts, not bytes.
+// Design: a block owns a contiguous span of anchor rows of one scale (up
+// to kThreads rows, across cells and images, since a scale's rows are one
+// contiguous array) and copies it into shared memory with 16-byte
+// cp.async, neighbouring threads on neighbouring addresses.  The span may
+// start at any element offset (a contiguous tensor may carry a storage
+// offset), so its ragged head and tail, before the first and after the
+// last 16-byte boundary, are copied element by element; the span sits in
+// shared memory at the same offset modulo 16 as in device memory.  Then
+// each thread takes one anchor's class max from shared memory (a row
+// stride of 85 halfwords or words is odd: no bank conflicts) and writes
+// its score.  A row too long for the staging buffer is read from device
+// memory directly.  The sigmoid is PyTorch's own CUDA formula,
+// 1 / (1 + expf(-x)) in float32, and the max is order-free, so the kernel
+// equals the plain PyTorch version bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kMaxScales = 3;
+constexpr int kThreads = 128;            // anchors a block owns, at most
+constexpr int kMaxStageBytes = 48 * 1024 - 16;  // dynamic shared memory without opting in
 
 struct ScaleTable {
   const void* raw[kMaxScales];
   int cells[kMaxScales];
-  int start[kMaxScales + 1];  // first flat anchor index of each scale
+  int start[kMaxScales + 1];        // first flat anchor index of each scale in a row of out
+  int first_block[kMaxScales + 1];  // first block of each scale
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -34,29 +51,64 @@ __device__ __forceinline__ float sigmoidf_torch(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
 template <typename T>
-__global__ void anchor_scores_kernel(ScaleTable t, int nscales, int batch, int na,
-                                     int num_pred, float* __restrict__ out) {
-  const int n = t.start[nscales];
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)batch * n) return;
-  const int b = (int)(gid / n);
-  const int j = (int)(gid - (long long)b * n);
+__global__ void __launch_bounds__(kThreads)
+anchor_scores_kernel(ScaleTable t, int nscales, int batch, int na, int num_pred, int per_block,
+                     int staged, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char stage[];
   int s = 0;
-  while (s + 1 < nscales && j >= t.start[s + 1]) ++s;
-  const int local = j - t.start[s];
-  const int cell = local / na;
-  const int a = local - cell * na;
-  const T* row = static_cast<const T*>(t.raw[s]) +
-                 ((long long)b * t.cells[s] + cell) * (long long)(na * num_pred) +
-                 (long long)a * num_pred;
+  while (s + 1 < nscales && (int)blockIdx.x >= t.first_block[s + 1]) ++s;
+  const long long per_image = (long long)t.cells[s] * na;
+  const long long rows = per_image * batch;
+  const long long a0 = (long long)(blockIdx.x - t.first_block[s]) * per_block;
+  const int n = (int)min((long long)per_block, rows - a0);
+  const T* span = static_cast<const T*>(t.raw[s]) + a0 * num_pred;
+
+  const T* src = span;
+  if (staged) {
+    // Byte range [g, g + len) of device memory lands at [head, head + len)
+    // of the buffer, head = g mod 16, so 16-byte chunks stay aligned on both sides.
+    const uintptr_t g = reinterpret_cast<uintptr_t>(span);
+    const int len = n * num_pred * (int)sizeof(T);
+    const int head = (int)(g & 15);
+    const int body0 = min((16 - head) & 15, len);     // bytes before the first boundary
+    const int chunks = (len - body0) >> 4;
+    const int tail0 = body0 + (chunks << 4);
+    unsigned char* dst = stage + head;
+    const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(span);
+    for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+      cp_async16(dst + body0 + 16 * i, gsrc + body0 + 16 * i);
+    }
+    const int e = (int)sizeof(T);
+    for (int i = threadIdx.x; i < body0 / e; i += blockDim.x) {
+      reinterpret_cast<T*>(dst)[i] = span[i];
+    }
+    for (int i = threadIdx.x; i < (len - tail0) / e; i += blockDim.x) {
+      reinterpret_cast<T*>(dst + tail0)[i] = span[tail0 / e + i];
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+    src = reinterpret_cast<const T*>(dst);
+  }
+
+  const int j = threadIdx.x;
+  if (j >= n) return;
+  const T* row = src + (long long)j * num_pred;
   T m = row[5];
   for (int c = 6; c < num_pred; ++c) {
     const T v = row[c];
     // NaN propagates, as in the reference's max.
     if (to_float(v) > to_float(m) || to_float(v) != to_float(v)) m = v;
   }
-  out[gid] = sigmoidf_torch(to_float(row[4])) * sigmoidf_torch(to_float(m));
+  const long long q = a0 + j;  // anchor index within the scale
+  const long long b = q / per_image;
+  out[b * t.start[nscales] + t.start[s] + (q - b * per_image)] =
+      sigmoidf_torch(to_float(row[4])) * sigmoidf_torch(to_float(m));
 }
 
 }  // namespace
@@ -65,25 +117,36 @@ extern "C" int viddet_anchor_scores(const void* raw0, const void* raw1, const vo
                                     int cells0, int cells1, int cells2, int nscales,
                                     int batch, int na, int num_pred, int is_bf16,
                                     void* out, void* stream) {
+  if (nscales < 1 || nscales > kMaxScales) return (int)cudaErrorInvalidValue;
+  const int elem = is_bf16 ? 2 : 4;
+  const int row_bytes = num_pred * elem;
+  const int staged = row_bytes <= kMaxStageBytes;
+  const int per_block = staged ? min(kThreads, kMaxStageBytes / row_bytes) : kThreads;
   ScaleTable t;
   const void* raws[kMaxScales] = {raw0, raw1, raw2};
   const int cells[kMaxScales] = {cells0, cells1, cells2};
   t.start[0] = 0;
+  t.first_block[0] = 0;
   for (int s = 0; s < kMaxScales; ++s) {
+    const long long rows = s < nscales ? (long long)cells[s] * na : 0;
     t.raw[s] = raws[s];
     t.cells[s] = cells[s];
-    t.start[s + 1] = t.start[s] + (s < nscales ? cells[s] * na : 0);
+    t.start[s + 1] = t.start[s] + (int)rows;
+    t.first_block[s + 1] = t.first_block[s] + (int)((rows * batch + per_block - 1) / per_block);
   }
-  const long long total = (long long)batch * t.start[nscales];
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  // Every block of a scale owns per_block consecutive rows of the scale's
+  // whole batch.
+  const unsigned blocks = (unsigned)t.first_block[nscales];
+  const size_t smem = staged ? (size_t)per_block * row_bytes + 16 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   if (blocks > 0) {
     if (is_bf16) {
-      anchor_scores_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(t, nscales, batch, na, num_pred, o);
+      anchor_scores_kernel<__nv_bfloat16><<<blocks, kThreads, smem, st>>>(
+          t, nscales, batch, na, num_pred, per_block, staged, o);
     } else {
-      anchor_scores_kernel<float><<<blocks, threads, 0, st>>>(t, nscales, batch, na, num_pred, o);
+      anchor_scores_kernel<float><<<blocks, kThreads, smem, st>>>(
+          t, nscales, batch, na, num_pred, per_block, staged, o);
     }
   }
   return (int)cudaGetLastError();

@@ -23,6 +23,11 @@ from viddet_tpu_torch.ops.conv_cuda import conv_down2_bn_leaky
 
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.1
+# Flax's ``nn.leaky_relu(x, 0.1)`` multiplies by 0.1 in x's dtype: in bf16 by
+# bf16(0.1) = 0.10009765625.  K8 keeps LEAKY_SLOPE: it applies the slope to
+# its float32 accumulator, as the JAX package's Pallas kernel does.
+LEAKY_SLOPES = {torch.float32: LEAKY_SLOPE,
+                torch.bfloat16: float(torch.tensor(LEAKY_SLOPE, dtype=torch.bfloat16))}
 
 
 class FlaxNames:
@@ -97,7 +102,7 @@ class ConvBNLeaky(nn.Module):
         bn = self.bn
         x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                          training=False, eps=BN_EPS)
-        return F.leaky_relu(x, LEAKY_SLOPE, inplace=True)
+        return F.leaky_relu(x, LEAKY_SLOPES[x.dtype], inplace=True)
 
 
 class BiasConv(nn.Module):
