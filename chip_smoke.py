@@ -19,7 +19,9 @@ Phases, each printed as one JSON line:
             scan's chain of tile rounds); each time from torch.profiler
             windows checked to hold every launch, the kernel's and the
             library call's also from CUDA events around calls queued back
-            to back;
+            to back; K8 also per layer, with the route its shape took, its
+            bound, TB/s and TFLOP/s, the bytes its tiles read from L2 and
+            cuDNN's convolution alone;
 4. main path: YOLOv3-416 / Darknet-53 / COCO at full width in bf16 with
             seeded weights, batch 32, through ``make_predictor`` under the
             default (hierarchical) ranking; the kernel launch counts of that
@@ -110,6 +112,10 @@ DET_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_pairs": 1,
 CONV_LAUNCHES = dict(HIER_LAUNCHES, conv_down2_bn_leaky=3)
 FRCNN_LAUNCHES = {"multilevel_roi_align": 1, "nms_keep_mask": 2, "topk_indices": 1,
                   "compact_and_pad": 1}
+# K8's kernels on each route (``conv_cuda.route``), the convolution first:
+# a window times the ones its shape takes.
+K8_ROUTE_KERNELS = {"tma": ("conv_bf16_tma_kernel", "pack_weights_kernel"),
+                    "scalar": ("conv_bf16_scalar_kernel",), "f32": ("conv_f32_kernel",)}
 # The CUDA kernels each wrapper launches (substrings of the names the
 # profiler gives them): a profiler window of a call must hold them all.
 KERNEL_NAMES = {
@@ -120,7 +126,7 @@ KERNEL_NAMES = {
     "finalize_candidates": ("finalize_kernel",),
     "nms_keep_mask": ("nms_mask_kernel", "nms_scan_kernel"),
     "compact_and_pad": ("compact_kernel",),
-    "conv_down2_bn_leaky": ("conv_bf16_kernel",),
+    "conv_down2_bn_leaky": K8_ROUTE_KERNELS["tma"],  # the route of the path's three layers
     "multilevel_roi_align": ("roi_align_kernel",),
 }
 # torch.profiler windows a timing may take before the run fails; a window
@@ -600,13 +606,40 @@ def k5_serial_bound(dev, build, k: int) -> dict:
                 serial_bound_ms=words * round_ns * 1e-6)
 
 
+def k8_l2_bytes(b: int, cin: int, cout: int, hw: int) -> dict:
+    """Bytes the TMA kernel's tiles fetch from L2 on one call: each chunk's
+    input box (its cells inside the tensor map; the rest are zero-filled,
+    not read) and weight box (N rows of 128 bytes), for every tile."""
+    from viddet_tpu_torch.ops import conv_cuda
+
+    h2 = w2 = hw // 2
+    r, c = conv_cuda.tile_shape(h2, w2)
+    n = conv_cuda.tile_n(cout)
+    tiles_y, tiles_x, tiles_n = -(-h2 // r), -(-w2 // c), -(-cout // n)
+    x_bytes = 0
+    for row, _, col, c0, _, _ in conv_cuda.k_schedule(cin):
+        rows = sum(min(r, max(0, h2 - (ty * r + row))) for ty in range(tiles_y))
+        cols = sum(min(c, max(0, w2 - (tx * c + col))) for tx in range(tiles_x))
+        chans = min(conv_cuda.CHUNK, (cin if col else 2 * cin) - c0)
+        x_bytes += rows * cols * chans * 2
+    chunks = len(conv_cuda.k_schedule(cin))
+    w_bytes = tiles_y * tiles_x * sum(min(n, cout - n0) for n0 in range(0, cout, n)) \
+        * chunks * conv_cuda.CHUNK * 2
+    return dict(input=b * tiles_n * x_bytes, weights=b * w_bytes,
+                tiles=b * tiles_y * tiles_x * tiles_n, tile=[r, c],
+                tile_waste=conv_cuda.tile_waste(h2, w2, r, c))
+
+
 def conv_kernel_phase(dev) -> dict:
     """K8 at the three Darknet-53 layers it takes at batch 32 and 416 px and
     at one narrow edge shape, in bf16 and float32, against its plain
-    version; times summed over the three layers (and the kernel's and the
-    library call's per layer), with the present
-    ``ConvBNLeaky`` path (cuDNN convolution, BatchNorm, leaky ReLU) as the
-    library call."""
+    version, with the route each shape took; times summed over the three
+    layers and per layer, with the present ``ConvBNLeaky`` path (cuDNN
+    convolution, BatchNorm, leaky ReLU) as the library call.  Per layer
+    also: its bound, TB/s and TFLOP/s, the route's kernel alone
+    (``kernel_only_ms``; ``ms`` holds the wrapper's weight packing too), the
+    bytes its tiles read from L2, and cuDNN's ``F.conv2d`` alone on the
+    padded bf16 input (``conv_only_ms``, a yardstick for the GEMM part)."""
     import torch
     import torch.nn.functional as F
 
@@ -636,10 +669,14 @@ def conv_kernel_phase(dev) -> dict:
             check(tuple(got.shape) == (b, cout, hw // 2, hw // 2) and got.dtype == x.dtype
                   and got.is_contiguous(memory_format=torch.channels_last), "K8 output")
             checks.append(dict(shape=[b, cin, cout, hw], dtype=str(x.dtype).split(".")[-1],
+                               route=conv_cuda.route(x, cout),
                                **k8_compare(got, conv_cuda.conv_down2_bn_leaky_plain(*xa),
                                             x, args[1], a)))
         if b != B:
             continue
+        route = conv_cuda.route(args[0], cout)
+        names = K8_ROUTE_KERNELS[route]
+        check(names == KERNEL_NAMES["conv_down2_bn_leaky"], f"K8 path layer route {route}")
         layer = ConvBNLeaky(cin, cout, 3, stride=2).to(dev).eval()
         layer.conv.weight.copy_(args[1])
         for p, v in zip((layer.bn.weight, layer.bn.bias, layer.bn.running_mean,
@@ -648,14 +685,30 @@ def conv_kernel_phase(dev) -> dict:
         kernel_fns.append(lambda args=args: conv_cuda.conv_down2_bn_leaky(*args))
         plain_fns.append(lambda args=args: conv_cuda.conv_down2_bn_leaky_plain(*args))
         library_fns.append(lambda layer=layer, x=args[0]: layer(x))
-        per_layer.append(dict(shape=[b, cin, cout, hw],
-                              **timings(kernel_fns[-1], None, library_fns[-1],
-                                        names=KERNEL_NAMES["conv_down2_bn_leaky"])))
         m = b * (hw // 2) ** 2
-        nbytes += b * hw * hw * cin * 2 + 9 * cin * cout * 2 + cout * 8 + m * cout * 2
-        ops += 2 * m * cout * 9 * cin
+        layer_bytes = b * hw * hw * cin * 2 + 9 * cin * cout * 2 + cout * 8 + m * cout * 2
+        layer_ops = 2 * m * cout * 9 * cin
+        nbytes += layer_bytes
+        ops += layer_ops
+        row = dict(shape=[b, cin, cout, hw], route=route,
+                   bound=bound_ms(layer_bytes, layer_ops, "bf16_tensor"),
+                   **timings(kernel_fns[-1], None, library_fns[-1], names=names))
+        events = profile_kernels(kernel_fns[-1], 10, names)
+        row["kernel_only_ms"] = sum(ms for key, (ms, _) in events.items() if names[0] in key) / 10
+        xpad = F.pad(args[0], (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+        wconv = args[1].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        conv_only = lambda xpad=xpad, wconv=wconv: F.conv2d(xpad, wconv, stride=2)
+        row["conv_only_ms"] = device_ms(conv_only, 10)
+        row["conv_only_queued_ms"] = queued_ms(conv_only)
+        l2 = k8_l2_bytes(b, cin, cout, hw)
+        row.update(tb_per_s=layer_bytes / row["kernel_only_ms"] / 1e9,
+                   tflop_per_s=layer_ops / row["kernel_only_ms"] / 1e9,
+                   l2_bytes=l2, hbm_bytes=layer_bytes,
+                   persistent_blocks=min(l2["tiles"], torch.cuda.get_device_properties(dev)
+                                         .multi_processor_count))
+        per_layer.append(row)
     worst = max(checks, key=lambda r: r["max_abs_err"])
-    return dict(
+    total = dict(
         max_abs_err=worst["max_abs_err"], checks=checks, per_layer=per_layer,
         bound=bound_ms(nbytes, ops, "bf16_tensor"),
         **timings(lambda: [f() for f in kernel_fns], lambda: [f() for f in plain_fns],
@@ -663,6 +716,9 @@ def conv_kernel_phase(dev) -> dict:
                   names=KERNEL_NAMES["conv_down2_bn_leaky"]),
         library="ConvBNLeaky default path: F.pad, cuDNN F.conv2d, F.batch_norm, F.leaky_relu",
     )
+    for key in ("kernel_only_ms", "conv_only_ms"):
+        total[key] = sum(r[key] for r in per_layer)
+    return total
 
 
 def roi_align_traffic(pyramid, rois, strides) -> dict:
@@ -1091,6 +1147,8 @@ def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
     default_step_ms = median_ms(lambda: predictor(batch), reps=10)
     default_timing = end_to_end(dev, predictor, images, bs, 10)
     result = {"phase": "conv_configuration", "conv_backend": "pallas", "batch": bs,
+              "frames_per_s": timing["frames_per_s"],
+              "default_frames_per_s": default_timing["frames_per_s"],
               "launches": launches, "kept_detections": kept, "heads_vs_default": heads,
               "head_rel_l2_limit": CONV_HEAD_REL_L2, "step_ms": step_ms, "end_to_end": timing,
               "default_step_ms_after": default_step_ms, "default_end_to_end_after": default_timing}

@@ -26,6 +26,7 @@ from viddet_tpu_torch.core import platform
 from viddet_tpu_torch.core.precision import FLOAT32_POLICY as TORCH_F32
 from viddet_tpu_torch.models import common
 from viddet_tpu_torch.models.darknet import Darknet53
+from viddet_tpu_torch.ops import conv_cuda
 from viddet_tpu_torch.ops.conv_cuda import conv_down2_bn_leaky, conv_down2_bn_leaky_plain
 from viddet_tpu_torch.weights import load_flat
 
@@ -167,3 +168,111 @@ def test_darknet53_k8_route_matches_jax_pallas_interpret(tmp_path, conv_backend_
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         np.testing.assert_allclose(_nhwc(g), np.asarray(w), rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------------ the TMA kernel's plan
+# The card's K8 kernel reduces over the 64-channel chunks that
+# ``k_schedule`` lists, each a box of the pair view (B, H/2, 2, W/2, 2*Cin)
+# whose out-of-bounds cells (the SAME pad, a ragged chunk's channels past
+# the box) read as zero, times the matching columns of the weights as the
+# kernel's ``pack_weights_kernel`` packs them (``pack_weight``).  Here that
+# reduction runs in numpy with the same out-of-bounds rule.
+
+K8_PATH_LAYERS = ((32, 64, 416), (64, 128, 208), (128, 256, 104))  # (Cin, Cout, H = W)
+
+
+def pack_weight(weight: torch.Tensor, schedule, dtype) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the TMA kernel's K-major (Cout, 64 * chunks):
+    chunk j's weight rows at columns [64 j, 64 j + width), zeros after."""
+    cout, cin = weight.shape[:2]
+    wmat = weight.to(dtype).permute(0, 2, 3, 1).reshape(cout, 9 * cin)  # (dy, dx, ci) order
+    packed = wmat.new_zeros((cout, conv_cuda.CHUNK * len(schedule)))
+    for j, (*_, width, row0) in enumerate(schedule):
+        packed[:, conv_cuda.CHUNK * j:conv_cuda.CHUNK * j + width] = wmat[:, row0:row0 + width]
+    return packed
+
+
+def _schedule_conv(x, packed, schedule):
+    """sum over chunks of box(x) @ packed chunk, float64, out (B, H2, W2, Cout)."""
+    b, h, w, cin = x.shape
+    h2, w2 = h // 2, w // 2
+    pair = x.astype(np.float64).reshape(b, h2, 2, w2, 2 * cin)
+    # one pair row and column past the edge, channels past the widest box: all zero
+    padded = np.zeros((b, h2 + 1, 2, w2 + 1, 2 * cin + conv_cuda.CHUNK))
+    padded[:, :h2, :, :w2, :2 * cin] = pair
+    acc = np.zeros((b, h2, w2, packed.shape[0]))
+    for j, (row, parity, col, c0, _, _) in enumerate(schedule):
+        extent = cin if col else 2 * cin  # the map's channels: past them reads zero
+        box = padded[:, row:row + h2, parity, col:col + w2, c0:c0 + conv_cuda.CHUNK].copy()
+        box[..., max(0, extent - c0):] = 0.0
+        acc += box @ packed[:, conv_cuda.CHUNK * j:conv_cuda.CHUNK * (j + 1)].T.astype(np.float64)
+    return acc
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", [
+    *((1, cin, cout, hw, hw) for cin, cout, hw in K8_PATH_LAYERS),
+    (2, 4, 8, 18, 26), (1, 40, 24, 26, 18), (1, 248, 16, 18, 18), (2, 96, 64, 10, 14),
+    (1, 192, 264, 6, 22),
+])
+def test_tma_schedule_reproduces_the_plain_conv(b, cin, cout, h, w):
+    """The chunk boxes with their zero fill, times the packed weights, then
+    the affine and leaky ReLU, equal the plain version in float32 within
+    1e-5 of the sum of |products| (the orders of summation differ)."""
+    x, k, *vecs = _rand_case(np.random.default_rng(cin + cout), b, h, w, cin, cout)
+    tx, tw, *tvecs = _torch_args(x, k, *vecs)
+    schedule = conv_cuda.k_schedule(cin)
+    packed = pack_weight(tw, schedule, torch.float32).numpy()
+    acc = _schedule_conv(x, packed, schedule)
+    a, bb = (t.numpy().astype(np.float64) for t in conv_cuda.fold_bn(*tvecs, 1e-5))
+    y = acc * a + bb
+    got = np.where(y >= 0, y, y * 0.1)
+    want = _nhwc(conv_down2_bn_leaky_plain(tx, tw, *tvecs))
+    abs_sum = _schedule_conv(np.abs(x), np.abs(packed), schedule) * np.abs(a)
+    np.testing.assert_array_less(np.abs(got - want), 1e-5 * abs_sum + 1e-6)
+
+
+@pytest.mark.parametrize("cin", [1, 4, 8, 32, 40, 64, 96, 128, 192, 248, 255])
+def test_tma_schedule_covers_each_weight_row_once(cin):
+    schedule = conv_cuda.k_schedule(cin)
+    rows = [r for *_, width, row0 in schedule for r in range(row0, row0 + width)]
+    assert sorted(rows) == list(range(9 * cin))
+    assert len(schedule) <= 36  # the kernel's kMaxChunks
+    for row, parity, col, c0, width, row0 in schedule:
+        dy = 2 * row + parity
+        assert c0 % conv_cuda.CHUNK == 0 and 1 <= width <= conv_cuda.CHUNK
+        # weight row (dy, dx, ci) of the box's first channel
+        assert row0 == 3 * cin * dy + (2 * cin if col else 0) + c0
+        assert c0 + width == min(c0 + conv_cuda.CHUNK, cin if col else 2 * cin)
+    w = torch.randn((8, cin, 3, 3), generator=torch.Generator().manual_seed(cin))
+    packed = pack_weight(w, schedule, torch.float32)
+    wmat = w.permute(0, 2, 3, 1).reshape(8, 9 * cin)
+    for j, (*_, width, row0) in enumerate(schedule):
+        chunk = packed[:, conv_cuda.CHUNK * j:conv_cuda.CHUNK * (j + 1)]
+        assert torch.equal(chunk[:, :width], wmat[:, row0:row0 + width])
+        assert not chunk[:, width:].any()
+
+
+def test_tma_tile_shapes_of_the_path_layers():
+    """256-pixel tiles: exact at 208 x 208, 13.8 % padded pixels at
+    104 x 104, 18.75 % at 52 x 52; each warpgroup's half is whole rows;
+    64 output channels a tile where Cout fits, else 128."""
+    got = [conv_cuda.tile_shape(hw // 2, hw // 2) for _, _, hw in K8_PATH_LAYERS]
+    assert got == [(16, 16), (16, 16), (4, 64)]
+    assert [conv_cuda.tile_n(cout) for _, cout, _ in K8_PATH_LAYERS] == [64, 128, 128]
+    assert [conv_cuda.tile_n(cout) for cout in (8, 64, 72, 264)] == [64, 64, 128, 128]
+    wastes = [conv_cuda.tile_waste(hw // 2, hw // 2, *rc) for (_, _, hw), rc
+              in zip(K8_PATH_LAYERS, got)]
+    np.testing.assert_allclose(wastes, [0.0, 1 - 104 ** 2 / 112 ** 2, 0.1875])
+    assert all(r * c == conv_cuda.TILE_M and r % 2 == 0 for r, c in conv_cuda.TILE_SHAPES)
+
+
+def test_route_by_shape():
+    def x(cin, dtype=torch.bfloat16):
+        return torch.zeros((1, cin, 4, 4), dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    assert conv_cuda.route(x(32), 64) == "tma"
+    assert conv_cuda.route(x(4), 8) == "tma"
+    assert conv_cuda.route(x(6), 8) == "scalar"  # a pair column of 24 bytes
+    assert conv_cuda.route(x(8), 12) == "scalar"  # an output row of 24 bytes
+    assert conv_cuda.route(x(32, torch.float32), 64) == "f32"

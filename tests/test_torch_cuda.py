@@ -387,10 +387,23 @@ def _conv_case(dev, b, cin, cout, h, w, dtype, seed):
     return x, weight, vecs
 
 
+# Darknet-53's three K8 layers at 416 px: (Cin, Cout, H = W)
+K8_PATH_LAYERS = ((32, 64, 416), (64, 128, 208), (128, 256, 104))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,cin,cout,h,w", [
     (2, 8, 16, 18, 18), (1, 3, 5, 6, 10),  # Cin, Cout not multiples of 8: scalar loads
     (3, 24, 40, 34, 12), (1, 255, 72, 8, 8), (2, 64, 136, 130, 66),
+    # the path's three layers at batch 2
+    *((2, cin, cout, hw, hw) for cin, cout, hw in K8_PATH_LAYERS),
+    # Cin giving ragged 64-channel chunks (2*Cin or Cin not a multiple of 64)
+    (1, 4, 16, 18, 26), (2, 40, 64, 26, 18), (1, 96, 128, 52, 52), (1, 192, 64, 20, 28),
+    (1, 248, 16, 18, 18),
+    # Cout past one N tile, or not a multiple of 64
+    (1, 32, 8, 26, 26), (2, 16, 24, 18, 52), (1, 64, 256, 26, 26), (1, 32, 264, 18, 18),
+    # W/2 and H/2 that no tile side divides
+    (1, 32, 64, 18, 104), (1, 64, 128, 52, 26), (2, 16, 32, 104, 208), (1, 32, 64, 208, 52),
 ])
 def test_conv_down2_equals_plain(dev, dtype, b, cin, cout, h, w):
     x, weight, vecs = _conv_case(dev, b, cin, cout, h, w, dtype, cin + cout)
@@ -399,6 +412,57 @@ def test_conv_down2_equals_plain(dev, dtype, b, cin, cout, h, w):
     want = conv_cuda.conv_down2_bn_leaky_plain(x, weight, *vecs)
     assert got.shape == want.shape == (b, cout, h // 2, w // 2) and got.dtype == dtype
     assert got.is_contiguous(memory_format=torch.channels_last)
+    k8_compare(got, want, x, weight, conv_cuda.fold_bn(*vecs, 1e-5)[0])
+
+
+def _k8_kernels_run(fn) -> set:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "_kernel" in e.key}
+
+
+@pytest.mark.parametrize("cin,cout,hw", K8_PATH_LAYERS)
+def test_conv_down2_path_layers_take_the_tma_route(dev, cin, cout, hw):
+    x, weight, vecs = _conv_case(dev, 2, cin, cout, hw, hw, torch.bfloat16, cin)
+    assert conv_cuda.route(x, cout) == "tma"
+    ran = _k8_kernels_run(lambda: conv_cuda.conv_down2_bn_leaky(x, weight, *vecs))
+    assert any("conv_bf16_tma_kernel" in k for k in ran), ran
+    assert any("pack_weights_kernel" in k for k in ran), ran
+    assert not any("scalar" in k for k in ran), ran
+
+
+def test_conv_down2_unaligned_x_takes_the_scalar_route(dev):
+    b, cin, cout, h, w = 2, 32, 64, 18, 26
+    x, weight, vecs = _conv_case(dev, b, cin, cout, h, w, torch.bfloat16, 5)
+    base = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
+    nhwc = base[1:1 + x.numel()].view(b, h, w, cin)
+    nhwc.copy_(x.permute(0, 2, 3, 1))
+    shifted = nhwc.permute(0, 3, 1, 2)  # channels_last, 2 bytes past a 16-byte boundary
+    assert shifted.is_contiguous(memory_format=torch.channels_last)
+    assert shifted.data_ptr() % 16 and conv_cuda.route(shifted, cout) == "scalar"
+    got = conv_cuda.conv_down2_bn_leaky(shifted, weight, *vecs)
+    ran = _k8_kernels_run(lambda: conv_cuda.conv_down2_bn_leaky(shifted, weight, *vecs))
+    assert any("conv_bf16_scalar_kernel" in k for k in ran), ran
+    assert not any("tma" in k for k in ran), ran
+    want = conv_cuda.conv_down2_bn_leaky_plain(x, weight, *vecs)
+    k8_compare(got, want, x, weight, conv_cuda.fold_bn(*vecs, 1e-5)[0])
+
+
+@pytest.mark.parametrize("b,cin,cout,hw", [(16, 32, 64, 416), (32, 64, 128, 208)])
+def test_conv_down2_many_tiles_per_persistent_block(dev, b, cin, cout, hw):
+    """Path layers at a batch whose tiles outnumber the SMs tenfold: each
+    persistent block walks many tiles, so the ring's phases wrap often
+    and the producer runs ahead across tile boundaries."""
+    x, weight, vecs = _conv_case(dev, b, cin, cout, hw, hw, torch.bfloat16, b)
+    h2 = hw // 2
+    r, c = conv_cuda.tile_shape(h2, h2)
+    tiles = b * -(-h2 // r) * -(-h2 // c) * -(-cout // conv_cuda.tile_n(cout))
+    assert tiles >= 10 * torch.cuda.get_device_properties(dev).multi_processor_count
+    got = conv_cuda.conv_down2_bn_leaky(x, weight, *vecs)
+    want = conv_cuda.conv_down2_bn_leaky_plain(x, weight, *vecs)
     k8_compare(got, want, x, weight, conv_cuda.fold_bn(*vecs, 1e-5)[0])
 
 

@@ -3,7 +3,9 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a`` (Hopper), and the objects are linked into
 one shared library with a plain C interface that ``ctypes`` loads.  No
-source includes PyTorch's headers, so a build takes seconds.
+source includes PyTorch's headers, so a build takes seconds, and the
+link needs no ``-lcuda``: K8's TMA tensor maps are encoded through the
+entry point that ``cudaGetDriverEntryPoint`` hands out.
 
 The build runs at first use, into ``build/viddet_tpu_torch/<hash>/`` at
 the repository root (``build/`` is git-ignored), keyed by a hash of the
@@ -67,9 +69,12 @@ SIGNATURES = {
                                    _P],
     # i_m, hot_idx, q, boxes_k, batch, k, m, c, hot_j, topk, cls, cand, stream
     "viddet_finalize_candidates": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # x (NHWC), w (9*Cin, Cout), a, b (Cout float32), batch, h, w, cin, cout,
-    # slope, is_bf16, out (NHWC), stream
-    "viddet_conv_down2_bn_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P],
+    # x (NHWC), w, w_is_bf16, a, b (Cout float32), batch, h, w, cin, cout,
+    # slope, is_bf16, chunk schedule (host int array or NULL), chunks, tile
+    # rows, tile columns, tile channels, packed weights (scratch or NULL), out
+    # (NHWC), stream
+    "viddet_conv_down2_bn_leaky": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _I, _I,
+                                   _I, _I, _P, _P, _P],
     # feat0..feat3, heights, widths, strides (host arrays), nlevels, batch,
     # rois per image, c, is_bf16, rois, levels, out, stream
     "viddet_roi_align": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
