@@ -10,18 +10,20 @@ Phases, each printed as one JSON line:
 1. device:  the card's name and power limit (``nvidia-smi``);
 2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-            the main paths' shapes plus edge cases (K1 also at batch 128;
-            K7 with the cells and L2 bytes its rois read, K5 at K = 1000
-            and at K = 400 at batch 8, and K2 at N = 24,000 at the Faster
-            R-CNN path's), with its time (K5's mask and scan kernels apart), the
-            plain version's time, a PyTorch library call's time where one
+            the main paths' shapes plus edge cases (K1 and K3-m9 also at
+            batch 128; K7 with the cells and L2 bytes its rois read, K5 at
+            K = 1000 and at K = 400 at batch 8, and K2 at N = 24,000 at the
+            Faster R-CNN path's), with its time (a wrapper's kernels apart
+            where it launches several: K5's mask and scan), the plain
+            version's time, a PyTorch library call's time where one
             computes the same function, and its bound (K5 also beside its
             scan's chain of tile rounds); each time from torch.profiler
             windows checked to hold every launch, the kernel's and the
             library call's also from CUDA events around calls queued back
             to back; K8 also per layer, with the route its shape took, its
             bound, TB/s and TFLOP/s, the bytes its tiles read from L2 and
-            cuDNN's convolution alone;
+            cuDNN's convolution alone; and the launch floor, an empty
+            kernel's device time;
 4. main path: YOLOv3-416 / Darknet-53 / COCO at full width in bf16 with
             seeded weights, batch 32, through ``make_predictor`` under the
             default (hierarchical) ranking; the kernel launch counts of that
@@ -122,7 +124,7 @@ KERNEL_NAMES = {
     "anchor_scores": ("anchor_scores_kernel",),
     "topk_indices": ("topk_radix_select_kernel",),
     "gather_decode_pairs": ("gather_decode_kernel",),
-    "gather_decode_top_m": ("gather_decode_top_m_kernel", "hot_rows_kernel"),
+    "gather_decode_top_m": ("gather_decode_top_m_kernel",),
     "finalize_candidates": ("finalize_kernel",),
     "nms_keep_mask": ("nms_mask_kernel", "nms_scan_kernel"),
     "compact_and_pad": ("compact_kernel",),
@@ -239,28 +241,26 @@ def queued_ms(fn, reps: int = 20):
     return start.elapsed_time(end) / reps
 
 
-def k5_parts(fn) -> dict:
-    """K5's two kernels' device times per call, by name."""
-    reps = 10
-    events = profile_kernels(fn, reps, KERNEL_NAMES["nms_keep_mask"])
-    return {f"{part}_ms": sum(ms for key, (ms, _) in events.items()
-                              if f"nms_{part}_kernel" in key) / reps
-            for part in ("mask", "scan")}
-
-
 def timings(kernel, plain, library=None, plain_reps: int = 10, names=()) -> dict:
     """``ms`` / ``plain_ms`` / ``library_ms``: device time per call from the
     profiler, each window holding every kernel in ``names`` that ``kernel``
     launches; ``queued_ms`` / ``library_queued_ms`` the same time from CUDA
     events around calls queued back to back (``queued_ms``);
-    ``*call_ms``: CUDA-event time per call, launch overhead included."""
+    ``*call_ms``: CUDA-event time per call, launch overhead included.
+    Where ``names`` holds more than one kernel, ``parts_ms`` gives each
+    one's device time per call from the same window."""
     out = {"library_ms": None}
     for key, fn, reps, want in (("", kernel, 20, names), ("plain_", plain, plain_reps, ()),
                                 ("library_", library, 20, ())):
         if fn is None:
             continue
         out[f"{key}call_ms"] = median_ms(fn, reps=reps)
-        out[f"{key}ms"] = device_ms(fn, min(reps, 10), want)
+        reps = min(reps, 10)
+        events = profile_kernels(fn, reps, want)
+        out[f"{key}ms"] = sum(ms for ms, _ in events.values()) / reps
+        if len(want) > 1:
+            out["parts_ms"] = {n: sum(ms for kname, (ms, _) in events.items() if n in kname)
+                                   / reps for n in want}
         if key != "plain_":  # the plain versions synchronise
             out[f"{key}queued_ms"] = queued_ms(fn)
     return out
@@ -389,9 +389,9 @@ def kernel_phase(dev):
              for c in CELLS]
     rows["anchor_scores"] = k1_row(cells)
     g128 = torch.Generator(device="cpu").manual_seed(128)
-    rows["anchor_scores_b128"] = k1_row([
-        torch.randn((4 * B, c, NA * NUM_PRED), generator=g128).mul_(3).to(dev, torch.bfloat16)
-        for c in CELLS])
+    cells128 = [torch.randn((4 * B, c, NA * NUM_PRED), generator=g128).mul_(3)
+                .to(dev, torch.bfloat16) for c in CELLS]
+    rows["anchor_scores_b128"] = k1_row(cells128)
     stage1 = nms_gather_cuda.anchor_scores(cells, NA)
 
     # K2: stage-1 scores (bf16 logits: many exact ties) and stage-2 pair
@@ -458,42 +458,52 @@ def kernel_phase(dev):
     # K3, extract_m=9 (the hierarchical form): winners in K2's ascending
     # order, as the hierarchical tail passes them, with the repeat and
     # first/last-index rows above, and image 3 made so that its boxes tie on
-    # their 9th value (objectness all equal, class logits on three levels).
-    tie_cells = [c.clone() for c in cells]
-    for x in tie_cells:
-        v = x[3].view(x.shape[1], NA, NUM_PRED)
-        v[..., 4] = 1.0
-        v[..., 5:] = v[..., 5:].float().round().clamp(-1, 1).to(x.dtype)
-    h_idx = topk_cuda.topk_indices(nms_gather_cuda.anchor_scores(tie_cells, NA), K)
-    h_idx[1, :K // 2] = h_idx[1, K // 2:]
-    h_idx[2, 0], h_idx[2, 1] = 0, N - 1
-    worst_abs, ninth_ties = 0.0, 0
-    for xs in (tie_cells, [c.float() for c in tie_cells]):
-        got9 = nms_gather_cuda.gather_decode_top_m(xs, h_idx, meta, TOP_M, HOT_J)
-        want9 = nms_gather_cuda.gather_decode_pairs_plain(xs, h_idx, meta, TOP_M, HOT_J)
-        check([tuple(t.shape) for t in got9] == [(B, K, 4), (B, K, TOP_M), (B, K, TOP_M),
-                                                 (B, HOT_J, C), (B, 1, HOT_J)], "K3-m9 shapes")
-        check(all(equal(a, b) for a, b in zip(got9, want9)), "K3-m9 equal to plain")
-        worst_abs = max(worst_abs, max(float((a - b).abs().max().item())
-                                       for a, b in zip(got9, want9)))
-        ninth = got9[1][3, :, TOP_M - 1]
-        ninth_ties = max(ninth_ties, int((ninth == ninth[got9[4][3, 0, -1]]).sum().item()))
-    check(ninth_ties > HOT_J, f"K3-m9: image 3 ties on the 9th value ({ninth_ties} boxes)")
-    a_hier = topk_cuda.topk_indices(stage1, K)  # the main path's winners, ascending
-    rows["gather_decode_top_m"] = dict(
-        max_abs_err=worst_abs, ninth_value_ties=ninth_ties,
-        # each winner's 5+C bf16 lanes and its index read; boxes, v_m, i_m
-        # and the hot rows and ids written; per winner 4 operations a class
-        # lane, about 30 for the box, 2 a class lane per top-m step, and 3
-        # a pair of the per-image rank
-        bound=bound_ms(B * K * (NUM_PRED * 2 + 8) + B * K * (16 + TOP_M * 12)
-                       + B * HOT_J * (C * 4 + 8),
-                       B * K * (C * 4 + 30 + TOP_M * C * 2) + B * K * K * 3),
-        **timings(lambda: nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M, HOT_J),
-                  lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_hier, meta, TOP_M,
-                                                                    HOT_J),
-                  names=KERNEL_NAMES["gather_decode_top_m"]),
-    )
+    # their 9th value (objectness all equal, class logits on three levels);
+    # timed on the main path's winners, at batch 32 and 128.
+    def k3m9_row(cells):
+        b = cells[0].shape[0]
+        tie_cells = [c.clone() for c in cells]
+        for x in tie_cells:
+            v = x[3].view(x.shape[1], NA, NUM_PRED)
+            v[..., 4] = 1.0
+            v[..., 5:] = v[..., 5:].float().round().clamp(-1, 1).to(x.dtype)
+        h_idx = topk_cuda.topk_indices(nms_gather_cuda.anchor_scores(tie_cells, NA), K)
+        h_idx[1, :K // 2] = h_idx[1, K // 2:]
+        h_idx[2, 0], h_idx[2, 1] = 0, N - 1
+        worst_abs, ninth_ties = 0.0, 0
+        for xs in (tie_cells, [c.float() for c in tie_cells]):
+            got9 = nms_gather_cuda.gather_decode_top_m(xs, h_idx, meta, TOP_M, HOT_J)
+            want9 = nms_gather_cuda.gather_decode_pairs_plain(xs, h_idx, meta, TOP_M, HOT_J)
+            check([tuple(t.shape) for t in got9] == [(b, K, 4), (b, K, TOP_M), (b, K, TOP_M),
+                                                     (b, HOT_J, C), (b, 1, HOT_J)], "K3-m9 shapes")
+            check(all(equal(x, y) for x, y in zip(got9, want9)),
+                  f"K3-m9 at batch {b} equal to plain")
+            worst_abs = max(worst_abs, max(float((x - y).abs().max().item())
+                                           for x, y in zip(got9, want9)))
+            ninth = got9[1][3, :, TOP_M - 1]
+            ninth_ties = max(ninth_ties, int((ninth == ninth[got9[4][3, 0, -1]]).sum().item()))
+        check(ninth_ties > HOT_J, f"K3-m9: image 3 ties on the 9th value ({ninth_ties} boxes)")
+        del tie_cells, xs, got9, want9
+        a_hier = topk_cuda.topk_indices(nms_gather_cuda.anchor_scores(cells, NA), K)
+        return a_hier, dict(
+            batch=b, max_abs_err=worst_abs, ninth_value_ties=ninth_ties,
+            # each winner's 5+C bf16 lanes and its index read; boxes, v_m, i_m
+            # and the hot rows and ids written; per winner 4 operations a class
+            # lane, about 30 for the box, 2 a class lane per top-m step, and 3
+            # a pair of the per-image rank
+            bound=bound_ms(b * K * (NUM_PRED * 2 + 8) + b * K * (16 + TOP_M * 12)
+                           + b * HOT_J * (C * 4 + 8),
+                           b * K * (C * 4 + 30 + TOP_M * C * 2) + b * K * K * 3),
+            **timings(lambda: nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M,
+                                                                  HOT_J),
+                      lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_hier, meta,
+                                                                        TOP_M, HOT_J),
+                      names=KERNEL_NAMES["gather_decode_top_m"]),
+        )
+
+    a_hier, rows["gather_decode_top_m"] = k3m9_row(cells)
+    rows["gather_decode_top_m_b128"] = k3m9_row(cells128)[1]
+    del cells128
 
     # K4: the main path's merged stage-2 ranking of those heads, with winners
     # forced into both sections (the first and last of each).
@@ -557,7 +567,6 @@ def kernel_phase(dev):
         **timings(lambda: nms_cuda.nms_keep_mask(offset, valid, 0.45),
                   lambda: nms_cuda.nms_keep_mask_plain(offset, valid, 0.45), plain_reps=5,
                   names=KERNEL_NAMES["nms_keep_mask"]),
-        **k5_parts(lambda: nms_cuda.nms_keep_mask(offset, valid, 0.45)),
     )
 
     # K6: the keep mask above, with an all-kept and a none-kept row.
@@ -604,6 +613,22 @@ def k5_serial_bound(dev, build, k: int) -> dict:
     round_ns = scan_round_ns(dev, build, k)
     return dict(serial_steps=words, scan_round_ns=round_ns,
                 serial_bound_ms=words * round_ns * 1e-6)
+
+
+def launch_floor_ms(dev, build) -> dict:
+    """The least device time a launch shows on this card: an empty kernel
+    of one block (csrc/latency_probe.cu) through the same C interface as
+    the port's kernels, under the profiler (``device``) and on CUDA events
+    behind a spin kernel (``queued``)."""
+    import torch
+
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        build.check(lib.viddet_launch_floor_probe(stream), "launch_floor_probe")
+
+    return dict(device=device_ms(run, 10, ("launch_floor_kernel",)), queued=queued_ms(run))
 
 
 def k8_l2_bytes(b: int, cin: int, cout: int, hw: int) -> dict:
@@ -871,7 +896,6 @@ def frcnn_kernel_phase(dev) -> dict:
         **timings(lambda: nms_cuda.nms_keep_mask(boxes, valid, 0.7),
                   lambda: nms_cuda.nms_keep_mask_plain(boxes, valid, 0.7), plain_reps=3,
                   names=KERNEL_NAMES["nms_keep_mask"]),
-        **k5_parts(lambda: nms_cuda.nms_keep_mask(boxes, valid, 0.7)),
     )
     # K5 at K = 400, batch 8, IoU 0.5 (the detections' NMS): the first 400
     # of those boxes, with image 1's duplicates and image 2 all invalid.
@@ -886,7 +910,6 @@ def frcnn_kernel_phase(dev) -> dict:
         **timings(lambda: nms_cuda.nms_keep_mask(b400, v400, 0.5),
                   lambda: nms_cuda.nms_keep_mask_plain(b400, v400, 0.5), plain_reps=3,
                   names=KERNEL_NAMES["nms_keep_mask"]),
-        **k5_parts(lambda: nms_cuda.nms_keep_mask(b400, v400, 0.5)),
     )
 
     # K2 at the detection ranking: softmax probabilities of 300 rois x 81
@@ -1381,7 +1404,8 @@ def main() -> int:
         rows = kernel_phase(dev)
         rows["conv_down2_bn_leaky"] = conv_kernel_phase(dev)
         rows.update(frcnn_kernel_phase(dev))
-    emit({"phase": "kernels_vs_plain", "nvidia_smi": smi, "rows": rows})
+    emit({"phase": "kernels_vs_plain", "nvidia_smi": smi,
+          "launch_floor_ms": launch_floor_ms(dev, build), "rows": rows})
 
     model, predictor, images, launches, head_out = main_path_phase(dev, kernels)
     launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
@@ -1399,7 +1423,7 @@ def main() -> int:
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
          "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],
          "library_ms": rows[name]["library_ms"],
-         **{key: rows[name][key] for key in ("mask_ms", "scan_ms", "queued_ms",
+         **{key: rows[name][key] for key in ("parts_ms", "queued_ms",
                                              "library_queued_ms") if key in rows[name]}}
         for name, (_, src, tpu, path) in table.items()
     ]})

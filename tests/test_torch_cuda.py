@@ -261,20 +261,42 @@ def test_nms_keep_mask_batch_past_65535(dev):
     assert torch.equal(got, nms_cuda.nms_keep_mask_plain(boxes, valid, 0.45))
 
 
-@pytest.mark.parametrize("k,post", [(400, 100), (37, 100), (1, 1), (300, 299)])
-def test_compact_and_pad_equals_plain(dev, k, post):
+def _compact_rows(k, post, b=5):
     g = _gen(k + post)
-    b = 5
     keep = (torch.rand((b, k), generator=g) > 0.5).float()
     keep[0] = 1.0
     keep[1] = 0.0
     scores = torch.sort(torch.rand((b, k), generator=g), dim=1, descending=True).values
     cls = torch.randint(0, 80, (b, k), generator=g).float()
     boxes = torch.rand((b, k, 4), generator=g) * 400
-    args = [t.to(dev) for t in (keep, scores, cls, boxes)]
+    return keep, scores, cls, boxes
+
+
+# k past 1024 runs the kernel's tile loop; post > k fills past the kept rows.
+@pytest.mark.parametrize("k,post", [(400, 100), (37, 100), (1, 1), (300, 299), (1024, 1000),
+                                    (1025, 1025), (2000, 1500), (2000, 100), (5, 2000),
+                                    (400, 1100)])
+def test_compact_and_pad_equals_plain(dev, k, post):
+    args = [t.to(dev) for t in _compact_rows(k, post)]
     got = nms_cuda.compact_and_pad(*args, post)
     torch.cuda.synchronize()
     want = nms_cuda.compact_and_pad_plain(*args, post)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_compact_and_pad_takes_inputs_at_a_4_byte_offset(dev, offset):
+    """Every input viewed ``offset`` floats into its storage, so no box row
+    is 16-byte aligned."""
+    views = []
+    for t in _compact_rows(400, 100):
+        flat = torch.zeros(t.numel() + offset, device=dev)
+        flat[offset:] = t.reshape(-1).to(dev)
+        views.append(flat[offset:].view(t.shape))
+        assert views[-1].storage_offset() == offset
+    got = nms_cuda.compact_and_pad(*views, 100)
+    torch.cuda.synchronize()
+    want = nms_cuda.compact_and_pad_plain(*views, 100)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
 
 
@@ -313,24 +335,73 @@ def _meta(cells):
     return tuple((c, int(round(c ** 0.5)), 32 // 2 ** i, anchors) for i, c in enumerate(cells))
 
 
+# The kernel runs a cluster per image, of ceil(k / 64) blocks (at most 8)
+# where the batch fits the card at once, else of ceil(k / 32): k around a
+# block's 64 winners (1 to 65), the main path's 400 (7 blocks) and 401, k
+# around 8 blocks of one round each (512, 513), several rounds a block
+# (1000, 4000), the largest k the two-kernel design's 48 KB of shared memory
+# took, and batch 128, whose clusters do not all fit at once.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cells,num_pred,k,m,hot_j", [
-    ((9, 36), 9, 17, 9, 2),  # C = 4 < m: the steps past C give (-inf, 0)
-    ((169,), 25, 400, 9, 45),
-    ((169, 676, 2704), 85, 400, 9, 45),
-    ((16, 64), 133, 100, 32, 100),  # C = 128, m = 32, hot_j = k
+@pytest.mark.parametrize("b,cells,num_pred,k,m,hot_j", [
+    (3, (9, 36), 9, 17, 9, 2),  # C = 4 < m: the steps past C give (-inf, 0)
+    (3, (169,), 25, 400, 9, 45),
+    (3, CELLS_416, 85, 400, 9, 45),
+    (3, (16, 64), 133, 100, 32, 100),  # C = 128, m = 32, hot_j = k
+    (3, CELLS_416, 85, 1, 9, 1),
+    (3, CELLS_416, 85, 7, 9, 7),
+    (3, CELLS_416, 85, 9, 9, 5),
+    (3, CELLS_416, 85, 64, 9, 45),
+    (3, CELLS_416, 85, 65, 9, 45),
+    (3, CELLS_416, 85, 401, 9, 45),
+    (3, CELLS_416, 85, 512, 9, 45),
+    (3, CELLS_416, 85, 513, 9, 45),
+    (3, CELLS_416, 85, 400, 9, 1),
+    (1, CELLS_416, 85, 400, 9, 45),
+    (128, CELLS_416, 85, 400, 9, 45),
+    (128, CELLS_416, 85, 65, 9, 45),
+    (128, CELLS_416, 85, 1000, 9, 45),
+    (3, CELLS_416, 85, 1000, 9, 45),
+    (3, CELLS_416, 85, 4000, 9, 400),
+    (2, CELLS_416, 85, 12000, 9, 45),
 ])
-def test_gather_decode_top_m_equals_plain(dev, dtype, cells, num_pred, k, m, hot_j):
+def test_gather_decode_top_m_equals_plain(dev, dtype, b, cells, num_pred, k, m, hot_j):
     g = _gen(len(cells) + num_pred + k + m)
     meta = _meta(cells)
-    xs = [torch.randn((3, c, 3 * num_pred), generator=g).mul_(3).to(dev, dtype) for c in cells]
-    xs[0][1] = xs[0][1].round().clamp(-1, 1)  # image 1: ties within rows and across boxes
-    idx = torch.randint(0, sum(cells) * 3, (3, k), generator=g).to(dev)
-    idx[2, : k // 2] = idx[2, k - k // 2 :]
+    xs = [torch.randn((b, c, 3 * num_pred), generator=g).mul_(3).to(dev, dtype) for c in cells]
+    idx = torch.randint(0, sum(cells) * 3, (b, k), generator=g).to(dev)
+    if b > 1:
+        xs[0][1] = xs[0][1].round().clamp(-1, 1)  # image 1: ties within rows and across boxes
+    if b > 2:
+        idx[2, : k // 2] = idx[2, k - k // 2 :]
     got = nms_gather_cuda.gather_decode_top_m(xs, idx, meta, m, hot_j)
     torch.cuda.synchronize()
     want = nms_gather_cuda.gather_decode_pairs_plain(xs, idx, meta, m, hot_j)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,k", [(2, 400), (2, 1000), (128, 400)])
+def test_gather_decode_top_m_all_ninth_values_tie(dev, dtype, b, k):
+    """As chip_smoke.py's image 3: objectness all equal and class logits on
+    three levels, so every winner's 9th value ties and the hot rows are the
+    lowest winner indices, ranked across every block of the cluster."""
+    g = _gen(b + k)
+    meta = _meta(CELLS_416)
+    xs = []
+    for c in CELLS_416:
+        x = torch.randn((b, c, 3, 85), generator=g).mul_(3)
+        x[1, ..., 4] = 1.0
+        x[1, ..., 5:] = x[1, ..., 5:].round().clamp(-1, 1)
+        xs.append(x.view(b, c, 255).to(dev, dtype))
+    idx = torch.sort(torch.randperm(sum(CELLS_416) * 3, generator=g)[:k]).values
+    idx = idx.expand(b, k).contiguous().to(dev)
+    got = nms_gather_cuda.gather_decode_top_m(xs, idx, meta, 9, 45)
+    torch.cuda.synchronize()
+    want = nms_gather_cuda.gather_decode_pairs_plain(xs, idx, meta, 9, 45)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    ninth = got[1][1, :, 8]
+    assert bool((ninth == ninth[0]).all())
+    assert got[4][1, 0].tolist() == list(range(45))
 
 
 def test_gather_decode_top_m_refusals(dev):

@@ -32,24 +32,4 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* scratch, int* tot
   return before + incl - v;
 }
 
-// Exclusive prefix count of `flag` over the block in thread order; the
-// block's total count goes to *total.
-__device__ __forceinline__ int block_exclusive_count(bool flag, int* scratch, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  const int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) scratch[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < nwarps; ++w) {
-    const int c = scratch[w];
-    before += (w < warp) ? c : 0;
-    all += c;
-  }
-  __syncthreads();
-  *total = all;
-  return before + in_warp;
-}
-
 }  // namespace viddet

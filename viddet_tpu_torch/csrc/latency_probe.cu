@@ -1,6 +1,14 @@
-// A measurement probe, not a port kernel: the time of one tile round of
-// K5's greedy scan (viddet::greedy_scan in csrc/nms_scan.cuh, which
-// csrc/nms.cu's nms_scan_kernel runs), so that K5's time can be set beside
+// Measurement probes, not port kernels.
+//
+// The launch floor: an empty kernel of one block, launched through the
+// same C interface as the port's kernels, whose device time is the least
+// that any launch shows on the card.  It is the yardstick beside the
+// bound for the kernels whose work takes less than a launch (K4, K6,
+// K3's extract_m=0 form).
+//
+// The scan round: the time of one tile round of K5's greedy scan
+// (viddet::greedy_scan in csrc/nms_scan.cuh, which csrc/nms.cu's
+// nms_scan_kernel runs), so that K5's time can be set beside
 // the bound its dependent chain imposes (ceil(k/64) tile rounds times this
 // latency), which a bound from bytes and operations leaves out.
 //
@@ -37,7 +45,14 @@ scan_tile_probe_kernel(int k, int passes, unsigned long long* out) {
   for (int w = threadIdx.x; w < words; w += blockDim.x) out[w] = kw[w];
 }
 
+__global__ void launch_floor_kernel() {}
+
 }  // namespace
+
+extern "C" int viddet_launch_floor_probe(void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
 
 // One block; 1 <= k <= 1024; out: ceil(k/64) words of device memory.
 extern "C" int viddet_scan_round_probe(int k, int passes, void* out, void* stream) {

@@ -30,20 +30,31 @@
 //
 // K6 replaces `compact_and_pad_pallas` (`_compact_kernel`): the kept rows
 // move, in order, to the first post_nms slots (slot = inclusive count of
-// kept rows - 1), and the rest become -1.  Bound: launch latency; the
-// whole batch moves well under 1 MB.  Design: one block per image; the -1
-// fill comes first, then a ballot scan over 256-wide tiles scatters the
-// kept rows.
+// kept rows - 1), and the rest become -1.  Bound: bytes, and those take
+// 0.13 us at batch 32 and K = 400 (under 0.5 MB), below the launch floor:
+// an empty kernel's device time on an H100 is 0.87 us
+// (csrc/latency_probe.cu; PERF.md), and this kernel's 1.6 us.  So what a
+// design can cut is the chain inside the launch: the dependent round
+// trips and barriers.  Design: one pass, one block per image of up to 1024
+// threads (K rounded up to whole warps; a larger K loops over tiles,
+// carrying the count).  Each thread issues all its loads at once (keep,
+// score, class and the four box floats, scalar, so any 4-byte offset
+// works), then one block scan (a ballot and popc within the warp, the
+// warp totals through shared memory, one barrier), then the stores: a
+// kept row whose slot is below post writes it (the box as one 16-byte
+// store: the wrapper allocates the output), and thread s writes the -1
+// fill of slot s when s is at or past the kept count.  Every output
+// element is written once, and no barrier orders a fill before an
+// overwrite.
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
 #include "nms_scan.cuh"
 
 namespace {
 
 constexpr int kMaskThreads = 256;  // 8 warps, 8 rows of a 64-row tile each
 constexpr int kScanThreads = 512;  // 16 warps: one per later word at K <= 1024
-constexpr int kCompactThreads = 256;
+constexpr int kCompactMaxThreads = 1024;
 
 // Area of a box exactly as viddet_tpu/ops/boxes.py box_area.
 __device__ __forceinline__ float area(float4 a) {
@@ -151,31 +162,46 @@ nms_scan_kernel(const unsigned long long* __restrict__ mask, const bool* __restr
   }
 }
 
-__global__ void __launch_bounds__(kCompactThreads)
+__global__ void __launch_bounds__(kCompactMaxThreads)
 compact_kernel(const float* __restrict__ keep, const float* __restrict__ scores,
                const float* __restrict__ cls, const float* __restrict__ boxes, int k, int post,
                float* __restrict__ ids, float* __restrict__ out_scores,
-               float* __restrict__ out_boxes) {
-  __shared__ int scratch[32];
+               float4* __restrict__ out_boxes) {
+  __shared__ int warp_kept[2][32];  // a tile's kept count per warp, two tiles apart
   const size_t b = blockIdx.x;
-  for (int s = threadIdx.x; s < post; s += blockDim.x) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  int before = 0;  // kept rows in the tiles before this one
+  for (int base = 0, tile = 0; base < k && before < post; base += blockDim.x, tile ^= 1) {
+    const int i = base + threadIdx.x;
+    float kp = 0.0f, sc = 0.0f, cl = 0.0f, x0 = 0.0f, y0 = 0.0f, x1 = 0.0f, y1 = 0.0f;
+    if (i < k) {
+      const size_t e = b * k + i;
+      kp = keep[e];
+      sc = scores[e];
+      cl = cls[e];
+      x0 = boxes[e * 4];
+      y0 = boxes[e * 4 + 1];
+      x1 = boxes[e * 4 + 2];
+      y1 = boxes[e * 4 + 3];
+    }
+    const bool kept = kp > 0.5f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, kept);
+    if (lane == 0) warp_kept[tile][warp] = __popc(ballot);
+    __syncthreads();
+    const int n = lane < nwarps ? warp_kept[tile][lane] : 0;
+    const int slot = before + __reduce_add_sync(0xffffffffu, lane < warp ? n : 0) +
+                     __popc(ballot & ((1u << lane) - 1u));
+    if (kept && slot < post) {
+      ids[b * post + slot] = cl;
+      out_scores[b * post + slot] = sc;
+      out_boxes[b * post + slot] = make_float4(x0, y0, x1, y1);
+    }
+    before += __reduce_add_sync(0xffffffffu, n);
+  }
+  for (int s = before + threadIdx.x; s < post; s += blockDim.x) {
     ids[b * post + s] = -1.0f;
     out_scores[b * post + s] = -1.0f;
-    for (int c = 0; c < 4; ++c) out_boxes[(b * post + s) * 4 + c] = -1.0f;
-  }
-  __syncthreads();  // the fill lands before any kept row overwrites it
-  int before = 0;
-  for (int base = 0; base < k && before < post; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const bool kept = i < k && keep[b * k + i] > 0.5f;
-    int total;
-    const int slot = before + viddet::block_exclusive_count(kept, scratch, &total);
-    if (kept && slot < post) {
-      ids[b * post + slot] = cls[b * k + i];
-      out_scores[b * post + slot] = scores[b * k + i];
-      for (int c = 0; c < 4; ++c) out_boxes[(b * post + slot) * 4 + c] = boxes[(b * k + i) * 4 + c];
-    }
-    before += total;
+    out_boxes[b * post + s] = make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
   }
 }
 
@@ -203,15 +229,18 @@ extern "C" int viddet_nms_keep_mask(const void* boxes, const void* valid, int ba
   return (int)cudaGetLastError();
 }
 
+// out_boxes: 16-byte aligned (float4 stores).
 extern "C" int viddet_compact_and_pad(const void* keep, const void* scores, const void* cls,
                                       const void* boxes, int batch, int k, int post, void* ids,
                                       void* out_scores, void* out_boxes, void* stream) {
+  if (reinterpret_cast<size_t>(out_boxes) % 16) return (int)cudaErrorInvalidValue;
   if (batch > 0 && post > 0) {
-    compact_kernel<<<batch, kCompactThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int threads = k < 1 ? 32 : min(kCompactMaxThreads, (k + 31) / 32 * 32);
+    compact_kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(keep), static_cast<const float*>(scores),
         static_cast<const float*>(cls), static_cast<const float*>(boxes), k, post,
         static_cast<float*>(ids), static_cast<float*>(out_scores),
-        static_cast<float*>(out_boxes));
+        static_cast<float4*>(out_boxes));
   }
   return (int)cudaGetLastError();
 }

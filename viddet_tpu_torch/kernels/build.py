@@ -78,8 +78,10 @@ SIGNATURES = {
     # feat0..feat3, heights, widths, strides (host arrays), nlevels, batch,
     # rois per image, c, is_bf16, rois, levels, out, stream
     "viddet_roi_align": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # a measurement probe (csrc/latency_probe.cu): k, passes, out, stream
+    # measurement probes (csrc/latency_probe.cu): the scan round (k,
+    # passes, out, stream) and the launch floor (stream)
     "viddet_scan_round_probe": [_I, _I, _P, _P],
+    "viddet_launch_floor_probe": [_P],
 }
 
 _lock = threading.Lock()

@@ -248,13 +248,12 @@ gather_decode_pairs.launches = 0
 
 MAX_TOP_M = 32  # one step's result per lane of the winner's warp
 MAX_TOP_M_CLASSES = 128  # four class slots per lane
-
-
 def gather_decode_top_m(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta, m: int,
                         hot_j: int):
     """K3 wrapper, ``extract_m`` = m > 0 form: the kernel for CUDA tensors,
-    the plain version on the CPU.  One call launches two kernels (the
-    per-winner top-m, then the per-image hot rows) and counts once."""
+    the plain version on the CPU.  One launch, a thread-block cluster per
+    image; the kernel's entry point picks the clusters' shape from what
+    the card holds at once."""
     cells = tuple(cells)
     if cells[0].device.type == "cpu":
         return gather_decode_pairs_plain(cells, a_idx, meta, m, hot_j)
