@@ -10,8 +10,9 @@ Phases, each printed as one JSON line:
 1. device:  the card's name and power limit (``nvidia-smi``);
 2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-            the main paths' shapes plus edge cases (K1 and K3-m9 also at
-            batch 128; K7 with the cells and L2 bytes its rois read, K5 at
+            the main paths' shapes plus edge cases (K1, K3 in both forms and
+            K4 also at batch 128, K3 and K4 on bf16 heads and their float32
+            copy; K7 with the cells and L2 bytes its rois read, K5 at
             K = 1000 and at K = 400 at batch 8, and K2 at N = 24,000 at the
             Faster R-CNN path's), with its time (a wrapper's kernels apart
             where it launches several: K5's mask and scan), the plain
@@ -22,8 +23,10 @@ Phases, each printed as one JSON line:
             library call's also from CUDA events around calls queued back
             to back; K8 also per layer, with the route its shape took, its
             bound, TB/s and TFLOP/s, the bytes its tiles read from L2 and
-            cuDNN's convolution alone; and the launch floor, an empty
-            kernel's device time;
+            cuDNN's convolution alone; and the launch floor: an empty
+            kernel of one block and, at the grids of K3-m0, K4 and K6 (as
+            launched now and in their earlier designs) at batch 32 and
+            128, an empty kernel and one of a load and a store a thread;
 4. main path: YOLOv3-416 / Darknet-53 / COCO at full width in bf16 with
             seeded weights, batch 32, through ``make_predictor`` under the
             default (hierarchical) ranking; the kernel launch counts of that
@@ -31,8 +34,9 @@ Phases, each printed as one JSON line:
             head outputs; then the deterministic tail
             (``VIDDET_PAIR_TOPK=det``) on those head outputs, its launch
             counts and its equality to its plain tail; at batch 128, K2's
-            two calls, the kernel tail and the predictor against their
-            plain versions; time per batch and frames/s at batch 32 and 128;
+            two calls, both kernel tails and the predictor against their
+            plain versions; both tails' device time at batch 32 and 128;
+            time per batch and frames/s at batch 32 and 128;
 5. conv:    the same model under ``VIDDET_CONV_BACKEND=pallas`` (K8 on the
             three shallow downsamples), its launch counts, well-formed
             detections, head outputs close to the default path's, frames/s
@@ -433,27 +437,37 @@ def kernel_phase(dev):
     # ranks them, plus repeats and the first and last flat index.
     meta = tuple((c, int(round(c ** 0.5)), s, a)
                  for c, s, a in zip(CELLS, STRIDES_DARKNET53, ANCHORS_DARKNET53))
-    a_idx = _pair_top_k_det(stage1, K)[1].contiguous()
-    a_idx[1, :K // 2] = a_idx[1, K // 2:]
-    a_idx[2, 0], a_idx[2, 1] = 0, N - 1
-    worst_abs = 0.0
-    for xs in (cells, [c.float() for c in cells]):
-        got3 = nms_gather_cuda.gather_decode_pairs(xs, a_idx, meta)
-        want3 = nms_gather_cuda.gather_decode_pairs_plain(xs, a_idx, meta)
-        check(got3[0].shape == (B, K, 4) and got3[1].shape == (B, K, NUM_PRED - 5), "K3 shape")
-        check(all(equal(a, b) for a, b in zip(got3, want3)), "K3 equal to plain")
-        worst_abs = max(worst_abs, max(float((a - b).abs().max().item())
-                                       for a, b in zip(got3, want3)))
-    rows["gather_decode_pairs"] = dict(
-        max_abs_err=worst_abs,
-        # each winner's 5+C bf16 lanes and its index read, boxes and pairs
-        # written; 4 operations per class lane, about 30 for the box
-        bound=bound_ms(B * K * (NUM_PRED * 2 + 8) + B * K * (4 + NUM_PRED - 5) * 4,
-                       B * K * ((NUM_PRED - 5) * 4 + 30)),
-        **timings(lambda: nms_gather_cuda.gather_decode_pairs(cells, a_idx, meta),
-                  lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_idx, meta),
-                  names=KERNEL_NAMES["gather_decode_pairs"]),
-    )
+    def k3m0_row(cells, stage1):
+        """K3-m0 on bf16 cells and their float32 copy against its plain
+        version, and its times on the bf16 cells."""
+        b = cells[0].shape[0]
+        a_idx = _pair_top_k_det(stage1, K)[1].contiguous()
+        a_idx[1, :K // 2] = a_idx[1, K // 2:]
+        a_idx[2, 0], a_idx[2, 1] = 0, N - 1
+        worst_abs = 0.0
+        for xs in (cells, [c.float() for c in cells]):
+            got3 = nms_gather_cuda.gather_decode_pairs(xs, a_idx, meta)
+            want3 = nms_gather_cuda.gather_decode_pairs_plain(xs, a_idx, meta)
+            check(got3[0].shape == (b, K, 4) and got3[1].shape == (b, K, C), "K3 shape")
+            check(all(equal(x, y) for x, y in zip(got3, want3)),
+                  f"K3 at batch {b}, {xs[0].dtype}, equal to plain")
+            worst_abs = max(worst_abs, max(float((x - y).abs().max().item())
+                                           for x, y in zip(got3, want3)))
+        del xs, got3, want3
+        return dict(
+            batch=b, max_abs_err=worst_abs,
+            # each winner's 5+C bf16 lanes and its index read, boxes and pairs
+            # written; 4 operations per class lane, about 30 for the box
+            bound=bound_ms(b * K * (NUM_PRED * 2 + 8) + b * K * (4 + C) * 4,
+                           b * K * (C * 4 + 30)),
+            **timings(lambda: nms_gather_cuda.gather_decode_pairs(cells, a_idx, meta),
+                      lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_idx, meta),
+                      names=KERNEL_NAMES["gather_decode_pairs"]),
+        )
+
+    rows["gather_decode_pairs"] = k3m0_row(cells, stage1)
+    rows["gather_decode_pairs_b128"] = k3m0_row(cells128, nms_gather_cuda.anchor_scores(cells128,
+                                                                                        NA))
 
     # K3, extract_m=9 (the hierarchical form): winners in K2's ascending
     # order, as the hierarchical tail passes them, with the repeat and
@@ -502,31 +516,46 @@ def kernel_phase(dev):
         )
 
     a_hier, rows["gather_decode_top_m"] = k3m9_row(cells)
-    rows["gather_decode_top_m_b128"] = k3m9_row(cells128)[1]
-    del cells128
+    a_hier128, rows["gather_decode_top_m_b128"] = k3m9_row(cells128)
 
-    # K4: the main path's merged stage-2 ranking of those heads, with winners
-    # forced into both sections (the first and last of each).
-    boxes_k, v_m, i_m, hot_flat, hot_idx = nms_gather_cuda.gather_decode_top_m(
-        cells, a_hier, meta, TOP_M, HOT_J)
-    width = K * (TOP_M - 1)
-    merged = torch.cat([v_m[..., : TOP_M - 1].reshape(B, width), hot_flat.reshape(B, -1)], 1)
+    # K4: the main path's merged stage-2 ranking of those heads (bf16, and
+    # their float32 copy), with winners forced into both sections (the
+    # first and last of each); timed on the bf16 heads' ranking.
+    def k4_row(cells, a_hier):
+        b = cells[0].shape[0]
+        width = K * (TOP_M - 1)
+        worst_abs, timed = 0.0, None
+        for xs in (cells, [c.float() for c in cells]):
+            boxes_k, v_m, i_m, hot_flat, hot_idx = nms_gather_cuda.gather_decode_top_m(
+                xs, a_hier, meta, TOP_M, HOT_J)
+            merged = torch.cat([v_m[..., : TOP_M - 1].reshape(b, width),
+                                hot_flat.reshape(b, -1)], 1)
+            q = _pair_top_k_det(merged, TOPK)[1].contiguous()
+            from_repair = int((q >= width).sum().item())
+            q[0, :4] = torch.tensor([0, width - 1, width, width + HOT_J * C - 1], device=dev)
+            args = (i_m, hot_idx, q, boxes_k, C)
+            got4 = nms_gather_cuda.finalize_candidates(*args)
+            want4 = nms_gather_cuda.finalize_candidates_plain(*args)
+            check(all(equal(x, y) for x, y in zip(got4, want4)),
+                  f"K4 at batch {b}, {xs[0].dtype} heads, equal to plain")
+            worst_abs = max(worst_abs, max(float((x - y).abs().max().item())
+                                           for x, y in zip(got4, want4)))
+            if timed is None:
+                timed, timed_merged, timed_from_repair = args, merged, from_repair
+        del xs
+        return timed_merged, dict(
+            batch=b, max_abs_err=worst_abs, main_path_winners_from_repair=timed_from_repair,
+            # per winner: q, one class id or hot id, one box read; class, box written
+            bound=bound_ms(b * TOPK * (8 + 8 + 16 + 4 + 16), b * TOPK * 10),
+            **timings(lambda: nms_gather_cuda.finalize_candidates(*timed),
+                      lambda: nms_gather_cuda.finalize_candidates_plain(*timed),
+                      names=KERNEL_NAMES["finalize_candidates"]),
+        )
+
+    merged, rows["finalize_candidates"] = k4_row(cells, a_hier)
+    rows["finalize_candidates_b128"] = k4_row(cells128, a_hier128)[1]
+    del cells128, a_hier128
     k2_case("stage2_hier", hard_rows(merged))  # its -1.0 sentinels kept
-    q = _pair_top_k_det(merged, TOPK)[1].contiguous()
-    from_repair = int((q >= width).sum().item())
-    q[0, :4] = torch.tensor([0, width - 1, width, width + HOT_J * C - 1], device=dev)
-    got4 = nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes_k, C)
-    want4 = nms_gather_cuda.finalize_candidates_plain(i_m, hot_idx, q, boxes_k, C)
-    check(all(equal(a, b) for a, b in zip(got4, want4)), "K4 equal to plain")
-    rows["finalize_candidates"] = dict(
-        max_abs_err=max(float((a - b).abs().max().item()) for a, b in zip(got4, want4)),
-        main_path_winners_from_repair=from_repair,
-        # per winner: q, one class id or hot id, one box read; class, box written
-        bound=bound_ms(B * TOPK * (8 + 8 + 16 + 4 + 16), B * TOPK * 10),
-        **timings(lambda: nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes_k, C),
-                  lambda: nms_gather_cuda.finalize_candidates_plain(i_m, hot_idx, q, boxes_k, C),
-                  names=KERNEL_NAMES["finalize_candidates"]),
-    )
 
     main_calls = [k2[name] for name in ("stage1", "stage2_hier")]
     rows["topk_indices"] = dict(  # per main-path (hierarchical) batch: both calls
@@ -615,20 +644,52 @@ def k5_serial_bound(dev, build, k: int) -> dict:
                 serial_bound_ms=words * round_ns * 1e-6)
 
 
+def floor_grids(b: int) -> dict:
+    """(blocks, threads, dynamic shared bytes) at batch ``b`` of the launches
+    whose times are set beside an empty kernel of their own grid: K3-m0, K4
+    and K6 as their C entry points launch them (K3-m0: 16 winners a block of
+    128 threads, ``kPairRun``; K4: a block per image of ceil(topk / 32) warps
+    staging k boxes and the hot ids; K6: a block per image of ceil(k / 32)
+    warps), and as their first designs did (``_first``: K3-m0 a warp per
+    winner, K4 a thread per winner in blocks of 128, K6 blocks of 256)."""
+    return {
+        "gather_decode_pairs": (-(-b * K // 16), 128, 0),
+        "gather_decode_pairs_first": (-(-b * K // 4), 128, 0),
+        "finalize_candidates": (b, min(1024, -(-TOPK // 32) * 32), K * 16 + HOT_J * 8),
+        "finalize_candidates_first": (-(-b * TOPK // 128), 128, 0),
+        "compact_and_pad": (b, min(1024, -(-K // 32) * 32), 0),
+        "compact_and_pad_first": (b, 256, 0),
+    }
+
+
 def launch_floor_ms(dev, build) -> dict:
     """The least device time a launch shows on this card: an empty kernel
-    of one block (csrc/latency_probe.cu) through the same C interface as
-    the port's kernels, under the profiler (``device``) and on CUDA events
-    behind a spin kernel (``queued``)."""
+    (csrc/latency_probe.cu) through the same C interface as the port's
+    kernels, of one block of one warp, under the profiler (``device``) and
+    on CUDA events behind a spin kernel (``queued``); and at each grid of
+    ``floor_grids`` at batch 32 and 128 (``grids``), the empty kernel and
+    the probe's round trip (each thread loads a word and stores it)."""
     import torch
 
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run():
-        build.check(lib.viddet_launch_floor_probe(stream), "launch_floor_probe")
+    def floor(blocks, threads, smem, copy=False):
+        words = torch.zeros(2 * blocks * threads if copy else 2, dtype=torch.int32, device=dev)
+        src, dst = (words.data_ptr(), words.data_ptr() + 4 * blocks * threads) if copy \
+            else (None, None)
+        names = ("round_trip_kernel",) if copy else ("launch_floor_kernel",)
 
-    return dict(device=device_ms(run, 10, ("launch_floor_kernel",)), queued=queued_ms(run))
+        def run():
+            build.check(lib.viddet_launch_floor_probe(blocks, threads, smem, src, dst, stream),
+                        "launch_floor_probe")
+
+        return dict(device=device_ms(run, 10, names), queued=queued_ms(run))
+
+    grids = {str(b): {name: dict(grid=list(shape), **floor(*shape),
+                                 round_trip=floor(*shape, copy=True))
+                      for name, shape in floor_grids(b).items()} for b in (B, 4 * B)}
+    return dict(floor(1, 32, 0), grids=grids)
 
 
 def k8_l2_bytes(b: int, cin: int, cout: int, hw: int) -> dict:
@@ -1081,6 +1142,16 @@ def main_path_phase(dev, kernels):
         check(all(equal(a, b) for a, b in zip(big_tail, predictor(big))),
               f"predictor at batch {big_b} equal to head + kernel tail")
         check_detections(*big_tail, big_b, len(classes), NMSConfig().valid_thresh)
+        check(all(equal(a, b) for a, b in
+                  zip(multiclass_nms_late_decode_cells(cells, meta, ranking="det"),
+                      multiclass_nms_late_decode_cells(cells, meta, backend="plain",
+                                                       ranking="det"))),
+              f"det kernel tail equal to det plain tail at batch {big_b}")
+        big_tail_device_ms = {
+            ranking: device_ms(lambda: multiclass_nms_late_decode_cells(cells, meta,
+                                                                        ranking=ranking),
+                               names=path_kernel_names(want))
+            for ranking, want in (("hier", HIER_LAUNCHES), ("det", DET_LAUNCHES))}
         del big, big_out, cells, stage1, merged
     step_ms = median_ms(lambda: predictor(batch), reps=10)  # images already on the card
     breakdown = kernel_breakdown(lambda: predictor(batch), path_kernel_names(HIER_LAUNCHES))
@@ -1097,6 +1168,9 @@ def main_path_phase(dev, kernels):
           "head_ms": head_ms, "tail_ms": tail_ms, "plain_tail_ms": plain_tail_ms,
           "tail_device_ms": tail_device_ms, "det_tail_ms": det_tail_ms,
           "det_plain_tail_ms": det_plain_tail_ms, "det_tail_device_ms": det_tail_device_ms,
+          "tail_device_ms_at_batch": {str(main_b): {"hier": tail_device_ms,
+                                                    "det": det_tail_device_ms},
+                                      str(big_b): big_tail_device_ms},
           "end_to_end": timings, "device_breakdown": breakdown})
     return model, predictor, images, launches, out
 
@@ -1400,12 +1474,13 @@ def main() -> int:
                                  "roi_align_pallas.py:143", "frcnn"),
     }
     kernels = {name: row[0] for name, row in table.items()}
+    floor = launch_floor_ms(dev, build)
     with torch.inference_mode():
         rows = kernel_phase(dev)
         rows["conv_down2_bn_leaky"] = conv_kernel_phase(dev)
         rows.update(frcnn_kernel_phase(dev))
     emit({"phase": "kernels_vs_plain", "nvidia_smi": smi,
-          "launch_floor_ms": launch_floor_ms(dev, build), "rows": rows})
+          "launch_floor_ms": floor, "rows": rows})
 
     model, predictor, images, launches, head_out = main_path_phase(dev, kernels)
     launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
@@ -1424,7 +1499,10 @@ def main() -> int:
          "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],
          "library_ms": rows[name]["library_ms"],
          **{key: rows[name][key] for key in ("parts_ms", "queued_ms",
-                                             "library_queued_ms") if key in rows[name]}}
+                                             "library_queued_ms") if key in rows[name]},
+         **({"batch_128": {key: rows[f"{name}_b128"][key] for key in ("ms", "queued_ms")}
+             | {"bound_ms": rows[f"{name}_b128"]["bound"][0]}}
+            if f"{name}_b128" in rows else {})}
         for name, (_, src, tpu, path) in table.items()
     ]})
     print(smi, flush=True)

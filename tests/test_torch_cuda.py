@@ -96,19 +96,59 @@ def test_anchor_scores_nan_signed_zero_and_ties(dev, dtype):
     assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
 
 
+# The kernel takes 16 consecutive winners of the flat (B*k) order a block:
+# k = 17 and 401 do not divide that run (the last block is ragged), C =
+# 1, 4, 20, 30 and 80 (4*C not a multiple of 16 for most), batch 1 to 128.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cells,num_pred,k", [((9, 36), 9, 17), ((169,), 85, 400),
-                                               ((169, 676, 2704), 85, 400)])
-def test_gather_decode_pairs_equals_plain(dev, dtype, cells, num_pred, k):
-    g = _gen(len(cells) + num_pred + k)
+@pytest.mark.parametrize("b,cells,num_pred,k", [
+    (3, (9, 36), 9, 17), (3, (169,), 85, 400), (3, (169, 676, 2704), 85, 400),
+    (3, (16, 64), 6, 401), (3, (49,), 25, 401), (3, (49, 196), 35, 17),
+    (1, CELLS_416, 85, 400), (3, CELLS_416, 85, 401), (128, CELLS_416, 85, 400),
+    (128, CELLS_416, 85, 401),
+])
+def test_gather_decode_pairs_equals_plain(dev, dtype, b, cells, num_pred, k):
+    g = _gen(b + len(cells) + num_pred + k)
     anchors = ((10.0, 13.0), (33.0, 23.0), (373.0, 326.0))
     meta = tuple((c, int(round(c ** 0.5)), 32 // 2 ** i, anchors) for i, c in enumerate(cells))
-    xs = [torch.randn((3, c, 3 * num_pred), generator=g).mul_(3).to(dev, dtype) for c in cells]
-    idx = torch.randint(0, sum(cells) * 3, (3, k), generator=g).to(dev)
+    xs = [torch.randn((b, c, 3 * num_pred), generator=g).mul_(3).to(dev, dtype) for c in cells]
+    idx = torch.randint(0, sum(cells) * 3, (b, k), generator=g).to(dev)
     got = nms_gather_cuda.gather_decode_pairs(xs, idx, meta)
     torch.cuda.synchronize()
     want = nms_gather_cuda.gather_decode_pairs_plain(xs, idx, meta)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1), (torch.bfloat16, 3),
+                                          (torch.bfloat16, 0), (torch.float32, 1)])
+@pytest.mark.parametrize("num_pred", [9, 85])
+def test_gather_decode_pairs_nan_rows_and_any_storage_offset(dev, dtype, offset, num_pred):
+    """Heads viewed ``offset`` elements into their storage (a bf16 row then
+    starts at any 2-byte offset), winners at the first and last row of each
+    scale's tensor, and indices -1 and N, whose box and pair rows are NaN."""
+    g = _gen(offset + num_pred)
+    cells = (9, 36, 144)
+    meta = _meta(cells)
+    xs = []
+    for c in cells:
+        n = 5 * c * 3 * num_pred
+        flat = torch.randn(n + 8, generator=g).mul_(3).to(dev, dtype)
+        xs.append(flat[offset:offset + n].view(5, c, 3 * num_pred))
+        assert xs[-1].is_contiguous() and xs[-1].storage_offset() == offset
+    total = sum(cells) * 3
+    firsts = [0, 27, 27 + 108]  # each scale's first anchor; its last is the next minus 1
+    idx = torch.randint(0, total, (5, 37), generator=g)
+    idx[:, :6] = torch.tensor(firsts + [f - 1 for f in firsts[1:]] + [total - 1])
+    bad = torch.zeros_like(idx, dtype=torch.bool)
+    bad[1, 7], bad[4, 36], bad[2, 20] = True, True, True
+    idx = idx.to(dev)
+    got = nms_gather_cuda.gather_decode_pairs(xs, torch.where(bad.to(dev), -1, idx), meta)
+    got_n = nms_gather_cuda.gather_decode_pairs(xs, torch.where(bad.to(dev), total, idx), meta)
+    torch.cuda.synchronize()
+    want = nms_gather_cuda.gather_decode_pairs_plain(xs, idx, meta)
+    for out in (got, got_n):
+        for a, w in zip(out, want):
+            assert bool(a[bad].isnan().all())
+            assert torch.equal(a[~bad], w[~bad])
 
 
 def test_gather_decode_pairs_refusals(dev):
@@ -416,21 +456,55 @@ def test_gather_decode_top_m_refusals(dev):
         nms_gather_cuda.gather_decode_top_m([wide], idx, meta, 9, 2)
 
 
+# The kernel stages an image's boxes and hot ids in shared memory and
+# resolves a winner a thread: winners from either section or both, topk
+# above k, batch 1 to 128.
+@pytest.mark.parametrize("section", ["both", "candidates", "hot"])
 @pytest.mark.parametrize("b,k,m,c,hot_j,topk", [(2, 40, 9, 20, 5, 40), (3, 400, 9, 80, 45, 400),
-                                                 (1, 7, 2, 3, 7, 12)])
-def test_finalize_candidates_equals_plain(dev, b, k, m, c, hot_j, topk):
+                                                 (1, 7, 2, 3, 7, 12), (1, 400, 9, 80, 45, 400),
+                                                 (128, 400, 9, 80, 45, 400),
+                                                 (3, 100, 9, 80, 45, 1100)])
+def test_finalize_candidates_equals_plain(dev, section, b, k, m, c, hot_j, topk):
     g = _gen(k + c + topk)
     width = k * (m - 1)
     i_m = torch.randint(0, c, (b, k, m), generator=g)
     hot_idx = torch.randint(0, k, (b, 1, hot_j), generator=g)
-    q = torch.randint(0, width + hot_j * c, (b, topk), generator=g)
-    q[:, :4] = torch.tensor([0, width - 1, width, width + hot_j * c - 1])
+    lo, hi = {"both": (0, width + hot_j * c), "candidates": (0, width),
+              "hot": (width, width + hot_j * c)}[section]
+    q = torch.randint(lo, hi, (b, topk), generator=g)
+    q[:, :2] = torch.tensor([lo, hi - 1])
     boxes_k = torch.rand((b, k, 4), generator=g) * 400
     args = [t.to(dev) for t in (i_m, hot_idx, q, boxes_k)]
     got = nms_gather_cuda.finalize_candidates(*args, c)
     torch.cuda.synchronize()
     want = nms_gather_cuda.finalize_candidates_plain(*args, c)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_finalize_candidates_out_of_range_gives_nan(dev):
+    """A q outside [0, k*(m-1) + J*C), or a hot id outside [0, k), writes
+    a NaN class and box; every other winner equals the plain version."""
+    b, k, m, c, hot_j, topk = 2, 50, 9, 20, 6, 64
+    g = _gen(5)
+    width = k * (m - 1)
+    i_m = torch.randint(0, c, (b, k, m), generator=g)
+    hot_idx = torch.randint(0, k, (b, 1, hot_j), generator=g)
+    hot_idx[1, 0, 2], hot_idx[1, 0, 4] = -1, k  # hot rows 2 and 4 of image 1
+    q = torch.randint(0, width, (b, topk), generator=g)
+    q[0, :3] = torch.tensor([-1, width + hot_j * c, 2**40])
+    q[1, :2] = torch.tensor([width + 2 * c + 3, width + 4 * c])
+    bad = torch.zeros((b, topk), dtype=torch.bool)
+    bad[0, :3], bad[1, :2] = True, True
+    boxes_k = torch.rand((b, k, 4), generator=g) * 400
+    args = [t.to(dev) for t in (i_m, hot_idx, q, boxes_k)]
+    cls, cand = nms_gather_cuda.finalize_candidates(*args, c)
+    torch.cuda.synchronize()
+    want = nms_gather_cuda.finalize_candidates_plain(
+        i_m.to(dev), hot_idx.clamp(0, k - 1).to(dev), torch.where(bad, 0, q).to(dev),
+        boxes_k.to(dev), c)
+    bad = bad.to(dev)
+    assert bool(cls[bad].isnan().all()) and bool(cand[bad].isnan().all())
+    assert torch.equal(cls[~bad], want[0][~bad]) and torch.equal(cand[~bad], want[1][~bad])
 
 
 def test_finalize_candidates_refusals(dev):
@@ -444,6 +518,11 @@ def test_finalize_candidates_refusals(dev):
         nms_gather_cuda.finalize_candidates(i_m, hot_idx[:1], q, boxes, 20)
     with pytest.raises(ValueError):
         nms_gather_cuda.finalize_candidates(i_m, hot_idx, q, boxes[:, :4], 20)
+    big = 15_000  # an image's boxes past a block's shared memory
+    with pytest.raises(ValueError):
+        nms_gather_cuda.finalize_candidates(
+            torch.zeros((2, big, 9), dtype=torch.int64, device=dev), hot_idx, q,
+            torch.zeros((2, big, 4), device=dev), 20)
 
 
 def _conv_case(dev, b, cin, cout, h, w, dtype, seed):

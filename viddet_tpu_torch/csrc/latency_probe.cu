@@ -1,10 +1,15 @@
 // Measurement probes, not port kernels.
 //
-// The launch floor: an empty kernel of one block, launched through the
-// same C interface as the port's kernels, whose device time is the least
-// that any launch shows on the card.  It is the yardstick beside the
-// bound for the kernels whose work takes less than a launch (K4, K6,
-// K3's extract_m=0 form).
+// The launch floor: an empty kernel launched through the same C interface
+// as the port's kernels, at a given grid, block size and dynamic shared
+// memory.  At one block of one warp its device time is the least that any
+// launch shows on the card; at a kernel's own grid it is what that grid
+// costs before the kernel does any work.  Given a source and destination,
+// each thread instead copies one 4-byte word from device memory to device
+// memory: the least a kernel of that grid takes that loads a value and
+// stores what depends on it (one global round trip, then the store).
+// They are the yardsticks beside the bound for the kernels whose work
+// takes less than a launch (K4, K6, K3's extract_m=0 form).
 //
 // The scan round: the time of one tile round of K5's greedy scan
 // (viddet::greedy_scan in csrc/nms_scan.cuh, which csrc/nms.cu's
@@ -47,10 +52,34 @@ scan_tile_probe_kernel(int k, int passes, unsigned long long* out) {
 
 __global__ void launch_floor_kernel() {}
 
+__global__ void round_trip_kernel(const unsigned* __restrict__ src, unsigned* __restrict__ dst) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  dst[i] = src[i];
+}
+
 }  // namespace
 
-extern "C" int viddet_launch_floor_probe(void* stream) {
-  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+// blocks >= 1, 1 <= threads <= 1024; smem: dynamic shared bytes a block;
+// src, dst: nullptr (the empty kernel), or blocks * threads words each.
+extern "C" int viddet_launch_floor_probe(int blocks, int threads, int smem, const void* src,
+                                         void* dst, void* stream) {
+  if (blocks < 1 || threads < 1 || threads > 1024 || smem < 0 ||
+      (src == nullptr) != (dst == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (src == nullptr) {
+    cudaError_t err = cudaFuncSetAttribute(launch_floor_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    launch_floor_kernel<<<blocks, threads, smem, st>>>();
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(round_trip_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    round_trip_kernel<<<blocks, threads, smem, st>>>(static_cast<const unsigned*>(src),
+                                                     static_cast<unsigned*>(dst));
+  }
   return (int)cudaGetLastError();
 }
 

@@ -79,9 +79,10 @@ SIGNATURES = {
     # rois per image, c, is_bf16, rois, levels, out, stream
     "viddet_roi_align": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # measurement probes (csrc/latency_probe.cu): the scan round (k,
-    # passes, out, stream) and the launch floor (stream)
+    # passes, out, stream) and the launch floor (blocks, threads, dynamic
+    # shared bytes, src and dst of the round-trip form or NULL, stream)
     "viddet_scan_round_probe": [_I, _I, _P, _P],
-    "viddet_launch_floor_probe": [_P],
+    "viddet_launch_floor_probe": [_I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -307,6 +307,9 @@ def finalize_candidates_plain(i_m: torch.Tensor, hot_idx: torch.Tensor, q: torch
     return cls_idx, boxes_k.gather(1, box[..., None].expand(b, topk, 4))
 
 
+MAX_SHARED_BYTES = 232_448  # shared memory a block can have on an H100
+
+
 def finalize_candidates(i_m: torch.Tensor, hot_idx: torch.Tensor, q: torch.Tensor,
                         boxes_k: torch.Tensor, num_classes: int):
     """K4 wrapper: the kernel for CUDA tensors, the plain version on the CPU."""
@@ -324,6 +327,9 @@ def finalize_candidates(i_m: torch.Tensor, hot_idx: torch.Tensor, q: torch.Tenso
     require(boxes_k, "boxes_k", torch.float32, shape=(b, k, 4), device=i_m.device)
     if boxes_k.data_ptr() % 16:
         raise ValueError("finalize_candidates: boxes_k must be 16-byte aligned")
+    if k * 16 + j * 8 > MAX_SHARED_BYTES:
+        raise ValueError(f"finalize_candidates: an image's {k} boxes and {j} hot ids do not "
+                         f"fit a block's shared memory")
     cls_idx = torch.empty((b, topk), dtype=torch.float32, device=i_m.device)
     cand = torch.empty((b, topk, 4), dtype=torch.float32, device=i_m.device)
     err = build.library().viddet_finalize_candidates(
