@@ -43,7 +43,26 @@ Phases, each printed as one JSON line:
             at batch 32;
 6. serving: ``DetectionService`` answers 16 requests from 4 threads, each
             equal to the direct batched call;
-7. frcnn:   Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
+7. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
+            seeded weights, batches of 8 clips of k = 3 frames (24 frames
+            through Darknet-53), under each aggregation (max, stack, mean,
+            conv): the launch counts of one ``make_predictor`` call on uint8
+            clips (the hierarchical tail: K1, K2 twice, K3, K4, K5, K6), the
+            kernel tail equal to the plain tail on the same head outputs,
+            each of those kernels equal to its plain version on the path's
+            own intermediates (C = 30), well-formed detections; under max,
+            the default, also each kernel's time, plain and library time and
+            bound at the path's shapes, time per batch and clips/s;
+8. ssd:     SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
+            seeded weights) through ``make_predictor``: its launch counts
+            (K2 twice, K5 and K6 once), the kernel tail equal to the plain
+            tail on the same head outputs, K2 at the path's two shapes
+            ((32, 24,564) anchors, (32, 32,000) pairs), K5 on the path's
+            candidates and K6 on its keep mask against their plain versions,
+            with their times, torch.topk's time and their bounds, the steps'
+            result equal to the predictor's; time per batch, frames/s, peak
+            memory and a device breakdown;
+9. frcnn:   Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
             8, bf16, seeded weights) through ``make_predictor``: its kernel
             launch counts (K7 once, K5 twice, K2 and K6 once), the kernel
             tail equal to the plain tail on the same head outputs and
@@ -52,9 +71,9 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-8. profiler: the profiler windows that missed a launch and were taken
+10. profiler: the profiler windows that missed a launch and were taken
             again;
-9. kernels: one line listing every ported kernel;
+11. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -109,6 +128,16 @@ FRCNN_PAIRS = FRCNN_R * C  # the detection ranking's width, 24,000
 # differently rounded inputs.
 FRCNN_HEAD_REL_L2 = 1e-3
 
+# The temporal path: yolo3_darknet53_k3_vid (VID, 30 classes) at full width,
+# 416 px, bf16, batches of 8 clips of k = 3 frames, under each aggregation
+# (the zoo's default, max, first).
+TEMPORAL_MODEL, TEMPORAL_B, TEMPORAL_K = "yolo3_darknet53_k3_vid", 8, 3
+TEMPORAL_AGGREGATIONS = ("max", "stack", "mean", "conv")
+# The SSD path: SSD-512 ResNet-50 / COCO at full width, 512 px, bf16, batch
+# 32, SSDNMSConfig() defaults; N anchors = 64^2*4 + 32^2*6 + 16^2*6 + 8^2*6 +
+# 4^2*6 + 2^2*4 + 1*4.
+SSD_MODEL, SSD_SIZE, SSD_B, SSD_N = "ssd_512_resnet50_coco", 512, 32, 24564
+
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
 HIER_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_top_m": 1,
@@ -118,6 +147,7 @@ DET_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_pairs": 1,
 CONV_LAUNCHES = dict(HIER_LAUNCHES, conv_down2_bn_leaky=3)
 FRCNN_LAUNCHES = {"multilevel_roi_align": 1, "nms_keep_mask": 2, "topk_indices": 1,
                   "compact_and_pad": 1}
+SSD_LAUNCHES = {"topk_indices": 2, "nms_keep_mask": 1, "compact_and_pad": 1}
 # K8's kernels on each route (``conv_cuda.route``), the convolution first:
 # a window times the ones its shape takes.
 K8_ROUTE_KERNELS = {"tma": ("conv_bf16_tma_kernel", "pack_weights_kernel"),
@@ -142,6 +172,10 @@ INCOMPLETE_WINDOWS: list = []
 # The spin kernel (``torch.cuda._sleep``) runs about this many cycles a ms
 # (the H100's 1.98 GHz boost clock; a lower clock only spins longer).
 SPIN_CYCLES_PER_MS = 2_000_000
+# Short spin kernels that open each profiler window (``profile_kernels``),
+# and the spins of each window the profiler lost.
+WINDOW_OPENERS = 16
+SPINS_LOST: list = []
 
 
 def emit(obj) -> None:
@@ -178,10 +212,13 @@ def profile_kernels(fn, reps: int = 10, names=()) -> dict:
 
     A window is complete when each kernel in it ran a whole multiple of
     ``reps`` times and each of ``names`` (substrings of the names of the
-    kernels ``fn`` must launch) is among them.  The profiler can leave
-    launches out of a window; a spin kernel and a synchronisation before
-    the calls have kept it from doing so.  An incomplete window is logged
-    in INCOMPLETE_WINDOWS and taken again, and the run fails after
+    kernels ``fn`` must launch) is among them.  After some 30 windows in
+    one process the profiler drops the first one or two kernel records of
+    a window, whatever their length, and now and then every record of a
+    window.  So a window opens with WINDOW_OPENERS short spin kernels and
+    a synchronisation, and closes with one spin; spins the profiler lost
+    are counted in SPINS_LOST.  An incomplete window is logged in
+    INCOMPLETE_WINDOWS and taken again, and the run fails after
     PROFILER_WINDOWS of them.
     """
     import torch
@@ -192,13 +229,19 @@ def profile_kernels(fn, reps: int = 10, names=()) -> dict:
     torch.cuda.synchronize()
     for _ in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES_PER_MS // 10)
+            for _ in range(WINDOW_OPENERS):
+                torch.cuda._sleep(SPIN_CYCLES_PER_MS // 1000)
             torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(SPIN_CYCLES_PER_MS // 1000)
             torch.cuda.synchronize()
-        events = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        lost = WINDOW_OPENERS + 1 - sum(e.count for e in device if "spin_kernel" in e.key)
+        if lost:
+            SPINS_LOST.append(lost)
+        events = {e.key: (e.self_device_time_total / 1e3, e.count) for e in device
+                  if "spin_kernel" not in e.key}
         missing = [n for n in names if not any(n in key for key in events)]
         partial = [[key[:120], count] for key, (_, count) in events.items() if count % reps]
         if events and not missing and not partial:
@@ -288,6 +331,17 @@ def equal(a, b) -> bool:
     import torch
 
     return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def normalized(batch):
+    """uint8 frames or clips normalized on the card, as make_predictor does."""
+    import torch
+
+    from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+
+    mean, std = (torch.as_tensor(v, device=batch.device) for v in (IMAGENET_MEAN, IMAGENET_STD))
+    return (batch.float() / 255.0 - mean) / std
 
 
 def set_launches(kernels, value: int = 0) -> None:
@@ -1049,7 +1103,6 @@ def main_path_phase(dev, kernels):
     import torch
 
     from viddet_tpu_torch.cli.common import make_predictor
-    from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
     from viddet_tpu_torch.models.yolo3 import NMSConfig
     from viddet_tpu_torch.models.zoo import get_model
     from viddet_tpu_torch.ops import nms_gather_cuda, topk_cuda
@@ -1079,8 +1132,7 @@ def main_path_phase(dev, kernels):
     # The head once; its outputs through the kernel tail and the plain tail,
     # under the default ranking and then under VIDDET_PAIR_TOPK=det.
     with torch.inference_mode():
-        mean, std = (torch.as_tensor(v, device=dev) for v in (IMAGENET_MEAN, IMAGENET_STD))
-        x = (batch.float() / 255.0 - mean) / std  # as make_predictor does
+        x = normalized(batch)
         out = model(x)
 
         def tail(backend):
@@ -1119,7 +1171,7 @@ def main_path_phase(dev, kernels):
         # against their plain versions there too.
         big_b = max(E2E_BATCHES)
         big = images[:big_b].to(dev)
-        big_out = model((big.float() / 255.0 - mean) / std)
+        big_out = model(normalized(big))
         cells, meta = big_out["raws_cells"], big_out["meta"]
         stage1 = nms_gather_cuda.anchor_scores(cells, NA)
         a_hier = topk_cuda.topk_indices(stage1, K)
@@ -1210,7 +1262,6 @@ def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
     import torch
 
     from viddet_tpu_torch.core.platform import set_conv_backend
-    from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
     from viddet_tpu_torch.models.yolo3 import NMSConfig
 
     bs = E2E_BATCHES[0]
@@ -1225,8 +1276,7 @@ def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
         launches = read_launches(kernels, CONV_LAUNCHES, "conv configuration")
         kept = check_detections(ids, scores, boxes, bs, C, NMSConfig().valid_thresh)
         with torch.inference_mode():
-            mean, std = (torch.as_tensor(v, device=dev) for v in (IMAGENET_MEAN, IMAGENET_STD))
-            out = model((batch.float() / 255.0 - mean) / std)
+            out = model(normalized(batch))
         heads = []
         for got, want in zip(out["raws_cells"], head_out["raws_cells"]):
             g, w = got.float(), want.float()
@@ -1254,7 +1304,319 @@ def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: Faster R-CNN
+# Phases 7 and 8: temporal YOLOv3 and SSD
+# ---------------------------------------------------------------------------
+
+
+def hier_tail_rows(cells, meta, num_classes: int, what: str, timed: bool) -> dict:
+    """The hierarchical tail (NMSConfig() defaults) taken step by step on a
+    path's own head outputs: each kernel's wrapper against its plain
+    version on the same inputs, bit for bit, and the last step's result
+    equal to the whole tail's.  With ``timed``, each kernel's row at these
+    shapes: its times, its plain version's, the library call's where there
+    is one, and its bound."""
+    import torch
+
+    from viddet_tpu_torch.ops import nms_cuda, nms_gather_cuda, topk_cuda
+    from viddet_tpu_torch.ops.nms import (
+        _class_offset, _pair_top_k_det, multiclass_nms_late_decode_cells,
+    )
+
+    b, c, iou, valid_thresh = cells[0].shape[0], num_classes, 0.45, 0.01
+    pred = 5 + c
+
+    def held(name, got, want):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        check(all(equal(x, y) for x, y in zip(got, want)),
+              f"{what}: {name} on the path's inputs equal to plain")
+
+    stage1 = nms_gather_cuda.anchor_scores(cells, NA)
+    held("K1", stage1, nms_gather_cuda.anchor_scores_plain(cells, NA))
+    n = stage1.shape[1]
+    a_hier = topk_cuda.topk_indices(stage1, K)
+    held("K2 stage 1", a_hier, topk_cuda.topk_indices_plain(stage1, K))
+    outs = nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M, HOT_J)
+    held("K3-m9", outs,
+         nms_gather_cuda.gather_decode_pairs_plain(cells, a_hier, meta, TOP_M, HOT_J))
+    boxes_k, v_m, i_m, hot_flat, hot_idx = outs
+    merged = torch.cat([v_m[..., : TOP_M - 1].reshape(b, -1), hot_flat.reshape(b, -1)], 1)
+    held("K2 stage 2", topk_cuda.topk_indices(merged, TOPK),
+         topk_cuda.topk_indices_plain(merged, TOPK))
+    top, q = _pair_top_k_det(merged, TOPK)
+    k4 = (i_m, hot_idx, q, boxes_k, c)
+    cls_idx, cand = nms_gather_cuda.finalize_candidates(*k4)
+    held("K4", (cls_idx, cand), nms_gather_cuda.finalize_candidates_plain(*k4))
+    offset, valid = _class_offset(cand, cls_idx), top > valid_thresh
+    keep = nms_cuda.nms_keep_mask(offset, valid, iou)
+    held("K5", keep, nms_cuda.nms_keep_mask_plain(offset, valid, iou))
+    k6 = (keep, top, cls_idx, cand, POST)
+    dets = nms_cuda.compact_and_pad(*k6)
+    held("K6", dets, nms_cuda.compact_and_pad_plain(*k6))
+    check(all(equal(x, y) for x, y in
+              zip(dets, multiclass_nms_late_decode_cells(cells, meta, ranking="hier"))),
+          f"{what}: the kernels step by step equal the whole tail")
+    if not timed:
+        return {}
+
+    k2_rows = {}  # the path's two calls of K2
+    for name, x in (("stage1", stage1), ("stage2_hier", merged)):
+        k2_rows[name] = dict(
+            shape=list(x.shape), max_abs_err=0.0,
+            bound=bound_ms(x.numel() * 4 + b * K * 8, x.numel() * 34),
+            **timings(lambda x=x: topk_cuda.topk_indices(x, K),
+                      lambda x=x: topk_cuda.topk_indices_plain(x, K),
+                      lambda x=x: torch.topk(x, K, dim=1, sorted=False),
+                      names=KERNEL_NAMES["topk_indices"]))
+    pairs = TOPK * (TOPK - 1) // 2
+    return {
+        "anchor_scores": dict(
+            batch=b, row_width=NA * pred, max_abs_err=0.0,
+            bound=bound_ms(sum(x.numel() * 2 for x in cells) + b * n * 4, b * n * (c + 8)),
+            **timings(lambda: nms_gather_cuda.anchor_scores(cells, NA),
+                      lambda: nms_gather_cuda.anchor_scores_plain(cells, NA),
+                      lambda: [torch.sigmoid(x.view(b, -1, NA, pred)[..., 5:].amax(-1))
+                               for x in cells], names=KERNEL_NAMES["anchor_scores"])),
+        "topk_indices": dict(
+            per_call=k2_rows, max_abs_err=0.0,
+            bound=bound_ms(sum(x.numel() * 4 + b * K * 8 for x in (stage1, merged)),
+                           sum(x.numel() * 34 for x in (stage1, merged))),
+            **{key: sum(r[key] for r in k2_rows.values())
+               for key in ("ms", "plain_ms", "library_ms")}),
+        "gather_decode_top_m": dict(
+            batch=b, classes=c, max_abs_err=0.0,
+            bound=bound_ms(b * K * (pred * 2 + 8) + b * K * (16 + TOP_M * 12)
+                           + b * HOT_J * (c * 4 + 8),
+                           b * K * (c * 4 + 30 + TOP_M * c * 2) + b * K * K * 3),
+            **timings(lambda: nms_gather_cuda.gather_decode_top_m(cells, a_hier, meta, TOP_M,
+                                                                  HOT_J),
+                      lambda: nms_gather_cuda.gather_decode_pairs_plain(cells, a_hier, meta,
+                                                                        TOP_M, HOT_J),
+                      names=KERNEL_NAMES["gather_decode_top_m"])),
+        "finalize_candidates": dict(
+            batch=b, max_abs_err=0.0,
+            bound=bound_ms(b * TOPK * (8 + 8 + 16 + 4 + 16), b * TOPK * 10),
+            **timings(lambda: nms_gather_cuda.finalize_candidates(*k4),
+                      lambda: nms_gather_cuda.finalize_candidates_plain(*k4),
+                      names=KERNEL_NAMES["finalize_candidates"])),
+        "nms_keep_mask": nms_row(offset, valid, iou),
+        "compact_and_pad": compact_row(k6),
+    }
+
+
+def nms_row(offset, valid, iou: float) -> dict:
+    """K5 on a path's class-offset candidates: times and bound."""
+    from viddet_tpu_torch.ops import nms_cuda
+
+    b, k = valid.shape
+    return dict(batch=b, k=k, valid=int(valid.sum().item()), max_abs_err=0.0,
+                bound=bound_ms(b * k * (16 + 1 + 4), b * (k * (k - 1) // 2) * 24),
+                **timings(lambda: nms_cuda.nms_keep_mask(offset, valid, iou),
+                          lambda: nms_cuda.nms_keep_mask_plain(offset, valid, iou),
+                          plain_reps=3, names=KERNEL_NAMES["nms_keep_mask"]))
+
+
+def compact_row(args) -> dict:
+    """K6 on a path's keep mask and candidates: times and bound."""
+    from viddet_tpu_torch.ops import nms_cuda
+
+    keep = args[0]
+    b, k = keep.shape
+    return dict(batch=b, k=k, kept=int(keep.sum().item()), max_abs_err=0.0,
+                bound=bound_ms(b * k * (4 * 3 + 16) + b * POST * 24, b * k * 4),
+                **timings(lambda: nms_cuda.compact_and_pad(*args),
+                          lambda: nms_cuda.compact_and_pad_plain(*args),
+                          names=KERNEL_NAMES["compact_and_pad"]))
+
+
+def temporal_phase(dev, kernels) -> dict:
+    """yolo3_darknet53_k3_vid on uint8 clips under each aggregation: the
+    launches of one predictor call (the hierarchical tail), the kernel tail
+    equal to the plain tail on the same head outputs, each of K1-K6 equal
+    to its plain version on the path's own intermediates, well-formed
+    detections; under max, each kernel's row at the path's shapes (C = 30,
+    batch 8), time per batch and clips/s."""
+    import torch
+
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.models.yolo3 import NMSConfig
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    rng = np.random.default_rng(3)
+    shape = (TEMPORAL_B, TEMPORAL_K, IMAGE_SIZE, IMAGE_SIZE, 3)
+    clips = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).pin_memory()
+    batch = clips.to(dev)
+    rows, launches = {}, {}
+    for agg in TEMPORAL_AGGREGATIONS:
+        t0 = time.perf_counter()
+        model, classes = get_model(TEMPORAL_MODEL, aggregation=agg)
+        load_flat(model, init_flat(TEMPORAL_MODEL, seed=0, aggregation=agg))
+        setup_s = time.perf_counter() - t0
+        predictor = make_predictor(model)
+        predictor(batch)  # warm-up
+        torch.cuda.synchronize()
+        set_launches(kernels)
+        ids, scores, boxes = predictor(batch)
+        torch.cuda.synchronize()
+        launches[agg] = read_launches(kernels, HIER_LAUNCHES, f"temporal path ({agg})")
+        kept = check_detections(ids, scores, boxes, TEMPORAL_B, len(classes),
+                                NMSConfig().valid_thresh)
+        with torch.inference_mode():
+            out = model(normalized(batch))
+
+            def tail(backend):
+                return multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"],
+                                                        backend=backend)
+
+            got = tail("auto")
+            check(all(equal(a, b) for a, b in zip(got, tail("plain"))),
+                  f"temporal ({agg}) kernel tail equal to plain tail")
+            check(all(equal(a, b) for a, b in zip(got, (ids, scores, boxes))),
+                  f"temporal ({agg}) predictor equal to head + kernel tail")
+            check([tuple(x.shape) for x in out["raws_cells"]]
+                  == [(TEMPORAL_B, c, NA * (5 + len(classes))) for c in CELLS],
+                  f"temporal ({agg}) head shapes")
+            kernel_rows = hier_tail_rows(out["raws_cells"], out["meta"], len(classes),
+                                         f"temporal ({agg})",
+                                         timed=agg == TEMPORAL_AGGREGATIONS[0])
+        row = dict(setup_s=setup_s, launches=launches[agg], kept_detections=kept,
+                   tail_equal_plain=True, kernels_equal_plain_on_path=True)
+        if kernel_rows:
+            row["kernels"] = kernel_rows
+        if agg == TEMPORAL_AGGREGATIONS[0]:
+            with torch.inference_mode():
+                x = normalized(batch)
+                row["head_ms"] = median_ms(lambda: model(x), reps=10)
+                row["tail_ms"] = median_ms(lambda: tail("auto"), reps=10)
+                row["tail_device_ms"] = device_ms(lambda: tail("auto"),
+                                                  names=path_kernel_names(HIER_LAUNCHES))
+            row["step_ms"] = median_ms(lambda: predictor(batch), reps=10)
+            timing = end_to_end(dev, predictor, clips, TEMPORAL_B, 10)
+            row["end_to_end"] = dict(timing, clips_per_s=timing.pop("frames_per_s"))
+        rows[agg] = row
+        del model, predictor, out, got
+    emit({"phase": "temporal", "model": TEMPORAL_MODEL, "size": IMAGE_SIZE,
+          "dtype": "bfloat16", "batch_clips": TEMPORAL_B, "k": TEMPORAL_K,
+          "frames_through_backbone": TEMPORAL_B * TEMPORAL_K, "aggregations": rows})
+    return launches[TEMPORAL_AGGREGATIONS[0]], rows[TEMPORAL_AGGREGATIONS[0]]["kernels"]
+
+
+def ssd_phase(dev, kernels) -> dict:
+    """SSD-512 ResNet-50 / COCO at 512 px, batch 32, bf16, seeded weights,
+    through ``make_predictor``: its launches (K2 twice, K5 and K6 once), the
+    kernel tail equal to the plain tail on the same head outputs, K2 at the
+    path's two shapes (stage 1 over the N anchors, stage 2 over the k*C
+    pairs), K5 on the path's candidates and K6 on its keep mask against
+    their plain versions (K2 also against torch.topk), the steps' result
+    equal to the predictor's, time per batch, frames/s, peak memory,
+    device breakdown."""
+    import torch
+
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.models.ssd import SSDNMSConfig, ssd_postprocess
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.ops import nms_cuda, topk_cuda
+    from viddet_tpu_torch.ops.nms import _class_offset, _pair_top_k_det
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    t0 = time.perf_counter()
+    model, classes = get_model(SSD_MODEL)
+    load_flat(model, init_flat(SSD_MODEL, seed=0))
+    setup_s = time.perf_counter() - t0
+    cfg = SSDNMSConfig()
+    predictor = make_predictor(model)
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.integers(0, 256, (SSD_B, SSD_SIZE, SSD_SIZE, 3),
+                                           dtype=np.uint8)).pin_memory()
+    batch = images.to(dev)
+    predictor(batch)  # warm-up: cuDNN heuristics, caching allocator
+    torch.cuda.synchronize()
+
+    set_launches(kernels)
+    ids, scores, boxes = predictor(batch)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels, SSD_LAUNCHES, "SSD path")
+    kept = check_detections(ids, scores, boxes, SSD_B, len(classes), cfg.valid_thresh)
+
+    with torch.inference_mode():
+        out = model(normalized(batch))
+        check(out["cls_logits"].shape == (SSD_B, SSD_N, C + 1) and out["anchors"].shape
+              == (SSD_N, 4), f"SSD head shapes {tuple(out['cls_logits'].shape)}")
+
+        def tail(backend, valid=cfg.valid_thresh):
+            return ssd_postprocess(out, SSDNMSConfig(valid_thresh=valid, backend=backend))
+
+        check(all(equal(a, b) for a, b in zip(tail("auto"), (ids, scores, boxes))),
+              "SSD predictor equal to head + kernel tail")
+        tails_equal = {}
+        for valid in (cfg.valid_thresh, 0.05):
+            got = tail("auto", valid)
+            check(all(equal(a, b) for a, b in zip(got, tail("plain", valid))),
+                  f"SSD kernel tail equal to plain tail at valid {valid}")
+            tails_equal[str(valid)] = dict(
+                equal=True, kept=check_detections(*got, SSD_B, len(classes), valid))
+
+        # K2 at the path's two shapes, on the path's own probabilities
+        probs = torch.softmax(out["cls_logits"].float(), dim=-1)[..., 1:]
+        stage1 = probs.amax(dim=-1).contiguous()
+        _, a_idx = _pair_top_k_det(stage1, TOPK)
+        pairs = probs.gather(1, a_idx[..., None].expand(-1, -1, C)).reshape(SSD_B, -1)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        k2 = {}
+        for name, x in (("stage1", stage1), ("stage2", pairs)):
+            got = topk_cuda.topk_indices(x, TOPK)
+            check(equal(got, topk_cuda.topk_indices_plain(x, TOPK)),
+                  f"K2 SSD {name} equal to plain")
+            k2[name] = dict(
+                shape=list(x.shape), cluster=topk_cuda.cluster_size(SSD_B, x.shape[1], sms),
+                bound=bound_ms(x.numel() * 4 + SSD_B * TOPK * 8, x.numel() * 34),
+                **timings(lambda: topk_cuda.topk_indices(x, TOPK),
+                          lambda: topk_cuda.topk_indices_plain(x, TOPK),
+                          lambda: torch.topk(x, TOPK, dim=1, sorted=False),
+                          names=KERNEL_NAMES["topk_indices"]))
+
+        # K5 at K = 400 on the path's class-offset candidates
+        top, p_idx = _pair_top_k_det(pairs, TOPK)
+        boxes_k = out["boxes"].gather(1, a_idx[..., None].expand(-1, -1, 4))
+        cand = boxes_k.gather(1, (p_idx // C)[..., None].expand(-1, -1, 4))
+        offset = _class_offset(cand, (p_idx % C).float())
+        valid = top > cfg.valid_thresh
+        keep = nms_cuda.nms_keep_mask(offset, valid, cfg.iou_thresh)
+        check(equal(keep, nms_cuda.nms_keep_mask_plain(offset, valid, cfg.iou_thresh)),
+              "K5 on the SSD path's candidates equal to plain")
+        k5 = nms_row(offset, valid, cfg.iou_thresh)
+        # K6 on the path's keep mask and candidates; its result is the tail's
+        k6_args = (keep, top, (p_idx % C).float(), cand, cfg.post_nms)
+        dets = nms_cuda.compact_and_pad(*k6_args)
+        check(all(equal(a, b) for a, b in zip(dets, nms_cuda.compact_and_pad_plain(*k6_args))),
+              "K6 on the SSD path's keep mask and candidates equal to plain")
+        check(all(equal(a, b) for a, b in zip(dets, (ids, scores, boxes))),
+              "SSD kernels step by step equal the predictor")
+        k6 = compact_row(k6_args)
+
+        x = normalized(batch)
+        head_ms = median_ms(lambda: model(x), reps=10)
+        tail_ms = median_ms(lambda: tail("auto"), reps=10)
+        plain_tail_ms = median_ms(lambda: tail("plain"), reps=3)
+        tail_device_ms = device_ms(lambda: tail("auto"), names=path_kernel_names(SSD_LAUNCHES))
+        del out, probs, pairs, x
+    step_ms = median_ms(lambda: predictor(batch), reps=10)  # images already on the card
+    breakdown = kernel_breakdown(lambda: predictor(batch), path_kernel_names(SSD_LAUNCHES))
+    breakdown["step_ms"] = step_ms
+    breakdown["idle_share"] = 1.0 - breakdown["device_ms"] / step_ms
+    emit({"phase": "ssd_path", "model": SSD_MODEL, "size": SSD_SIZE, "dtype": "bfloat16",
+          "batch": SSD_B, "anchors": SSD_N, "setup_s": setup_s, "launches": launches,
+          "kept_detections": kept, "tails_equal_plain": tails_equal, "k2": k2,
+          "k5_on_path": k5, "k6_on_path": k6, "head_ms": head_ms, "tail_ms": tail_ms,
+          "plain_tail_ms": plain_tail_ms, "tail_device_ms": tail_device_ms,
+          "end_to_end": {str(SSD_B): end_to_end(dev, predictor, images, SSD_B, 10)},
+          "device_breakdown": breakdown})
+    return launches, dict(k2, nms_keep_mask=k5, compact_and_pad=k6)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: Faster R-CNN
 # ---------------------------------------------------------------------------
 
 
@@ -1270,7 +1632,6 @@ def frcnn_path_phase(dev, kernels):
     import torch
 
     from viddet_tpu_torch.cli.common import make_predictor
-    from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
     from viddet_tpu_torch.models.faster_rcnn import FPN_STRIDES, frcnn_postprocess
     from viddet_tpu_torch.models.zoo import get_model
     from viddet_tpu_torch.ops import roi_align_cuda
@@ -1297,8 +1658,7 @@ def frcnn_path_phase(dev, kernels):
     kept_per_image = (ids >= 0).sum(1).tolist()
 
     with torch.inference_mode():
-        mean, std = (torch.as_tensor(v, device=dev) for v in (IMAGENET_MEAN, IMAGENET_STD))
-        x = (batch.float() / 255.0 - mean) / std  # as make_predictor does
+        x = normalized(batch)
         out = model(x)
 
         def tail(backend, valid=0.05):
@@ -1486,9 +1846,23 @@ def main() -> int:
     launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
     serving_phase(dev, predictor)
     del model, predictor, images, head_out
+    launches["temporal"], temporal_rows = temporal_phase(dev, kernels)
+    launches["ssd"], ssd_rows = ssd_phase(dev, kernels)
+    rows["topk_indices"]["ssd_shapes"] = {
+        name: {"shape": ssd_rows[name]["shape"], "ms": ssd_rows[name]["ms"],
+               "library_ms": ssd_rows[name]["library_ms"],
+               "bound_ms": ssd_rows[name]["bound"][0]} for name in ("stage1", "stage2")}
+    # each kernel's row at the shapes of the later paths that launch it
+    for path, path_rows in (("temporal", temporal_rows), ("ssd", ssd_rows)):
+        for name, row in path_rows.items():
+            if name in table:
+                rows[name].setdefault("on_paths", {})[path] = {
+                    key: row[key] for key in ("ms", "plain_ms", "library_ms")
+                } | {"bound_ms": row["bound"][0], "bound_by": row["bound"][1]}
     frcnn_predictor, launches["frcnn"] = frcnn_path_phase(dev, kernels)
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
-    emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS})
+    emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS,
+          "windows_with_spins_lost": len(SPINS_LOST), "spins_lost": SPINS_LOST})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"viddet_tpu_torch/csrc/{src}",
@@ -1498,8 +1872,8 @@ def main() -> int:
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound"][0],
          "bound_by": rows[name]["bound"][1], "bound_peak": rows[name]["bound"][2],
          "library_ms": rows[name]["library_ms"],
-         **{key: rows[name][key] for key in ("parts_ms", "queued_ms",
-                                             "library_queued_ms") if key in rows[name]},
+         **{key: rows[name][key] for key in ("parts_ms", "queued_ms", "library_queued_ms",
+                                             "ssd_shapes", "on_paths") if key in rows[name]},
          **({"batch_128": {key: rows[f"{name}_b128"][key] for key in ("ms", "queued_ms")}
              | {"bound_ms": rows[f"{name}_b128"]["bound"][0]}}
             if f"{name}_b128" in rows else {})}

@@ -765,3 +765,107 @@ def test_frcnn_tail_cuda_equals_plain(dev):
         want = faster_rcnn.frcnn_postprocess(proposals, logits, deltas, (512, 512),
                                              valid_thresh=valid, backend="plain")
         assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def _counting(monkeypatch):
+    """Launch counts of the tail's wrappers from here on."""
+    kernels = {"anchor_scores": nms_gather_cuda.anchor_scores,
+               "topk_indices": topk_cuda.topk_indices,
+               "gather_decode_pairs": nms_gather_cuda.gather_decode_pairs,
+               "gather_decode_top_m": nms_gather_cuda.gather_decode_top_m,
+               "finalize_candidates": nms_gather_cuda.finalize_candidates,
+               "nms_keep_mask": nms_cuda.nms_keep_mask,
+               "compact_and_pad": nms_cuda.compact_and_pad}
+    for fn in kernels.values():
+        monkeypatch.setattr(fn, "launches", 0)
+    return lambda: {name: fn.launches for name, fn in kernels.items() if fn.launches}
+
+
+@pytest.mark.parametrize("aggregation", ["stack", "max", "mean", "conv"])
+def test_temporal_tail_cuda_equals_plain(dev, aggregation, monkeypatch):
+    """The tiny k = 3 VID model in bf16 with seeded weights on uint8 clips:
+    one predictor call launches the hierarchical tail's kernels, and both
+    kernel tails equal their plain tails on the same head outputs."""
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    name = "yolo3_tiny_darknet_k3_vid"
+    model, _ = get_model(name, aggregation=aggregation)
+    load_flat(model, init_flat(name, seed=1, aggregation=aggregation))
+    clips = torch.randint(0, 256, (4, 3, 96, 96, 3), generator=_gen(3), dtype=torch.uint8)
+    count = _counting(monkeypatch)
+    ids, scores, boxes = make_predictor(model)(clips.to(dev))
+    torch.cuda.synchronize()
+    assert count() == {"anchor_scores": 1, "topk_indices": 2, "gather_decode_top_m": 1,
+                       "finalize_candidates": 1, "nms_keep_mask": 1, "compact_and_pad": 1}
+    assert ids.shape == (4, 100) and bool(torch.isfinite(scores).all())
+    with torch.inference_mode():
+        out = model(clips.to(dev).float() / 255.0)
+    for ranking in ("hier", "det"):
+        got = multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"], ranking=ranking)
+        want = multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"], ranking=ranking,
+                                                backend="plain")
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+DENSE_CASES = [(2, 300, 6, 64), (2, 30, 6, 400), (1, 700, 80, 400), (1, 1000, 80, 400)]
+
+
+@pytest.mark.parametrize("entry,b,n,c,topk", [
+    *[(e, *case) for e in ("dense_two_stage", "multiclass_nms", "from_logits")
+      for case in DENSE_CASES],
+    ("dense_two_stage", 3, 24564, 20, 400), ("from_logits", 3, 24564, 20, 400),
+    ("multiclass_nms", 2, 2800, 20, 400),  # N*C = 56,000
+    ("multiclass_nms", 2, 10647, 80, 400),  # YOLOv3-416 COCO: N*C = 851,760
+    ("dense_two_stage", 2, 60000, 4, 400), ("from_logits", 2, 60000, 4, 400),  # N > MAX_N
+])
+def test_dense_nms_cuda_equals_plain(dev, entry, b, n, c, topk):
+    """The dense entry points on the card against their plain chain, with
+    tie-heavy scores; at N = 30, C = 6 the pair ranking is padded to topk
+    (30 * 6 = 180 < 400).  Rankings wider than K2's MAX_N (N*C = 80,000
+    and 851,760; N = 60,000) go through K2 in slices."""
+    from viddet_tpu_torch.ops import nms as torch_nms
+
+    g = _gen(n + c)
+    pts = torch.rand((b, n, 2, 2), generator=g) * 512
+    boxes = torch.cat([pts.amin(2), pts.amax(2) + 2], dim=-1).to(dev)
+    scores = torch.softmax(torch.randn((b, n, c + 1), generator=g).mul(2).round(), -1)
+    scores = scores[..., 1:].contiguous().to(dev)
+    logits = torch.randn((b, n, c + 1), generator=g).mul(2).round().to(dev)
+    kw = dict(iou_thresh=0.45, valid_thresh=0.01, topk=topk, post_nms=100)
+
+    def run(backend):
+        if entry == "dense_two_stage":
+            return torch_nms.multiclass_nms_dense_two_stage(boxes, scores, backend=backend, **kw)
+        if entry == "multiclass_nms":
+            return torch_nms.multiclass_nms(boxes, scores, backend=backend, **kw)
+        return torch_nms.multiclass_nms_from_logits(boxes, logits[..., :1], logits[..., 1:],
+                                                    backend=backend, **kw)
+
+    assert all(torch.equal(a, w) for a, w in zip(run("auto"), run("plain")))
+
+
+def test_ssd_predictor_cuda_equals_plain(dev, monkeypatch):
+    """A shallow SSD in bf16 on the card: one predictor call launches K2
+    twice, K5 and K6 once, and the kernel tail equals the plain tail."""
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.models import ssd
+    from viddet_tpu_torch.models.yolo3 import NMSConfig
+
+    torch.manual_seed(0)
+    model = ssd.SSD(20, 256, backbone_blocks=(1, 1, 1, 1), backbone_widths=(8, 16, 32, 64))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    frames = torch.randint(0, 256, (4, 256, 256, 3), generator=_gen(7), dtype=torch.uint8)
+    count = _counting(monkeypatch)
+    ids, scores, boxes = make_predictor(model, NMSConfig(valid_thresh=0.0))(frames.to(dev))
+    torch.cuda.synchronize()
+    assert count() == {"topk_indices": 2, "nms_keep_mask": 1, "compact_and_pad": 1}
+    assert bool((ids >= 0).any())
+    with torch.inference_mode():
+        out = model(frames.to(dev).float() / 255.0)
+    for valid in (0.0, 0.01):
+        cfg = ssd.SSDNMSConfig(valid_thresh=valid)
+        got = ssd.ssd_postprocess(out, cfg)
+        want = ssd.ssd_postprocess(out, ssd.SSDNMSConfig(valid_thresh=valid, backend="plain"))
+        assert all(torch.equal(a, w) for a, w in zip(got, want))

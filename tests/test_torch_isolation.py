@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``."""
+"""The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, and no
+OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's)."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "viddet_tpu_torch"
-FORBIDDEN = ("jax", "flax", "viddet_tpu")
+FORBIDDEN = ("jax", "flax", "viddet_tpu", "cv2")
 
 
 def _imports(path: Path):

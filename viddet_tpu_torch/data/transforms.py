@@ -1,11 +1,10 @@
 """Host-side inference transform (copy of the ``viddet_tpu/data/transforms.py``
 pieces the serving path uses).
 
-The JAX package resizes with OpenCV; the port resizes with
-``torch.nn.functional.interpolate(mode="bilinear", align_corners=False,
-antialias=False)``, which samples at the same half-pixel centres as
-``cv2.INTER_LINEAR``.  OpenCV interpolates uint8 in fixed point, so the two
-can differ by one uint8 level.
+The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``; the port
+imports no OpenCV and reproduces that uint8 resize bit for bit in integer
+arithmetic (``_resize``): 11-bit fixed-point coefficients, OpenCV's
+horizontal pass and its SIMD vertical pass, with OpenCV's edge rules.
 """
 
 from __future__ import annotations
@@ -15,7 +14,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -30,15 +28,69 @@ def normalize(image: np.ndarray) -> np.ndarray:
     return out
 
 
+_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+_ONE = 1 << _COEF_BITS
+
+
+def _axis_taps(src: int, dst: int):
+    """OpenCV's INTER_LINEAR source index and fraction per destination
+    position: ``fx = float32((d + 0.5) * scale - 0.5)`` with ``scale`` the
+    double ``1 / (dst / src)``, ``s = floor(fx)``, ``fx = float32(fx - s)``."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    return s.astype(np.int64), f
+
+
+def _coefs(f: np.ndarray):
+    """The two 11-bit weights of fractions ``f``: ``rint(float32(1 - f) *
+    2048)`` and ``rint(f * 2048)``, rounding half to even as cvRound does."""
+    one = np.float32(_ONE)
+    c0 = np.rint((np.float32(1) - f).astype(np.float32) * one).astype(np.int32)
+    c1 = np.rint(f * one).astype(np.int32)
+    return c0, c1
+
+
 def _resize(image: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear uint8 HWC resize, rounded back to uint8."""
-    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
-    y = F.interpolate(
-        x.float(), size=(h, w), mode="bilinear", align_corners=False,
-        antialias=False,
-    )
-    y = y.round_().clamp_(0, 255).to(torch.uint8)
-    return y[0].permute(1, 2, 0).contiguous().numpy()
+    """``cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR)`` for a
+    uint8 HWC image, bit for bit, in int32 torch arithmetic on the host.
+
+    Columns: a column whose left tap falls before the image takes fraction
+    0 at column 0; one whose right tap falls past the last column is a
+    single tap ``p[s] * 2048`` (``s`` clamped to the last column).  Others
+    sum ``a0 * p[s] + a1 * p[s + 1]``.  Rows: the two source rows are
+    clamped into the image, but the fraction is kept at both edges.  The
+    vertical pass is OpenCV's SIMD one for every element:
+    ``((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2 >> 2``; each
+    product stays below 2**31 (2048 * 32767).
+    """
+    ih, iw = image.shape[:2]
+    sx, fx = _axis_taps(iw, w)
+    left = sx < 0
+    fx[left], sx[left] = 0.0, 0
+    a0, a1 = _coefs(fx)
+    single = sx + 1 >= iw
+    sx = np.minimum(sx, iw - 1)
+    a0[single], a1[single] = _ONE, 0
+    sx1 = np.where(single, sx, sx + 1)
+
+    sy, fy = _axis_taps(ih, h)
+    b0, b1 = _coefs(fy)
+    r0, r1 = np.clip(sy, 0, ih - 1), np.clip(sy + 1, 0, ih - 1)
+
+    p = torch.from_numpy(np.ascontiguousarray(image))
+    cols0, cols1 = torch.from_numpy(sx), torch.from_numpy(sx1)
+    ca0, ca1 = torch.from_numpy(a0)[:, None], torch.from_numpy(a1)[:, None]
+
+    def horizontal(rows: np.ndarray) -> torch.Tensor:
+        x = p[torch.from_numpy(rows)].to(torch.int32)  # (h, iw, c)
+        return (x[:, cols0] * ca0 + x[:, cols1] * ca1) >> 4  # (h, w, c)
+
+    t0 = (torch.from_numpy(b0)[:, None, None] * horizontal(r0)) >> 16
+    t1 = (torch.from_numpy(b1)[:, None, None] * horizontal(r1)) >> 16
+    out = (t0 + t1 + 2) >> 2
+    return out.clamp_(0, 255).to(torch.uint8).numpy()
 
 
 def resize_plain(

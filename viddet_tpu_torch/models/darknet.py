@@ -1,7 +1,8 @@
 """Darknet backbones (counterpart of ``viddet_tpu/models/darknet.py:26-71``).
 
 Both take an NCHW channels_last tensor and return multi-scale features,
-shallowest first, in the compute dtype.
+shallowest first, in the compute dtype.  ``in_channels`` widens the stem
+conv (3k for the temporal model's ``stack`` aggregation).
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ class Darknet53(nn.Module):
     STAGES = ((1, 64), (2, 128), (8, 256), (8, 512), (4, 1024))
     OUT_CHANNELS = (256, 512, 1024)
 
-    def __init__(self, policy: Policy = DEFAULT_POLICY, scope: str = "Darknet53_0"):
+    def __init__(self, policy: Policy = DEFAULT_POLICY, scope: str = "Darknet53_0",
+                 in_channels: int = 3):
         super().__init__()
         self.policy = policy
         names = FlaxNames(scope)
-        self.stem = ConvBNLeaky(3, 32, 3, policy=policy, scope=names("ConvBNLeaky"))
+        self.stem = ConvBNLeaky(in_channels, 32, 3, policy=policy, scope=names("ConvBNLeaky"))
         downs, stages = [], []
         cin = 32
         for _, channels in self.STAGES:
@@ -61,11 +63,12 @@ class DarknetTiny(nn.Module):
 
     OUT_CHANNELS = (256, 1024)
 
-    def __init__(self, policy: Policy = DEFAULT_POLICY, scope: str = "DarknetTiny_0"):
+    def __init__(self, policy: Policy = DEFAULT_POLICY, scope: str = "DarknetTiny_0",
+                 in_channels: int = 3):
         super().__init__()
         self.policy = policy
         names = FlaxNames(scope)
-        cells, cin = [], 3
+        cells, cin = [], in_channels
         for channels in (16, 32, 64, 128, 256, 512, 1024):
             cells.append(ConvBNLeaky(cin, channels, 3, policy=policy,
                                      scope=names("ConvBNLeaky")))

@@ -1,0 +1,162 @@
+"""SSD-512 ResNet-50 inference (counterpart of ``viddet_tpu/models/ssd.py``).
+
+ResNet-50 c3/c4/c5 (strides 8/16/32) and four extra stride-2 ``_ConvBN``
+pairs (strides 64..512) give seven maps; a 3x3 class conv and a 3x3 box
+conv with bias per map predict ``len(ratios) + 1`` anchors per cell.  The
+anchors are numpy constants, built once per set of map sizes and kept on
+the device.  At 512 px there are 24,564 anchors.
+
+``ssd_forward_and_postprocess`` takes the float32 softmax, drops the
+background column and runs ``multiclass_nms_dense_two_stage``: on a CUDA
+device K2 twice (the anchor ranking over N, the pair ranking over k*C),
+K5 and K6.  The training pieces (target assignment, loss) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from viddet_tpu_torch.models.common import BiasConv
+from viddet_tpu_torch.models.resnet import ConvBN, ResNet50
+from viddet_tpu_torch.models.yolo3 import NMSConfig
+from viddet_tpu_torch.ops.nms import Detections, multiclass_nms_dense_two_stage
+
+# SSD512 layer config: stride, anchor size s_k, next size s_{k+1}, ratios
+SSD512_STRIDES = (8, 16, 32, 64, 128, 256, 512)
+SSD512_SIZES = (35.84, 76.8, 153.6, 230.4, 307.2, 384.0, 460.8, 537.6)
+SSD512_RATIOS = (
+    (1.0, 2.0, 0.5),
+    (1.0, 2.0, 0.5, 3.0, 1.0 / 3.0),
+    (1.0, 2.0, 0.5, 3.0, 1.0 / 3.0),
+    (1.0, 2.0, 0.5, 3.0, 1.0 / 3.0),
+    (1.0, 2.0, 0.5, 3.0, 1.0 / 3.0),
+    (1.0, 2.0, 0.5),
+    (1.0, 2.0, 0.5),
+)
+BOX_VARIANCES = (0.1, 0.1, 0.2, 0.2)
+EXTRA_CHANNELS = (512, 256, 256, 256)
+
+
+def anchors_per_cell(ratios: Sequence[float]) -> int:
+    return len(ratios) + 1  # extra geometric-mean-size square box
+
+
+def _layer_anchors(fh: int, fw: int, stride: int, layer_idx: int) -> np.ndarray:
+    """(fh*fw*A, 4) corner anchors of one map, (row, col, anchor) order."""
+    ratios = SSD512_RATIOS[layer_idx]
+    s = SSD512_SIZES[layer_idx]
+    s_next = SSD512_SIZES[layer_idx + 1]
+    whs = [(s, s), (math.sqrt(s * s_next), math.sqrt(s * s_next))]
+    for r in ratios:
+        if r == 1.0:
+            continue
+        whs.append((s * math.sqrt(r), s / math.sqrt(r)))
+    cx, cy = np.meshgrid((np.arange(fw) + 0.5) * stride, (np.arange(fh) + 0.5) * stride)
+    layer = np.stack(
+        [np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=-1) for w, h in whs],
+        axis=2)  # (fh, fw, A, 4)
+    return layer.reshape(-1, 4)
+
+
+def _anchors_for(sizes: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+    return np.concatenate([_layer_anchors(fh, fw, SSD512_STRIDES[i], i)
+                           for i, (fh, fw) in enumerate(sizes)], axis=0).astype(np.float32)
+
+
+def generate_ssd_anchors(image_size: int) -> np.ndarray:
+    """(N, 4) corner anchors of all 7 maps; map sides are "SAME" stride-2
+    sizes, ceil(image_size / stride)."""
+    fm = [max(-(-image_size // stride), 1) for stride in SSD512_STRIDES]
+    return _anchors_for(tuple((f, f) for f in fm))
+
+
+def decode_ssd_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Variance-scaled (..., 4) deltas on corner anchors -> corner boxes."""
+    vx, vy, vw, vh = BOX_VARIANCES
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    acx = anchors[..., 0] + 0.5 * aw
+    acy = anchors[..., 1] + 0.5 * ah
+    cx = deltas[..., 0] * vx * aw + acx
+    cy = deltas[..., 1] * vy * ah + acy
+    w = torch.exp((deltas[..., 2] * vw).clamp(-10.0, 10.0)) * aw
+    h = torch.exp((deltas[..., 3] * vh).clamp(-10.0, 10.0)) * ah
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+class SSD(nn.Module):
+    """SSD-512 ResNet-50.  ``forward`` takes NHWC images and returns
+    ``cls_logits`` (B, N, C+1; class 0 background) in the compute dtype,
+    ``box_deltas`` (B, N, 4) float32, ``anchors`` (N, 4) and ``boxes``
+    (B, N, 4) float32.  ``backbone_blocks`` / ``backbone_widths`` override
+    the ResNet stages (the JAX module's fields of the same names)."""
+
+    def __init__(self, num_classes: int, image_size: int = 512,
+                 policy: Policy = DEFAULT_POLICY, backbone_blocks=None, backbone_widths=None):
+        super().__init__()
+        self.num_classes, self.image_size = num_classes, image_size
+        self.backbone = ResNet50(policy, backbone_blocks, backbone_widths)
+        extras, cin = [], self.backbone.out_channels[-1]
+        for i, ch in enumerate(EXTRA_CHANNELS):
+            extras.append(nn.Sequential(
+                ConvBN(cin, ch // 2, 1, 1, policy=policy, scope=f"_ConvBN_{2 * i}"),
+                ConvBN(ch // 2, ch, 3, 2, policy=policy, scope=f"_ConvBN_{2 * i + 1}")))
+            cin = ch
+        self.extras = nn.ModuleList(extras)
+        map_channels = self.backbone.out_channels[1:] + EXTRA_CHANNELS
+        self.cls_preds = nn.ModuleList(
+            BiasConv(ch, anchors_per_cell(r) * (num_classes + 1), 3, policy, f"cls_pred_{i}")
+            for i, (ch, r) in enumerate(zip(map_channels, SSD512_RATIOS)))
+        self.box_preds = nn.ModuleList(
+            BiasConv(ch, anchors_per_cell(r) * 4, 3, policy, f"box_pred_{i}")
+            for i, (ch, r) in enumerate(zip(map_channels, SSD512_RATIOS)))
+        self._anchors: Dict[tuple, torch.Tensor] = {}
+
+    def anchors(self, sizes: Tuple[Tuple[int, int], ...], device) -> torch.Tensor:
+        key = (sizes, str(device))
+        if key not in self._anchors:
+            self._anchors[key] = torch.from_numpy(_anchors_for(sizes)).to(device)
+        return self._anchors[key]
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        maps = self.backbone(x)[1:]  # c3, c4, c5
+        y = maps[-1]
+        for extra in self.extras:
+            y = extra(y)
+            maps.append(y)
+        b, c1 = images.shape[0], self.num_classes + 1
+        cls_outs, box_outs = [], []
+        for fm, cls_pred, box_pred in zip(maps, self.cls_preds, self.box_preds):
+            cls_outs.append(cls_pred(fm).permute(0, 2, 3, 1).reshape(b, -1, c1))
+            box_outs.append(box_pred(fm).permute(0, 2, 3, 1).reshape(b, -1, 4).float())
+        cls_logits = torch.cat(cls_outs, dim=1)
+        box_deltas = torch.cat(box_outs, dim=1)
+        anchors = self.anchors(tuple(tuple(fm.shape[2:]) for fm in maps), images.device)
+        return {"cls_logits": cls_logits, "box_deltas": box_deltas, "anchors": anchors,
+                "boxes": decode_ssd_boxes(box_deltas, anchors)}
+
+
+# The JAX package's SSD config (``viddet_tpu/models/ssd.py:287``) has the
+# same fields and defaults as YOLOv3's; SSD ignores ``ranking``.
+SSDNMSConfig = NMSConfig
+
+
+def ssd_postprocess(out: Dict[str, torch.Tensor],
+                    nms: SSDNMSConfig = SSDNMSConfig()) -> Detections:
+    """SSD outputs -> (ids, scores, boxes): the float32 softmax without its
+    background column, then the dense two-stage ranking and NMS."""
+    scores = torch.softmax(out["cls_logits"].float(), dim=-1)[..., 1:]
+    return multiclass_nms_dense_two_stage(out["boxes"], scores, **nms.kwargs())
+
+
+def ssd_forward_and_postprocess(model: SSD, images: torch.Tensor,
+                                nms: SSDNMSConfig = SSDNMSConfig()) -> Detections:
+    """One inference step: NHWC images -> (ids, scores, boxes), -1 padded."""
+    return ssd_postprocess(model(images), nms)

@@ -29,6 +29,12 @@ K2 threshold-select kernel (the exact winner set, in ascending index
 order) followed by a stable descending sort of the k winners;
 ``torch.topk`` promises no tie order and is not used.
 
+The dense entry points (``multiclass_nms``, ``multiclass_nms_dense_two_stage``
+for SSD, ``multiclass_nms_from_logits``) rank the same way: K2 and a
+stable sort for every ``lax.top_k``, then K5 and K6.  Where JAX ranks a
+stage 2 with ``lax.approx_max_k`` on the TPU, the port ranks exactly, so
+it may order exact ties at the topk-th score differently from the TPU.
+
 Everything is fixed-shape and batched; the result is ``(ids, scores,
 boxes)`` padded with -1.  ``backend`` picks the kernels:
 
@@ -104,12 +110,30 @@ def _class_offset(cand_boxes: torch.Tensor, cls_idx: torch.Tensor) -> torch.Tens
     return cand_boxes + (cls_idx * 2.0 * span[:, None])[..., None]
 
 
+def _top_k_set(scores: torch.Tensor, k: int, topk_fn) -> torch.Tensor:
+    """``topk_fn``'s winner set (ascending indices, ties lowest index
+    first) at any row width.  A row wider than K2's ``topk_cuda.MAX_N`` is
+    ranked in slices of at most MAX_N columns, then once more over the
+    slices' winners, concatenated in ascending index order.  Exact: a
+    winner of the row is a winner of its slice, and the concatenation keeps
+    every index's order, so ties still go lowest index first.  Each slice
+    must hold min(k, its width) non-negative scores (dense probabilities
+    always do)."""
+    n, width = scores.shape[1], topk_cuda.MAX_N
+    if n <= width or k >= width:
+        return topk_fn(scores, k)
+    idx = torch.cat([topk_fn(scores[:, s:s + width].contiguous(), min(k, n - s)) + s
+                     for s in range(0, n, width)], dim=1)
+    return idx.gather(1, _top_k_set(scores.gather(1, idx), k, topk_fn))
+
+
 def _pair_top_k_det(scores: torch.Tensor, k: int,
                     topk_fn=topk_cuda.topk_indices) -> Tuple[torch.Tensor, torch.Tensor]:
     """``lax.top_k(scores, k)`` exactly (``viddet_tpu/ops/nms.py:174``): the
-    threshold-select winner set (K2), re-ranked by a stable descending sort;
-    equal scores keep their ascending-index order, lax.top_k's tie order."""
-    idx = topk_fn(scores, k)
+    threshold-select winner set (K2, at any width), re-ranked by a stable
+    descending sort; equal scores keep their ascending-index order,
+    lax.top_k's tie order."""
+    idx = _top_k_set(scores, k, topk_fn)
     vals = scores.gather(1, idx)
     v_sorted, pos = torch.sort(vals, dim=1, descending=True, stable=True)
     return v_sorted, idx.gather(1, pos)
@@ -121,6 +145,11 @@ def _nms_on_candidates(cand_boxes, top_scores, cls_idx, valid, iou_thresh, post_
     offset_boxes = _class_offset(cand_boxes, cls_idx)
     keep = ops.nms_keep_mask(offset_boxes, valid, iou_thresh)
     return ops.compact_and_pad(keep, top_scores, cls_idx, cand_boxes, post_nms)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, D) at idx (B, k) -> (B, k, D)."""
+    return x.gather(1, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
 def _stage2_and_nms(boxes_k, pair_scores, iou_thresh, valid_thresh, topk, post_nms,
@@ -135,10 +164,76 @@ def _stage2_and_nms(boxes_k, pair_scores, iou_thresh, valid_thresh, topk, post_n
         p_idx = torch.nn.functional.pad(p_idx, (0, pad))
     anchor2 = p_idx // c  # (B, topk) index into boxes_k
     cls_idx = (p_idx % c).float()
-    cand_boxes = boxes_k.gather(1, anchor2[..., None].expand(b, topk, 4))
+    cand_boxes = _gather_rows(boxes_k, anchor2)
     valid = top_scores > valid_thresh
     return _nms_on_candidates(cand_boxes, top_scores, cls_idx, valid, iou_thresh,
                               post_nms, ops)
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, *, iou_thresh: float = 0.45,
+                   valid_thresh: float = 0.01, topk: int = 400, post_nms: int = 100,
+                   backend: str = "auto") -> Detections:
+    """Class-aware NMS over dense per-class scores (``viddet_tpu/ops/nms.py:101``):
+    one candidate per (anchor, class), the exact top-k of all N*C (K2 and a
+    stable sort), then NMS (K5, K6).
+
+    boxes (B, N, 4) corner boxes shared across classes; scores (B, N, C),
+    >= 0 as K2 requires (objectness times class probability).  N*C past
+    K2's ``topk_cuda.MAX_N`` is ranked in slices (``_top_k_set``).
+    """
+    ops = _ops(backend)
+    b, n, c = scores.shape
+    k = min(topk, n * c)
+    top_scores, top_idx = _pair_top_k_det(scores.reshape(b, n * c), k, ops.topk_indices)
+    cand_boxes = _gather_rows(boxes, top_idx // c)
+    valid = top_scores > valid_thresh
+    return _nms_on_candidates(cand_boxes, top_scores, (top_idx % c).float(), valid,
+                              iou_thresh, post_nms, ops)
+
+
+def multiclass_nms_dense_two_stage(boxes: torch.Tensor, scores: torch.Tensor, *,
+                                   iou_thresh: float = 0.45, valid_thresh: float = 0.01,
+                                   topk: int = 400, post_nms: int = 100,
+                                   backend: str = "auto") -> Detections:
+    """Two-stage top-k and NMS over dense (B, N, C) probabilities, SSD's tail
+    (``viddet_tpu/ops/nms.py:239``): stage 1 ranks the anchors by their
+    largest class probability (K2 and a stable sort, exactly ``lax.top_k``,
+    so the k winners' order is the XLA chain's), stage 2 ranks their k*C
+    pairs (K2 again), padded to ``topk`` where k*C is smaller; then NMS
+    (K5, K6).  An anchor outside the stage-1 top-k owns no top-k pair."""
+    ops = _ops(backend)
+    k = min(topk, scores.shape[1])
+    _, a_idx = _pair_top_k_det(scores.amax(dim=-1).float(), k, ops.topk_indices)
+    return _stage2_and_nms(_gather_rows(boxes, a_idx), _gather_rows(scores, a_idx).float(),
+                           iou_thresh, valid_thresh, topk, post_nms, ops)
+
+
+def multiclass_nms_from_logits(boxes: torch.Tensor, obj_logits: torch.Tensor,
+                               cls_logits: torch.Tensor,
+                               cls_max_logits: Optional[torch.Tensor] = None, *,
+                               iou_thresh: float = 0.45, valid_thresh: float = 0.01,
+                               topk: int = 400, post_nms: int = 100,
+                               backend: str = "auto") -> Detections:
+    """Two-stage exact top-k and NMS straight from decoded boxes and head
+    logits (``viddet_tpu/ops/nms.py:553``): stage 1 ranks the anchors by
+    sigmoid(obj) * sigmoid(max class logit), stage 2 the k winners' k*C
+    pair scores sigmoid(obj) * sigmoid(cls); K2 and a stable sort for both,
+    then NMS (K5, K6).
+
+    boxes (B, N, 4) float32; obj_logits (B, N, 1), cls_logits (B, N, C)
+    and cls_max_logits (B, N) in any float dtype.
+    """
+    ops = _ops(backend)
+    k = min(topk, cls_logits.shape[1])
+    obj = torch.sigmoid(obj_logits[..., 0].float())
+    if cls_max_logits is None:
+        cls_max_logits = cls_logits.amax(dim=-1)
+    anchor_score = obj * torch.sigmoid(cls_max_logits.float())
+    _, a_idx = _pair_top_k_det(anchor_score, k, ops.topk_indices)
+    pair_scores = obj.gather(1, a_idx)[..., None] * torch.sigmoid(
+        _gather_rows(cls_logits, a_idx).float())
+    return _stage2_and_nms(_gather_rows(boxes, a_idx), pair_scores, iou_thresh, valid_thresh,
+                           topk, post_nms, ops)
 
 
 def _stage2_hier_and_nms(boxes_k, v_m, i_m, hot_flat, hot_idx, iou_thresh, valid_thresh,
@@ -174,18 +269,12 @@ def multiclass_nms_late_decode(
     stride_n (N, 2) / (N, 2) / (N, 1) decode constants.
     """
     ops = _ops(backend)
-    b, n, c = cls_logits.shape
-    k = min(topk, n)
+    k = min(topk, cls_logits.shape[1])
     obj = torch.sigmoid(obj_logits[..., 0].float())
     anchor_score = obj * torch.sigmoid(cls_max_logits.float())
     _, a_idx = _pair_top_k_det(anchor_score, k, ops.topk_indices)
-    raw_k = torch.cat(
-        [raw_xy.gather(1, a_idx[..., None].expand(b, k, 2)).float(),
-         raw_wh.gather(1, a_idx[..., None].expand(b, k, 2)).float(),
-         obj_logits.gather(1, a_idx[..., None]).float(),
-         cls_logits.gather(1, a_idx[..., None].expand(b, k, c)).float()],
-        dim=-1,
-    )
+    raw_k = torch.cat([_gather_rows(x, a_idx).float()
+                       for x in (raw_xy, raw_wh, obj_logits, cls_logits)], dim=-1)
     boxes_k, pair_scores = decode_winners(raw_k, a_idx, grid_xy, anchor_wh, stride_n)
     return _stage2_and_nms(boxes_k, pair_scores, iou_thresh, valid_thresh, topk,
                            post_nms, ops)

@@ -94,14 +94,16 @@ def _lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return (x * std).astype(np.float32)
 
 
-def init_flat(model_name: str, seed: int = 0) -> Dict[str, np.ndarray]:
+def init_flat(model_name: str, seed: int = 0, **model_kwargs) -> Dict[str, np.ndarray]:
     """Seeded random weights for a registered model, in the ``.npz`` schema
     (Flax's initialisers: lecun-normal kernels, zero biases, BN scale 1,
-    running mean 0 and var 1).  Needs no JAX and no download."""
+    running mean 0 and var 1).  ``model_kwargs`` go to the model's factory
+    (a temporal model's ``aggregation``, say), as ``zoo.get_model``'s do.
+    Needs no JAX and no download."""
     from viddet_tpu_torch.models.zoo import _REGISTRY
 
     with torch.device("meta"):
-        model, _ = _REGISTRY[model_name]()
+        model, _ = _REGISTRY[model_name](**model_kwargs)
     rng = np.random.default_rng(seed)
     flat = {}
     for key, t, kind in _leaves(model):
