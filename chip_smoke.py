@@ -43,7 +43,17 @@ Phases, each printed as one JSON line:
             at batch 32;
 6. serving: ``DetectionService`` answers 16 requests from 4 threads, each
             equal to the direct batched call;
-7. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
+7. evaluate: ``cli.evaluate.evaluate`` with the main path's model (416 px,
+            bf16, seeded weights, NMSConfig()) over 256 synthetic images of
+            640 px in batches of 32 from 4 loader threads, VOC07 mAP over
+            the 80 COCO names, detections saved: K1, K3, K4, K5 and K6
+            launched once a batch and K2 twice, every saved line equal to
+            the direct ``make_predictor`` call on the same loader batch,
+            ``rescore_from_detections`` on the file equal to the metric;
+            images/s, the split of wall time (loader, device step, metric),
+            peak memory, under device (uint8 frames) and host
+            normalization, and the predictor's own frames/s on the batches;
+8. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
             seeded weights, batches of 8 clips of k = 3 frames (24 frames
             through Darknet-53), under each aggregation (max, stack, mean,
             conv): the launch counts of one ``make_predictor`` call on uint8
@@ -53,7 +63,7 @@ Phases, each printed as one JSON line:
             own intermediates (C = 30), well-formed detections; under max,
             the default, also each kernel's time, plain and library time and
             bound at the path's shapes, time per batch and clips/s;
-8. ssd:     SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
+9. ssd:     SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
             seeded weights) through ``make_predictor``: its launch counts
             (K2 twice, K5 and K6 once), the kernel tail equal to the plain
             tail on the same head outputs, K2 at the path's two shapes
@@ -62,7 +72,7 @@ Phases, each printed as one JSON line:
             with their times, torch.topk's time and their bounds, the steps'
             result equal to the predictor's; time per batch, frames/s, peak
             memory and a device breakdown;
-9. frcnn:   Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
+10. frcnn:  Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
             8, bf16, seeded weights) through ``make_predictor``: its kernel
             launch counts (K7 once, K5 twice, K2 and K6 once), the kernel
             tail equal to the plain tail on the same head outputs and
@@ -71,9 +81,9 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-10. profiler: the profiler windows that missed a launch and were taken
+11. profiler: the profiler windows that missed a launch and were taken
             again;
-11. kernels: one line listing every ported kernel;
+12. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -138,6 +148,12 @@ TEMPORAL_AGGREGATIONS = ("max", "stack", "mean", "conv")
 # 4^2*6 + 2^2*4 + 1*4.
 SSD_MODEL, SSD_SIZE, SSD_B, SSD_N = "ssd_512_resnet50_coco", 512, 32, 24564
 
+# The evaluate phase: cli.evaluate.evaluate on the main path's model (416
+# px, bf16, NMSConfig()) over a synthetic set of 640-px images, batches of
+# 32 from 4 loader threads, scored by VOC07 mAP over the 80 COCO names.
+EVAL_IMAGES, EVAL_IMAGE_SIZE, EVAL_CLASSES, EVAL_SEED = 256, 640, 8, 1
+EVAL_B, EVAL_WORKERS = 32, 4
+
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
 HIER_LAUNCHES = {"anchor_scores": 1, "topk_indices": 2, "gather_decode_top_m": 1,
@@ -166,8 +182,11 @@ KERNEL_NAMES = {
     "multilevel_roi_align": ("roi_align_kernel",),
 }
 # torch.profiler windows a timing may take before the run fails; a window
-# that misses a kernel launch is logged here and taken again.
-PROFILER_WINDOWS = 3
+# that misses a kernel launch is logged here and taken again after a pause.
+# Whole windows are lost in bursts: three in a row once failed a run (SSD's
+# K2 timing), so a timing takes up to eight.
+PROFILER_WINDOWS = 8
+PROFILER_RETRY_PAUSE_S = 0.5
 INCOMPLETE_WINDOWS: list = []
 # The spin kernel (``torch.cuda._sleep``) runs about this many cycles a ms
 # (the H100's 1.98 GHz boost clock; a lower clock only spins longer).
@@ -218,8 +237,8 @@ def profile_kernels(fn, reps: int = 10, names=()) -> dict:
     window.  So a window opens with WINDOW_OPENERS short spin kernels and
     a synchronisation, and closes with one spin; spins the profiler lost
     are counted in SPINS_LOST.  An incomplete window is logged in
-    INCOMPLETE_WINDOWS and taken again, and the run fails after
-    PROFILER_WINDOWS of them.
+    INCOMPLETE_WINDOWS and taken again after PROFILER_RETRY_PAUSE_S, and
+    the run fails after PROFILER_WINDOWS of them in one timing.
     """
     import torch
     from torch.autograd import DeviceType
@@ -247,7 +266,8 @@ def profile_kernels(fn, reps: int = 10, names=()) -> dict:
         if events and not missing and not partial:
             return events
         INCOMPLETE_WINDOWS.append(dict(names=list(names), reps=reps, kernels=len(events),
-                                       missing=missing, partial=partial))
+                                       missing=missing, partial=partial, spins_lost=lost))
+        time.sleep(PROFILER_RETRY_PAUSE_S)
     raise RuntimeError(f"check failed: {PROFILER_WINDOWS} incomplete profiler windows: "
                        f"{INCOMPLETE_WINDOWS[-PROFILER_WINDOWS:]}")
 
@@ -338,7 +358,6 @@ def normalized(batch):
     import torch
 
     from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
-
 
     mean, std = (torch.as_tensor(v, device=batch.device) for v in (IMAGENET_MEAN, IMAGENET_STD))
     return (batch.float() / 255.0 - mean) / std
@@ -1251,6 +1270,152 @@ def end_to_end(dev, predictor, images, bs: int, reps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: evaluate
+# ---------------------------------------------------------------------------
+
+
+def same_values(a, b) -> bool:
+    """Metric tables equal name for name and float for float, NaN equal to
+    NaN (a class with no ground truth has a NaN AP)."""
+    return a[0] == b[0] and len(a[1]) == len(b[1]) and all(
+        x == y or (x != x and y != y) for x, y in zip(a[1], b[1]))
+
+
+def evaluate_phase(dev, kernels, model) -> dict:
+    """``cli.evaluate.evaluate`` on the main path's model: the YOLOv3 tail's
+    kernels launched once a batch (K2 twice), every saved detection equal
+    to the direct ``make_predictor`` call on the same loader batch rescaled
+    to the original image, the metric reproduced from the saved file by
+    ``rescore_from_detections``, and on each loader batch the kernel tail
+    equal to the plain tail on the same head outputs; images/s with the
+    wall-time split, the predictor's own frames/s on the same numpy batches
+    (through ``to_device_batch``, as ``evaluate`` calls it, and from
+    batches already pinned), the pin-and-copy alone and peak memory.  Frames
+    cross as uint8 (``--device-normalize``); a second run normalizes on the
+    host, the CLI's default."""
+    import argparse
+    import logging
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.cli.evaluate import detection_line, evaluate, rescore_from_detections
+    from viddet_tpu_torch.data.loader import DetectionLoader
+    from viddet_tpu_torch.data.names import COCO_CLASSES
+    from viddet_tpu_torch.data.synthetic import SyntheticDetection
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+    from viddet_tpu_torch.eval.voc_map import VOC07MApMetric
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
+
+    dataset = SyntheticDetection(num_images=EVAL_IMAGES, size=EVAL_IMAGE_SIZE,
+                                 num_classes=EVAL_CLASSES, seed=EVAL_SEED)
+    batches = EVAL_IMAGES // EVAL_B
+    want = {name: n * batches for name, n in HIER_LAUNCHES.items()}
+    logger = logging.getLogger("chip_smoke.evaluate")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "detections.jsonl")
+        for device_normalize in (True, False):
+            args = argparse.Namespace(
+                data_shape=IMAGE_SIZE, batch_size=EVAL_B, num_workers=EVAL_WORKERS,
+                letterbox=False, max_images=0, device_normalize=device_normalize, temporal_k=1,
+                save_detections=path if device_normalize else "")
+            metric = VOC07MApMetric(iou_thresh=0.5, class_names=COCO_CLASSES)
+            stats = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            set_launches(kernels)
+            values = evaluate(model, dataset, metric, args, logger, stats)
+            torch.cuda.synchronize()
+            launches = read_launches(kernels, want, "evaluate")
+            stats.update(images_per_s=stats["images"] / stats["seconds"],
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=launches)
+            runs["device_normalize" if device_normalize else "host_normalize"] = stats
+            if device_normalize:
+                check(stats["images"] == EVAL_IMAGES, "evaluate saw every image")
+                with open(path) as f:
+                    saved = f.readlines()
+                rescored = rescore_from_detections(
+                    dataset, VOC07MApMetric(iou_thresh=0.5, class_names=COCO_CLASSES), path,
+                    logger)
+                check(same_values(rescored, values), "rescoring the saved file reproduces the metric")
+                metric_values = values
+            else:
+                stats["mAP"] = values[1][-1]
+
+    # The direct call: the same loader batches through a predictor of its
+    # own, rescaled as evaluate does, line for line equal to the file; on
+    # each batch the head's outputs through the kernel tail and the plain tail.
+    predictor = make_predictor(model)
+    loader = DetectionLoader(dataset, ValTransform((IMAGE_SIZE, IMAGE_SIZE), normalize=False),
+                             batch_size=EVAL_B, train=False, num_workers=EVAL_WORKERS)
+    direct, frames = [], []
+    for images, _, _, _, affines, idxs in loader:
+        frames.append(images)
+        batch = to_device_batch(images, EVAL_B, dev)
+        det = predictor(batch)
+        with torch.inference_mode():
+            out = model(normalized(batch))
+            tails = [multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"],
+                                                      backend=backend)
+                     for backend in ("auto", "plain")]
+        check(all(equal(a, b) for a, b in zip(*tails)),
+              f"kernel tail equal to plain tail on evaluate batch {len(frames) - 1}")
+        check(all(equal(a, b) for a, b in zip(tails[0], det)),
+              f"predictor equal to head + kernel tail on evaluate batch {len(frames) - 1}")
+        ids, scores, boxes = (t.cpu().numpy() for t in det)
+        direct += [detection_line(idx, ids[i], scores[i], invert_affine_to_boxes(boxes[i], affine))
+                   for i, (idx, affine) in enumerate(zip(idxs, affines))]
+    check(len(direct) == len(saved) == EVAL_IMAGES, "one saved line per image")
+    differ = [i for i, (a, b) in enumerate(zip(saved, direct)) if a != b]
+    check(not differ, f"saved detections equal the direct predictor call (lines {differ[:8]})")
+    kept = sum(len(json.loads(line)["ids"]) for line in saved)
+
+    # Host-clock medians over the phase's batches: the step as evaluate takes
+    # it (numpy batch -> pinned copy -> detections on the host), the pin and
+    # copy alone, and the step from batches pinned beforehand.
+    def copy(images):
+        to_device_batch(images, EVAL_B, dev)
+        torch.cuda.synchronize()
+
+    def step(images):
+        return [t.cpu() for t in predictor(to_device_batch(images, EVAL_B, dev))]
+
+    def step_pinned(host):
+        return [t.cpu() for t in predictor(host.to(dev, non_blocking=True))]
+
+    pinned = [torch.from_numpy(images).pin_memory() for images in frames]
+
+    def median_wall_ms(fn, inputs):
+        for x in inputs[:2]:
+            fn(x)
+        walls = []
+        for x in inputs:
+            t = time.perf_counter()
+            fn(x)
+            walls.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(walls)
+
+    predictor_ms = median_wall_ms(step, frames)
+    copy_ms = median_wall_ms(copy, frames)
+    pinned_ms = median_wall_ms(step_pinned, pinned)
+    result = {"phase": "evaluate", "model": MODEL, "size": IMAGE_SIZE, "dtype": "bfloat16",
+              "images": EVAL_IMAGES, "image_size": EVAL_IMAGE_SIZE, "batch": EVAL_B,
+              "workers": EVAL_WORKERS, "metric": "VOC07MApMetric", "mAP": metric_values[1][-1],
+              "kept_detections": kept, "saved_equal_direct": True, "rescore_equal": True,
+              "tail_equal_plain_each_batch": True,
+              "runs": runs, "predictor_ms_per_batch": predictor_ms,
+              "predictor_frames_per_s": EVAL_B / predictor_ms * 1e3,
+              "pin_copy_ms_per_batch": copy_ms, "predictor_pinned_ms_per_batch": pinned_ms,
+              "predictor_pinned_frames_per_s": EVAL_B / pinned_ms * 1e3}
+    emit(result)
+    return runs["device_normalize"]["launches"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the conv-kernel configuration
 # ---------------------------------------------------------------------------
 
@@ -1304,7 +1469,7 @@ def conv_path_phase(dev, kernels, model, predictor, images, head_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 7 and 8: temporal YOLOv3 and SSD
+# Phases 8 and 9: temporal YOLOv3 and SSD
 # ---------------------------------------------------------------------------
 
 
@@ -1616,7 +1781,7 @@ def ssd_phase(dev, kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: Faster R-CNN
+# Phase 10: Faster R-CNN
 # ---------------------------------------------------------------------------
 
 
@@ -1845,6 +2010,7 @@ def main() -> int:
     model, predictor, images, launches, head_out = main_path_phase(dev, kernels)
     launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
     serving_phase(dev, predictor)
+    launches["evaluate"] = evaluate_phase(dev, kernels, model)
     del model, predictor, images, head_out
     launches["temporal"], temporal_rows = temporal_phase(dev, kernels)
     launches["ssd"], ssd_rows = ssd_phase(dev, kernels)

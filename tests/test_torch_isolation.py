@@ -40,8 +40,10 @@ def test_no_forbidden_import(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, viddet_tpu_torch.cli.common, viddet_tpu_torch.infer.service, "
-        "viddet_tpu_torch.weights, viddet_tpu_torch.kernels.build; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viddet_tpu')]; "
+        "viddet_tpu_torch.weights, viddet_tpu_torch.kernels.build, "
+        "viddet_tpu_torch.cli.evaluate, viddet_tpu_torch.data.loader, "
+        "viddet_tpu_torch.eval.coco_eval, viddet_tpu_torch.native; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viddet_tpu', 'cv2')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ)

@@ -1,5 +1,5 @@
-"""Class-name lists (copy of ``viddet_tpu/data/names.py:8-45``: VOC, COCO and
-ImageNet-VID with its WordNet synset ids)."""
+"""Class-name lists (copy of ``viddet_tpu/data/names.py``: VOC, COCO and
+ImageNet-VID, with their WordNet synset ids)."""
 
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -39,3 +39,12 @@ VID_CLASSES_WN = (
 )
 VID_CLASSES = tuple(name for _, name in VID_CLASSES_WN)
 VID_WN_IDS = tuple(wn for wn, _ in VID_CLASSES_WN)
+
+# VOC class -> WordNet synset id, for the cross-dataset union
+# (``data/combined.py``); only the identity of a synset matters there.
+VOC_WN_IDS = (
+    "n02691156", "n02834778", "n01503061", "n02858304", "n02876657",
+    "n02924116", "n02958343", "n02121808", "n03001627", "n02402425",
+    "n03201208", "n02084071", "n02374451", "n03790512", "n00007846",
+    "n03991062", "n02411705", "n04256520", "n04468005", "n03211117",
+)

@@ -26,6 +26,20 @@ from viddet_tpu_torch.core.platform import resolve_device
 from viddet_tpu_torch.data.transforms import invert_affine_to_boxes
 
 
+def to_device_batch(batch: np.ndarray, batch_size: int, device: torch.device) -> torch.Tensor:
+    """(n, ...) host frames, zero-padded to ``batch_size`` rows (one shape,
+    so one cuDNN algorithm choice, for every batch), on ``device``: on CUDA
+    one pinned-memory copy with ``non_blocking=True``, so the caller's host
+    work overlaps the copy and the device step."""
+    if batch.shape[0] < batch_size:
+        pad = np.zeros((batch_size - batch.shape[0],) + batch.shape[1:], batch.dtype)
+        batch = np.concatenate([batch, pad])
+    host = torch.from_numpy(batch)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 class _Slot:
     """One pending request: the caller blocks on ``done`` until filled."""
 
@@ -60,10 +74,8 @@ class DetectionService:
         self._batch_size = int(batch_size)
         self._flush_s = float(flush_ms) / 1e3
         self._max_in_flight = max(1, int(max_in_flight))
-        h, w = transform.size
         # uint8 when the transform leaves normalization to the device
         self._dtype = np.float32 if getattr(transform, "normalize", True) else np.uint8
-        self._pad = np.zeros((h, w, 3), self._dtype)
         self._q: "queue.Queue" = queue.Queue(maxsize=4 * self._batch_size)
         self._stop = threading.Event()
         self._served = 0
@@ -178,13 +190,7 @@ class DetectionService:
 
     def _dispatch(self, items: List):
         batch = np.stack([x for _, x, _ in items])
-        if len(items) < self._batch_size:
-            pad = np.broadcast_to(self._pad, (self._batch_size - len(items),) + self._pad.shape)
-            batch = np.concatenate([batch, pad])
-        host = torch.from_numpy(batch)
-        if self._device.type == "cuda":
-            host = host.pin_memory()
-        return self._infer(host.to(self._device, non_blocking=True))  # async on CUDA
+        return self._infer(to_device_batch(batch, self._batch_size, self._device))
 
     def _settle(self, items: List, result):
         """Sync one in-flight batch and fill its slots.  Never raises: a

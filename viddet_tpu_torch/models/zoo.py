@@ -40,10 +40,15 @@ def get_model(name: str, device=None, **kwargs):
     """Returns (module on the device, class-name tuple)."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; available: {list_models()}")
-    dev = resolve_device(device)
     module, classes = _REGISTRY[name](**kwargs)
-    module = module.to(device=dev, memory_format=torch.channels_last).eval()
-    return module, classes
+    return place(module, device), classes
+
+
+def place(module: torch.nn.Module, device=None) -> torch.nn.Module:
+    """The module on the device (``cuda:0`` unless ``device`` says
+    otherwise), in eval mode and channels_last, as ``get_model`` returns
+    it; for the unregistered custom builds."""
+    return module.to(device=resolve_device(device), memory_format=torch.channels_last).eval()
 
 
 def _yolo(backbone: str, classes, policy=DEFAULT_POLICY, **kwargs):

@@ -104,6 +104,12 @@ def init_flat(model_name: str, seed: int = 0, **model_kwargs) -> Dict[str, np.nd
 
     with torch.device("meta"):
         model, _ = _REGISTRY[model_name](**model_kwargs)
+    return seeded_flat(model, seed)
+
+
+def seeded_flat(model: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
+    """``init_flat``'s seeded weights for any model, registered or a custom
+    build (only its parameters' shapes are read)."""
     rng = np.random.default_rng(seed)
     flat = {}
     for key, t, kind in _leaves(model):
