@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each printed as one JSON line:
 
 1. device:  the card's name and power limit (``nvidia-smi``);
-2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``;
+2. build:   compile the hand-written kernels from ``viddet_tpu_torch/csrc``,
+            and beside them the image codec (``native/codec.cpp``);
 3. kernels: each kernel against its plain PyTorch version on the card, at
             the main paths' shapes plus edge cases (K1, K3 in both forms and
             K4 also at batch 128, K3 and K4 on bf16 heads and their float32
@@ -53,7 +54,31 @@ Phases, each printed as one JSON line:
             images/s, the split of wall time (loader, device step, metric),
             peak memory, under device (uint8 frames) and host
             normalization, and the predictor's own frames/s on the batches;
-8. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
+8. codec:   64 seeded 640x480 images through the port's own JPEG (q 95)
+            and PNG encoders to files and back through its decoder: PNGs
+            exact, each JPEG equal to its decode in a second thread; encode
+            and decode rates on one thread and on the loader's 4 (host CPU);
+9. evaluate_files: ``cli.evaluate.evaluate`` over 256 of them as JPEG files
+            in the VOC layout (XML from seeded boxes), YOLOv3-416
+            Darknet-53 over VOC's 20 classes (bf16, seeded weights), batch
+            32, 4 loader threads: launches, images/s and the wall-time
+            split, every image's saved detections equal to the direct
+            predictor on the file decoded apart from the loader;
+10. http:   ``cli.serve.serve_forever`` on 127.0.0.1 with the main path's
+            model (batch 8, flush 5 ms): ``/healthz``, then 8 client threads
+            posting JPEG and PNG uploads for 5 s, every reply equal to
+            ``detections_to_json`` of the direct predictor on the decoded
+            upload; requests/s, latency p50 / p95, batch fill, launches;
+11. stream: ``stream_detect`` over 128 frames at batch 8 with the main
+            path's predictor, and ``stream_detect_multi`` over 2 streams of
+            48 frames with yolo3_darknet53_k3_vid (k = 3): launches, every
+            result equal to the direct predictor on the batch that held it;
+            frames/s and clips/s beside the direct step, and the card's idle
+            share over one window of each;
+12. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files with the main
+            path's model: every ``.txt`` equal to the direct predictor,
+            every ``_det.jpg`` decoding; images/s;
+13. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
             seeded weights, batches of 8 clips of k = 3 frames (24 frames
             through Darknet-53), under each aggregation (max, stack, mean,
             conv): the launch counts of one ``make_predictor`` call on uint8
@@ -63,7 +88,7 @@ Phases, each printed as one JSON line:
             own intermediates (C = 30), well-formed detections; under max,
             the default, also each kernel's time, plain and library time and
             bound at the path's shapes, time per batch and clips/s;
-9. ssd:     SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
+14. ssd:    SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
             seeded weights) through ``make_predictor``: its launch counts
             (K2 twice, K5 and K6 once), the kernel tail equal to the plain
             tail on the same head outputs, K2 at the path's two shapes
@@ -72,7 +97,7 @@ Phases, each printed as one JSON line:
             with their times, torch.topk's time and their bounds, the steps'
             result equal to the predictor's; time per batch, frames/s, peak
             memory and a device breakdown;
-10. frcnn:  Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
+15. frcnn:  Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
             8, bf16, seeded weights) through ``make_predictor``: its kernel
             launch counts (K7 once, K5 twice, K2 and K6 once), the kernel
             tail equal to the plain tail on the same head outputs and
@@ -81,9 +106,9 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-11. profiler: the profiler windows that missed a launch and were taken
+16. profiler: the profiler windows that missed a launch and were taken
             again;
-12. kernels: one line listing every ported kernel;
+17. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -153,6 +178,20 @@ SSD_MODEL, SSD_SIZE, SSD_B, SSD_N = "ssd_512_resnet50_coco", 512, 32, 24564
 # 32 from 4 loader threads, scored by VOC07 mAP over the 80 COCO names.
 EVAL_IMAGES, EVAL_IMAGE_SIZE, EVAL_CLASSES, EVAL_SEED = 256, 640, 8, 1
 EVAL_B, EVAL_WORKERS = 32, 4
+
+# The image codec and the image surfaces (phases 11-15): seeded 640x480
+# images; evaluate over 256 of them on disk as VOC with the VOC model; HTTP
+# at the serve CLI's defaults (batch 8, flush 5 ms) from 8 client threads
+# for about 5 s; stream_detect over 128 frames at batch 8 and
+# stream_detect_multi over 2 streams of 48 frames with the temporal model;
+# detect over 8 JPEG and 8 PNG files.
+CODEC_IMAGES, CODEC_W, CODEC_H, CODEC_SEED = 64, 640, 480, 5
+ENCODE_WORKERS = 8  # threads that write the phases' image files (the machine's cores)
+VOC_MODEL = "yolo3_darknet53_voc"
+HTTP_THREADS, HTTP_SECONDS, HTTP_UPLOADS, HTTP_SEED = 8, 5.0, 16, 6
+STREAM_FRAMES, STREAM_B, STREAM_SEED = 128, 8, 7
+MULTI_STREAMS, MULTI_FRAMES = 2, 48
+DETECT_FILES, DETECT_SEED = 16, 8
 
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
@@ -1955,6 +1994,565 @@ def serving_phase(dev, predictor, model: str = MODEL, size: int = IMAGE_SIZE,
           "all_equal_direct": True})
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-12: the image codec, evaluate over files, HTTP, streams, detect
+# ---------------------------------------------------------------------------
+
+
+def photo_like(rng, h: int = CODEC_H, w: int = CODEC_W) -> np.ndarray:
+    """A seeded RGB image that compresses like a photograph: a random
+    colour every 16 pixels, bilinearly blended, with a little noise."""
+    grid = rng.uniform(0, 255, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float32)
+    gy, gx = np.arange(h, dtype=np.float32) / 16, np.arange(w, dtype=np.float32) / 16
+    y0, x0 = gy.astype(int), gx.astype(int)
+    fy, fx = (gy - y0)[:, None, None], (gx - x0)[None, :, None]
+    rows = grid[:, x0] * (1 - fx) + grid[:, x0 + 1] * fx  # blended along x, grid rows only
+    img = rows[y0] * (1 - fy) + rows[y0 + 1] * fy
+    img += rng.integers(-4, 5, (h, w, 3), dtype=np.int8)
+    return img.clip(0, 255).astype(np.uint8)
+
+
+def timed(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
+def in_threads(fn, items, workers: int):
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(fn, items))
+
+
+def codec_phase() -> dict:
+    """64 seeded 640x480 images written by the port's JPEG (q 95) and PNG
+    encoders and read back by its decoder: PNGs exactly, each JPEG equal to
+    its decode in a second thread; decode rates on one thread and on the
+    loader's 4, encode rates on ENCODE_WORKERS (host CPU figures)."""
+    import tempfile
+
+    from viddet_tpu_torch.data.base import decode_rgb, imread_rgb
+    from viddet_tpu_torch.native import build, encode_jpeg, encode_png
+
+    t0 = time.perf_counter()
+    build()
+    build_s = time.perf_counter() - t0
+    images = [photo_like(np.random.default_rng((CODEC_SEED, i))) for i in range(CODEC_IMAGES)]
+    out = {"phase": "codec", "images": CODEC_IMAGES, "size": [CODEC_W, CODEC_H],
+           "build_s": build_s, "rates": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, encode in (("jpeg", lambda im: encode_jpeg(im, 95)), ("png", encode_png)):
+            t = time.perf_counter()
+            blobs = in_threads(encode, images, ENCODE_WORKERS)
+            encode_s = time.perf_counter() - t
+            paths = [os.path.join(tmp, f"{i}.{kind}") for i in range(CODEC_IMAGES)]
+            for path, blob in zip(paths, blobs):
+                with open(path, "wb") as f:
+                    f.write(blob)
+            decoded = [imread_rgb(p) for p in paths]
+            if kind == "png":
+                check(all(np.array_equal(a, b) for a, b in zip(decoded, images)),
+                      "PNGs round-trip exactly")
+            else:
+                again = in_threads(lambda b: decode_rgb(b, "thread"), blobs, 1)
+                check(all(np.array_equal(a, b) for a, b in zip(decoded, again)),
+                      "each JPEG decodes the same in a second thread")
+                mse = max(float(np.mean((a.astype(np.float64) - b) ** 2))
+                          for a, b in zip(decoded, images))
+                psnr = 10 * np.log10(255.0**2 / mse)
+                check(psnr > 30, f"JPEG q95 round trip above 30 dB PSNR ({psnr:.1f})")
+                out["jpeg_min_psnr_db"] = psnr
+            mb = sum(len(b) for b in blobs) / 1e6
+            rates = {"bytes_mb": mb,
+                     f"encode_{ENCODE_WORKERS}_threads_images_per_s": CODEC_IMAGES / encode_s}
+            for workers in (1, EVAL_WORKERS):
+                decode_rgb(blobs[0], "warm")
+                t = time.perf_counter()
+                in_threads(lambda b: decode_rgb(b, kind), blobs, workers)
+                dt = time.perf_counter() - t
+                rates[f"decode_{workers}_threads"] = {"mb_per_s": mb / dt,
+                                                      "images_per_s": CODEC_IMAGES / dt}
+            out["rates"][kind] = rates
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def voc_xml(image_id: str, label: np.ndarray, names) -> str:
+    objects = "".join(
+        f"<object><name>{names[int(c)]}</name><difficult>{int(d)}</difficult><bndbox>"
+        f"<xmin>{x1 + 1:.0f}</xmin><ymin>{y1 + 1:.0f}</ymin><xmax>{x2 + 1:.0f}</xmax>"
+        f"<ymax>{y2 + 1:.0f}</ymax></bndbox></object>"
+        for x1, y1, x2, y2, c, d in label)
+    return (f"<annotation><filename>{image_id}.jpg</filename><size><width>{CODEC_W}</width>"
+            f"<height>{CODEC_H}</height><depth>3</depth></size>{objects}</annotation>")
+
+
+def evaluate_files_phase(dev, kernels) -> dict:
+    """``cli.evaluate.evaluate`` over 256 JPEGs on disk in the VOC layout
+    (written by the port's encoder, boxes from a seeded generator), with
+    YOLOv3-416 Darknet-53 over VOC's 20 classes as ``--dataset voc`` builds
+    it (bf16, ``init_flat(seed=0)``), batch 32, 4 loader threads: its
+    launches, images/s and the wall-time split, and every image's saved
+    detections equal to the direct predictor on that image, decoded by
+    ``imread_rgb`` apart from the loader."""
+    import argparse
+    import logging
+    import tempfile
+
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.cli.evaluate import detection_line, evaluate
+    from viddet_tpu_torch.data.base import imread_rgb
+    from viddet_tpu_torch.data.names import VOC_CLASSES
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+    from viddet_tpu_torch.data.voc import VOCDetection
+    from viddet_tpu_torch.eval.voc_map import VOC07MApMetric
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.native import encode_jpeg
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    t_phase = time.perf_counter()
+    model, classes = get_model(VOC_MODEL)
+    load_flat(model, init_flat(VOC_MODEL, seed=0))
+    rng = np.random.default_rng(EVAL_SEED)
+    labels = []
+    for _ in range(EVAL_IMAGES):
+        n = int(rng.integers(1, 6))
+        xy = rng.uniform(0, 1, (n, 2)) * (CODEC_W - 64, CODEC_H - 64)
+        wh = rng.uniform(24, 200, (n, 2))
+        x2y2 = np.minimum(xy + wh, (CODEC_W - 1, CODEC_H - 1))
+        labels.append(np.column_stack([xy, x2y2, rng.integers(0, len(VOC_CLASSES), n),
+                                       rng.random(n) < 0.1]))
+    batches = -(-EVAL_IMAGES // EVAL_B)
+    want = {name: n * batches for name, n in HIER_LAUNCHES.items()}
+    with tempfile.TemporaryDirectory() as root:
+        year = os.path.join(root, "VOC2007")
+        for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+            os.makedirs(os.path.join(year, sub))
+        ids = [f"{i:06d}" for i in range(EVAL_IMAGES)]
+
+        def write(i):
+            with open(os.path.join(year, "JPEGImages", f"{ids[i]}.jpg"), "wb") as f:
+                f.write(encode_jpeg(photo_like(np.random.default_rng((EVAL_SEED, i))), 95))
+            with open(os.path.join(year, "Annotations", f"{ids[i]}.xml"), "w") as f:
+                f.write(voc_xml(ids[i], labels[i], VOC_CLASSES))
+
+        t0 = time.perf_counter()
+        in_threads(write, range(EVAL_IMAGES), ENCODE_WORKERS)
+        with open(os.path.join(year, "ImageSets", "Main", "test.txt"), "w") as f:
+            f.write("".join(f"{i}\n" for i in ids))
+        write_s = time.perf_counter() - t0
+        dataset = VOCDetection(root, splits=(("2007", "test"),))
+        path = os.path.join(root, "detections.jsonl")
+        args = argparse.Namespace(data_shape=IMAGE_SIZE, batch_size=EVAL_B,
+                                  num_workers=EVAL_WORKERS, letterbox=False, max_images=0,
+                                  device_normalize=True, temporal_k=1, save_detections=path)
+        metric = VOC07MApMetric(iou_thresh=0.5, class_names=VOC_CLASSES)
+        stats = {}
+        torch_sync()
+        set_launches(kernels)
+        values = evaluate(model, dataset, metric, args, logging.getLogger("chip_smoke"), stats)
+        torch_sync()
+        launches = read_launches(kernels, want, "evaluate over files")
+        check(stats["images"] == EVAL_IMAGES, "evaluate over files saw every image")
+        with open(path) as f:
+            saved = {json.loads(line)["index"]: line for line in f}
+
+        # the direct predictor, on each image decoded apart from the loader
+        predictor = make_predictor(model)
+        transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), normalize=False)
+        differ = []
+        for start in range(0, EVAL_IMAGES, EVAL_B):
+            idxs = range(start, min(start + EVAL_B, EVAL_IMAGES))
+            prepared = in_threads(lambda i: transform(imread_rgb(dataset.image_path(i))), idxs,
+                                  EVAL_WORKERS)
+            det = predictor(to_device_batch(np.stack([p[0] for p in prepared]), EVAL_B, dev))
+            d_ids, d_scores, d_boxes = (t.cpu().numpy() for t in det)
+            for j, (i, (_, _, affine)) in enumerate(zip(idxs, prepared)):
+                line = detection_line(i, d_ids[j], d_scores[j],
+                                      invert_affine_to_boxes(d_boxes[j], affine))
+                if saved.get(i) != line:
+                    differ.append(i)
+        check(len(saved) == EVAL_IMAGES and not differ,
+              f"saved detections equal the direct predictor on each decoded file {differ[:8]}")
+    out = {"phase": "evaluate_files", "model": VOC_MODEL, "size": IMAGE_SIZE,
+           "dtype": "bfloat16", "images": EVAL_IMAGES, "image_size": [CODEC_W, CODEC_H],
+           "batch": EVAL_B, "workers": EVAL_WORKERS, "write_s": write_s,
+           "mAP": values[1][-1], "images_per_s": stats["images"] / stats["seconds"],
+           "split_s": {k: stats[k] for k in ("loader_s", "device_s", "metric_s")},
+           "seconds": stats["seconds"], "launches": launches, "saved_equal_direct": True,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del model
+    return launches
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def hier_batches(kernels, what: str) -> int:
+    """Batches through the hierarchical tail since ``set_launches``: every
+    kernel of it launched that many times its per-batch count, no other."""
+    b = kernels["anchor_scores"].launches
+    check(b > 0, f"{what}: the tail's kernels launched")
+    read_launches(kernels, {name: n * b for name, n in HIER_LAUNCHES.items()}, what)
+    return b
+
+
+def http_phase(dev, kernels, model, classes, predictor) -> dict:
+    """``cli.serve.serve_forever`` on 127.0.0.1, port 0, with the main
+    path's model at the CLI's defaults (batch 8, flush 5 ms): ``/healthz``
+    answers, then 8 client threads post JPEG and PNG uploads for about
+    HTTP_SECONDS; every reply equal to ``detections_to_json`` of the direct
+    predictor on the same decoded image; requests/s, latency p50 / p95 and
+    the batch fill."""
+    import logging
+    import urllib.request
+
+    from viddet_tpu_torch.cli.serve import (
+        decode_image_bytes, detections_to_json, parse_args, serve_forever,
+    )
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.native import encode_jpeg, encode_png
+
+    t_phase = time.perf_counter()
+    args = parse_args(["--network", "yolo3_darknet53", "--dataset", "coco", "--port", "0",
+                       "--data-shape", str(IMAGE_SIZE), "--thresh", "0.0"])
+    rng = np.random.default_rng(HTTP_SEED)
+    uploads = []
+    for i in range(HTTP_UPLOADS):
+        h, w = ((480, 640), (360, 500), (600, 400), (416, 416))[i % 4]
+        image = photo_like(rng, h, w)
+        uploads.append(encode_jpeg(image, 95) if i % 2 == 0 else encode_png(image))
+    transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True, normalize=False)
+    expected = []
+    for data in uploads:
+        rgb = decode_image_bytes(data)
+        x, _, affine = transform(rgb)
+        d_ids, d_scores, d_boxes = (t.cpu().numpy()[0] for t in predictor(
+            to_device_batch(x[None], args.batch_size, dev)))
+        want = detections_to_json(d_ids, d_scores, invert_affine_to_boxes(d_boxes, affine),
+                                  classes, args.thresh)
+        want["width"], want["height"] = rgb.shape[1], rgb.shape[0]
+        expected.append(want)
+
+    set_launches(kernels)
+    server = serve_forever(args, logging.getLogger("chip_smoke"), built=(model, classes))
+    port = server.server_address[1]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        check(health["status"] == "ok" and health["num_classes"] == len(classes), "/healthz")
+        latencies, mismatched, errors = [], [], []
+        deadline = time.perf_counter() + HTTP_SECONDS
+
+        def client(offset):
+            i = offset
+            while time.perf_counter() < deadline:
+                k = i % len(uploads)
+                req = urllib.request.Request(f"http://127.0.0.1:{port}/detect",
+                                             data=uploads[k], method="POST")
+                t = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(req, timeout=120) as resp:
+                        got = json.loads(resp.read())
+                except Exception as exc:  # noqa: BLE001 -- reported below
+                    errors.append(repr(exc))
+                    return
+                latencies.append((time.perf_counter() - t) * 1e3)
+                if got != expected[k]:
+                    mismatched.append(k)
+                i += HTTP_THREADS
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(o,)) for o in range(HTTP_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "HTTP clients finished")
+        stats = server.viddet_service.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.viddet_service.close()
+    check(not errors, f"no HTTP request failed: {errors[:3]}")
+    check(not mismatched, f"every reply equals the direct predictor's JSON {mismatched[:8]}")
+    batches = hier_batches(kernels, "http")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    out = {"phase": "http", "model": MODEL, "size": IMAGE_SIZE, "batch_size": args.batch_size,
+           "flush_ms": args.flush_ms, "threads": HTTP_THREADS, "uploads": len(uploads),
+           "requests": len(latencies), "seconds": wall,
+           "requests_per_s": len(latencies) / wall,
+           "latency_ms_p50": float(np.percentile(latencies, 50)),
+           "latency_ms_p95": float(np.percentile(latencies, 95)),
+           "batches": batches, "service": stats, "all_equal_direct": True,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return launches
+
+
+def recorded(predictor, record: list):
+    """``predictor`` that keeps each batch it was given and its result."""
+    def infer(batch):
+        out = predictor(batch)
+        record.append((batch.clone(), out))
+        return out
+
+    return infer
+
+
+def check_stream(predictor, record, results, k: int, what: str) -> None:
+    """Every recorded batch through ``predictor`` again gives the recorded
+    result, and the stream yielded those rows in order, each for the frame
+    (or the clip's centre frame) that the batch holds in that row."""
+    import torch
+
+    pos = 0
+    for batch, out in record:
+        direct = predictor(batch)
+        check(all(equal(a, b) for a, b in zip(direct, out)),
+              f"{what}: the direct predictor on a recorded batch equals its result")
+        real = int((batch.flatten(1) != 0).any(1).sum())  # padding rows are all zero
+        rows = [t.cpu() for t in direct]
+        for j in range(real):
+            item = results[pos + j]
+            frame = batch[j] if k == 1 else batch[j, k // 2]
+            check(torch.equal(frame.cpu(), torch.from_numpy(item["rgb"])),
+                  f"{what}: result {pos + j} belongs to its batch row")
+            check(all(np.array_equal(a[j].numpy(), b)
+                      for a, b in zip(rows, (item["ids"], item["scores"], item["boxes"]))),
+                  f"{what}: result {pos + j} equal to the direct predictor")
+        pos += real
+    check(pos == len(results), f"{what}: every result accounted for ({pos} of {len(results)})")
+
+
+def window_idle_share(fn) -> dict:
+    """Wall time of one call of ``fn`` under torch.profiler, the device's
+    busy time in it (kernels and copies) and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch_sync()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms}
+
+
+def returns_before_device(predictor, images, dev, what: str) -> float:
+    """The host's time to call ``predictor`` while the card is still busy
+    with a 50 ms spin kernel; fails unless the call returns before the card
+    is done.  A predictor that waits for the card inside (an ``.item()``, a
+    size read back) would return only after the spin, and then the stream
+    loops would overlap nothing."""
+    import torch
+
+    from viddet_tpu_torch.infer.service import to_device_batch
+
+    batch = to_device_batch(images, len(images), dev)
+    predictor(batch)
+    torch_sync()
+    torch.cuda._sleep(50 * SPIN_CYCLES_PER_MS)
+    t = time.perf_counter()
+    predictor(batch)
+    call_ms = (time.perf_counter() - t) * 1e3
+    done = torch.cuda.Event()
+    done.record()
+    busy = not done.query()
+    torch_sync()
+    check(busy and call_ms < 50.0,
+          f"{what} returns before the card is done ({call_ms:.1f} ms, card busy: {busy})")
+    return call_ms
+
+
+def stream_phase(dev, kernels, predictor) -> dict:
+    """``infer.stream.stream_detect`` over 128 seeded uint8 frames at batch 8
+    with the main path's predictor, and ``infer.multistream.
+    stream_detect_multi`` over 2 streams of 48 frames with
+    yolo3_darknet53_k3_vid (k = 3, stride 1): their launches, every
+    result equal to the direct predictor on the batch that held it;
+    frames/s and clips/s beside the direct step's (copy in, predictor,
+    results back, one batch at a time), and the card's idle share over one
+    window of each stream."""
+    import torch
+
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.infer.multistream import stream_detect_multi
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.infer.stream import stream_detect
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(STREAM_SEED)
+    frames = rng.integers(1, 256, (STREAM_FRAMES, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+    identity = np.array([1.0, 1.0, 0.0, 0.0], np.float32)
+
+    def source(images):
+        return ((i, f, f, identity) for i, f in enumerate(images))
+
+    def collect(gen, keys=("idx", "rgb", "affine", "ids", "scores", "boxes")):
+        return [dict(zip(keys, r)) for r in gen]
+
+    def direct_step(infer, images, bs):
+        for start in range(0, len(images), bs):
+            [t.cpu() for t in infer(to_device_batch(images[start : start + bs], bs, dev))]
+
+    out = {"phase": "stream", "model": MODEL, "size": IMAGE_SIZE, "batch": STREAM_B}
+    launches = {}
+
+    # one stream, single-frame model
+    record = []
+    set_launches(kernels)
+    results = collect(stream_detect(source(frames), recorded(predictor, record), STREAM_B,
+                                    (IMAGE_SIZE, IMAGE_SIZE), device=dev))
+    torch_sync()
+    check(hier_batches(kernels, "stream_detect") == STREAM_FRAMES // STREAM_B,
+          "stream_detect: one tail a batch")
+    launches["stream"] = {name: fn.launches for name, fn in kernels.items()}
+    check([r["idx"] for r in results] == list(range(STREAM_FRAMES)), "frames in order")
+    check_stream(predictor, record, results, 1, "stream_detect")
+    out["predictor_call_ms_behind_spin"] = returns_before_device(predictor, frames[:STREAM_B],
+                                                                 dev, "main predictor")
+    runs = {}  # one pass each; the checked run above warmed both
+    for name, fn in (("stream", lambda: collect(stream_detect(
+            source(frames), predictor, STREAM_B, (IMAGE_SIZE, IMAGE_SIZE), device=dev))),
+                     ("direct", lambda: direct_step(predictor, frames, STREAM_B))):
+        t = time.perf_counter()
+        fn()
+        runs[name] = STREAM_FRAMES / (time.perf_counter() - t)
+    out["frames_per_s"] = runs["stream"]
+    out["direct_frames_per_s"] = runs["direct"]
+    out["window"] = window_idle_share(lambda: collect(stream_detect(
+        source(frames), predictor, STREAM_B, (IMAGE_SIZE, IMAGE_SIZE), device=dev)))
+    out["direct_window"] = window_idle_share(lambda: direct_step(predictor, frames, STREAM_B))
+
+    # two streams, temporal model
+    model, _ = get_model(TEMPORAL_MODEL)
+    load_flat(model, init_flat(TEMPORAL_MODEL, seed=0))
+    temporal = make_predictor(model)
+    streams = {f"s{i}": frames[i * MULTI_FRAMES : (i + 1) * MULTI_FRAMES]
+               for i in range(MULTI_STREAMS)}
+    record = []
+    set_launches(kernels)
+    multi_keys = ("stream", "idx", "rgb", "affine", "ids", "scores", "boxes")
+    results = collect(stream_detect_multi(
+        {n: source(f) for n, f in streams.items()}, recorded(temporal, record), STREAM_B,
+        (IMAGE_SIZE, IMAGE_SIZE), k=TEMPORAL_K, stride=1, device=dev), multi_keys)
+    torch_sync()
+    multi_batches = hier_batches(kernels, "stream_detect_multi")
+    launches["stream_multi"] = {name: fn.launches for name, fn in kernels.items()}
+    check(multi_batches == len(record), "stream_detect_multi: one tail a batch")
+    check_stream(temporal, record, results, TEMPORAL_K, "stream_detect_multi")
+    for name in streams:  # each stream's keys in order: 1 .. n-2, then the flush's n-1
+        check([r["idx"] for r in results if r["stream"] == name] == list(range(1, MULTI_FRAMES)),
+              f"stream {name} in frame order")
+    clips = len(results)
+    check(clips == MULTI_STREAMS * (MULTI_FRAMES - 1), f"one clip a frame but the first ({clips})")
+
+    def multi():
+        return list(stream_detect_multi({n: source(f) for n, f in streams.items()},
+                                        temporal, STREAM_B, (IMAGE_SIZE, IMAGE_SIZE),
+                                        k=TEMPORAL_K, stride=1, device=dev))
+
+    clip_batch = np.stack([frames[i : i + TEMPORAL_K] for i in range(STREAM_B)])
+    out["temporal_call_ms_behind_spin"] = returns_before_device(temporal, clip_batch, dev,
+                                                                "temporal predictor")
+    t = time.perf_counter()
+    multi()
+    out["multi_clips_per_s"] = clips / (time.perf_counter() - t)
+    reps = -(-clips // STREAM_B)
+    direct_step(temporal, clip_batch, STREAM_B)
+    t = time.perf_counter()
+    for _ in range(reps):
+        direct_step(temporal, clip_batch, STREAM_B)
+    out["multi_direct_clips_per_s"] = reps * STREAM_B / (time.perf_counter() - t)
+    out["multi_window"] = window_idle_share(multi)
+    out.update(temporal_model=TEMPORAL_MODEL, k=TEMPORAL_K, streams=MULTI_STREAMS,
+               frames_per_stream=MULTI_FRAMES, clips=clips, multi_batches=multi_batches,
+               all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    del model
+    return launches
+
+
+def detect_phase(dev, kernels, model, classes, predictor) -> dict:
+    """``cli.detect.main`` over a directory of 8 JPEG and 8 PNG files with the
+    main path's model at batch 8: every ``{stem}.txt`` equal to the direct
+    predictor's lines on the same decoded file, every ``{stem}_det.jpg``
+    decoding to its original's size; images/s."""
+    import tempfile
+
+    from viddet_tpu_torch.cli import detect
+    from viddet_tpu_torch.data.base import imread_rgb
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.native import encode_jpeg, encode_png
+
+    t_phase = time.perf_counter()
+    bs = 8
+    rng = np.random.default_rng(DETECT_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for i in range(DETECT_FILES):
+            h, w = ((480, 640), (375, 500), (640, 427), (300, 300))[i % 4]
+            image = photo_like(rng, h, w)
+            name = f"{i:02d}.jpg" if i % 2 == 0 else f"{i:02d}.png"
+            with open(os.path.join(src, name), "wb") as f:
+                f.write(encode_jpeg(image, 95) if i % 2 == 0 else encode_png(image))
+        set_launches(kernels)
+        t0 = time.perf_counter()
+        done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input", src,
+                            "--output", dst, "--data-shape", str(IMAGE_SIZE), "--batch-size",
+                            str(bs), "--thresh", "0.05", "--save-detections"],
+                           built=(model, classes))
+        wall = time.perf_counter() - t0
+        torch_sync()
+        check(done == DETECT_FILES, "detect did every file")
+        batches = hier_batches(kernels, "detect")
+        check(batches == -(-DETECT_FILES // bs), "detect: one tail a batch")
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        files = sorted(os.listdir(src))
+        transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True,
+                                 normalize=False)
+        lines = 0
+        for start in range(0, len(files), bs):
+            chunk = files[start : start + bs]
+            origs = [imread_rgb(os.path.join(src, f)) for f in chunk]
+            prepared = [transform(o) for o in origs]
+            d_ids, d_scores, d_boxes = (t.cpu().numpy() for t in predictor(
+                to_device_batch(np.stack([p[0] for p in prepared]), bs, dev)))
+            for j, f in enumerate(chunk):
+                stem = os.path.splitext(f)[0]
+                want = detect.detection_lines(
+                    d_ids[j], d_scores[j], invert_affine_to_boxes(d_boxes[j], prepared[j][2]),
+                    classes, 0.05)
+                with open(os.path.join(dst, f"{stem}.txt")) as fh:
+                    got = fh.read()
+                check(got == want, f"detect {stem}.txt equal to the direct predictor")
+                lines += len(got.splitlines())
+                drawn = imread_rgb(os.path.join(dst, f"{stem}_det.jpg"))
+                check(drawn.shape == origs[j].shape, f"{stem}_det.jpg decodes")
+    emit({"phase": "detect", "model": MODEL, "size": IMAGE_SIZE, "files": DETECT_FILES,
+          "batch": bs, "seconds": wall, "images_per_s": DETECT_FILES / wall,
+          "lines": lines, "batches": batches, "all_equal_direct": True,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1974,11 +2572,21 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    from viddet_tpu_torch import native
+
+    # the image codec (g++) builds beside the kernels (nvcc)
+    codec_s = []
+    codec_build = threading.Thread(target=lambda: codec_s.append(timed(native.build)))
     t0 = time.perf_counter()
+    codec_build.start()
     lib = build.build()
     build.library()
+    kernels_s = time.perf_counter() - t0
+    codec_build.join()
+    check(bool(codec_s), "the image codec built")
     emit({"phase": "build", "library": str(lib.relative_to(build.BUILD_ROOT.parents[1])),
-          "seconds": time.perf_counter() - t0})
+          "seconds": kernels_s, "codec_seconds": codec_s[0],
+          "both_seconds": time.perf_counter() - t0})
 
     # (wrapper, source, the TPU kernel it replaces, the path its launches are read on)
     table = {
@@ -2011,6 +2619,13 @@ def main() -> int:
     launches["conv"] = conv_path_phase(dev, kernels, model, predictor, images, head_out)
     serving_phase(dev, predictor)
     launches["evaluate"] = evaluate_phase(dev, kernels, model)
+    codec_phase()
+    launches["evaluate_files"] = evaluate_files_phase(dev, kernels)
+    from viddet_tpu_torch.data.names import COCO_CLASSES as classes
+
+    launches["http"] = http_phase(dev, kernels, model, classes, predictor)
+    launches.update(stream_phase(dev, kernels, predictor))
+    launches["detect"] = detect_phase(dev, kernels, model, classes, predictor)
     del model, predictor, images, head_out
     launches["temporal"], temporal_rows = temporal_phase(dev, kernels)
     launches["ssd"], ssd_rows = ssd_phase(dev, kernels)

@@ -1,14 +1,15 @@
 """The port's JPEG decoder against OpenCV, bit for bit.
 
-``viddet_tpu_torch.native`` decodes with the system libjpeg at full scale
+``viddet_tpu_torch.native`` decodes with the port's own codec at full scale
 and ``data.base.decode_rgb`` applies the EXIF orientation; together they
 must equal ``cv2.imdecode(buf, IMREAD_COLOR)`` plus the BGR-to-RGB swap,
 and ``imread_rgb`` must equal the JAX package's (``cv2.imread``).  The
 JPEGs are written here by ``cv2`` at qualities 50-95, chroma subsampling
 4:4:4, 4:2:2 and 4:2:0 and odd sizes, plus greyscale, progressive and (by
 Pillow) CMYK files, and EXIF orientations 1-8 spliced into ``cv2``'s bytes
-by hand in both byte orders.  Bytes that are not a JPEG, truncated and
-corrupt JPEGs raise ``ValueError``.
+by hand in both byte orders.  Bytes that are no image, a PNG with a
+broken CRC, truncated and corrupt JPEGs raise ``ValueError`` (the PNG and
+BMP cases that decode are in ``tests/test_torch_codec.py``).
 """
 
 import struct
@@ -115,8 +116,10 @@ def _bad_inputs():
     sos = data.index(b"\xff\xda")
     rng = np.random.default_rng(3)
     noise = rng.integers(0, 256, len(data) - sos - 22, dtype=np.uint8).tobytes()
+    png = bytearray(cv2.imencode(".png", _image(20, 20))[1].tobytes())
+    png[29] ^= 1  # the IHDR chunk's CRC no longer matches
     return {
-        "png": cv2.imencode(".png", _image(20, 20))[1].tobytes(),
+        "png": bytes(png),
         "empty": b"",
         "soi_only": data[:4],
         "truncated": data[: len(data) // 2],

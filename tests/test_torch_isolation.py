@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, and no
-OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's)."""
+"""The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, no
+OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's) and
+no PIL, and its image codec links no image library (it decodes and encodes
+in its own C++, bit for bit libjpeg-turbo's and libpng's results)."""
 
 import ast
 import os
@@ -12,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "viddet_tpu_torch"
-FORBIDDEN = ("jax", "flax", "viddet_tpu", "cv2")
+FORBIDDEN = ("jax", "flax", "viddet_tpu", "cv2", "PIL")
 
 
 def _imports(path: Path):
@@ -42,8 +44,11 @@ def test_import_leaves_jax_unloaded():
         "import sys, viddet_tpu_torch.cli.common, viddet_tpu_torch.infer.service, "
         "viddet_tpu_torch.weights, viddet_tpu_torch.kernels.build, "
         "viddet_tpu_torch.cli.evaluate, viddet_tpu_torch.data.loader, "
-        "viddet_tpu_torch.eval.coco_eval, viddet_tpu_torch.native; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'viddet_tpu', 'cv2')]; "
+        "viddet_tpu_torch.eval.coco_eval, viddet_tpu_torch.native, "
+        "viddet_tpu_torch.cli.serve, viddet_tpu_torch.cli.detect, "
+        "viddet_tpu_torch.infer.stream, viddet_tpu_torch.infer.multistream; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'viddet_tpu', 'cv2', 'PIL')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ)
@@ -103,3 +108,13 @@ def test_wrappers_never_fall_back_for_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_cuda.multilevel_roi_align(pyramid, torch.zeros((2, 3, 4), device="meta"),
                                             (4, 8))
+
+
+def test_codec_build_links_no_image_library():
+    """One ``g++`` call, with no ``-l`` flag: no libjpeg, libpng or zlib."""
+    from viddet_tpu_torch.native import build_command
+
+    cmd = build_command(Path("libviddet_codec.so"))
+    assert cmd[0] == "g++"
+    assert not {"-ljpeg", "-lpng", "-lz"} & set(cmd)
+    assert [a for a in cmd if a.startswith("-l") or a == "-pthread"] == ["-pthread"]

@@ -19,7 +19,7 @@ from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from viddet_tpu_torch.models.faster_rcnn import FasterRCNN, frcnn_forward_and_postprocess
 from viddet_tpu_torch.models.ssd import SSD, ssd_forward_and_postprocess
 from viddet_tpu_torch.models.yolo3 import NMSConfig, forward_and_postprocess
-from viddet_tpu_torch.weights import load_flat
+from viddet_tpu_torch.weights import load_flat, seeded_flat
 
 PLATFORMS = ("auto", "cpu", "gpu")
 
@@ -256,4 +256,15 @@ def load_weights(model: torch.nn.Module, weights_path: str) -> torch.nn.Module:
     if weights_path:
         with np.load(weights_path) as data:
             load_flat(model, {k: data[k] for k in data.files})
+    return model
+
+
+def load_weights_or_seed(model: torch.nn.Module, weights_path: str) -> torch.nn.Module:
+    """``--weights`` into the model, or, when the path is empty,
+    ``weights.seeded_flat(model, seed=0)``: the seeded Flax initialisers,
+    not the values of JAX's ``module.init(key(0))``, so the two packages'
+    random-weight runs differ unless both load one ``.npz``."""
+    if weights_path:
+        return load_weights(model, weights_path)
+    load_flat(model, seeded_flat(model, seed=0))
     return model

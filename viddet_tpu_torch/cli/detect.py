@@ -1,0 +1,168 @@
+"""Detection CLI over images and image directories (counterpart of the image
+half of ``viddet_tpu/cli/detect.py``).
+
+Decode -> letterbox -> forward pass and kernel tail on the card -> rescale
+to original coordinates -> ``{stem}.txt`` lines and ``{stem}_det.jpg``
+drawings.  Files go one by one through ``imread_rgb`` and ``ValTransform``
+(the JAX CLI's per-file route; its batch route decodes with a DCT-domain
+prescale that does not equal OpenCV, and has no counterpart here), and
+each batch is padded to ``--batch-size`` so every batch has one shape.
+
+A video, a webcam index or a comma-separated list raises ``SystemExit``:
+the video half (streaming, temporal clips from a video) waits for the
+port's video reader.  The JAX CLI's ``--quant`` and ``--calib-images``
+have no counterpart yet; the video flags are parsed, so that a JSON
+config of the JAX CLI loads, and wait for the video half.
+
+Example, on the card:
+  python -m viddet_tpu_torch.cli.detect --network yolo3_darknet53 --dataset voc \
+      --weights model.npz --input images/ --output out/ --thresh 0.5 --save-detections
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+
+import numpy as np
+
+from viddet_tpu_torch.cli.common import (
+    build_model,
+    load_weights_or_seed,
+    make_predictor,
+    parse_with_config,
+    platform_device,
+    setup_logging,
+)
+from viddet_tpu_torch.data.base import imread_rgb
+from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+from viddet_tpu_torch.infer.service import to_device_batch
+from viddet_tpu_torch.utils.image import draw_detections, imwrite
+
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Run object detection.")
+    p.add_argument("--network", default="yolo3_darknet53")
+    p.add_argument("--dataset", default="voc", help="class set: voc|coco|vid")
+    p.add_argument("--weights", default="",
+                   help=".npz weights; if empty, seeded random weights (seed 0)")
+    p.add_argument("--input", required=True,
+                   help="image / dir / video file; comma-separate multiple "
+                        "videos to stream them through one shared batch")
+    p.add_argument("--output", default="results", help="output directory")
+    p.add_argument("--data-shape", type=int, default=416)
+    p.add_argument("--thresh", type=float, default=0.5)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--every", type=int, default=1, help="process every nth frame")
+    p.add_argument("--flush-ms", type=float, default=None,
+                   help="max wait from a batch's first frame before a "
+                        "partial batch is submitted (default: 50 for live "
+                        "webcam sources, 200 for video files)")
+    p.add_argument("--save-detections", action="store_true", help="write det .txt")
+    p.add_argument("--no-draw", action="store_true")
+    p.add_argument("--temporal-k", type=int, default=1,
+                   help="k-frame clip window for VID temporal models "
+                        "(video input only; per-stream ring buffers "
+                        "assemble clips from the live stream)")
+    p.add_argument("--temporal-stride", type=int, default=1,
+                   help="emit one clip per this many frames")
+    p.add_argument("--temporal-agg", default="max",
+                   choices=("stack", "max", "mean", "conv"))
+    return parse_with_config(p, argv)
+
+
+def collect_inputs(path: str):
+    if path.isdigit():  # webcam index, as the reference's detect.py supports
+        return "video", [int(path)]
+    if "," in path:  # multiple videos -> one shared continuous batch
+        parts = [p.strip() for p in path.split(",") if p.strip()]
+        if all(p.lower().endswith(VIDEO_EXTS) for p in parts):
+            return "video", parts
+        raise ValueError(
+            "comma-separated --input requires every entry to be a video file"
+        )
+    if os.path.isdir(path):
+        files = sorted(
+            f for f in glob.glob(os.path.join(path, "*"))
+            if f.lower().endswith(IMAGE_EXTS)
+        )
+        return "images", files
+    if path.lower().endswith(VIDEO_EXTS):
+        return "video", [path]
+    return "images", [path]
+
+
+def detection_lines(ids, scores, boxes, class_names, thresh: float) -> str:
+    """``{stem}.txt``: one ``class score x1 y1 x2 y2`` line per detection
+    at or above ``thresh``, boxes in original image coordinates."""
+    return "".join(
+        f"{class_names[int(cid)]} {s:.4f} {bb[0]:.1f} {bb[1]:.1f} {bb[2]:.1f} {bb[3]:.1f}\n"
+        for cid, s, bb in zip(ids, scores, boxes) if cid >= 0 and s >= thresh)
+
+
+def main(argv=None, built=None):
+    """Run the CLI; ``built``: a caller's (model, class names), weights
+    loaded, instead of the model that the flags name.  Returns the number
+    of images done."""
+    args = parse_args(argv)
+    logger = setup_logging()
+    kind, files = collect_inputs(args.input)
+    if kind == "video":
+        raise SystemExit(
+            f"--input {args.input!r} is a video or webcam source: the port's video half "
+            "(streaming detection over video files and webcams) is not ported yet")
+    if args.temporal_k > 1:
+        raise SystemExit("--temporal-k > 1 needs video input (clips are "
+                         "assembled from the frame stream)")
+    os.makedirs(args.output, exist_ok=True)
+    device = platform_device(args.platform)
+    if built is None:
+        model, class_names = build_model(args.network, args.dataset, device=device)
+        load_weights_or_seed(model, args.weights)
+    else:
+        model, class_names = built
+    # uint8 frames cross to the device and are normalized there (a quarter
+    # of the bytes of float frames; see make_predictor)
+    infer = make_predictor(model)
+    transform = ValTransform(size=(args.data_shape, args.data_shape), letterbox_resize=True,
+                             normalize=False)
+
+    logger.info("detecting on %d image(s)", len(files))
+    t0 = time.time()
+    num_done = 0
+    for start in range(0, len(files), args.batch_size):
+        chunk = files[start : start + args.batch_size]
+        origs, frames, affines = [], [], []
+        for f in chunk:
+            img = imread_rgb(f)
+            x, _, affine = transform(img)
+            origs.append(img)
+            frames.append(x)
+            affines.append(affine)
+        batch = to_device_batch(np.stack(frames), args.batch_size, device)
+        ids, scores, boxes = (t.cpu().numpy() for t in infer(batch))
+        for i, f in enumerate(chunk):
+            restored = invert_affine_to_boxes(boxes[i], affines[i])
+            stem = os.path.splitext(os.path.basename(f))[0]
+            if args.save_detections:
+                with open(os.path.join(args.output, f"{stem}.txt"), "w") as out:
+                    out.write(detection_lines(ids[i], scores[i], restored, class_names,
+                                              args.thresh))
+            if not args.no_draw:
+                vis = draw_detections(origs[i], restored, ids[i], scores[i], class_names,
+                                      args.thresh)
+                imwrite(os.path.join(args.output, f"{stem}_det.jpg"), vis)
+            num_done += 1
+    dt = time.time() - t0
+    logger.info("done: %d images in %.2fs (%.1f img/s)", num_done, dt,
+                num_done / dt if dt > 0 else 0.0)
+    return num_done
+
+
+if __name__ == "__main__":
+    main()

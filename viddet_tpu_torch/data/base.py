@@ -6,9 +6,10 @@ loader pads to a static count with -1).  Every dataset also exposes
 ``classes`` (display names) and ``wn_classes`` (WordNet ids, for
 cross-dataset combination).
 
-Images are read with the port's JPEG decoder (``native``) and turned
-upright by their EXIF orientation, which together equal the JAX package's
-``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for bit.
+Images are read with the port's codec (``native``: JPEG, PNG and BMP) and
+turned upright by their EXIF orientation, which together equal the JAX
+package's ``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for
+bit.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from viddet_tpu_torch.native import decode_jpeg
+from viddet_tpu_torch.native import PNG_SIGNATURE, decode_bmp, decode_jpeg, decode_png
 from viddet_tpu_torch.utils.image import apply_orientation, exif_orientation_of
 
 
@@ -66,9 +67,16 @@ class DetectionDataset:
 
 
 def decode_rgb(data: bytes, name: str) -> np.ndarray:
-    """JPEG bytes -> upright (H, W, 3) uint8 RGB; raises ValueError for
-    bytes it cannot decode (``name`` says which)."""
-    return apply_orientation(decode_jpeg(data, name), exif_orientation_of(data))
+    """JPEG, PNG or BMP bytes (told apart by their magic bytes) -> upright
+    (H, W, 3) uint8 RGB; raises ValueError for bytes it cannot decode
+    (``name`` says which)."""
+    if data[:2] == b"\xff\xd8":
+        return apply_orientation(decode_jpeg(data, name), exif_orientation_of(data))
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data, name)
+    if data[:2] == b"BM":
+        return decode_bmp(data, name)
+    raise ValueError(f"{name}: not a JPEG, PNG or BMP image")
 
 
 def imread_rgb(path: str) -> np.ndarray:

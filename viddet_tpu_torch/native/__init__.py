@@ -1,18 +1,25 @@
-"""The port's JPEG decoder: ``decode_jpeg.cpp`` built with ``g++`` against the
-system libjpeg at first use and called through ``ctypes``.
+"""The port's image codec: ``codec.cpp`` built with ``g++`` at first use and
+called through ``ctypes``, with PNG's chunks, inflate and deflate (the
+standard library's ``zlib``) and BMP's headers read here.
 
-It decodes at full scale to RGB, the way ``cv2.imdecode(buf,
-IMREAD_COLOR)`` followed by a BGR-to-RGB swap does (the EXIF orientation
-is applied by the caller, ``data.base.decode_rgb``).  The JAX package's
-``viddet_tpu/native/decode.cpp`` prescales in the DCT domain and so does
-not equal OpenCV; this copy of its JPEG half leaves the scale alone.
+Decoding gives what ``cv2.imdecode(buf, IMREAD_COLOR)`` followed by a
+BGR-to-RGB swap gives, bit for bit: JPEG (baseline and progressive
+Huffman, any integral sampling, greyscale, CMYK and YCCK), PNG (every
+colour type and bit depth, Adam7) and uncompressed 24- and 32-bit BMP.
+The EXIF orientation is applied by the caller (``data.base.decode_rgb``).
+``encode_jpeg`` writes the bytes ``cv2.imencode(".jpg", bgr,
+[IMWRITE_JPEG_QUALITY, q])`` writes; ``encode_png`` writes filter-0 PNGs
+whose pixels round-trip.  The JAX package's ``viddet_tpu/native/decode.cpp``
+prescales JPEGs in the DCT domain and so does not equal OpenCV; this codec
+leaves the scale alone.
 
-The library is built into ``build/viddet_tpu_torch/native/<hash>/`` at the
-repository root (``build/`` is git-ignored), keyed by a hash of the source
-and the flags, the way ``kernels/build.py`` keys the CUDA kernels.  Nothing
-is built at import time.  A failed build raises with the compiler's
-output; there is no other decoder to fall back to.  ``ctypes`` releases
-the GIL for the call, so the loader's threads decode in parallel.
+The library links nothing beyond the C++ standard library.  It is built
+into ``build/viddet_tpu_torch/native/<hash>/`` at the repository root
+(``build/`` is git-ignored), keyed by a hash of the source and the flags,
+the way ``kernels/build.py`` keys the CUDA kernels.  Nothing is built at
+import time.  A failed build raises with the compiler's output; there is
+no other codec to fall back to.  ``ctypes`` releases the GIL for each
+call, so the loader's threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -20,19 +27,27 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import struct
 import subprocess
 import tempfile
 import threading
+import zlib
 from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "decode_jpeg.cpp"
+SOURCE = Path(__file__).resolve().parent / "codec.cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
-LIB_NAME = "libviddet_jpeg.so"
+LIB_NAME = "libviddet_codec.so"
 FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
-LIBS = ["-ljpeg"]
+LIBS = ["-pthread"]
 _ERR_LEN = 512
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SOI = b"\xff\xd8\xff"
+# OpenCV's default limit on a decoded image (CV_IO_MAX_IMAGE_PIXELS), so a
+# forged header cannot make a decode allocate without bound.
+MAX_PIXELS = 1 << 30
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -44,6 +59,11 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def build_command(output: Path) -> list:
+    """The one compiler call that builds the library."""
+    return ["g++", *FLAGS, str(SOURCE), "-o", str(output), *LIBS]
+
+
 def build() -> Path:
     """Compile the library if this source hash has none yet."""
     lib_path = BUILD_ROOT / _digest() / LIB_NAME
@@ -52,17 +72,17 @@ def build() -> Path:
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         staged = Path(tmp) / LIB_NAME
-        cmd = ["g++", *FLAGS, str(SOURCE), "-o", str(staged), *LIBS]
+        cmd = build_command(staged)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"JPEG decoder build failed:\n$ {' '.join(cmd)}\n{proc.stderr}")
+            raise RuntimeError(f"image codec build failed:\n$ {' '.join(cmd)}\n{proc.stderr}")
         lib_path.parent.mkdir(parents=True, exist_ok=True)
         os.replace(staged, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
 
 
 def library() -> ctypes.CDLL:
-    """The loaded decoder (built on first call), with argtypes set."""
+    """The loaded codec (built on first call), with argtypes set."""
     global _lib
     with _lock:
         if _lib is None:
@@ -70,24 +90,180 @@ def library() -> ctypes.CDLL:
             p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulong
             lib.vd_jpeg_header.argtypes = [p, size, ctypes.POINTER(i), ctypes.POINTER(i), p, i]
             lib.vd_jpeg_decode.argtypes = [p, size, p, i, i, p, i]
-            lib.vd_jpeg_header.restype = lib.vd_jpeg_decode.restype = i
+            lib.vd_jpeg_encode.argtypes = [p, i, i, i, p, size, ctypes.POINTER(size), p, i]
+            lib.vd_png_unfilter.argtypes = [p, size, i, i, i, i, i, p, i, p, p, i]
+            lib.vd_png_raw_size.argtypes = [i, i, i, i, i]
+            lib.vd_png_raw_size.restype = size
+            for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
+                       lib.vd_png_unfilter):
+                fn.restype = i
             _lib = lib
         return _lib
+
+
+def _message(err) -> str:
+    return err.value.decode(errors="replace")
+
+
+def _check_size(name: str, width: int, height: int) -> None:
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"{name}: {width}x{height} exceeds the decoder's {MAX_PIXELS} pixels")
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8 RGB at full scale, the raster as stored
     (no EXIF orientation).  ``name`` (a path, a record) goes into the
-    messages.  Raises ValueError for bytes that are not a JPEG (a PNG, say)
-    and for a JPEG that libjpeg cannot decode whole."""
-    if data[:3] != b"\xff\xd8\xff":  # SOI, then a marker
-        raise ValueError(f"{name}: not a JPEG (the port's decoder reads JPEG only)")
+    messages.  Raises ValueError for bytes that are not a JPEG (a PNG, say),
+    for a kind the codec does not read (arithmetic coding, 12-bit,
+    lossless) and for a JPEG that is truncated or corrupt."""
+    if data[:3] != JPEG_SOI:  # SOI, then a marker
+        raise ValueError(f"{name}: not a JPEG")
     lib = library()
     err = ctypes.create_string_buffer(_ERR_LEN)
     w, h = ctypes.c_int(), ctypes.c_int()
     if lib.vd_jpeg_header(data, len(data), ctypes.byref(w), ctypes.byref(h), err, _ERR_LEN):
-        raise ValueError(f"{name}: JPEG header: {err.value.decode(errors='replace')}")
+        raise ValueError(f"{name}: JPEG header: {_message(err)}")
+    _check_size(name, w.value, h.value)
     out = np.empty((h.value, w.value, 3), np.uint8)
     if lib.vd_jpeg_decode(data, len(data), out.ctypes.data, w.value, h.value, err, _ERR_LEN):
-        raise ValueError(f"{name}: JPEG decode: {err.value.decode(errors='replace')}")
+        raise ValueError(f"{name}: JPEG decode: {_message(err)}")
     return out
+
+
+def _png_chunks(data: bytes, name: str):
+    """(type, payload) of each chunk, CRCs checked, up to IEND."""
+    pos = len(PNG_SIGNATURE)
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"{name}: PNG is truncated (no IEND chunk)")
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        end = pos + 8 + length
+        if length > 0x7FFFFFFF or end + 4 > len(data):
+            raise ValueError(f"{name}: PNG chunk {kind!r} is truncated")
+        payload = data[pos + 8 : end]
+        (crc,) = struct.unpack_from(">I", data, end)
+        if zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"{name}: PNG chunk {kind!r} has a bad CRC")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos = end + 4
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB, as ``cv2.imdecode(IMREAD_COLOR)``
+    gives it: 16-bit samples keep their high byte, grey of 1, 2 or 4 bits
+    scales to 8, palettes expand, alpha and tRNS are dropped and gAMA is
+    ignored.  Raises ValueError for a bad CRC, a short or corrupt stream, a
+    missing palette or an unknown critical chunk."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG")
+    header, palette, idat = None, b"", []
+    for kind, payload in _png_chunks(data, name):
+        if kind == b"IHDR":
+            if len(payload) != 13:
+                raise ValueError(f"{name}: bad PNG IHDR")
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            palette = payload
+        elif kind == b"IDAT":
+            idat.append(payload)
+        elif kind != b"IEND" and not kind[0] & 0x20:  # critical: uppercase first letter
+            raise ValueError(f"{name}: PNG has an unknown critical chunk {kind!r}")
+    if header is None:
+        raise ValueError(f"{name}: PNG has no IHDR")
+    width, height, depth, color, compression, filtering, interlace = header
+    allowed = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+    if (color not in allowed or depth not in allowed[color] or compression or filtering
+            or interlace > 1 or not 0 < width < 2**31 or not 0 < height < 2**31):
+        raise ValueError(f"{name}: unsupported PNG header {header}")
+    if color == 3 and (not palette or len(palette) % 3):
+        raise ValueError(f"{name}: palette PNG without a valid PLTE chunk")
+    _check_size(name, width, height)
+    lib = library()
+    expected = lib.vd_png_raw_size(width, height, depth, color, interlace)
+    try:
+        raw = bytearray(zlib.decompressobj().decompress(b"".join(idat), expected))
+    except zlib.error as exc:
+        raise ValueError(f"{name}: PNG image data is corrupt ({exc})") from None
+    if len(raw) < expected:
+        raise ValueError(f"{name}: PNG image data stream is short "
+                         f"({len(raw)} of {expected} bytes)")
+    out = np.empty((height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    raw_buf = (ctypes.c_char * max(len(raw), 1)).from_buffer(raw) if raw else None
+    pal = palette or None
+    if lib.vd_png_unfilter(raw_buf, len(raw), width, height, depth, color, interlace, pal,
+                           len(palette) // 3, out.ctypes.data, err, _ERR_LEN):
+        raise ValueError(f"{name}: PNG decode: {_message(err)}")
+    return out
+
+
+def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Uncompressed 24- or 32-bit BMP bytes -> (H, W, 3) uint8 RGB, bottom-up
+    or top-down, the 32-bit form's fourth byte dropped as
+    ``cv2.imdecode(IMREAD_COLOR)`` drops it.  Other forms raise ValueError."""
+    if data[:2] != b"BM" or len(data) < 30:
+        raise ValueError(f"{name}: not a BMP")
+    (offset,) = struct.unpack_from("<I", data, 10)
+    header_size, width, height, planes, bpp = struct.unpack_from("<IiiHH", data, 14)
+    compression = struct.unpack_from("<I", data, 30)[0] if header_size >= 40 else 0
+    if header_size not in (40, 52, 56, 108, 124) or planes != 1 or bpp not in (24, 32):
+        raise ValueError(f"{name}: unsupported BMP (header {header_size}, {bpp} bits)")
+    if compression == 3 and bpp == 32:  # BI_BITFIELDS: only the layout of BI_RGB
+        masks = struct.unpack_from("<III", data, 54)  # after the 40-byte header, or inside it
+        if masks != (0xFF0000, 0xFF00, 0xFF):
+            raise ValueError(f"{name}: unsupported BMP bit fields {masks}")
+    elif compression != 0:
+        raise ValueError(f"{name}: compressed BMP (method {compression}) is not supported")
+    if width <= 0 or height == 0:
+        raise ValueError(f"{name}: bad BMP size {width}x{height}")
+    rows, channels = abs(height), bpp // 8
+    _check_size(name, width, rows)
+    stride = (width * channels + 3) & ~3
+    if offset + stride * rows > len(data):
+        raise ValueError(f"{name}: BMP pixel data is truncated")
+    pixels = np.frombuffer(data, np.uint8, stride * rows, offset).reshape(rows, stride)
+    bgr = pixels[:, : width * channels].reshape(rows, width, channels)[..., 2::-1]
+    if height > 0:  # bottom-up
+        bgr = bgr[::-1]
+    return np.ascontiguousarray(bgr)
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 RGB -> the JPEG bytes ``cv2.imencode(".jpg", bgr,
+    [IMWRITE_JPEG_QUALITY, quality])`` writes: baseline, JFIF, 4:2:0, the
+    standard tables scaled by ``quality``."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
+    h, w = rgb.shape[:2]
+    # headers, plus the worst case of every coefficient at 16+16 bits,
+    # doubled for byte stuffing
+    capacity = 1024 + ((w + 15) // 16) * ((h + 15) // 16) * 6 * 64 * 8
+    out = np.empty(capacity, np.uint8)
+    size = ctypes.c_ulong()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().vd_jpeg_encode(rgb.ctypes.data, w, h, int(quality), out.ctypes.data, capacity,
+                                ctypes.byref(size), err, _ERR_LEN):
+        raise ValueError(f"JPEG encode: {_message(err)}")
+    return out[: size.value].tobytes()
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", len(payload)) + kind + payload + struct.pack(
+        ">I", zlib.crc32(kind + payload))
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> an 8-bit truecolour PNG, every row filter type
+    0, deflated by ``zlib``; ``decode_png`` gives the pixels back exactly."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
+    h, w = rgb.shape[:2]
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)
+    rows[:, 1:] = rgb.reshape(h, 3 * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
