@@ -106,9 +106,26 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-16. profiler: the profiler windows that missed a launch and were taken
+16. train:  the float32 step against the JAX fixture
+            (``tests/fixtures/jax_train_steps.npz``: tiny YOLOv3, 64 px,
+            three steps, TF32 off for the check): the batch's targets equal
+            bit for bit, losses and a sample of every leaf close; then the
+            main path's model trained by ``cli.train_yolov3.main`` (bf16,
+            batch 64, ``--dataset synthetic`` of 64 images, multi-scale and
+            mixup on, 4 loader workers, 20 epochs of one step, validated
+            once): finite losses and samples/s from its JSONL, the card's
+            idle share over its ``--profile`` window, the validation batch's
+            launches (K1, K3, K4, K5, K6 once, K2 twice) and its kernel tail
+            equal to the plain tail, the checkpoint and ``_final.npz``
+            (loaded back through ``weights.load_flat``); one step alone at
+            320 and 608 px with peak memory, and one at 416 px by part
+            (forward, loss and targets, backward, optimizer) and kernel
+            group; 40 steps on one batch with ``VIDDET_CONV_BACKEND=pallas``
+            (no kernel launched: K8 stays off in training), the total loss
+            below half its first value;
+17. profiler: the profiler windows that missed a launch and were taken
             again;
-17. kernels: one line listing every ported kernel;
+18. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -124,6 +141,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -2553,6 +2571,348 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: train
+# ---------------------------------------------------------------------------
+
+# The JAX fixture: tiny YOLOv3, 3 classes, 64 px, float32, three steps on
+# one batch with two colliding boxes (tests/test_torch_train_fixture.py
+# writes it on the CPU).  The card is held to its losses and to a seeded
+# sample of every parameter and statistic after step 3.
+TRAIN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "jax_train_steps.npz")
+TRAIN_LOSS_NAMES = ("obj", "center", "scale", "cls", "total")
+TRAIN_LOSS_RTOL, TRAIN_LEAF_REL_L2 = 1e-4, 1e-3
+# Full width: the main path's model trained by cli.train_yolov3.main on
+# --dataset synthetic (64 images: one batch an epoch) at the CLI's batch 64,
+# multi-scale and mixup on, 4 loader workers, validated once at the end;
+# then one step alone at each of TRAIN_SIZES and the overfit of one batch.
+TRAIN_B, TRAIN_EPOCHS, TRAIN_PROFILE_STEPS = 64, 20, 3
+TRAIN_SIZES = (320, 608)
+TRAIN_OVERFIT_STEPS = 40
+# Kernel-name substrings of a training step's groups, tried in order.
+TRAIN_KERNEL_GROUPS = (
+    ("conv_backward", ("dgrad", "wgrad", "bprop")),
+    ("convolution", ("conv", "gemm", "xmma", "cutlass", "sm90", "implicit", "winograd")),
+    ("batch_norm", ("batch_norm",)),
+    ("optimizer", ("foreach", "multi_tensor")),
+    ("reduce", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "leaky", "pad", "copy",
+                     "cat", "upsample", "CatArray", "scatter", "index", "where")),
+)
+
+
+def train_fixture_run(dev) -> dict:
+    """The fixture's case on ``dev`` in float32, with TF32 off for the
+    check: targets of the batch, the five losses of each step, and each
+    leaf's sampled elements after the last step against the fixture's."""
+    import torch
+
+    from viddet_tpu_torch.core.precision import FLOAT32_POLICY
+    from viddet_tpu_torch.models.yolo3 import YOLOv3
+    from viddet_tpu_torch.train.loop import make_train_step
+    from viddet_tpu_torch.train.state import TrainState, make_lr_schedule, make_optimizer
+    from viddet_tpu_torch.train.targets import assign_targets
+    from viddet_tpu_torch.weights import load_flat, seeded_flat, to_flat
+
+    with np.load(TRAIN_FIXTURE) as f:
+        fx = {k: f[k] for k in f.files}
+    anchors = tuple(tuple((float(w), float(h)) for w, h in scale) for scale in fx["anchors"])
+    strides = tuple(int(s) for s in fx["strides"])
+    num_classes, size = int(fx["num_classes"]), fx["images"].shape[1]
+    model = YOLOv3(num_classes=num_classes, backbone="tiny", anchors=anchors, strides=strides,
+                   policy=FLOAT32_POLICY).to(dev, memory_format=torch.channels_last)
+    load_flat(model, seeded_flat(model, int(fx["weights_seed"])))
+    state = TrainState(model, make_optimizer(make_lr_schedule(float(fx["lr"]), 1),
+                                             momentum=float(fx["momentum"]),
+                                             weight_decay=float(fx["weight_decay"])))
+    step = make_train_step(strides=strides, anchors=anchors, num_classes=num_classes)
+    images, boxes, ids = (torch.from_numpy(fx[k]).to(dev) for k in ("images", "gt_boxes", "gt_ids"))
+    targets = assign_targets(boxes, ids, None, image_size=(size, size), strides=strides,
+                             anchors=anchors, num_classes=num_classes)
+    targets_equal = {k: bool(np.array_equal(v.cpu().numpy(), fx[f"targets/{k}"]))
+                     for k, v in targets.items()}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses = []
+        for _ in range(int(fx["steps"])):
+            _, out = step(state, images, boxes, ids)
+            losses.append([float(out[k]) for k in TRAIN_LOSS_NAMES])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    losses = np.asarray(losses)
+    loss_rel = np.abs(losses - fx["losses"]) / np.abs(fx["losses"])
+    flat = to_flat(model)
+    leaf_rel = {}
+    for key in sorted(k[len("leaf_index/"):] for k in fx if k.startswith("leaf_index/")):
+        got = flat[key].reshape(-1)[fx[f"leaf_index/{key}"]].astype(np.float64)
+        want = fx[f"leaf_sample/{key}"].astype(np.float64)
+        leaf_rel[key] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+    worst = max(leaf_rel, key=leaf_rel.get)
+    return {"targets_equal": targets_equal, "losses": losses.tolist(),
+            "loss_max_rel": float(loss_rel.max()), "loss_max_rel_step1": float(loss_rel[0].max()),
+            "leaves": len(leaf_rel), "leaf_max_rel_l2": leaf_rel[worst], "leaf_worst": worst,
+            "leaf_median_rel_l2": float(np.median(list(leaf_rel.values())))}
+
+
+def trace_idle_share(path: str) -> dict:
+    """The card's busy time (kernels, copies, fills; overlaps counted once)
+    over the span of a torch.profiler chrome trace, and the idle share."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(bool(spans), "the training trace holds device work")
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    start = min(e["ts"] for e in events)
+    stop = max(e["ts"] + e.get("dur", 0) for e in events)
+    return {"window_ms": (stop - start) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (stop - start), "kernels": len(spans)}
+
+
+def train_batch(dev, size: int, b: int, seed: int):
+    """A fixed training batch at ``size`` px: synthetic images (the CLI's
+    dataset) through the validation resize, uint8, GT padded to 100."""
+    import torch
+
+    from viddet_tpu_torch.data.loader import pad_label
+    from viddet_tpu_torch.data.synthetic import SyntheticDetection
+    from viddet_tpu_torch.data.transforms import ValTransform
+
+    ds = SyntheticDetection(num_images=b, size=256, num_classes=4, seed=seed)
+    tf = ValTransform(size=(size, size), normalize=False)
+    images, labels = [], []
+    for i in range(b):
+        x, label, _ = tf(*ds[i])
+        images.append(x)
+        labels.append(pad_label(label))
+    labels = np.stack(labels)
+    return (torch.from_numpy(np.stack(images)).to(dev),
+            torch.from_numpy(labels[:, :, :4].copy()).to(dev),
+            torch.from_numpy(labels[:, :, 4].astype(np.int32)).to(dev))
+
+
+def step_phases(state, step_parts, batch) -> dict:
+    """Device time of each part of one train step by kernel group: the
+    step runs once under torch.profiler with a spin kernel between its parts
+    (forward, loss with the targets, backward, optimizer), so each kernel
+    falls between two spins on the one stream."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("forward", "loss_and_targets", "backward", "optimizer")
+    for _ in range(2):  # warm
+        step_parts(state, batch, lambda: None)
+    torch.cuda.synchronize()
+
+    def marker():
+        torch.cuda._sleep(SPIN_CYCLES_PER_MS // 1000)
+
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(WINDOW_OPENERS):
+                marker()
+            torch.cuda.synchronize()
+            marker()
+            step_parts(state, batch, marker)
+            marker()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        spins = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+        if len(spins) >= len(names) + 1:
+            break
+        INCOMPLETE_WINDOWS.append(dict(names=["train step parts"], spins=len(spins)))
+    else:
+        raise RuntimeError("check failed: no complete profiler window of a train step")
+    bounds = spins[-(len(names) + 1):]
+    out = {}
+    for name, lo, hi in zip(names, bounds, bounds[1:]):
+        groups: dict = {}
+        for e in kernels[lo + 1:hi]:
+            group = next((g for g, subs in TRAIN_KERNEL_GROUPS if any(x in e.name for x in subs)),
+                         "other")
+            groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+        out[name] = {"device_ms": sum(groups.values()), "kernels": hi - lo - 1,
+                     "groups": groups}
+    return out
+
+
+def train_phase(dev, kernels) -> dict:
+    """The training slice on the card (see the module docstring, phase 16)."""
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.models.zoo import get_model
+
+    from viddet_tpu_torch.cli import train_yolov3
+    from viddet_tpu_torch.cli.common import get_dataset
+    from viddet_tpu_torch.models.yolo3 import flatten_outputs
+    from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
+    from viddet_tpu_torch.train.loop import _maybe_normalize, make_train_step
+    from viddet_tpu_torch.train.losses import yolo_loss
+    from viddet_tpu_torch.train.state import (
+        TrainState, latest_checkpoint, load_weights_npz, make_lr_schedule, make_optimizer,
+    )
+    from viddet_tpu_torch.weights import init_flat, load_flat, to_flat
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    fixture = train_fixture_run(dev)
+    check(all(fixture["targets_equal"].values()), f"targets equal the fixture's: {fixture}")
+    check(fixture["loss_max_rel"] <= TRAIN_LOSS_RTOL, f"losses within {TRAIN_LOSS_RTOL}: {fixture}")
+    check(fixture["leaf_max_rel_l2"] <= TRAIN_LEAF_REL_L2,
+          f"leaves within {TRAIN_LEAF_REL_L2}: {fixture}")
+    emit({"phase": "train_fixture", "nvidia_smi": smi,
+          "model": "yolo3_tiny_darknet (3 classes, 64 px)", "dtype": "float32", "tf32": False,
+          **fixture})
+
+    # -- full width through the CLI ----------------------------------------
+    model, classes = get_model(MODEL)
+    load_flat(model, init_flat(MODEL, seed=0))
+    anchors, strides = model.head.anchors, model.head.strides
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "y3")
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        argv = ["--platform", "gpu" if dev.type == "cuda" else "cpu",
+                "--dataset", "synthetic", "--data-root", "synthetic",
+                "--data-shape", str(IMAGE_SIZE),
+                "--batch-size", str(TRAIN_B), "--epochs", str(TRAIN_EPOCHS),
+                "--mixup", "--no-mixup-epochs", str(TRAIN_EPOCHS // 4),
+                "--num-workers", "4", "--log-interval", "1",
+                "--val-interval", str(TRAIN_EPOCHS), "--save-interval", "0",
+                "--profile", str(TRAIN_PROFILE_STEPS), "--metrics-jsonl", jsonl,
+                "--save-prefix", prefix]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        set_launches(kernels)
+        t0 = time.perf_counter()
+        train_yolov3.main(argv, built=(model, classes))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        val_launches = read_launches(kernels, HIER_LAUNCHES, "train CLI (its validation batch)")
+        cli_peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(jsonl) as f:
+            records = [json.loads(line) for line in f]
+        steps = TRAIN_EPOCHS * (len(get_dataset("synthetic", "synthetic")[0]) // TRAIN_B)
+        check(len(records) == steps, f"{steps} metric records, got {len(records)}")
+        check(all(np.isfinite(r[k]) for r in records for k in TRAIN_LOSS_NAMES),
+              "every logged loss finite")
+        idle = trace_idle_share(os.path.join(f"{prefix}_trace", "trace.json"))
+        ckpt = latest_checkpoint(f"{prefix}_ckpt")
+        check(ckpt is not None and ckpt.endswith(f"step_{steps:08d}"),
+              f"the last checkpoint is step {steps}: {ckpt}")
+        final = load_weights_npz(f"{prefix}_final.npz")
+        load_flat(model, final)  # the file loads back into the model
+        check(all(np.array_equal(v, final[k]) for k, v in to_flat(model).items()),
+              "_final.npz loads back through weights.load_flat")
+        check(os.path.exists(f"{prefix}_best.npz"), "_best.npz written at the validation")
+
+    # the validation batch's head outputs through the kernel and plain tails
+    from viddet_tpu_torch.data.loader import DetectionLoader
+    from viddet_tpu_torch.data.transforms import ValTransform
+    from viddet_tpu_torch.infer.service import to_device_batch
+
+    val_ds, _ = get_dataset("synthetic", "synthetic", split="val")
+    images = next(iter(DetectionLoader(val_ds, ValTransform(size=(IMAGE_SIZE, IMAGE_SIZE)),
+                                       batch_size=TRAIN_B, num_workers=0)))[0]
+    model.eval()
+    with torch.inference_mode():
+        out = model(to_device_batch(images, TRAIN_B, dev))
+        tails = [multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"], backend=b)
+                 for b in ("auto", "plain")]
+    check(all(equal(a, b) for a, b in zip(*tails)), "validation: kernel tail equal to plain tail")
+    del out, tails
+    model.train()
+
+    # -- one step alone per size; the breakdown at the CLI's 416 -----------
+    load_flat(model, init_flat(MODEL, seed=0))
+    state = TrainState(model, make_optimizer(make_lr_schedule(1e-3, 1)))
+    step = make_train_step(strides=strides, anchors=anchors, num_classes=len(classes))
+    alone = {}
+    for size in TRAIN_SIZES:
+        batch = train_batch(dev, size, TRAIN_B, seed=size)
+        for _ in range(2):
+            step(state, *batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(lambda: step(state, *batch), reps=5, warmup=0)
+        alone[str(size)] = {"ms": ms, "samples_per_s": TRAIN_B / ms * 1e3,
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del batch
+
+    def step_parts(st, batch, mark):
+        images, boxes, ids = batch
+        x = _maybe_normalize(images)
+        outputs = flatten_outputs(st.model.train()(x))
+        mark()
+        losses = yolo_loss(outputs, boxes, ids, None, image_size=x.shape[1:3], strides=strides,
+                           anchors=anchors, num_classes=len(classes))
+        mark()
+        st.zero_grad()
+        losses["total"].backward()
+        mark()
+        st.apply_gradients()
+
+    batch = train_batch(dev, IMAGE_SIZE, TRAIN_B, seed=IMAGE_SIZE)
+    breakdown = step_phases(state, step_parts, batch)
+    step_ms = median_ms(lambda: step(state, *batch), reps=5)
+    busy = sum(p["device_ms"] for p in breakdown.values())
+    # no operation of the step waits for the card (a copy from pageable
+    # memory, an .item(), a data-dependent shape): torch reports each one
+    # under its synchronisation debug mode
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as waits:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, *batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [str(w.message)[:200] for w in waits if "called a synchronizing" in str(w.message)]
+    check(not waits, f"the train step waits for the card: {waits}")
+    torch.cuda.synchronize()
+
+    # -- overfit one batch, with K8 routable: training must not launch it --
+    load_flat(model, init_flat(MODEL, seed=0))
+    state = TrainState(model, make_optimizer(make_lr_schedule(1e-3, 1)))
+    os.environ["VIDDET_CONV_BACKEND"] = "pallas"
+    try:
+        set_launches(kernels)
+        totals = [float(step(state, *batch)[1]["total"]) for _ in range(TRAIN_OVERFIT_STEPS)]
+        torch.cuda.synchronize()
+        read_launches(kernels, {}, "training under VIDDET_CONV_BACKEND=pallas")
+    finally:
+        del os.environ["VIDDET_CONV_BACKEND"]
+    check(all(np.isfinite(totals)), "overfit losses finite")
+    check(totals[-1] < 0.5 * totals[0], f"overfit: total loss below half its first: {totals}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+    speeds = [r["samples_per_sec"] for r in records]
+    emit({"phase": "train", "nvidia_smi": smi, "model": MODEL, "dtype": "bfloat16",
+          "batch": TRAIN_B,
+          "cli": {"epochs": TRAIN_EPOCHS, "steps": len(records), "seconds": cli_s,
+                  "samples_per_s_median": statistics.median(speeds),
+                  "samples_per_s": speeds, "last_losses": records[-1],
+                  "peak_mem_gib": cli_peak, "validation_launches": val_launches,
+                  "tail_equal_plain": True, "trace": idle, "checkpoint": os.path.basename(ckpt)},
+          "step_alone": alone,
+          "step_416": {"ms": step_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
+                       "waits_for_card": 0, "parts": breakdown},
+          "overfit": {"steps": TRAIN_OVERFIT_STEPS, "first": totals[0], "last": totals[-1],
+                      "conv_backend": "pallas", "k8_launches": 0},
+          "phase_s": time.perf_counter() - t_phase})
+    return val_launches
+
+
 def main() -> int:
     import torch
 
@@ -2642,6 +3002,8 @@ def main() -> int:
                 } | {"bound_ms": row["bound"][0], "bound_by": row["bound"][1]}
     frcnn_predictor, launches["frcnn"] = frcnn_path_phase(dev, kernels)
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
+    del frcnn_predictor
+    launches["train"] = train_phase(dev, kernels)
     emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS,
           "windows_with_spins_lost": len(SPINS_LOST), "spins_lost": SPINS_LOST})
 

@@ -164,6 +164,48 @@ def test_bf16_card_matches_jax_cpu(dev, family, size, device_normalize, tmp_path
     assert result["port_unmatched_share"] <= 1 - MIN_MATCHED[family], result
 
 
+@pytest.mark.cuda
+def test_train_step_matches_jax_fixture(dev):
+    """The float32 train step on the card against JAX's three steps on the
+    CPU (``tests/fixtures/jax_train_steps.npz``, TF32 off): the batch's
+    targets equal bit for bit, the losses and each leaf's sample within
+    ``chip_smoke.TRAIN_LOSS_RTOL`` / ``TRAIN_LEAF_REL_L2``."""
+    import chip_smoke
+
+    report = chip_smoke.train_fixture_run(dev)
+    print(json.dumps(report))
+    assert all(report["targets_equal"].values()), report["targets_equal"]
+    assert report["loss_max_rel"] <= chip_smoke.TRAIN_LOSS_RTOL, report
+    assert report["leaf_max_rel_l2"] <= chip_smoke.TRAIN_LEAF_REL_L2, report
+
+
+@pytest.mark.cuda
+def test_batch_norm_train_statistics_in_float32(dev):
+    """Train-mode BatchNorm on a bf16 activation on the card sums its batch
+    statistics in float32, as Flax does: over 173,056 values a channel the
+    mean and the biased variance (read back from the running statistics,
+    0.9 * (0, 1) + 0.1 * batch) are within 1e-5 of float64, where bf16
+    sums would be off by about 1e-2; the output is normalized by them and
+    rounded once to bf16."""
+    from viddet_tpu_torch.models.common import batch_norm_train
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn((64, 32, 52, 52), generator=g) * 0.7 + 0.3).to(torch.bfloat16)
+    x64 = x.double()
+    mean, var = x64.mean((0, 2, 3)), x64.var((0, 2, 3), unbiased=False)
+    bn = torch.nn.BatchNorm2d(32).to(dev)
+    y = batch_norm_train(x.to(dev).contiguous(memory_format=torch.channels_last), bn)
+    got_mean = bn.running_mean.cpu().double() / 0.1
+    got_var = (bn.running_var.cpu().double() - 0.9) / 0.1
+    print(json.dumps({"mean_err": float((got_mean - mean).abs().max()),
+                      "var_err": float((got_var - var).abs().max())}))
+    torch.testing.assert_close(got_mean, mean, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_var, var, rtol=0, atol=1e-5)
+    assert y.dtype == torch.bfloat16
+    want = (x64 - mean[:, None, None]) / torch.sqrt(var + 1e-5)[:, None, None]
+    torch.testing.assert_close(y.cpu().double(), want, rtol=2 ** -7, atol=2 ** -7)
+
+
 if __name__ == "__main__":
     import sys
 

@@ -46,7 +46,10 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.cli.evaluate, viddet_tpu_torch.data.loader, "
         "viddet_tpu_torch.eval.coco_eval, viddet_tpu_torch.native, "
         "viddet_tpu_torch.cli.serve, viddet_tpu_torch.cli.detect, "
-        "viddet_tpu_torch.infer.stream, viddet_tpu_torch.infer.multistream; "
+        "viddet_tpu_torch.infer.stream, viddet_tpu_torch.infer.multistream, "
+        "viddet_tpu_torch.cli.train_yolov3, viddet_tpu_torch.train.loop, "
+        "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
+        "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'viddet_tpu', 'cv2', 'PIL')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -15,7 +15,7 @@ import torch
 from viddet_tpu.models import zoo as jax_zoo
 from viddet_tpu.train.state import _flatten
 from viddet_tpu_torch.models import zoo
-from viddet_tpu_torch.weights import _leaves, init_flat
+from viddet_tpu_torch.weights import init_flat, leaves
 
 
 def test_list_models_equals_jax():
@@ -37,7 +37,7 @@ def test_weight_schema_equals_jax_and_init_flat_covers_it(name):
         model, classes = zoo._REGISTRY[name]()
     assert tuple(classes) == tuple(jax_classes)
     got = {}
-    for key, t, kind in _leaves(model):
+    for key, t, kind in leaves(model):
         got[key] = tuple(t.shape[2:] + t.shape[1::-1]) if kind == "conv" else tuple(
             t.shape[::-1])
     assert got == want

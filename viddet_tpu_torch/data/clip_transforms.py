@@ -1,7 +1,9 @@
-"""Clip (multi-frame) inference transform (copy of
-``viddet_tpu/data/clip_transforms.py:20-90``, the validation half): every
-frame of a k-frame clip goes through the same ``ValTransform``, so all
-share one geometry; the label is transformed once."""
+"""Clip (multi-frame) transforms (copy of
+``viddet_tpu/data/clip_transforms.py:20-90``): every frame of a k-frame
+clip goes through the same transform, so all share one geometry; for
+training each frame's transform gets a generator seeded identically from
+one draw of the clip's, so every random draw coincides.  The label is
+transformed once."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from viddet_tpu_torch.data.transforms import ValTransform
+from viddet_tpu_torch.data.transforms import TrainTransform, ValTransform
 
 
 def _as_clip(clip: np.ndarray, k: int) -> np.ndarray:
@@ -27,6 +29,30 @@ def _as_clip(clip: np.ndarray, k: int) -> np.ndarray:
     if k >= 1 and clip.shape[0] != k:
         raise ValueError(f"clip has {clip.shape[0]} frames but the model expects k={k}")
     return clip
+
+
+@dataclasses.dataclass
+class ClipTrainTransform:
+    size: Tuple[int, int]
+    letterbox_resize: bool = False
+    k: int = 0  # 0 = require true clips; >=1 also tiles stills to k frames
+    normalize: bool = True  # False: uint8 clips, normalized in the train step
+
+    def __post_init__(self):
+        self._frame_tf = TrainTransform(size=self.size, letterbox_resize=self.letterbox_resize,
+                                        normalize=self.normalize)
+
+    def __call__(self, clip: np.ndarray, label: np.ndarray, rng: np.random.Generator):
+        """clip (k, H, W, 3) uint8 (or a still (H, W, 3) with k set) ->
+        ((k, h, w, 3) float32 or uint8, the transformed label)."""
+        clip = _as_clip(clip, self.k)
+        self._frame_tf.size = self.size
+        seed = int(rng.integers(0, 2**63 - 1))
+        frames, out_label = [], None
+        for f in clip:
+            img, out_label = self._frame_tf(f, label.copy(), np.random.default_rng(seed))
+            frames.append(img)
+        return np.stack(frames), out_label
 
 
 @dataclasses.dataclass

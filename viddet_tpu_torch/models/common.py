@@ -3,7 +3,10 @@
 Modules take NCHW tensors in ``torch.channels_last`` memory format, which
 is the JAX package's NHWC layout in memory.  Parameters are float32; each
 conv runs on a compute-dtype copy of its weights, as Flax does at apply
-time.  Inference only: BatchNorm always uses its running statistics.
+time.  In eval mode BatchNorm uses its running statistics; in train mode
+(``module.train()``) it normalizes with the batch's and updates the
+running ones as Flax's ``nn.BatchNorm(momentum=0.9)`` does
+(``batch_norm_train``).
 
 Every module that owns parameters records its Flax scope (``scope``), e.g.
 ``"Darknet53_0/DarknetResidual_3/ConvBNLeaky_1"``, so that ``weights.py``
@@ -22,6 +25,7 @@ from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from viddet_tpu_torch.ops.conv_cuda import conv_down2_bn_leaky
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 LEAKY_SLOPE = 0.1
 # Flax's ``nn.leaky_relu(x, 0.1)`` multiplies by 0.1 in x's dtype: in bf16 by
 # bf16(0.1) = 0.10009765625.  K8 keeps LEAKY_SLOPE: it applies the slope to
@@ -41,6 +45,29 @@ class FlaxNames:
         i = self.counts.get(cls_name, 0)
         self.counts[cls_name] = i + 1
         return f"{self.prefix}/{cls_name}_{i}"
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Flax's train-mode ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on an
+    NCHW tensor: ``x`` normalized with its batch mean and biased variance,
+    both in float32, then scaled, shifted and rounded once to its dtype;
+    the running statistics become ``0.9 * running + 0.1 * batch``, with
+    the biased variance (torch's own train-mode BatchNorm would fold in
+    the unbiased one).
+
+    The statistics come from ``native_batch_norm`` (one Welford pass in
+    float32, differentiated by autograd), not from Flax's fast form
+    ``E[x^2] - E[x]^2``: the same quantities, rounded otherwise, and more
+    accurately (the fast form cancels where the mean is large against the
+    spread).  The variance is recovered from the saved ``1 / sqrt(var +
+    eps)`` for the running update."""
+    y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True, 0.0,
+                                              BN_EPS)
+    with torch.no_grad():
+        var = (invstd.pow(-2) - BN_EPS).clamp_min(0.0)
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+    return y
 
 
 def same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
@@ -65,14 +92,16 @@ def _pad_same(x: torch.Tensor, window: int, stride: int, value: float = 0.0):
 
 
 class ConvBNLeaky(nn.Module):
-    """kxk conv ("SAME", no bias) -> inference BatchNorm -> LeakyReLU(0.1).
+    """kxk conv ("SAME", no bias) -> BatchNorm -> LeakyReLU(0.1).
 
-    As in ``viddet_tpu/models/common.py:106-138``, a stride-2 3x3 layer
-    with Cin < 256 on an even H and W runs K8 ``conv_down2_bn_leaky``
-    (``ops/conv_cuda.py``) with its own conv and BN parameters when
-    ``conv_backend()`` is "pallas": on Darknet-53 at 416 px the 32->64,
-    64->128 and 128->256 downsamples.  The default ("xla") is PyTorch's
-    convolution, BatchNorm and leaky ReLU.
+    As in ``viddet_tpu/models/common.py:106-138``, in eval mode a stride-2
+    3x3 layer with Cin < 256 on an even H and W runs K8
+    ``conv_down2_bn_leaky`` (``ops/conv_cuda.py``) with its own conv and BN
+    parameters when ``conv_backend()`` is "pallas": on Darknet-53 at 416 px
+    the 32->64, 64->128 and 128->256 downsamples.  The default ("xla"), and
+    every layer in train mode (K8 has no backward), is PyTorch's
+    convolution, BatchNorm (``batch_norm_train`` in train mode) and leaky
+    ReLU.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
@@ -85,8 +114,8 @@ class ConvBNLeaky(nn.Module):
 
     def fused_down2(self, x: torch.Tensor) -> bool:
         """Whether this call runs K8 (the JAX package's routing condition)."""
-        return (self.stride == 2 and self.kernel_size == 3 and x.shape[1] < 256
-                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+        return (not self.training and self.stride == 2 and self.kernel_size == 3
+                and x.shape[1] < 256 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
                 and conv_backend() == "pallas")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -100,8 +129,12 @@ class ConvBNLeaky(nn.Module):
         # (x - mean) * (scale * rsqrt(var + eps)) + bias, computed in float32
         # inside the op and rounded to the compute dtype, as Flax does.
         bn = self.bn
-        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         training=False, eps=BN_EPS)
+        if self.training:
+            x = batch_norm_train(x, bn)
+        else:
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             training=False, eps=BN_EPS)
+        # in place under autograd too: leaky ReLU's backward reads its output
         return F.leaky_relu(x, LEAKY_SLOPES[x.dtype], inplace=True)
 
 

@@ -12,6 +12,7 @@ which the tail computes from each scale's meta.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -160,22 +161,36 @@ class YOLOv3(nn.Module):
         return self.head(feats[::-1])  # deepest first
 
 
+@functools.lru_cache(maxsize=64)
+def _decode_constants(meta, device: torch.device):
+    """``decode_constants``, built on the device once per meta: its
+    host-to-device copies would wait for the work queued before them, and
+    the training step would stall the host after its forward pass."""
+    return decode_constants(meta, device)
+
+
 def flatten_outputs(outputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX model's flat output dict from the cell tensors: raw_xy,
     raw_wh (float32), raw_obj, raw_cls, cls_max (compute dtype) over the
-    flat anchor axis, and the decode constants grid_xy / anchors /
-    strides."""
+    flat anchor axis, the decoded float32 corner boxes in input pixels
+    (``viddet_tpu/models/yolo3.py:203-207``: centre (sigmoid(raw_xy) +
+    grid) * stride, size exp(raw_wh) * anchor), and the decode constants
+    grid_xy / anchors / strides."""
     cells, meta = outputs["raws_cells"], outputs["meta"]
     na = len(meta[0][3])
     b = cells[0].shape[0]
     raw = torch.cat([x.reshape(b, -1, x.shape[-1] // na) for x in cells], dim=1)
-    grid_xy, anchor_wh, stride_n = decode_constants(meta, raw.device)
+    grid_xy, anchor_wh, stride_n = _decode_constants(tuple(meta), raw.device)
+    raw_xy, raw_wh = raw[..., 0:2].float(), raw[..., 2:4].float()
+    center = (torch.sigmoid(raw_xy) + grid_xy) * stride_n
+    half = 0.5 * (torch.exp(raw_wh) * anchor_wh)
     return {
-        "raw_xy": raw[..., 0:2].float(),
-        "raw_wh": raw[..., 2:4].float(),
+        "raw_xy": raw_xy,
+        "raw_wh": raw_wh,
         "raw_obj": raw[..., 4:5],
         "raw_cls": raw[..., 5:],
         "cls_max": raw[..., 5:].amax(dim=-1),
+        "boxes": torch.cat([center - half, center + half], dim=-1),
         "grid_xy": grid_xy,
         "anchors": anchor_wh,
         "strides": stride_n,

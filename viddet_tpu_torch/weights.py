@@ -30,7 +30,7 @@ from viddet_tpu_torch.models.faster_rcnn import Dense
 from viddet_tpu_torch.models.resnet import ConvBN
 
 
-def _leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
+def leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
     """(npz key, tensor, kind) for every parameter and statistic, where kind
     is "conv" for an OIHW conv kernel, "dense" for an (out, in) dense
     weight and "vec" for everything else."""
@@ -49,35 +49,44 @@ def _leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
 
 def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Copy a flat ``.npz``-schema dict into the model, in place."""
-    expected = {key for key, _, _ in _leaves(model)}
+    expected = {key for key, _, _ in leaves(model)}
     missing = sorted(expected - set(flat))
     extra = sorted(set(flat) - expected)
     if missing or extra:
         raise KeyError(f"weight keys do not match the model: missing {missing[:5]} "
                        f"({len(missing)}), unmapped {extra[:5]} ({len(extra)})")
     with torch.no_grad():
-        for key, t, kind in _leaves(model):
-            value = np.asarray(flat[key])
-            if kind == "conv":
-                value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            elif kind == "dense":
-                value = value.T  # (in, out) -> (out, in)
-            if tuple(value.shape) != tuple(t.shape):
-                raise ValueError(f"{key}: shape {value.shape}, model has {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(value)))  # a writable, contiguous copy
+        for key, t, kind in leaves(model):
+            copy_from_schema(t, flat[key], kind, key)
+
+
+def copy_from_schema(t: torch.Tensor, value: np.ndarray, kind: str, key: str = "") -> None:
+    """Copy an ``.npz``-layout array into tensor ``t`` of the given kind
+    (HWIO -> OIHW for "conv", (in, out) -> (out, in) for "dense")."""
+    value = np.asarray(value)
+    if kind == "conv":
+        value = value.transpose(3, 2, 0, 1)
+    elif kind == "dense":
+        value = value.T
+    if tuple(value.shape) != tuple(t.shape):
+        raise ValueError(f"{key}: shape {value.shape}, model has {tuple(t.shape)}")
+    t.copy_(torch.from_numpy(np.array(value)))  # a writable, contiguous copy
+
+
+def schema_array(t: torch.Tensor, kind: str) -> np.ndarray:
+    """Tensor ``t`` of the given kind as a float32 ``.npz``-layout array
+    (OIHW -> HWIO for "conv", (out, in) -> (in, out) for "dense")."""
+    value = t.detach().to("cpu", torch.float32).numpy()
+    if kind == "conv":
+        value = value.transpose(2, 3, 1, 0)
+    elif kind == "dense":
+        value = value.T
+    return np.ascontiguousarray(value)
 
 
 def to_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The model's weights as a flat ``.npz``-schema dict (float32 numpy)."""
-    flat = {}
-    for key, t, kind in _leaves(model):
-        value = t.detach().to("cpu", torch.float32).numpy()
-        if kind == "conv":
-            value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        elif kind == "dense":
-            value = value.T
-        flat[key] = np.ascontiguousarray(value)
-    return flat
+    return {key: schema_array(t, kind) for key, t, kind in leaves(model)}
 
 
 def _lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:
@@ -112,7 +121,7 @@ def seeded_flat(model: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
     build (only its parameters' shapes are read)."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for key, t, kind in _leaves(model):
+    for key, t, kind in leaves(model):
         if kind == "conv":
             o, i, h, w = t.shape
             flat[key] = _lecun_normal(rng, (h, w, i, o))
