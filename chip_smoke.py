@@ -123,9 +123,33 @@ Phases, each printed as one JSON line:
             group; 40 steps on one batch with ``VIDDET_CONV_BACKEND=pallas``
             (no kernel launched: K8 stays off in training), the total loss
             below half its first value;
-17. profiler: the profiler windows that missed a launch and were taken
+17. detector_train: SSD and Faster R-CNN training.  The float32 steps
+            (TF32 off) against the JAX fixtures
+            (``tests/fixtures/jax_{ssd,frcnn}_train_steps.npz``: the shallow
+            models, SSD at 64 px and Faster R-CNN at 128 px, three steps,
+            the Faster R-CNN steps on JAX's recorded draws): the targets
+            bit for bit (Faster R-CNN: the roi sampling of JAX's proposals,
+            the RPN labels), the float32 losses, and in float64 compute the
+            losses and a sample of every leaf.  Then for each family at full
+            width in bf16 (``SSD_MODEL`` at 512 px, batch 32;
+            ``FRCNN_MODEL`` at 800 px, batch 8): ``cli.train_ssd.main`` /
+            ``cli.train_faster_rcnn.main`` on ``--dataset synthetic``
+            (2 epochs of 2 steps / 1 epoch of 8 steps, validated once):
+            finite losses and samples/s from its log, peak memory, the
+            launches (validation: ``SSD_LAUNCHES`` / ``FRCNN_LAUNCHES`` a
+            batch; Faster R-CNN also K5 once a step), the validation
+            batch's kernel tail equal to the plain tail, the checkpoint and
+            ``_final.npz`` loaded back; one step alone (ms, samples/s, peak
+            memory, device time by part and kernel group, no wait for the
+            card); for Faster R-CNN, K5 in one step: one launch at (8,
+            1000), equal to its plain version on that step's proposals, its
+            time beside its bound; the overfit of one batch by the JAX unit
+            tests' recipes (SSD: 25 steps, the least of the last three
+            losses below 0.7 x the greatest of the first three; Faster
+            R-CNN: 12 steps, below the greatest);
+18. profiler: the profiler windows that missed a launch and were taken
             again;
-18. kernels: one line listing every ported kernel;
+19. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -190,6 +214,19 @@ TEMPORAL_AGGREGATIONS = ("max", "stack", "mean", "conv")
 # 32, SSDNMSConfig() defaults; N anchors = 64^2*4 + 32^2*6 + 16^2*6 + 8^2*6 +
 # 4^2*6 + 2^2*4 + 1*4.
 SSD_MODEL, SSD_SIZE, SSD_B, SSD_N = "ssd_512_resnet50_coco", 512, 32, 24564
+# The detector training phase: SSD_MODEL and FRCNN_MODEL trained in bf16 at
+# their JAX CLIs' defaults (SSD 512 px, batch 32; Faster R-CNN
+# --data-shape 800, batch 8) by cli.train_ssd / cli.train_faster_rcnn on
+# --dataset synthetic (64 images: 2 and 8 steps an epoch), validated once
+# (16 images: 1 and 2 batches).  Random weights diverge at the CLIs' full
+# rates within a few steps (JAX's CLIs too), so SSD warms up over both its
+# epochs and Faster R-CNN runs at lr 1e-3.  Then one step alone, and the
+# overfit of one batch by the JAX unit tests' recipes and criteria.
+SSD_TRAIN_SIZE, SSD_TRAIN_B, SSD_TRAIN_EPOCHS = 512, 32, 2
+FRCNN_TRAIN_SIZE, FRCNN_TRAIN_B, FRCNN_TRAIN_EPOCHS = 800, 8, 1
+TRAIN_VAL_IMAGES = 16  # --dataset synthetic's val split
+SSD_OVERFIT_STEPS, SSD_OVERFIT_LR = 25, 5e-3  # tests/unit/test_ssd.py:91
+FRCNN_OVERFIT_STEPS, FRCNN_OVERFIT_LR = 12, 2e-3  # tests/unit/test_faster_rcnn.py:147
 
 # The evaluate phase: cli.evaluate.evaluate on the main path's model (416
 # px, bf16, NMSConfig()) over a synthetic set of 640-px images, batches of
@@ -2744,6 +2781,23 @@ def step_phases(state, step_parts, batch) -> dict:
     return out
 
 
+def waits_for_card(step) -> list:
+    """The operations of one ``step()`` that wait for the card, as torch's
+    synchronisation debug mode reports them."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as waits:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message)[:200] for w in waits if "called a synchronizing" in str(w.message)]
+
+
 def train_phase(dev, kernels) -> dict:
     """The training slice on the card (see the module docstring, phase 16)."""
     import tempfile
@@ -2866,19 +2920,9 @@ def train_phase(dev, kernels) -> dict:
     step_ms = median_ms(lambda: step(state, *batch), reps=5)
     busy = sum(p["device_ms"] for p in breakdown.values())
     # no operation of the step waits for the card (a copy from pageable
-    # memory, an .item(), a data-dependent shape): torch reports each one
-    # under its synchronisation debug mode
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as waits:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state, *batch)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    waits = [str(w.message)[:200] for w in waits if "called a synchronizing" in str(w.message)]
+    # memory, an .item(), a data-dependent shape)
+    waits = waits_for_card(lambda: step(state, *batch))
     check(not waits, f"the train step waits for the card: {waits}")
-    torch.cuda.synchronize()
 
     # -- overfit one batch, with K8 routable: training must not launch it --
     load_flat(model, init_flat(MODEL, seed=0))
@@ -2911,6 +2955,408 @@ def train_phase(dev, kernels) -> dict:
                       "conv_backend": "pallas", "k8_launches": 0},
           "phase_s": time.perf_counter() - t_phase})
     return val_launches
+
+
+# Phase 17: detector_train
+# ---------------------------------------------------------------------------
+
+# The JAX fixtures (tests/test_torch_detector_train_fixture.py writes them
+# on the CPU): the shallow SSD (64 px) and Faster R-CNN (128 px, TINY_CFG's
+# counts) of the JAX unit tests, 3 classes, one batch of two images, three
+# SGD steps in float32 and in float64 compute (the models' float32 casts
+# kept), the Faster R-CNN steps on JAX's recorded draws.  The card holds
+# the targets bit for bit, the float32 losses of step 1 (all three for SSD)
+# and, in float64, every step's losses and each leaf's sample after step 3,
+# within the train phase's limits.  (In float32 the Faster R-CNN leaves
+# drift past them on both sides' float32 BatchNorm sums: ROADMAP Queue 3.)
+DETECTOR_FIXTURES = {
+    family: os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                         f"jax_{family}_train_steps.npz") for family in ("ssd", "frcnn")}
+DETECTOR_LOSS_NAMES = {"ssd": ("cls", "box", "total", "npos"),
+                       "frcnn": ("rpn_cls", "rpn_box", "cls", "box", "total")}
+UNIFORM_SCALE = 2.0 ** 23  # jax.random.uniform's float32 draws are k / 2**23
+LEAF_SAMPLES = 64
+
+
+def leaf_sample_index(size: int) -> np.ndarray:
+    """The elements of a leaf the fixtures keep: evenly spaced."""
+    return np.unique(np.linspace(0, size - 1, min(LEAF_SAMPLES, size)).round().astype(np.int64))
+
+
+def detector_fixture_model(fx: dict, dev, f64: bool):
+    """The fixture's shallow model on ``dev`` with ``seeded_flat(model, 0)``,
+    in train mode, in float32 or float64 compute."""
+    import torch
+
+    from viddet_tpu_torch.core.precision import FLOAT32_POLICY, Policy
+    from viddet_tpu_torch.models.faster_rcnn import FasterRCNN, FRCNNConfig
+    from viddet_tpu_torch.models.ssd import SSD
+    from viddet_tpu_torch.weights import load_flat, seeded_flat
+
+    policy = Policy(torch.float64) if f64 else FLOAT32_POLICY
+    shallow = dict(backbone_blocks=tuple(int(v) for v in fx["backbone_blocks"]),
+                   backbone_widths=tuple(int(v) for v in fx["backbone_widths"]))
+    num_classes, size = int(fx["num_classes"]), fx["images"].shape[1]
+    if "counts" in fx:
+        counts = {str(k): int(v) for k, v in zip(fx["count_names"], fx["counts"])}
+        model = FasterRCNN(num_classes, FRCNNConfig(**counts), policy, **shallow)
+    else:
+        model = SSD(num_classes, size, policy, **shallow)
+    model = model.to(device=dev, dtype=torch.float64 if f64 else torch.float32,
+                     memory_format=torch.channels_last)
+    load_flat(model, seeded_flat(model, 0))
+    return model.train()
+
+
+def detector_fixture_steps(fx: dict, family: str, dev, f64: bool):
+    """The fixture's steps on ``dev``: (losses (steps, L), the model)."""
+    import torch
+
+    from viddet_tpu_torch.train.loop import make_frcnn_train_step, make_ssd_train_step
+    from viddet_tpu_torch.train.state import TrainState, make_lr_schedule, make_optimizer
+
+    model = detector_fixture_model(fx, dev, f64)
+    state = TrainState(model, make_optimizer(make_lr_schedule(float(fx["lr"]), 1),
+                                             momentum=float(fx["momentum"]),
+                                             weight_decay=float(fx["weight_decay"])))
+    images = torch.from_numpy(fx["images"]).to(dev, torch.float64 if f64 else torch.float32)
+    boxes, ids = (torch.from_numpy(fx[k]).to(dev) for k in ("gt_boxes", "gt_ids"))
+    losses = []
+    for i in range(int(fx["steps"])):
+        if family == "ssd":
+            _, out = make_ssd_train_step(model)(state, images, boxes, ids)
+        else:
+            uniforms = tuple(torch.from_numpy(fx[f"{k}_uniform"][i] / UNIFORM_SCALE).float().to(dev)
+                             for k in ("roi", "rpn"))
+            _, out = make_frcnn_train_step(model)(state, None, images, boxes, ids,
+                                                  uniforms=uniforms)
+        losses.append([float(out[k]) for k in DETECTOR_LOSS_NAMES[family]])
+    return np.asarray(losses), model
+
+
+def detector_fixture_targets(fx: dict, family: str, dev) -> dict:
+    """The batch's targets on ``dev`` against the fixture's, bit for bit:
+    SSD's class and box targets; Faster R-CNN's roi sampling on JAX's own
+    step-1 proposals and draws, and its RPN labels and positives' box
+    targets on JAX's draws."""
+    import torch
+
+    from viddet_tpu_torch.models import faster_rcnn, ssd
+
+    def t(key, dtype=None):
+        return torch.from_numpy(fx[key]).to(dev, dtype)
+
+    boxes, ids = t("gt_boxes"), t("gt_ids")
+    size = fx["images"].shape[1]
+    if family == "ssd":
+        anchors = torch.from_numpy(ssd.generate_ssd_anchors(size)).to(dev)
+        got = ssd.assign_ssd_targets(anchors, boxes, ids)
+        return {name: bool(np.array_equal(g.cpu().numpy(), fx[f"targets/{name}"]))
+                for name, g in zip(("cls", "box"), got)}
+    model = detector_fixture_model(fx, dev, False)
+    roi_u, rpn_u = (t(f"{k}_uniform")[0].float() / UNIFORM_SCALE for k in ("roi", "rpn"))
+    got = faster_rcnn.sample_rois(roi_u, t("proposals"), t("proposal_valid"), boxes, ids,
+                                  model.config)
+    out = {name: bool(np.array_equal(g.cpu().numpy(), fx[f"targets/{name}"]))
+           for name, g in zip(("rois", "roi_cls", "roi_box", "roi_mask"), got)}
+    _, anchors = model.anchors([torch.empty(1, 1, size // s, size // s, device=dev)
+                                for s in faster_rcnn.FPN_STRIDES])
+    labels, box_t = faster_rcnn.assign_rpn_targets(anchors, boxes, ids, model.config, rpn_u)
+    labels = labels.cpu().numpy()
+    out["rpn_labels"] = bool(np.array_equal(labels, fx["targets/rpn_labels"]))
+    out["rpn_box_at_positives"] = bool(np.array_equal(box_t.cpu().numpy()[labels == 1],
+                                                      fx["targets/rpn_box_at_positives"]))
+    return out
+
+
+def detector_fixture_run(dev, family: str) -> dict:
+    """The fixture's checks on ``dev`` (TF32 off): the targets, the float32
+    losses, and the float64 losses and leaves against the fixture's."""
+    import torch
+
+    from viddet_tpu_torch.weights import to_flat
+
+    with np.load(DETECTOR_FIXTURES[family]) as f:
+        fx = {k: f[k] for k in f.files}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        targets = detector_fixture_targets(fx, family, dev)
+        runs = {name: detector_fixture_steps(fx, family, dev, name == "f64")
+                for name in ("f32", "f64")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    def loss_rel(got, want):
+        return np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+
+    rel32 = loss_rel(runs["f32"][0], fx["losses_f32"])
+    rel64 = loss_rel(runs["f64"][0], fx["losses_f64"])
+    flat = to_flat(runs["f64"][1])
+    leaf_rel = {}
+    for key in sorted(k[len("leaf_sample/"):] for k in fx if k.startswith("leaf_sample/")):
+        v = flat[key].reshape(-1)
+        got = v[leaf_sample_index(v.size)].astype(np.float64)
+        want = fx[f"leaf_sample/{key}"].astype(np.float64)
+        leaf_rel[key] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+    worst = max(leaf_rel, key=leaf_rel.get)
+    return {"targets_equal": targets, "losses_f32": runs["f32"][0].tolist(),
+            "loss_max_rel_f32_step1": float(rel32[0].max()), "loss_max_rel_f32": float(rel32.max()),
+            "loss_max_rel_f64": float(rel64.max()), "leaves": len(leaf_rel),
+            "leaf_max_rel_l2_f64": leaf_rel[worst], "leaf_worst_f64": worst,
+            "leaf_median_rel_l2_f64": float(np.median(list(leaf_rel.values())))}
+
+
+def check_detector_fixture(report: dict, family: str) -> None:
+    check(all(report["targets_equal"].values()), f"{family} targets equal the fixture's: {report}")
+    f32 = report["loss_max_rel_f32"] if family == "ssd" else report["loss_max_rel_f32_step1"]
+    check(f32 <= TRAIN_LOSS_RTOL, f"{family} float32 losses within {TRAIN_LOSS_RTOL}: {report}")
+    check(report["loss_max_rel_f64"] <= TRAIN_LOSS_RTOL,
+          f"{family} float64 losses within {TRAIN_LOSS_RTOL}: {report}")
+    check(report["leaf_max_rel_l2_f64"] <= TRAIN_LEAF_REL_L2,
+          f"{family} float64 leaves within {TRAIN_LEAF_REL_L2}: {report}")
+
+
+def cli_log_records(path: str, names) -> list:
+    """The ``speed:`` lines of a training log: samples/s and each loss."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            if " speed: " not in line:
+                continue
+            speed = float(line.split(" speed: ")[1].split()[0])
+            values = {n: float(line.split(f"{n}=")[1].split(",")[0]) for n in names}
+            records.append({"samples_per_sec": speed, **values})
+    return records
+
+
+def detector_step_parts(family: str, model, generator):
+    """The parts of one train step, a marker between them (``step_phases``)."""
+    import torch
+
+    from viddet_tpu_torch.models.faster_rcnn import frcnn_loss
+    from viddet_tpu_torch.models.ssd import ssd_loss
+    from viddet_tpu_torch.train.loop import _maybe_normalize
+
+    def parts(st, batch, mark):
+        images, boxes, ids = batch
+        x = _maybe_normalize(images)
+        if family == "ssd":
+            out = st.model.train()(x)
+            mark()
+            losses = ssd_loss(out, boxes, ids)
+        else:
+            out = st.model.train()(x, boxes, ids, generator=generator)
+            mark()
+            u = torch.rand((x.shape[0], 2, out["anchors"].shape[0]), generator=generator,
+                           device=x.device)
+            losses = frcnn_loss(out, boxes, ids, model.config, u)
+        mark()
+        st.zero_grad()
+        losses["total"].backward()
+        mark()
+        st.apply_gradients()
+
+    return parts
+
+
+def detector_train_family(dev, kernels, family: str, smi: str) -> tuple:
+    """One family of the detector training phase (module docstring, phase
+    17): (its CLI's launches, K5's row on the step's proposals or None)."""
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli import train_faster_rcnn, train_ssd
+    from viddet_tpu_torch.cli.common import get_dataset
+    from viddet_tpu_torch.data.loader import DetectionLoader
+    from viddet_tpu_torch.data.transforms import ValTransform
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.models.faster_rcnn import frcnn_postprocess
+    from viddet_tpu_torch.models.ssd import SSDNMSConfig, ssd_postprocess
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.ops import nms as nms_ops
+    from viddet_tpu_torch.ops import nms_cuda
+    from viddet_tpu_torch.train.loop import make_frcnn_train_step, make_ssd_train_step
+    from viddet_tpu_torch.train.state import (
+        TrainState, latest_checkpoint, load_weights_npz, make_lr_schedule, make_optimizer,
+    )
+    from viddet_tpu_torch.weights import init_flat, load_flat, to_flat
+
+    t_family = time.perf_counter()
+    ssd = family == "ssd"
+    name = SSD_MODEL if ssd else FRCNN_MODEL
+    size, b, epochs = ((SSD_TRAIN_SIZE, SSD_TRAIN_B, SSD_TRAIN_EPOCHS) if ssd else
+                       (FRCNN_TRAIN_SIZE, FRCNN_TRAIN_B, FRCNN_TRAIN_EPOCHS))
+    cli, log_names = ((train_ssd, ("CrossEntropy", "SmoothL1")) if ssd else
+                      (train_faster_rcnn, ("RPNAcc-loss", "RPNL1", "RCNNCE", "RCNNL1")))
+    kw = {"image_size": size} if ssd else {}
+    model, classes = get_model(name, device=dev, **kw)
+    load_flat(model, init_flat(name, seed=0, **kw))
+
+    # -- the CLI at full width ------------------------------------------------
+    train_images = len(get_dataset("synthetic", "synthetic")[0])
+    steps = epochs * (train_images // b)
+    val_batches = -(-TRAIN_VAL_IMAGES // b)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, family)
+        argv = ["--platform", "gpu" if dev.type == "cuda" else "cpu",
+                "--dataset", "synthetic", "--data-root", "synthetic",
+                "--data-shape", str(size), "--batch-size", str(b), "--epochs", str(epochs),
+                "--num-workers", "4", "--log-interval", "1", "--val-interval", str(epochs),
+                "--save-interval", "1", "--save-prefix", prefix]
+        argv += ["--warmup-epochs", str(epochs)] if ssd else ["--lr", "1e-3"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        set_launches(kernels)
+        t0 = time.perf_counter()
+        cli.main(argv, built=(model, classes))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        want = {k: v * val_batches for k, v in (SSD_LAUNCHES if ssd else FRCNN_LAUNCHES).items()}
+        if not ssd:  # one proposal NMS a step
+            want["nms_keep_mask"] += steps
+        launches = read_launches(kernels, want, f"{family} train CLI")
+        cli_peak = torch.cuda.max_memory_allocated() / 2**30
+        records = cli_log_records(f"{prefix}_train.log", log_names)
+        check(len(records) == steps, f"{family}: {steps} log lines, got {len(records)}")
+        check(all(np.isfinite(r[n]) for r in records for n in log_names),
+              f"{family}: every logged loss finite: {records}")
+        ckpt = latest_checkpoint(f"{prefix}_ckpt")
+        check(ckpt is not None and ckpt.endswith(f"step_{steps:08d}"),
+              f"{family}: the last checkpoint is step {steps}: {ckpt}")
+        final = load_weights_npz(f"{prefix}_final.npz")
+        load_flat(model, final)
+        check(all(np.array_equal(v, final[k]) for k, v in to_flat(model).items()),
+              f"{family}: _final.npz loads back through weights.load_flat")
+        check(os.path.exists(f"{prefix}_best.npz"), f"{family}: _best.npz written")
+
+    # the validation batch through the kernel and plain tails
+    val_ds, _ = get_dataset("synthetic", "synthetic", split="val")
+    images = next(iter(DetectionLoader(val_ds, ValTransform(size=(size, size)), batch_size=b,
+                                       num_workers=0)))[0]
+    model.eval()
+    with torch.inference_mode():
+        out = model(to_device_batch(images, b, dev))
+        if ssd:
+            tails = [ssd_postprocess(out, SSDNMSConfig(backend=k)) for k in ("auto", "plain")]
+        else:
+            tails = [frcnn_postprocess(out["proposals"], out["roi_cls_logits"],
+                                       out["roi_box_deltas"], (size, size), backend=k)
+                     for k in ("auto", "plain")]
+    check(all(equal(x, y) for x, y in zip(*tails)),
+          f"{family} validation: kernel tail equal to plain tail")
+    del out, tails
+    model.train()
+
+    # -- one step alone, by part; K5 in the Faster R-CNN step ---------------
+    load_flat(model, init_flat(name, seed=0, **kw))
+    state = TrainState(model, make_optimizer(make_lr_schedule(1e-3, 1)))
+    generator = None if ssd else torch.Generator(device=dev).manual_seed(7)
+    if ssd:
+        ssd_step = make_ssd_train_step(model)
+
+        def step(st, batch):
+            return ssd_step(st, *batch)
+    else:
+        frcnn_step = make_frcnn_train_step(model)
+
+        def step(st, batch):
+            return frcnn_step(st, generator, *batch)
+
+    batch = train_batch(dev, size, b, seed=size)
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = median_ms(lambda: step(state, batch), reps=5, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = step_phases(state, detector_step_parts(family, model, generator), batch)
+    busy = sum(p["device_ms"] for p in parts.values())
+    waits = waits_for_card(lambda: step(state, batch))
+    check(not waits, f"the {family} train step waits for the card: {waits}")
+
+    k5 = None
+    if not ssd:
+        seen = []
+        real = nms_ops._WRAPPERS
+
+        def recording(boxes, valid, iou):
+            keep = real.nms_keep_mask(boxes, valid, iou)
+            seen.append((boxes.clone(), valid.clone(), iou, keep.clone()))
+            return keep
+
+        nms_ops._WRAPPERS = real._replace(nms_keep_mask=recording)
+        try:
+            set_launches(kernels)
+            step(state, batch)
+            torch.cuda.synchronize()
+            read_launches(kernels, {"nms_keep_mask": 1}, "one Faster R-CNN train step")
+        finally:
+            nms_ops._WRAPPERS = real
+        check(len(seen) == 1, f"K5 called once a step, got {len(seen)}")
+        boxes, valid, iou, keep = seen[0]
+        cfg = model.config
+        check(tuple(boxes.shape) == (b, cfg.rpn_nms_input, 4) and iou == cfg.rpn_nms_thresh
+              and not boxes.requires_grad, f"K5's input in the step: {tuple(boxes.shape)}, {iou}")
+        check(equal(keep, nms_cuda.nms_keep_mask_plain(boxes, valid, iou)),
+              "K5 on the train step's proposals equal to plain")
+        k = boxes.shape[1]
+        k5 = dict(batch=b, k=k, valid=int(valid.sum().item()), kept=int(keep.sum().item()),
+                  max_abs_err=0.0, bound=bound_ms(b * k * (16 + 1 + 4), b * k * (k - 1) // 2 * 24),
+                  **timings(lambda: nms_cuda.nms_keep_mask(boxes, valid, iou),
+                            lambda: nms_cuda.nms_keep_mask_plain(boxes, valid, iou),
+                            plain_reps=3, names=KERNEL_NAMES["nms_keep_mask"]))
+        del seen, boxes, valid, keep
+
+    # -- the overfit of one batch -----------------------------------------------
+    steps_o, lr_o = ((SSD_OVERFIT_STEPS, SSD_OVERFIT_LR) if ssd else
+                     (FRCNN_OVERFIT_STEPS, FRCNN_OVERFIT_LR))
+    load_flat(model, init_flat(name, seed=0, **kw))
+    state = TrainState(model, make_optimizer(make_lr_schedule(lr_o, 1), weight_decay=0.0))
+    if generator is not None:
+        generator.manual_seed(5)
+    totals = [float(step(state, batch)[1]["total"]) for _ in range(steps_o)]
+    check(all(np.isfinite(totals)), f"{family} overfit losses finite: {totals}")
+    factor = 0.7 if ssd else 1.0
+    check(min(totals[-3:]) < factor * max(totals[:3]),
+          f"{family} overfit: least of the last three below {factor} x the greatest of the "
+          f"first three: {totals}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+    speeds = [r["samples_per_sec"] for r in records]
+    emit({"phase": f"{family}_train", "nvidia_smi": smi, "model": name, "dtype": "bfloat16",
+          "size": size, "batch": b,
+          "cli": {"epochs": epochs, "steps": steps, "seconds": cli_s,
+                  "samples_per_s_median": statistics.median(speeds), "samples_per_s": speeds,
+                  "last_losses": records[-1], "peak_mem_gib": cli_peak,
+                  "validation_batches": val_batches, "launches": launches,
+                  "tail_equal_plain": True, "checkpoint": os.path.basename(ckpt)},
+          "step_alone": {"ms": step_ms, "samples_per_s": b / step_ms * 1e3, "peak_mem_gib": peak,
+                         "device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
+                         "waits_for_card": 0, "parts": parts},
+          **({"k5_in_step": k5} if k5 else {}),
+          "overfit": {"steps": steps_o, "lr": lr_o, "first": totals[:3], "last": totals[-3:]},
+          "phase_s": time.perf_counter() - t_family})
+    return launches, k5
+
+
+def detector_train_phase(dev, kernels) -> tuple:
+    """Phase 17: the two fixtures, then each family at full width."""
+    smi = nvidia_smi_line()
+    for family in ("ssd", "frcnn"):
+        t0 = time.perf_counter()
+        report = detector_fixture_run(dev, family)
+        check_detector_fixture(report, family)
+        emit({"phase": f"{family}_train_fixture", "nvidia_smi": smi, "dtype": "float32, float64",
+              "tf32": False, "seconds": time.perf_counter() - t0, **report})
+    launches, k5_rows = {}, {}
+    for family in ("ssd", "frcnn"):
+        launches[f"{family}_train"], k5 = detector_train_family(dev, kernels, family, smi)
+        if k5:
+            k5_rows[f"{family}_train"] = k5
+    return launches, k5_rows
 
 
 def main() -> int:
@@ -3004,6 +3450,12 @@ def main() -> int:
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
     del frcnn_predictor
     launches["train"] = train_phase(dev, kernels)
+    detector_launches, k5_rows = detector_train_phase(dev, kernels)
+    launches.update(detector_launches)
+    for path, row in k5_rows.items():
+        rows["nms_keep_mask"].setdefault("on_paths", {})[path] = {
+            key: row[key] for key in ("ms", "plain_ms", "library_ms")
+        } | {"bound_ms": row["bound"][0], "bound_by": row["bound"][1]}
     emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS,
           "windows_with_spins_lost": len(SPINS_LOST), "spins_lost": SPINS_LOST})
 

@@ -180,6 +180,22 @@ def test_train_step_matches_jax_fixture(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ssd", "frcnn"])
+def test_detector_train_steps_match_jax_fixture(dev, family):
+    """SSD and Faster R-CNN training on the card against JAX's steps on the
+    CPU (``tests/fixtures/jax_{ssd,frcnn}_train_steps.npz``, TF32 off): the
+    targets bit for bit (Faster R-CNN: the roi sampling of JAX's
+    proposals and the RPN labels, on JAX's draws), the float32 losses and,
+    in float64 compute, the losses and each leaf's sample within the
+    train phase's limits (``chip_smoke.check_detector_fixture``)."""
+    import chip_smoke
+
+    report = chip_smoke.detector_fixture_run(dev, family)
+    print(json.dumps(report))
+    chip_smoke.check_detector_fixture(report, family)
+
+
+@pytest.mark.cuda
 def test_batch_norm_train_statistics_in_float32(dev):
     """Train-mode BatchNorm on a bf16 activation on the card sums its batch
     statistics in float32, as Flax does: over 173,056 values a channel the

@@ -48,6 +48,7 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.cli.serve, viddet_tpu_torch.cli.detect, "
         "viddet_tpu_torch.infer.stream, viddet_tpu_torch.infer.multistream, "
         "viddet_tpu_torch.cli.train_yolov3, viddet_tpu_torch.train.loop, "
+        "viddet_tpu_torch.cli.train_ssd, viddet_tpu_torch.cli.train_faster_rcnn, "
         "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
         "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "

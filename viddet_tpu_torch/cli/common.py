@@ -9,6 +9,7 @@ import json
 import logging
 import os
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -268,3 +269,123 @@ def load_weights_or_seed(model: torch.nn.Module, weights_path: str) -> torch.nn.
         return load_weights(model, weights_path)
     load_flat(model, seeded_flat(model, seed=0))
     return model
+
+
+def fit_detector(args, logger, model: torch.nn.Module, class_names, datasets, step,
+                 log_names) -> None:
+    """The training loop of the SSD and Faster R-CNN CLIs (counterpart of
+    ``viddet_tpu/cli/train_ssd.py:70-150``, which ``train_faster_rcnn.py``
+    repeats): uint8 batches at ``--data-shape`` through ``TrainTransform``,
+    copied pinned to the model's device, ``step(state, images, gt_boxes,
+    gt_ids) -> (state, losses)``; the losses summed on the device and read
+    at each log line; validation through ``cli.evaluate.evaluate`` with
+    BatchNorm on its running statistics; ``{prefix}_ckpt/step_*``,
+    ``{prefix}_best.npz`` and ``{prefix}_final.npz`` as JAX writes them.
+    ``log_names``: (label, loss key) pairs of the log line."""
+    from viddet_tpu_torch.cli.evaluate import evaluate
+    from viddet_tpu_torch.data.loader import DetectionLoader
+    from viddet_tpu_torch.data.transforms import TrainTransform
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.train.state import (
+        TrainState, latest_checkpoint, make_lr_schedule, make_optimizer, restore_checkpoint,
+        save_checkpoint, save_weights_npz,
+    )
+
+    train_ds, val_ds, metric_factory = datasets
+    device = next(model.parameters()).device
+    shape = args.data_shape
+    loader = DetectionLoader(
+        train_ds,
+        TrainTransform(size=(shape, shape), normalize=False),  # normalized on the device
+        batch_size=args.batch_size,
+        train=True,
+        num_workers=args.num_workers,
+        seed=args.seed,
+        max_boxes=args.max_gt_boxes,
+    )
+    steps_per_epoch = max(len(loader), 1)
+    schedule = make_lr_schedule(
+        args.lr, steps_per_epoch,
+        warmup_epochs=args.warmup_epochs,
+        decay_epochs=[int(e) for e in args.lr_decay_epoch.split(",") if e],
+        decay_factor=args.lr_decay,
+    )
+    state = TrainState(model, make_optimizer(schedule, momentum=args.momentum,
+                                             weight_decay=args.wd))
+    start_epoch = 0
+    if args.resume:
+        path = args.resume if os.path.basename(args.resume).startswith("step_") \
+            else latest_checkpoint(args.resume)
+        if path:
+            state = restore_checkpoint(path, state)
+            start_epoch = state.step // steps_per_epoch
+            logger.info("resumed from %s", path)
+    logger.info("device: %s; %d steps/epoch", device, steps_per_epoch)
+    ckpt_dir = f"{args.save_prefix}_ckpt"
+    best_map = -1.0
+    total_steps = 0
+    fmt = "[Epoch %d][Batch %d] speed: %.1f samples/sec, " + ", ".join(
+        f"{label}=%.3f" for label, _ in log_names)
+
+    def on_device(x):
+        return to_device_batch(np.ascontiguousarray(x), x.shape[0], device)
+
+    for epoch in range(start_epoch, args.epochs):
+        btic = time.time()
+        running = {}
+        for i, (images, boxes, ids, _d, _a, _x) in enumerate(loader):
+            state, losses = step(state, on_device(images), on_device(boxes),
+                                 on_device(ids.astype(np.int32)))
+            total_steps += 1
+            for k, v in losses.items():  # summed on the device: no wait per step
+                running[k] = running.get(k, 0.0) + v.double()
+            if args.log_interval and (i + 1) % args.log_interval == 0:
+                means = [float(running.get(key, 0.0)) / (i + 1) for _, key in log_names]
+                speed = args.log_interval * args.batch_size / (time.time() - btic)
+                btic = time.time()
+                logger.info(fmt, epoch, i + 1, speed, *means)
+            if args.max_steps and total_steps >= args.max_steps:
+                logger.info("reached max-steps=%d, stopping", args.max_steps)
+                save_checkpoint(ckpt_dir, state, state.step, block=True)
+                return
+        if loader.dropped_boxes:
+            logger.warning("[Epoch %d] %d GT boxes dropped by --max-gt-boxes=%d pad",
+                           epoch, loader.dropped_boxes, args.max_gt_boxes)
+        if args.val_interval and (epoch + 1) % args.val_interval == 0:
+            eval_args = argparse.Namespace(
+                data_shape=shape, batch_size=max(args.batch_size, 1),
+                num_workers=args.num_workers, letterbox=False, max_images=0,
+                save_detections="", device_normalize=False,
+            )
+            model.eval()  # BatchNorm on its running statistics
+            try:
+                names, values = evaluate(model, val_ds, metric_factory(class_names), eval_args,
+                                         logger)
+            finally:
+                model.train()
+            logger.info("[Epoch %d] validation %s=%.4f", epoch, names[-1], values[-1])
+            if values[-1] > best_map:
+                best_map = values[-1]
+                save_weights_npz(f"{args.save_prefix}_best.npz", model)
+        if args.save_interval and (epoch + 1) % args.save_interval == 0:
+            save_checkpoint(ckpt_dir, state, state.step)
+    save_checkpoint(ckpt_dir, state, state.step, block=True)
+    save_weights_npz(f"{args.save_prefix}_final.npz", model)
+
+
+def build_for_training(args, built=None, **model_kw):
+    """The datasets, and the model on ``--platform``'s device in train mode:
+    ``built`` (a caller's model and class names, weights loaded), else
+    ``--network`` / ``--dataset`` with ``weights.seeded_flat(model,
+    --seed)`` (the seeded Flax initialisers, not the values of JAX's
+    ``module.init(key(seed))``)."""
+    device = platform_device(args.platform)
+    train_ds, _ = get_dataset(args.dataset, args.data_root, split="train")
+    val_ds, metric_factory = get_dataset(args.dataset, args.data_root, split="val")
+    if built is not None:
+        model, class_names = built
+    else:
+        model, class_names = build_model(args.network, args.dataset, classes=train_ds.classes,
+                                         device=device, **model_kw)
+        load_flat(model, seeded_flat(model, seed=args.seed))
+    return model.train(), class_names, (train_ds, val_ds, metric_factory)

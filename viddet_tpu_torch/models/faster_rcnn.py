@@ -1,4 +1,4 @@
-"""Faster R-CNN ResNet-50 FPN, inference (counterpart of the eval half of
+"""Faster R-CNN ResNet-50 FPN (counterpart of
 ``viddet_tpu/models/faster_rcnn.py``).
 
 Every stage keeps fixed shapes, as in JAX:
@@ -21,13 +21,22 @@ Proposals that NMS did not keep stay in the compacted proposal set after
 the kept ones, with ``proposal_valid`` false; they go through ROIAlign and
 the box head, and ``frcnn_postprocess`` does not mask them, as in JAX.
 
-Training (``encode_rcnn``, targets, sampling, losses) is not ported yet.
+Training (``model.train()``, ``forward(images, gt_boxes, gt_ids, ...)``):
+``rpn_post_nms_train`` proposals, out of the autograd graph (K5 still
+ranks them on the card), the ground truth appended, a fixed batch of
+``roi_batch`` rois sampled (``sample_rois``), and the box head on the
+sampled rois through the plain packed ROIAlign under autograd (the JAX
+package trains through its XLA ROIAlign; K7 has no backward).
+``frcnn_loss`` assigns and samples the RPN's anchors.  The samplers rank
+uniforms that the caller passes in, drawn from an explicit
+``torch.Generator`` on the model's device (``train.loop``), so the tests
+feed them JAX's own ``jax.random`` draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +47,11 @@ from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from viddet_tpu_torch.models.common import BiasConv, upsample2x_nearest
 from viddet_tpu_torch.models.resnet import ResNet50
 from viddet_tpu_torch.ops import roi_align_cuda
-from viddet_tpu_torch.ops.boxes import clip_boxes, div_rn
+from viddet_tpu_torch.models.ssd import inverse_permutation
+from viddet_tpu_torch.ops.boxes import box_iou, clip_boxes, div_rn
 from viddet_tpu_torch.ops.nms import Detections, _nms_on_candidates, _ops, _pair_top_k_det
 from viddet_tpu_torch.ops.roi_align import multilevel_roi_align_packed
+from viddet_tpu_torch.train.targets import log_xla_cpu
 
 FPN_STRIDES = (4, 8, 16, 32, 64)  # P2..P6
 ANCHOR_SCALES = (32.0, 64.0, 128.0, 256.0, 512.0)
@@ -53,8 +64,9 @@ class FRCNNConfig:
     """The JAX config's fields and defaults.  ``nms_backend`` (proposal
     NMS) and ``roi_backend`` (ROIAlign) take "auto", each kernel's wrapper
     (the kernel for CUDA tensors, the plain version for CPU tensors), or
-    "plain", the plain versions on any device.  The training fields are
-    kept for the schema; inference reads ``rpn_post_nms_test``."""
+    "plain", the plain versions on any device; in training the ROIAlign is
+    always the plain packed one.  Inference reads ``rpn_post_nms_test``,
+    training the other counts."""
 
     rpn_pre_nms_topk: int = 1000  # per level
     rpn_nms_input: int = 1000  # candidates entering proposal NMS
@@ -70,6 +82,34 @@ class FRCNNConfig:
     roi_pos_iou: float = 0.5
     nms_backend: str = "auto"
     roi_backend: str = "auto"
+
+
+def encode_rcnn(gt: torch.Tensor, anchors: torch.Tensor, weights=(1.0, 1.0, 1.0, 1.0),
+                constant_anchors: bool = False) -> torch.Tensor:
+    """R-CNN box encoding (``faster_rcnn.py:85``), as XLA's CPU program
+    computes it: ``weight * (gcx - acx) / aw`` and ``weight * log(gw / aw)``
+    with XLA's CPU log.  ``constant_anchors``: the RPN's anchors, a graph
+    constant in JAX's train step, where XLA divides by their float32
+    reciprocals (and drops the weights of 1); the rois of ``sample_rois``
+    are data and divide."""
+    wx, wy, ww, wh = weights
+    aw = (anchors[..., 2] - anchors[..., 0]).clamp_min(1e-6)
+    ah = (anchors[..., 3] - anchors[..., 1]).clamp_min(1e-6)
+    acx = anchors[..., 0] + 0.5 * aw
+    acy = anchors[..., 1] + 0.5 * ah
+    gw = (gt[..., 2] - gt[..., 0]).clamp_min(1e-6)
+    gh = (gt[..., 3] - gt[..., 1]).clamp_min(1e-6)
+    gcx = gt[..., 0] + 0.5 * gw
+    gcy = gt[..., 1] + 0.5 * gh
+    if constant_anchors:
+        if tuple(weights) != (1.0, 1.0, 1.0, 1.0):
+            raise ValueError("constant_anchors takes the RPN's weights (1, 1, 1, 1)")
+        one = torch.ones((), dtype=torch.float32, device=anchors.device)
+        rw, rh = one / aw, one / ah
+        return torch.stack([(gcx - acx) * rw, (gcy - acy) * rh, log_xla_cpu(gw * rw),
+                            log_xla_cpu(gh * rh)], dim=-1)
+    return torch.stack([wx * (gcx - acx) / aw, wy * (gcy - acy) / ah,
+                        ww * log_xla_cpu(gw / aw), wh * log_xla_cpu(gh / ah)], dim=-1)
 
 
 def decode_rcnn(deltas: torch.Tensor, anchors: torch.Tensor,
@@ -101,6 +141,123 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     ties lowest index first."""
     values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], idx[..., :k]
+
+
+def random_topk_select(uniform: torch.Tensor, eligible: torch.Tensor, k) -> torch.Tensor:
+    """Up to ``k`` eligible entries of each row, chosen uniformly at random
+    (``faster_rcnn.py:345``): the priority ``uniform + 10 * ~eligible``
+    ranked ascending (a stable sort, as ``jnp.argsort``), then each entry's
+    rank against ``k`` (an int or a (B, 1) tensor).  ``uniform`` in [0, 1)
+    and ``eligible`` are (B, n); each row selects ``min(k, its eligible)``."""
+    priority = uniform + (~eligible).float() * 10.0
+    rank = inverse_permutation(torch.sort(priority, dim=-1, stable=True).indices)
+    return eligible & (rank < k)
+
+
+@torch.no_grad()
+def assign_rpn_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_ids: torch.Tensor,
+                       cfg: FRCNNConfig, uniform: torch.Tensor):
+    """RPN labels after sampling and box targets (``faster_rcnn.py:357``):
+    labels (B, N) int32, 1 positive, 0 negative, -1 not sampled;
+    box_targets (B, N, 4) against each anchor's best box.
+
+    An anchor is positive at IoU >= ``rpn_pos_iou`` and every valid box's
+    best anchor is; negative below ``rpn_neg_iou``.  Up to ``rpn_batch *
+    rpn_pos_fraction`` positives are sampled, then negatives to fill
+    ``rpn_batch``.  ``uniform`` (B, 2, N): the positives' and the
+    negatives' draws."""
+    n = anchors.shape[0]
+    valid = gt_ids >= 0
+    iou = torch.where(valid[:, None, :], box_iou(anchors, gt_boxes.float()), -1.0)  # (B, N, M)
+    best_iou, best_gt = iou.max(dim=2)
+    best_anchor = torch.where(valid, iou.argmax(dim=1), n)  # invalid boxes: dropped
+    forced = torch.zeros((gt_ids.shape[0], n + 1), dtype=torch.bool, device=anchors.device)
+    pos = (best_iou >= cfg.rpn_pos_iou) | forced.scatter_(1, best_anchor, True)[:, :n]
+    neg = (best_iou < cfg.rpn_neg_iou) & ~pos
+    pos_sel = random_topk_select(uniform[:, 0], pos, int(cfg.rpn_batch * cfg.rpn_pos_fraction))
+    num_pos = pos_sel.sum(dim=1, keepdim=True)
+    neg_sel = random_topk_select(uniform[:, 1], neg, cfg.rpn_batch - num_pos)
+    labels = torch.where(pos_sel, 1, torch.where(neg_sel, 0, -1)).int()
+    matched = gt_boxes.float().gather(1, best_gt[..., None].expand(*best_gt.shape, 4))
+    return labels, encode_rcnn(matched, anchors, constant_anchors=True)
+
+
+@torch.no_grad()
+def sample_rois(uniform: torch.Tensor, proposals: torch.Tensor, p_valid: torch.Tensor,
+                gt_boxes: torch.Tensor, gt_ids: torch.Tensor, cfg: FRCNNConfig):
+    """The ground truth appended to the proposals, matched, and a fixed
+    batch of S = ``roi_batch`` rois sampled (``faster_rcnn.py:390``).
+
+    Returns rois (B, S, 4): positives first, then negatives, then
+    padding, each group in candidate order; cls_target (B, S) int32 (0
+    background, -1 padding); box_target (B, S, 4), the matched box encoded
+    with weights (10, 10, 5, 5), 0 off the positives; mask (B, S) float32,
+    1 where sampled.  ``uniform`` (B, 2, R + M) as ``assign_rpn_targets``'s.
+    Fewer candidates than S pad with zero boxes."""
+    s = cfg.roi_batch
+    gt_boxes = gt_boxes.float()
+    gt_valid = gt_ids >= 0
+    cands = torch.cat([proposals, gt_boxes], dim=1)
+    cand_valid = torch.cat([p_valid, gt_valid], dim=1)
+    iou = torch.where(gt_valid[:, None, :], box_iou(cands, gt_boxes), -1.0)
+    best_iou, best_gt = iou.max(dim=2)
+    best_iou = torch.where(cand_valid, best_iou, -1.0)
+    pos = best_iou >= cfg.roi_pos_iou
+    neg = cand_valid & ~pos & (best_iou >= 0.0)
+    pos_sel = random_topk_select(uniform[:, 0], pos, int(s * cfg.roi_pos_fraction))
+    num_pos = pos_sel.sum(dim=1, keepdim=True)
+    neg_sel = random_topk_select(uniform[:, 1], neg, s - num_pos)
+    selected = pos_sel | neg_sel
+    order_key = torch.where(pos_sel, 0, torch.where(neg_sel, 1, 2))
+    b, n = order_key.shape
+    if n < s:  # fewer candidates than the roi batch: pad
+        cands = F.pad(cands, (0, 0, 0, s - n))
+        order_key = F.pad(order_key, (0, s - n), value=2)
+        selected, pos_sel = (F.pad(t, (0, s - n)) for t in (selected, pos_sel))
+        best_gt = F.pad(best_gt, (0, s - n))
+    order = torch.sort(order_key, dim=1, stable=True).indices[:, :s]
+    rois = cands.gather(1, order[..., None].expand(b, s, 4))
+    sel, is_pos, matched_gt = (t.gather(1, order) for t in (selected, pos_sel, best_gt))
+    cls_t = torch.where(is_pos, gt_ids.gather(1, matched_gt).int() + 1, 0)
+    cls_t = torch.where(sel, cls_t, -1).int()
+    box_t = encode_rcnn(gt_boxes.gather(1, matched_gt[..., None].expand(b, s, 4)), rois,
+                        HEAD_DELTA_WEIGHTS)
+    return rois, cls_t, torch.where(is_pos[..., None], box_t, 0.0), sel.float()
+
+
+def _smooth_l1(x: torch.Tensor, beta: float = 1.0 / 9.0) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * x * x / beta, ax - 0.5 * beta)
+
+
+def frcnn_loss(outputs: Dict[str, torch.Tensor], gt_boxes: torch.Tensor, gt_ids: torch.Tensor,
+               cfg: FRCNNConfig, rpn_uniform: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """RPN (sigmoid BCE and SmoothL1 over the sampled anchors) and head
+    (softmax CE over the sampled rois, SmoothL1 on the positives' class
+    deltas) losses of a train-mode forward (``faster_rcnn.py:454``).
+    ``rpn_uniform`` (B, 2, N anchors) drives the RPN's sampling."""
+    labels, rpn_box_t = assign_rpn_targets(outputs["anchors"], gt_boxes, gt_ids, cfg, rpn_uniform)
+    obj = outputs["rpn_obj"]
+    pos = (labels == 1).float()
+    sampled = (labels >= 0).float()
+    bce = obj.clamp_min(0.0) - obj * pos + torch.log1p(torch.exp(-obj.abs()))
+    denom = sampled.sum().clamp_min(1.0)
+    rpn_cls = (bce * sampled).sum() / denom
+    rpn_box = (_smooth_l1(outputs["rpn_delta"] - rpn_box_t) * pos[..., None]).sum() / denom
+
+    cls_t = outputs["roi_cls_target"].long()  # (B, S), -1 padding
+    mask = (cls_t >= 0).float()
+    logp = torch.log_softmax(outputs["roi_cls_logits"], dim=-1)
+    ce = -logp.gather(-1, cls_t.clamp_min(0)[..., None])[..., 0]
+    head_denom = mask.sum().clamp_min(1.0)
+    head_cls = (ce * mask).sum() / head_denom
+    b, s = cls_t.shape
+    cls_idx = (cls_t - 1).clamp_min(0)  # the foreground class's slot
+    deltas = outputs["roi_box_deltas"].gather(2, cls_idx[..., None, None].expand(b, s, 1, 4))
+    head_box = (_smooth_l1(deltas[:, :, 0] - outputs["roi_box_target"])
+                * (cls_t > 0).float()[..., None]).sum() / head_denom
+    return {"rpn_cls": rpn_cls, "rpn_box": rpn_box, "cls": head_cls, "box": head_box,
+            "total": rpn_cls + rpn_box + head_cls + head_box}
 
 
 class Dense(nn.Module):
@@ -165,10 +322,15 @@ class RPNHead(nn.Module):
 
 class FasterRCNN(nn.Module):
     """``forward`` takes NHWC images (B, H, W, 3) and returns, in eval mode,
-    ``{"rpn_obj" (B, A) float32, "rpn_delta" (B, A, 4), "proposals"
-    (B, R, 4), "proposal_valid" (B, R) bool, "roi_cls_logits" (B, R, C+1),
-    "roi_box_deltas" (B, R, C, 4)}``, all float32 but the mask, R =
-    ``rpn_post_nms_test``.
+    ``{"anchors" (A, 4), "rpn_obj" (B, A) float32, "rpn_delta" (B, A, 4),
+    "proposals" (B, R, 4), "proposal_valid" (B, R) bool, "roi_cls_logits"
+    (B, R, C+1), "roi_box_deltas" (B, R, C, 4)}``, all float32 but the mask,
+    R = ``rpn_post_nms_test``.  In train mode it also takes the padded
+    ground truth and either ``generator`` (a ``torch.Generator`` on the
+    model's device) or ``roi_uniform`` (B, 2, R + M) for the roi sampling,
+    R = ``rpn_post_nms_train``; the head runs on the S = ``roi_batch``
+    sampled rois, and the outputs add "rois" (B, S, 4), "roi_cls_target",
+    "roi_box_target" and "roi_mask" (``sample_rois``).
 
     On a CUDA device, proposal NMS runs K5 and the ROIAlign K7 (under the
     config's "auto" backends).  ``backbone_blocks`` / ``backbone_widths``
@@ -185,16 +347,16 @@ class FasterRCNN(nn.Module):
         self.fc2 = Dense(1024, 1024, policy, "fc2")
         self.cls_score = Dense(1024, num_classes + 1, policy, "cls_score")
         self.bbox_pred = Dense(1024, num_classes * 4, policy, "bbox_pred")
-        self._anchors: Dict[tuple, List[torch.Tensor]] = {}
+        self._anchors: Dict[tuple, Tuple[List[torch.Tensor], torch.Tensor]] = {}
 
-    def anchors(self, pyramid: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Per-level anchors for these map sizes, made once per size."""
+    def anchors(self, pyramid: List[torch.Tensor]) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """Per-level anchors for these map sizes and their concatenation,
+        made once per size."""
         key = (pyramid[0].device,) + tuple(tuple(p.shape[2:]) for p in pyramid)
         if key not in self._anchors:
-            self._anchors[key] = [
-                torch.from_numpy(_level_anchors(p.shape[2], p.shape[3], s, sc)).to(p.device)
-                for p, s, sc in zip(pyramid, FPN_STRIDES, ANCHOR_SCALES)
-            ]
+            levels = [torch.from_numpy(_level_anchors(p.shape[2], p.shape[3], s, sc)).to(p.device)
+                      for p, s, sc in zip(pyramid, FPN_STRIDES, ANCHOR_SCALES)]
+            self._anchors[key] = (levels, torch.cat(levels, dim=0))
         return self._anchors[key]
 
     def _proposals(self, objs, deltas, anchors, image_hw, post_nms):
@@ -219,9 +381,10 @@ class FasterRCNN(nn.Module):
         return boxes.gather(1, order[..., None].expand(*order.shape, 4)), keep.gather(1, order)
 
     def _roi_head(self, pyramid, rois):
-        """ROIAlign (K7) on P2..P5, then the box head (``faster_rcnn.py:249``)."""
+        """ROIAlign on P2..P5 (K7; in training the plain packed version),
+        then the box head (``faster_rcnn.py:249``)."""
         b, r, _ = rois.shape
-        if self.config.roi_backend == "plain":
+        if self.training or self.config.roi_backend == "plain":
             align = multilevel_roi_align_packed
         elif self.config.roi_backend == "auto":
             align = roi_align_cuda.multilevel_roi_align
@@ -235,18 +398,37 @@ class FasterRCNN(nn.Module):
         return (self.cls_score(x).reshape(b, r, self.num_classes + 1).float(),
                 self.bbox_pred(x).reshape(b, r, self.num_classes, 4).float())
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, gt_boxes: Optional[torch.Tensor] = None,
+                gt_ids: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None,
+                roi_uniform: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         pyramid = self.fpn(self.backbone(x))
         objs, deltas = self.rpn(pyramid)
+        levels, anchors = self.anchors(pyramid)
+        cfg = self.config
+        # the proposals carry no gradient (JAX's stop_gradient): K5 ranks
+        # detached boxes
         proposals, p_valid = self._proposals(
-            objs, deltas, self.anchors(pyramid), images.shape[1:3],
-            self.config.rpn_post_nms_test)
-        cls_logits, box_deltas = self._roi_head(pyramid, proposals)
-        return {"rpn_obj": torch.cat([o.float() for o in objs], dim=1),
-                "rpn_delta": torch.cat(deltas, dim=1), "proposals": proposals,
-                "proposal_valid": p_valid,
-                "roi_cls_logits": cls_logits, "roi_box_deltas": box_deltas}
+            [o.detach() for o in objs], [d.detach() for d in deltas], levels, images.shape[1:3],
+            cfg.rpn_post_nms_train if self.training else cfg.rpn_post_nms_test)
+        out = {"anchors": anchors, "rpn_obj": torch.cat([o.float() for o in objs], dim=1),
+               "rpn_delta": torch.cat(deltas, dim=1), "proposals": proposals,
+               "proposal_valid": p_valid}
+        rois = proposals
+        if self.training:
+            if gt_boxes is None or gt_ids is None:
+                raise ValueError("a train-mode forward takes gt_boxes and gt_ids")
+            if roi_uniform is None:
+                if generator is None:
+                    raise ValueError("a train-mode forward takes a generator or roi_uniform")
+                shape = (images.shape[0], 2, proposals.shape[1] + gt_ids.shape[1])
+                roi_uniform = torch.rand(shape, generator=generator, device=images.device)
+            rois, cls_t, box_t, mask = sample_rois(roi_uniform, proposals, p_valid, gt_boxes,
+                                                   gt_ids, cfg)
+            out.update(rois=rois, roi_cls_target=cls_t, roi_box_target=box_t, roi_mask=mask)
+        out["roi_cls_logits"], out["roi_box_deltas"] = self._roi_head(pyramid, rois)
+        return out
 
 
 def frcnn_postprocess(proposals: torch.Tensor, cls_logits: torch.Tensor,

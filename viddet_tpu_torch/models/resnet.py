@@ -4,7 +4,9 @@ NCHW channels_last tensors in the compute dtype; stride 2 sits in the 3x3
 bottleneck conv; returns (c2, c3, c4, c5) at strides (4, 8, 16, 32).
 Every conv pads as XLA's "SAME" does (``common.same_pads``): at 512 px
 the 7x7/2 stem pads (2, 3), each 3x3/2 (0, 1) and each 1x1/2 projection
-nothing; the stem's 3x3/2 max-pool pads (0, 1) with -inf.  Inference only.
+nothing; the stem's 3x3/2 max-pool pads (0, 1) with -inf.  In train mode
+(``module.train()``) every BatchNorm normalizes with the batch's statistics
+and updates its running ones as Flax's does (``common.batch_norm_train``).
 """
 
 from __future__ import annotations
@@ -16,12 +18,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
-from viddet_tpu_torch.models.common import BN_EPS, FlaxNames, _pad_same, maxpool2d
+from viddet_tpu_torch.models.common import (
+    BN_EPS, FlaxNames, _pad_same, batch_norm_train, maxpool2d,
+)
 
 
 class ConvBN(nn.Module):
-    """conv ("SAME", no bias) -> inference BatchNorm -> optional ReLU: the
-    JAX package's ``_ConvBN``, with its weights under ``scope``."""
+    """conv ("SAME", no bias) -> BatchNorm -> optional ReLU: the JAX
+    package's ``_ConvBN``, with its weights under ``scope``.  BatchNorm uses
+    the running statistics in eval mode and the batch's in train mode
+    (``batch_norm_train``)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                  act: bool = True, policy: Policy = DEFAULT_POLICY, scope: str = ""):
@@ -36,8 +42,11 @@ class ConvBN(nn.Module):
         x = F.conv2d(x, self.conv.weight.to(self.policy.compute_dtype), stride=self.stride,
                      padding=pad)
         bn = self.bn
-        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         training=False, eps=BN_EPS)
+        if self.training:
+            x = batch_norm_train(x, bn)
+        else:
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             training=False, eps=BN_EPS)
         return F.relu(x, inplace=True) if self.act else x
 
 

@@ -1,4 +1,4 @@
-"""SSD-512 ResNet-50 inference (counterpart of ``viddet_tpu/models/ssd.py``).
+"""SSD-512 ResNet-50 (counterpart of ``viddet_tpu/models/ssd.py``).
 
 ResNet-50 c3/c4/c5 (strides 8/16/32) and four extra stride-2 ``_ConvBN``
 pairs (strides 64..512) give seven maps; a 3x3 class conv and a 3x3 box
@@ -9,7 +9,15 @@ the device.  At 512 px there are 24,564 anchors.
 ``ssd_forward_and_postprocess`` takes the float32 softmax, drops the
 background column and runs ``multiclass_nms_dense_two_stage``: on a CUDA
 device K2 twice (the anchor ranking over N, the pair ranking over k*C),
-K5 and K6.  The training pieces (target assignment, loss) are not ported.
+K5 and K6.
+
+Training (``ssd_loss``): each anchor matches its best ground-truth box at
+IoU >= 0.5 and each box its best anchor; softmax cross-entropy with 3:1
+hard-negative mining, SmoothL1 on the positives' variance-scaled deltas.
+The targets equal the JAX package's jitted train step bit for bit: there
+the anchors are a graph constant, so XLA's CPU program divides by them
+through their float32 reciprocals, and its ``log`` is
+``train.targets.log_xla_cpu``.  Training launches no kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from viddet_tpu_torch.models.common import BiasConv
 from viddet_tpu_torch.models.resnet import ConvBN, ResNet50
 from viddet_tpu_torch.models.yolo3 import NMSConfig
+from viddet_tpu_torch.ops.boxes import box_iou
 from viddet_tpu_torch.ops.nms import Detections, multiclass_nms_dense_two_stage
+from viddet_tpu_torch.train.targets import last_of_duplicates, log_xla_cpu
 
 # SSD512 layer config: stride, anchor size s_k, next size s_{k+1}, ratios
 SSD512_STRIDES = (8, 16, 32, 64, 128, 256, 512)
@@ -141,6 +151,104 @@ class SSD(nn.Module):
         anchors = self.anchors(tuple(tuple(fm.shape[2:]) for fm in maps), images.device)
         return {"cls_logits": cls_logits, "box_deltas": box_deltas, "anchors": anchors,
                 "boxes": decode_ssd_boxes(box_deltas, anchors)}
+
+
+def encode_ssd_boxes(gt_boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Corner GT (..., N, 4) against corner anchors (N, 4) -> variance-scaled
+    deltas (``ssd.py:160``), as XLA compiles it with constant anchors: each
+    division by an anchor term is a multiplication by its float32
+    reciprocal, ``/ 0.2`` a multiplication by 5, and the log is XLA's CPU
+    log.  (A tensor-by-tensor division is correctly rounded on the CPU and
+    the card alike.)"""
+    vx, vy, vw, vh = BOX_VARIANCES
+    one = torch.ones((), dtype=torch.float32, device=anchors.device)
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    acx = anchors[..., 0] + 0.5 * aw
+    acy = anchors[..., 1] + 0.5 * ah
+    gw = (gt_boxes[..., 2] - gt_boxes[..., 0]).clamp_min(1e-6)
+    gh = (gt_boxes[..., 3] - gt_boxes[..., 1]).clamp_min(1e-6)
+    gcx = gt_boxes[..., 0] + 0.5 * gw
+    gcy = gt_boxes[..., 1] + 0.5 * gh
+    return torch.stack([
+        (gcx - acx) * (one / (aw * vx)),
+        (gcy - acy) * (one / (ah * vy)),
+        log_xla_cpu(gw * (one / aw)) * float(np.float32(1) / np.float32(vw)),
+        log_xla_cpu(gh * (one / ah)) * float(np.float32(1) / np.float32(vh)),
+    ], dim=-1)
+
+
+@torch.no_grad()
+def assign_ssd_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_ids: torch.Tensor,
+                       match_thresh: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched matching (``ssd.py:195``): (cls_target (B, N) int32, 0 =
+    background, box_target (B, N, 4) deltas, 0 off the matches).
+
+    Each anchor takes its best-IoU box (the first of ties) when the IoU is
+    >= ``match_thresh``; each valid box's best anchor is forced onto it
+    (where two valid boxes share a best anchor, the later box wins).
+    Padded boxes (id < 0) match nothing.
+    """
+    n = anchors.shape[0]
+    valid = gt_ids >= 0
+    iou = torch.where(valid[:, None, :], box_iou(anchors, gt_boxes.float()), -1.0)  # (B, N, M)
+    best_iou, best_gt = iou.max(dim=2)
+    matched = best_iou >= match_thresh
+    best_anchor = iou.argmax(dim=1)  # (B, M)
+    slot = torch.where(last_of_duplicates(best_anchor, valid), best_anchor, n)  # n: dropped
+    b, m = gt_ids.shape
+    forced = torch.zeros((b, n + 1), dtype=torch.bool, device=anchors.device)
+    forced.scatter_(1, slot, True)
+    forced_gt = torch.zeros((b, n + 1), dtype=torch.int64, device=anchors.device)
+    forced_gt.scatter_(1, slot, torch.arange(m, device=anchors.device).expand(b, m))
+    forced, forced_gt = forced[:, :n], forced_gt[:, :n]
+    assigned = torch.where(forced, forced_gt, best_gt)
+    matched = matched | forced
+    cls_target = torch.where(matched, gt_ids.gather(1, assigned).int() + 1, 0).int()
+    box_target = encode_ssd_boxes(gt_boxes.float().gather(1, assigned[..., None].expand(b, n, 4)),
+                                  anchors)
+    return cls_target, torch.where(matched[..., None], box_target, 0.0)
+
+
+def smooth_l1(x: torch.Tensor) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
+
+
+def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
+    """``argsort(order)`` of a permutation along the last axis: each entry's
+    rank, by one scatter (the indices are distinct, so the order of the
+    writes does not matter)."""
+    ranks = torch.arange(order.shape[-1], device=order.device).expand_as(order)
+    return torch.empty_like(order).scatter_(-1, order, ranks)
+
+
+def ssd_loss(outputs: Dict[str, torch.Tensor], gt_boxes: torch.Tensor, gt_ids: torch.Tensor,
+             neg_ratio: float = 3.0) -> Dict[str, torch.Tensor]:
+    """Softmax CE with in-step 3:1 hard-negative mining, plus SmoothL1 on
+    the positives (``ssd.py:250``).  Each image's sums are divided by its
+    positives (at least 1), then averaged over the batch.
+
+    The negatives are ranked by their CE, highest first, ties in anchor
+    order: a stable sort, as ``jnp.argsort`` is (an image with no boxes on
+    a blank frame has exact ties)."""
+    cls_logits = outputs["cls_logits"].float()
+    cls_t, box_t = assign_ssd_targets(outputs["anchors"], gt_boxes, gt_ids)
+    log_probs = torch.log_softmax(cls_logits, dim=-1)
+    ce = -log_probs.gather(-1, cls_t[..., None].long())[..., 0]  # (B, N)
+    pos = cls_t > 0
+    npos = pos.sum(dim=1)
+    with torch.no_grad():
+        neg_ce = torch.where(pos, -torch.inf, ce)
+        order = torch.sort(-neg_ce, dim=1, stable=True).indices
+        keep_neg = inverse_permutation(order) < (neg_ratio * npos)[:, None]
+        cls_mask = pos | keep_neg
+    denom = npos.float().clamp_min(1.0)
+    cls_loss = ((ce * cls_mask).sum(dim=1) / denom).mean()
+    box_err = smooth_l1(outputs["box_deltas"] - box_t)
+    box_loss = ((box_err * pos[..., None]).sum(dim=(1, 2)) / denom).mean()
+    return {"cls": cls_loss, "box": box_loss, "total": cls_loss + box_loss,
+            "npos": npos.float().mean()}
 
 
 # The JAX package's SSD config (``viddet_tpu/models/ssd.py:287``) has the

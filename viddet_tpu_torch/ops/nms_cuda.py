@@ -49,7 +49,10 @@ def nms_keep_mask_plain(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """K5 wrapper: the kernel for CUDA tensors, the plain version on the CPU."""
+    """K5 wrapper: the kernel for CUDA tensors, the plain version on the CPU.
+    It ranks boxes outside autograd (a train step detaches its proposals)."""
+    if boxes.requires_grad:
+        raise ValueError("nms_keep_mask: boxes must not require grad; detach them")
     if boxes.device.type == "cpu":
         return nms_keep_mask_plain(boxes, valid, iou_thresh)
     if boxes.dim() != 3 or boxes.shape[-1] != 4:

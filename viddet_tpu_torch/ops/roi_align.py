@@ -16,11 +16,22 @@ that the kernel can repeat it exactly.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 
 from viddet_tpu_torch.ops.boxes import div_rn
+
+
+@functools.lru_cache(maxsize=64)
+def _on_device(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant table on ``device``, copied there once: a copy from
+    pageable host memory inside a train step would wait for the work
+    queued before it.  Made outside inference mode, so a train step may
+    use a table first made under it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def fpn_roi_level(rois: torch.Tensor, k0: int = 4, canonical: float = 224.0,
@@ -40,7 +51,7 @@ def sample_grid(rois: torch.Tensor, levels: torch.Tensor, strides: Sequence[int]
 
     ``levels`` are 0-based pyramid indices (B, R)."""
     p, s = output_size, sampling_ratio
-    scale = 1.0 / torch.as_tensor(strides, dtype=torch.float32, device=rois.device)[levels.long()]
+    scale = 1.0 / _on_device(tuple(strides), torch.float32, rois.device)[levels.long()]
     boxes = rois * scale[..., None]
     x1, y1 = boxes[..., 0], boxes[..., 1]
     bin_w = div_rn((boxes[..., 2] - x1).clamp_min(1e-3), p)
@@ -66,10 +77,10 @@ def multilevel_roi_align_packed(pyramid: Sequence[torch.Tensor], rois: torch.Ten
     c = pyramid[0].shape[-1]
     dev = rois.device
     flat = torch.cat([f.reshape(b, -1, c) for f in pyramid], dim=1)
-    hs = torch.as_tensor([f.shape[1] for f in pyramid], device=dev)
-    ws = torch.as_tensor([f.shape[2] for f in pyramid], device=dev)
-    offsets = torch.as_tensor([sum(int(f.shape[1] * f.shape[2]) for f in pyramid[:i])
-                               for i in range(len(pyramid))], device=dev)
+    hs = _on_device(tuple(int(f.shape[1]) for f in pyramid), torch.int64, dev)
+    ws = _on_device(tuple(int(f.shape[2]) for f in pyramid), torch.int64, dev)
+    offsets = _on_device(tuple(sum(int(f.shape[1] * f.shape[2]) for f in pyramid[:i])
+                               for i in range(len(pyramid))), torch.int64, dev)
 
     lvl = (fpn_roi_level(rois, k_min=k_min, k_max=k_min + len(pyramid) - 1) - k_min).long()
     ys, xs = sample_grid(rois, lvl, strides, p, s)

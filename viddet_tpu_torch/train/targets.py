@@ -70,6 +70,17 @@ def log_xla_cpu(x: torch.Tensor) -> torch.Tensor:
     return _fma(e, _LOG_Q2, (x - 0.5 * z) + y)
 
 
+def last_of_duplicates(index: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(B, M) bool: valid entries that no later valid entry of their row
+    shares ``index`` with.  XLA's CPU scatter writes repeated indices in
+    order, so the last one wins; settled before a ``scatter_``, whose order
+    on CUDA is undefined."""
+    m = index.shape[-1]
+    same = (index[..., :, None] == index[..., None, :]) & valid[..., None, :]
+    later = torch.ones((m, m), dtype=torch.bool, device=index.device).triu(1)
+    return valid & ~(same & later).any(dim=-1)
+
+
 def _shape_iou(wh_a: torch.Tensor, wh_b: torch.Tensor) -> torch.Tensor:
     """IoU of concentric boxes given sizes: a (..., M, 2), b (A, 2) ->
     (..., M, A)."""
@@ -143,12 +154,9 @@ def assign_targets(
     col = torch.minimum((center[..., 0] / stride).to(torch.int32).clamp_min(0), gw - 1)
     row = torch.minimum((center[..., 1] / stride).to(torch.int32).clamp_min(0), gh - 1)
     flat = starts[scale_idx] + (row * gw + col) * per_scale + anchor_in_scale
-    flat = torch.where(valid, flat, n_total)  # padding: the dropped slot
-    # the last valid box of an image on a slot wins; the others are dropped
-    same = flat[:, :, None] == flat[:, None, :]
-    later = torch.ones((m, m), dtype=torch.bool, device=dev).triu(1)
-    kept = valid & ~(same & later).any(dim=-1)
-    flat = torch.where(kept, flat, n_total)
+    # the last valid box of an image on a slot wins; the others and the
+    # padding go to the dropped slot
+    flat = torch.where(last_of_duplicates(flat, valid), flat, n_total)
 
     t_center = center / stride[..., None] - torch.stack([col, row], dim=-1).float()
     t_scale = log_xla_cpu(wh.clamp_min(1e-6) / anchors_flat[best])
