@@ -75,10 +75,26 @@ Phases, each printed as one JSON line:
             result equal to the direct predictor on the batch that held it;
             frames/s and clips/s beside the direct step, and the card's idle
             share over one window of each;
-12. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files with the main
+12. video:  two seeded 640x480 Motion-JPEG AVIs of 256 frames at 25 fps
+            written by ``utils.video.VideoWriter``; with the main path's
+            model at batch 8, ``stream_detect_video`` drawing and saving
+            detections (``FrameSource``), again without drawing
+            (``NativeFrameSource``), ``stream_detect_videos`` over both
+            AVIs with yolo3_darknet53_k3_vid (k = 3), ``cli.detect.main``
+            over one AVI and ``cli.extract_frames.main`` with ``--every
+            4``: each run's launches (K1, K3, K4, K5, K6 once a batch, K2
+            twice), each batch's frames equal to the decoded and
+            transformed frames and its kernel tail equal to its plain tail
+            on the same head outputs, every saved line equal to the direct
+            predictor's, the ``_det.avi`` read back frame for frame, both
+            sources' batches equal, the extracted JPEGs equal to the
+            encoder's bytes; frames/s of each run beside the direct step,
+            the writer's, the reader's and each source's frames/s, and the
+            card's idle share over one window;
+13. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files with the main
             path's model: every ``.txt`` equal to the direct predictor,
             every ``_det.jpg`` decoding; images/s;
-13. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
+14. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
             seeded weights, batches of 8 clips of k = 3 frames (24 frames
             through Darknet-53), under each aggregation (max, stack, mean,
             conv): the launch counts of one ``make_predictor`` call on uint8
@@ -88,7 +104,7 @@ Phases, each printed as one JSON line:
             own intermediates (C = 30), well-formed detections; under max,
             the default, also each kernel's time, plain and library time and
             bound at the path's shapes, time per batch and clips/s;
-14. ssd:    SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
+15. ssd:    SSD-512 ResNet-50 / COCO at full width (512 px, batch 32, bf16,
             seeded weights) through ``make_predictor``: its launch counts
             (K2 twice, K5 and K6 once), the kernel tail equal to the plain
             tail on the same head outputs, K2 at the path's two shapes
@@ -97,7 +113,7 @@ Phases, each printed as one JSON line:
             with their times, torch.topk's time and their bounds, the steps'
             result equal to the predictor's; time per batch, frames/s, peak
             memory and a device breakdown;
-15. frcnn:  Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
+16. frcnn:  Faster R-CNN ResNet-50 FPN / COCO at full width (512 px, batch
             8, bf16, seeded weights) through ``make_predictor``: its kernel
             launch counts (K7 once, K5 twice, K2 and K6 once), the kernel
             tail equal to the plain tail on the same head outputs and
@@ -106,7 +122,7 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-16. train:  the float32 step against the JAX fixture
+17. train:  the float32 step against the JAX fixture
             (``tests/fixtures/jax_train_steps.npz``: tiny YOLOv3, 64 px,
             three steps, TF32 off for the check): the batch's targets equal
             bit for bit, losses and a sample of every leaf close; then the
@@ -123,7 +139,7 @@ Phases, each printed as one JSON line:
             group; 40 steps on one batch with ``VIDDET_CONV_BACKEND=pallas``
             (no kernel launched: K8 stays off in training), the total loss
             below half its first value;
-17. detector_train: SSD and Faster R-CNN training.  The float32 steps
+18. detector_train: SSD and Faster R-CNN training.  The float32 steps
             (TF32 off) against the JAX fixtures
             (``tests/fixtures/jax_{ssd,frcnn}_train_steps.npz``: the shallow
             models, SSD at 64 px and Faster R-CNN at 128 px, three steps,
@@ -147,9 +163,9 @@ Phases, each printed as one JSON line:
             tests' recipes (SSD: 25 steps, the least of the last three
             losses below 0.7 x the greatest of the first three; Faster
             R-CNN: 12 steps, below the greatest);
-18. profiler: the profiler windows that missed a launch and were taken
+19. profiler: the profiler windows that missed a launch and were taken
             again;
-19. kernels: one line listing every ported kernel;
+20. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -247,6 +263,13 @@ HTTP_THREADS, HTTP_SECONDS, HTTP_UPLOADS, HTTP_SEED = 8, 5.0, 16, 6
 STREAM_FRAMES, STREAM_B, STREAM_SEED = 128, 8, 7
 MULTI_STREAMS, MULTI_FRAMES = 2, 48
 DETECT_FILES, DETECT_SEED = 16, 8
+# The video phase: two Motion-JPEG AVIs of seeded 640x480 frames at 25 fps,
+# detected at batch 8; extract_frames takes every 4th frame.
+# Random weights score ~100 boxes a frame above 0.5; the threshold is the
+# median over the first batch of each frame's VIDEO_BOXES-th score, so a
+# drawn frame holds about as many boxes as a trained model's would.
+VIDEO_FRAMES, VIDEO_FPS, VIDEO_B, VIDEO_EVERY, VIDEO_SEED = 256, 25, 8, 4, 9
+VIDEO_BOXES, VIDEO_IDLE_FRAMES = 8, 64
 
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
@@ -2609,7 +2632,286 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: train
+# Phase 12: video
+# ---------------------------------------------------------------------------
+
+
+def video_rows(model, predictor, record, lookup: dict, frames_x: dict, k: int,
+               what: str) -> dict:
+    """Each recorded batch of a video path: the direct predictor on it equals
+    the recorded result, and the head's outputs through the kernel tail
+    equal the plain tail and that result; each real row (padding rows are
+    all zero) is the transformed frame, or clip, that its centre frame's
+    bytes name in ``lookup`` (stream, frame index).  Returns (stream, frame
+    index) -> that row's (ids, scores, boxes) on the host."""
+    import hashlib
+
+    import torch
+
+    from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
+
+    rows = {}
+    with torch.inference_mode():
+        for batch, out in record:
+            check(all(equal(a, b) for a, b in zip(predictor(batch), out)),
+                  f"{what}: the direct predictor on a recorded batch equals its result")
+            head = model(normalized(batch))
+            tails = [multiclass_nms_late_decode_cells(head["raws_cells"], head["meta"],
+                                                      backend=b) for b in ("auto", "plain")]
+            check(all(equal(a, b) for a, b in zip(*tails)),
+                  f"{what}: kernel tail equal to plain tail on the batch's head outputs")
+            check(all(equal(a, b) for a, b in zip(tails[0], out)),
+                  f"{what}: head + kernel tail equal to the predictor")
+            host = batch.cpu().numpy()
+            result = [t.cpu().numpy() for t in out]
+            for j in range(host.shape[0]):
+                if not host[j].any():
+                    continue  # padding
+                centre = host[j] if k == 1 else host[j, k // 2]
+                key = lookup.get(hashlib.sha1(centre.tobytes()).digest())
+                check(key is not None and key not in rows,
+                      f"{what}: batch row {j} is a frame of the video, once")
+                stream, idx = key
+                n = len(frames_x[stream])
+                want = (frames_x[stream][idx] if k == 1 else
+                        frames_x[stream][[idx - 1, idx, min(idx + 1, n - 1)]])
+                check(np.array_equal(host[j], want),
+                      f"{what}: row of frame {idx} equal to the decoded, transformed frame")
+                rows[key] = tuple(r[j] for r in result)
+    return rows
+
+
+def video_lines(rows: dict, stream: str, indices, affine, classes, thresh: float) -> str:
+    """The ``{stem}_det.txt`` that ``rows`` give for ``stream``'s frames."""
+    from viddet_tpu_torch.data.transforms import invert_affine_to_boxes
+    from viddet_tpu_torch.infer.stream import detection_line
+
+    lines = []
+    for idx in indices:
+        ids, scores, boxes = rows[(stream, idx)]
+        lines += [detection_line(idx, classes[int(c)], s, b)
+                  for c, s, b in zip(ids, scores, invert_affine_to_boxes(boxes, affine))
+                  if c >= 0 and s >= thresh]
+    return "".join(lines)
+
+
+def video_phase(dev, kernels, model, classes, predictor) -> dict:
+    """Two seeded 640x480 Motion-JPEG AVIs (256 frames, 25 fps) written by
+    ``VideoWriter``, read back by the port's reader; then with the main
+    path's model at batch 8 ``stream_detect_video`` (drawn, through
+    ``FrameSource``; then not drawn, through ``NativeFrameSource``),
+    ``stream_detect_videos`` over both with yolo3_darknet53_k3_vid (k = 3),
+    ``cli.detect.main`` over one AVI and ``cli.extract_frames.main --every
+    4``.  Checks: each run's launches, each batch through ``video_rows``,
+    every saved line equal to the direct predictor's, the ``_det.avi``
+    frame for frame, both sources' batches equal, the extracted files equal
+    to the encoder's bytes.  Frames/s of each run (host clock, the whole
+    call) beside the direct step on the same transformed frames; the
+    writer's (each AVI on its own thread), the reader's (demux + decode,
+    one thread); the card's idle share over a native run of the first
+    VIDEO_IDLE_FRAMES frames.  The threshold keeps about VIDEO_BOXES boxes
+    a frame (see the constants)."""
+    import contextlib
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli import detect, extract_frames
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+    from viddet_tpu_torch.infer.multistream import stream_detect_videos
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.infer.stream import stream_detect_video
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.native import decode_jpeg, encode_jpeg
+    from viddet_tpu_torch.native.avi import AviReader, AviWriter, read_index
+    from viddet_tpu_torch.utils.image import draw_detections
+    from viddet_tpu_torch.utils.video import VideoWriter, iterate_frames
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    t_phase = time.perf_counter()
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    transform = ValTransform(size, letterbox_resize=True, normalize=False)
+    out = {"phase": "video", "model": MODEL, "size": IMAGE_SIZE, "batch": VIDEO_B,
+           "frames": VIDEO_FRAMES, "video": [CODEC_W, CODEC_H], "fps": VIDEO_FPS}
+    launches = {}
+    split, last = {}, [t_phase]
+
+    def lap(name: str) -> None:  # host seconds of each step of the phase
+        now = time.perf_counter()
+        split[name], last[0] = now - last[0], now
+
+    def runs_launches(what: str, batches: int) -> dict:
+        torch_sync()
+        check(hier_batches(kernels, what) == batches, f"{what}: one tail a batch ({batches})")
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def direct_fps(infer, xs) -> float:
+        infer(to_device_batch(xs[:VIDEO_B], VIDEO_B, dev))
+        t = time.perf_counter()
+        for start in range(0, len(xs), VIDEO_B):
+            [r.cpu() for r in infer(to_device_batch(xs[start : start + VIDEO_B], VIDEO_B, dev))]
+        return len(xs) / (time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: os.path.join(tmp, f"{name}.avi") for name in ("a", "b")}
+        images = {name: in_threads(
+            lambda j, i=i: photo_like(np.random.default_rng((VIDEO_SEED, i, j)), CODEC_H, CODEC_W),
+            range(VIDEO_FRAMES), ENCODE_WORKERS) for i, name in enumerate(paths)}
+
+        def write(name):  # each on its own thread: the encoder releases the GIL
+            t = time.perf_counter()
+            with VideoWriter(paths[name], VIDEO_FPS, (CODEC_W, CODEC_H)) as writer:
+                for image in images[name]:
+                    writer.write(image)
+            return VIDEO_FRAMES / (time.perf_counter() - t)
+
+        out["writer_frames_per_s"] = in_threads(write, list(paths), len(paths))[0]
+        out["avi_mb"] = os.path.getsize(paths["a"]) / 1e6
+        lap("generate_and_write")
+        t = time.perf_counter()
+        decoded = {"a": [f for _, f in iterate_frames(paths["a"])]}
+        out["reader_frames_per_s"] = VIDEO_FRAMES / (time.perf_counter() - t)
+        with AviReader(paths["b"]) as video:
+            decoded["b"] = in_threads(decode_jpeg, list(video), ENCODE_WORKERS)
+        frames_x, lookup = {}, {}
+        for name, path in paths.items():
+            index = read_index(path)
+            check((index.frame_count, index.width, index.height, index.fps)
+                  == (VIDEO_FRAMES, CODEC_W, CODEC_H, VIDEO_FPS), f"{name}.avi reads back")
+            for f, image in list(zip(decoded[name], images[name]))[::8]:
+                check(np.array_equal(f, decode_jpeg(encode_jpeg(image, 95))),
+                      f"{name}.avi frames equal their JPEG round trip")
+            frames_x[name] = np.stack(in_threads(lambda f: transform(f)[0], decoded[name],
+                                                 ENCODE_WORKERS))
+            for idx, x in enumerate(frames_x[name]):
+                lookup[hashlib.sha1(x.tobytes()).digest()] = (name, idx)
+        lap("read_and_transform")
+        del images
+        affine = transform(decoded["a"][0])[2]
+        out["direct_frames_per_s"] = direct_fps(predictor, frames_x["a"])
+        first = predictor(to_device_batch(frames_x["a"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
+        thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
+        lap("direct")
+
+        # 1. one video, drawn, through FrameSource
+        runs, records = {}, {}
+        batches = -(-VIDEO_FRAMES // VIDEO_B)
+        for run, draw in (("video", True), ("video_native", False)):
+            records[run] = []
+            set_launches(kernels)
+            stats = stream_detect_video(paths["a"], recorded(predictor, records[run]),
+                                        transform, classes, output_dir=os.path.join(tmp, run),
+                                        thresh=thresh, batch_size=VIDEO_B, draw=draw,
+                                        save_detections=True, device=dev)
+            launches[run] = runs_launches(run, batches)
+            check(stats["frames"] == VIDEO_FRAMES, f"{run}: every frame")
+            runs[run] = stats["fps"]
+        out["frames_per_s"] = runs
+        lap("runs")
+        check(all(torch.equal(a[0], b[0]) for a, b in zip(records["video"],
+                                                          records["video_native"])),
+              "the native and thread sources give equal batches")
+        rows = video_rows(model, predictor, records["video"], lookup, frames_x, 1, "video")
+        check(sorted(rows) == [("a", i) for i in range(VIDEO_FRAMES)], "video: every frame once")
+        want = video_lines(rows, "a", range(VIDEO_FRAMES), affine, classes, thresh)
+        for run in runs:
+            with open(os.path.join(tmp, run, "a_det.txt")) as f:
+                check(f.read() == want, f"{run}: a_det.txt equal to the direct predictor's")
+        out["lines"] = len(want.splitlines())
+        out["boxes_per_frame"] = float(np.mean([(r[1] >= thresh).sum() for r in rows.values()]))
+        lap("rows_check")
+        drawn = os.path.join(tmp, "video", "a_det.avi")
+        index = read_index(drawn)
+        check((index.frame_count, index.width, index.height, index.fps)
+              == (VIDEO_FRAMES, CODEC_W, CODEC_H, VIDEO_FPS), "a_det.avi: 256 frames, 25 fps")
+        vis = [draw_detections(decoded["a"][idx], invert_affine_to_boxes(rows[("a", idx)][2],
+                                                                         affine),
+                               rows[("a", idx)][0], rows[("a", idx)][1], classes, thresh)
+               for idx in range(VIDEO_FRAMES)]
+        vis = in_threads(lambda v: decode_jpeg(encode_jpeg(v, 95)), vis, ENCODE_WORKERS)
+        for idx, frame in iterate_frames(drawn):
+            check(np.array_equal(frame, vis[idx]),
+                  f"a_det.avi frame {idx} is the drawn frame at JPEG q 95")
+        lap("drawn_check")
+        short = os.path.join(tmp, "short.avi")  # the first frames of a.avi, their bytes as stored
+        with AviReader(paths["a"]) as video, AviWriter(short, CODEC_W, CODEC_H,
+                                                       VIDEO_FPS) as writer:
+            for i in range(VIDEO_IDLE_FRAMES):
+                writer.write_jpeg(video.jpeg(i))
+        out["window"] = window_idle_share(lambda: stream_detect_video(
+            short, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
+            batch_size=VIDEO_B, draw=False, device=dev))
+        out["window"]["frames"] = VIDEO_IDLE_FRAMES
+
+        lap("idle_window")
+
+        # 2. both videos through one batch, temporal model
+        temporal_model, vid_classes = get_model(TEMPORAL_MODEL)
+        load_flat(temporal_model, init_flat(TEMPORAL_MODEL, seed=0))
+        temporal = make_predictor(temporal_model)
+        lap("temporal_load")
+        record = []
+        set_launches(kernels)
+        stats = stream_detect_videos(list(paths.values()), recorded(temporal, record), transform,
+                                     vid_classes, output_dir=os.path.join(tmp, "multi"),
+                                     thresh=thresh, batch_size=VIDEO_B, k=TEMPORAL_K,
+                                     draw=False, save_detections=True, device=dev)
+        launches["video_multi"] = runs_launches("video_multi", len(record))
+        lap("multi_run")
+        clips = 2 * (VIDEO_FRAMES - 1)
+        check(stats["per_stream"] == {"a.avi": VIDEO_FRAMES - 1, "b.avi": VIDEO_FRAMES - 1},
+              f"video_multi: one clip a frame but the first {stats['per_stream']}")
+        multi_rows = video_rows(temporal_model, temporal, record, lookup, frames_x, TEMPORAL_K,
+                                "video_multi")
+        for name in paths:
+            with open(os.path.join(tmp, "multi", f"{name}_det.txt")) as f:
+                check(f.read() == video_lines(multi_rows, name, range(1, VIDEO_FRAMES), affine,
+                                              vid_classes, thresh),
+                      f"video_multi: {name}_det.txt equal to the direct predictor's")
+        n = VIDEO_FRAMES
+        clip_x = np.stack([frames_x["a"][[i - 1, i, min(i + 1, n - 1)]] for i in range(1, n)])
+        out["multi"] = {"model": TEMPORAL_MODEL, "k": TEMPORAL_K, "clips": clips,
+                        "batches": len(record), "clips_per_s": stats["fps"],
+                        "direct_clips_per_s": direct_fps(temporal, clip_x)}  # stream a's clips
+        del temporal_model, temporal, record
+
+        lap("multi_check")
+
+        # 3. the detect CLI over one video; extract_frames
+        set_launches(kernels)
+        t = time.perf_counter()
+        done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
+                            paths["a"], "--output", os.path.join(tmp, "cli"), "--data-shape",
+                            str(IMAGE_SIZE), "--batch-size", str(VIDEO_B), "--thresh",
+                            str(thresh), "--save-detections", "--no-draw"],
+                           built=(model, classes))
+        out["detect_cli_frames_per_s"] = done / (time.perf_counter() - t)
+        launches["video_detect"] = runs_launches("video_detect", batches)
+        check(done == VIDEO_FRAMES, "detect: every frame")
+        with open(os.path.join(tmp, "cli", "a_det.txt")) as f:
+            check(f.read() == want, "detect: a_det.txt equal to the direct predictor's")
+        lap("detect")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # its report lines; stdout holds JSON
+            written = extract_frames.main(["--input", paths["a"], "--output",
+                                           os.path.join(tmp, "frames"), "--every",
+                                           str(VIDEO_EVERY)])
+        out["extract_frames_per_s"] = written / (time.perf_counter() - t)
+        check(written == VIDEO_FRAMES // VIDEO_EVERY, "extract_frames: every 4th frame")
+        for idx in range(0, VIDEO_FRAMES, VIDEO_EVERY):
+            with open(os.path.join(tmp, "frames", f"{idx:08d}.jpg"), "rb") as f:
+                check(f.read() == encode_jpeg(decoded["a"][idx], 95),
+                      f"extracted frame {idx} is the encoder's bytes")
+    lap("extract")
+    out.update(all_equal_direct=True, split_s=split, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: train
 # ---------------------------------------------------------------------------
 
 # The JAX fixture: tiny YOLOv3, 3 classes, 64 px, float32, three steps on
@@ -2957,7 +3259,7 @@ def train_phase(dev, kernels) -> dict:
     return val_launches
 
 
-# Phase 17: detector_train
+# Phase 18: detector_train
 # ---------------------------------------------------------------------------
 
 # The JAX fixtures (tests/test_torch_detector_train_fixture.py writes them
@@ -3343,7 +3645,7 @@ def detector_train_family(dev, kernels, family: str, smi: str) -> tuple:
 
 
 def detector_train_phase(dev, kernels) -> tuple:
-    """Phase 17: the two fixtures, then each family at full width."""
+    """Phase 18: the two fixtures, then each family at full width."""
     smi = nvidia_smi_line()
     for family in ("ssd", "frcnn"):
         t0 = time.perf_counter()
@@ -3431,6 +3733,7 @@ def main() -> int:
 
     launches["http"] = http_phase(dev, kernels, model, classes, predictor)
     launches.update(stream_phase(dev, kernels, predictor))
+    launches.update(video_phase(dev, kernels, model, classes, predictor))
     launches["detect"] = detect_phase(dev, kernels, model, classes, predictor)
     del model, predictor, images, head_out
     launches["temporal"], temporal_rows = temporal_phase(dev, kernels)

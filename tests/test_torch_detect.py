@@ -8,8 +8,10 @@ XLA chain, the port under ``VIDDET_PAIR_TOPK=det``), over a directory of
 JPEG, PNG and BMP files.  JAX's batch route (the C++ decoder's DCT-domain
 prescale) is switched off, so JAX takes its per-file route, the one the
 port follows.  Every ``{stem}.txt`` equals JAX's line for line, and every
-``{stem}_det.jpg`` decodes to the original's size.  A video, a webcam index
-or a list of videos raises ``SystemExit``.
+``{stem}_det.jpg`` decodes to the original's size.  A video the port cannot
+read (not a Motion-JPEG ``.avi``) or a webcam index raises ValueError
+before anything is written; ``tests/test_torch_video_stream.py`` holds the
+video half.
 
 ``draw_detections`` holds the rectangles to ``cv2.rectangle``'s pixels and
 JAX's colours, and draws nothing below the threshold or for padding rows;
@@ -101,8 +103,11 @@ def test_detect_cli_no_draw_writes_text_only(image_dir, weights, tmp_path):
 
 
 @pytest.mark.parametrize("source", ["clip.mp4", "0", "a.mp4,b.avi", "CLIP.MKV"])
-def test_video_input_raises_naming_the_video_half(source, tmp_path):
-    with pytest.raises(SystemExit, match="video"):
+def test_unreadable_video_input_raises_naming_what_is_missing(source, tmp_path):
+    """The port reads Motion-JPEG .avi files: another container needs FFmpeg
+    and a webcam index capture support, neither of which it has."""
+    missing = "capture" if source == "0" else "FFmpeg"
+    with pytest.raises(ValueError, match=missing):
         torch_detect.main(["--input", source, "--output", str(tmp_path), "--platform", "cpu"])
     assert not os.listdir(tmp_path)  # raised before any model or output
 

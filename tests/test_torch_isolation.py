@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, no
 OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's) and
-no PIL, and its image codec links no image library (it decodes and encodes
-in its own C++, bit for bit libjpeg-turbo's and libpng's results)."""
+no PIL, and its native library (image codec, video frames) links no image
+or video library (it decodes and encodes in its own C++, bit for bit
+libjpeg-turbo's and libpng's results, and walks AVI files in Python)."""
 
 import ast
 import os
@@ -50,7 +51,9 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.cli.train_yolov3, viddet_tpu_torch.train.loop, "
         "viddet_tpu_torch.cli.train_ssd, viddet_tpu_torch.cli.train_faster_rcnn, "
         "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
-        "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms; "
+        "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms, "
+        "viddet_tpu_torch.native.avi, viddet_tpu_torch.utils.video, viddet_tpu_torch.utils.gif, "
+        "viddet_tpu_torch.cli.extract_frames, viddet_tpu_torch.cli.visualise; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'viddet_tpu', 'cv2', 'PIL')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -122,3 +125,20 @@ def test_codec_build_links_no_image_library():
     assert cmd[0] == "g++"
     assert not {"-ljpeg", "-lpng", "-lz"} & set(cmd)
     assert [a for a in cmd if a.startswith("-l") or a == "-pthread"] == ["-pthread"]
+
+
+def test_native_library_needs_no_image_or_video_library():
+    """The built library's dynamic dependencies are the C and C++ runtimes
+    only: no libjpeg, libpng, zlib, libav* (FFmpeg), swscale or V4L2."""
+    import re
+
+    from viddet_tpu_torch.native import build
+
+    proc = subprocess.run(["readelf", "-d", str(build())], capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    needed = re.findall(r"\(NEEDED\)\s+Shared library: \[([^\]]+)\]", proc.stdout)
+    assert needed and "libc.so.6" in needed
+    allowed = ("libc.so", "libstdc++.so", "libm.so", "libgcc_s.so", "libpthread.so",
+               "ld-linux")
+    assert [n for n in needed if not n.startswith(allowed)] == [], needed

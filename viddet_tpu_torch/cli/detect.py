@@ -1,22 +1,25 @@
-"""Detection CLI over images and image directories (counterpart of the image
-half of ``viddet_tpu/cli/detect.py``).
+"""Detection CLI over images, image directories and videos (counterpart of
+``viddet_tpu/cli/detect.py``).
 
-Decode -> letterbox -> forward pass and kernel tail on the card -> rescale
-to original coordinates -> ``{stem}.txt`` lines and ``{stem}_det.jpg``
-drawings.  Files go one by one through ``imread_rgb`` and ``ValTransform``
-(the JAX CLI's per-file route; its batch route decodes with a DCT-domain
-prescale that does not equal OpenCV, and has no counterpart here), and
-each batch is padded to ``--batch-size`` so every batch has one shape.
+Images: decode -> letterbox -> forward pass and kernel tail on the card ->
+rescale to original coordinates -> ``{stem}.txt`` lines and
+``{stem}_det.jpg`` drawings.  Files go one by one through ``imread_rgb``
+and ``ValTransform`` (the JAX CLI's per-file route; its batch route
+decodes with a DCT-domain prescale that does not equal OpenCV, and has no
+counterpart here), and each batch is padded to ``--batch-size`` so every
+batch has one shape.
 
-A video, a webcam index or a comma-separated list raises ``SystemExit``:
-the video half (streaming, temporal clips from a video) waits for the
-port's video reader.  The JAX CLI's ``--quant`` and ``--calib-images``
-have no counterpart yet; the video flags are parsed, so that a JSON
-config of the JAX CLI loads, and wait for the video half.
+Videos (Motion-JPEG ``.avi``, see ``utils/video.py``): one video goes
+through ``infer.stream.stream_detect_video``; several (comma-separated),
+``--temporal-k`` > 1 (a k-frame clip model) or a live source go through
+``infer.multistream.stream_detect_videos``.  They write
+``{stem}_det.avi`` (JAX: ``_det.mp4``) and ``{stem}_det.txt``.  Another
+container, or a webcam index, raises ValueError before the model is built.
+The JAX CLI's ``--quant`` and ``--calib-images`` have no counterpart yet.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.detect --network yolo3_darknet53 --dataset voc \
-      --weights model.npz --input images/ --output out/ --thresh 0.5 --save-detections
+      --weights model.npz --input clip.avi --output out/ --thresh 0.5 --save-detections
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from viddet_tpu_torch.data.base import imread_rgb
 from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
 from viddet_tpu_torch.infer.service import to_device_batch
 from viddet_tpu_torch.utils.image import draw_detections, imwrite
+from viddet_tpu_torch.utils.video import check_source
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
@@ -108,29 +112,43 @@ def detection_lines(ids, scores, boxes, class_names, thresh: float) -> str:
 def main(argv=None, built=None):
     """Run the CLI; ``built``: a caller's (model, class names), weights
     loaded, instead of the model that the flags name.  Returns the number
-    of images done."""
+    of images or video frames done."""
     args = parse_args(argv)
     logger = setup_logging()
     kind, files = collect_inputs(args.input)
-    if kind == "video":
-        raise SystemExit(
-            f"--input {args.input!r} is a video or webcam source: the port's video half "
-            "(streaming detection over video files and webcams) is not ported yet")
-    if args.temporal_k > 1:
+    temporal = args.temporal_k > 1
+    if temporal and kind != "video":
         raise SystemExit("--temporal-k > 1 needs video input (clips are "
                          "assembled from the frame stream)")
+    if kind == "video":
+        for source in files:
+            check_source(source)
     os.makedirs(args.output, exist_ok=True)
     device = platform_device(args.platform)
-    if built is None:
-        model, class_names = build_model(args.network, args.dataset, device=device)
+    if built is not None:
+        model, class_names = built
+    elif temporal:
+        # a k-frame clip model over the dataset's class set; per-stream
+        # windows assemble the clips from the frame stream
+        from viddet_tpu_torch.models.zoo import place, temporal_yolo3_custom
+
+        _, class_names = build_model(args.network, args.dataset, device="cpu")
+        backbone = "tiny" if "tiny" in args.network else "darknet53"
+        model, class_names = temporal_yolo3_custom(list(class_names), k=args.temporal_k,
+                                                   aggregation=args.temporal_agg,
+                                                   backbone=backbone)
+        model = place(model, device)
         load_weights_or_seed(model, args.weights)
     else:
-        model, class_names = built
+        model, class_names = build_model(args.network, args.dataset, device=device)
+        load_weights_or_seed(model, args.weights)
     # uint8 frames cross to the device and are normalized there (a quarter
     # of the bytes of float frames; see make_predictor)
     infer = make_predictor(model)
     transform = ValTransform(size=(args.data_shape, args.data_shape), letterbox_resize=True,
                              normalize=False)
+    if kind == "video":
+        return detect_videos(args, files, infer, transform, class_names, device, logger)
 
     logger.info("detecting on %d image(s)", len(files))
     t0 = time.time()
@@ -163,6 +181,27 @@ def main(argv=None, built=None):
                 num_done / dt if dt > 0 else 0.0)
     return num_done
 
+
+def detect_videos(args, files, infer, transform, class_names, device, logger) -> int:
+    """The video half: one file through ``stream_detect_video``; several, a
+    temporal model or a live source through ``stream_detect_videos``, with
+    ``--flush-ms`` 50 for a live source and 200 for files unless given.
+    Returns the number of frames (or clips) done."""
+    live = isinstance(files[0], int)
+    flush_ms = args.flush_ms if args.flush_ms is not None else (50.0 if live else 200.0)
+    common = dict(output_dir=args.output, thresh=args.thresh, batch_size=args.batch_size,
+                  every=args.every, draw=not args.no_draw,
+                  save_detections=args.save_detections, logger=logger, device=device)
+    if args.temporal_k > 1 or len(files) > 1 or live:
+        from viddet_tpu_torch.infer.multistream import stream_detect_videos
+
+        stats = stream_detect_videos(files, infer, transform, class_names, k=args.temporal_k,
+                                     stride=args.temporal_stride, flush_ms=flush_ms, **common)
+    else:
+        from viddet_tpu_torch.infer.stream import stream_detect_video
+
+        stats = stream_detect_video(files[0], infer, transform, class_names, **common)
+    return stats["frames"]
 
 if __name__ == "__main__":
     main()

@@ -15,23 +15,28 @@
   batch is padded and submitted.  Ended sources always flush.
 
 Every batch is padded to ``batch_size`` (and a clip to k frames), so the
-device sees one shape.  The video sources and ``stream_detect_videos`` /
-``open_sources`` wait for the port's video reader.
+device sees one shape.  ``stream_detect_videos`` runs N Motion-JPEG AVI
+files through it (``open_sources``: the C++ ``NativeFrameSource`` when
+nothing is drawn, else ``FrameSource``; no fallback between them).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from viddet_tpu_torch.core.platform import resolve_device
+from viddet_tpu_torch.data.transforms import invert_affine_to_boxes
 from viddet_tpu_torch.infer.service import to_device_batch
-from viddet_tpu_torch.infer.stream import stop_aware_put
+from viddet_tpu_torch.infer.stream import detection_line, stop_aware_put, video_source
+from viddet_tpu_torch.utils.image import draw_detections
+from viddet_tpu_torch.utils.video import VideoWriter
 
 
 @dataclass
@@ -234,3 +239,94 @@ def stream_detect_multi(
             yield from drain()
     finally:
         stop.set()
+
+
+def open_sources(paths: Sequence, transform, *, every: int = 1, prefer_native: bool = True,
+                 need_rgb: bool = True) -> Dict[str, Iterator]:
+    """name -> frame source for each video path: ``NativeFrameSource`` when
+    ``prefer_native`` and not ``need_rgb``, else ``FrameSource``.  Names are
+    the basenames, deduplicated with ``#i`` suffixes so one file can be
+    streamed twice.  A source that cannot be read raises here, after the
+    ones opened before it are closed."""
+    sources: Dict[str, Iterator] = {}
+    try:
+        for i, path in enumerate(paths):
+            name = os.path.basename(str(path))
+            if name in sources:
+                name = f"{name}#{i}"
+            sources[name] = video_source(path, transform, every,
+                                         draw=need_rgb or not prefer_native)
+    except BaseException:
+        for src in sources.values():
+            src.close()
+        raise
+    return sources
+
+
+def stream_detect_videos(
+    paths: Sequence,
+    infer: Callable,
+    transform,
+    class_names: Sequence[str],
+    *,
+    output_dir: str,
+    thresh: float = 0.5,
+    batch_size: int = 8,
+    every: int = 1,
+    k: int = 1,
+    stride: int = 1,
+    flush_ms: float = 200.0,
+    draw: bool = True,
+    save_detections: bool = False,
+    logger=None,
+    device=None,
+) -> dict:
+    """N videos -> per-stream ``{stem}_det.avi`` / ``{stem}_det.txt`` through
+    one shared batch (``stream_detect_multi``; k > 1 for a temporal model).
+    ``flush_ms`` bounds how long a partial batch waits.  Returns {frames,
+    seconds, fps, per_stream}."""
+    sources = open_sources(paths, transform, every=every, prefer_native=True, need_rgb=draw)
+    writers: Dict[str, VideoWriter] = {}
+    det_files: Dict[str, object] = {}
+    per_stream = {name: 0 for name in sources}
+    t0 = time.perf_counter()
+    try:
+        os.makedirs(output_dir, exist_ok=True)
+        for name, src in sources.items():
+            # 'a.avi#1' must not collapse onto the stem of 'a.avi' (splitext
+            # would take the '#1' with the extension): keep the tag
+            base, _, tag = name.partition("#")
+            stem = os.path.splitext(base)[0] + (f"_{tag}" if tag else "")
+            if draw:
+                writers[name] = VideoWriter(os.path.join(output_dir, f"{stem}_det.avi"),
+                                            src.fps / every, (src.width, src.height))
+            if save_detections:
+                det_files[name] = open(os.path.join(output_dir, f"{stem}_det.txt"), "w")
+        for name, idx, rgb, affine, ids, scores, boxes in stream_detect_multi(
+                {n: iter(s) for n, s in sources.items()}, infer, batch_size, transform.size,
+                k=k, stride=stride, flush_ms=flush_ms, device=device):
+            restored = invert_affine_to_boxes(boxes, affine)
+            df = det_files.get(name)
+            if df is not None:
+                df.write("".join(
+                    detection_line(idx, class_names[int(cid)], s, rb)
+                    for cid, s, rb in zip(ids, scores, restored) if cid >= 0 and s >= thresh))
+            wr = writers.get(name)
+            if wr is not None and rgb is not None:
+                wr.write(draw_detections(rgb, restored, ids, scores, class_names, thresh))
+            per_stream[name] += 1
+    finally:
+        for wr in writers.values():
+            wr.close()
+        for df in det_files.values():
+            df.close()
+        for src in sources.values():
+            src.close()
+    dt = time.perf_counter() - t0
+    n = sum(per_stream.values())
+    stats = {"frames": n, "seconds": dt, "fps": n / dt if dt > 0 else 0.0,
+             "per_stream": per_stream}
+    if logger:
+        logger.info("%d stream(s): %d frames in %.2fs (%.1f fps aggregate)", len(sources), n, dt,
+                    stats["fps"])
+    return stats

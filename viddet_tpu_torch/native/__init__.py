@@ -13,6 +13,11 @@ whose pixels round-trip.  The JAX package's ``viddet_tpu/native/decode.cpp``
 prescales JPEGs in the DCT domain and so does not equal OpenCV; this codec
 leaves the scale alone.
 
+For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
+bit for bit, and ``VideoStream`` reads, decodes and transforms the frames
+of a Motion-JPEG AVI (indexed by ``native.avi``) on a C++ thread into a
+ring of frames.
+
 The library links nothing beyond the C++ standard library.  It is built
 into ``build/viddet_tpu_torch/native/<hash>/`` at the repository root
 (``build/`` is git-ignored), keyed by a hash of the source and the flags,
@@ -39,7 +44,8 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parent / "codec.cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
-FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+# no fused multiply-add: the video transform's float steps round as numpy's do
+FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 LIBS = ["-pthread"]
 _ERR_LEN = 512
 
@@ -94,8 +100,14 @@ def library() -> ctypes.CDLL:
             lib.vd_png_unfilter.argtypes = [p, size, i, i, i, i, i, p, i, p, p, i]
             lib.vd_png_raw_size.argtypes = [i, i, i, i, i]
             lib.vd_png_raw_size.restype = size
+            lib.vd_frame_transform.argtypes = [p, i, i, p, i, i, i, i, p]
+            lib.vd_video_open.argtypes = [ctypes.c_char_p, p, p, p, i, i, i, i, i, i, p, i]
+            lib.vd_video_open.restype = p
+            lib.vd_video_next.argtypes = [p, p, p, ctypes.POINTER(i), p, i]
+            lib.vd_video_stop.argtypes = [p]
+            lib.vd_video_free.argtypes = [p]
             for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
-                       lib.vd_png_unfilter):
+                       lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -267,3 +279,93 @@ def encode_png(rgb: np.ndarray) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def frame_transform(rgb: np.ndarray, size, letterbox: bool = True,
+                    normalize: bool = True):
+    """``ValTransform(size, letterbox, normalize)(rgb)`` in C++: (x, affine),
+    x uint8 or normalized float32 (h, w, 3), equal to the Python transform's
+    bit for bit."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"frame_transform takes (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
+    h, w = size
+    out = np.empty((h, w, 3), np.float32 if normalize else np.uint8)
+    affine = np.empty(4, np.float32)
+    if library().vd_frame_transform(rgb.ctypes.data, rgb.shape[0], rgb.shape[1], out.ctypes.data,
+                                    h, w, int(letterbox), int(normalize), affine.ctypes.data):
+        raise MemoryError("frame_transform: out of memory")
+    return out, affine
+
+
+class VideoStream:
+    """Frames ``indices`` of a video, their JPEGs at file ``offsets`` /
+    ``sizes``, read, decoded and transformed (``frame_transform``) on a C++
+    thread into a ring of ``capacity`` frames; the thread starts here.
+    Iterating yields (index, x, affine) in order and raises ValueError for
+    a frame that fails to read or decode, after the frames before it.
+    ``close()`` stops the thread and ends an iteration blocked in another
+    thread."""
+
+    def __init__(self, path: str, offsets, sizes, indices, size, letterbox: bool = True,
+                 normalize: bool = True, capacity: int = 64):
+        self._lib = library()
+        offsets = np.ascontiguousarray(offsets, np.int64)
+        sizes = np.ascontiguousarray(sizes, np.int64)
+        indices = np.ascontiguousarray(indices, np.int32)
+        self._h, self._w = size
+        self._dtype = np.float32 if normalize else np.uint8
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        self._lock = threading.Lock()
+        self._busy = self._closed = False
+        self._handle = self._lib.vd_video_open(
+            os.fsencode(path), offsets.ctypes.data, sizes.ctypes.data, indices.ctypes.data,
+            len(indices), self._h, self._w, int(letterbox), int(normalize), int(capacity), err,
+            _ERR_LEN)
+        if not self._handle:
+            raise ValueError(f"{path}: {_message(err)}")
+
+    def __iter__(self):
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        index = ctypes.c_int()
+        try:
+            while True:
+                with self._lock:
+                    if self._closed:
+                        return
+                    self._busy = True
+                x = np.empty((self._h, self._w, 3), self._dtype)
+                affine = np.empty(4, np.float32)
+                try:
+                    rc = self._lib.vd_video_next(self._handle, x.ctypes.data, affine.ctypes.data,
+                                                 ctypes.byref(index), err, _ERR_LEN)
+                finally:
+                    with self._lock:
+                        self._busy = False
+                        if self._closed:  # closed while this call waited: free it here
+                            self._free()
+                if rc == 0:
+                    return
+                if rc < 0:
+                    raise ValueError(_message(err))
+                yield index.value, x, affine
+        finally:
+            self.close()
+
+    def _free(self) -> None:
+        if self._handle:
+            self._lib.vd_video_free(self._handle)
+            self._handle = None
+
+    def close(self) -> None:
+        with self._lock:
+            if self._handle is None:
+                return
+            self._closed = True
+            self._lib.vd_video_stop(self._handle)
+            if not self._busy:
+                self._free()
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()

@@ -1,0 +1,332 @@
+"""Motion-JPEG in an AVI container, read and written without FFmpeg.
+
+Each frame of a Motion-JPEG AVI is a whole JPEG, so the port's codec
+(``native.decode_jpeg`` / ``native.encode_jpeg``) does the pixels and this
+module only walks and writes the RIFF tree.
+
+Reading (``read_index``) walks ``hdrl`` (``avih``; per stream ``strl``
+with ``strh`` and a ``strf`` BITMAPINFOHEADER), then every ``movi`` list in
+file order, the OpenDML continuation segments (``RIFF 'AVIX'``) included,
+and descends into ``LIST 'rec '``; headers are read from the first segment
+only.  The frames are the first video stream's
+``##dc`` / ``##db`` chunks in file order; ``JUNK``, index chunks
+(``idx1``, ``indx``, ``ix##``) and other streams' chunks are skipped, and
+an empty chunk (a writer's dropped frame) is not a frame.  ``idx1`` is
+not read: a file cut short by a crash, its sizes never patched, reads up
+to its last whole frame.  A video stream whose compression is not JPEG
+raises ValueError: decoding it needs FFmpeg, which the port does not link.
+
+Writing (``AviWriter``) gives AVI 1.0 with an ``idx1`` index; past
+``segment_bytes`` (1 GiB, as FFmpeg's muxer) a file continues in OpenDML
+``AVIX`` segments, each ``movi`` list with its ``ix00`` index and the
+header's ``indx`` super index pointing at them (see ``AviWriter`` for the
+header copy each segment also carries for OpenCV's reader).  The frame rate is stored
+as the rational ``dwRate / dwScale``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import mmap
+import os
+import struct
+from fractions import Fraction
+from typing import Iterator, List, Tuple
+
+import numpy as np
+
+JPEG_FOURCCS = ("MJPG", "JPEG")  # the compressions read, compared in upper case
+QUALITY = 95  # the JPEG quality of written frames, OpenCV's MJPEG writer's
+SEGMENT_BYTES = 1 << 30
+MASTER_INDEX_ENTRIES = 256  # super-index slots reserved in the header (FFmpeg's count)
+AVIF_HASINDEX, AVIF_ISINTERLEAVED, AVIF_TRUSTCKTYPE = 0x10, 0x100, 0x800
+AVIIF_KEYFRAME = 0x10
+
+
+@dataclasses.dataclass
+class AviIndex:
+    """What ``read_index`` finds: the first video stream's geometry and rate,
+    and each frame's JPEG as (file offset, size)."""
+
+    path: str
+    width: int
+    height: int
+    rate: int
+    scale: int
+    offsets: np.ndarray  # int64, file offset of each frame's data
+    sizes: np.ndarray  # int64
+    truncated: bool  # the walk met a chunk cut short by the end of the file
+
+    @property
+    def fps(self) -> float:
+        return self.rate / self.scale if self.scale else 0.0
+
+    @property
+    def frame_count(self) -> int:
+        return len(self.offsets)
+
+
+def read_index(path: str) -> AviIndex:
+    """Walk the AVI at ``path``; see the module's docstring.  Raises
+    ValueError for a file that is not an AVI, has no video stream, or
+    whose video is not Motion-JPEG."""
+    path = str(path)
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        if size < 12:
+            raise ValueError(f"{path}: not an AVI file ({size} bytes)")
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as data:
+            return _Walk(path, data, size).run()
+
+
+class _Walk:
+    def __init__(self, path: str, data, size: int):
+        self.path, self.data, self.size = path, data, size
+        self.streams: List[Tuple[bytes, Tuple]] = []  # (fccType, (dwScale, dwRate))
+        self.strf: dict = {}  # stream number -> its strf payload
+        self.tags: Tuple[bytes, ...] = ()
+        self.frames: List[Tuple[int, int]] = []
+        self.truncated = False
+
+    def run(self) -> AviIndex:
+        pos = 0
+        while pos + 12 <= self.size and not self.truncated:
+            cid, length, kind = struct.unpack_from("<4sI4s", self.data, pos)
+            if cid != b"RIFF" or kind != (b"AVI " if pos == 0 else b"AVIX"):
+                if pos == 0:
+                    raise ValueError(f"{self.path}: not an AVI file (starts {cid!r} {kind!r})")
+                break  # trailing bytes that are not a segment
+            end = self._end(pos, length, self.size)
+            self._list(pos + 12, end, in_movi=False, headers=pos == 0)
+            pos = end + (length & 1)
+        if not self.tags:
+            raise ValueError(f"{self.path}: AVI has no video stream")
+        video = next(i for i, (kind, _) in enumerate(self.streams) if kind == b"vids")
+        strh = self.streams[video][1]
+        strf = self.strf.get(video, b"")
+        if len(strf) < 20:
+            raise ValueError(f"{self.path}: video stream {video} has no BITMAPINFOHEADER")
+        _, width, height, _, _, compression = struct.unpack_from("<IiiHH4s", strf)
+        fourcc = compression.decode("latin-1")
+        if fourcc.upper() not in JPEG_FOURCCS:
+            raise ValueError(f"{self.path}: the video stream is {fourcc!r}, not Motion-JPEG; "
+                             f"decoding it needs FFmpeg, which the port does not link")
+        offsets = np.array([o for o, _ in self.frames], np.int64)
+        sizes = np.array([s for _, s in self.frames], np.int64)
+        return AviIndex(self.path, width, abs(height), strh[1], strh[0], offsets, sizes,
+                        self.truncated)
+
+    def _end(self, pos: int, length: int, parent_end: int) -> int:
+        """A list's end; a size never patched (0) or past its parent runs to
+        the parent's end, as after a crash."""
+        end = pos + 8 + length
+        return parent_end if length == 0 or end > parent_end else end
+
+    def _list(self, pos: int, end: int, in_movi: bool, headers: bool) -> None:
+        data = self.data
+        while pos + 8 <= end and not self.truncated:
+            cid, length = struct.unpack_from("<4sI", data, pos)
+            if cid in (b"LIST", b"RIFF"):
+                if pos + 12 > end:
+                    break
+                kind = data[pos + 8 : pos + 12]
+                child_end = self._end(pos, length, end)
+                if kind in (b"hdrl", b"strl") and headers:
+                    self._list(pos + 12, child_end, False, True)
+                elif kind in (b"movi", b"rec "):
+                    self._list(pos + 12, child_end, True, False)
+                pos = child_end + (length & 1)
+                continue
+            body = pos + 8
+            if body + length > end:
+                self.truncated = in_movi or body + length > self.size
+                return
+            if cid == b"strh" and length >= 36:
+                kind = data[body : body + 4]
+                scale, rate = struct.unpack_from("<II", data, body + 20)
+                self.streams.append((kind, (scale, rate)))
+                if kind == b"vids" and not self.tags:
+                    n = len(self.streams) - 1
+                    self.tags = (b"%02ddc" % n, b"%02ddb" % n)
+            elif cid == b"strf" and self.streams:
+                self.strf[len(self.streams) - 1] = bytes(data[body : body + length])
+            elif in_movi and cid in self.tags and length:
+                self.frames.append((body, length))
+            pos = body + length + (length & 1)
+
+
+class AviReader:
+    """Frames of a Motion-JPEG AVI as JPEG bytes, by index."""
+
+    def __init__(self, path: str):
+        self.index = read_index(path)
+        self._file = open(path, "rb")
+
+    def __len__(self) -> int:
+        return self.index.frame_count
+
+    def jpeg(self, i: int) -> bytes:
+        self._file.seek(int(self.index.offsets[i]))
+        return self._file.read(int(self.index.sizes[i]))
+
+    def __iter__(self) -> Iterator[bytes]:
+        for i in range(len(self)):
+            yield self.jpeg(i)
+
+    def close(self) -> None:
+        self._file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def fps_ratio(fps) -> Tuple[int, int]:
+    """(dwRate, dwScale) for a frame rate: the nearest fraction with a scale
+    up to 1001, so 25 is 25 / 1, 29.97 is 30000 / 1001 and 25 / 3 stays
+    exact."""
+    r = Fraction(fps).limit_denominator(1001)
+    if r <= 0:
+        raise ValueError(f"frame rate must be positive, got {fps}")
+    return r.numerator, r.denominator
+
+
+def _chunk(cid: bytes, payload: bytes) -> bytes:
+    return cid + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def _list(kind: bytes, payload: bytes) -> bytes:
+    return b"LIST" + struct.pack("<I", 4 + len(payload)) + kind + payload
+
+
+class AviWriter:
+    """Write a Motion-JPEG AVI: ``write(rgb)`` encodes a frame at
+    ``QUALITY``, ``write_jpeg(data)`` stores JPEG bytes as they are.
+    ``close()`` writes the indexes and the final counts.
+
+    ``segment_bytes`` is the most a RIFF segment holds before the next frame
+    opens an OpenDML ``AVIX`` segment.  Beside its ``ix00``, each ``AVIX``
+    segment carries a short copy of the header list (``avih``, ``strl``)
+    and an ``idx1`` of its own frames: OpenDML readers (FFmpeg) skip both,
+    and OpenCV's built-in MJPEG reader, which reads each RIFF segment as an
+    AVI 1.0 file of its own, needs both to see the segment's frames."""
+
+    def __init__(self, path: str, width: int, height: int, fps,
+                 segment_bytes: int = SEGMENT_BYTES):
+        if not 0 < width < 65536 or not 0 < height < 65536:
+            raise ValueError(f"cannot write a {width}x{height} video")
+        self.path, self.width, self.height = str(path), int(width), int(height)
+        self.rate, self.scale = fps_ratio(fps)
+        self.segment_bytes = int(segment_bytes)
+        self._f = open(self.path, "wb")
+        self._segments: List[dict] = []  # riff / movi size positions, frames (offset, size)
+        self._total = 0
+        self._max_chunk = 0
+        self._open_segment()
+
+    def _tell(self) -> int:
+        return self._f.tell()
+
+    def _start(self, cid: bytes, kind: bytes) -> int:
+        """A list with its size left 0 (a reader takes 0 as "to the end of
+        the file" until ``close``); returns the size field's position."""
+        self._f.write(cid)
+        at = self._tell()
+        self._f.write(struct.pack("<I", 0) + kind)
+        return at
+
+    def _end(self, at: int) -> None:
+        end = self._tell()
+        self._f.seek(at)
+        self._f.write(struct.pack("<I", end - at - 4))
+        self._f.seek(end)
+
+    def _hdrl(self, first: bool) -> bytes:
+        """The header list; the first segment's also holds the super index
+        (or a JUNK chunk of its size in an AVI 1.0 file) and ``odml``."""
+        frames0 = len(self._segments[0]["frames"]) if self._segments else 0
+        avih = struct.pack("<14I", round(1e6 * self.scale / self.rate), 0, 0,
+                           AVIF_HASINDEX | AVIF_ISINTERLEAVED | AVIF_TRUSTCKTYPE, frames0, 0,
+                           1, self._max_chunk, self.width, self.height, 0, 0, 0, 0)
+        strh = struct.pack("<4s4sIHHIIIIIIIIHHHH", b"vids", b"MJPG", 0, 0, 0, 0, self.scale,
+                           self.rate, 0, self._total, self._max_chunk, 0xFFFFFFFF, 0, 0, 0,
+                           self.width, self.height)
+        strf = struct.pack("<IiiHH4sIiiII", 40, self.width, self.height, 1, 24, b"MJPG",
+                           self.width * self.height * 3, 0, 0, 0, 0)
+        strl = _chunk(b"strh", strh) + _chunk(b"strf", strf)
+        if not first:
+            return _list(b"hdrl", _chunk(b"avih", avih) + _list(b"strl", strl))
+        indexed = [s for s in self._segments if "ix" in s]
+        indx = struct.pack("<HBBI4sIII", 4, 0, 0, len(indexed), b"00dc", 0, 0, 0) + b"".join(
+            struct.pack("<QII", s["ix"], s["ix_size"], len(s["frames"])) for s in indexed)
+        indx += bytes(24 + 16 * MASTER_INDEX_ENTRIES - len(indx))
+        strl += _chunk(b"indx" if indexed else b"JUNK", indx)
+        dmlh = struct.pack("<I", self._total) + bytes(244)
+        return _list(b"hdrl", _chunk(b"avih", avih) + _list(b"strl", strl)
+                     + _list(b"odml", _chunk(b"dmlh", dmlh)))
+
+    def _open_segment(self) -> None:
+        first = not self._segments
+        riff = self._start(b"RIFF", b"AVI " if first else b"AVIX")
+        hdrl = self._tell()
+        self._f.write(self._hdrl(first))
+        movi = self._start(b"LIST", b"movi")
+        self._segments.append({"riff": riff, "hdrl": hdrl, "movi": movi, "frames": []})
+
+    def _close_segment(self, odml: bool) -> None:
+        """End the open segment: its ``ix00`` when the file is OpenDML, the
+        ``movi`` list, then its ``idx1``."""
+        seg = self._segments[-1]
+        base = seg["movi"] + 4  # the 'movi' fourcc: idx1 and ix00 offsets count from it
+        if odml:
+            seg["ix"] = self._tell()
+            self._f.write(b"ix00" + struct.pack("<IHBBI4sQI", 24 + 8 * len(seg["frames"]), 2, 0,
+                                                1, len(seg["frames"]), b"00dc", base, 0))
+            self._f.write(b"".join(struct.pack("<II", o - base, n) for o, n in seg["frames"]))
+            seg["ix_size"] = self._tell() - seg["ix"]
+        self._end(seg["movi"])
+        self._f.write(_chunk(b"idx1", b"".join(
+            struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME, o - 8 - base, n)
+            for o, n in seg["frames"])))
+        self._end(seg["riff"])
+
+    def write_jpeg(self, data: bytes) -> None:
+        seg = self._segments[-1]
+        chunk = 8 + len(data) + (len(data) & 1)
+        if seg["frames"] and self._tell() + chunk - seg["riff"] > self.segment_bytes:
+            if len(self._segments) == MASTER_INDEX_ENTRIES:
+                raise ValueError(f"{self.path}: more than {MASTER_INDEX_ENTRIES} segments")
+            self._close_segment(odml=True)
+            self._open_segment()
+            seg = self._segments[-1]
+        seg["frames"].append((self._tell() + 8, len(data)))
+        self._f.write(_chunk(b"00dc", data))
+        self._total += 1
+        self._max_chunk = max(self._max_chunk, len(data))
+
+    def write(self, rgb: np.ndarray) -> None:
+        from viddet_tpu_torch.native import encode_jpeg
+
+        if rgb.shape[:2] != (self.height, self.width):
+            raise ValueError(f"frame of {rgb.shape[1]}x{rgb.shape[0]} in a "
+                             f"{self.width}x{self.height} video")
+        self.write_jpeg(encode_jpeg(rgb, QUALITY))
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        try:
+            self._close_segment(odml=len(self._segments) > 1)
+            for i, seg in enumerate(self._segments):  # the final counts and indexes
+                self._f.seek(seg["hdrl"])
+                self._f.write(self._hdrl(first=i == 0))
+        finally:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

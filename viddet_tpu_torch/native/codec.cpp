@@ -43,10 +43,32 @@
 // and vd_png_raw_size(width, height, bit_depth, color_type, interlace), the
 // inflated size of a valid header's rows (no error to report).
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 codec.cpp -o libviddet_codec.so -pthread
+// Motion-JPEG video (the frames of an AVI that native/avi.py has indexed):
+//   vd_frame_transform(rgb, ih, iw, out, h, w, letterbox, normalize, affine)
+//           data/transforms.py's ValTransform on one uint8 RGB frame, bit for
+//           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
+//           arithmetic (transforms.py _resize), the letterbox's 128 border,
+//           and the ImageNet normalisation in float32, step by step
+//   vd_video_open(path, offsets, sizes, indices, n, h, w, letterbox,
+//                 normalize, capacity, err, err_len) -> handle or null
+//           starts a thread that reads each listed frame, decodes and
+//           transforms it into a ring of `capacity` frames
+//   vd_video_next(handle, out, affine, &index, err, err_len)
+//           blocks for the next frame: 1 and the frame, 0 at the end or
+//           after vd_video_stop, -1 and the message of the frame that failed
+//   vd_video_stop(handle) wakes both sides; vd_video_free(handle) joins the
+//           thread and frees (never while a vd_video_next call is running).
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off codec.cpp
+//        -o libviddet_codec.so -pthread
 
 #include <algorithm>
+#include <array>
+#include <cmath>
+#include <condition_variable>
+#include <mutex>
 #include <new>
+#include <thread>
 #include <cstdarg>
 #include <cstddef>
 #include <cstdint>
@@ -1499,6 +1521,273 @@ int vd_png_unfilter(uint8_t* raw, unsigned long size, int width, int height, int
   } catch (const std::bad_alloc&) {  // an exception must not cross the C interface
     return report(CodecError{"out of memory"}, err, err_len);
   }
+}
+
+}  // extern "C"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Video frames: ValTransform in C++ and a decode thread with a ring
+// ---------------------------------------------------------------------------
+
+constexpr int kCoefBits = 11;  // OpenCV's INTER_RESIZE_COEF_BITS
+constexpr int32_t kOne = 1 << kCoefBits;
+constexpr int kPadValue = 128;
+const float kMean[3] = {0.485f, 0.456f, 0.406f};
+const float kStd[3] = {0.229f, 0.224f, 0.225f};
+
+// OpenCV's source index and float32 fraction for each destination position.
+void axis_taps(int src, int dst, std::vector<int>& s, std::vector<float>& f) {
+  const double scale = 1.0 / (static_cast<double>(dst) / src);
+  s.resize(dst);
+  f.resize(dst);
+  for (int d = 0; d < dst; ++d) {
+    const float fx = static_cast<float>((d + 0.5) * scale - 0.5);
+    const float fl = std::floor(fx);
+    s[d] = static_cast<int>(fl);
+    f[d] = fx - fl;
+  }
+}
+
+// rint(float32(1 - f) * 2048) and rint(f * 2048), half to even as cvRound.
+void coefs(float f, int32_t& c0, int32_t& c1) {
+  c0 = static_cast<int32_t>(std::nearbyint((1.0f - f) * static_cast<float>(kOne)));
+  c1 = static_cast<int32_t>(std::nearbyint(f * static_cast<float>(kOne)));
+}
+
+// cv2.resize(src, (w, h), INTER_LINEAR) for uint8 RGB into rows of `stride`
+// pixels, with transforms.py _resize's edge rules and vertical pass.
+void resize_linear(const uint8_t* src, int ih, int iw, uint8_t* dst, int h, int w, int stride) {
+  std::vector<int> sx, sy;
+  std::vector<float> fx, fy;
+  axis_taps(iw, w, sx, fx);
+  axis_taps(ih, h, sy, fy);
+  std::vector<int> col0(w), col1(w);
+  std::vector<int32_t> a0(w), a1(w);
+  for (int x = 0; x < w; ++x) {
+    if (sx[x] < 0) {
+      fx[x] = 0.0f;
+      sx[x] = 0;
+    }
+    coefs(fx[x], a0[x], a1[x]);
+    const bool single = sx[x] + 1 >= iw;
+    col0[x] = std::min(sx[x], iw - 1);
+    col1[x] = single ? col0[x] : col0[x] + 1;
+    if (single) {
+      a0[x] = kOne;
+      a1[x] = 0;
+    }
+  }
+  std::vector<int32_t> h0(static_cast<size_t>(w) * 3), h1(h0.size());
+  auto horizontal = [&](int r, int32_t* out) {
+    const uint8_t* row = src + static_cast<size_t>(r) * iw * 3;
+    for (int x = 0; x < w; ++x) {
+      const uint8_t* p = row + col0[x] * 3;
+      const uint8_t* q = row + col1[x] * 3;
+      for (int c = 0; c < 3; ++c) out[x * 3 + c] = (p[c] * a0[x] + q[c] * a1[x]) >> 4;
+    }
+  };
+  for (int y = 0; y < h; ++y) {
+    int32_t b0, b1;
+    coefs(fy[y], b0, b1);
+    horizontal(std::clamp(sy[y], 0, ih - 1), h0.data());
+    horizontal(std::clamp(sy[y] + 1, 0, ih - 1), h1.data());
+    uint8_t* o = dst + static_cast<size_t>(y) * stride * 3;
+    for (int i = 0; i < w * 3; ++i) {
+      const int32_t v = (((b0 * h0[i]) >> 16) + ((b1 * h1[i]) >> 16) + 2) >> 2;
+      o[i] = static_cast<uint8_t>(std::clamp(v, 0, 255));
+    }
+  }
+}
+
+// ValTransform((h, w), letterbox, normalize) of one frame: `out` takes h*w*3
+// uint8, or float32 when normalize; affine [sx, sy, dx, dy].
+void frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w, bool letterbox,
+                     bool normalize, float* affine, std::vector<uint8_t>& staged) {
+  uint8_t* u8 = static_cast<uint8_t*>(out);
+  if (normalize) {
+    staged.resize(static_cast<size_t>(h) * w * 3);
+    u8 = staged.data();
+  }
+  if (letterbox) {
+    const double s = std::min(static_cast<double>(h) / ih, static_cast<double>(w) / iw);
+    const int nh = static_cast<int>(std::nearbyint(ih * s));
+    const int nw = static_cast<int>(std::nearbyint(iw * s));
+    const int dy = (h - nh) / 2, dx = (w - nw) / 2;
+    std::memset(u8, kPadValue, static_cast<size_t>(h) * w * 3);
+    resize_linear(rgb, ih, iw, u8 + (static_cast<size_t>(dy) * w + dx) * 3, nh, nw, w);
+    affine[0] = affine[1] = static_cast<float>(s);
+    affine[2] = static_cast<float>(dx);
+    affine[3] = static_cast<float>(dy);
+  } else {
+    resize_linear(rgb, ih, iw, u8, h, w, w);
+    affine[0] = static_cast<float>(static_cast<double>(w) / iw);
+    affine[1] = static_cast<float>(static_cast<double>(h) / ih);
+    affine[2] = affine[3] = 0.0f;
+  }
+  if (normalize) {
+    float* f = static_cast<float*>(out);
+    for (size_t i = 0; i < staged.size(); ++i) {
+      float v = static_cast<float>(u8[i]);
+      v /= 255.0f;
+      v -= kMean[i % 3];
+      v /= kStd[i % 3];
+      f[i] = v;
+    }
+  }
+}
+
+constexpr long long kMaxPixels = 1LL << 30;  // native/__init__.py MAX_PIXELS
+
+struct VideoStream {
+  std::string path;
+  std::vector<int64_t> offsets, sizes;
+  std::vector<int32_t> indices;
+  int h, w;
+  bool letterbox, normalize;
+  size_t frame_bytes;
+  std::vector<std::vector<uint8_t>> ring;
+  std::vector<std::array<float, 4>> ring_affine;
+  std::vector<int32_t> ring_index;
+  size_t produced = 0, consumed = 0;
+  bool done = false, stopped = false;
+  std::string error;
+  std::mutex m;
+  std::condition_variable not_full, not_empty;
+  std::thread worker;
+
+  void run() {
+    std::vector<uint8_t> jpeg, rgb, staged;
+    FILE* f = std::fopen(path.c_str(), "rb");
+    try {
+      if (!f) fail("cannot open the video");
+      for (size_t i = 0; i < indices.size(); ++i) {
+        {
+          std::unique_lock<std::mutex> lock(m);
+          not_full.wait(lock, [&] { return stopped || produced - consumed < ring.size(); });
+          if (stopped) break;
+        }
+        try {
+          jpeg.resize(static_cast<size_t>(sizes[i]));
+          if (fseeko(f, static_cast<off_t>(offsets[i]), SEEK_SET) != 0 ||
+              std::fread(jpeg.data(), 1, jpeg.size(), f) != jpeg.size())
+            fail("cannot read %zu bytes at %lld", jpeg.size(), static_cast<long long>(offsets[i]));
+          JpegDecoder d(jpeg.data(), jpeg.size(), false);
+          d.parse();
+          if (!d.have_sof) fail("JPEG holds no frame header");
+          if (static_cast<long long>(d.width) * d.height > kMaxPixels)
+            fail("%dx%d exceeds the decoder's %lld pixels", d.width, d.height, kMaxPixels);
+          rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
+          d.output_rgb(rgb.data());
+          // the slot is free: the consumer has copied it out before counting it
+          const size_t slot = produced % ring.size();
+          frame_transform(rgb.data(), d.height, d.width, ring[slot].data(), h, w, letterbox,
+                          normalize, ring_affine[slot].data(), staged);
+          ring_index[slot] = indices[i];
+        } catch (const CodecError& e) {
+          fail("frame %d: %s", indices[i], e.msg.c_str());
+        }
+        std::lock_guard<std::mutex> lock(m);
+        ++produced;
+        not_empty.notify_one();
+      }
+    } catch (const CodecError& e) {
+      std::lock_guard<std::mutex> lock(m);
+      error = path + ": " + e.msg;
+    } catch (const std::bad_alloc&) {
+      std::lock_guard<std::mutex> lock(m);
+      error = path + ": out of memory";
+    }
+    if (f) std::fclose(f);
+    std::lock_guard<std::mutex> lock(m);
+    done = true;
+    not_empty.notify_all();
+  }
+
+  int next(void* out, float* affine, int* index, char* err, int err_len) {
+    std::unique_lock<std::mutex> lock(m);
+    not_empty.wait(lock, [&] { return stopped || done || produced > consumed; });
+    if (stopped) return 0;
+    if (produced > consumed) {
+      const size_t slot = consumed % ring.size();
+      std::memcpy(out, ring[slot].data(), frame_bytes);
+      std::memcpy(affine, ring_affine[slot].data(), sizeof(float) * 4);
+      *index = ring_index[slot];
+      ++consumed;
+      not_full.notify_one();
+      return 1;
+    }
+    if (!error.empty()) {
+      std::snprintf(err, err_len, "%s", error.c_str());
+      return -1;
+    }
+    return 0;
+  }
+
+  void stop() {
+    std::lock_guard<std::mutex> lock(m);
+    stopped = true;
+    not_full.notify_all();
+    not_empty.notify_all();
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w, int letterbox,
+                       int normalize, float* affine) {
+  try {
+    std::vector<uint8_t> staged;
+    frame_transform(rgb, ih, iw, out, h, w, letterbox != 0, normalize != 0, affine, staged);
+    return 0;
+  } catch (const std::bad_alloc&) {
+    return -1;
+  }
+}
+
+void* vd_video_open(const char* path, const int64_t* offsets, const int64_t* sizes,
+                    const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
+                    int capacity, char* err, int err_len) {
+  try {
+    if (n < 0 || h <= 0 || w <= 0 || capacity <= 0)
+      fail("bad video stream arguments (n %d, %dx%d, capacity %d)", n, w, h, capacity);
+    auto* s = new VideoStream();
+    s->path = path;
+    s->offsets.assign(offsets, offsets + n);
+    s->sizes.assign(sizes, sizes + n);
+    s->indices.assign(indices, indices + n);
+    s->h = h;
+    s->w = w;
+    s->letterbox = letterbox != 0;
+    s->normalize = normalize != 0;
+    s->frame_bytes = static_cast<size_t>(h) * w * 3 * (s->normalize ? sizeof(float) : 1);
+    s->ring.assign(capacity, std::vector<uint8_t>(s->frame_bytes));
+    s->ring_affine.resize(capacity);
+    s->ring_index.resize(capacity);
+    s->worker = std::thread([s] { s->run(); });
+    return s;
+  } catch (const CodecError& e) {
+    report(e, err, err_len);
+  } catch (const std::exception& e) {
+    std::snprintf(err, err_len, "cannot start the video stream: %s", e.what());
+  }
+  return nullptr;
+}
+
+int vd_video_next(void* handle, void* out, float* affine, int* index, char* err, int err_len) {
+  return static_cast<VideoStream*>(handle)->next(out, affine, index, err, err_len);
+}
+
+void vd_video_stop(void* handle) { static_cast<VideoStream*>(handle)->stop(); }
+
+void vd_video_free(void* handle) {
+  auto* s = static_cast<VideoStream*>(handle);
+  s->stop();
+  if (s->worker.joinable()) s->worker.join();
+  delete s;
 }
 
 }  // extern "C"
