@@ -139,7 +139,8 @@ Phases, each printed as one JSON line:
             group; 40 steps on one batch with ``VIDDET_CONV_BACKEND=pallas``
             (no kernel launched: K8 stays off in training), the total loss
             below half its first value;
-18. detector_train: SSD and Faster R-CNN training.  The float32 steps
+18. detector_train (in a process of its own, ``child_phases``): SSD and
+            Faster R-CNN training.  The float32 steps
             (TF32 off) against the JAX fixtures
             (``tests/fixtures/jax_{ssd,frcnn}_train_steps.npz``: the shallow
             models, SSD at 64 px and Faster R-CNN at 128 px, three steps,
@@ -163,9 +164,44 @@ Phases, each printed as one JSON line:
             tests' recipes (SSD: 25 steps, the least of the last three
             losses below 0.7 x the greatest of the first three; Faster
             R-CNN: 12 steps, below the greatest);
-19. profiler: the profiler windows that missed a launch and were taken
+19. int8:   in a process of its own with the export phase
+            (``child_phases``), the main path's model under INT8_POLICY
+            (bf16 compute, every conv+BN cell a BN-folded int8 conv,
+            ``quant.py``), seeded
+            weights, calibrated on one batch of 32 seeded frames (as
+            ``bench.py``'s int8 variant): through ``make_predictor`` at batch
+            32 and 128, each batch launching K1, K3, K4, K5, K6 once and K2
+            twice, and K8 never, also under ``VIDDET_CONV_BACKEND=pallas``;
+            each int8 cell's int32 accumulator on its own input (batch 8) by
+            the card route (im2col, ``torch._int_mm``) equal to the plain
+            float64 route bit for bit; the kernel tail on the int8 heads
+            equal to the plain tail; an int8 GEMM and no float64 convolution
+            on the device profile; frames/s beside the bf16 model's at both
+            batches, ``head_ms``, ms by stage on CUDA events (quantize,
+            im2col, int8 GEMM, epilogue), device ms by kernel group, peak
+            memory, calibration
+            seconds, the heads' correlation with the bf16 twin and the share
+            of the twin's detections the int8 run matches (reported, not
+            held); then SSD-512 under INT8_POLICY at batch 32 (its ResNet
+            cells: a 7x7 stride-2 stem, relu and none, 1x1 stride-2
+            projections), with the same accumulator, launch and tail checks;
+20. export: the main path's model exported from the card
+            (``infer/export.py``, ``torch.export``) with a dynamic batch by
+            the plain route and the cuda route (the kernels as
+            ``torch.ops.viddet`` custom ops), saved and loaded: at batch 32
+            and 8 the artifact's detections equal the direct predictor's on
+            its route bit for bit, the cuda artifact launching K1, K3, K4,
+            K5, K6 once and K2 twice a batch and the plain one nothing;
+            under ``VIDDET_CONV_BACKEND=pallas`` a cuda artifact carrying
+            K8 too (three launches a batch, at batch 32); the
+            plain artifact also run in a process that imports no
+            ``viddet_tpu_torch``, equal; SSD-512 (batch 32) and Faster R-CNN
+            (512 px, batch 8; K7 inside) by the cuda route, likewise; trace
+            and load seconds, artifact bytes, the artifact's frames/s beside
+            the direct predictor's;
+21. profiler: the profiler windows that missed a launch and were taken
             again;
-20. kernels: one line listing every ported kernel;
+22. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -190,7 +226,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # outside the tensor cores; also used for int32 compares
 BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
-PEAKS = {"f32": F32_OPS_PER_S, "bf16_tensor": BF16_TC_OPS_PER_S}
+INT8_TC_OPS_PER_S = 1979e12  # dense int8 on the tensor cores
+PEAKS = {"f32": F32_OPS_PER_S, "bf16_tensor": BF16_TC_OPS_PER_S,
+         "int8_tensor": INT8_TC_OPS_PER_S}
 B, N, K, PAIRS, TOPK, POST = 32, 10647, 400, 32000, 400, 100
 CELLS = (169, 676, 2704)  # 13x13, 26x26, 52x52 at 416 px
 NA, NUM_PRED = 3, 85
@@ -1208,7 +1246,12 @@ def path_kernel_names(launches: dict) -> tuple:
 def kernel_breakdown(fn, names, top: int = 12) -> dict:
     """Device time of one call of ``fn``, by kernel group and top kernels;
     the profiler's window must hold every kernel in ``names``."""
-    events = profile_kernels(fn, 1, names)
+    return grouped(profile_kernels(fn, 1, names), top)
+
+
+def grouped(events: dict, top: int = 12) -> dict:
+    """``profile_kernels``' events of one call by kernel group, and the top
+    kernels."""
     groups: dict = {}
     for key, (ms, _) in events.items():
         group = next((g for g, subs in KERNEL_GROUPS if any(x in key for x in subs)), "other")
@@ -1385,6 +1428,370 @@ def end_to_end(dev, predictor, images, bs: int, reps: int) -> dict:
     return dict(ms_per_batch=ms, frames_per_s=bs / ms * 1e3,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
+
+# ---------------------------------------------------------------------------
+# int8 post-training quantization (quant.py) on the main path
+# ---------------------------------------------------------------------------
+
+
+def int8_cells(model, x):
+    """(cell, its input) for every int8 cell of one forward pass on ``x``
+    (forward pre-hooks)."""
+    import torch
+
+    from viddet_tpu_torch import quant
+
+    caps = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: caps.append((m, a[0])))
+             for m in quant.quant_cells(model)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return caps
+
+
+def int8_accumulators(model, x, what: str) -> dict:
+    """Each int8 cell's int32 accumulator on its own input, by the card route
+    (im2col, ``torch._int_mm``) and the plain float64 route: equal bit for
+    bit.  Returns the count and each distinct (M, K', N) GEMM shape."""
+    import torch
+
+    from viddet_tpu_torch import quant
+
+    caps = int8_cells(model, x)
+    shapes = set()
+    with torch.inference_mode():
+        for m, inp in caps:
+            wq, _, _ = m._int8_folded[1]
+            xq = quant.quantize_activations(inp, m.act_amax).permute(0, 2, 3, 1).contiguous()
+            card = quant.conv_acc_card(xq, wq, m.stride)
+            check(equal(card, quant.conv_acc_plain(xq, wq, m.stride)),
+                  f"{what}: {m.scope} accumulator, card route equal to plain")
+            a = quant.im2col(xq, wq.shape[1], wq.shape[2], m.stride)
+            shapes.add((a.shape[0], a.shape[1], wq.shape[0], wq.shape[1], m.stride))
+    return {"cells": len(caps), "equal": True,
+            "gemm_shapes_m_k_n_kernel_stride": sorted(shapes)}
+
+
+def int8_stage_ms(model, x) -> dict:
+    """ms of one batch's int8 cells by stage on CUDA events (not the
+    profiler: its windows degrade after some 30 in a process), each stage
+    timed alone over every cell on the cell's own input: quantize (codes
+    of x), im2col, the int8 GEMM (``torch._int_mm``) and the epilogue
+    (dequantize, bias, activation, cast).  Each stage queues far less host
+    time than it runs on the card (tens of launches a ms)."""
+    import torch
+
+    from viddet_tpu_torch import quant
+
+    caps = int8_cells(model, x)
+    with torch.inference_mode():
+        rows = []
+        for m, inp in caps:
+            wq, w_amax, b = m._int8_folded[1]
+            xq = quant.quantize_activations(inp, m.act_amax).permute(0, 2, 3, 1).contiguous()
+            a = quant.im2col(xq, wq.shape[1], wq.shape[2], m.stride)
+            acc = torch._int_mm(a, quant.weight_matrix(wq))
+            act = "leaky" if hasattr(m, "fused_down2") else ("relu" if m.act else "none")
+            rows.append((m, inp, xq, wq, a, acc, w_amax, b, act))
+        del caps
+        stages = {
+            "quantize": lambda: [quant.quantize_activations(r[1], r[0].act_amax) for r in rows],
+            "im2col": lambda: [quant.im2col(r[2], r[3].shape[1], r[3].shape[2], r[0].stride)
+                               for r in rows],
+            "int8_gemm": lambda: [torch._int_mm(r[4], quant.weight_matrix(r[3])) for r in rows],
+            "epilogue": lambda: [quant.epilogue(r[5], r[6], r[0].act_amax, r[7], r[8],
+                                                torch.bfloat16) for r in rows],
+        }
+        out = {name: median_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
+    # the GEMMs' work and bytes (each operand read once, the int32 result
+    # written once), and the bytes the im2col writes
+    macs = sum(r[4].shape[0] * r[4].shape[1] * r[3].shape[0] for r in rows)
+    gemm_bytes = sum(r[4].numel() + r[3].numel() + r[5].numel() * 4 for r in rows)
+    out.update(cells=len(rows), int8_gemm_macs=macs,
+               int8_gemm_bound=bound_ms(gemm_bytes, 2 * macs, "int8_tensor"),
+               im2col_bytes=sum(r[4].numel() for r in rows if r[4].data_ptr() != r[2].data_ptr()))
+    return out
+
+
+def match_share(ref, got, iou: float = 0.5) -> float:
+    """Share of ``ref``'s kept detections that ``got`` has too: the same
+    class and image, IoU >= ``iou``."""
+    import torch
+
+    from viddet_tpu_torch.ops.boxes import box_iou
+
+    r_ids, _, r_boxes = ref
+    g_ids, _, g_boxes = got
+    same = (r_ids[:, :, None] == g_ids[:, None, :]) & (g_ids[:, None, :] >= 0)
+    hit = ((box_iou(r_boxes, g_boxes) >= iou) & same).any(dim=2) & (r_ids >= 0)
+    return float(hit.sum() / (r_ids >= 0).sum().clamp_min(1))
+
+
+def int8_phase(dev, kernels, bf16_model, bf16_predictor, images) -> dict:
+    """YOLOv3-416 / Darknet-53 / COCO under INT8_POLICY (bf16 compute, int8
+    conv cells), seeded weights, calibrated on one batch of the seeded
+    frames as ``bench.py``'s int8 variant does; then SSD-512 at batch 32."""
+    import torch
+
+    from viddet_tpu_torch import quant
+    from viddet_tpu_torch.cli.common import make_predictor
+    from viddet_tpu_torch.core.precision import INT8_POLICY
+    from viddet_tpu_torch.models.ssd import SSDNMSConfig, ssd_postprocess
+    from viddet_tpu_torch.models.yolo3 import NMSConfig, flatten_outputs
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.ops.nms import multiclass_nms_late_decode_cells
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    model, classes = get_model(MODEL, policy=INT8_POLICY)
+    load_flat(model, init_flat(MODEL, seed=0))
+    main_b = E2E_BATCHES[0]
+    batch = images[:main_b].to(dev)
+    x = normalized(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant.calibrate(model, [x])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    predictor = make_predictor(model)
+    launches = {}
+    for bs in E2E_BATCHES:
+        frames = images[:bs].to(dev)
+        predictor(frames)  # warm-up
+        torch.cuda.synchronize()
+        set_launches(kernels)
+        dets = predictor(frames)
+        torch.cuda.synchronize()
+        launches[f"int8_b{bs}"] = read_launches(kernels, HIER_LAUNCHES, f"int8 batch {bs}")
+        check_detections(*dets, bs, len(classes), NMSConfig().valid_thresh)
+        del frames
+    os.environ["VIDDET_CONV_BACKEND"] = "pallas"
+    try:
+        set_launches(kernels)
+        pallas = predictor(batch)
+        torch.cuda.synchronize()
+        launches["int8_pallas"] = read_launches(kernels, HIER_LAUNCHES,
+                                                "int8 under VIDDET_CONV_BACKEND=pallas")
+    finally:
+        del os.environ["VIDDET_CONV_BACKEND"]
+    acc = int8_accumulators(model, x[:8], "int8 YOLOv3")
+    with torch.inference_mode():
+        out = model(x)
+        auto = multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"])
+        check(all(equal(a, b) for a, b in zip(
+            auto, multiclass_nms_late_decode_cells(out["raws_cells"], out["meta"],
+                                                   backend="plain"))),
+              "int8 heads: kernel tail equal to plain tail")
+        dets = predictor(batch)
+        check(all(equal(a, b) for a, b in zip(auto, dets)), "int8 predictor = head + tail")
+        check(all(equal(a, b) for a, b in zip(pallas, dets)), "int8 under pallas unchanged")
+        head_ms = median_ms(lambda: model(x), reps=10)
+        q_flat = flatten_outputs(out)
+        f_flat = flatten_outputs(bf16_model(x))
+        corr = {key: float(np.corrcoef(q_flat[key].double().flatten().cpu().numpy(),
+                                       f_flat[key].double().flatten().cpu().numpy())[0, 1])
+                for key in ("raw_obj", "cls_max")}
+        matched = match_share(bf16_predictor(batch), dets)
+    events = profile_kernels(lambda: predictor(batch), 1, path_kernel_names(HIER_LAUNCHES))
+    int8_gemm = [k[:100] for k in events if "gemm" in k and ("s8" in k or "i8" in k)]
+    float64_conv = [k[:100] for k in events if "dgemm" in k or ("conv" in k and "double" in k)]
+    check(bool(int8_gemm), f"an int8 GEMM on the int8 path's profile: {list(events)[:40]}")
+    check(not float64_conv, f"no float64 convolution on the int8 path: {float64_conv}")
+    breakdown = grouped(events)
+    stage_ms = int8_stage_ms(model, x)
+    step_ms = median_ms(lambda: predictor(batch), reps=10)
+    breakdown.update(step_ms=step_ms, idle_share=1.0 - breakdown["device_ms"] / step_ms)
+    timings = {}
+    for bs in E2E_BATCHES:
+        timings[str(bs)] = {"int8": end_to_end(dev, predictor, images, bs, 10 if bs == main_b
+                                               else 5),
+                            "bf16": end_to_end(dev, bf16_predictor, images, bs, 10 if bs == main_b
+                                               else 5)}
+    del out, q_flat, f_flat, x, batch, model, predictor
+    torch.cuda.empty_cache()
+
+    # SSD-512's ResNet cells: a 7x7 stride-2 stem, relu and none, 1x1 stride-2 projections
+    ssd, ssd_classes = get_model(SSD_MODEL, policy=INT8_POLICY)
+    load_flat(ssd, init_flat(SSD_MODEL, seed=0))
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.integers(0, 256, (SSD_B, SSD_SIZE, SSD_SIZE, 3),
+                                           dtype=np.uint8)).to(dev)
+    sx = normalized(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant.calibrate(ssd, [sx])
+    torch.cuda.synchronize()
+    ssd_calib_s = time.perf_counter() - t0
+    ssd_predictor = make_predictor(ssd)
+    ssd_predictor(frames)
+    torch.cuda.synchronize()
+    set_launches(kernels)
+    ssd_dets = ssd_predictor(frames)
+    torch.cuda.synchronize()
+    launches["int8_ssd"] = read_launches(kernels, SSD_LAUNCHES, "int8 SSD")
+    check_detections(*ssd_dets, SSD_B, len(ssd_classes), SSDNMSConfig().valid_thresh)
+    ssd_acc = int8_accumulators(ssd, sx[:8], "int8 SSD")
+    with torch.inference_mode():
+        sout = ssd(sx)
+        check(all(equal(a, b) for a, b in zip(ssd_postprocess(sout, SSDNMSConfig()),
+                                              ssd_postprocess(sout, SSDNMSConfig(
+                                                  backend="plain")))),
+              "int8 SSD heads: kernel tail equal to plain tail")
+        check(all(equal(a, b) for a, b in zip(ssd_postprocess(sout, SSDNMSConfig()), ssd_dets)),
+              "int8 SSD predictor = head + tail")
+    ssd_ms = median_ms(lambda: ssd_predictor(frames), reps=5)
+    del ssd, ssd_predictor, sout, sx, frames
+    torch.cuda.empty_cache()
+    emit({"phase": "int8", "model": MODEL, "size": IMAGE_SIZE, "policy": "int8 (bf16 compute)",
+          "calibration_s": calib_s, "launches": launches, "k8_launches_under_pallas": 0,
+          "accumulators": acc, "tail_equal_plain": True, "head_ms": head_ms,
+          "int8_gemm_kernels": sorted(set(int8_gemm)), "float64_conv_kernels": float64_conv,
+          "stage_ms": stage_ms, "device_breakdown": breakdown,
+          "end_to_end": timings, "corr_with_bf16": corr, "bf16_detections_matched": matched,
+          "ssd": {"model": SSD_MODEL, "size": SSD_SIZE, "batch": SSD_B,
+                  "calibration_s": ssd_calib_s, "accumulators": ssd_acc,
+                  "tail_equal_plain": True, "ms_per_batch": ssd_ms,
+                  "frames_per_s": SSD_B / ssd_ms * 1e3}})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Deployment export (infer/export.py)
+# ---------------------------------------------------------------------------
+
+# The plain artifact in a process without the port: torch alone loads and runs it.
+EXPORT_CHILD = """
+import sys, numpy as np, torch
+m = torch.export.load(sys.argv[1]).module()
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+with torch.no_grad():
+    out = m(x)
+assert not [k for k in sys.modules if k.startswith("viddet")], "the port was imported"
+np.savez(sys.argv[3], *[t.cpu().numpy() for t in out])
+"""
+
+
+def export_run(dev, kernels, model, spec, batches, want_launches, tmp: str, name: str) -> dict:
+    """Export ``model`` for ``spec``, save, load, and hold the loaded
+    artifact's detections to the direct predictor's at each batch size
+    (ids, scores and boxes bit for bit), and its kernel launches to
+    ``want_launches`` a batch."""
+    import torch
+
+    from viddet_tpu_torch.infer.export import (
+        build_infer_fn,
+        export_predictor,
+        kernel_ops,
+        load_artifact,
+        save_artifact,
+    )
+
+    t0 = time.perf_counter()
+    program = export_predictor(model, spec)
+    trace_s = time.perf_counter() - t0
+    path = os.path.join(tmp, f"{name}.pt2")
+    save_artifact(program, path, {"model": name})
+    t0 = time.perf_counter()
+    art = load_artifact(path)
+    load_s = time.perf_counter() - t0
+    direct = build_infer_fn(model, spec)
+    size = spec.image_size
+    rng = np.random.default_rng(17)
+    k = getattr(model, "k", None)
+    out = {"trace_s": trace_s, "load_s": load_s, "bytes": os.path.getsize(path),
+           "kernel_ops": sorted(set(kernel_ops(program))), "batches": {}}
+    for bs in batches:
+        shape = (bs, size, size, 3) if k is None else (bs, k, size, size, 3)
+        frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        with torch.inference_mode():
+            want = direct(frames)
+            art(frames)  # warm-up
+            torch.cuda.synchronize()
+            set_launches(kernels)
+            got = art(frames)
+            torch.cuda.synchronize()
+            got_launches = read_launches(kernels, want_launches, f"{name} artifact batch {bs}")
+            check(all(equal(a, b) for a, b in zip(got, want)),
+                  f"{name} artifact at batch {bs} equal to the direct predictor")
+            art_ms = median_ms(lambda: art(frames), reps=5)
+            direct_ms = median_ms(lambda: direct(frames), reps=5)
+        out["batches"][str(bs)] = {"equal": True, "launches": got_launches,
+                                   "kept": int((got[0] >= 0).sum()),
+                                   "artifact_frames_per_s": bs / art_ms * 1e3,
+                                   "direct_frames_per_s": bs / direct_ms * 1e3}
+    out["path"] = path
+    return out
+
+
+def export_phase(dev, kernels, yolo_model) -> dict:
+    """YOLOv3-416 exported from the card with a dynamic batch by the plain
+    and the cuda route; SSD-512 (batch 32) and Faster R-CNN (512 px, batch
+    8) by the cuda route; the plain artifact also in a process without the
+    port."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.infer.export import ExportSpec
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    main_b = E2E_BATCHES[0]
+    rows, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route, want in (("plain", {}), ("cuda", HIER_LAUNCHES)):
+            spec = ExportSpec(image_size=IMAGE_SIZE, platforms=("cuda",), nms_backend=route)
+            rows[f"yolo_{route}"] = export_run(dev, kernels, yolo_model, spec, (main_b, 8), want,
+                                               tmp, f"yolo_{route}")
+            launches[f"export_yolo_{route}"] = rows[f"yolo_{route}"]["batches"][str(main_b)][
+                "launches"]
+        # under VIDDET_CONV_BACKEND=pallas the cuda route carries K8 too
+        os.environ["VIDDET_CONV_BACKEND"] = "pallas"
+        try:
+            spec = ExportSpec(image_size=IMAGE_SIZE, platforms=("cuda",), nms_backend="cuda")
+            rows["yolo_cuda_pallas"] = export_run(dev, kernels, yolo_model, spec, (main_b,),
+                                                  CONV_LAUNCHES, tmp, "yolo_cuda_pallas")
+        finally:
+            del os.environ["VIDDET_CONV_BACKEND"]
+        launches["export_yolo_cuda_pallas"] = rows["yolo_cuda_pallas"]["batches"][str(main_b)][
+            "launches"]
+        # the plain artifact in a child process that imports no viddet_tpu_torch
+        rng = np.random.default_rng(18)
+        frames = rng.integers(0, 256, (8, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+        np.save(os.path.join(tmp, "frames.npy"), frames)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", EXPORT_CHILD, rows["yolo_plain"]["path"],
+                        os.path.join(tmp, "frames.npy"), os.path.join(tmp, "child.npz")],
+                       check=True, timeout=600, cwd=tmp,
+                       env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+        child_s = time.perf_counter() - t0
+        from viddet_tpu_torch.infer.export import load_artifact
+
+        with torch.inference_mode():
+            want = load_artifact(rows["yolo_plain"]["path"])(torch.from_numpy(frames).to(dev))
+        with np.load(os.path.join(tmp, "child.npz")) as child:
+            got = [child[f"arr_{i}"] for i in range(3)]
+        check(all(np.array_equal(g, w.cpu().numpy()) for g, w in zip(got, want)),
+              "the plain artifact in a process without the port equals it in this one")
+        rows["yolo_plain"]["child_process"] = {"equal": True, "seconds": child_s}
+        for family, name, size, batch, want in (
+                ("ssd", SSD_MODEL, SSD_SIZE, SSD_B, SSD_LAUNCHES),
+                ("frcnn", FRCNN_MODEL, FRCNN_SIZE, FRCNN_B, FRCNN_LAUNCHES)):
+            model, _ = get_model(name)
+            load_flat(model, init_flat(name, seed=0))
+            spec = ExportSpec(image_size=size, platforms=("cuda",), nms_backend="cuda")
+            rows[family] = export_run(dev, kernels, model, spec, (batch,), want, tmp, family)
+            launches[f"export_{family}"] = rows[family]["batches"][str(batch)]["launches"]
+            del model
+            torch.cuda.empty_cache()
+        for row in rows.values():
+            row.pop("path")
+    emit({"phase": "export", "rows": rows})
+    return launches
 
 # ---------------------------------------------------------------------------
 # Phase 7: evaluate
@@ -3661,6 +4068,96 @@ def detector_train_phase(dev, kernels) -> tuple:
     return launches, k5_rows
 
 
+def kernel_table() -> dict:
+    """Each ported kernel: (wrapper, source, the TPU kernel it replaces, the
+    path its launches are read on)."""
+    from viddet_tpu_torch.ops import (
+        conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda,
+    )
+
+    return {
+        "anchor_scores": (nms_gather_cuda.anchor_scores, "anchor_scores.cu",
+                          "nms_gather_pallas.py:611", "hier"),
+        "topk_indices": (topk_cuda.topk_indices, "topk_select.cu", "topk_pallas.py:237", "hier"),
+        "gather_decode_pairs": (nms_gather_cuda.gather_decode_pairs, "gather_decode.cu",
+                                "nms_gather_pallas.py:698", "det"),
+        "gather_decode_top_m": (nms_gather_cuda.gather_decode_top_m, "gather_decode.cu",
+                                "nms_gather_pallas.py:698", "hier"),
+        "finalize_candidates": (nms_gather_cuda.finalize_candidates, "finalize.cu",
+                                "nms_gather_pallas.py:480", "hier"),
+        "nms_keep_mask": (nms_cuda.nms_keep_mask, "nms.cu", "nms_pallas.py:212", "hier"),
+        "compact_and_pad": (nms_cuda.compact_and_pad, "nms.cu", "nms_pallas.py:156", "hier"),
+        "conv_down2_bn_leaky": (conv_cuda.conv_down2_bn_leaky, "conv_down2.cu",
+                                "conv_pallas.py:91", "conv"),
+        "multilevel_roi_align": (roi_align_cuda.multilevel_roi_align, "roi_align.cu",
+                                 "roi_align_pallas.py:143", "frcnn"),
+    }
+
+
+CHILD_FLAG = "--phases"
+CHILD_GROUPS = ("detector_train", "int8_and_export")
+
+
+def child_main(group: str) -> int:
+    """One group of phases in a process of its own (``child_phases``):
+    ``detector_train``, or ``int8_and_export`` (the main path's model and
+    frames made again from their seeds, then the ``int8`` and ``export``
+    phases).  Its last line is its launch counts (and K5's rows in the
+    train steps), with the profiler windows it had to take again."""
+    import torch
+
+    from viddet_tpu_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build()  # the parent's build, found by its source hash
+    build.library()
+    kernels = {name: row[0] for name, row in kernel_table().items()}
+    dev = torch.device("cuda:0")
+    k5_rows = {}
+    if group == "detector_train":
+        launches, k5_rows = detector_train_phase(dev, kernels)
+    else:
+        from viddet_tpu_torch.cli.common import make_predictor
+        from viddet_tpu_torch.models.zoo import get_model
+        from viddet_tpu_torch.weights import init_flat, load_flat
+
+        model, _ = get_model(MODEL)
+        load_flat(model, init_flat(MODEL, seed=0))
+        rng = np.random.default_rng(0)  # main_path_phase's frames
+        images = torch.from_numpy(rng.integers(
+            0, 256, (max(E2E_BATCHES), IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)).pin_memory()
+        launches = int8_phase(dev, kernels, model, make_predictor(model), images)
+        launches.update(export_phase(dev, kernels, model))
+    emit({"phase": f"{group}_result", "launches": launches, "k5_rows": k5_rows,
+          "incomplete_windows": INCOMPLETE_WINDOWS, "spins_lost": SPINS_LOST})
+    return 0
+
+
+def child_phases(group: str) -> dict:
+    """Run ``child_main(group)`` in a child process, its lines passed
+    through; returns its result line, and its failure fails the run.  A
+    process of its own starts the profiler afresh: after some 30 windows
+    in one process the profiler drops records, and the train steps'
+    windows at the end of the run came back without them in some runs
+    (PR 16 runs 5 and 7)."""
+    result = None
+    with subprocess.Popen([sys.executable, os.path.abspath(__file__), CHILD_FLAG, group],
+                          stdout=subprocess.PIPE, text=True) as proc:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            if line.startswith(f'{{"phase": "{group}_result"'):
+                result = json.loads(line)
+        rc = proc.wait(timeout=1200)
+    check(rc == 0 and result is not None, f"the {group} phases exited {rc}")
+    INCOMPLETE_WINDOWS.extend(result["incomplete_windows"])
+    SPINS_LOST.extend(result["spins_lost"])
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3668,9 +4165,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from viddet_tpu_torch.kernels import build
-    from viddet_tpu_torch.ops import (
-        conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda,
-    )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3696,24 +4190,7 @@ def main() -> int:
           "seconds": kernels_s, "codec_seconds": codec_s[0],
           "both_seconds": time.perf_counter() - t0})
 
-    # (wrapper, source, the TPU kernel it replaces, the path its launches are read on)
-    table = {
-        "anchor_scores": (nms_gather_cuda.anchor_scores, "anchor_scores.cu",
-                          "nms_gather_pallas.py:611", "hier"),
-        "topk_indices": (topk_cuda.topk_indices, "topk_select.cu", "topk_pallas.py:237", "hier"),
-        "gather_decode_pairs": (nms_gather_cuda.gather_decode_pairs, "gather_decode.cu",
-                                "nms_gather_pallas.py:698", "det"),
-        "gather_decode_top_m": (nms_gather_cuda.gather_decode_top_m, "gather_decode.cu",
-                                "nms_gather_pallas.py:698", "hier"),
-        "finalize_candidates": (nms_gather_cuda.finalize_candidates, "finalize.cu",
-                                "nms_gather_pallas.py:480", "hier"),
-        "nms_keep_mask": (nms_cuda.nms_keep_mask, "nms.cu", "nms_pallas.py:212", "hier"),
-        "compact_and_pad": (nms_cuda.compact_and_pad, "nms.cu", "nms_pallas.py:156", "hier"),
-        "conv_down2_bn_leaky": (conv_cuda.conv_down2_bn_leaky, "conv_down2.cu",
-                                "conv_pallas.py:91", "conv"),
-        "multilevel_roi_align": (roi_align_cuda.multilevel_roi_align, "roi_align.cu",
-                                 "roi_align_pallas.py:143", "frcnn"),
-    }
+    table = kernel_table()
     kernels = {name: row[0] for name, row in table.items()}
     floor = launch_floor_ms(dev, build)
     with torch.inference_mode():
@@ -3753,12 +4230,14 @@ def main() -> int:
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
     del frcnn_predictor
     launches["train"] = train_phase(dev, kernels)
-    detector_launches, k5_rows = detector_train_phase(dev, kernels)
-    launches.update(detector_launches)
+    child = child_phases("detector_train")
+    launches.update(child["launches"])
+    k5_rows = child["k5_rows"]
     for path, row in k5_rows.items():
         rows["nms_keep_mask"].setdefault("on_paths", {})[path] = {
             key: row[key] for key in ("ms", "plain_ms", "library_ms")
         } | {"bound_ms": row["bound"][0], "bound_by": row["bound"][1]}
+    launches.update(child_phases("int8_and_export")["launches"])
     emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS,
           "windows_with_spins_lost": len(SPINS_LOST), "spins_lost": SPINS_LOST})
 
@@ -3784,4 +4263,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == CHILD_FLAG and sys.argv[2] in CHILD_GROUPS:
+        sys.exit(child_main(sys.argv[2]))
     sys.exit(main())

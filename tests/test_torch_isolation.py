@@ -53,7 +53,9 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
         "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms, "
         "viddet_tpu_torch.native.avi, viddet_tpu_torch.utils.video, viddet_tpu_torch.utils.gif, "
-        "viddet_tpu_torch.cli.extract_frames, viddet_tpu_torch.cli.visualise; "
+        "viddet_tpu_torch.cli.extract_frames, viddet_tpu_torch.cli.visualise, "
+        "viddet_tpu_torch.quant, viddet_tpu_torch.infer.export, viddet_tpu_torch.ops, "
+        "viddet_tpu_torch.cli.export_model; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'viddet_tpu', 'cv2', 'PIL')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -115,6 +117,66 @@ def test_wrappers_never_fall_back_for_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_cuda.multilevel_roi_align(pyramid, torch.zeros((2, 3, 4), device="meta"),
                                             (4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_gather_cuda.anchor_scores(cells, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_gather_cuda.gather_decode_pairs(cells, idx, ((4, 2, 32, anchors),))
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_cuda.compact_and_pad(*(torch.zeros((2, 8), device="meta"),) * 3,
+                                 torch.zeros((2, 8, 4), device="meta"), 4)
+
+
+def test_custom_ops_launch_or_raise_for_cuda():
+    """Each ``torch.ops.viddet`` op's CUDA implementation launches its
+    kernel or raises; given tensors it cannot launch on (meta here) it
+    raises before any launch, and never runs the plain version."""
+    from viddet_tpu_torch.ops import conv_cuda, nms_cuda, nms_gather_cuda, roi_align_cuda, topk_cuda
+
+    m = "meta"
+    cells = [torch.zeros((2, 4, 3 * 25), device=m)]
+    idx = torch.zeros((2, 5), dtype=torch.int64, device=m)
+    margs = nms_gather_cuda.meta_args(((4, 2, 32, ((10.0, 13.0), (33.0, 23.0), (373.0, 326.0))),))
+    vec = torch.ones(16, device=m)
+    calls = [
+        (topk_cuda._topk_indices_cuda, (torch.zeros((2, 8), device=m), 3)),
+        (nms_cuda._nms_keep_mask_cuda, (torch.zeros((2, 8, 4), device=m),
+                                        torch.zeros((2, 8), dtype=torch.bool, device=m), 0.5)),
+        (nms_cuda._compact_and_pad_cuda, (*(torch.zeros((2, 8), device=m),) * 3,
+                                          torch.zeros((2, 8, 4), device=m), 4)),
+        (nms_gather_cuda._anchor_scores_cuda, (cells, 3)),
+        (nms_gather_cuda._gather_decode_pairs_cuda, (cells, idx, *margs, 3)),
+        (nms_gather_cuda._gather_decode_top_m_cuda, (cells, idx, *margs, 3, 9, 2)),
+        (nms_gather_cuda._finalize_candidates_cuda, (
+            torch.zeros((2, 5, 9), dtype=torch.int64, device=m),
+            torch.zeros((2, 1, 2), dtype=torch.int64, device=m), idx,
+            torch.zeros((2, 5, 4), device=m), 20)),
+        (roi_align_cuda._roi_align_cuda, ([torch.zeros((2, 8, 8, 16), device=m)],
+                                          torch.zeros((2, 3, 4), device=m), [4], 7, 2, 2)),
+        (conv_cuda._conv_down2_cuda, (
+            torch.zeros((1, 8, 4, 4), device=m).contiguous(memory_format=torch.channels_last),
+            torch.zeros((16, 8, 3, 3), device=m), vec, vec, vec, vec, 1e-5, 0.1)),
+    ]
+    assert len(calls) == len(__import__("viddet_tpu_torch.ops", fromlist=["OP_NAMES"]).OP_NAMES)
+    for fn, args in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+
+
+def test_int8_conv_never_takes_the_float64_route_off_the_cpu(monkeypatch):
+    """The int8 conv's plain float64 route is for CPU tensors only: another
+    device takes the card route (``torch._int_mm``, which raises for a shape
+    it refuses) or raises; it is never sent to float64."""
+    from viddet_tpu_torch import quant
+
+    def plain(*_):
+        raise AssertionError("the float64 route ran")
+
+    monkeypatch.setattr(quant, "conv_acc_plain", plain)
+    xq = torch.zeros((1, 6, 6, 8), dtype=torch.int8, device="meta")
+    wq = torch.zeros((16, 3, 3, 8), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.conv_acc(xq, wq, 1)
+    assert quant.conv_acc_card(xq, wq, 2).shape == (1, 3, 3, 16)  # im2col and _int_mm only
 
 
 def test_codec_build_links_no_image_library():

@@ -209,3 +209,16 @@ def test_flagship_darknet53_416_matches_golden_and_live_jax(det_ranking):
     _assert_ref_scores_separated(fixture[0], fixture[1])
     for want in (fixture, compute_flagship_detections("xla")):
         _assert_dets(got, want, 1e-5, 1e-2)
+
+
+def test_decode_constants_made_under_inference_mode_serve_a_train_step():
+    """The cached decode constants are made outside inference mode: a train
+    step after an inference call on the same sizes backpropagates."""
+    model = torch_yolo3.YOLOv3(num_classes=3, backbone="tiny")
+    model = model.to(memory_format=torch.channels_last).eval()
+    x = torch.rand(1, 64, 64, 3)
+    with torch.inference_mode():
+        torch_yolo3.flatten_outputs(model(x))
+    out = torch_yolo3.flatten_outputs(model.train()(x))
+    out["boxes"].sum().backward()
+    assert all(p.grad is not None for p in model.parameters() if p.requires_grad)

@@ -223,8 +223,13 @@ def make_predictor(model: torch.nn.Module, nms: NMSConfig | None = None):
     uint8 frames are ImageNet-normalized on the device, with the
     expression of ``viddet_tpu/train/loop.py:37`` ``_maybe_normalize``
     (a quarter of the host->device bytes of float frames), broadcast over
-    the leading dimensions; float batches pass through untouched.
+    the leading dimensions; float batches pass through untouched.  An int8
+    model must be calibrated first (``quant.check_calibrated`` raises).
     """
+    from viddet_tpu_torch import quant
+
+    if quant.quant_cells(model):
+        quant.check_calibrated(model)
     device = next(model.parameters()).device
     mean = torch.as_tensor(IMAGENET_MEAN, device=device)
     std = torch.as_tensor(IMAGENET_STD, device=device)
@@ -389,3 +394,36 @@ def build_for_training(args, built=None, **model_kw):
                                          device=device, **model_kw)
         load_flat(model, seeded_flat(model, seed=args.seed))
     return model.train(), class_names, (train_ds, val_ds, metric_factory)
+
+
+def add_quant_flags(p) -> None:
+    """``--quant int8`` and ``--calib-batches`` (``viddet_tpu/cli/common.py:301``):
+    post-training int8 inference (``viddet_tpu_torch/quant.py``), the conv
+    cells as BN-folded int8 convs after a short calibration of activation
+    ranges.  Not bit for bit with the float path; off by default."""
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="post-training quantization for inference (int8 convs; "
+                        "calibrated over --calib-batches batches)")
+    p.add_argument("--calib-batches", type=int, default=4,
+                   help="batches used to calibrate activation ranges for --quant")
+
+
+def quant_policy_kw(args) -> dict:
+    """Model-factory kwargs for ``--quant`` ({} when unset)."""
+    if not getattr(args, "quant", ""):
+        return {}
+    from viddet_tpu_torch.core.precision import INT8_POLICY
+
+    return {"policy": INT8_POLICY}
+
+
+def calibrate_variables(model: torch.nn.Module, batches, logger) -> torch.nn.Module:
+    """Calibrate an int8 model's activation ranges over ``batches`` (each a
+    normalized NHWC batch, or clips, on the model's device), in place;
+    returns the model."""
+    from viddet_tpu_torch import quant
+
+    quant.calibrate(model, batches)
+    logger.info("int8 calibration: %d batches, %d conv cells ranged", len(batches),
+                len(quant.quant_cells(model)))
+    return model

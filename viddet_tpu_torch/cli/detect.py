@@ -15,11 +15,19 @@ through ``infer.stream.stream_detect_video``; several (comma-separated),
 ``infer.multistream.stream_detect_videos``.  They write
 ``{stem}_det.avi`` (JAX: ``_det.mp4``) and ``{stem}_det.txt``.  Another
 container, or a webcam index, raises ValueError before the model is built.
-The JAX CLI's ``--quant`` and ``--calib-images`` have no counterpart yet.
+
+``--quant int8`` builds the model under ``INT8_POLICY`` (``quant.py``) and
+calibrates its activation ranges on ``--calib-batches`` batches of
+``--calib-images`` (a file or a directory; the inputs may be a stream, so
+the calibration set is named apart), normalized on the host; a temporal
+model calibrates on static clips of those images.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.detect --network yolo3_darknet53 --dataset voc \
       --weights model.npz --input clip.avi --output out/ --thresh 0.5 --save-detections
+  # int8 convs, ranges from 4 batches of calibration images
+  python -m viddet_tpu_torch.cli.detect --network yolo3_darknet53 --dataset voc \
+      --weights model.npz --input images/ --output out/ --quant int8 --calib-images calib/
 """
 
 from __future__ import annotations
@@ -30,17 +38,21 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from viddet_tpu_torch.cli.common import (
+    add_quant_flags,
     build_model,
+    calibrate_variables,
     load_weights_or_seed,
     make_predictor,
     parse_with_config,
     platform_device,
+    quant_policy_kw,
     setup_logging,
 )
 from viddet_tpu_torch.data.base import imread_rgb
-from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes, normalize
 from viddet_tpu_torch.infer.service import to_device_batch
 from viddet_tpu_torch.utils.image import draw_detections, imwrite
 from viddet_tpu_torch.utils.video import check_source
@@ -77,6 +89,10 @@ def parse_args(argv=None):
                    help="emit one clip per this many frames")
     p.add_argument("--temporal-agg", default="max",
                    choices=("stack", "max", "mean", "conv"))
+    add_quant_flags(p)
+    p.add_argument("--calib-images", default="",
+                   help="image file or directory to calibrate --quant int8 activation ranges "
+                        "on (required with --quant: the inputs may be a live stream)")
     return parse_with_config(p, argv)
 
 
@@ -109,6 +125,29 @@ def detection_lines(ids, scores, boxes, class_names, thresh: float) -> str:
         for cid, s, bb in zip(ids, scores, boxes) if cid >= 0 and s >= thresh)
 
 
+def calibrate_for_detect(model, args, transform, logger):
+    """Calibrate an int8 model from ``--calib-images`` (``viddet_tpu/cli/detect.py:92``):
+    up to ``--calib-batches`` batches of ``--batch-size`` images through
+    ``transform`` and normalized on the host; a temporal model takes
+    static clips (each image k times)."""
+    if not args.calib_images:
+        raise SystemExit("--quant int8 needs --calib-images (file or dir)")
+    kind, files = collect_inputs(args.calib_images)
+    if kind != "images" or not files:
+        raise SystemExit(f"--calib-images {args.calib_images!r}: no images")
+    device = next(model.parameters()).device
+    limit = args.batch_size * max(1, args.calib_batches)
+    k = getattr(args, "temporal_k", 1)
+    batches = []
+    for start in range(0, min(len(files), limit), args.batch_size):
+        batch = normalize(np.stack([transform(imread_rgb(f))[0]
+                                    for f in files[start:start + args.batch_size]]))
+        if k > 1:  # a static clip: the same frame k times
+            batch = np.repeat(batch[:, None], k, axis=1)
+        batches.append(torch.from_numpy(batch).to(device))
+    return calibrate_variables(model, batches, logger)
+
+
 def main(argv=None, built=None):
     """Run the CLI; ``built``: a caller's (model, class names), weights
     loaded, instead of the model that the flags name.  Returns the number
@@ -136,17 +175,20 @@ def main(argv=None, built=None):
         backbone = "tiny" if "tiny" in args.network else "darknet53"
         model, class_names = temporal_yolo3_custom(list(class_names), k=args.temporal_k,
                                                    aggregation=args.temporal_agg,
-                                                   backbone=backbone)
+                                                   backbone=backbone, **quant_policy_kw(args))
         model = place(model, device)
         load_weights_or_seed(model, args.weights)
     else:
-        model, class_names = build_model(args.network, args.dataset, device=device)
+        model, class_names = build_model(args.network, args.dataset, device=device,
+                                         **quant_policy_kw(args))
         load_weights_or_seed(model, args.weights)
+    transform = ValTransform(size=(args.data_shape, args.data_shape), letterbox_resize=True,
+                             normalize=False)
+    if args.quant:
+        calibrate_for_detect(model, args, transform, logger)
     # uint8 frames cross to the device and are normalized there (a quarter
     # of the bytes of float frames; see make_predictor)
     infer = make_predictor(model)
-    transform = ValTransform(size=(args.data_shape, args.data_shape), letterbox_resize=True,
-                             normalize=False)
     if kind == "video":
         return detect_videos(args, files, infer, transform, class_names, device, logger)
 

@@ -6,7 +6,9 @@ Builds the val loader and the dataset's metric, runs the predictor
 the detections to original image coordinates, accumulates the metric and
 prints its table.  One process evaluates the whole set (or the shard that
 ``VIDDET_EVAL_SHARD=i,count`` names); the cross-process gather of metric
-states and the ``--quant`` flags have no counterpart yet.
+states has no counterpart yet.  ``--quant int8`` builds the model under
+``INT8_POLICY`` and calibrates it on the first ``--calib-batches`` loader
+batches, normalized on the host (``viddet_tpu/cli/evaluate.py:101-120``).
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.evaluate --network yolo3_darknet53 \
@@ -23,18 +25,22 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from viddet_tpu_torch.cli.common import (
+    add_quant_flags,
     build_model,
+    calibrate_variables,
     get_dataset,
     load_weights,
     make_predictor,
     parse_with_config,
     platform_device,
+    quant_policy_kw,
     setup_logging,
 )
 from viddet_tpu_torch.data.loader import DetectionLoader
-from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes, normalize
 from viddet_tpu_torch.infer.service import to_device_batch
 from viddet_tpu_torch.weights import load_flat, seeded_flat
 
@@ -65,6 +71,7 @@ def parse_args(argv=None):
     p.add_argument("--temporal-stride", type=int, default=1)
     p.add_argument("--temporal-agg", default="max",
                    choices=["stack", "max", "mean", "conv"])
+    add_quant_flags(p)
     return parse_with_config(p, argv)
 
 
@@ -90,32 +97,9 @@ def evaluate(model, dataset, metric, args, logger, stats: dict | None = None):
     step (copy in, forward pass and tail, results back on the host) and the
     metric update with its host rescale (and the detections file).
     """
-    from viddet_tpu_torch.data.clip_transforms import ClipValTransform
-
     device = next(model.parameters()).device
     infer = make_predictor(model)
-
-    size = (args.data_shape, args.data_shape)
-    if getattr(args, "temporal_k", 1) > 1:
-        transform = ClipValTransform(
-            size=size, letterbox_resize=args.letterbox, k=args.temporal_k,
-            normalize=not args.device_normalize,
-        )
-    else:
-        transform = ValTransform(size=size, letterbox_resize=args.letterbox,
-                                 normalize=not args.device_normalize)
-    # VIDDET_EVAL_SHARD=i,count evaluates a strided shard of the val set
-    # (the loader keeps uneven tails: eval must not drop images).
-    shard_env = os.environ.get("VIDDET_EVAL_SHARD", "")
-    shard = tuple(int(x) for x in shard_env.split(",")) if shard_env else None
-    loader = DetectionLoader(
-        dataset,
-        transform,
-        batch_size=args.batch_size,
-        train=False,
-        num_workers=args.num_workers,
-        shard=shard,
-    )
+    loader = val_loader(dataset, args)
 
     split = {"loader_s": 0.0, "device_s": 0.0, "metric_s": 0.0}
     t0 = time.perf_counter()
@@ -169,6 +153,47 @@ def evaluate(model, dataset, metric, args, logger, stats: dict | None = None):
     if stats is not None:
         stats.update(images=seen, seconds=dt, **split)
     return metric.get()
+
+
+def val_loader(dataset, args) -> DetectionLoader:
+    """The evaluation loader: ``ValTransform`` (``ClipValTransform`` for a
+    temporal model) at ``--data-shape``, batches of ``--batch-size``."""
+    from viddet_tpu_torch.data.clip_transforms import ClipValTransform
+
+    size = (args.data_shape, args.data_shape)
+    if getattr(args, "temporal_k", 1) > 1:
+        transform = ClipValTransform(
+            size=size, letterbox_resize=args.letterbox, k=args.temporal_k,
+            normalize=not args.device_normalize,
+        )
+    else:
+        transform = ValTransform(size=size, letterbox_resize=args.letterbox,
+                                 normalize=not args.device_normalize)
+    # VIDDET_EVAL_SHARD=i,count evaluates a strided shard of the val set
+    # (the loader keeps uneven tails: eval must not drop images).
+    shard_env = os.environ.get("VIDDET_EVAL_SHARD", "")
+    shard = tuple(int(x) for x in shard_env.split(",")) if shard_env else None
+    return DetectionLoader(dataset, transform, batch_size=args.batch_size, train=False,
+                           num_workers=args.num_workers, shard=shard)
+
+
+def calibrate_on_loader(model, dataset, args, logger):
+    """Calibrate an int8 model on the first ``--calib-batches`` batches of
+    the evaluation loader, uint8 batches normalized on the host first."""
+    device = next(model.parameters()).device
+    batches, it = [], iter(val_loader(dataset, args))
+    try:
+        for _ in range(max(1, args.calib_batches)):
+            try:
+                images = next(it)[0]
+            except StopIteration:
+                break
+            if images.dtype == np.uint8:
+                images = normalize(images)
+            batches.append(torch.from_numpy(np.ascontiguousarray(images)).to(device))
+    finally:
+        it.close()
+    return calibrate_variables(model, batches, logger)
 
 
 def rescore_from_detections(dataset, metric, path, logger):
@@ -235,12 +260,13 @@ def main(argv=None):
         backbone = "tiny" if "tiny" in args.network else "darknet53"
         model, class_names = temporal_yolo3_custom(
             dataset.classes, k=args.temporal_k, aggregation=args.temporal_agg,
-            backbone=backbone,
+            backbone=backbone, **quant_policy_kw(args),
         )
         model = place(model, device)
     else:
         model, class_names = build_model(args.network, args.dataset,
-                                         classes=dataset.classes, device=device)
+                                         classes=dataset.classes, device=device,
+                                         **quant_policy_kw(args))
     if args.weights:
         load_weights(model, args.weights)
     else:
@@ -248,6 +274,8 @@ def main(argv=None):
         # JAX's module.init(key(0)), so the two packages' random-weight
         # runs differ unless both load one .npz
         load_flat(model, seeded_flat(model, seed=0))
+    if args.quant:
+        calibrate_on_loader(model, dataset, args, logger)
     metric = metric_factory(class_names)
     log_table(logger, *evaluate(model, dataset, metric, args, logger))
 

@@ -13,12 +13,13 @@ Endpoints:
                             [{"class_id", "class_name", "score",
                               "box": [x1, y1, x2, y2]}]}   (original coords)
 
-An upload the port's codec cannot decode gets a 400.  The JAX CLI's
-``--quant`` and ``--calib-images`` have no counterpart yet.
+An upload the port's codec cannot decode gets a 400.  ``--quant int8``
+calibrates on ``--calib-images`` before serving, as ``cli.detect`` does.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.serve --network yolo3_darknet53 --dataset coco \
       --weights weights.npz --port 8000 --batch-size 16 &
+  (add ``--quant int8 --calib-images calib/`` for int8 convs)
   curl -s --data-binary @image.jpg http://127.0.0.1:8000/detect
 """
 
@@ -34,11 +35,13 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from viddet_tpu_torch.cli.common import (
+    add_quant_flags,
     build_model,
     load_weights_or_seed,
     make_predictor,
     parse_with_config,
     platform_device,
+    quant_policy_kw,
     setup_logging,
 )
 from viddet_tpu_torch.data.base import decode_rgb
@@ -62,6 +65,10 @@ def parse_args(argv=None):
     p.add_argument("--flush-ms", type=float, default=5.0,
                    help="max wait to fill a batch once one request is held")
     p.add_argument("--request-timeout", type=float, default=30.0)
+    add_quant_flags(p)
+    p.add_argument("--calib-images", default="",
+                   help="image file or directory for --quant int8 range calibration "
+                        "(required with --quant)")
     return parse_with_config(p, argv)
 
 
@@ -157,13 +164,18 @@ def serve_forever(args, logger, built=None) -> ThreadingHTTPServer:
     the model that ``args`` names."""
     device = platform_device(args.platform)
     if built is None:
-        model, class_names = build_model(args.network, args.dataset, device=device)
+        model, class_names = build_model(args.network, args.dataset, device=device,
+                                         **quant_policy_kw(args))
         load_weights_or_seed(model, args.weights)
     else:
         model, class_names = built
-    infer = make_predictor(model)
     transform = ValTransform(size=(args.data_shape, args.data_shape),
                              letterbox_resize=True, normalize=False)
+    if args.quant:
+        from viddet_tpu_torch.cli.detect import calibrate_for_detect
+
+        calibrate_for_detect(model, args, transform, logger)
+    infer = make_predictor(model)
     service = DetectionService(infer, transform, batch_size=args.batch_size,
                                flush_ms=args.flush_ms, device=device)
     # one request before traffic, so the first client does not pay the

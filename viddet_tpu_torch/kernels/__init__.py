@@ -6,6 +6,14 @@ from __future__ import annotations
 import torch
 
 
+def on_card(t: torch.Tensor, name: str) -> None:
+    """A wrapper's guard before its custom op: a tensor that is on neither
+    the CPU (the plain version) nor a CUDA card (the kernel) raises; it
+    never reaches the op's fake implementation as a meta tensor would."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+
+
 def require(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/shape
     (and on ``device`` when given): what a kernel launch may assume."""

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from viddet_tpu_torch import quant
 from viddet_tpu_torch.core.platform import conv_backend
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from viddet_tpu_torch.ops.conv_cuda import conv_down2_bn_leaky
@@ -91,8 +92,15 @@ def _pad_same(x: torch.Tensor, window: int, stride: int, value: float = 0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
 
 
-class ConvBNLeaky(nn.Module):
+class ConvBNLeaky(nn.Module, quant.Int8Cell):
     """kxk conv ("SAME", no bias) -> BatchNorm -> LeakyReLU(0.1).
+
+    Under an int8 policy (``policy.quant == "int8"``) the cell carries a
+    float32 ``act_amax`` buffer, and in eval mode runs the BN-folded int8
+    conv of ``quant.py`` (leaky ReLU on its float32 epilogue) before any
+    other route, as ``viddet_tpu/models/common.py:96-104`` does: K8 never
+    runs under int8.  Inside ``quant.calibration()`` it records max|x| of
+    its input, then takes the float path; train mode takes the float path.
 
     As in ``viddet_tpu/models/common.py:106-138``, in eval mode a stride-2
     3x3 layer with Cin < 256 on an even H and W runs K8
@@ -111,6 +119,8 @@ class ConvBNLeaky(nn.Module):
         self.policy, self.scope = policy, scope
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        if policy.quant == "int8":
+            self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32))
 
     def fused_down2(self, x: torch.Tensor) -> bool:
         """Whether this call runs K8 (the JAX package's routing condition)."""
@@ -119,6 +129,10 @@ class ConvBNLeaky(nn.Module):
                 and conv_backend() == "pallas")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.policy.quant == "int8" and not self.training:
+            if not quant.is_calibrating():
+                return self.int8_forward(x, "leaky", self.policy.compute_dtype)
+            self.record_range(x)
         if self.fused_down2(x):
             bn = self.bn
             return conv_down2_bn_leaky(x, self.conv.weight, bn.weight, bn.bias,

@@ -17,17 +17,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from viddet_tpu_torch import quant
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from viddet_tpu_torch.models.common import (
     BN_EPS, FlaxNames, _pad_same, batch_norm_train, maxpool2d,
 )
 
 
-class ConvBN(nn.Module):
+class ConvBN(nn.Module, quant.Int8Cell):
     """conv ("SAME", no bias) -> BatchNorm -> optional ReLU: the JAX
     package's ``_ConvBN``, with its weights under ``scope``.  BatchNorm uses
     the running statistics in eval mode and the batch's in train mode
-    (``batch_norm_train``)."""
+    (``batch_norm_train``).  Under an int8 policy it quantizes as
+    ``ConvBNLeaky`` does (``resnet.py:37-47``), with activation "relu" or
+    "none"."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                  act: bool = True, policy: Policy = DEFAULT_POLICY, scope: str = ""):
@@ -36,8 +39,15 @@ class ConvBN(nn.Module):
         self.policy, self.scope = policy, scope
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        if policy.quant == "int8":
+            self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.policy.quant == "int8" and not self.training:
+            if not quant.is_calibrating():
+                return self.int8_forward(x, "relu" if self.act else "none",
+                                         self.policy.compute_dtype)
+            self.record_range(x)
         x, pad = _pad_same(x, self.kernel_size, self.stride)
         x = F.conv2d(x, self.conv.weight.to(self.policy.compute_dtype), stride=self.stride,
                      padding=pad)

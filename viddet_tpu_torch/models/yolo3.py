@@ -165,8 +165,11 @@ class YOLOv3(nn.Module):
 def _decode_constants(meta, device: torch.device):
     """``decode_constants``, built on the device once per meta: its
     host-to-device copies would wait for the work queued before them, and
-    the training step would stall the host after its forward pass."""
-    return decode_constants(meta, device)
+    the training step would stall the host after its forward pass.  Made
+    outside inference mode, so a train step may use a table first made
+    under it."""
+    with torch.inference_mode(False):
+        return decode_constants(meta, device)
 
 
 def flatten_outputs(outputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:

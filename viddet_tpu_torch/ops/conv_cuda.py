@@ -24,6 +24,10 @@ Flax's compute-dtype convolution does.
 Layouts are the port's: x (B, Cin, H, W) in ``torch.channels_last`` memory
 (the JAX package's NHWC), weight (Cout, Cin, 3, 3) as ``nn.Conv2d`` keeps
 it; the result is (B, Cout, H/2, W/2), channels_last.
+
+The kernel is the custom op ``viddet::conv_down2_bn_leaky``
+(``ops/__init__.py``): its CUDA implementation launches it, so that an
+artifact exported under ``VIDDET_CONV_BACKEND=pallas`` carries it.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from viddet_tpu_torch.kernels import build, require
+from viddet_tpu_torch.kernels import build, on_card, require
 
 MAX_CIN = 255  # the routing's Cin < 256 (viddet_tpu/models/common.py:111)
 CHUNK = 64  # channels of one TMA box: 128 bytes of bf16, one swizzle span
@@ -132,6 +136,20 @@ def conv_down2_bn_leaky(x, weight, scale, bias, mean, var, eps: float = 1e-5,
     if x.device.type == "cpu":
         return conv_down2_bn_leaky_plain(x, weight, scale, bias, mean, var, eps,
                                          negative_slope)
+    on_card(x, "conv_down2_bn_leaky")
+    return torch.ops.viddet.conv_down2_bn_leaky(x, weight, scale, bias, mean, var, float(eps),
+                                                float(negative_slope))
+
+
+@torch.library.custom_op("viddet::conv_down2_bn_leaky", mutates_args=(), device_types="cpu")
+def _conv_down2_op(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                   negative_slope: float) -> torch.Tensor:
+    return conv_down2_bn_leaky_plain(x, weight, scale, bias, mean, var, eps, negative_slope)
+
+
+@_conv_down2_op.register_kernel("cuda")
+def _conv_down2_cuda(x, weight, scale, bias, mean, var, eps, negative_slope):
     _check_even(x)
     b, cin, h, w = x.shape
     if cin > MAX_CIN:
@@ -175,6 +193,15 @@ def conv_down2_bn_leaky(x, weight, scale, bias, mean, var, eps: float = 1e-5,
     build.check(err, "conv_down2_bn_leaky")
     conv_down2_bn_leaky.launches += 1
     return out
+
+
+
+@_conv_down2_op.register_fake
+def _(x, weight, scale, bias, mean, var, eps, negative_slope):
+    _check_even(x)
+    b, _, h, w = x.shape
+    return torch.empty((b, weight.shape[0], h // 2, w // 2), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
 
 
 conv_down2_bn_leaky.launches = 0

@@ -8,14 +8,16 @@ wrapper call launching both.
 The plain versions are the JAX package's references
 (``viddet_tpu/ops/nms.py:38`` ``nms_keep_mask`` and ``:70``
 ``_compact_and_pad``) written batched; ``ops/nms.py`` exports them under
-those names.
+those names.  Each kernel is a custom op (``viddet::nms_keep_mask``,
+``viddet::compact_and_pad``; ``ops/__init__.py``) whose CUDA
+implementation launches it, so that ``torch.export`` carries it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from viddet_tpu_torch.kernels import build, require
+from viddet_tpu_torch.kernels import build, on_card, require
 from viddet_tpu_torch.ops.boxes import box_iou
 
 # The scan kernel keeps an image's suppression bitmask (ceil(K/64)^2 * 64
@@ -55,6 +57,19 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -
         raise ValueError("nms_keep_mask: boxes must not require grad; detach them")
     if boxes.device.type == "cpu":
         return nms_keep_mask_plain(boxes, valid, iou_thresh)
+    on_card(boxes, "nms_keep_mask")
+    return torch.ops.viddet.nms_keep_mask(boxes, valid, float(iou_thresh))
+
+
+@torch.library.custom_op("viddet::nms_keep_mask", mutates_args=(), device_types="cpu")
+def _nms_keep_mask_op(boxes: torch.Tensor, valid: torch.Tensor,
+                      iou_thresh: float) -> torch.Tensor:
+    return nms_keep_mask_plain(boxes, valid, iou_thresh)
+
+
+@_nms_keep_mask_op.register_kernel("cuda")
+def _nms_keep_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                        iou_thresh: float) -> torch.Tensor:
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"nms_keep_mask: boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k, _ = boxes.shape
@@ -71,6 +86,11 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -
     build.check(err, "nms_keep_mask")
     nms_keep_mask.launches += 1
     return keep
+
+
+@_nms_keep_mask_op.register_fake
+def _(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.float32)
 
 
 nms_keep_mask.launches = 0
@@ -104,6 +124,20 @@ def compact_and_pad(keep, scores, cls_idx, boxes, post_nms: int):
     """K6 wrapper: the kernel for CUDA tensors, the plain version on the CPU."""
     if keep.device.type == "cpu":
         return compact_and_pad_plain(keep, scores, cls_idx, boxes, post_nms)
+    on_card(keep, "compact_and_pad")
+    return torch.ops.viddet.compact_and_pad(keep, scores, cls_idx, boxes, int(post_nms))
+
+
+@torch.library.custom_op("viddet::compact_and_pad", mutates_args=(), device_types="cpu")
+def _compact_and_pad_op(keep: torch.Tensor, scores: torch.Tensor, cls_idx: torch.Tensor,
+                        boxes: torch.Tensor,
+                        post_nms: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous() for t in compact_and_pad_plain(keep, scores, cls_idx, boxes,
+                                                                post_nms))
+
+
+@_compact_and_pad_op.register_kernel("cuda")
+def _compact_and_pad_cuda(keep, scores, cls_idx, boxes, post_nms):
     if keep.dim() != 2:
         raise ValueError(f"compact_and_pad: keep must be (B, K), got {tuple(keep.shape)}")
     b, k = keep.shape
@@ -125,6 +159,13 @@ def compact_and_pad(keep, scores, cls_idx, boxes, post_nms: int):
     build.check(err, "compact_and_pad")
     compact_and_pad.launches += 1
     return ids, out_scores, out_boxes
+
+
+@_compact_and_pad_op.register_fake
+def _(keep, scores, cls_idx, boxes, post_nms):
+    b = keep.shape[0]
+    return (keep.new_empty((b, post_nms)), keep.new_empty((b, post_nms)),
+            keep.new_empty((b, post_nms, 4)))
 
 
 compact_and_pad.launches = 0

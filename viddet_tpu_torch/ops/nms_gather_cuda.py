@@ -14,17 +14,21 @@ deterministic ranking runs (wrapper ``gather_decode_pairs``), and
 header says what bounds it on an H100 and how its design answers that.
 Each ``*_plain`` function is the same function in plain PyTorch: the
 wrapper runs it for a CPU tensor, and for a CUDA tensor the wrapper
-launches the kernel or raises.
+launches the kernel or raises.  Each kernel is a custom op
+(``viddet::anchor_scores``, ``viddet::gather_decode_pairs``,
+``viddet::gather_decode_top_m``, ``viddet::finalize_candidates``;
+``ops/__init__.py``) whose CUDA implementation launches it; K3's ``meta``
+crosses the op as flat lists (``meta_args``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
-from viddet_tpu_torch.kernels import build, require
+from viddet_tpu_torch.kernels import build, on_card, require
 
 MAX_SCALES = 3
 MAX_ANCHORS = 8  # anchors per scale in csrc/gather_decode.cu's table
@@ -52,6 +56,17 @@ def anchor_scores(cells: Sequence[torch.Tensor], na: int) -> torch.Tensor:
     cells = tuple(cells)
     if cells[0].device.type == "cpu":
         return anchor_scores_plain(cells, na)
+    on_card(cells[0], "anchor_scores")
+    return torch.ops.viddet.anchor_scores(list(cells), int(na))
+
+
+@torch.library.custom_op("viddet::anchor_scores", mutates_args=(), device_types="cpu")
+def _anchor_scores_op(cells: List[torch.Tensor], na: int) -> torch.Tensor:
+    return anchor_scores_plain(cells, na)
+
+
+@_anchor_scores_op.register_kernel("cuda")
+def _anchor_scores_cuda(cells, na):
     if not 1 <= len(cells) <= MAX_SCALES:
         raise ValueError(f"anchor_scores takes 1..{MAX_SCALES} scales, got {len(cells)}")
     b, _, lanes = cells[0].shape
@@ -73,6 +88,12 @@ def anchor_scores(cells: Sequence[torch.Tensor], na: int) -> torch.Tensor:
     build.check(err, "anchor_scores")
     anchor_scores.launches += 1
     return out
+
+
+@_anchor_scores_op.register_fake
+def _(cells, na):
+    return cells[0].new_empty((cells[0].shape[0], sum(x.shape[1] for x in cells) * na),
+                              dtype=torch.float32)
 
 
 anchor_scores.launches = 0
@@ -207,18 +228,31 @@ def _check_cells(name: str, cells, a_idx, meta) -> Tuple[int, int, int, int]:
     return b, a_idx.shape[1], na, lanes // na
 
 
-def _table_args(cells, meta):
+def meta_args(meta) -> tuple[list, list, list, list]:
+    """``meta`` (per scale ``(cells, width, stride, anchors)``) as the flat
+    lists a custom op takes: cells, widths, strides, anchors (w, h per
+    anchor, scale by scale)."""
+    return ([int(m[0]) for m in meta], [int(m[1]) for m in meta], [float(m[2]) for m in meta],
+            [float(v) for m in meta for wh in m[3] for v in wh])
+
+
+def meta_from_args(cells_n, widths, strides, anchors, na: int):
+    """``meta_args``'s lists back to ``meta``."""
+    return tuple((c, w, s, tuple((anchors[2 * (i * na + a)], anchors[2 * (i * na + a) + 1])
+                                 for a in range(na)))
+                 for i, (c, w, s) in enumerate(zip(cells_n, widths, strides)))
+
+
+def _table_args(cells, cells_n, widths, strides, anchors):
     """The per-scale arguments of the C entry points, padded to MAX_SCALES,
     and the host arrays of strides and anchors (kept alive by the caller)."""
-    na = len(meta[0][3])
     pad = MAX_SCALES - len(cells)
-    strides = (ctypes.c_float * len(meta))(*(float(m[2]) for m in meta))
-    anchors = (ctypes.c_float * (2 * na * len(meta)))(
-        *(float(v) for m in meta for wh in m[3] for v in wh))
+    strides_c = (ctypes.c_float * len(strides))(*strides)
+    anchors_c = (ctypes.c_float * len(anchors))(*anchors)
     args = ([x.data_ptr() for x in cells] + [None] * pad
-            + [m[0] for m in meta] + [0] * pad + [m[1] for m in meta] + [1] * pad
-            + [ctypes.addressof(strides), ctypes.addressof(anchors), len(cells)])
-    return args, (strides, anchors)
+            + list(cells_n) + [0] * pad + list(widths) + [1] * pad
+            + [ctypes.addressof(strides_c), ctypes.addressof(anchors_c), len(cells)])
+    return args, (strides_c, anchors_c)
 
 
 def gather_decode_pairs(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta,
@@ -230,11 +264,27 @@ def gather_decode_pairs(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta
         return gather_decode_top_m(cells, a_idx, meta, extract_m, hot_j)
     if cells[0].device.type == "cpu":
         return gather_decode_pairs_plain(cells, a_idx, meta)
+    on_card(cells[0], "gather_decode_pairs")
+    return torch.ops.viddet.gather_decode_pairs(list(cells), a_idx, *meta_args(meta),
+                                                len(meta[0][3]))
+
+
+@torch.library.custom_op("viddet::gather_decode_pairs", mutates_args=(), device_types="cpu")
+def _gather_decode_pairs_op(cells: List[torch.Tensor], a_idx: torch.Tensor, cells_n: List[int],
+                            widths: List[int], strides: List[float], anchors: List[float],
+                            na: int) -> tuple[torch.Tensor, torch.Tensor]:
+    meta = meta_from_args(cells_n, widths, strides, anchors, na)
+    return gather_decode_pairs_plain(cells, a_idx, meta)
+
+
+@_gather_decode_pairs_op.register_kernel("cuda")
+def _gather_decode_pairs_cuda(cells, a_idx, cells_n, widths, strides, anchors, na):
+    meta = meta_from_args(cells_n, widths, strides, anchors, na)
     b, k, na, num_pred = _check_cells("gather_decode_pairs", cells, a_idx, meta)
     dev = cells[0].device
     boxes = torch.empty((b, k, 4), dtype=torch.float32, device=dev)
     pairs = torch.empty((b, k, num_pred - 5), dtype=torch.float32, device=dev)
-    table, _keep = _table_args(cells, meta)
+    table, _keep = _table_args(cells, cells_n, widths, strides, anchors)
     err = build.library().viddet_gather_decode(
         *table, b, k, na, num_pred, int(cells[0].dtype == torch.bfloat16), a_idx.data_ptr(),
         boxes.data_ptr(), pairs.data_ptr(), build.stream_of(boxes),
@@ -242,6 +292,14 @@ def gather_decode_pairs(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta
     build.check(err, "gather_decode_pairs")
     gather_decode_pairs.launches += 1
     return boxes, pairs
+
+
+@_gather_decode_pairs_op.register_fake
+def _(cells, a_idx, cells_n, widths, strides, anchors, na):
+    b, k = a_idx.shape
+    c = cells[0].shape[-1] // na - 5
+    return a_idx.new_empty((b, k, 4), dtype=torch.float32), a_idx.new_empty(
+        (b, k, c), dtype=torch.float32)
 
 
 gather_decode_pairs.launches = 0
@@ -257,6 +315,23 @@ def gather_decode_top_m(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta
     cells = tuple(cells)
     if cells[0].device.type == "cpu":
         return gather_decode_pairs_plain(cells, a_idx, meta, m, hot_j)
+    on_card(cells[0], "gather_decode_top_m")
+    return torch.ops.viddet.gather_decode_top_m(list(cells), a_idx, *meta_args(meta),
+                                                len(meta[0][3]), int(m), int(hot_j))
+
+
+@torch.library.custom_op("viddet::gather_decode_top_m", mutates_args=(), device_types="cpu")
+def _gather_decode_top_m_op(
+    cells: List[torch.Tensor], a_idx: torch.Tensor, cells_n: List[int], widths: List[int],
+    strides: List[float], anchors: List[float], na: int, m: int, hot_j: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    meta = meta_from_args(cells_n, widths, strides, anchors, na)
+    return tuple(t.contiguous() for t in gather_decode_pairs_plain(cells, a_idx, meta, m, hot_j))
+
+
+@_gather_decode_top_m_op.register_kernel("cuda")
+def _gather_decode_top_m_cuda(cells, a_idx, cells_n, widths, strides, anchors, na, m, hot_j):
+    meta = meta_from_args(cells_n, widths, strides, anchors, na)
     b, k, na, num_pred = _check_cells("gather_decode_top_m", cells, a_idx, meta)
     c = num_pred - 5
     if not 1 <= m <= MAX_TOP_M or not 1 <= hot_j <= k or c > MAX_TOP_M_CLASSES:
@@ -268,7 +343,7 @@ def gather_decode_top_m(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta
     i_m = torch.empty((b, k, m), dtype=torch.int64, device=dev)
     hot_flat = torch.empty((b, hot_j, c), dtype=torch.float32, device=dev)
     hot_idx = torch.empty((b, 1, hot_j), dtype=torch.int64, device=dev)
-    table, _keep = _table_args(cells, meta)
+    table, _keep = _table_args(cells, cells_n, widths, strides, anchors)
     err = build.library().viddet_gather_decode_top_m(
         *table, b, k, na, num_pred, int(cells[0].dtype == torch.bfloat16), a_idx.data_ptr(),
         m, hot_j, boxes.data_ptr(), v_m.data_ptr(), i_m.data_ptr(), hot_flat.data_ptr(),
@@ -277,6 +352,16 @@ def gather_decode_top_m(cells: Sequence[torch.Tensor], a_idx: torch.Tensor, meta
     build.check(err, "gather_decode_top_m")
     gather_decode_top_m.launches += 1
     return boxes, v_m, i_m, hot_flat, hot_idx
+
+
+@_gather_decode_top_m_op.register_fake
+def _(cells, a_idx, cells_n, widths, strides, anchors, na, m, hot_j):
+    b, k = a_idx.shape
+    c = cells[0].shape[-1] // na - 5
+    f32, i64 = torch.float32, torch.int64
+    return (a_idx.new_empty((b, k, 4), dtype=f32), a_idx.new_empty((b, k, m), dtype=f32),
+            a_idx.new_empty((b, k, m), dtype=i64), a_idx.new_empty((b, hot_j, c), dtype=f32),
+            a_idx.new_empty((b, 1, hot_j), dtype=i64))
 
 
 gather_decode_top_m.launches = 0
@@ -315,6 +400,20 @@ def finalize_candidates(i_m: torch.Tensor, hot_idx: torch.Tensor, q: torch.Tenso
     """K4 wrapper: the kernel for CUDA tensors, the plain version on the CPU."""
     if i_m.device.type == "cpu":
         return finalize_candidates_plain(i_m, hot_idx, q, boxes_k, num_classes)
+    on_card(i_m, "finalize_candidates")
+    return torch.ops.viddet.finalize_candidates(i_m, hot_idx, q, boxes_k, int(num_classes))
+
+
+@torch.library.custom_op("viddet::finalize_candidates", mutates_args=(), device_types="cpu")
+def _finalize_candidates_op(i_m: torch.Tensor, hot_idx: torch.Tensor, q: torch.Tensor,
+                            boxes_k: torch.Tensor,
+                            num_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous() for t in finalize_candidates_plain(i_m, hot_idx, q, boxes_k,
+                                                                    num_classes))
+
+
+@_finalize_candidates_op.register_kernel("cuda")
+def _finalize_candidates_cuda(i_m, hot_idx, q, boxes_k, num_classes):
     if i_m.dim() != 3 or i_m.shape[-1] < 2:
         raise ValueError(f"finalize_candidates: i_m must be (B, k, m >= 2), got {tuple(i_m.shape)}")
     b, k, m = i_m.shape
@@ -339,6 +438,13 @@ def finalize_candidates(i_m: torch.Tensor, hot_idx: torch.Tensor, q: torch.Tenso
     build.check(err, "finalize_candidates")
     finalize_candidates.launches += 1
     return cls_idx, cand
+
+
+@_finalize_candidates_op.register_fake
+def _(i_m, hot_idx, q, boxes_k, num_classes):
+    b, topk = q.shape
+    return (q.new_empty((b, topk), dtype=torch.float32),
+            q.new_empty((b, topk, 4), dtype=torch.float32))
 
 
 finalize_candidates.launches = 0

@@ -13,16 +13,20 @@ The level of each roi is computed here, on the roi's device, with the
 plain ``fpn_roi_level`` expression, and passed to the kernel: a level
 recomputed with CUDA's ``log2f`` could differ from PyTorch's at a level
 boundary (sqrt(w*h) = 112, 224, 448).
+
+The kernel is the custom op ``viddet::multilevel_roi_align``
+(``ops/__init__.py``): its CUDA implementation launches it, so that
+``torch.export`` carries it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
-from viddet_tpu_torch.kernels import build, require
+from viddet_tpu_torch.kernels import build, on_card, require
 from viddet_tpu_torch.ops.roi_align import fpn_roi_level, multilevel_roi_align_packed
 
 MAX_LEVELS = 4  # the kernel's table; the box head aligns on P2..P5
@@ -42,6 +46,21 @@ def multilevel_roi_align(pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
     if rois.device.type == "cpu":
         return multilevel_roi_align_packed(pyramid, rois, strides, output_size,
                                            sampling_ratio, k_min)
+    on_card(rois, "multilevel_roi_align")
+    return torch.ops.viddet.multilevel_roi_align(list(pyramid), rois, [int(s) for s in strides],
+                                                 int(output_size), int(sampling_ratio),
+                                                 int(k_min))
+
+
+@torch.library.custom_op("viddet::multilevel_roi_align", mutates_args=(), device_types="cpu")
+def _roi_align_op(pyramid: List[torch.Tensor], rois: torch.Tensor, strides: List[int],
+                  output_size: int, sampling_ratio: int, k_min: int) -> torch.Tensor:
+    return multilevel_roi_align_packed(pyramid, rois, strides, output_size, sampling_ratio,
+                                       k_min).contiguous()
+
+
+@_roi_align_op.register_kernel("cuda")
+def _roi_align_cuda(pyramid, rois, strides, output_size, sampling_ratio, k_min):
     if (output_size, sampling_ratio) != (OUTPUT_SIZE, SAMPLING_RATIO):
         raise ValueError(f"multilevel_roi_align: the kernel takes output_size {OUTPUT_SIZE} and "
                          f"sampling_ratio {SAMPLING_RATIO}, got {output_size}, {sampling_ratio}")
@@ -80,6 +99,13 @@ def multilevel_roi_align(pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
     build.check(err, "multilevel_roi_align")
     multilevel_roi_align.launches += 1
     return out
+
+
+@_roi_align_op.register_fake
+def _(pyramid, rois, strides, output_size, sampling_ratio, k_min):
+    b, r, _ = rois.shape
+    return rois.new_empty((b, r, output_size, output_size, pyramid[0].shape[-1]),
+                          dtype=torch.float32)
 
 
 multilevel_roi_align.launches = 0

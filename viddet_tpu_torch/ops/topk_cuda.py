@@ -10,14 +10,20 @@ Precondition, as in the JAX package: scores are >= 0 apart from -1.0
 padding, with at least k non-negative entries per row, and 0 < k <= N.
 The wrapper checks k; checking the data would need a device sync, so the
 kernel writes -1 into the slots of a row that breaks it, and the plain
-version raises.
+version raises (but not while ``torch.export`` traces it: an artifact
+checks no data, as the kernel does not).
+
+The kernel is the custom op ``viddet::topk_indices`` (``ops/__init__.py``):
+its CUDA implementation launches the kernel, its CPU implementation is
+the plain version, and its fake implementation gives the output's shape,
+so that ``torch.export`` can carry the kernel inside an artifact.
 """
 
 from __future__ import annotations
 
 import torch
 
-from viddet_tpu_torch.kernels import build, require
+from viddet_tpu_torch.kernels import build, on_card, require
 
 _HI_BITS = 0x7F800000 + 1  # exclusive bound of the search: +inf's bit pattern
 _SEARCH_ITERS = 31
@@ -50,9 +56,10 @@ def topk_indices_plain(scores: torch.Tensor, k: int) -> torch.Tensor:
     need = k - gt.sum(dim=1, keepdim=True)
     tie_rank = torch.cumsum(tie, dim=1) - tie.long()  # exclusive
     mask = gt | (tie & (tie_rank < need))
-    if not bool((mask.sum(dim=1) == k).all()):
+    if not torch.compiler.is_compiling() and not bool((mask.sum(dim=1) == k).all()):
         raise ValueError("topk_indices: a row has fewer than k non-negative scores")
-    return mask.nonzero()[:, 1].reshape(b, k)
+    # the k set positions in ascending order: a stable sort keeps index order
+    return torch.sort(mask.to(torch.uint8), dim=1, descending=True, stable=True).indices[:, :k]
 
 
 def cluster_size(b: int, n: int, num_sms: int) -> int:
@@ -71,6 +78,17 @@ def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     """K2 wrapper: the kernel for CUDA tensors, the plain version on the CPU."""
     if scores.device.type == "cpu":
         return topk_indices_plain(scores, k)
+    on_card(scores, "topk_indices")
+    return torch.ops.viddet.topk_indices(scores, k)
+
+
+@torch.library.custom_op("viddet::topk_indices", mutates_args=(), device_types="cpu")
+def _topk_indices_op(scores: torch.Tensor, k: int) -> torch.Tensor:
+    return topk_indices_plain(scores, k).contiguous()
+
+
+@_topk_indices_op.register_kernel("cuda")
+def _topk_indices_cuda(scores: torch.Tensor, k: int) -> torch.Tensor:
     if scores.dim() != 2:
         raise ValueError(f"topk_indices: expected (B, N), got {tuple(scores.shape)}")
     b, n = scores.shape
@@ -86,6 +104,11 @@ def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     build.check(err, "topk_indices")
     topk_indices.launches += 1
     return out
+
+
+@_topk_indices_op.register_fake
+def _(scores: torch.Tensor, k: int) -> torch.Tensor:
+    return scores.new_empty((scores.shape[0], k), dtype=torch.int64)
 
 
 topk_indices.launches = 0

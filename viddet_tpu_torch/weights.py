@@ -13,9 +13,15 @@ records its Flax scope, so the mapping is per module:
   ``post_{i}``, the RPN's convs): ``kernel`` (HWIO) / ``bias`` -> its
   weight (OIHW) / bias;
 * ``Dense`` (the Faster R-CNN box head): ``kernel`` (in, out) -> its
-  weight (out, in), ``bias`` -> bias.
+  weight (out, in), ``bias`` -> bias;
+* under an int8 policy, each conv+BN cell's calibrated range: JAX's
+  ``variables["quant"]`` flattened as ``train/state.py``'s ``_flatten``
+  does, ``quant/<flax scope>/act_amax`` -> its ``act_amax`` buffer.
 
-A key the model lacks, or a key the model needs and the file lacks, raises.
+A key the model lacks, or a key the model needs and the file lacks, raises;
+except that a file without any ``quant/`` key (a float checkpoint, as the
+JAX package writes them) leaves an int8 model's ranges as they are, to be
+calibrated.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from viddet_tpu_torch.models.resnet import ConvBN
 def leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
     """(npz key, tensor, kind) for every parameter and statistic, where kind
     is "conv" for an OIHW conv kernel, "dense" for an (out, in) dense
-    weight and "vec" for everything else."""
+    weight, "amax" for an int8 cell's calibrated range and "vec" for
+    everything else."""
     for m in model.modules():
         if isinstance(m, (ConvBNLeaky, ConvBN)):
             p, s = f"params/{m.scope}", f"batch_stats/{m.scope}"
@@ -42,6 +49,8 @@ def leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
             yield f"{p}/BatchNorm_0/bias", m.bn.bias, "vec"
             yield f"{s}/BatchNorm_0/mean", m.bn.running_mean, "vec"
             yield f"{s}/BatchNorm_0/var", m.bn.running_var, "vec"
+            if hasattr(m, "act_amax"):
+                yield f"quant/{m.scope}/act_amax", m.act_amax, "amax"
         elif isinstance(m, (BiasConv, Dense)):
             yield f"params/{m.scope}/kernel", m.weight, "conv" if m.weight.dim() == 4 else "dense"
             yield f"params/{m.scope}/bias", m.bias, "vec"
@@ -50,6 +59,8 @@ def leaves(model: torch.nn.Module) -> Iterator[Tuple[str, torch.Tensor, str]]:
 def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Copy a flat ``.npz``-schema dict into the model, in place."""
     expected = {key for key, _, _ in leaves(model)}
+    if not any(key.startswith("quant/") for key in flat):
+        expected = {key for key in expected if not key.startswith("quant/")}
     missing = sorted(expected - set(flat))
     extra = sorted(set(flat) - expected)
     if missing or extra:
@@ -57,7 +68,8 @@ def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
                        f"({len(missing)}), unmapped {extra[:5]} ({len(extra)})")
     with torch.no_grad():
         for key, t, kind in leaves(model):
-            copy_from_schema(t, flat[key], kind, key)
+            if key in expected:
+                copy_from_schema(t, flat[key], kind, key)
 
 
 def copy_from_schema(t: torch.Tensor, value: np.ndarray, kind: str, key: str = "") -> None:
@@ -127,6 +139,8 @@ def seeded_flat(model: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
             flat[key] = _lecun_normal(rng, (h, w, i, o))
         elif kind == "dense":
             flat[key] = _lecun_normal(rng, tuple(t.shape[::-1]))
+        elif kind == "amax":
+            flat[key] = np.zeros((), np.float32)  # uncalibrated, as JAX's init
         elif key.endswith(("/scale", "/var")):
             flat[key] = np.ones(tuple(t.shape), np.float32)
         else:
