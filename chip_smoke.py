@@ -122,7 +122,8 @@ Phases, each printed as one JSON line:
             per batch, frames/s, peak memory and a device breakdown; then
             ``DetectionService`` answers 8 requests, each equal to the direct
             call;
-17. train:  the float32 step against the JAX fixture
+17. train (in a process of its own, ``child_phases``): the float32 step
+            against the JAX fixture
             (``tests/fixtures/jax_train_steps.npz``: tiny YOLOv3, 64 px,
             three steps, TF32 off for the check): the batch's targets equal
             bit for bit, losses and a sample of every leaf close; then the
@@ -199,9 +200,41 @@ Phases, each printed as one JSON line:
             (512 px, batch 8; K7 inside) by the cuda route, likewise; trace
             and load seconds, artifact bytes, the artifact's frames/s beside
             the direct predictor's;
-21. profiler: the profiler windows that missed a launch and were taken
+21. data_parallel (in a process of its own, ``child_phases``): the
+            data-parallel slice (``parallel/mesh.py``) on the one card.
+            (a) NCCL at world size 1: the main path's model trained by
+            ``cli.train_yolov3.main`` (bf16, batch 64, 416 px, mixup off,
+            ``DP_CLI_STEPS`` one-step epochs, validated once) under an
+            NCCL group of one, its losses and ``_final.npz`` equal to the
+            same run without a group bit for bit (cuDNN deterministic in
+            both), its validation batch launching K1, K3, K4, K5, K6 once
+            and K2 twice; the Faster R-CNN step (800 px, batch 8) under
+            the group launching K5 once a step; each step's ms (YOLOv3 at
+            batch 64, Faster R-CNN) with and without the group, and the
+            NCCL gradient all-reduce alone.  (b) ``DP_WORLD`` gloo
+            processes on cuda:0 (NCCL refuses two ranks on one card): the
+            three float32 fixtures (TF32 off) one image a process, the
+            Faster R-CNN draws split by the draw rule, each within the
+            train phases' limits and the processes' leaves bit-identical
+            after every step; the main path's model in float32 at
+            ``DP_F32_B`` images a process against one process of twice
+            that, the losses within ``DP_LOSS_RTOL``, with each step's ms,
+            peak memory, the gloo gradient all-reduce alone and a global
+            BatchNorm's forward and backward in float32 and bf16 against
+            ``native_batch_norm``'s.  (c) The same processes run
+            ``cli.evaluate.evaluate`` over the evaluate phase's 256 images,
+            each its strided shard (K1, K3, K4, K5, K6 once a batch and K2
+            twice): the merged VOC07 mAP equal to one process's over the
+            whole set and, with every record of the merged metric state,
+            to the two shards evaluated in turn in one process and merged;
+            each ``.p{i}`` detection file equal to its
+            shard's file from one process, line for line (against the whole
+            set in one process, where an image sits elsewhere in its batch
+            of 32, the lines that differ are reported: cuDNN's bf16
+            convolutions round by an image's place in the batch);
+22. profiler: the profiler windows that missed a launch and were taken
             again;
-22. kernels: one line listing every ported kernel;
+23. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero without that last
@@ -3348,14 +3381,32 @@ TRAIN_KERNEL_GROUPS = (
 )
 
 
+def leaf_digest(model) -> str:
+    """SHA-256 of every parameter and statistic's bytes, in the ``.npz``
+    schema's order: equal digests, bit-identical replicas."""
+    import hashlib
+
+    from viddet_tpu_torch.weights import leaves
+
+    h = hashlib.sha256()
+    for key, t, _ in leaves(model):
+        h.update(key.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def train_fixture_run(dev) -> dict:
     """The fixture's case on ``dev`` in float32, with TF32 off for the
     check: targets of the batch, the five losses of each step, and each
-    leaf's sampled elements after the last step against the fixture's."""
+    leaf's sampled elements after the last step against the fixture's;
+    the digest of the leaves after each step.  Under a process group each
+    process steps on its rows of the batch (``shard_batch``): the losses
+    are then the global batch's."""
     import torch
 
     from viddet_tpu_torch.core.precision import FLOAT32_POLICY
     from viddet_tpu_torch.models.yolo3 import YOLOv3
+    from viddet_tpu_torch.parallel.mesh import shard_batch
     from viddet_tpu_torch.train.loop import make_train_step
     from viddet_tpu_torch.train.state import TrainState, make_lr_schedule, make_optimizer
     from viddet_tpu_torch.train.targets import assign_targets
@@ -3381,10 +3432,11 @@ def train_fixture_run(dev) -> dict:
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        losses = []
+        losses, digests = [], []
         for _ in range(int(fx["steps"])):
-            _, out = step(state, images, boxes, ids)
+            _, out = step(state, *(shard_batch(t) for t in (images, boxes, ids)))
             losses.append([float(out[k]) for k in TRAIN_LOSS_NAMES])
+            digests.append(leaf_digest(model))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     losses = np.asarray(losses)
@@ -3399,7 +3451,7 @@ def train_fixture_run(dev) -> dict:
     return {"targets_equal": targets_equal, "losses": losses.tolist(),
             "loss_max_rel": float(loss_rel.max()), "loss_max_rel_step1": float(loss_rel[0].max()),
             "leaves": len(leaf_rel), "leaf_max_rel_l2": leaf_rel[worst], "leaf_worst": worst,
-            "leaf_median_rel_l2": float(np.median(list(leaf_rel.values())))}
+            "leaf_median_rel_l2": float(np.median(list(leaf_rel.values()))), "digests": digests}
 
 
 def trace_idle_share(path: str) -> dict:
@@ -3475,8 +3527,10 @@ def step_phases(state, step_parts, batch) -> dict:
         if len(spins) >= len(names) + 1:
             break
         INCOMPLETE_WINDOWS.append(dict(names=["train step parts"], spins=len(spins)))
+        time.sleep(PROFILER_RETRY_PAUSE_S)
     else:
-        raise RuntimeError("check failed: no complete profiler window of a train step")
+        raise RuntimeError(f"check failed: no complete profiler window of a train step in "
+                           f"{PROFILER_WINDOWS}: {INCOMPLETE_WINDOWS[-PROFILER_WINDOWS:]}")
     bounds = spins[-(len(names) + 1):]
     out = {}
     for name, lo, hi in zip(names, bounds, bounds[1:]):
@@ -3718,9 +3772,13 @@ def detector_fixture_model(fx: dict, dev, f64: bool):
 
 
 def detector_fixture_steps(fx: dict, family: str, dev, f64: bool):
-    """The fixture's steps on ``dev``: (losses (steps, L), the model)."""
+    """The fixture's steps on ``dev``: (losses (steps, L), the model, the
+    leaves' digest after each step).  Under a process group each process
+    steps on its rows of the batch and of JAX's draws (``shard_batch``, the
+    draw rule)."""
     import torch
 
+    from viddet_tpu_torch.parallel.mesh import shard_batch
     from viddet_tpu_torch.train.loop import make_frcnn_train_step, make_ssd_train_step
     from viddet_tpu_torch.train.state import TrainState, make_lr_schedule, make_optimizer
 
@@ -3730,17 +3788,20 @@ def detector_fixture_steps(fx: dict, family: str, dev, f64: bool):
                                              weight_decay=float(fx["weight_decay"])))
     images = torch.from_numpy(fx["images"]).to(dev, torch.float64 if f64 else torch.float32)
     boxes, ids = (torch.from_numpy(fx[k]).to(dev) for k in ("gt_boxes", "gt_ids"))
-    losses = []
+    images, boxes, ids = (shard_batch(t) for t in (images, boxes, ids))
+    losses, digests = [], []
     for i in range(int(fx["steps"])):
         if family == "ssd":
             _, out = make_ssd_train_step(model)(state, images, boxes, ids)
         else:
-            uniforms = tuple(torch.from_numpy(fx[f"{k}_uniform"][i] / UNIFORM_SCALE).float().to(dev)
-                             for k in ("roi", "rpn"))
+            uniforms = tuple(
+                shard_batch(torch.from_numpy(fx[f"{k}_uniform"][i] / UNIFORM_SCALE).float().to(dev))
+                for k in ("roi", "rpn"))
             _, out = make_frcnn_train_step(model)(state, None, images, boxes, ids,
                                                   uniforms=uniforms)
         losses.append([float(out[k]) for k in DETECTOR_LOSS_NAMES[family]])
-    return np.asarray(losses), model
+        digests.append(leaf_digest(model))
+    return np.asarray(losses), model, digests
 
 
 def detector_fixture_targets(fx: dict, family: str, dev) -> dict:
@@ -3813,7 +3874,8 @@ def detector_fixture_run(dev, family: str) -> dict:
             "loss_max_rel_f32_step1": float(rel32[0].max()), "loss_max_rel_f32": float(rel32.max()),
             "loss_max_rel_f64": float(rel64.max()), "leaves": len(leaf_rel),
             "leaf_max_rel_l2_f64": leaf_rel[worst], "leaf_worst_f64": worst,
-            "leaf_median_rel_l2_f64": float(np.median(list(leaf_rel.values())))}
+            "leaf_median_rel_l2_f64": float(np.median(list(leaf_rel.values()))),
+            "digests": {name: run[2] for name, run in runs.items()}}
 
 
 def check_detector_fixture(report: dict, family: str) -> None:
@@ -4068,6 +4130,480 @@ def detector_train_phase(dev, kernels) -> tuple:
     return launches, k5_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: data_parallel
+# ---------------------------------------------------------------------------
+
+# The data-parallel slice (parallel/mesh.py) on the one card, in a process
+# of its own: (a) NCCL at world size 1 with the main path's model (its CLI,
+# DP_CLI_STEPS one-step epochs at batch 64, validated once, against the same
+# run without a group, bit for bit, cuDNN deterministic in both) and
+# Faster R-CNN's step (FRCNN_MODEL at 800 px, batch 8), each step's ms with
+# and without the group; (b) DP_WORLD gloo processes on cuda:0 (NCCL
+# refuses two ranks on one card): the three fixtures, one image a process,
+# and the main path's model in float32 at DP_F32_B images a process against
+# one process of DP_WORLD * DP_F32_B, the losses within DP_LOSS_RTOL; (c)
+# the same processes evaluate the evaluate phase's 256 images, each its
+# strided shard, against one process: the merged VOC07 mAP equal, each
+# ``.p{i}`` detection file equal to its shard's from one process.
+DP_WORLD, DP_CLI_STEPS, DP_FRCNN_STEPS = 2, 3, 3
+# Float32 YOLOv3-416 images a process: one step at 16 a process peaked at
+# 7.44 GiB a process and at 14.40 GiB in the reference of 32 on an H100
+# (PERF.md), so both processes and the reference fit the card with room;
+# a larger batch would only lengthen the phase.
+DP_F32_B = 16
+DP_LOSS_RTOL = 1e-4
+DP_GROUP_TIMEOUT_S = 300.0
+DP_RANK_TIMEOUT_S = 600.0
+DP_BN_SHAPE = (16, 64, 208, 208)  # a Darknet-53 BatchNorm at 416 px, 16 images a process
+
+
+def dp_step_batch(dev, b: int):
+    """The float32 comparison's global batch: ``train_batch`` at 416 px of
+    DP_WORLD * ``b`` images; each process takes its rows."""
+    return train_batch(dev, IMAGE_SIZE, DP_WORLD * b, seed=17)
+
+
+def dp_f32_step(dev, batch) -> dict:
+    """The main path's model in float32 (seeded weights), one train step on
+    ``batch`` (this process's rows under a group): the global losses, the
+    leaves' digest, the step's ms over 3 more steps, peak memory, and the
+    gradient all-reduce's ms alone (under a group)."""
+    from viddet_tpu_torch.parallel import mesh
+    import torch
+
+    from viddet_tpu_torch.core.precision import FLOAT32_POLICY
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.parallel.mesh import shard_batch
+    from viddet_tpu_torch.train.loop import make_train_step
+    from viddet_tpu_torch.train.state import TrainState, make_lr_schedule, make_optimizer
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    model, classes = get_model(MODEL, device=dev, policy=FLOAT32_POLICY)
+    load_flat(model, init_flat(MODEL, seed=0))
+    state = TrainState(model.train(), make_optimizer(make_lr_schedule(1e-3, 1)))
+    step = make_train_step(strides=model.head.strides, anchors=model.head.anchors,
+                           num_classes=len(classes))
+    rows = tuple(shard_batch(t) for t in batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = {k: float(v) for k, v in step(state, *rows)[1].items()}
+    digest = leaf_digest(model)
+    ms = median_ms(lambda: step(state, *rows), reps=3, warmup=0)
+    out = {"images": rows[0].shape[0], "losses": losses, "digest": digest, "step_ms": ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if mesh.active():
+        grads = [p.grad for p in state.params]
+        out["all_reduce_ms"] = median_ms(lambda: mesh.all_reduce_(grads, mean=True), reps=3)
+        out["gradient_mb"] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_evaluate(dev, kernels, path: str, shard=None) -> dict:
+    """``cli.evaluate.evaluate`` of the main path's model (bf16, seeded)
+    over the evaluate phase's 256 images, detections to ``path`` (``.p{i}``
+    under several processes), or in one process over the strided ``shard``
+    (index, count) alone (``VIDDET_EVAL_SHARD``): the metric and its state,
+    the launches, images/s."""
+    import argparse
+    import logging
+
+    import torch
+
+    from viddet_tpu_torch.cli.evaluate import evaluate
+    from viddet_tpu_torch.data.names import COCO_CLASSES
+    from viddet_tpu_torch.data.synthetic import SyntheticDetection
+    from viddet_tpu_torch.eval.voc_map import VOC07MApMetric
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.parallel.mesh import process_count
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    model, _ = get_model(MODEL, device=dev)
+    load_flat(model, init_flat(MODEL, seed=0))
+    dataset = SyntheticDetection(num_images=EVAL_IMAGES, size=EVAL_IMAGE_SIZE,
+                                 num_classes=EVAL_CLASSES, seed=EVAL_SEED)
+    args = argparse.Namespace(data_shape=IMAGE_SIZE, batch_size=EVAL_B,
+                              num_workers=EVAL_WORKERS, letterbox=False, max_images=0,
+                              device_normalize=True, temporal_k=1, save_detections=path)
+    count = shard[1] if shard else process_count()
+    batches = -(-EVAL_IMAGES // count // EVAL_B)
+    metric = VOC07MApMetric(iou_thresh=0.5, class_names=COCO_CLASSES)
+    stats = {}
+    set_launches(kernels)
+    if shard:
+        os.environ["VIDDET_EVAL_SHARD"] = f"{shard[0]},{shard[1]}"
+    try:
+        names, values = evaluate(model, dataset, metric, args,
+                                 logging.getLogger("chip_smoke.data_parallel"), stats)
+    finally:
+        os.environ.pop("VIDDET_EVAL_SHARD", None)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels, {k: v * batches for k, v in HIER_LAUNCHES.items()},
+                             f"evaluate over {count} shard(s)")
+    del model
+    torch.cuda.empty_cache()
+    return {"names": list(names), "values": [float(v) for v in values], "launches": launches,
+            "batches": batches, "images_per_s": stats["images"] / stats["seconds"],
+            "images": stats["images"], "state": metric.state_dict()}
+
+
+def detection_lines(path: str) -> dict:
+    """A ``--save-detections`` file's lines by image index."""
+    with open(path) as f:
+        return {json.loads(line)["index"]: line for line in f}
+
+
+def detection_diff(got: dict, want: dict) -> dict:
+    """How two detection files (``detection_lines``) differ: images missing,
+    lines unequal, among them lines whose ids differ, and the largest score
+    and box difference where the ids agree."""
+    unequal = [k for k in want if k in got and got[k] != want[k]]
+    ids_differ, score, box = 0, 0.0, 0.0
+    for k in unequal:
+        g, w = json.loads(got[k]), json.loads(want[k])
+        if g["ids"] != w["ids"]:
+            ids_differ += 1
+            continue
+        score = max([score] + [abs(a - b) for a, b in zip(g["scores"], w["scores"])])
+        box = max([box] + [float(np.abs(np.subtract(g["boxes"], w["boxes"])).max())]
+                  if w["boxes"] else [box])
+    return {"missing": len(set(want) - set(got)), "unequal": len(unequal),
+            "ids_differ": ids_differ, "max_score_diff": score, "max_box_diff": box,
+            "first_unequal": unequal[:5]}
+
+
+def dp_bn_ms(dev) -> dict:
+    """Train-mode BatchNorm forward and backward at DP_BN_SHAPE in float32
+    and in bf16 (the main path's compute dtype): ``batch_norm_train`` under
+    this process's group against ``native_batch_norm`` alone, each ms by
+    CUDA events; the synced outputs and gradients finite."""
+    import torch
+
+    from viddet_tpu_torch.models.common import batch_norm_train
+
+    out = {"shape": list(DP_BN_SHAPE)}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(DP_BN_SHAPE, device=dev).to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        dy = torch.randn_like(x)
+        bn = torch.nn.BatchNorm2d(DP_BN_SHAPE[1]).to(dev)
+
+        def synced():
+            y = batch_norm_train(x, bn)
+            y.backward(dy)
+            return y
+
+        def native():
+            torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True, 0.0, 1e-5)[0] \
+                .backward(dy)
+
+        x.grad = None
+        y = synced()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(x.grad).all())
+              and y.dtype == dtype, f"the global BatchNorm in {dtype} is finite")
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[f"synced_{name}_ms"] = median_ms(synced, reps=5)
+        out[f"native_{name}_ms"] = median_ms(native, reps=5)
+    return out
+
+
+def dp_rank_main(rank: int, store: str, out: str, tmp: str, device: str) -> None:
+    """One gloo process of (b) and (c) on ``device`` (the card: cuda:0);
+    its result, or its traceback, pickled to ``out``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    from viddet_tpu_torch.kernels import build
+    from viddet_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            build.build()  # the parent's build, found by its source hash
+            build.library()
+        kernels = {name: row[0] for name, row in kernel_table().items()}
+        mesh.initialize_distributed(f"file://{store}", DP_WORLD, rank, backend="gloo",
+                                    timeout_s=DP_GROUP_TIMEOUT_S)
+        t0 = time.perf_counter()
+        result = {"fixtures": {"yolo": train_fixture_run(dev),
+                               **{f: detector_fixture_run(dev, f) for f in ("ssd", "frcnn")}}}
+        result["fixtures_s"] = time.perf_counter() - t0
+        result["f32_step"] = dp_f32_step(dev, dp_step_batch(dev, DP_F32_B))
+        result["bn"] = dp_bn_ms(dev)
+        result["evaluate"] = dp_evaluate(dev, kernels, os.path.join(tmp, "two.jsonl"))
+        payload = {"result": result}
+    except BaseException:
+        payload = {"error": traceback.format_exc()}
+    finally:
+        if mesh.active():
+            torch.distributed.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def dp_cli_run(dev, kernels, model, classes, tmp: str, name: str) -> dict:
+    """``cli.train_yolov3.main`` on the main path's model from its seeded
+    weights: DP_CLI_STEPS one-step epochs at batch 64, 416 px, mixup off,
+    validated at the end; each step's losses as the step returned them, the
+    ``_final.npz`` leaves, the validation's launches."""
+    import torch
+
+    from viddet_tpu_torch.cli import train_yolov3
+    from viddet_tpu_torch.train.state import load_weights_npz
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    load_flat(model, init_flat(MODEL, seed=0))
+    losses = []
+    make_step = train_yolov3.make_train_step
+
+    def recording_step(**kw):
+        step = make_step(**kw)
+
+        def run(*args):
+            state, out = step(*args)
+            losses.append({k: float(v) for k, v in out.items()})
+            return state, out
+
+        return run
+
+    prefix = os.path.join(tmp, name, "y3")
+    argv = ["--platform", "gpu", "--dataset", "synthetic", "--data-root", "synthetic",
+            "--data-shape", str(IMAGE_SIZE), "--no-random-shape", "--batch-size", str(TRAIN_B),
+            "--epochs", str(DP_CLI_STEPS), "--num-workers", "4", "--log-interval", "1",
+            "--val-interval", str(DP_CLI_STEPS), "--save-interval", "0", "--save-prefix", prefix]
+    train_yolov3.make_train_step = recording_step
+    set_launches(kernels)
+    t0 = time.perf_counter()
+    try:
+        train_yolov3.main(argv, built=(model, classes))
+    finally:
+        train_yolov3.make_train_step = make_step
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels, HIER_LAUNCHES, f"train CLI {name} (its validation batch)")
+    return {"losses": losses, "final": load_weights_npz(f"{prefix}_final.npz"),
+            "launches": launches, "seconds": seconds}
+
+
+def dp_step_ms(kernels, step, batch, what: str, launches_per_step: dict) -> tuple:
+    """ms of one train step (CUDA events, median of 5 after 2) and the
+    launches of DP_FRCNN_STEPS steps."""
+    import torch
+
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    set_launches(kernels)
+    for _ in range(DP_FRCNN_STEPS):
+        step(batch)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels, {k: v * DP_FRCNN_STEPS for k, v in launches_per_step.items()},
+                             what)
+    return median_ms(lambda: step(batch), reps=5, warmup=0), launches
+
+
+def data_parallel_phase(dev, kernels) -> dict:
+    """Phase 21 (module docstring): returns its launch counts."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli.common import get_dataset
+    from viddet_tpu_torch.models.zoo import get_model
+    from viddet_tpu_torch.parallel import mesh
+    from viddet_tpu_torch.train.loop import make_frcnn_train_step, make_train_step
+    from viddet_tpu_torch.train.state import TrainState, make_lr_schedule, make_optimizer
+    from viddet_tpu_torch.weights import init_flat, load_flat
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (a) NCCL at world size 1 --------------------------------------------
+        model, classes = get_model(MODEL)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {"alone": dp_cli_run(dev, kernels, model, classes, tmp, "alone")}
+            mesh.initialize_distributed(f"file://{tmp}/nccl_store", 1, 0,
+                                        timeout_s=DP_GROUP_TIMEOUT_S)
+            check(mesh.active() and torch.distributed.get_backend() == "nccl",
+                  "an NCCL group of one is up")
+            runs["nccl"] = dp_cli_run(dev, kernels, model, classes, tmp, "nccl")
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        same_losses = runs["alone"]["losses"] == runs["nccl"]["losses"]
+        same_final = all(np.array_equal(v, runs["nccl"]["final"][k])
+                         for k, v in runs["alone"]["final"].items())
+        steps = DP_CLI_STEPS * (len(get_dataset("synthetic", "synthetic")[0]) // TRAIN_B)
+        check(len(runs["nccl"]["losses"]) == steps and same_losses,
+              f"the CLI's losses under NCCL equal the run without a group: {runs}")
+        check(same_final, "the CLI's _final.npz under NCCL equals the run without a group")
+        launches["data_parallel_train"] = runs["nccl"]["launches"]
+
+        # each step's ms with the group (NCCL all-reduce) and without
+        timed = {}
+        load_flat(model, init_flat(MODEL, seed=0))
+        state = TrainState(model.train(), make_optimizer(make_lr_schedule(1e-3, 1)))
+        yolo = make_train_step(strides=model.head.strides, anchors=model.head.anchors,
+                               num_classes=len(classes))
+        yolo_batch = train_batch(dev, IMAGE_SIZE, TRAIN_B, seed=IMAGE_SIZE)
+        frcnn_model, _ = get_model(FRCNN_MODEL)
+        load_flat(frcnn_model, init_flat(FRCNN_MODEL, seed=0))
+        frcnn_state = TrainState(frcnn_model.train(), make_optimizer(make_lr_schedule(1e-3, 1)))
+        frcnn = make_frcnn_train_step(frcnn_model)
+        generator = torch.Generator(device=dev).manual_seed(7)
+        frcnn_batch = train_batch(dev, FRCNN_TRAIN_SIZE, FRCNN_TRAIN_B, seed=FRCNN_TRAIN_SIZE)
+        grads = [torch.ones_like(p) for p in state.params]
+        for group in ("nccl", "alone"):
+            if group == "alone":
+                torch.distributed.destroy_process_group()
+            ms_y, _ = dp_step_ms(kernels, lambda b: yolo(state, *b), yolo_batch,
+                                 f"YOLOv3 train steps ({group})", {})
+            ms_f, frcnn_launches = dp_step_ms(
+                kernels, lambda b: frcnn(frcnn_state, generator, *b),
+                frcnn_batch, f"Faster R-CNN train steps ({group})", {"nms_keep_mask": 1})
+            timed[group] = {"yolo_step_ms": ms_y, "frcnn_step_ms": ms_f,
+                            "all_reduce_ms": (median_ms(lambda: mesh.all_reduce_(grads, mean=True),
+                                                        reps=10) if group == "nccl" else 0.0)}
+            if group == "nccl":
+                launches["data_parallel_frcnn_step"] = frcnn_launches
+        del model, state, yolo_batch, frcnn_model, frcnn_state, frcnn_batch, grads
+        torch.cuda.empty_cache()
+        emit({"phase": "data_parallel_nccl", "nvidia_smi": smi, "world_size": 1,
+              "backend": "nccl", "model": MODEL, "dtype": "bfloat16", "batch": TRAIN_B,
+              "cli": {"steps": DP_CLI_STEPS, "losses_equal": True, "final_equal": True,
+                      "losses": runs["nccl"]["losses"], "cudnn_deterministic": True,
+                      "seconds": {k: r["seconds"] for k, r in runs.items()},
+                      "validation_launches": runs["nccl"]["launches"]},
+              "frcnn": {"model": FRCNN_MODEL, "size": FRCNN_TRAIN_SIZE, "batch": FRCNN_TRAIN_B,
+                        "steps": DP_FRCNN_STEPS,
+                        "k5_launches": launches["data_parallel_frcnn_step"]["nms_keep_mask"]},
+              "ms": timed, "phase_s": time.perf_counter() - t_phase})
+        del runs
+
+        # -- references of (b) and (c) in this process, no group --------------
+        batch = dp_step_batch(dev, DP_F32_B)
+        one_step = dp_f32_step(dev, batch)
+        del batch
+        torch.cuda.empty_cache()
+        one_eval = dp_evaluate(dev, kernels, os.path.join(tmp, "one.jsonl"))
+        # the processes' shards in turn in this process: each image in the
+        # batch and at the place the processes give it
+        one_shards = [dp_evaluate(dev, kernels, os.path.join(tmp, f"one_shard{r}.jsonl"),
+                                  (r, DP_WORLD)) for r in range(DP_WORLD)]
+
+        # -- (b), (c): DP_WORLD gloo processes on cuda:0 --------------------------
+        ctx = multiprocessing.get_context("spawn")
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_rank_main,
+                             args=(r, os.path.join(tmp, "gloo_store"), outs[r], tmp, str(dev)))
+                 for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DP_RANK_TIMEOUT_S)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(30)
+        check(not alive, f"{len(alive)} gloo process(es) still running after {DP_RANK_TIMEOUT_S} s")
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r, out in enumerate(outs):
+            check(os.path.exists(out), f"gloo process {r} left no result")
+            with open(out, "rb") as f:  # written by the process above
+                payload = pickle.load(f)
+            check("error" not in payload, f"gloo process {r} failed:\n{payload.get('error')}")
+            ranks.append(payload["result"])
+
+        # (b): fixtures, bit-identical replicas, float32 at 2 x b against 1 x 2b
+        for family, report in ranks[0]["fixtures"].items():
+            check(all(r["fixtures"][family] == report for r in ranks),
+                  f"{family}: the processes' fixture reports (and leaf digests) are equal")
+            if family == "yolo":
+                check(all(report["targets_equal"].values())
+                      and report["loss_max_rel"] <= TRAIN_LOSS_RTOL
+                      and report["leaf_max_rel_l2"] <= TRAIN_LEAF_REL_L2,
+                      f"yolo fixture on {DP_WORLD} processes: {report}")
+            else:
+                check_detector_fixture(report, family)
+        check(len({r["f32_step"]["digest"] for r in ranks}) == 1,
+              "the float32 step's replicas are bit-identical")
+        rel = {k: abs(ranks[0]["f32_step"]["losses"][k] / v - 1) if v else 0.0
+               for k, v in one_step["losses"].items()}
+        check(max(rel.values()) <= DP_LOSS_RTOL,
+              f"float32 losses of {DP_WORLD} x {DP_F32_B} within {DP_LOSS_RTOL} of 1 x "
+              f"{DP_WORLD * DP_F32_B}: {rel}")
+
+        # (c): the merged metric and the detection files
+        from viddet_tpu_torch.data.names import COCO_CLASSES
+        from viddet_tpu_torch.eval.distributed import merge_metric_states
+        from viddet_tpu_torch.eval.voc_map import VOC07MApMetric
+
+        shards_metric = merge_metric_states(
+            VOC07MApMetric(iou_thresh=0.5, class_names=COCO_CLASSES),
+            [e["state"] for e in one_shards])
+        shards_merged = shards_metric.get()
+        for r in ranks:
+            # every record (score, TP, FP): the check that random weights'
+            # mAP of 0 cannot make
+            check(r["evaluate"]["state"] == shards_metric.state_dict(),
+                  "the merged metric state equals the shards' merged in one process")
+            for want, what in ((shards_merged, "the shards evaluated in turn in one process"),
+                               ((one_eval["names"], one_eval["values"]), "one process")):
+                check(np.array_equal(r["evaluate"]["values"], want[1], equal_nan=True)
+                      and r["evaluate"]["names"] == list(want[0]),
+                      f"merged metric {r['evaluate']['values'][-1]} equals {what}'s "
+                      f"{want[1][-1]}")
+        for r in range(DP_WORLD):
+            got = detection_lines(os.path.join(tmp, f"two.jsonl.p{r}"))
+            want = detection_lines(os.path.join(tmp, f"one_shard{r}.jsonl"))
+            check(got == want and len(got) == len(range(r, EVAL_IMAGES, DP_WORLD)),
+                  f"process {r}'s .p{r} file equals its shard's in one process, line for line: "
+                  f"{detection_diff(got, want)}")
+        # each image against the whole set in one process at batch 32, where
+        # most images sit elsewhere in their batch (reported, not held)
+        joined = {k: v for r in range(DP_WORLD)
+                  for k, v in detection_lines(os.path.join(tmp, f"two.jsonl.p{r}")).items()}
+        against_whole = detection_diff(joined, detection_lines(os.path.join(tmp, "one.jsonl")))
+        for r, result in enumerate(ranks):
+            launches[f"data_parallel_evaluate_p{r}"] = result["evaluate"]["launches"]
+
+    fixtures = {f: {k: v for k, v in rep.items() if k != "digests"}
+                for f, rep in ranks[0]["fixtures"].items()}
+    emit({"phase": "data_parallel_gloo", "nvidia_smi": smi, "world_size": DP_WORLD,
+          "backend": "gloo (both processes on cuda:0)", "processes_s": ranks_s,
+          "fixtures": fixtures, "fixtures_s": [r["fixtures_s"] for r in ranks],
+          "replicas_bit_identical": True,
+          "f32_step": {"model": MODEL, "images_a_process": DP_F32_B,
+                       "losses_rel_gap": rel, "losses": ranks[0]["f32_step"]["losses"],
+                       "reference": one_step,
+                       "processes": [{k: r["f32_step"][k] for k in
+                                      ("step_ms", "peak_mem_gib", "all_reduce_ms", "gradient_mb")}
+                                     for r in ranks]},
+          "batch_norm": [r["bn"] for r in ranks],
+          "evaluate": {"images": EVAL_IMAGES, "batch": EVAL_B, "value": one_eval["values"][-1],
+                       "merged_equal": True, "files_equal_to_shards_in_one_process": True,
+                       "files_against_whole_set_in_one_process": against_whole,
+                       "images_per_s": {"one": one_eval["images_per_s"],
+                                        "processes": [r["evaluate"]["images_per_s"]
+                                                      for r in ranks]},
+                       "launches": [r["evaluate"]["launches"] for r in ranks]},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def kernel_table() -> dict:
     """Each ported kernel: (wrapper, source, the TPU kernel it replaces, the
     path its launches are read on)."""
@@ -4095,14 +4631,14 @@ def kernel_table() -> dict:
 
 
 CHILD_FLAG = "--phases"
-CHILD_GROUPS = ("detector_train", "int8_and_export")
+CHILD_GROUPS = ("train", "detector_train", "int8_and_export", "data_parallel")
 
 
 def child_main(group: str) -> int:
     """One group of phases in a process of its own (``child_phases``):
-    ``detector_train``, or ``int8_and_export`` (the main path's model and
+    ``train``, ``detector_train``, ``int8_and_export`` (the main path's model and
     frames made again from their seeds, then the ``int8`` and ``export``
-    phases).  Its last line is its launch counts (and K5's rows in the
+    phases), or ``data_parallel``.  Its last line is its launch counts (and K5's rows in the
     train steps), with the profiler windows it had to take again."""
     import torch
 
@@ -4118,8 +4654,12 @@ def child_main(group: str) -> int:
     kernels = {name: row[0] for name, row in kernel_table().items()}
     dev = torch.device("cuda:0")
     k5_rows = {}
-    if group == "detector_train":
+    if group == "train":
+        launches = {"train": train_phase(dev, kernels)}
+    elif group == "detector_train":
         launches, k5_rows = detector_train_phase(dev, kernels)
+    elif group == "data_parallel":
+        launches = data_parallel_phase(dev, kernels)
     else:
         from viddet_tpu_torch.cli.common import make_predictor
         from viddet_tpu_torch.models.zoo import get_model
@@ -4142,8 +4682,8 @@ def child_phases(group: str) -> dict:
     through; returns its result line, and its failure fails the run.  A
     process of its own starts the profiler afresh: after some 30 windows
     in one process the profiler drops records, and the train steps'
-    windows at the end of the run came back without them in some runs
-    (PR 16 runs 5 and 7)."""
+    windows at the end of the run came back without them in some runs,
+    eight windows in a row once (``step_phases``)."""
     result = None
     with subprocess.Popen([sys.executable, os.path.abspath(__file__), CHILD_FLAG, group],
                           stdout=subprocess.PIPE, text=True) as proc:
@@ -4229,7 +4769,8 @@ def main() -> int:
     frcnn_predictor, launches["frcnn"] = frcnn_path_phase(dev, kernels)
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
     del frcnn_predictor
-    launches["train"] = train_phase(dev, kernels)
+    torch.cuda.empty_cache()  # the children's memory
+    launches.update(child_phases("train")["launches"])
     child = child_phases("detector_train")
     launches.update(child["launches"])
     k5_rows = child["k5_rows"]
@@ -4238,6 +4779,7 @@ def main() -> int:
             key: row[key] for key in ("ms", "plain_ms", "library_ms")
         } | {"bound_ms": row["bound"][0], "bound_by": row["bound"][1]}
     launches.update(child_phases("int8_and_export")["launches"])
+    launches.update(child_phases("data_parallel")["launches"])
     emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS,
           "windows_with_spins_lost": len(SPINS_LOST), "spins_lost": SPINS_LOST})
 

@@ -20,6 +20,7 @@ from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from viddet_tpu_torch.models.faster_rcnn import FasterRCNN, frcnn_forward_and_postprocess
 from viddet_tpu_torch.models.ssd import SSD, ssd_forward_and_postprocess
 from viddet_tpu_torch.models.yolo3 import NMSConfig, forward_and_postprocess
+from viddet_tpu_torch.parallel.mesh import active, initialize_distributed, local_rank
 from viddet_tpu_torch.weights import load_flat, seeded_flat
 
 PLATFORMS = ("auto", "cpu", "gpu")
@@ -65,10 +66,20 @@ def parse_with_config(parser: argparse.ArgumentParser, argv=None):
 
 def platform_device(platform: str) -> torch.device:
     """``--platform`` to a device: ``cpu`` is the CPU; ``auto`` and ``gpu``
-    are ``cuda:0`` and raise when CUDA is not available."""
+    are ``cuda:0``, under a process group ``cuda:{LOCAL_RANK}``, and raise
+    when CUDA is not available."""
     if platform not in PLATFORMS:
         raise ValueError(f"platform {platform!r} is not one of {PLATFORMS}")
-    return resolve_device("cpu" if platform == "cpu" else None)
+    if platform == "cpu":
+        return resolve_device("cpu")
+    return resolve_device(f"cuda:{local_rank()}" if active() else None)
+
+
+def initialize_for(platform: str) -> None:
+    """``parallel.initialize_distributed`` for a CLI's ``--platform``: gloo
+    for ``cpu`` (also where CUDA is present), else NCCL where CUDA is
+    available.  Without torch's launcher environment it is a no-op."""
+    initialize_distributed(backend="gloo" if platform == "cpu" else None)
 
 
 def setup_logging(save_prefix: Optional[str] = None) -> logging.Logger:
@@ -286,18 +297,26 @@ def fit_detector(args, logger, model: torch.nn.Module, class_names, datasets, st
     at each log line; validation through ``cli.evaluate.evaluate`` with
     BatchNorm on its running statistics; ``{prefix}_ckpt/step_*``,
     ``{prefix}_best.npz`` and ``{prefix}_final.npz`` as JAX writes them.
-    ``log_names``: (label, loss key) pairs of the log line."""
+    ``log_names``: (label, loss key) pairs of the log line.
+
+    Under a process group (``parallel/mesh.py``) each process loads its
+    strided shard of the training set (``--batch-size`` per process, as in
+    JAX), the replicas start from process 0's state (``replicate``), the
+    validation is sharded and its metric states merged (``evaluate``, as
+    JAX's loop calls it), and only process 0 writes the checkpoints and the
+    ``.npz`` files; the others wait for a blocking save at a barrier."""
     from viddet_tpu_torch.cli.evaluate import evaluate
     from viddet_tpu_torch.data.loader import DetectionLoader
     from viddet_tpu_torch.data.transforms import TrainTransform
-    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.parallel.mesh import barrier, make_mesh, put_batch, replicate
     from viddet_tpu_torch.train.state import (
         TrainState, latest_checkpoint, make_lr_schedule, make_optimizer, restore_checkpoint,
         save_checkpoint, save_weights_npz,
     )
 
     train_ds, val_ds, metric_factory = datasets
-    device = next(model.parameters()).device
+    mesh = make_mesh(next(model.parameters()).device)
+    primary = mesh.rank == 0
     shape = args.data_shape
     loader = DetectionLoader(
         train_ds,
@@ -307,6 +326,7 @@ def fit_detector(args, logger, model: torch.nn.Module, class_names, datasets, st
         num_workers=args.num_workers,
         seed=args.seed,
         max_boxes=args.max_gt_boxes,
+        shard=(mesh.rank, mesh.size) if mesh.size > 1 else None,
     )
     steps_per_epoch = max(len(loader), 1)
     schedule = make_lr_schedule(
@@ -325,22 +345,25 @@ def fit_detector(args, logger, model: torch.nn.Module, class_names, datasets, st
             state = restore_checkpoint(path, state)
             start_epoch = state.step // steps_per_epoch
             logger.info("resumed from %s", path)
-    logger.info("device: %s; %d steps/epoch", device, steps_per_epoch)
+    replicate(model, state.momenta)
+    logger.info("device: %s, process %d/%d; %d steps/epoch", mesh.device, mesh.rank, mesh.size,
+                steps_per_epoch)
     ckpt_dir = f"{args.save_prefix}_ckpt"
     best_map = -1.0
     total_steps = 0
     fmt = "[Epoch %d][Batch %d] speed: %.1f samples/sec, " + ", ".join(
         f"{label}=%.3f" for label, _ in log_names)
 
-    def on_device(x):
-        return to_device_batch(np.ascontiguousarray(x), x.shape[0], device)
+    def save_and_wait():
+        if primary:
+            save_checkpoint(ckpt_dir, state, state.step, block=True)
+        barrier()
 
     for epoch in range(start_epoch, args.epochs):
         btic = time.time()
         running = {}
         for i, (images, boxes, ids, _d, _a, _x) in enumerate(loader):
-            state, losses = step(state, on_device(images), on_device(boxes),
-                                 on_device(ids.astype(np.int32)))
+            state, losses = step(state, *put_batch((images, boxes, ids.astype(np.int32)), mesh))
             total_steps += 1
             for k, v in losses.items():  # summed on the device: no wait per step
                 running[k] = running.get(k, 0.0) + v.double()
@@ -351,7 +374,7 @@ def fit_detector(args, logger, model: torch.nn.Module, class_names, datasets, st
                 logger.info(fmt, epoch, i + 1, speed, *means)
             if args.max_steps and total_steps >= args.max_steps:
                 logger.info("reached max-steps=%d, stopping", args.max_steps)
-                save_checkpoint(ckpt_dir, state, state.step, block=True)
+                save_and_wait()
                 return
         if loader.dropped_boxes:
             logger.warning("[Epoch %d] %d GT boxes dropped by --max-gt-boxes=%d pad",
@@ -371,11 +394,14 @@ def fit_detector(args, logger, model: torch.nn.Module, class_names, datasets, st
             logger.info("[Epoch %d] validation %s=%.4f", epoch, names[-1], values[-1])
             if values[-1] > best_map:
                 best_map = values[-1]
-                save_weights_npz(f"{args.save_prefix}_best.npz", model)
-        if args.save_interval and (epoch + 1) % args.save_interval == 0:
+                if primary:
+                    save_weights_npz(f"{args.save_prefix}_best.npz", model)
+        if args.save_interval and (epoch + 1) % args.save_interval == 0 and primary:
             save_checkpoint(ckpt_dir, state, state.step)
-    save_checkpoint(ckpt_dir, state, state.step, block=True)
-    save_weights_npz(f"{args.save_prefix}_final.npz", model)
+    if primary:
+        save_checkpoint(ckpt_dir, state, state.step, block=True)
+        save_weights_npz(f"{args.save_prefix}_final.npz", model)
+    barrier()
 
 
 def build_for_training(args, built=None, **model_kw):

@@ -5,16 +5,24 @@ Builds the val loader and the dataset's metric, runs the predictor
 (forward pass and the kernel tail) batch by batch on the card, rescales
 the detections to original image coordinates, accumulates the metric and
 prints its table.  One process evaluates the whole set (or the shard that
-``VIDDET_EVAL_SHARD=i,count`` names); the cross-process gather of metric
-states has no counterpart yet.  ``--quant int8`` builds the model under
-``INT8_POLICY`` and calibrates it on the first ``--calib-batches`` loader
-batches, normalized on the host (``viddet_tpu/cli/evaluate.py:101-120``).
+``VIDDET_EVAL_SHARD=i,count`` names).  Under several processes
+(``parallel/mesh.py``) each evaluates its strided shard, writes its
+detections to ``{path}.p{i}``, and the metric states are gathered and
+merged (``eval/distributed.py``) before ``get()``, so every process
+returns the whole set's result; process 0 prints it.  ``--quant int8``
+builds the model under ``INT8_POLICY`` and calibrates it on the first
+``--calib-batches`` loader batches, normalized on the host
+(``viddet_tpu/cli/evaluate.py:101-120``); under several processes those
+are the whole set's first batches, so every replica is calibrated alike.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.evaluate --network yolo3_darknet53 \
       --dataset voc --data-root /data/VOCdevkit --weights model.npz
 
-and on the CPU (the kernels' plain versions): add ``--platform cpu``.
+on N cards of one host:
+  python -m torch.distributed.run --nproc_per_node=N -m viddet_tpu_torch.cli.evaluate ...
+
+and on the CPU (the kernels' plain versions, gloo ranks): add ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from viddet_tpu_torch.cli.common import (
     build_model,
     calibrate_variables,
     get_dataset,
+    initialize_for,
     load_weights,
     make_predictor,
     parse_with_config,
@@ -41,7 +50,9 @@ from viddet_tpu_torch.cli.common import (
 )
 from viddet_tpu_torch.data.loader import DetectionLoader
 from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes, normalize
+from viddet_tpu_torch.eval.distributed import gather_states, merge_metric_states
 from viddet_tpu_torch.infer.service import to_device_batch
+from viddet_tpu_torch.parallel.mesh import process_count, process_index
 from viddet_tpu_torch.weights import load_flat, seeded_flat
 
 
@@ -96,15 +107,21 @@ def evaluate(model, dataset, metric, args, logger, stats: dict | None = None):
     image count and the wall-time split: waiting on the loader, the device
     step (copy in, forward pass and tail, results back on the host) and the
     metric update with its host rescale (and the detections file).
+
+    Under several processes each evaluates its strided shard (``eval_shard``)
+    into ``{save_detections}.p{i}``, then the metric states of all are merged
+    into ``metric`` before ``get()``.
     """
     device = next(model.parameters()).device
     infer = make_predictor(model)
-    loader = val_loader(dataset, args)
+    loader = val_loader(dataset, args, eval_shard())
 
     split = {"loader_s": 0.0, "device_s": 0.0, "metric_s": 0.0}
     t0 = time.perf_counter()
     seen = 0
     det_path = args.save_detections
+    if det_path and process_count() > 1:
+        det_path = f"{det_path}.p{process_index()}"  # one file a process; join by index
     det_file = open(det_path, "w") if det_path else None
     try:
         # explicit iterator so an early --max-images break closes the
@@ -152,12 +169,30 @@ def evaluate(model, dataset, metric, args, logger, stats: dict | None = None):
                 split["metric_s"])
     if stats is not None:
         stats.update(images=seen, seconds=dt, **split)
+    if process_count() > 1:
+        states = gather_states(metric.state_dict())
+        merge_metric_states(metric, states)
+        logger.info("merged metric state from %d process(es)", len(states))
     return metric.get()
 
 
-def val_loader(dataset, args) -> DetectionLoader:
+def eval_shard(by_process: bool = True):
+    """The strided shard (index, count) to evaluate: ``VIDDET_EVAL_SHARD=
+    i,count`` if set, else this process's under several processes
+    (``by_process``), else None (the whole set)."""
+    shard_env = os.environ.get("VIDDET_EVAL_SHARD", "")
+    if shard_env:
+        return tuple(int(x) for x in shard_env.split(","))
+    if by_process and process_count() > 1:
+        return process_index(), process_count()
+    return None
+
+
+def val_loader(dataset, args, shard=None) -> DetectionLoader:
     """The evaluation loader: ``ValTransform`` (``ClipValTransform`` for a
-    temporal model) at ``--data-shape``, batches of ``--batch-size``."""
+    temporal model) at ``--data-shape``, batches of ``--batch-size``, over
+    the strided ``shard`` (index, count) of the set, or the whole set (the
+    loader keeps uneven tails: evaluation must not drop images)."""
     from viddet_tpu_torch.data.clip_transforms import ClipValTransform
 
     size = (args.data_shape, args.data_shape)
@@ -169,10 +204,6 @@ def val_loader(dataset, args) -> DetectionLoader:
     else:
         transform = ValTransform(size=size, letterbox_resize=args.letterbox,
                                  normalize=not args.device_normalize)
-    # VIDDET_EVAL_SHARD=i,count evaluates a strided shard of the val set
-    # (the loader keeps uneven tails: eval must not drop images).
-    shard_env = os.environ.get("VIDDET_EVAL_SHARD", "")
-    shard = tuple(int(x) for x in shard_env.split(",")) if shard_env else None
     return DetectionLoader(dataset, transform, batch_size=args.batch_size, train=False,
                            num_workers=args.num_workers, shard=shard)
 
@@ -181,7 +212,7 @@ def calibrate_on_loader(model, dataset, args, logger):
     """Calibrate an int8 model on the first ``--calib-batches`` batches of
     the evaluation loader, uint8 batches normalized on the host first."""
     device = next(model.parameters()).device
-    batches, it = [], iter(val_loader(dataset, args))
+    batches, it = [], iter(val_loader(dataset, args, eval_shard(by_process=False)))
     try:
         for _ in range(max(1, args.calib_batches)):
             try:
@@ -239,7 +270,10 @@ def log_table(logger, names, values) -> None:
 
 
 def main(argv=None):
+    """Run the CLI; returns the metric's (names, values), the whole set's
+    on every process."""
     args = parse_args(argv)
+    initialize_for(args.platform)
     logger = setup_logging()
     temporal = args.temporal_k > 1
     ds_kw = (
@@ -251,8 +285,10 @@ def main(argv=None):
     )
     if args.from_detections:
         metric = metric_factory(list(dataset.classes))
-        log_table(logger, *rescore_from_detections(dataset, metric, args.from_detections, logger))
-        return
+        result = rescore_from_detections(dataset, metric, args.from_detections, logger)
+        if process_index() == 0:
+            log_table(logger, *result)
+        return result
     device = platform_device(args.platform)
     if temporal:
         from viddet_tpu_torch.models.zoo import place, temporal_yolo3_custom
@@ -277,7 +313,10 @@ def main(argv=None):
     if args.quant:
         calibrate_on_loader(model, dataset, args, logger)
     metric = metric_factory(class_names)
-    log_table(logger, *evaluate(model, dataset, metric, args, logger))
+    result = evaluate(model, dataset, metric, args, logger)
+    if process_index() == 0:
+        log_table(logger, *result)
+    return result
 
 
 if __name__ == "__main__":

@@ -7,14 +7,20 @@ Fixed input size; the RPN and roi minibatches are sampled in the step on
 the device from one ``torch.Generator`` seeded with ``--seed + 7`` (JAX
 seeds its sampling key from the same value; the streams differ).  On the
 card each step launches K5 once (proposal NMS at K = 1000); validation
-runs ``cli.evaluate.evaluate`` (K7, K5 twice, K2 and K6 a batch).  One
-process.
+runs ``cli.evaluate.evaluate`` (K7, K5 twice, K2 and K6 a batch).  Data
+parallel under torch's launcher (``parallel/mesh.py``): every process
+seeds its generator alike and draws the global batch's uniforms, keeping
+its own rows, and the losses divide by the global batch's counts.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.train_faster_rcnn --dataset coco \
       --data-root /data/coco --batch-size 8
 
-and on the CPU (the kernels' plain versions): add ``--platform cpu``.
+on N cards of one host:
+  python -m torch.distributed.run --nproc_per_node=N \
+      -m viddet_tpu_torch.cli.train_faster_rcnn ...
+
+and on the CPU (the kernels' plain versions, gloo ranks): add ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ import torch
 from viddet_tpu_torch.cli.common import (
     build_for_training,
     fit_detector,
+    initialize_for,
     parse_with_config,
     setup_logging,
 )
+from viddet_tpu_torch.parallel.mesh import process_index
 from viddet_tpu_torch.train.loop import make_frcnn_train_step
 
 
@@ -64,7 +72,8 @@ def main(argv=None, built=None):
     loaded, instead of the seeded model that ``--network``, ``--dataset``
     and ``--seed`` name."""
     args = parse_args(argv)
-    logger = setup_logging(args.save_prefix)
+    initialize_for(args.platform)
+    logger = setup_logging(args.save_prefix if process_index() == 0 else None)
     logger.info("args: %s", vars(args))
     model, class_names, datasets = build_for_training(args, built)
     generator = torch.Generator(device=next(model.parameters()).device).manual_seed(args.seed + 7)

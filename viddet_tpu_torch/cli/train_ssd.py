@@ -7,13 +7,18 @@ Fixed 512-px input (the anchors are size-coupled); the multi-scale
 augmentation is ``TrainTransform``'s random expand and crop.  Targets and
 hard-negative mining run in the step on the device (``train.loop``); the
 step launches no kernel.  Validation runs ``cli.evaluate.evaluate`` (on the
-card K2 twice, K5 and K6 a batch).  One process.
+card K2 twice, K5 and K6 a batch).  Data parallel under torch's launcher
+(``parallel/mesh.py``): ``--batch-size`` per process, BatchNorm over the
+global batch, process 0 writes the outputs.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.train_ssd --dataset voc \
       --data-root /data/VOCdevkit --batch-size 32
 
-and on the CPU (the kernels' plain versions): add ``--platform cpu``.
+on N cards of one host:
+  python -m torch.distributed.run --nproc_per_node=N -m viddet_tpu_torch.cli.train_ssd ...
+
+and on the CPU (the kernels' plain versions, gloo ranks): add ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ import argparse
 from viddet_tpu_torch.cli.common import (
     build_for_training,
     fit_detector,
+    initialize_for,
     parse_with_config,
     setup_logging,
 )
+from viddet_tpu_torch.parallel.mesh import process_index
 from viddet_tpu_torch.train.loop import make_ssd_train_step
 
 
@@ -61,7 +68,8 @@ def main(argv=None, built=None):
     loaded, instead of the seeded model that ``--network``, ``--dataset``
     and ``--seed`` name."""
     args = parse_args(argv)
-    logger = setup_logging(args.save_prefix)
+    initialize_for(args.platform)
+    logger = setup_logging(args.save_prefix if process_index() == 0 else None)
     logger.info("args: %s", vars(args))
     model, class_names, datasets = build_for_training(args, built, image_size=args.data_shape)
     fit_detector(args, logger, model, class_names, datasets, make_ssd_train_step(model),

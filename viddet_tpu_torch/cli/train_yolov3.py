@@ -2,18 +2,27 @@
 ``viddet_tpu/cli/train_yolov3.py``): the same flags, defaults, log lines
 and output files (``{prefix}_train.log``, ``{prefix}_ckpt/step_*``,
 ``{prefix}_best.npz``, ``{prefix}_final.npz``, ``--metrics-jsonl``
-records), on one card.
+records), on one card or several.
 
 Targets are assigned inside the train step on the device; multi-scale
 training draws each batch's size from the buckets 320..608 (step 64);
-checkpoints carry the full state (momentum included).  One process: the
-loader's ``shard`` stays None and ``--syncbn`` does nothing.
+checkpoints carry the full state (momentum included).  Data parallel under
+torch's launcher (``parallel/mesh.py``): each process loads its strided
+shard of the training set (``--batch-size`` per process, as in JAX),
+BatchNorm normalizes with the global batch's statistics whatever
+``--syncbn`` says, every process validates the whole val set (so each
+picks the same best), and process 0 alone writes the checkpoints, the
+``.npz`` files, the log file, ``--metrics-jsonl`` and the profile trace.
 
 Example, on the card:
   python -m viddet_tpu_torch.cli.train_yolov3 --dataset voc \
       --data-root /data/VOCdevkit --network yolo3_darknet53 --batch-size 64
 
-and on the CPU (the kernels' plain versions): add ``--platform cpu``.
+on N cards of one host:
+  python -m torch.distributed.run --nproc_per_node=N \
+      -m viddet_tpu_torch.cli.train_yolov3 --dataset voc ...
+
+and on the CPU (the kernels' plain versions, gloo ranks): add ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 from viddet_tpu_torch.cli.common import (
     build_model,
     get_dataset,
+    initialize_for,
     make_predictor,
     parse_with_config,
     platform_device,
@@ -38,6 +48,7 @@ from viddet_tpu_torch.cli.common import (
 from viddet_tpu_torch.data.loader import DetectionLoader
 from viddet_tpu_torch.data.transforms import TrainTransform, ValTransform
 from viddet_tpu_torch.infer.service import to_device_batch
+from viddet_tpu_torch.parallel.mesh import barrier, make_mesh, put_batch, replicate
 from viddet_tpu_torch.train.loop import make_train_step
 from viddet_tpu_torch.train.state import (
     TrainState,
@@ -89,8 +100,8 @@ def parse_args(argv=None):
     p.add_argument("--max-steps", type=int, default=0,
                    help="stop after N steps total (debug/smoke)")
     p.add_argument("--syncbn", action="store_true",
-                   help="accepted for reference CLI parity; one process has "
-                        "one batch, so BatchNorm statistics are already global")
+                   help="accepted for reference CLI parity; BatchNorm always "
+                        "uses global-batch statistics across processes")
     p.add_argument("--profile", type=int, default=0,
                    help="trace N steps with torch.profiler into <save-prefix>_trace")
     p.add_argument("--fault-inject", type=int, default=0,
@@ -131,18 +142,16 @@ def mixup_batch(images, boxes, ids, rng):
     return mixed, boxes2, ids2, w
 
 
-def _device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    return to_device_batch(np.ascontiguousarray(x), x.shape[0], device)
-
-
 def main(argv=None, built=None):
     """Run the CLI; ``built``: a caller's (model, class names), weights
     loaded, instead of the model and seeded weights that ``--network``,
     ``--dataset`` and ``--seed`` name (a single-frame YOLOv3)."""
     args = parse_args(argv)
-    logger = setup_logging(args.save_prefix)
+    initialize_for(args.platform)
+    mesh = make_mesh(platform_device(args.platform))
+    device, primary = mesh.device, mesh.rank == 0
+    logger = setup_logging(args.save_prefix if primary else None)
     logger.info("args: %s", vars(args))
-    device = platform_device(args.platform)
 
     temporal = args.temporal_k > 1
     # window kwargs reach VID members only (combined names route them per
@@ -200,6 +209,7 @@ def main(argv=None, built=None):
         num_workers=args.num_workers,
         seed=args.seed,
         max_boxes=args.max_gt_boxes,
+        shard=(mesh.rank, mesh.size) if mesh.size > 1 else None,
     )
     steps_per_epoch = max(len(train_loader), 1)
 
@@ -221,7 +231,9 @@ def main(argv=None, built=None):
             state = restore_checkpoint(path, state)
             start_epoch = state.step // steps_per_epoch
             logger.info("resumed from %s (step %d, epoch %d)", path, state.step, start_epoch)
-    logger.info("device: %s; %d steps/epoch", device, steps_per_epoch)
+    replicate(model, state.momenta)
+    logger.info("device: %s, process %d/%d; %d steps/epoch", device, mesh.rank, mesh.size,
+                steps_per_epoch)
 
     train_step = make_train_step(
         strides=tuple(model.head.strides),
@@ -236,7 +248,7 @@ def main(argv=None, built=None):
     mix_rng = np.random.default_rng(args.seed + 1)
     ckpt_dir = f"{args.save_prefix}_ckpt"
     tb_writer = None
-    if args.tensorboard:
+    if args.tensorboard and primary:
         from tensorboardX import SummaryWriter
 
         tb_writer = SummaryWriter(f"{args.save_prefix}_tb")
@@ -258,6 +270,11 @@ def main(argv=None, built=None):
             del dummy
             logger.info("  %dx%d compiled in %.1fs", sh, sw, time.time() - tic)
 
+    def save_and_wait():
+        if primary:
+            save_checkpoint(ckpt_dir, state, state.step, block=True)
+        barrier()
+
     profiler = None
     for epoch in range(start_epoch, args.epochs):
         tic = time.time()
@@ -268,10 +285,9 @@ def main(argv=None, built=None):
             gt_weights = None
             if use_mixup:
                 images, boxes, ids, gt_weights = mixup_batch(images, boxes, ids, mix_rng)
-            batch = (_device(images, device), _device(boxes, device),
-                     _device(ids.astype(np.int32), device))
-            gw = None if gt_weights is None else _device(gt_weights, device)
-            if args.profile and total_steps == 5:
+            batch = put_batch((images, boxes, ids.astype(np.int32)), mesh)
+            gw = None if gt_weights is None else put_batch((gt_weights,), mesh)[0]
+            if args.profile and total_steps == 5 and primary:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -300,7 +316,7 @@ def main(argv=None, built=None):
                     means.get("obj", 0), means.get("center", 0),
                     means.get("scale", 0), means.get("cls", 0),
                 )
-                if args.metrics_jsonl:
+                if args.metrics_jsonl and primary:
                     with open(args.metrics_jsonl, "a") as mf:
                         mf.write(json.dumps({
                             "step": total_steps, "epoch": epoch,
@@ -312,14 +328,14 @@ def main(argv=None, built=None):
                     for k, v in means.items():
                         tb_writer.add_scalar(f"loss/{k}", v, total_steps)
             if args.fault_inject and total_steps == args.fault_inject:
-                save_checkpoint(ckpt_dir, state, state.step, block=True)
+                save_and_wait()
                 raise RuntimeError(
                     f"fault injected at step {total_steps} (checkpoint saved; "
                     f"resume with --resume {ckpt_dir})"
                 )
             if args.max_steps and total_steps >= args.max_steps:
                 logger.info("reached max-steps=%d, stopping", args.max_steps)
-                save_checkpoint(ckpt_dir, state, state.step, block=True)
+                save_and_wait()
                 return
         logger.info("[Epoch %d] done in %.1fs", epoch, time.time() - tic)
         if train_loader.dropped_boxes:
@@ -334,11 +350,14 @@ def main(argv=None, built=None):
             logger.info("[Epoch %d] validation: %s=%.4f", epoch, names[-1], values[-1])
             if values[-1] > best_map:
                 best_map = values[-1]
-                save_weights_npz(f"{args.save_prefix}_best.npz", model)
-        if args.save_interval and (epoch + 1) % args.save_interval == 0:
+                if primary:
+                    save_weights_npz(f"{args.save_prefix}_best.npz", model)
+        if args.save_interval and (epoch + 1) % args.save_interval == 0 and primary:
             save_checkpoint(ckpt_dir, state, state.step)
-    save_checkpoint(ckpt_dir, state, state.step, block=True)
-    save_weights_npz(f"{args.save_prefix}_final.npz", model)
+    if primary:
+        save_checkpoint(ckpt_dir, state, state.step, block=True)
+        save_weights_npz(f"{args.save_prefix}_final.npz", model)
+    barrier()
 
 
 def validate(model, val_ds, metric, args, eval_step):

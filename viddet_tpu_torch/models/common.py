@@ -24,6 +24,7 @@ from viddet_tpu_torch import quant
 from viddet_tpu_torch.core.platform import conv_backend
 from viddet_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from viddet_tpu_torch.ops.conv_cuda import conv_down2_bn_leaky
+from viddet_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
@@ -31,7 +32,7 @@ LEAKY_SLOPE = 0.1
 # Flax's ``nn.leaky_relu(x, 0.1)`` multiplies by 0.1 in x's dtype: in bf16 by
 # bf16(0.1) = 0.10009765625.  K8 keeps LEAKY_SLOPE: it applies the slope to
 # its float32 accumulator, as the JAX package's Pallas kernel does.
-LEAKY_SLOPES = {torch.float32: LEAKY_SLOPE,
+LEAKY_SLOPES = {torch.float32: LEAKY_SLOPE, torch.float64: LEAKY_SLOPE,
                 torch.bfloat16: float(torch.tensor(LEAKY_SLOPE, dtype=torch.bfloat16))}
 
 
@@ -48,6 +49,72 @@ class FlaxNames:
         return f"{self.prefix}/{cls_name}_{i}"
 
 
+_CHANNEL_DIMS = (0, 2, 3)
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[:, None, None]
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of an NCHW tensor over the global batch of the
+    process group: ``apply(x, weight, bias, eps) -> (y, mean, var)``.
+
+    Forward: each process's (count, mean, M2) per channel (a Welford pass,
+    ``var_mean``), gathered in process order and merged by Chan's parallel
+    formula (mean = sum n_p m_p / N, M2 = sum M2_p + n_p (m_p - mean)^2),
+    the same sums in the same order on every process, so every process
+    normalizes with the same bits.  The statistics and the affine run in
+    float32 for a bf16 or float16 ``x`` (in its own dtype otherwise) and
+    the output is rounded once to ``x``'s dtype.  ``mean`` and the biased
+    ``var`` are for the running update and carry no gradient.
+
+    Backward: the per-channel sums of ``dy`` and ``dy * (x - mean)`` are
+    all-reduced and divided by the global count, as the global program's
+    gradient needs; ``dweight`` and ``dbias`` stay this process's shares,
+    which the gradient average over processes sums.  Each process's
+    ``dy`` is that of its own loss, the global loss times the processes,
+    so every gradient is the process count times its share and the average
+    (``train/state.py``) is the global gradient.
+
+    It does not round as ``native_batch_norm``'s one Welford pass over the
+    whole batch does: the merged mean and M2 are a few float32 ulps from
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        acc = torch.float32 if x.dtype in (torch.float16, torch.bfloat16) else x.dtype
+        xf = x.to(acc)
+        var, mean = torch.var_mean(xf, dim=_CHANNEL_DIMS, correction=0)
+        n = float(x.numel() // x.shape[1])
+        counts, means, m2s = mesh.all_gather_rows(
+            torch.stack([torch.full_like(mean, n), mean, var * n])).unbind(1)
+        total = counts.sum(0)
+        gmean = (counts * means).sum(0) / total
+        gvar = (m2s + counts * (means - gmean) ** 2).sum(0) / total
+        invstd = torch.rsqrt(gvar + eps)
+        scale = weight.to(acc) * invstd
+        y = (xf * _per_channel(scale) + _per_channel(bias.to(acc) - gmean * scale)).to(x.dtype)
+        ctx.save_for_backward(x, weight, gmean, invstd, total)
+        ctx.mark_non_differentiable(gmean, gvar)
+        return y, gmean, gvar
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, total = ctx.saved_tensors
+        acc = mean.dtype
+        dyf = dy.to(acc)
+        xmu = x.to(acc) - _per_channel(mean)
+        local = torch.stack([dyf.sum(_CHANNEL_DIMS), (dyf * xmu).sum(_CHANNEL_DIMS)])
+        sums = local.clone()
+        mesh.all_reduce_([sums])
+        mean_dy, mean_dy_xmu = sums / total
+        dx = (dyf - _per_channel(mean_dy) - xmu * _per_channel(invstd * invstd * mean_dy_xmu)) \
+            * _per_channel(invstd * weight.to(acc))
+        return (dx.to(x.dtype), (local[1] * invstd).to(weight.dtype), local[0].to(weight.dtype),
+                None)
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Flax's train-mode ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on an
     NCHW tensor: ``x`` normalized with its batch mean and biased variance,
@@ -61,11 +128,22 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     ``E[x^2] - E[x]^2``: the same quantities, rounded otherwise, and more
     accurately (the fast form cancels where the mean is large against the
     spread).  The variance is recovered from the saved ``1 / sqrt(var +
-    eps)`` for the running update."""
-    y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True, 0.0,
-                                              BN_EPS)
+    eps)`` for the running update.
+
+    Under a process group of several processes the statistics are the
+    global batch's, as JAX's single SPMD program computes them
+    (``GlobalBatchNorm``), and the running statistics follow them, the
+    same on every process; at one process the result is the above, bit
+    for bit."""
+    if mesh.process_count() > 1:
+        y, mean, var = GlobalBatchNorm.apply(x, bn.weight, bn.bias, BN_EPS)
+    else:
+        y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True,
+                                                  0.0, BN_EPS)
+        var = None
     with torch.no_grad():
-        var = (invstd.pow(-2) - BN_EPS).clamp_min(0.0)
+        if var is None:
+            var = (invstd.pow(-2) - BN_EPS).clamp_min(0.0)
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
     return y

@@ -30,7 +30,11 @@ package trains through its XLA ROIAlign; K7 has no backward).
 ``frcnn_loss`` assigns and samples the RPN's anchors.  The samplers rank
 uniforms that the caller passes in, drawn from an explicit
 ``torch.Generator`` on the model's device (``train.loop``), so the tests
-feed them JAX's own ``jax.random`` draws.
+feed them JAX's own ``jax.random`` draws.  Under several processes each
+draws the global batch's uniforms and keeps its own rows
+(``parallel.mesh.global_uniform``), and ``frcnn_loss`` divides by the
+global batch's counts, so the processes together take the step that one
+process with the whole batch takes.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ from viddet_tpu_torch.models.ssd import inverse_permutation
 from viddet_tpu_torch.ops.boxes import box_iou, clip_boxes, div_rn
 from viddet_tpu_torch.ops.nms import Detections, _nms_on_candidates, _ops, _pair_top_k_det
 from viddet_tpu_torch.ops.roi_align import multilevel_roi_align_packed
+from viddet_tpu_torch.parallel import mesh
+from viddet_tpu_torch.parallel.mesh import global_uniform
 from viddet_tpu_torch.train.targets import log_xla_cpu
 
 FPN_STRIDES = (4, 8, 16, 32, 64)  # P2..P6
@@ -230,6 +236,21 @@ def _smooth_l1(x: torch.Tensor, beta: float = 1.0 / 9.0) -> torch.Tensor:
     return torch.where(ax < beta, 0.5 * x * x / beta, ax - 0.5 * beta)
 
 
+def _loss_denominators(rpn_count: torch.Tensor, head_count: torch.Tensor):
+    """The RPN's and the head's denominators: the sampled anchors and rois
+    of the whole batch, at least 1.  Under several processes they are the
+    global batch's counts (a detached all-reduce) divided by the process
+    count: each process's loss is then its share of the global sum over
+    the global count, times the processes, and their mean, which the
+    gradient average differentiates, is the global loss."""
+    counts = torch.stack([rpn_count, head_count]).detach()
+    world = mesh.process_count()
+    if world > 1:
+        mesh.all_reduce_([counts])
+        return (counts.clamp_min(1.0) / world).unbind()
+    return counts.clamp_min(1.0).unbind()
+
+
 def frcnn_loss(outputs: Dict[str, torch.Tensor], gt_boxes: torch.Tensor, gt_ids: torch.Tensor,
                cfg: FRCNNConfig, rpn_uniform: torch.Tensor) -> Dict[str, torch.Tensor]:
     """RPN (sigmoid BCE and SmoothL1 over the sampled anchors) and head
@@ -240,16 +261,15 @@ def frcnn_loss(outputs: Dict[str, torch.Tensor], gt_boxes: torch.Tensor, gt_ids:
     obj = outputs["rpn_obj"]
     pos = (labels == 1).float()
     sampled = (labels >= 0).float()
+    cls_t = outputs["roi_cls_target"].long()  # (B, S), -1 padding
+    mask = (cls_t >= 0).float()
+    denom, head_denom = _loss_denominators(sampled.sum(), mask.sum())
     bce = obj.clamp_min(0.0) - obj * pos + torch.log1p(torch.exp(-obj.abs()))
-    denom = sampled.sum().clamp_min(1.0)
     rpn_cls = (bce * sampled).sum() / denom
     rpn_box = (_smooth_l1(outputs["rpn_delta"] - rpn_box_t) * pos[..., None]).sum() / denom
 
-    cls_t = outputs["roi_cls_target"].long()  # (B, S), -1 padding
-    mask = (cls_t >= 0).float()
     logp = torch.log_softmax(outputs["roi_cls_logits"], dim=-1)
     ce = -logp.gather(-1, cls_t.clamp_min(0)[..., None])[..., 0]
-    head_denom = mask.sum().clamp_min(1.0)
     head_cls = (ce * mask).sum() / head_denom
     b, s = cls_t.shape
     cls_idx = (cls_t - 1).clamp_min(0)  # the foreground class's slot
@@ -422,8 +442,9 @@ class FasterRCNN(nn.Module):
             if roi_uniform is None:
                 if generator is None:
                     raise ValueError("a train-mode forward takes a generator or roi_uniform")
-                shape = (images.shape[0], 2, proposals.shape[1] + gt_ids.shape[1])
-                roi_uniform = torch.rand(shape, generator=generator, device=images.device)
+                roi_uniform = global_uniform(
+                    (images.shape[0], 2, proposals.shape[1] + gt_ids.shape[1]), generator,
+                    images.device)
             rois, cls_t, box_t, mask = sample_rois(roi_uniform, proposals, p_valid, gt_boxes,
                                                    gt_ids, cfg)
             out.update(rois=rois, roi_cls_target=cls_t, roi_box_target=box_t, roi_mask=mask)

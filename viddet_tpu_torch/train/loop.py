@@ -20,6 +20,11 @@ sampling, on the device (no host round trip).  Its stream is not
 ``jax.random``'s, so only the selection given the same uniforms equals
 JAX's.  On the card the Faster R-CNN step launches K5 once (proposal NMS
 at K = ``rpn_nms_input``); the SSD step launches no kernel.
+
+Under a process group (``parallel/mesh.py``) every step is the global
+batch's: BatchNorm on its statistics, the gradients averaged over the
+processes and the losses returned averaged too, and Faster R-CNN's
+draws and denominators those of the global batch.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from viddet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from viddet_tpu_torch.models.faster_rcnn import frcnn_loss
 from viddet_tpu_torch.models.ssd import ssd_loss
 from viddet_tpu_torch.models.yolo3 import flatten_outputs
+from viddet_tpu_torch.parallel import mesh
+from viddet_tpu_torch.parallel.mesh import global_uniform
 from viddet_tpu_torch.train.losses import yolo_loss
 from viddet_tpu_torch.train.state import TrainState
 
@@ -78,10 +85,20 @@ def make_train_step(*, strides, anchors, num_classes: int, ignore_thresh: float 
 
 def _backward_and_update(state: TrainState, losses: Dict[str, torch.Tensor]
                          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """Backward and the update; the losses returned are the global batch's:
+    under several processes each process's losses are averaged over them
+    (each is its local batch's mean, or for Faster R-CNN its share of the
+    global sums), the mean that the gradient average differentiates."""
     state.zero_grad()
     losses["total"].backward()
     state.apply_gradients()
-    return state, {k: v.detach() for k, v in losses.items()}
+    out = {k: v.detach() for k, v in losses.items()}
+    if mesh.process_count() > 1:
+        dtype = functools.reduce(torch.promote_types, (v.dtype for v in out.values()))
+        values = torch.stack([v.to(dtype) for v in out.values()])
+        mesh.all_reduce_([values], mean=True)
+        out = {k: m.to(v.dtype) for (k, v), m in zip(out.items(), values.unbind())}
+    return state, out
 
 
 def _check_model(state: TrainState, model: torch.nn.Module) -> torch.nn.Module:
@@ -120,8 +137,8 @@ def make_frcnn_train_step(model: torch.nn.Module):
         out = _check_model(state, model)(_maybe_normalize(images), gt_boxes, gt_ids,
                                          generator=generator, roi_uniform=roi_uniform)
         if rpn_uniform is None:
-            shape = (images.shape[0], 2, out["anchors"].shape[0])
-            rpn_uniform = torch.rand(shape, generator=generator, device=images.device)
+            rpn_uniform = global_uniform((images.shape[0], 2, out["anchors"].shape[0]),
+                                         generator, images.device)
         return _backward_and_update(state, frcnn_loss(out, gt_boxes, gt_ids, cfg, rpn_uniform))
 
     return train_step

@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from viddet_tpu_torch.parallel import mesh
 from viddet_tpu_torch.weights import copy_from_schema, leaves, load_flat, schema_array, to_flat
 
 
@@ -112,8 +113,12 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One optimizer update from the parameters' ``.grad`` (zero where
-        a parameter got none, as JAX's gradient is)."""
+        a parameter got none, as JAX's gradient is).  Under a process group
+        the gradients are first averaged over the processes (one flat
+        all-reduce per dtype, ``parallel.mesh.all_reduce_``), at world
+        size 1 too, so every replica takes the same update."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        mesh.all_reduce_(grads, mean=True)
         self.momenta = self.tx.update(self.params, grads, self.momenta, self.step)
         self.step += 1
 
