@@ -245,6 +245,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -341,6 +342,13 @@ DETECT_FILES, DETECT_SEED = 16, 8
 # drawn frame holds about as many boxes as a trained model's would.
 VIDEO_FRAMES, VIDEO_FPS, VIDEO_B, VIDEO_EVERY, VIDEO_SEED = 256, 25, 8, 4, 9
 VIDEO_BOXES, VIDEO_IDLE_FRAMES = 8, 64
+# The MP4 phase: the committed mp4v fixture (tests/fixtures/make_mp4_fixture.py)
+# and its OpenCV digests; an AVI of its frames split every MP4_SEGMENT_BYTES
+# (a few segments); cli.visualise over MP4_VIS_FRAMES synthetic images.
+MP4_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "mp4v_640x480.mp4")
+MP4_DIGESTS = MP4_FIXTURE[:-len(".mp4")] + ".json"
+MP4_FRAMES, MP4_SEGMENT_BYTES, MP4_VIS_FRAMES = 48, 1 << 18, 12
 
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
@@ -3135,6 +3143,27 @@ def video_lines(rows: dict, stream: str, indices, affine, classes, thresh: float
     return "".join(lines)
 
 
+def path_batches(kernels, what: str, batches: int) -> dict:
+    """The launches since ``set_launches`` of a run of ``batches`` batches
+    through the hierarchical tail (and nothing else)."""
+    torch_sync()
+    check(hier_batches(kernels, what) == batches, f"{what}: one tail a batch ({batches})")
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def direct_frames_per_s(infer, xs, dev) -> float:
+    """Frames (or clips) a second of ``infer`` on ``xs`` in batches of
+    VIDEO_B, each result on the host: the direct step a video run is read
+    beside."""
+    from viddet_tpu_torch.infer.service import to_device_batch
+
+    infer(to_device_batch(xs[:VIDEO_B], VIDEO_B, dev))
+    t = time.perf_counter()
+    for start in range(0, len(xs), VIDEO_B):
+        [r.cpu() for r in infer(to_device_batch(xs[start : start + VIDEO_B], VIDEO_B, dev))]
+    return len(xs) / (time.perf_counter() - t)
+
+
 def video_phase(dev, kernels, model, classes, predictor) -> dict:
     """Two seeded 640x480 Motion-JPEG AVIs (256 frames, 25 fps) written by
     ``VideoWriter``, read back by the port's reader; then with the main
@@ -3182,18 +3211,6 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
         now = time.perf_counter()
         split[name], last[0] = now - last[0], now
 
-    def runs_launches(what: str, batches: int) -> dict:
-        torch_sync()
-        check(hier_batches(kernels, what) == batches, f"{what}: one tail a batch ({batches})")
-        return {name: fn.launches for name, fn in kernels.items()}
-
-    def direct_fps(infer, xs) -> float:
-        infer(to_device_batch(xs[:VIDEO_B], VIDEO_B, dev))
-        t = time.perf_counter()
-        for start in range(0, len(xs), VIDEO_B):
-            [r.cpu() for r in infer(to_device_batch(xs[start : start + VIDEO_B], VIDEO_B, dev))]
-        return len(xs) / (time.perf_counter() - t)
-
     with tempfile.TemporaryDirectory() as tmp:
         paths = {name: os.path.join(tmp, f"{name}.avi") for name in ("a", "b")}
         images = {name: in_threads(
@@ -3230,7 +3247,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
         lap("read_and_transform")
         del images
         affine = transform(decoded["a"][0])[2]
-        out["direct_frames_per_s"] = direct_fps(predictor, frames_x["a"])
+        out["direct_frames_per_s"] = direct_frames_per_s(predictor, frames_x["a"], dev)
         first = predictor(to_device_batch(frames_x["a"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
         thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
         lap("direct")
@@ -3245,7 +3262,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
                                         transform, classes, output_dir=os.path.join(tmp, run),
                                         thresh=thresh, batch_size=VIDEO_B, draw=draw,
                                         save_detections=True, device=dev)
-            launches[run] = runs_launches(run, batches)
+            launches[run] = path_batches(kernels, run, batches)
             check(stats["frames"] == VIDEO_FRAMES, f"{run}: every frame")
             runs[run] = stats["fps"]
         out["frames_per_s"] = runs
@@ -3298,7 +3315,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
                                      vid_classes, output_dir=os.path.join(tmp, "multi"),
                                      thresh=thresh, batch_size=VIDEO_B, k=TEMPORAL_K,
                                      draw=False, save_detections=True, device=dev)
-        launches["video_multi"] = runs_launches("video_multi", len(record))
+        launches["video_multi"] = path_batches(kernels, "video_multi", len(record))
         lap("multi_run")
         clips = 2 * (VIDEO_FRAMES - 1)
         check(stats["per_stream"] == {"a.avi": VIDEO_FRAMES - 1, "b.avi": VIDEO_FRAMES - 1},
@@ -3314,7 +3331,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
         clip_x = np.stack([frames_x["a"][[i - 1, i, min(i + 1, n - 1)]] for i in range(1, n)])
         out["multi"] = {"model": TEMPORAL_MODEL, "k": TEMPORAL_K, "clips": clips,
                         "batches": len(record), "clips_per_s": stats["fps"],
-                        "direct_clips_per_s": direct_fps(temporal, clip_x)}  # stream a's clips
+                        "direct_clips_per_s": direct_frames_per_s(temporal, clip_x, dev)}
         del temporal_model, temporal, record
 
         lap("multi_check")
@@ -3328,7 +3345,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
                             str(thresh), "--save-detections", "--no-draw"],
                            built=(model, classes))
         out["detect_cli_frames_per_s"] = done / (time.perf_counter() - t)
-        launches["video_detect"] = runs_launches("video_detect", batches)
+        launches["video_detect"] = path_batches(kernels, "video_detect", batches)
         check(done == VIDEO_FRAMES, "detect: every frame")
         with open(os.path.join(tmp, "cli", "a_det.txt")) as f:
             check(f.read() == want, "detect: a_det.txt equal to the direct predictor's")
@@ -3346,6 +3363,234 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
                       f"extracted frame {idx} is the encoder's bytes")
     lap("extract")
     out.update(all_equal_direct=True, split_s=split, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
+
+
+def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
+    """MP4 input: the committed 640x480 ``mp4v`` fixture (48 frames, 25 fps,
+    written by ``cv2.VideoWriter`` as the JAX package's ``VideoWriter``
+    writes, ``tests/fixtures/make_mp4_fixture.py``) decoded by the port's
+    MPEG-4 Part 2 decoder to the SHA-256 of each Y plane and RGB frame that
+    OpenCV's FFmpeg gave; then, with the main path's model at batch 8,
+    ``stream_detect_video`` over it drawn (``FrameSource``) and not drawn
+    (``NativeFrameSource``), ``stream_detect_videos`` over it and an OpenDML
+    AVI of its frames (split into RIFF segments of MP4_SEGMENT_BYTES) in one
+    batch, and ``cli.detect.main --input clip.mp4``.  Checks: each run's
+    launches, each batch through ``video_rows``, every saved line equal to
+    the direct predictor's, the drawn ``clip_det.avi``, both sources'
+    batches equal.  Also what ran on no card before: ``NativeFrameSource``
+    normalized and without letterbox against ``FrameSource`` bit for bit,
+    the split AVI read back, and ``cli.visualise`` with ``--video`` and
+    ``--gif`` (``utils/gif.py``).  Frames/s: the MP4 reader on one thread
+    (demux + decode + RGB, decode + RGB alone, decode alone), each run
+    beside the direct step; the card's idle share over a native run."""
+    import contextlib
+    import hashlib
+    import json
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli import detect, visualise
+    from viddet_tpu_torch.cli.common import get_dataset
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
+    from viddet_tpu_torch.infer.multistream import stream_detect_videos
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource, stream_detect_video
+    from viddet_tpu_torch.native import Mpeg4Decoder, decode_jpeg, encode_jpeg
+    from viddet_tpu_torch.native.avi import AviReader, AviWriter
+    from viddet_tpu_torch.native.avi import read_index as avi_index
+    from viddet_tpu_torch.native.mp4 import Mp4Reader
+    from viddet_tpu_torch.utils.gif import write_gif
+    from viddet_tpu_torch.utils.image import draw_detections
+    from viddet_tpu_torch.utils.video import iterate_frames, probe_video
+
+    t_phase = time.perf_counter()
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    transform = ValTransform(size, letterbox_resize=True, normalize=False)
+    out = {"phase": "mp4", "model": MODEL, "size": IMAGE_SIZE, "batch": VIDEO_B,
+           "fixture": os.path.relpath(MP4_FIXTURE, os.path.dirname(os.path.abspath(__file__)))}
+    launches = {}
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # 1. the fixture, decoded to OpenCV's digests
+    with open(MP4_DIGESTS) as f:
+        digests = json.load(f)["frames"]
+    info = probe_video(MP4_FIXTURE)
+    check(info == {"fps": float(VIDEO_FPS), "frame_count": MP4_FRAMES, "width": CODEC_W,
+                   "height": CODEC_H}, f"the fixture probes as written: {info}")
+    with Mp4Reader(MP4_FIXTURE) as reader:
+        config = reader.index.config
+        samples = [reader.sample(i) for i in range(len(reader))]
+    check(len(samples) == len(digests) == MP4_FRAMES, "the fixture has its 48 samples")
+    decoder = Mpeg4Decoder(config, MP4_FIXTURE)
+    frames = []
+    for i, sample in enumerate(samples):
+        frames.append(decoder.decode(sample))
+        check(sha(decoder.planes()[0]) == digests[i]["y"],
+              f"mp4 frame {i}: the Y plane's digest is OpenCV's")
+        check(sha(frames[-1]) == digests[i]["rgb"], f"mp4 frame {i}: the RGB digest is OpenCV's")
+    decoder.close()
+    out["digests_equal"] = MP4_FRAMES
+    rates = {}
+    t = time.perf_counter()
+    check(sum(1 for _ in iterate_frames(MP4_FIXTURE)) == MP4_FRAMES, "iterate_frames: 48")
+    rates["demux_decode_rgb"] = MP4_FRAMES / (time.perf_counter() - t)
+    for what, rgb in (("decode_rgb", True), ("decode", False)):
+        decoder = Mpeg4Decoder(config)
+        t = time.perf_counter()
+        for sample in samples:
+            decoder.decode(sample, rgb=rgb)
+        rates[what] = MP4_FRAMES / (time.perf_counter() - t)
+        decoder.close()
+    out["reader_frames_per_s"] = rates  # one host thread
+
+    frames_x = {"clip": np.stack([transform(f)[0] for f in frames])}
+    affine = transform(frames[0])[2]
+    lookup = {hashlib.sha1(x.tobytes()).digest(): ("clip", i)
+              for i, x in enumerate(frames_x["clip"])}
+    out["direct_frames_per_s"] = direct_frames_per_s(predictor, frames_x["clip"], dev)
+    first = predictor(to_device_batch(frames_x["clip"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
+    thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.mp4")
+        shutil.copyfile(MP4_FIXTURE, clip)
+        batches = -(-MP4_FRAMES // VIDEO_B)
+
+        # 2. one MP4, drawn through FrameSource, then not drawn through NativeFrameSource
+        runs, records = {}, {}
+        for run, draw in (("mp4_video", True), ("mp4_video_native", False)):
+            records[run] = []
+            set_launches(kernels)
+            stats = stream_detect_video(clip, recorded(predictor, records[run]), transform,
+                                        classes, output_dir=os.path.join(tmp, run),
+                                        thresh=thresh, batch_size=VIDEO_B, draw=draw,
+                                        save_detections=True, device=dev)
+            launches[run] = path_batches(kernels, run, batches)
+            check(stats["frames"] == MP4_FRAMES, f"{run}: every frame")
+            runs[run] = stats["fps"]
+        check(all(torch.equal(a[0], b[0]) for a, b in zip(records["mp4_video"],
+                                                          records["mp4_video_native"])),
+              "mp4: the native and thread sources give equal batches")
+        rows = video_rows(model, predictor, records["mp4_video"], lookup, frames_x, 1,
+                          "mp4_video")
+        check(sorted(rows) == [("clip", i) for i in range(MP4_FRAMES)], "mp4: every frame once")
+        want = video_lines(rows, "clip", range(MP4_FRAMES), affine, classes, thresh)
+        for run in runs:
+            with open(os.path.join(tmp, run, "clip_det.txt")) as f:
+                check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
+        out["lines"] = len(want.splitlines())
+        drawn = os.path.join(tmp, "mp4_video", "clip_det.avi")
+        index = avi_index(drawn)
+        check((index.frame_count, index.width, index.height, index.fps)
+              == (MP4_FRAMES, CODEC_W, CODEC_H, VIDEO_FPS), "clip_det.avi: 48 frames, 25 fps")
+        for idx, frame in iterate_frames(drawn, every=8):
+            ids, scores, boxes = rows[("clip", idx)]
+            vis = draw_detections(frames[idx], invert_affine_to_boxes(boxes, affine), ids,
+                                  scores, classes, thresh)
+            check(np.array_equal(frame, decode_jpeg(encode_jpeg(vis, 95))),
+                  f"clip_det.avi frame {idx} is the drawn frame at JPEG q 95")
+        out["window"] = window_idle_share(lambda: stream_detect_video(
+            clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
+            batch_size=VIDEO_B, draw=False, device=dev))
+        out["window"]["frames"] = MP4_FRAMES
+
+        # 3. an OpenDML AVI of the same frames, split into RIFF segments
+        split = os.path.join(tmp, "split.avi")
+        with AviWriter(split, CODEC_W, CODEC_H, VIDEO_FPS,
+                       segment_bytes=MP4_SEGMENT_BYTES) as writer:
+            for f in frames:
+                writer.write(f)
+        with open(split, "rb") as f:
+            data = f.read()
+        segments = sum(1 for i in range(0, len(data) - 12)
+                       if data[i:i + 4] == b"RIFF" and data[i + 8:i + 12] in (b"AVI ", b"AVIX"))
+        check(segments >= 3, f"split.avi: {segments} RIFF segments of {MP4_SEGMENT_BYTES} bytes")
+        with AviReader(split) as video:
+            check(len(video) == MP4_FRAMES, "split.avi: every frame read back across segments")
+        frames_x["split"] = []
+        for idx, frame in iterate_frames(split):
+            check(np.array_equal(frame, decode_jpeg(encode_jpeg(frames[idx], 95))),
+                  f"split.avi frame {idx} is the MP4 frame at JPEG q 95")
+            frames_x["split"].append(transform(frame)[0])
+        frames_x["split"] = np.stack(frames_x["split"])
+        for i, x in enumerate(frames_x["split"]):
+            lookup[hashlib.sha1(x.tobytes()).digest()] = ("split", i)
+        out["split_avi"] = {"segments": segments, "segment_bytes": MP4_SEGMENT_BYTES}
+
+        # 4. the MP4 and the AVI through one batch
+        record = []
+        set_launches(kernels)
+        stats = stream_detect_videos([clip, split], recorded(predictor, record), transform,
+                                     classes, output_dir=os.path.join(tmp, "multi"),
+                                     thresh=thresh, batch_size=VIDEO_B, draw=False,
+                                     save_detections=True, device=dev)
+        launches["mp4_video_multi"] = path_batches(kernels, "mp4_video_multi", len(record))
+        check(stats["per_stream"] == {"clip.mp4": MP4_FRAMES, "split.avi": MP4_FRAMES},
+              f"mp4_video_multi: every frame of both {stats['per_stream']}")
+        multi_rows = video_rows(model, predictor, record, lookup, frames_x, 1, "mp4_video_multi")
+        for name in ("clip", "split"):
+            with open(os.path.join(tmp, "multi", f"{name}_det.txt")) as f:
+                check(f.read() == video_lines(multi_rows, name, range(MP4_FRAMES), affine,
+                                              classes, thresh),
+                      f"mp4_video_multi: {name}_det.txt equal to the direct predictor's")
+        runs["mp4_video_multi"] = stats["fps"]
+
+        # 5. the detect CLI over the MP4
+        set_launches(kernels)
+        t = time.perf_counter()
+        done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
+                            clip, "--output", os.path.join(tmp, "cli"), "--data-shape",
+                            str(IMAGE_SIZE), "--batch-size", str(VIDEO_B), "--thresh",
+                            str(thresh), "--save-detections", "--no-draw"],
+                           built=(model, classes))
+        runs["mp4_detect_cli"] = done / (time.perf_counter() - t)
+        launches["mp4_detect"] = path_batches(kernels, "mp4_detect", batches)
+        check(done == MP4_FRAMES, "detect: every MP4 frame")
+        with open(os.path.join(tmp, "cli", "clip_det.txt")) as f:
+            check(f.read() == want, "detect: clip_det.txt equal to the direct predictor's")
+        out["frames_per_s"] = runs
+
+        # 6. NativeFrameSource normalized, and without the letterbox, against FrameSource
+        for normalize, letterbox in ((True, True), (False, False)):
+            native = list(NativeFrameSource(clip, size, letterbox_resize=letterbox,
+                                            normalize=normalize))
+            thread = list(FrameSource(clip, ValTransform(size, letterbox, normalize=normalize)))
+            check(len(native) == len(thread) == MP4_FRAMES and all(
+                a[0] == b[0] and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+                for a, b in zip(native, thread)),
+                f"NativeFrameSource (normalize {normalize}, letterbox {letterbox}) equals "
+                "FrameSource bit for bit")
+
+        # 7. cli.visualise: GT boxes of the synthetic dataset, a video and a GIF
+        vis_dir = os.path.join(tmp, "vis")
+        with contextlib.redirect_stdout(sys.stderr):
+            n = visualise.main(["--dataset", "synthetic", "--data-root", "synthetic",
+                                "--output", vis_dir, "--max-images", str(MP4_VIS_FRAMES),
+                                "--video", "v.avi", "--gif", "v.gif", "--fps", "10"])
+        check(n == MP4_VIS_FRAMES, f"visualise: {MP4_VIS_FRAMES} visualisations")
+        ds, _ = get_dataset("synthetic", "synthetic", split="val")
+        gif_frames = []
+        with AviReader(os.path.join(vis_dir, "v.avi")) as video:
+            check(len(video) == MP4_VIS_FRAMES, "visualise: v.avi holds every visualisation")
+            for i in range(MP4_VIS_FRAMES):
+                img, label = ds[i]
+                vis = draw_detections(img, label[:, :4], label[:, 4], np.ones(len(label)),
+                                      list(ds.classes), thresh=0.0)
+                with open(os.path.join(vis_dir, f"{i:06d}_vis.jpg"), "rb") as f:
+                    jpeg = f.read()
+                check(jpeg == encode_jpeg(vis, 95) == video.jpeg(i),
+                      f"visualise: frame {i} is the drawn image at JPEG q 95, in both files")
+                gif_frames.append(vis)
+        write_gif(os.path.join(tmp, "want.gif"), gif_frames, duration_ms=100, loop=0)
+        with open(os.path.join(vis_dir, "v.gif"), "rb") as a, \
+                open(os.path.join(tmp, "want.gif"), "rb") as b:
+            check(a.read() == b.read(), "visualise: v.gif is utils.gif's encoding of the frames")
+    out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
 
@@ -4751,6 +4996,7 @@ def main() -> int:
     launches["http"] = http_phase(dev, kernels, model, classes, predictor)
     launches.update(stream_phase(dev, kernels, predictor))
     launches.update(video_phase(dev, kernels, model, classes, predictor))
+    launches.update(mp4_phase(dev, kernels, model, classes, predictor))
     launches["detect"] = detect_phase(dev, kernels, model, classes, predictor)
     del model, predictor, images, head_out
     launches["temporal"], temporal_rows = temporal_phase(dev, kernels)

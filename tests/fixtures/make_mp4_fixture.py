@@ -1,0 +1,207 @@
+"""Write the MPEG-4 Part 2 fixtures (run from the repository root):
+
+    python -m tests.fixtures.make_mp4_fixture
+
+* ``mp4v_640x480.mp4``: 48 frames at 640x480, 25 fps, written by
+  ``cv2.VideoWriter`` (FFmpeg's mpeg4 encoder, ``mp4v`` in MP4, as the JAX
+  package's ``VideoWriter`` writes), from seeded numpy content; and
+  ``mp4v_640x480.json``, each frame's SHA-256 of the Y plane and of the
+  RGB frame as ``cv2.VideoCapture`` (FFmpeg) decodes them.  The card
+  machine has no OpenCV the port may use: ``chip_smoke.py`` holds the
+  port's decoder to these digests there.
+* ``mpeg4_features.mp4`` and ``mpeg4_dark.mp4``: streams that
+  ``cv2.VideoWriter`` cannot make, encoded by the libavcodec inside the
+  opencv-python wheel through ``ctypes`` (its public ``avcodec_*`` calls;
+  ``AVFrame`` and ``AVPacket`` fields by their fixed offsets) and laid out
+  by ``tests.torch_mp4_helpers.write_mp4``.  ``features``: four motion
+  vectors a macroblock (``+mv4``), AC prediction (``+aic``), a quantiser
+  that changes per macroblock (the adaptive-quantisation masks, so DQUANT
+  and rescaled AC predictors) and video packets after resync markers
+  (``ps``), at 200x136 (partial macroblocks).  ``dark``: luma and chroma
+  samples of 0 under half-sample vectors with rounding type 1, where
+  libavcodec's x86 averages differ from the exact ones.  The tests hold
+  the port to OpenCV's decode of these files live.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import json
+import os
+
+import cv2
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CHIP_VIDEO = os.path.join(HERE, "mp4v_640x480.mp4")
+CHIP_DIGESTS = os.path.join(HERE, "mp4v_640x480.json")
+FEATURES = os.path.join(HERE, "mpeg4_features.mp4")
+DARK = os.path.join(HERE, "mpeg4_dark.mp4")
+
+
+def moving_scene(n: int, w: int, h: int, seed: int):
+    """BGR frames: a gradient, a black band, textured squares that move
+    across the frame's edges, a marker that moves every frame (no two
+    frames alike), and a cut (every frame inverted) at frame 9 of every 17,
+    which makes intra macroblocks in P-VOPs."""
+    rng = np.random.default_rng(seed)
+    texture = cv2.GaussianBlur(rng.integers(0, 256, (h + 64, w + 64, 3), dtype=np.uint8),
+                               (0, 0), 3)
+    texture = ((texture.astype(int) - 128) * 4 + 128).clip(0, 255).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for i in range(n):
+        f = np.zeros((h, w, 3), np.uint8)
+        f[..., 0] = xx * 255 // max(w - 1, 1)
+        f[..., 1] = yy * 255 // max(h - 1, 1)
+        f[: h // 8] = 0
+        for k in range(3):
+            s = max(8, min(w, h) // 6) + 8 * k
+            x = int((i * (5 + 3 * k) + 40 * k) % (w + 2 * s)) - s
+            y = int(h / 2 + (h / 2 + s) * np.sin(i / (6 + k) + k)) - s // 2
+            x0, y0, x1, y1 = max(x, 0), max(y, 0), min(x + s, w), min(y + s, h)
+            if x1 > x0 and y1 > y0:
+                f[y0:y1, x0:x1] = texture[y0 + 5:y1 + 5, x0 + 7 * k:x1 + 7 * k]
+        x = (i * 11) % max(w - 16, 1)  # a marker that moves every frame
+        f[h - 12:h - 4, x:x + 16] = (40, 200, 240)
+        if i % 17 == 9:
+            f[:] = 255 - f
+        frames.append(f)
+    return frames
+
+
+def write_chip_fixture() -> None:
+    frames = moving_scene(48, 640, 480, seed=0)
+    writer = cv2.VideoWriter(CHIP_VIDEO, cv2.VideoWriter_fourcc(*"mp4v"), 25, (640, 480))
+    assert writer.isOpened()
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    digests = []
+    ys = cv2.VideoCapture(CHIP_VIDEO, cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])
+    bgr = cv2.VideoCapture(CHIP_VIDEO, cv2.CAP_FFMPEG)
+    while True:
+        ok_y, y = ys.read()
+        ok_c, c = bgr.read()
+        if not (ok_y and ok_c):
+            break
+        rgb = np.ascontiguousarray(c[..., ::-1])
+        digests.append({"y": hashlib.sha256(y.reshape(480, 640).tobytes()).hexdigest(),
+                        "rgb": hashlib.sha256(rgb.tobytes()).hexdigest()})
+    assert len(digests) == 48
+    with open(CHIP_DIGESTS, "w") as f:
+        json.dump({"width": 640, "height": 480, "frames": digests}, f, indent=0)
+        f.write("\n")
+
+
+class Lavc:
+    """FFmpeg's mpeg4 encoder from the opencv-python wheel's libavcodec."""
+
+    def __init__(self):
+        libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)),
+                            "opencv_python.libs")
+        self.avutil = ctypes.CDLL(glob.glob(libs + "/libavutil-*.so*")[0], mode=ctypes.RTLD_GLOBAL)
+        self.avcodec = ctypes.CDLL(glob.glob(libs + "/libavcodec-*.so*")[0])
+        p = ctypes.c_void_p
+        a, u = self.avcodec, self.avutil
+        a.avcodec_find_encoder_by_name.restype = p
+        a.avcodec_find_encoder_by_name.argtypes = [ctypes.c_char_p]
+        a.avcodec_alloc_context3.restype = p
+        a.avcodec_alloc_context3.argtypes = [p]
+        a.avcodec_open2.argtypes = [p, p, p]
+        a.avcodec_send_frame.argtypes = [p, p]
+        a.avcodec_receive_packet.argtypes = [p, p]
+        a.avcodec_free_context.argtypes = [p]
+        a.av_packet_alloc.restype = p
+        a.av_packet_free.argtypes = [p]
+        a.av_packet_unref.argtypes = [p]
+        u.av_opt_set.argtypes = [p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+        u.av_frame_alloc.restype = p
+        u.av_frame_get_buffer.argtypes = [p, ctypes.c_int]
+        u.av_frame_make_writable.argtypes = [p]
+        u.av_frame_free.argtypes = [p]
+
+    def encode(self, planes, width: int, height: int, options: dict):
+        """(Y, U, V) uint8 planes per frame -> the packets' bytes."""
+        a, u = self.avcodec, self.avutil
+        codec = a.avcodec_find_encoder_by_name(b"mpeg4")
+        ctx = a.avcodec_alloc_context3(codec)
+        base = {"video_size": f"{width}x{height}", "pixel_format": "yuv420p",
+                "time_base": "1/25"}
+        for key, value in {**base, **options}.items():
+            if u.av_opt_set(ctx, key.encode(), str(value).encode(), 1) < 0:
+                raise RuntimeError(f"libavcodec option {key}={value}")
+        if a.avcodec_open2(ctx, codec, None) < 0:
+            raise RuntimeError("avcodec_open2 failed")
+        frame = u.av_frame_alloc()
+        ints = ctypes.cast(frame, ctypes.POINTER(ctypes.c_int))
+        ptrs = ctypes.cast(frame, ctypes.POINTER(ctypes.c_void_p))
+        ints[26], ints[27], ints[29] = width, height, 0  # AVFrame width, height, format yuv420p
+        assert u.av_frame_get_buffer(frame, 0) == 0
+        pkt = a.av_packet_alloc()
+        out = []
+
+        def drain():
+            while a.avcodec_receive_packet(ctx, pkt) >= 0:
+                fields = ctypes.cast(pkt, ctypes.POINTER(ctypes.c_void_p))
+                size = ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int))[8]  # AVPacket.size
+                out.append(ctypes.string_at(fields[3], size))  # AVPacket.data
+                a.av_packet_unref(pkt)
+
+        for yuv in planes:
+            u.av_frame_make_writable(frame)
+            for k, plane in enumerate(yuv):
+                stride = ints[16 + k]  # AVFrame.linesize
+                for r in range(plane.shape[0]):
+                    ctypes.memmove(ptrs[k] + r * stride, plane[r].ctypes.data, plane.shape[1])
+            assert a.avcodec_send_frame(ctx, frame) == 0
+            drain()
+        a.avcodec_send_frame(ctx, None)
+        drain()
+        for free, handle in ((a.av_packet_free, pkt), (u.av_frame_free, frame),
+                             (a.avcodec_free_context, ctx)):
+            free(ctypes.byref(ctypes.c_void_p(handle)))
+        return out
+
+
+def write_lavc(path: str, planes, width: int, height: int, options: dict) -> None:
+    from tests.torch_mp4_helpers import write_mp4
+
+    packets = Lavc().encode(planes, width, height, options)
+    vop = packets[0].find(b"\x00\x00\x01\xb6")  # the headers before it go in the esds
+    write_mp4(path, [packets[0][vop:]] + packets[1:], width, height, config=packets[0][:vop])
+
+
+def i420(bgr):
+    h, w = bgr.shape[:2]
+    yuv = cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420)
+    return yuv[:h], yuv[h:h + h // 4].reshape(h // 2, w // 2), yuv[h + h // 4:].reshape(h // 2,
+                                                                                       w // 2)
+
+
+def write_feature_fixtures() -> None:
+    write_lavc(FEATURES, [i420(f) for f in moving_scene(26, 200, 136, seed=3)], 200, 136,
+               {"flags": "+mv4+aic", "lumi_mask": 0.6, "dark_mask": 0.6, "p_mask": 0.8,
+                "scplx_mask": 0.5, "tcplx_mask": 0.5, "b": 150000, "ps": 400})
+    rng = np.random.default_rng(1)
+    w, h = 128, 80
+    dots = np.where(rng.random((h * 4, w * 4)) < 0.6, 0,
+                    rng.integers(1, 100, (h * 4, w * 4)) | 1).astype(np.float32)
+    dots = cv2.resize(dots, (w * 2, h * 2), interpolation=cv2.INTER_NEAREST)
+    planes = []
+    for i in range(12):  # half a sample a frame, across, then down
+        dx, dy = (i * 0.5, 0.0) if i < 6 else (3.0, (i - 6) * 0.5)
+        shift = np.float32([[1, 0, -dx - 10], [0, 1, -dy - 10]])
+        y = np.round(cv2.warpAffine(dots, shift, (w, h))).astype(np.uint8)
+        cb = cv2.resize(y, (w // 2, h // 2), interpolation=cv2.INTER_NEAREST)
+        planes.append((y, cb, 255 - cb))
+    write_lavc(DARK, planes, w, h, {"flags": "+mv4", "qmin": 2, "qmax": 4, "b": 2000000})
+
+
+if __name__ == "__main__":
+    write_chip_fixture()
+    write_feature_fixtures()
+    for path in (CHIP_VIDEO, FEATURES, DARK):
+        print(path, os.path.getsize(path), "bytes")

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, no
 OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's) and
-no PIL, and its native library (image codec, video frames) links no image
-or video library (it decodes and encodes in its own C++, bit for bit
-libjpeg-turbo's and libpng's results, and walks AVI files in Python)."""
+no PIL, and its native library (image codec, MPEG-4 Part 2 decoder, video
+frames) links no image or video library (it decodes and encodes in its own
+C++, bit for bit libjpeg-turbo's, libpng's and libavcodec's results, and
+walks AVI and MP4 / QuickTime files in Python)."""
 
 import ast
 import os
@@ -52,7 +53,8 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.cli.train_ssd, viddet_tpu_torch.cli.train_faster_rcnn, "
         "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
         "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms, "
-        "viddet_tpu_torch.native.avi, viddet_tpu_torch.utils.video, viddet_tpu_torch.utils.gif, "
+        "viddet_tpu_torch.native.avi, viddet_tpu_torch.native.mp4, viddet_tpu_torch.utils.video, "
+        "viddet_tpu_torch.utils.gif, "
         "viddet_tpu_torch.cli.extract_frames, viddet_tpu_torch.cli.visualise, "
         "viddet_tpu_torch.quant, viddet_tpu_torch.infer.export, viddet_tpu_torch.ops, "
         "viddet_tpu_torch.cli.export_model; "
@@ -204,3 +206,22 @@ def test_native_library_needs_no_image_or_video_library():
     allowed = ("libc.so", "libstdc++.so", "libm.so", "libgcc_s.so", "libpthread.so",
                "ld-linux")
     assert [n for n in needed if not n.startswith(allowed)] == [], needed
+
+
+def test_video_code_includes_and_imports_nothing_outside():
+    """``codec.cpp`` (JPEG, PNG, the MPEG-4 Part 2 decoder, the video
+    stream) includes C++ standard headers only; ``native/mp4.py`` and
+    ``native/avi.py`` import the standard library, numpy and the port."""
+    import re
+
+    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]',
+                              (PORT / "native" / "codec.cpp").read_text()))
+    standard = {"algorithm", "array", "cmath", "condition_variable", "cstdarg", "cstddef",
+                "cstdint", "cstdio", "cstdlib", "cstring", "memory", "mutex", "new", "string",
+                "thread", "vector"}
+    assert includes <= standard, includes - standard
+    allowed = {"__future__", "dataclasses", "fractions", "mmap", "os", "struct", "typing",
+               "numpy", "viddet_tpu_torch"}
+    for name in ("mp4.py", "avi.py"):
+        tops = {m.split(".")[0] for m in _imports(PORT / "native" / name)}
+        assert tops <= allowed, (name, tops - allowed)

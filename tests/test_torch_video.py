@@ -12,7 +12,8 @@ on the CPU.
   lowered to a few KB), open in both cv2 backends with the frame count,
   size and fps (relative 1e-3) they were written with.
 * A truncated file reads to its last whole frame; an XVID ``.avi``, an
-  ``.mp4`` and a webcam index raise ValueError naming what is missing.
+  H.264 ``.mp4``, an ``.mkv``, a ``.webm`` and a webcam index raise
+  ValueError naming what is missing.
 * ``NativeFrameSource`` (C++ thread) equals ``FrameSource`` +
   ``ValTransform`` bit for bit, letterboxed and plain, uint8 and
   normalized, every 1 and 3; ``close()`` ends a blocked consumer; a corrupt
@@ -27,6 +28,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu_torch.data.transforms import ValTransform
 from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource
 from viddet_tpu_torch.native import decode_jpeg, encode_jpeg, frame_transform
@@ -214,15 +216,18 @@ def test_non_jpeg_avi_raises_naming_the_fourcc_and_ffmpeg(tmp_path):
 @pytest.mark.parametrize("source", ["clip.mp4", "CLIP.MKV", "a.webm", 0])
 def test_other_sources_raise_naming_what_is_missing(source, tmp_path):
     missing = "capture" if isinstance(source, int) else "FFmpeg"
+    path = source
+    if source == "clip.mp4":  # the port reads MP4, but not an H.264 track
+        path, missing = h264_mp4(str(tmp_path / "in" / source)), "H.264.*FFmpeg"
     for fn in (probe_video, lambda p: list(iterate_frames(p)),
                lambda p: FrameSource(p, ValTransform((32, 32))),
                lambda p: NativeFrameSource(p, (32, 32))):
         with pytest.raises(ValueError, match=missing):
-            fn(source)
+            fn(path)
     if not isinstance(source, int):
         with pytest.raises(ValueError, match="FFmpeg"):
-            VideoWriter(str(tmp_path / source), 10, (64, 48))
-        assert not os.listdir(tmp_path)
+            VideoWriter(str(tmp_path / "out" / source), 10, (64, 48))
+        assert not os.path.exists(tmp_path / "out")
 
 
 def test_video_writer_writes_avi_at_the_given_rate(tmp_path):

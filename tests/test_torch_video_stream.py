@@ -42,6 +42,7 @@ import viddet_tpu_torch.infer.multistream as torch_multistream
 import viddet_tpu_torch.models.zoo as torch_zoo
 from tests.test_torch_stream import SIZE, twin_models
 from tests.test_torch_video import photo_frames, write_video
+from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
 from viddet_tpu.data.transforms import ValTransform as JaxValTransform
 from viddet_tpu.infer.multistream import stream_detect_videos as jax_stream_detect_videos
@@ -264,12 +265,12 @@ def test_duplicate_basename_streams_write_distinct_outputs(videos, tmp_path):
     assert stats["frames"] == 14
 
 
-def test_open_sources_closes_the_opened_ones_when_one_fails(videos, monkeypatch):
+def test_open_sources_closes_the_opened_ones_when_one_fails(videos, monkeypatch, tmp_path):
     closed = []
     original = FrameSource.close
     monkeypatch.setattr(FrameSource, "close", lambda self: closed.append(1) or original(self))
     with pytest.raises(ValueError, match="FFmpeg"):
-        open_sources([videos[0], "c.mp4"], ValTransform((SIZE, SIZE)))
+        open_sources([videos[0], h264_mp4(str(tmp_path / "c.mp4"))], ValTransform((SIZE, SIZE)))
     assert closed == [1]
 
 

@@ -28,6 +28,7 @@ import viddet_tpu.cli.visualise as jax_visualise
 import viddet_tpu_torch.cli.extract_frames as torch_extract
 import viddet_tpu_torch.cli.visualise as torch_visualise
 from tests.test_torch_video import photo_frames, write_video
+from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu_torch.data.base import imread_rgb
 from viddet_tpu_torch.data.transforms import resize_plain
 from viddet_tpu_torch.utils.gif import lzw, quantize, write_gif
@@ -166,6 +167,7 @@ def test_extract_frames_multi_input_and_refusals(tmp_path):
     assert torch_extract.main(["--input", f"{a},{b}", "--output", str(tmp_path / "o")]) == 7
     assert sorted(os.listdir(tmp_path / "o")) == ["a", "b"]
     assert len(os.listdir(tmp_path / "o" / "b")) == 3
-    with pytest.raises(ValueError, match="FFmpeg"):
-        torch_extract.main(["--input", f"{a},c.mp4", "--output", str(tmp_path / "none")])
+    with pytest.raises(ValueError, match="H.264.*FFmpeg"):
+        torch_extract.main(["--input", f"{a},{h264_mp4(str(tmp_path / 'c.mp4'))}", "--output",
+                            str(tmp_path / "none")])
     assert not os.path.exists(tmp_path / "none")

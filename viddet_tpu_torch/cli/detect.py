@@ -9,12 +9,14 @@ decodes with a DCT-domain prescale that does not equal OpenCV, and has no
 counterpart here), and each batch is padded to ``--batch-size`` so every
 batch has one shape.
 
-Videos (Motion-JPEG ``.avi``, see ``utils/video.py``): one video goes
-through ``infer.stream.stream_detect_video``; several (comma-separated),
-``--temporal-k`` > 1 (a k-frame clip model) or a live source go through
-``infer.multistream.stream_detect_videos``.  They write
+Videos (Motion-JPEG ``.avi``, MPEG-4 Part 2 or Motion-JPEG ``.mp4`` /
+``.mov``, see ``utils/video.py``): one video goes through
+``infer.stream.stream_detect_video``; several (comma-separated, any mix of
+those), ``--temporal-k`` > 1 (a k-frame clip model) or a live source go
+through ``infer.multistream.stream_detect_videos``.  They write
 ``{stem}_det.avi`` (JAX: ``_det.mp4``) and ``{stem}_det.txt``.  Another
-container, or a webcam index, raises ValueError before the model is built.
+container or codec, or a webcam index, raises ValueError before the model
+is built or anything is written.
 
 ``--quant int8`` builds the model under ``INT8_POLICY`` (``quant.py``) and
 calibrates its activation ranges on ``--calib-batches`` batches of
@@ -55,7 +57,7 @@ from viddet_tpu_torch.data.base import imread_rgb
 from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes, normalize
 from viddet_tpu_torch.infer.service import to_device_batch
 from viddet_tpu_torch.utils.image import draw_detections, imwrite
-from viddet_tpu_torch.utils.video import check_source
+from viddet_tpu_torch.utils.video import check_readable
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
@@ -161,7 +163,7 @@ def main(argv=None, built=None):
                          "assembled from the frame stream)")
     if kind == "video":
         for source in files:
-            check_source(source)
+            check_readable(source)
     os.makedirs(args.output, exist_ok=True)
     device = platform_device(args.platform)
     if built is not None:

@@ -1,6 +1,7 @@
 """Pre-extract video frames to numbered images (counterpart of
 ``viddet_tpu/cli/extract_frames.py``), over ``utils.video.extract_frames``:
-Motion-JPEG ``.avi`` input, ``{idx:08d}.jpg`` (the bytes ``cv2.imwrite``
+Motion-JPEG ``.avi`` or MPEG-4 Part 2 / Motion-JPEG ``.mp4`` / ``.mov``
+input (``utils/video.py``), ``{idx:08d}.jpg`` (the bytes ``cv2.imwrite``
 writes) or ``.png`` out.
 
 Example:
@@ -13,7 +14,7 @@ import argparse
 import os
 import time
 
-from viddet_tpu_torch.utils.video import check_source, extract_frames, probe_video
+from viddet_tpu_torch.utils.video import check_readable, extract_frames, probe_video
 
 
 def parse_args(argv=None):
@@ -36,7 +37,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     videos = [v.strip() for v in args.input.split(",") if v.strip()]
     for video in videos:  # every input readable before anything is written
-        check_source(video)
+        check_readable(video)
     multi = len(videos) > 1
     t0 = time.time()
     total = 0

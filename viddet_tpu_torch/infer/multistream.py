@@ -15,8 +15,9 @@
   batch is padded and submitted.  Ended sources always flush.
 
 Every batch is padded to ``batch_size`` (and a clip to k frames), so the
-device sees one shape.  ``stream_detect_videos`` runs N Motion-JPEG AVI
-files through it (``open_sources``: the C++ ``NativeFrameSource`` when
+device sees one shape.  ``stream_detect_videos`` runs N video files
+through it, any mix of Motion-JPEG AVI and MPEG-4 Part 2 or Motion-JPEG
+MP4 / QuickTime (``open_sources``: the C++ ``NativeFrameSource`` when
 nothing is drawn, else ``FrameSource``; no fallback between them).
 """
 

@@ -4,7 +4,8 @@ the frame sources, the pipelined ``stream_detect`` loop and
 
   source:  any iterator of (idx, rgb, x, affine), x the transformed frame:
            ``FrameSource`` (a Python decode thread) or ``NativeFrameSource``
-           (a C++ one) over a Motion-JPEG AVI
+           (a C++ one) over a Motion-JPEG AVI or an MPEG-4 Part 2 or
+           Motion-JPEG MP4 / QuickTime file
   submit:  batch the frames -> one pinned copy to the device -> predictor
   drain:   the previous batch's (ids, scores, boxes) -> host
 
@@ -17,9 +18,10 @@ YOLOv3 tail on the card reads no value back to the host (no ``.item()``,
 no size that depends on the data) before its outputs are copied.
 
 The JAX sources read through OpenCV (``cv2.VideoCapture``) and FFmpeg
-(``viddet_tpu/native/decode.cpp``).  The port's read Motion-JPEG AVI
-(``utils/video.py``): a webcam index or another container raises
-ValueError before any thread starts.  Both sources give the same ``x`` and
+(``viddet_tpu/native/decode.cpp``).  The port's read what
+``utils/video.py`` reads, with the port's own demuxers and decoders: a
+webcam index, another container or a codec or feature the port does not
+decode raises ValueError before any thread starts.  Both sources give the same ``x`` and
 ``affine`` bit for bit: ``NativeFrameSource`` runs ``ValTransform`` in C++
 (``native.frame_transform``), where JAX's native source resizes with a
 float bilinear of its own.  ``stream_detect_video`` takes the native
@@ -40,7 +42,7 @@ import numpy as np
 from viddet_tpu_torch.core.platform import resolve_device
 from viddet_tpu_torch.data.transforms import invert_affine_to_boxes
 from viddet_tpu_torch.infer.service import to_device_batch
-from viddet_tpu_torch.native import VideoStream, decode_jpeg
+from viddet_tpu_torch.native import VideoStream
 from viddet_tpu_torch.utils.image import draw_detections
 from viddet_tpu_torch.utils.video import VideoWriter, open_video
 
@@ -77,7 +79,7 @@ class FrameSource:
         self._video = open_video(path)
         index = self._video.index
         self.fps, self.width, self.height = index.fps or 30.0, index.width, index.height
-        self._path, self._transform, self._every = str(path), transform, every
+        self._transform, self._every = transform, every
         self._q: "queue.Queue" = queue.Queue(maxsize=queue_size)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -85,10 +87,9 @@ class FrameSource:
 
     def _run(self):
         try:
-            for idx in range(0, len(self._video), self._every):
+            for idx, rgb in self._video.frames(self._every):
                 if self._stop.is_set():
                     break
-                rgb = decode_jpeg(self._video.jpeg(idx), f"{self._path} frame {idx}")
                 x, _, affine = self._transform(rgb)
                 if not self._put((idx, rgb, x, affine)):
                     break
@@ -135,8 +136,9 @@ class NativeFrameSource:
             index = video.index
         self.fps, self.width, self.height = index.fps or 30.0, index.width, index.height
         keep = np.arange(0, index.frame_count, every)
-        self._stream = VideoStream(str(path), index.offsets[keep], index.sizes[keep], keep,
-                                   size, letterbox_resize, normalize, queue_size)
+        self._stream = VideoStream(str(path), index.offsets, index.sizes, keep, size,
+                                   letterbox_resize, normalize, queue_size, codec=index.codec,
+                                   config=index.config)
 
     def __iter__(self):
         for idx, x, affine in self._stream:

@@ -101,13 +101,20 @@ def library() -> ctypes.CDLL:
             lib.vd_png_raw_size.argtypes = [i, i, i, i, i]
             lib.vd_png_raw_size.restype = size
             lib.vd_frame_transform.argtypes = [p, i, i, p, i, i, i, i, p]
-            lib.vd_video_open.argtypes = [ctypes.c_char_p, p, p, p, i, i, i, i, i, i, p, i]
+            lib.vd_mpeg4_open.argtypes = [p, size, ctypes.POINTER(i), ctypes.POINTER(i), p, i]
+            lib.vd_mpeg4_open.restype = p
+            lib.vd_mpeg4_decode.argtypes = [p, p, size, p, p, i]
+            lib.vd_mpeg4_planes.argtypes = [p, p, p, p]
+            lib.vd_mpeg4_free.argtypes = [p]
+            lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, p, p, i, p, i, i, i, i, i,
+                                          i, p, i]
             lib.vd_video_open.restype = p
             lib.vd_video_next.argtypes = [p, p, p, ctypes.POINTER(i), p, i]
             lib.vd_video_stop.argtypes = [p]
             lib.vd_video_free.argtypes = [p]
             for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
-                       lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next):
+                       lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next,
+                       lib.vd_mpeg4_decode):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -298,17 +305,72 @@ def frame_transform(rgb: np.ndarray, size, letterbox: bool = True,
     return out, affine
 
 
+class Mpeg4Decoder:
+    """An MPEG-4 Part 2 (Simple Profile) decoder: ``config`` is the decoder
+    configuration (the VOS / VO / VOL headers of an MP4's ``esds``), and
+    ``decode(sample)`` decodes one sample's VOP into the (H, W, 3) uint8
+    RGB frame that ``cv2.VideoCapture``'s FFmpeg backend returns.  A
+    feature the decoder does not have raises ValueError naming it, at
+    ``__init__`` for one the VOL announces and at ``decode`` for a B- or
+    S-VOP."""
+
+    def __init__(self, config: bytes, name: str = "<stream>"):
+        self._lib = library()
+        self.name = name
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        w, h = ctypes.c_int(), ctypes.c_int()
+        self._handle = self._lib.vd_mpeg4_open(config, len(config), ctypes.byref(w),
+                                               ctypes.byref(h), err, _ERR_LEN)
+        if not self._handle:
+            raise ValueError(f"{name}: MPEG-4 decoder configuration: {_message(err)}")
+        self.width, self.height = w.value, h.value  # the VOL's
+
+    def decode(self, sample: bytes, name: str = "", rgb: bool = True):
+        """Decode one sample; the RGB frame, or None when ``rgb`` is False
+        (a frame skipped, still decoded for the ones after it)."""
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        out = np.empty((self.height, self.width, 3), np.uint8) if rgb else None
+        if self._lib.vd_mpeg4_decode(self._handle, sample, len(sample),
+                                     out.ctypes.data if rgb else None, err, _ERR_LEN):
+            raise ValueError(f"{name or self.name}: MPEG-4 decode: {_message(err)}")
+        return out
+
+    def planes(self):
+        """The last decoded picture's (Y, U, V) planes, H x W and two of
+        H/2 x W/2."""
+        y = np.empty((self.height, self.width), np.uint8)
+        u = np.empty((self.height // 2, self.width // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.vd_mpeg4_planes(self._handle, y.ctypes.data, u.ctypes.data, v.ctypes.data)
+        return y, u, v
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.vd_mpeg4_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()
+
+
 class VideoStream:
-    """Frames ``indices`` of a video, their JPEGs at file ``offsets`` /
-    ``sizes``, read, decoded and transformed (``frame_transform``) on a C++
-    thread into a ring of ``capacity`` frames; the thread starts here.
-    Iterating yields (index, x, affine) in order and raises ValueError for
-    a frame that fails to read or decode, after the frames before it.
-    ``close()`` stops the thread and ends an iteration blocked in another
-    thread."""
+    """Frames ``indices`` (ascending) of a video whose samples lie at file
+    ``offsets`` / ``sizes`` (one per frame of the file), read, decoded and
+    transformed (``frame_transform``) on a C++ thread into a ring of
+    ``capacity`` frames; the thread starts here.  ``codec`` "jpeg" decodes
+    only the kept frames; "mpeg4" (configured by ``config``, an MP4's
+    decoder configuration) decodes every frame up to the last kept one in
+    order and transforms only the kept ones.  Iterating yields (index, x,
+    affine) in order and raises ValueError for a frame that fails to read
+    or decode, after the frames before it.  ``close()`` stops the thread
+    and ends an iteration blocked in another thread."""
 
     def __init__(self, path: str, offsets, sizes, indices, size, letterbox: bool = True,
-                 normalize: bool = True, capacity: int = 64):
+                 normalize: bool = True, capacity: int = 64, codec: str = "jpeg",
+                 config: bytes = b""):
+        if codec not in ("jpeg", "mpeg4"):
+            raise ValueError(f"VideoStream decodes jpeg or mpeg4, not {codec!r}")
         self._lib = library()
         offsets = np.ascontiguousarray(offsets, np.int64)
         sizes = np.ascontiguousarray(sizes, np.int64)
@@ -319,7 +381,8 @@ class VideoStream:
         self._lock = threading.Lock()
         self._busy = self._closed = False
         self._handle = self._lib.vd_video_open(
-            os.fsencode(path), offsets.ctypes.data, sizes.ctypes.data, indices.ctypes.data,
+            os.fsencode(path), int(codec == "mpeg4"), config or None, len(config),
+            offsets.ctypes.data, sizes.ctypes.data, len(offsets), indices.ctypes.data,
             len(indices), self._h, self._w, int(letterbox), int(normalize), int(capacity), err,
             _ERR_LEN)
         if not self._handle:

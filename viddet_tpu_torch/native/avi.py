@@ -65,6 +65,9 @@ class AviIndex:
     def frame_count(self) -> int:
         return len(self.offsets)
 
+    codec = "jpeg"  # every frame a JPEG (``native.VideoStream``'s codec)
+    config = b""
+
 
 def read_index(path: str) -> AviIndex:
     """Walk the AVI at ``path``; see the module's docstring.  Raises
@@ -172,6 +175,14 @@ class AviReader:
     def __iter__(self) -> Iterator[bytes]:
         for i in range(len(self)):
             yield self.jpeg(i)
+
+    def frames(self, every: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
+        """(index, RGB frame) of every ``every``-th frame; the frames
+        between are not decoded."""
+        from viddet_tpu_torch.native import decode_jpeg
+
+        for i in range(0, len(self), every):
+            yield i, decode_jpeg(self.jpeg(i), f"{self.index.path} frame {i}")
 
     def close(self) -> None:
         self._file.close()

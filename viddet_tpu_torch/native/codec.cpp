@@ -1,5 +1,6 @@
-// The port's image codec: JPEG decode and encode, PNG unfilter, written
-// here with no library beyond the C++ standard one.
+// The port's image and video codec: JPEG decode and encode, PNG unfilter,
+// MPEG-4 Part 2 decode, written here with no library beyond the C++
+// standard one.
 //
 // The JAX package reads images with cv2.imread / cv2.imdecode (libjpeg-turbo
 // and libpng inside OpenCV) and writes them with cv2.imwrite.  The port
@@ -43,16 +44,37 @@
 // and vd_png_raw_size(width, height, bit_depth, color_type, interlace), the
 // inflated size of a valid header's rows (no error to report).
 //
-// Motion-JPEG video (the frames of an AVI that native/avi.py has indexed):
+// MPEG-4 Part 2 video (the samples of an MP4 / QuickTime file that
+// native/mp4.py has indexed): Simple Profile I- and P-VOPs as libavcodec's
+// decoder gives them (see the section's comment), then yuv420p -> RGB as
+// swscale's x86 converter gives it for BT.601 limited range, so a frame
+// equals what cv2.VideoCapture's FFmpeg backend returns.
+//   vd_mpeg4_open(config, size, &width, &height, err, err_len) -> handle or
+//           null; reads the VOS / VO / VOL headers of the decoder configuration;
+//           a feature the decoder does not have (B- and S-VOPs, interlace,
+//           quarter-sample, MPEG quantisation, data partitioning, reversible
+//           VLC, non-rectangular shape) raises naming it
+//   vd_mpeg4_decode(handle, sample, size, rgb, err, err_len)
+//           decodes the sample's VOP (a non-coded one repeats the picture
+//           before it) and, with rgb, writes the picture as RGB
+//   vd_mpeg4_planes(handle, y, u, v) copies out the last picture's planes
+//   vd_mpeg4_free(handle)
+//
+// Video frames (of a Motion-JPEG AVI or MP4, or of an MPEG-4 stream):
 //   vd_frame_transform(rgb, ih, iw, out, h, w, letterbox, normalize, affine)
 //           data/transforms.py's ValTransform on one uint8 RGB frame, bit for
 //           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
 //           arithmetic (transforms.py _resize), the letterbox's 128 border,
 //           and the ImageNet normalisation in float32, step by step
-//   vd_video_open(path, offsets, sizes, indices, n, h, w, letterbox,
-//                 normalize, capacity, err, err_len) -> handle or null
-//           starts a thread that reads each listed frame, decodes and
-//           transforms it into a ring of `capacity` frames
+//   vd_video_open(path, codec, config, config_size, offsets, sizes, samples,
+//                 indices, n, h, w, letterbox, normalize, capacity, err,
+//                 err_len) -> handle or null
+//           starts a thread that decodes frames `indices` (ascending) of the
+//           file's `samples` samples and transforms each into a ring of
+//           `capacity` frames: codec 0 reads and decodes only the kept
+//           JPEGs; codec 1 (MPEG-4, configured by `config`) decodes every
+//           sample up to the last kept one in order, since each P-VOP needs
+//           the picture before it
 //   vd_video_next(handle, out, affine, &index, err, err_len)
 //           blocks for the next frame: 1 and the frame, 0 at the end or
 //           after vd_video_stop, -1 and the message of the frame that failed
@@ -66,6 +88,7 @@
 #include <array>
 #include <cmath>
 #include <condition_variable>
+#include <memory>
 #include <mutex>
 #include <new>
 #include <thread>
@@ -1640,10 +1663,1017 @@ void frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w
 
 constexpr long long kMaxPixels = 1LL << 30;  // native/__init__.py MAX_PIXELS
 
+// ---------------------------------------------------------------------------
+// MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile video, as libavcodec's
+// mpeg4 decoder reconstructs it.  The tables are the standard's (H.263
+// Tables 7, 8, 13, 14 and 16; 14496-2 Tables B-13, B-14 and B-16); the
+// arithmetic follows libavcodec where the standard leaves it open: the
+// 8-bit simple_idct with its DC-only row shortcut, DC and AC prediction
+// with its slice-edge rules, motion-vector prediction and the H.263
+// chroma rounding, unrestricted vectors replicating the edge of the
+// macroblock-aligned picture (libavcodec's h_edge_pos / v_edge_pos), the
+// H.263 inverse quantiser with the third escape's clip, and the x86
+// half-sample averages libavcodec takes by default (Mpeg4Decoder::average).
+
+// Big-endian bit reader over [p, p + n); reads past the end give zeros and
+// `over()` tells.
+struct Mpeg4Bits {
+  const uint8_t* p = nullptr;
+  size_t n = 0, pos = 0;
+  Mpeg4Bits(const uint8_t* data, size_t size) : p(data), n(size) {}
+  uint64_t window() const {
+    const size_t byte = pos >> 3;
+    uint64_t v = 0;
+    if (byte + 8 <= n) {
+      std::memcpy(&v, p + byte, 8);
+      v = __builtin_bswap64(v);
+    } else {
+      for (size_t i = 0; i < 8; ++i) v = (v << 8) | (byte + i < n ? p[byte + i] : 0);
+    }
+    return v << (pos & 7);
+  }
+  uint32_t peek(int bits) const { return static_cast<uint32_t>(window() >> (64 - bits)); }
+  uint32_t get(int bits) {
+    const uint32_t v = peek(bits);
+    pos += bits;
+    return v;
+  }
+  int get1() { return static_cast<int>(get(1)); }
+  int sget(int bits) {  // two's complement
+    const int v = static_cast<int>(get(bits));
+    return v >= (1 << (bits - 1)) ? v - (1 << bits) : v;
+  }
+  void skip(size_t bits) { pos += bits; }
+  bool over() const { return pos > n * 8; }
+  size_t left() const { return pos >= n * 8 ? 0 : n * 8 - pos; }
+};
+
+// A prefix code as one lookup table of 2^bits entries.
+struct Vlc {
+  int bits = 0;
+  std::vector<int16_t> sym;
+  std::vector<uint8_t> len;
+  // codes[i] = {code, length}; symbol i
+  Vlc(int width, const uint16_t (*codes)[2], int n)
+      : bits(width), sym(size_t(1) << width, -1), len(size_t(1) << width, 0) {
+    for (int i = 0; i < n; ++i) {
+      const int l = codes[i][1];
+      if (!l) continue;
+      const uint32_t first = uint32_t(codes[i][0]) << (width - l);
+      for (uint32_t j = first; j < first + (1u << (width - l)); ++j) {
+        sym[j] = static_cast<int16_t>(i);
+        len[j] = static_cast<uint8_t>(l);
+      }
+    }
+  }
+  int read(Mpeg4Bits& b) const {  // the symbol, or -1 for a code not in the table
+    const uint32_t i = b.peek(bits);
+    if (!len[i]) return -1;
+    b.skip(len[i]);
+    return sym[i];
+  }
+};
+
+// H.263 Table 8 (I-VOPs): cbpc 0-3, with dquant 4-7, stuffing 8.
+const uint16_t kIntraMcbpc[9][2] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
+                                    {1, 6}, {2, 6}, {3, 6}, {1, 9}};
+// H.263 Table 7 (P-VOPs), symbols: chroma cbp in bits 0-1, intra 4,
+// dquant 8, four vectors 16; stuffing 20.
+const uint16_t kInterMcbpc[21][2] = {
+    {1, 1}, {3, 4}, {2, 4}, {5, 6},  // inter
+    {3, 5}, {4, 8}, {3, 8}, {3, 7},  // intra
+    {3, 3}, {7, 7}, {6, 7}, {5, 9},  // inter + dquant
+    {4, 6}, {4, 9}, {3, 9}, {2, 9},  // intra + dquant
+    {2, 3}, {5, 7}, {4, 7}, {5, 8},  // inter, four vectors
+    {1, 9}};                         // stuffing
+// H.263 Table 13, by the intra CBPY value (an inter MB's is inverted).
+const uint16_t kCbpy[16][2] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4}, {2, 6}, {11, 4},
+                               {2, 5}, {3, 6}, {5, 4}, {10, 4}, {4, 4}, {8, 4}, {6, 4}, {3, 2}};
+// H.263 Table 14: |motion vector difference code| 0..32, a sign bit after.
+const uint16_t kMvd[33][2] = {
+    {1, 1},  {1, 2},  {1, 3},  {1, 4},  {3, 6},  {5, 7},  {4, 7},  {3, 7},  {11, 9},
+    {10, 9}, {9, 9},  {17, 10}, {16, 10}, {15, 10}, {14, 10}, {13, 10}, {12, 10}, {11, 10},
+    {10, 10}, {9, 10}, {8, 10}, {7, 10}, {6, 10}, {5, 10}, {4, 10}, {7, 11}, {6, 11},
+    {5, 11}, {4, 11}, {3, 11}, {2, 11}, {3, 12}, {2, 12}};
+// 14496-2 Tables B-13 / B-14: dct_dc_size_luminance / _chrominance 0..12.
+const uint16_t kDcLum[13][2] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3}, {1, 4}, {1, 5},
+                                {1, 6}, {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}};
+const uint16_t kDcChrom[13][2] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4}, {1, 5}, {1, 6},
+                                  {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}, {1, 12}};
+
+// TCOEF: 102 (last, run, level) codes, then the escape; the intra table's
+// codes from 67 on and the inter table's from 58 on have last = 1.
+// 14496-2 Table B-17 (H.263 Table 16): inter blocks.
+const uint16_t kInterTcoef[103][2] = {
+    {0x2, 2},   {0xf, 4},   {0x15, 6},  {0x17, 7},  {0x1f, 8},  {0x25, 9},  {0x24, 9},
+    {0x21, 10}, {0x20, 10}, {0x7, 11},  {0x6, 11},  {0x20, 11}, {0x6, 3},   {0x14, 6},
+    {0x1e, 8},  {0xf, 10},  {0x21, 11}, {0x50, 12}, {0xe, 4},   {0x1d, 8},  {0xe, 10},
+    {0x51, 12}, {0xd, 5},   {0x23, 9},  {0xd, 10},  {0xc, 5},   {0x22, 9},  {0x52, 12},
+    {0xb, 5},   {0xc, 10},  {0x53, 12}, {0x13, 6},  {0xb, 10},  {0x54, 12}, {0x12, 6},
+    {0xa, 10},  {0x11, 6},  {0x9, 10},  {0x10, 6},  {0x8, 10},  {0x16, 7},  {0x55, 12},
+    {0x15, 7},  {0x14, 7},  {0x1c, 8},  {0x1b, 8},  {0x21, 9},  {0x20, 9},  {0x1f, 9},
+    {0x1e, 9},  {0x1d, 9},  {0x1c, 9},  {0x1b, 9},  {0x1a, 9},  {0x22, 11}, {0x23, 11},
+    {0x56, 12}, {0x57, 12}, {0x7, 4},   {0x19, 9},  {0x5, 11},  {0xf, 6},   {0x4, 11},
+    {0xe, 6},   {0xd, 6},   {0xc, 6},   {0x13, 7},  {0x12, 7},  {0x11, 7},  {0x10, 7},
+    {0x1a, 8},  {0x19, 8},  {0x18, 8},  {0x17, 8},  {0x16, 8},  {0x15, 8},  {0x14, 8},
+    {0x13, 8},  {0x18, 9},  {0x17, 9},  {0x16, 9},  {0x15, 9},  {0x14, 9},  {0x13, 9},
+    {0x12, 9},  {0x11, 9},  {0x7, 10},  {0x6, 10},  {0x5, 10},  {0x4, 10},  {0x24, 11},
+    {0x25, 11}, {0x26, 11}, {0x27, 11}, {0x58, 12}, {0x59, 12}, {0x5a, 12}, {0x5b, 12},
+    {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12}, {0x3, 7}};
+const int8_t kInterRun[102] = {
+    0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  1,  1,  1,  1,  1,  1,  2,  2,  2,
+    2,  3,  3,  3,  4,  4,  4,  5,  5,  5,  6,  6,  6,  7,  7,  8,  8,  9,  9,  10, 10,
+    11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 0,  0,  0,  1,  1,
+    2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22,
+    23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40};
+const int8_t kInterLevel[102] = {
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 1, 2, 3, 1,
+    2, 3, 1, 2, 3, 1, 2, 3, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 1, 1, 2, 3, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+// 14496-2 Table B-16: intra blocks.
+const uint16_t kIntraTcoef[103][2] = {
+    {0x2, 2},   {0x6, 3},   {0xf, 4},   {0xd, 5},   {0xc, 5},   {0x15, 6},  {0x13, 6},
+    {0x12, 6},  {0x17, 7},  {0x1f, 8},  {0x1e, 8},  {0x1d, 8},  {0x25, 9},  {0x24, 9},
+    {0x23, 9},  {0x21, 9},  {0x21, 10}, {0x20, 10}, {0xf, 10},  {0xe, 10},  {0x7, 11},
+    {0x6, 11},  {0x20, 11}, {0x21, 11}, {0x50, 12}, {0x51, 12}, {0x52, 12}, {0xe, 4},
+    {0x14, 6},  {0x16, 7},  {0x1c, 8},  {0x20, 9},  {0x1f, 9},  {0xd, 10},  {0x22, 11},
+    {0x53, 12}, {0x55, 12}, {0xb, 5},   {0x15, 7},  {0x1e, 9},  {0xc, 10},  {0x56, 12},
+    {0x11, 6},  {0x1b, 8},  {0x1d, 9},  {0xb, 10},  {0x10, 6},  {0x22, 9},  {0xa, 10},
+    {0xd, 6},   {0x1c, 9},  {0x8, 10},  {0x12, 7},  {0x1b, 9},  {0x54, 12}, {0x14, 7},
+    {0x1a, 9},  {0x57, 12}, {0x19, 8},  {0x9, 10},  {0x18, 8},  {0x23, 11}, {0x17, 8},
+    {0x19, 9},  {0x18, 9},  {0x7, 10},  {0x58, 12}, {0x7, 4},   {0xc, 6},   {0x16, 8},
+    {0x17, 9},  {0x6, 10},  {0x5, 11},  {0x4, 11},  {0x59, 12}, {0xf, 6},   {0x16, 9},
+    {0x5, 10},  {0xe, 6},   {0x4, 10},  {0x11, 7},  {0x24, 11}, {0x10, 7},  {0x25, 11},
+    {0x13, 7},  {0x5a, 12}, {0x15, 8},  {0x5b, 12}, {0x14, 8},  {0x13, 8},  {0x1a, 8},
+    {0x15, 9},  {0x14, 9},  {0x13, 9},  {0x12, 9},  {0x11, 9},  {0x26, 11}, {0x27, 11},
+    {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12}, {0x3, 7}};
+const int8_t kIntraRun[102] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,  0,  0,  0,  0,  0,
+    0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3,  3,  3,  4,  4,  4,  5,  5,  5,
+    6, 6, 6, 7, 7, 7, 8, 8, 9, 9, 10, 11, 12, 13, 14, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1,
+    2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20};
+const int8_t kIntraLevel[102] = {
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
+    27, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 1, 2, 3, 4, 5, 1, 2, 3, 4, 1, 2, 3, 1, 2, 3,
+    1, 2, 3, 1, 2, 3, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3,
+    1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+constexpr int kEscape = 102;
+constexpr int kLastFrom[2] = {67, 58};  // intra, inter
+
+const uint8_t kZigzag[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+                             12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+                             35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+                             58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+const uint8_t kAltHorizontal[64] = {
+    0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14, 13, 12, 19, 18, 24, 25,
+    32, 33, 26, 27, 20, 21, 22, 23, 28, 29, 30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37,
+    38, 39, 44, 45, 46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
+const uint8_t kAltVertical[64] = {
+    0,  8,  16, 24, 1,  9,  2,  10, 17, 25, 32, 40, 48, 56, 57, 49, 41, 33, 26, 18, 3,  11,
+    4,  12, 19, 27, 34, 42, 50, 58, 35, 43, 51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44,
+    52, 60, 37, 45, 53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
+
+struct Mpeg4Tables {
+  Vlc intra_mcbpc{9, kIntraMcbpc, 9}, inter_mcbpc{9, kInterMcbpc, 21}, cbpy{6, kCbpy, 16},
+      mvd{12, kMvd, 33}, dc_lum{11, kDcLum, 13}, dc_chrom{12, kDcChrom, 13},
+      intra{12, kIntraTcoef, 103}, inter{12, kInterTcoef, 103};
+  // per table (intra 0, inter 1) and last: the largest level of each run and
+  // the longest run of each level, for the first and second escapes
+  int8_t max_level[2][2][64] = {}, max_run[2][2][64] = {};
+  Mpeg4Tables() {
+    const int8_t* runs[2] = {kIntraRun, kInterRun};
+    const int8_t* levels[2] = {kIntraLevel, kInterLevel};
+    for (int t = 0; t < 2; ++t)
+      for (int i = 0; i < kEscape; ++i) {
+        const int last = i >= kLastFrom[t], run = runs[t][i], level = levels[t][i];
+        max_level[t][last][run] = std::max<int8_t>(max_level[t][last][run], level);
+        max_run[t][last][level] = std::max<int8_t>(max_run[t][last][level], run);
+      }
+  }
+};
+
+const Mpeg4Tables& mpeg4_tables() {
+  static const Mpeg4Tables t;
+  return t;
+}
+
+// libavcodec's simple_idct for 8-bit output (simple_idct_template.c).
+constexpr int kW1 = 22725, kW2 = 21407, kW3 = 19266, kW4 = 16383, kW5 = 12873, kW6 = 8867,
+              kW7 = 4520;
+constexpr int kRowShift = 11, kColShift = 20;
+
+void simple_idct_row(int16_t* row) {
+  bool ac = false;
+  for (int i = 1; i < 8; ++i) ac |= row[i] != 0;
+  if (!ac) {  // DC only: every output is row[0] << 3, kept to 16 bits
+    const int16_t v = static_cast<int16_t>(static_cast<uint16_t>(row[0] * 8));
+    for (int i = 0; i < 8; ++i) row[i] = v;
+    return;
+  }
+  int a0 = kW4 * row[0] + (1 << (kRowShift - 1)), a1 = a0, a2 = a0, a3 = a0;
+  a0 += kW2 * row[2];
+  a1 += kW6 * row[2];
+  a2 -= kW6 * row[2];
+  a3 -= kW2 * row[2];
+  int b0 = kW1 * row[1] + kW3 * row[3];
+  int b1 = kW3 * row[1] - kW7 * row[3];
+  int b2 = kW5 * row[1] - kW1 * row[3];
+  int b3 = kW7 * row[1] - kW5 * row[3];
+  a0 += kW4 * row[4] + kW6 * row[6];
+  a1 += -kW4 * row[4] - kW2 * row[6];
+  a2 += -kW4 * row[4] + kW2 * row[6];
+  a3 += kW4 * row[4] - kW6 * row[6];
+  b0 += kW5 * row[5] + kW7 * row[7];
+  b1 += -kW1 * row[5] - kW5 * row[7];
+  b2 += kW7 * row[5] + kW3 * row[7];
+  b3 += kW3 * row[5] - kW1 * row[7];
+  row[0] = static_cast<int16_t>((a0 + b0) >> kRowShift);
+  row[7] = static_cast<int16_t>((a0 - b0) >> kRowShift);
+  row[1] = static_cast<int16_t>((a1 + b1) >> kRowShift);
+  row[6] = static_cast<int16_t>((a1 - b1) >> kRowShift);
+  row[2] = static_cast<int16_t>((a2 + b2) >> kRowShift);
+  row[5] = static_cast<int16_t>((a2 - b2) >> kRowShift);
+  row[3] = static_cast<int16_t>((a3 + b3) >> kRowShift);
+  row[4] = static_cast<int16_t>((a3 - b3) >> kRowShift);
+}
+
+// The column pass: out[k] for k = 0..7 down column `col`.
+void simple_idct_col(const int16_t* col, int out[8]) {
+  int a0 = kW4 * (col[0] + ((1 << (kColShift - 1)) / kW4)), a1 = a0, a2 = a0, a3 = a0;
+  a0 += kW2 * col[16];
+  a1 += kW6 * col[16];
+  a2 -= kW6 * col[16];
+  a3 -= kW2 * col[16];
+  int b0 = kW1 * col[8] + kW3 * col[24];
+  int b1 = kW3 * col[8] - kW7 * col[24];
+  int b2 = kW5 * col[8] - kW1 * col[24];
+  int b3 = kW7 * col[8] - kW5 * col[24];
+  a0 += kW4 * col[32];
+  a1 -= kW4 * col[32];
+  a2 -= kW4 * col[32];
+  a3 += kW4 * col[32];
+  b0 += kW5 * col[40];
+  b1 -= kW1 * col[40];
+  b2 += kW7 * col[40];
+  b3 += kW3 * col[40];
+  a0 += kW6 * col[48];
+  a1 -= kW2 * col[48];
+  a2 += kW2 * col[48];
+  a3 -= kW6 * col[48];
+  b0 += kW7 * col[56];
+  b1 -= kW5 * col[56];
+  b2 += kW3 * col[56];
+  b3 -= kW1 * col[56];
+  out[0] = (a0 + b0) >> kColShift;
+  out[1] = (a1 + b1) >> kColShift;
+  out[2] = (a2 + b2) >> kColShift;
+  out[3] = (a3 + b3) >> kColShift;
+  out[4] = (a3 - b3) >> kColShift;
+  out[5] = (a2 - b2) >> kColShift;
+  out[6] = (a1 - b1) >> kColShift;
+  out[7] = (a0 - b0) >> kColShift;
+}
+
+inline uint8_t clip_pixel(int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// IDCT of `block` (natural order), then written (add = false) or added to
+// the prediction in `dst` (add = true), clipped to 0..255.
+void simple_idct(int16_t* block, uint8_t* dst, ptrdiff_t stride, bool add) {
+  for (int r = 0; r < 8; ++r) simple_idct_row(block + 8 * r);
+  int out[8];
+  for (int c = 0; c < 8; ++c) {
+    simple_idct_col(block + c, out);
+    for (int k = 0; k < 8; ++k) {
+      uint8_t& d = dst[k * stride + c];
+      d = clip_pixel(add ? d + out[k] : out[k]);
+    }
+  }
+}
+
+// One 8-bit plane with a stride of whole macroblocks.
+struct Plane {
+  int w = 0, h = 0;  // the allocated (macroblock-aligned) size
+  std::vector<uint8_t> px;
+  void reset(int width, int height) {
+    w = width;
+    h = height;
+    px.assign(static_cast<size_t>(w) * h, 0);
+  }
+  uint8_t* at(int x, int y) { return px.data() + static_cast<size_t>(y) * w + x; }
+};
+
+struct Picture {
+  Plane y, u, v;
+};
+
+struct Mpeg4Decoder {
+  // VOL
+  bool have_vol = false;
+  int width = 0, height = 0, mb_w = 0, mb_h = 0, time_bits = 1;
+  // VOP
+  int vop_type = 0, rounding = 0, qscale = 1, fcode = 1, dc_threshold = 99;
+  Picture cur, ref;
+  bool have_ref = false;
+  // prediction state; luma blocks on a (2 mb_h + 1) x (2 mb_w + 2) grid, chroma
+  // on (mb_h + 1) x (mb_w + 2), each with a border row above and a border
+  // column on either side
+  int bstride = 0, cstride = 0;
+  std::vector<int16_t> dc[3];                   // scaled DC predictors
+  std::vector<std::array<int16_t, 16>> ac[3];   // [1..7] left column, [9..15] top row
+  std::vector<std::array<int16_t, 2>> mv;       // luma block vectors, half samples
+  std::vector<int8_t> mb_q;                     // each macroblock's qscale
+  // the current video packet's first macroblock, and whether the macroblock
+  // being decoded lies in the packet's first row of macroblocks
+  int resync_x = 0, resync_y = 0;
+  bool first_line = true;
+  int mb_x = 0, mb_y = 0;
+
+  const Mpeg4Tables& t = mpeg4_tables();
+
+  // -- headers --------------------------------------------------------------
+
+  static size_t next_start(const uint8_t* d, size_t n, size_t from) {
+    for (size_t i = from; i + 3 <= n; ++i)
+      if (d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1) return i;
+    return n;
+  }
+
+  // Walk the start codes of `data`: VOL headers are read, a VOP decoded.
+  // Returns whether a VOP was decoded (a coded or a non-coded one).
+  bool feed(const uint8_t* data, size_t n, bool allow_vop) {
+    bool got = false;
+    for (size_t i = next_start(data, n, 0); i + 4 <= n;) {
+      const uint8_t code = data[i + 3];
+      const size_t body = i + 4, end = next_start(data, n, body);
+      if (code >= 0x20 && code <= 0x2F) {
+        Mpeg4Bits b(data + body, end - body);
+        parse_vol(b);
+      } else if (code == 0xB6) {
+        if (!allow_vop) fail("the decoder configuration holds a VOP");
+        if (got) fail("the sample holds more than one VOP (packed B-VOPs are not decoded)");
+        if (!have_vol) fail("a VOP before any video object layer header");
+        Mpeg4Bits b(data + body, end - body);
+        decode_vop(b);
+        got = true;
+      }
+      // the others (VOS, user data, GOV, VO, ...) carry nothing the
+      // decoder needs
+      i = end;
+    }
+    return got;
+  }
+
+  void parse_vol(Mpeg4Bits& b) {
+    b.skip(1);  // random_accessible_vol
+    b.skip(8);  // video_object_type_indication
+    int verid = 1;
+    if (b.get1()) {  // is_object_layer_identifier
+      verid = static_cast<int>(b.get(4));
+      b.skip(3);
+    }
+    if (b.get(4) == 15) b.skip(16);  // aspect_ratio_info, extended PAR
+    if (b.get1()) {                  // vol_control_parameters
+      const int chroma = static_cast<int>(b.get(2));
+      if (chroma != 1) fail("chroma format %d is not 4:2:0", chroma);
+      b.skip(1);       // low_delay: B-VOPs are refused where they appear
+      if (b.get1())    // vbv_parameters
+        b.skip(15 + 1 + 15 + 1 + 15 + 1 + 3 + 11 + 1 + 15 + 1);
+    }
+    const int shape = static_cast<int>(b.get(2));
+    if (shape != 0)
+      fail("non-rectangular shape (video_object_layer_shape %d) is not decoded", shape);
+    b.skip(1);
+    const int resolution = static_cast<int>(b.get(16));
+    if (!resolution) fail("vop_time_increment_resolution is 0");
+    b.skip(1);
+    time_bits = 1;
+    while ((1 << time_bits) < resolution) ++time_bits;
+    if (b.get1()) b.skip(time_bits);  // fixed_vop_rate, fixed_vop_time_increment
+    b.skip(1);
+    const int w = static_cast<int>(b.get(13));
+    b.skip(1);
+    const int h = static_cast<int>(b.get(13));
+    b.skip(1);
+    if (b.get1()) fail("interlaced video is not decoded");
+    b.skip(1);  // obmc_disable
+    const int sprite = static_cast<int>(verid == 1 ? b.get(1) : b.get(2));
+    if (sprite) fail("sprites and global motion compensation (sprite_enable %d) are not decoded",
+                     sprite);
+    if (b.get1()) fail("video of other than 8 bits (not_8_bit) is not decoded");
+    if (b.get1()) fail("MPEG quantisation (quant_type 1) is not decoded");
+    if (verid != 1 && b.get1()) fail("quarter-sample motion compensation is not decoded");
+    if (!b.get1()) fail("complexity estimation headers are not decoded");
+    b.skip(1);  // resync_marker_disable: video packets are found either way
+    if (b.get1()) {
+      const int rvlc = b.get1();
+      fail("data partitioning%s is not decoded", rvlc ? " with reversible VLC" : "");
+    }
+    if (verid != 1) {
+      if (b.get1()) fail("NEWPRED is not decoded");
+      if (b.get1()) fail("reduced-resolution VOPs are not decoded");
+    }
+    if (b.get1()) fail("scalable video (scalability) is not decoded");
+    if (b.over()) fail("the video object layer header is truncated");
+    if (w <= 0 || h <= 0) fail("bad video object layer size %dx%d", w, h);
+    if (have_vol && (w != width || h != height))
+      fail("the video object layer changes size from %dx%d to %dx%d", width, height, w, h);
+    if (!have_vol) allocate(w, h);
+    have_vol = true;
+  }
+
+  void allocate(int w, int h) {
+    if (static_cast<long long>(w) * h > kMaxPixels)
+      fail("%dx%d exceeds the decoder's %lld pixels", w, h, kMaxPixels);
+    width = w;
+    height = h;
+    mb_w = (w + 15) / 16;
+    mb_h = (h + 15) / 16;
+    for (Picture* p : {&cur, &ref}) {
+      p->y.reset(mb_w * 16, mb_h * 16);
+      p->u.reset(mb_w * 8, mb_h * 8);
+      p->v.reset(mb_w * 8, mb_h * 8);
+    }
+    bstride = 2 * mb_w + 2;
+    cstride = mb_w + 2;
+    const size_t bn = static_cast<size_t>(2 * mb_h + 1) * bstride;
+    const size_t cn = static_cast<size_t>(mb_h + 1) * cstride;
+    dc[0].assign(bn, 1024);
+    dc[1].assign(cn, 1024);
+    dc[2].assign(cn, 1024);
+    ac[0].assign(bn, {});
+    ac[1].assign(cn, {});
+    ac[2].assign(cn, {});
+    mv.assign(bn, {0, 0});
+    mb_q.assign(static_cast<size_t>(mb_w) * mb_h, 1);
+  }
+
+  // -- VOP ------------------------------------------------------------------
+
+  void decode_vop(Mpeg4Bits& b) {
+    const int type = static_cast<int>(b.get(2));
+    if (type == 2) fail("B-VOPs are not decoded");
+    if (type == 3) fail("S-VOPs (sprites, global motion compensation) are not decoded");
+    while (b.get1()) {  // modulo_time_base
+      if (b.over()) fail("the VOP header is truncated");
+    }
+    b.skip(1 + time_bits + 1);  // marker, vop_time_increment, marker
+    if (!b.get1()) {            // vop_coded 0: the previous picture again
+      if (!have_ref) fail("a non-coded VOP before any picture");
+      return;
+    }
+    rounding = type == 1 ? b.get1() : 0;
+    dc_threshold = kDcThreshold[b.get(3)];
+    qscale = static_cast<int>(b.get(5));
+    if (!qscale) fail("vop_quant is 0");
+    fcode = 1;
+    if (type == 1) {
+      fcode = static_cast<int>(b.get(3));
+      if (!fcode) fail("vop_fcode_forward is 0");
+      if (!have_ref) fail("a P-VOP before any I-VOP");
+    }
+    if (b.over()) fail("the VOP header is truncated");
+    vop_type = type;
+    resync_x = resync_y = 0;
+    first_line = true;
+    for (mb_y = 0; mb_y < mb_h; ++mb_y) {
+      for (mb_x = 0; mb_x < mb_w; ++mb_x) {
+        if ((mb_x || mb_y) && resync_ahead(b)) video_packet(b);
+        if (resync_x == mb_x && resync_y + 1 == mb_y) first_line = false;
+        try {
+          macroblock(b);
+        } catch (const CodecError& e) {
+          fail("%s-VOP macroblock (%d, %d): %s", type ? "P" : "I", mb_x, mb_y, e.msg.c_str());
+        }
+        if (b.over()) fail("%s-VOP macroblock (%d, %d): the VOP is truncated", type ? "P" : "I",
+                           mb_x, mb_y);
+      }
+    }
+    std::swap(cur, ref);  // the new picture is the next reference
+    have_ref = true;
+  }
+
+  static constexpr int kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};
+
+  int packet_prefix() const { return vop_type == 0 ? 16 : 16 + fcode - 1; }
+
+  // Whether stuffing to the next byte and a resync marker come next.
+  bool resync_ahead(const Mpeg4Bits& b) const {
+    const int pad = 8 - static_cast<int>(b.pos & 7);  // 1..8 bits of 0111...
+    if (b.left() < static_cast<size_t>(pad + packet_prefix() + 1)) return false;
+    if (b.peek(pad) != (1u << (pad - 1)) - 1) return false;
+    Mpeg4Bits c = b;
+    c.skip(pad);
+    if (c.peek(packet_prefix() + 1) != 1) return false;
+    return true;
+  }
+
+  void video_packet(Mpeg4Bits& b) {
+    b.skip(8 - (b.pos & 7));
+    b.skip(packet_prefix() + 1);
+    int bits = 1;
+    while ((1 << bits) < mb_w * mb_h) ++bits;
+    const int mb = static_cast<int>(b.get(bits));
+    if (mb != mb_y * mb_w + mb_x)
+      fail("a video packet starts at macroblock %d, expected %d", mb, mb_y * mb_w + mb_x);
+    const int q = static_cast<int>(b.get(5));
+    if (q) qscale = q;
+    if (b.get1()) {  // header_extension_code
+      while (b.get1()) {
+        if (b.over()) fail("the video packet header is truncated");
+      }
+      b.skip(1 + time_bits + 1 + 2 + 3);  // time, marker, coding type, intra_dc_vlc_thr
+      if (vop_type == 1) b.skip(3);       // vop_fcode_forward
+    }
+    if (b.over()) fail("the video packet header is truncated");
+    resync_x = mb_x;
+    resync_y = mb_y;
+    first_line = true;
+    // forget the AC predictors the packet may not use (libavcodec's
+    // ff_mpeg4_clean_buffers): from the block above-left of this
+    // macroblock through the blocks left of it, in raster order
+    const size_t from = static_cast<size_t>(2 * mb_y) * bstride + 2 * mb_x;
+    for (size_t i = from, n = 0; n < static_cast<size_t>(2 * bstride) + 1 && i < ac[0].size();
+         ++i, ++n)
+      ac[0][i] = {};
+    const size_t cfrom = static_cast<size_t>(mb_y) * cstride + mb_x;
+    for (int p = 1; p < 3; ++p)
+      for (size_t i = cfrom, n = 0; n < static_cast<size_t>(cstride) + 1 && i < ac[p].size();
+           ++i, ++n)
+        ac[p][i] = {};
+  }
+
+  // grid positions: luma block n (0..3) of the current macroblock, and its
+  // chroma entry
+  size_t bpos(int n) const {
+    return static_cast<size_t>(2 * mb_y + (n >> 1) + 1) * bstride + 2 * mb_x + (n & 1) + 1;
+  }
+  size_t cpos() const { return static_cast<size_t>(mb_y + 1) * cstride + mb_x + 1; }
+
+  void set_qscale(int q) { qscale = q < 1 ? 1 : q > 31 ? 31 : q; }
+  int dc_scale(int n) const {
+    const int q = qscale;
+    if (n < 4) return q < 5 ? 8 : q < 9 ? 2 * q : q < 25 ? q + 8 : 2 * q - 16;
+    return q < 5 ? 8 : q < 25 ? (q + 13) / 2 : q - 6;
+  }
+
+  void macroblock(Mpeg4Bits& b) {
+    static const int kDquant[4] = {-1, -2, 1, 2};
+    int cbpc;
+    bool intra, dquant, four = false;
+    if (vop_type == 1) {
+      do {
+        if (b.get1()) {  // not_coded: the reference, unmoved
+          skipped();
+          return;
+        }
+        cbpc = t.inter_mcbpc.read(b);
+        if (cbpc < 0) fail("bad mcbpc code");
+      } while (cbpc == 20);
+      intra = cbpc & 4;
+      dquant = cbpc & 8;
+      four = cbpc & 16;
+    } else {
+      do {
+        cbpc = t.intra_mcbpc.read(b);
+        if (cbpc < 0) fail("bad mcbpc code");
+      } while (cbpc == 8);
+      intra = true;
+      dquant = cbpc & 4;
+    }
+    if (intra) {
+      const bool ac_pred = b.get1();
+      const int cbpy = t.cbpy.read(b);
+      if (cbpy < 0) fail("bad cbpy code");
+      const int cbp = (cbpc & 3) | (cbpy << 2);
+      const bool dc_vlc = qscale < dc_threshold;
+      if (dquant) set_qscale(qscale + kDquant[b.get(2)]);
+      intra_macroblock(b, cbp, ac_pred, dc_vlc);
+      return;
+    }
+    const int cbpy = t.cbpy.read(b);
+    if (cbpy < 0) fail("bad cbpy code");
+    const int cbp = (cbpc & 3) | ((cbpy ^ 15) << 2);
+    if (dquant) set_qscale(qscale + kDquant[b.get(2)]);
+    std::array<int16_t, 2> v[4];
+    if (!four) {
+      int px, py;
+      predict_mv(0, px, py);
+      v[0] = {static_cast<int16_t>(read_mv(b, px)), 0};
+      v[0][1] = static_cast<int16_t>(read_mv(b, py));
+      for (int n = 0; n < 4; ++n) mv[bpos(n)] = v[0];
+    } else {
+      for (int n = 0; n < 4; ++n) {
+        int px, py;
+        predict_mv(n, px, py);
+        v[n][0] = static_cast<int16_t>(read_mv(b, px));
+        v[n][1] = static_cast<int16_t>(read_mv(b, py));
+        mv[bpos(n)] = v[n];
+      }
+    }
+    clear_intra();
+    motion(v, four);
+    int16_t block[64];
+    for (int n = 0; n < 6; ++n) {
+      if (!(cbp & (32 >> n))) continue;
+      std::memset(block, 0, sizeof(block));
+      inter_block(b, block);
+      uint8_t* dst;
+      ptrdiff_t stride;
+      target(n, dst, stride);
+      simple_idct(block, dst, stride, true);
+    }
+  }
+
+  void target(int n, uint8_t*& dst, ptrdiff_t& stride) {
+    if (n < 4) {
+      dst = cur.y.at(mb_x * 16 + (n & 1) * 8, mb_y * 16 + (n >> 1) * 8);
+      stride = cur.y.w;
+    } else {
+      Plane& p = n == 4 ? cur.u : cur.v;
+      dst = p.at(mb_x * 8, mb_y * 8);
+      stride = p.w;
+    }
+  }
+
+  void skipped() {
+    for (int n = 0; n < 4; ++n) mv[bpos(n)] = {0, 0};
+    clear_intra();
+    std::array<int16_t, 2> v[4] = {};
+    motion(v, false);
+  }
+
+  // an inter macroblock leaves no intra predictors behind
+  void clear_intra() {
+    for (int n = 0; n < 4; ++n) {
+      dc[0][bpos(n)] = 1024;
+      ac[0][bpos(n)] = {};
+    }
+    for (int p = 1; p < 3; ++p) {
+      dc[p][cpos()] = 1024;
+      ac[p][cpos()] = {};
+    }
+    mb_q[static_cast<size_t>(mb_y) * mb_w + mb_x] = static_cast<int8_t>(qscale);
+  }
+
+  static int mid(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
+
+  // libavcodec's ff_h263_pred_motion, with its first-row rules
+  void predict_mv(int n, int& px, int& py) {
+    const size_t at = bpos(n);
+    const std::array<int16_t, 2>& A = mv[at - 1];
+    static const int kOff[4] = {2, 1, 1, -1};
+    if (first_line && n < 3) {
+      if (n == 0) {
+        if (mb_x == resync_x) {
+          px = py = 0;
+        } else if (mb_x + 1 == resync_x) {
+          const auto& C = mv[at + kOff[0] - bstride];
+          if (mb_x == 0) {
+            px = C[0];
+            py = C[1];
+          } else {
+            px = mid(A[0], 0, C[0]);
+            py = mid(A[1], 0, C[1]);
+          }
+        } else {
+          px = A[0];
+          py = A[1];
+        }
+      } else if (n == 1) {
+        if (mb_x + 1 == resync_x) {
+          const auto& C = mv[at + kOff[1] - bstride];
+          px = mid(A[0], 0, C[0]);
+          py = mid(A[1], 0, C[1]);
+        } else {
+          px = A[0];
+          py = A[1];
+        }
+      } else {
+        const auto& B = mv[at - bstride];
+        const auto& C = mv[at + kOff[2] - bstride];
+        const int ax = mb_x == resync_x ? 0 : A[0], ay = mb_x == resync_x ? 0 : A[1];
+        px = mid(ax, B[0], C[0]);
+        py = mid(ay, B[1], C[1]);
+      }
+      return;
+    }
+    const auto& B = mv[at - bstride];
+    const auto& C = mv[at + kOff[n] - bstride];
+    px = mid(A[0], B[0], C[0]);
+    py = mid(A[1], B[1], C[1]);
+  }
+
+  int read_mv(Mpeg4Bits& b, int pred) {
+    const int code = t.mvd.read(b);
+    if (code < 0) fail("bad motion vector code");
+    if (!code) return pred;
+    const bool negative = b.get1();
+    const int shift = fcode - 1;
+    int v = code;
+    if (shift) v = (((v - 1) << shift) | static_cast<int>(b.get(shift))) + 1;
+    v = pred + (negative ? -v : v);
+    const int bits = 5 + fcode;  // wrap into the f_code's range
+    v &= (1 << bits) - 1;
+    return v >= (1 << (bits - 1)) ? v - (1 << bits) : v;
+  }
+
+  // -- texture --------------------------------------------------------------
+
+  // (last, run, level) of one TCOEF symbol with its escapes; `level` signed
+  // and, for inter blocks, dequantised (qmul, qadd); returns last.
+  bool coefficient(Mpeg4Bits& b, bool intra, int qmul, int qadd, int& run, int& level) {
+    const Vlc& vlc = intra ? t.intra : t.inter;
+    const int table = intra ? 0 : 1;
+    const int last_from = kLastFrom[table];
+    const int8_t* runs = intra ? kIntraRun : kInterRun;
+    const int8_t* levels = intra ? kIntraLevel : kInterLevel;
+    int s = vlc.read(b);
+    if (s < 0) fail("bad TCOEF code");
+    if (s != kEscape) {
+      run = runs[s];
+      const int l = levels[s] * qmul + qadd;
+      level = b.get1() ? -l : l;
+      return s >= last_from;
+    }
+    if (!b.get1()) {  // first escape: level + max_level
+      s = vlc.read(b);
+      if (s < 0 || s == kEscape) fail("bad TCOEF code after the first escape");
+      const bool last = s >= last_from;
+      run = runs[s];
+      const int l = (levels[s] + t.max_level[table][last][run]) * qmul + qadd;
+      level = b.get1() ? -l : l;
+      return last;
+    }
+    if (!b.get1()) {  // second escape: run + max_run + 1
+      s = vlc.read(b);
+      if (s < 0 || s == kEscape) fail("bad TCOEF code after the second escape");
+      const bool last = s >= last_from;
+      run = runs[s] + t.max_run[table][last][levels[s]] + 1;
+      const int l = levels[s] * qmul + qadd;
+      level = b.get1() ? -l : l;
+      return last;
+    }
+    // third escape: fixed length
+    const bool last = b.get1();
+    run = static_cast<int>(b.get(6));
+    b.skip(1);
+    int l = b.sget(12);
+    b.skip(1);
+    if (l > 0)
+      l = l * qmul + qadd;
+    else if (l < 0)
+      l = l * qmul - qadd;
+    if (l < -2048 || l > 2047) l = l < 0 ? -2048 : 2047;
+    level = l;
+    return last;
+  }
+
+  // coefficients from position `i` on, in `scan` order; returns the last
+  // position written
+  void coefficients(Mpeg4Bits& b, int16_t* block, const uint8_t* scan, int i, bool intra,
+                    int qmul, int qadd) {
+    for (;;) {
+      int run, level;
+      const bool last = coefficient(b, intra, qmul, qadd, run, level);
+      i += run;
+      if (i > (last ? 63 : 62)) fail("coefficients run past the end of the block");
+      block[scan[i]] = static_cast<int16_t>(level);
+      if (last) return;
+      ++i;
+      if (b.over()) fail("the block is truncated");
+    }
+  }
+
+  void inter_block(Mpeg4Bits& b, int16_t* block) {
+    coefficients(b, block, kZigzag, 0, false, qscale << 1, (qscale - 1) | 1);
+  }
+
+  // libavcodec's ff_mpeg4_pred_dc: the prediction direction (0 left, 1 top)
+  // and the predicted, unscaled DC; stores the scaled DC for later blocks
+  int predict_dc(int n, int level, int& dir) {
+    const int scale = dc_scale(n);
+    std::vector<int16_t>& d = n < 4 ? dc[0] : dc[n - 3];
+    const int stride = n < 4 ? bstride : cstride;
+    const size_t at = n < 4 ? bpos(n) : cpos();
+    int a = d[at - 1], bb = d[at - 1 - stride], c = d[at - stride];
+    if (first_line && n != 3) {
+      if (n != 2) bb = c = 1024;
+      if (n != 1 && mb_x == resync_x) bb = a = 1024;
+    }
+    if (mb_x == resync_x && mb_y == resync_y + 1 && (n == 0 || n == 4 || n == 5)) bb = 1024;
+    int pred;
+    if (std::abs(a - bb) < std::abs(bb - c)) {
+      pred = c;
+      dir = 1;
+    } else {
+      pred = a;
+      dir = 0;
+    }
+    pred = (pred + (scale >> 1)) / scale;
+    level += pred;
+    int stored = level * scale;
+    if (stored & ~2047) stored = stored < 0 ? 0 : 2047;
+    d[at] = static_cast<int16_t>(stored);
+    return level;
+  }
+
+  // libavcodec's ff_mpeg4_pred_ac: add the left column or top row of the
+  // neighbour (rescaled to this qscale), then keep this block's own
+  static int rounded_div(int a, int b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
+  void predict_ac(int n, int16_t* block, int dir, bool ac_pred) {
+    std::vector<std::array<int16_t, 16>>& a = n < 4 ? ac[0] : ac[n - 3];
+    const int stride = n < 4 ? bstride : cstride;
+    const size_t at = n < 4 ? bpos(n) : cpos();
+    if (ac_pred) {
+      if (dir == 0) {
+        const auto& left = a[at - 1];
+        const int q = mb_x ? mb_q[static_cast<size_t>(mb_y) * mb_w + mb_x - 1] : qscale;
+        const bool same = mb_x == 0 || q == qscale || n == 1 || n == 3;
+        for (int i = 1; i < 8; ++i)
+          block[i << 3] = static_cast<int16_t>(
+              block[i << 3] + (same ? left[i] : rounded_div(left[i] * q, qscale)));
+      } else {
+        const auto& top = a[at - stride];
+        const int q = mb_y ? mb_q[static_cast<size_t>(mb_y - 1) * mb_w + mb_x] : qscale;
+        const bool same = mb_y == 0 || q == qscale || n == 2 || n == 3;
+        for (int i = 1; i < 8; ++i)
+          block[i] = static_cast<int16_t>(
+              block[i] + (same ? top[i + 8] : rounded_div(top[i + 8] * q, qscale)));
+      }
+    }
+    for (int i = 1; i < 8; ++i) {
+      a[at][i] = block[i << 3];
+      a[at][i + 8] = block[i];
+    }
+  }
+
+  void intra_macroblock(Mpeg4Bits& b, int cbp, bool ac_pred, bool dc_vlc) {
+    for (int n = 0; n < 4; ++n) mv[bpos(n)] = {0, 0};
+    mb_q[static_cast<size_t>(mb_y) * mb_w + mb_x] = static_cast<int8_t>(qscale);
+    int16_t block[64];
+    for (int n = 0; n < 6; ++n) {
+      std::memset(block, 0, sizeof(block));
+      const bool coded = cbp & (32 >> n);
+      int dir = 0;
+      if (dc_vlc) {
+        const int size = (n < 4 ? t.dc_lum : t.dc_chrom).read(b);
+        if (size < 0 || size > 9) fail("bad DC size code");
+        int diff = 0;
+        if (size) {
+          const int v = static_cast<int>(b.get(size));
+          diff = v >> (size - 1) ? v : v - (1 << size) + 1;
+          if (size > 8) b.skip(1);  // marker
+        }
+        block[0] = static_cast<int16_t>(predict_dc(n, diff, dir));
+      } else {
+        predict_dc(n, 0, dir);  // the direction only; the DC comes with the AC
+      }
+      if (coded) {
+        const uint8_t* scan = !ac_pred ? kZigzag : dir == 0 ? kAltVertical : kAltHorizontal;
+        coefficients(b, block, scan, dc_vlc ? 1 : 0, true, 1, 0);
+      }
+      if (!dc_vlc) block[0] = static_cast<int16_t>(predict_dc(n, block[0], dir));
+      predict_ac(n, block, dir, ac_pred);
+      // the H.263 inverse quantiser (libavcodec's dct_unquantize_h263_intra)
+      const int qmul = qscale << 1, qadd = (qscale - 1) | 1;
+      block[0] = static_cast<int16_t>(block[0] * dc_scale(n));
+      for (int i = 1; i < 64; ++i) {
+        const int l = block[i];
+        if (l) block[i] = static_cast<int16_t>(l < 0 ? l * qmul - qadd : l * qmul + qadd);
+      }
+      uint8_t* dst;
+      ptrdiff_t stride;
+      target(n, dst, stride);
+      simple_idct(block, dst, stride, false);
+    }
+  }
+
+  // -- motion compensation ----------------------------------------------------
+
+  // The half-sample average of a w x h block at integer (x, y) + (fx, fy)
+  // half samples of `src`, whose samples outside [0, ew) x [0, eh) repeat
+  // the edge: (a + b + 1 - rounding) >> 1 and (a + b + c + d + 2 -
+  // rounding) >> 2, rounding being the P-VOP's vop_rounding_type.  Except
+  // as libavcodec's x86 hpeldsp computes it when not asked for bit
+  // exactness: an 8-wide block (a 4MV luma block, chroma) under rounding 1
+  // with a half sample in one direction takes pavgb of b and a - 1
+  // (saturated), a being the left sample, or the sample of the odd row;
+  // that is (a + b) >> 1 except where a is 0.
+  void average(uint8_t* dst, ptrdiff_t ds, Plane& src, int ew, int eh, int x, int y, int fx,
+               int fy, int w, int h) {
+    uint8_t buf[17 * 17] = {};
+    const int bw = w + fx, bh = h + fy;
+    for (int r = 0; r < bh; ++r) {
+      const int sy = std::min(std::max(y + r, 0), eh - 1);
+      const uint8_t* row = src.px.data() + static_cast<size_t>(sy) * src.w;
+      for (int c = 0; c < bw; ++c) buf[r * 17 + c] = row[std::min(std::max(x + c, 0), ew - 1)];
+    }
+    const bool pavgb = rounding && w == 8 && fx != fy;
+    for (int r = 0; r < h; ++r)
+      for (int c = 0; c < w; ++c) {
+        const uint8_t* p = buf + r * 17 + c;
+        int a = p[0], b = fx ? p[1] : p[17], v;
+        if (fx && fy) {
+          v = (a + b + p[17] + p[18] + 2 - rounding) >> 2;
+        } else if (pavgb) {
+          if (fx || (r & 1))
+            a = std::max(a - 1, 0);
+          else
+            b = std::max(b - 1, 0);
+          v = (a + b + 1) >> 1;
+        } else if (fx || fy) {
+          v = (a + b + 1 - rounding) >> 1;
+        } else {
+          v = a;
+        }
+        dst[r * ds + c] = static_cast<uint8_t>(v);
+      }
+  }
+
+  void motion(const std::array<int16_t, 2>* v, bool four) {
+    uint8_t* dy = cur.y.at(mb_x * 16, mb_y * 16);
+    const ptrdiff_t ys = cur.y.w, cs = cur.u.w;
+    uint8_t* du = cur.u.at(mb_x * 8, mb_y * 8);
+    uint8_t* dv = cur.v.at(mb_x * 8, mb_y * 8);
+    const int ew = mb_w * 16, eh = mb_h * 16;
+    int cmx, cmy;  // chroma vector, half samples
+    int cx, cy;
+    if (!four) {
+      const int mx = v[0][0], my = v[0][1];
+      average(dy, ys, ref.y, ew, eh, mb_x * 16 + (mx >> 1), mb_y * 16 + (my >> 1), mx & 1, my & 1,
+              16, 16);
+      // libavcodec's mpeg_motion for H.263: the chroma position is the luma
+      // one halved; a half sample where the luma vector is not a multiple of 4
+      const int sx = mb_x * 16 + (mx >> 1), sy = mb_y * 16 + (my >> 1);
+      cx = sx >> 1;
+      cy = sy >> 1;
+      cmx = (mx & 1) | ((mx & 2) >> 1);
+      cmy = (my & 1) | ((my & 2) >> 1);
+      average(du, cs, ref.u, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8);
+      average(dv, cs, ref.v, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8);
+      return;
+    }
+    int sumx = 0, sumy = 0;
+    for (int n = 0; n < 4; ++n) {
+      const int mx = v[n][0], my = v[n][1];
+      int x = mb_x * 16 + (n & 1) * 8 + (mx >> 1), y = mb_y * 16 + (n >> 1) * 8 + (my >> 1);
+      int fx = 0, fy = 0;
+      x = std::min(std::max(x, -16), width);
+      if (x != width) fx = mx & 1;
+      y = std::min(std::max(y, -16), height);
+      if (y != height) fy = my & 1;
+      average(dy + (n >> 1) * 8 * ys + (n & 1) * 8, ys, ref.y, ew, eh, x, y, fx, fy, 8, 8);
+      sumx += mx;
+      sumy += my;
+    }
+    // the H.263 chroma rounding of the four vectors' sum
+    static const uint8_t kRound[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+    cmx = kRound[sumx & 15] + ((sumx >> 3) & ~1);
+    cmy = kRound[sumy & 15] + ((sumy >> 3) & ~1);
+    int fx = cmx & 1, fy = cmy & 1;
+    cx = std::min(std::max(mb_x * 8 + (cmx >> 1), -8), width >> 1);
+    if (cx == (width >> 1)) fx = 0;
+    cy = std::min(std::max(mb_y * 8 + (cmy >> 1), -8), height >> 1);
+    if (cy == (height >> 1)) fy = 0;
+    average(du, cs, ref.u, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8);
+    average(dv, cs, ref.v, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8);
+  }
+
+  // The last picture (the reference after a decode) as planes.
+  const Picture& picture() const { return ref; }
+};
+
+// yuv420p -> RGB as swscale's x86 unscaled converter does it for BT.601
+// limited range (the yuv2rgb SIMD path OpenCV's FFmpeg reader takes):
+// 16-bit fixed point with pmulhw's floor, saturated to 0..255.
+void yuv420_to_rgb(const Picture& p, int width, int height, uint8_t* rgb) {
+  constexpr int kY = 9539, kVr = 13075, kUb = 16525, kUg = -3209, kVg = -6660, kYOff = 128;
+  for (int y = 0; y < height; ++y) {
+    const uint8_t* ys = p.y.px.data() + static_cast<size_t>(y) * p.y.w;
+    const uint8_t* us = p.u.px.data() + static_cast<size_t>(y >> 1) * p.u.w;
+    const uint8_t* vs = p.v.px.data() + static_cast<size_t>(y >> 1) * p.v.w;
+    uint8_t* out = rgb + static_cast<size_t>(y) * width * 3;
+    for (int x = 0; x < width; ++x) {
+      const int u = us[x >> 1] * 8 - 1024, v = vs[x >> 1] * 8 - 1024;
+      const int l = ((ys[x] * 8 - kYOff) * kY) >> 16;
+      const int r = l + ((v * kVr) >> 16);
+      const int g = l + (((u * kUg) >> 16) + ((v * kVg) >> 16));
+      const int b = l + ((u * kUb) >> 16);
+      out[3 * x] = clip_pixel(r);
+      out[3 * x + 1] = clip_pixel(g);
+      out[3 * x + 2] = clip_pixel(b);
+    }
+  }
+}
+
+
 struct VideoStream {
   std::string path;
-  std::vector<int64_t> offsets, sizes;
-  std::vector<int32_t> indices;
+  std::vector<int64_t> offsets, sizes;  // every sample of the file
+  std::vector<int32_t> indices;         // the frames kept, ascending
+  bool mpeg4_config = false;            // MPEG-4 Part 2, configured by `config`; else JPEG
+  std::vector<uint8_t> config;
   int h, w;
   bool letterbox, normalize;
   size_t frame_bytes;
@@ -1658,35 +2688,61 @@ struct VideoStream {
   std::thread worker;
 
   void run() {
-    std::vector<uint8_t> jpeg, rgb, staged;
+    std::vector<uint8_t> sample, rgb, staged;
+    std::unique_ptr<Mpeg4Decoder> mpeg4;
+    int32_t decoded = 0;  // MPEG-4: the samples fed so far, in order
     FILE* f = std::fopen(path.c_str(), "rb");
+    auto read = [&](int32_t k) {
+      sample.resize(static_cast<size_t>(sizes[k]));
+      if (fseeko(f, static_cast<off_t>(offsets[k]), SEEK_SET) != 0 ||
+          std::fread(sample.data(), 1, sample.size(), f) != sample.size())
+        fail("cannot read %zu bytes at %lld", sample.size(), static_cast<long long>(offsets[k]));
+    };
     try {
       if (!f) fail("cannot open the video");
+      if (mpeg4_config) {
+        mpeg4.reset(new Mpeg4Decoder());
+        mpeg4->feed(config.data(), config.size(), false);
+        if (!mpeg4->have_vol) fail("the decoder configuration holds no video object layer header");
+        rgb.resize(static_cast<size_t>(mpeg4->width) * mpeg4->height * 3);
+      }
       for (size_t i = 0; i < indices.size(); ++i) {
         {
           std::unique_lock<std::mutex> lock(m);
           not_full.wait(lock, [&] { return stopped || produced - consumed < ring.size(); });
           if (stopped) break;
         }
+        int32_t frame = indices[i];
+        int ih, iw;
         try {
-          jpeg.resize(static_cast<size_t>(sizes[i]));
-          if (fseeko(f, static_cast<off_t>(offsets[i]), SEEK_SET) != 0 ||
-              std::fread(jpeg.data(), 1, jpeg.size(), f) != jpeg.size())
-            fail("cannot read %zu bytes at %lld", jpeg.size(), static_cast<long long>(offsets[i]));
-          JpegDecoder d(jpeg.data(), jpeg.size(), false);
-          d.parse();
-          if (!d.have_sof) fail("JPEG holds no frame header");
-          if (static_cast<long long>(d.width) * d.height > kMaxPixels)
-            fail("%dx%d exceeds the decoder's %lld pixels", d.width, d.height, kMaxPixels);
-          rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
-          d.output_rgb(rgb.data());
+          if (mpeg4) {  // every sample up to the kept one, in order
+            for (; decoded <= indices[i]; ++decoded) {
+              frame = decoded;
+              read(decoded);
+              if (!mpeg4->feed(sample.data(), sample.size(), true)) fail("the sample holds no VOP");
+            }
+            yuv420_to_rgb(mpeg4->picture(), mpeg4->width, mpeg4->height, rgb.data());
+            ih = mpeg4->height;
+            iw = mpeg4->width;
+          } else {
+            read(frame);
+            JpegDecoder d(sample.data(), sample.size(), false);
+            d.parse();
+            if (!d.have_sof) fail("JPEG holds no frame header");
+            if (static_cast<long long>(d.width) * d.height > kMaxPixels)
+              fail("%dx%d exceeds the decoder's %lld pixels", d.width, d.height, kMaxPixels);
+            rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
+            d.output_rgb(rgb.data());
+            ih = d.height;
+            iw = d.width;
+          }
           // the slot is free: the consumer has copied it out before counting it
           const size_t slot = produced % ring.size();
-          frame_transform(rgb.data(), d.height, d.width, ring[slot].data(), h, w, letterbox,
-                          normalize, ring_affine[slot].data(), staged);
+          frame_transform(rgb.data(), ih, iw, ring[slot].data(), h, w, letterbox, normalize,
+                          ring_affine[slot].data(), staged);
           ring_index[slot] = indices[i];
         } catch (const CodecError& e) {
-          fail("frame %d: %s", indices[i], e.msg.c_str());
+          fail("frame %d: %s", frame, e.msg.c_str());
         }
         std::lock_guard<std::mutex> lock(m);
         ++produced;
@@ -1737,6 +2793,58 @@ struct VideoStream {
 
 extern "C" {
 
+
+void* vd_mpeg4_open(const uint8_t* config, unsigned long size, int* width, int* height,
+                    char* err, int err_len) {
+  Mpeg4Decoder* d = nullptr;
+  try {
+    d = new Mpeg4Decoder();
+    d->feed(config, size, false);
+    if (!d->have_vol) fail("the decoder configuration holds no video object layer header");
+    *width = d->width;
+    *height = d->height;
+    return d;
+  } catch (const CodecError& e) {
+    report(e, err, err_len);
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+  }
+  delete d;
+  return nullptr;
+}
+
+// Decode one sample; with `rgb`, write the picture (width x height x 3).
+int vd_mpeg4_decode(void* handle, const uint8_t* data, unsigned long size, uint8_t* rgb,
+                    char* err, int err_len) {
+  auto* d = static_cast<Mpeg4Decoder*>(handle);
+  try {
+    if (!d->feed(data, size, true)) fail("the sample holds no VOP");
+    if (rgb) yuv420_to_rgb(d->picture(), d->width, d->height, rgb);
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, err_len);
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+    return -1;
+  }
+}
+
+// The last picture's planes: y width x height, u and v (width/2) x (height/2).
+void vd_mpeg4_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
+  auto* d = static_cast<Mpeg4Decoder*>(handle);
+  const Picture& p = d->picture();
+  for (int r = 0; r < d->height; ++r)
+    std::memcpy(y + static_cast<size_t>(r) * d->width, p.y.px.data() + static_cast<size_t>(r) * p.y.w,
+                d->width);
+  const int cw = d->width / 2, ch = d->height / 2;
+  for (int r = 0; r < ch; ++r) {
+    std::memcpy(u + static_cast<size_t>(r) * cw, p.u.px.data() + static_cast<size_t>(r) * p.u.w, cw);
+    std::memcpy(v + static_cast<size_t>(r) * cw, p.v.px.data() + static_cast<size_t>(r) * p.v.w, cw);
+  }
+}
+
+void vd_mpeg4_free(void* handle) { delete static_cast<Mpeg4Decoder*>(handle); }
+
 int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w, int letterbox,
                        int normalize, float* affine) {
   try {
@@ -1748,16 +2856,23 @@ int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int
   }
 }
 
-void* vd_video_open(const char* path, const int64_t* offsets, const int64_t* sizes,
+void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned long config_size,
+                    const int64_t* offsets, const int64_t* sizes, int samples,
                     const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
                     int capacity, char* err, int err_len) {
   try {
-    if (n < 0 || h <= 0 || w <= 0 || capacity <= 0)
-      fail("bad video stream arguments (n %d, %dx%d, capacity %d)", n, w, h, capacity);
+    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 1)
+      fail("bad video stream arguments (codec %d, %d of %d frames, %dx%d, capacity %d)", codec,
+           n, samples, w, h, capacity);
+    for (int i = 0; i < n; ++i)
+      if (indices[i] < 0 || indices[i] >= samples || (i && indices[i] <= indices[i - 1]))
+        fail("frame index %d is out of order or not in the file's %d", indices[i], samples);
     auto* s = new VideoStream();
     s->path = path;
-    s->offsets.assign(offsets, offsets + n);
-    s->sizes.assign(sizes, sizes + n);
+    s->mpeg4_config = codec == 1;
+    s->config.assign(config, config + config_size);
+    s->offsets.assign(offsets, offsets + samples);
+    s->sizes.assign(sizes, sizes + samples);
     s->indices.assign(indices, indices + n);
     s->h = h;
     s->w = w;

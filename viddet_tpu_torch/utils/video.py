@@ -2,13 +2,21 @@
 frame iteration and extraction, and the annotated-video writer.
 
 The JAX package reads and writes video through OpenCV's FFmpeg backend.
-The port links no FFmpeg: it reads and writes Motion-JPEG AVI files
-(``native.avi``), each frame a JPEG for the port's codec, so a frame it
-reads equals what ``cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)`` returns
-and what ``cv2.imdecode`` gives for the frame's bytes.  Any other
-container (``.mp4``, ``.mov``, ``.mkv``, ``.webm``), a non-JPEG stream in
-an ``.avi`` and a webcam index raise ValueError, naming what is missing.
-``VideoWriter`` writes ``.avi`` only.
+The port links no FFmpeg.  It reads
+
+* Motion-JPEG AVI files (``native.avi``), each frame a JPEG for the port's
+  codec, so a frame equals what ``cv2.VideoCapture(path,
+  cv2.CAP_OPENCV_MJPEG)`` returns and what ``cv2.imdecode`` gives for the
+  frame's bytes;
+* MP4 and QuickTime files (``.mp4``, ``.mov``; ``native.mp4``) holding
+  MPEG-4 Part 2 Simple Profile video, decoded by the port's own decoder
+  (``native.Mpeg4Decoder``) to what ``cv2.VideoCapture``'s FFmpeg backend
+  returns, or Motion-JPEG (``jpeg`` samples), each frame what
+  ``cv2.imdecode`` gives for the sample's bytes.
+
+Matroska and WebM (``.mkv``, ``.webm``), another codec (H.264, HEVC, ...),
+a non-JPEG stream in an ``.avi`` and a webcam index raise ValueError,
+naming what is missing.  ``VideoWriter`` writes ``.avi`` only.
 """
 
 from __future__ import annotations
@@ -18,23 +26,26 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
-from viddet_tpu_torch.native import decode_jpeg, encode_jpeg, encode_png
+from viddet_tpu_torch.native import encode_jpeg, encode_png
 from viddet_tpu_torch.native.avi import AviReader, AviWriter
+from viddet_tpu_torch.native.mp4 import Mp4Reader
 
-VIDEO_EXT = ".avi"
+VIDEO_EXT = ".avi"  # the container the port writes
+READERS = {".avi": AviReader, ".mp4": Mp4Reader, ".mov": Mp4Reader}
+READS = "Motion-JPEG .avi and MPEG-4 Part 2 or Motion-JPEG .mp4 / .mov files"
 
 
 def check_source(source) -> None:
-    """Raise ValueError unless ``source`` names a file the port can read: a
-    webcam index needs capture support (V4L2), and a container other than
-    AVI needs FFmpeg.  Nothing is opened."""
+    """Raise ValueError unless ``source`` names a file in a container the
+    port can read: a webcam index needs capture support (V4L2), and
+    another container needs FFmpeg.  Nothing is opened."""
     if isinstance(source, int):
         raise ValueError(f"webcam {source}: the port has no video capture support (V4L2); "
-                         "it reads Motion-JPEG .avi files only")
+                         f"it reads {READS} only")
     ext = os.path.splitext(str(source))[1].lower()
-    if ext != VIDEO_EXT:
+    if ext not in READERS:
         raise ValueError(f"{source}: reading a {ext or 'extensionless'} video needs FFmpeg, "
-                         "which the port does not link; it reads Motion-JPEG .avi files only")
+                         f"which the port does not link; it reads {READS} only")
 
 
 def check_output(path) -> None:
@@ -45,12 +56,24 @@ def check_output(path) -> None:
                          "which the port does not link")
 
 
-def open_video(source) -> AviReader:
-    """The frames of ``source`` as JPEG bytes (``check_source`` first)."""
+def open_video(source):
+    """The reader of ``source`` by its container (``check_source`` first):
+    ``AviReader`` or ``Mp4Reader``, each with ``index`` (fps, frame_count,
+    width, height, codec), ``len`` and ``frames(every)``.  A codec or
+    feature the port does not decode raises ValueError here."""
     check_source(source)
     if not os.path.exists(str(source)):
         raise FileNotFoundError(f"cannot open video: {source}")
-    return AviReader(str(source))
+    return READERS[os.path.splitext(str(source))[1].lower()](str(source))
+
+
+def check_readable(source) -> None:
+    """``check_source``, then the file's index and decoder configuration
+    read and closed: a missing file, a codec or feature the port does not
+    decode and a truncated file raise here, before anything is written."""
+    check_source(source)
+    with open_video(source):
+        pass
 
 
 def probe_video(path: str) -> dict:
@@ -64,11 +87,11 @@ def probe_video(path: str) -> dict:
 def iterate_frames(path: str, every: int = 1, rgb: bool = True
                    ) -> Iterator[Tuple[int, np.ndarray]]:
     """Yield (frame_index, frame) of every ``every``-th frame, RGB, or BGR
-    (as OpenCV returns it) when ``rgb`` is False.  Frames skipped by
-    ``every`` are not decoded."""
+    (as OpenCV returns it) when ``rgb`` is False.  JPEG frames skipped by
+    ``every`` are not decoded; an MPEG-4 stream is decoded whole, each
+    P-VOP needing the picture before it."""
     with open_video(path) as video:
-        for idx in range(0, len(video), every):
-            frame = decode_jpeg(video.jpeg(idx), f"{path} frame {idx}")
+        for idx, frame in video.frames(every):
             yield idx, frame if rgb else np.ascontiguousarray(frame[..., ::-1])
 
 
@@ -79,13 +102,14 @@ def extract_frames(video_path: str, out_dir: str, every: int = 1, ext: str = "jp
     number written."""
     if ext not in ("jpg", "png"):
         raise ValueError(f"extract_frames writes jpg or png, not {ext!r}")
-    os.makedirs(out_dir, exist_ok=True)
     count = 0
-    for idx, frame in iterate_frames(video_path, every=every):
-        data = encode_jpeg(frame, quality) if ext == "jpg" else encode_png(frame)
-        with open(os.path.join(out_dir, f"{idx:08d}.{ext}"), "wb") as f:
-            f.write(data)
-        count += 1
+    with open_video(video_path) as video:  # a file the port cannot read raises first
+        os.makedirs(out_dir, exist_ok=True)
+        for idx, frame in video.frames(every):
+            data = encode_jpeg(frame, quality) if ext == "jpg" else encode_png(frame)
+            with open(os.path.join(out_dir, f"{idx:08d}.{ext}"), "wb") as f:
+                f.write(data)
+            count += 1
     return count
 
 
