@@ -349,6 +349,12 @@ MP4_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
                            "mp4v_640x480.mp4")
 MP4_DIGESTS = MP4_FIXTURE[:-len(".mp4")] + ".json"
 MP4_FRAMES, MP4_SEGMENT_BYTES, MP4_VIS_FRAMES = 48, 1 << 18, 12
+# The MPEG-4 B-VOP phase: the committed XVID AVI with two B-VOPs between
+# references (tests/fixtures/make_mp4_fixture.py) and its OpenCV digests.
+BVOP_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "xvid_bf2_640x480.avi")
+BVOP_DIGESTS = BVOP_FIXTURE[:-len(".avi")] + ".json"
+BVOP_FRAMES = 48
 
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
@@ -3296,7 +3302,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
         with AviReader(paths["a"]) as video, AviWriter(short, CODEC_W, CODEC_H,
                                                        VIDEO_FPS) as writer:
             for i in range(VIDEO_IDLE_FRAMES):
-                writer.write_jpeg(video.jpeg(i))
+                writer.write_jpeg(video.sample(i))
         out["window"] = window_idle_share(lambda: stream_detect_video(
             short, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
             batch_size=VIDEO_B, draw=False, device=dev))
@@ -3583,13 +3589,152 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
                                       list(ds.classes), thresh=0.0)
                 with open(os.path.join(vis_dir, f"{i:06d}_vis.jpg"), "rb") as f:
                     jpeg = f.read()
-                check(jpeg == encode_jpeg(vis, 95) == video.jpeg(i),
+                check(jpeg == encode_jpeg(vis, 95) == video.sample(i),
                       f"visualise: frame {i} is the drawn image at JPEG q 95, in both files")
                 gif_frames.append(vis)
         write_gif(os.path.join(tmp, "want.gif"), gif_frames, duration_ms=100, loop=0)
         with open(os.path.join(vis_dir, "v.gif"), "rb") as a, \
                 open(os.path.join(tmp, "want.gif"), "rb") as b:
             check(a.read() == b.read(), "visualise: v.gif is utils.gif's encoding of the frames")
+    out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
+
+
+def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
+    """MPEG-4 Part 2 with B-VOPs in an AVI: the committed 640x480 ``XVID``
+    fixture (48 frames, 25 fps, two B-VOPs between references, made by the
+    wheel's libavcodec, ``tests/fixtures/make_mp4_fixture.py``) decoded in
+    display order to the SHA-256 of each Y plane and RGB frame that
+    OpenCV's FFmpeg gave; then, with the main path's model at batch 8,
+    ``stream_detect_video`` over it drawn (``FrameSource``) and not drawn
+    (``NativeFrameSource``) and ``cli.detect.main --input clip.avi``.
+    Checks: each run's launches, each batch through ``video_rows``, every
+    saved line equal to the direct predictor's, both sources' batches
+    equal.  Frames/s: the reader on one host thread (demux + decode + RGB,
+    decode + RGB, decode alone), each run beside the direct step; the
+    card's idle share over a native run."""
+    import hashlib
+    import json
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli import detect
+    from viddet_tpu_torch.data.transforms import ValTransform
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.infer.stream import stream_detect_video
+    from viddet_tpu_torch.native import Mpeg4Decoder
+    from viddet_tpu_torch.native.avi import AviReader
+    from viddet_tpu_torch.utils.video import iterate_frames, probe_video
+
+    t_phase = time.perf_counter()
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    transform = ValTransform(size, letterbox_resize=True, normalize=False)
+    out = {"phase": "mpeg4_bvop", "model": MODEL, "size": IMAGE_SIZE, "batch": VIDEO_B,
+           "fixture": os.path.relpath(BVOP_FIXTURE, os.path.dirname(os.path.abspath(__file__))),
+           "nvidia_smi": nvidia_smi_line()}  # the card of this child's rates
+    launches = {}
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # 1. the fixture, decoded in display order to OpenCV's digests
+    with open(BVOP_DIGESTS) as f:
+        digests = json.load(f)["frames"]
+    info = probe_video(BVOP_FIXTURE)
+    check(info == {"fps": float(VIDEO_FPS), "frame_count": BVOP_FRAMES, "width": CODEC_W,
+                   "height": CODEC_H}, f"the B-VOP fixture probes as written: {info}")
+    with AviReader(BVOP_FIXTURE) as reader:
+        check(reader.index.codec == "mpeg4", "the B-VOP fixture is MPEG-4 Part 2")
+        config = reader.index.config
+        samples = [reader.sample(i) for i in range(len(reader))]
+    types = "".join("IPBS"[s[s.find(b"\x00\x00\x01\xb6") + 4] >> 6] for s in samples)
+    check(types.count("B") >= 16, f"the fixture has B-VOPs: {types}")
+    decoder = Mpeg4Decoder(config, BVOP_FIXTURE)
+    frames = []
+    for sample in samples + [None]:
+        frame = decoder.decode(sample) if sample is not None else decoder.flush()
+        if frame is None:
+            continue
+        i = len(frames)
+        check(i < BVOP_FRAMES and sha(decoder.planes()[0]) == digests[i]["y"],
+              f"bvop frame {i}: the Y plane's digest is OpenCV's")
+        check(sha(frame) == digests[i]["rgb"], f"bvop frame {i}: the RGB digest is OpenCV's")
+        frames.append(frame)
+    decoder.close()
+    check(len(frames) == BVOP_FRAMES, f"the B-VOP fixture shows {len(frames)} frames")
+    out.update(digests_equal=BVOP_FRAMES, types=types)
+    rates = {}
+    t = time.perf_counter()
+    check(sum(1 for _ in iterate_frames(BVOP_FIXTURE)) == BVOP_FRAMES, "iterate_frames: 48")
+    rates["demux_decode_rgb"] = BVOP_FRAMES / (time.perf_counter() - t)
+    for what, rgb in (("decode_rgb", True), ("decode", False)):
+        decoder = Mpeg4Decoder(config)
+        t = time.perf_counter()
+        for sample in samples:
+            decoder.decode(sample, rgb=rgb)
+        decoder.flush(rgb=rgb)
+        rates[what] = BVOP_FRAMES / (time.perf_counter() - t)
+        decoder.close()
+    out["reader_frames_per_s"] = rates  # one host thread
+
+    frames_x = {"clip": np.stack([transform(f)[0] for f in frames])}
+    affine = transform(frames[0])[2]
+    lookup = {hashlib.sha1(x.tobytes()).digest(): ("clip", i)
+              for i, x in enumerate(frames_x["clip"])}
+    out["direct_frames_per_s"] = direct_frames_per_s(predictor, frames_x["clip"], dev)
+    first = predictor(to_device_batch(frames_x["clip"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
+    thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.avi")
+        shutil.copyfile(BVOP_FIXTURE, clip)
+        batches = -(-BVOP_FRAMES // VIDEO_B)
+
+        # 2. drawn through FrameSource, then not drawn through NativeFrameSource
+        runs, records = {}, {}
+        for run, draw in (("bvop_video", True), ("bvop_video_native", False)):
+            records[run] = []
+            set_launches(kernels)
+            stats = stream_detect_video(clip, recorded(predictor, records[run]), transform,
+                                        classes, output_dir=os.path.join(tmp, run),
+                                        thresh=thresh, batch_size=VIDEO_B, draw=draw,
+                                        save_detections=True, device=dev)
+            launches[run] = path_batches(kernels, run, batches)
+            check(stats["frames"] == BVOP_FRAMES, f"{run}: every frame")
+            runs[run] = stats["fps"]
+        check(all(torch.equal(a[0], b[0]) for a, b in zip(records["bvop_video"],
+                                                          records["bvop_video_native"])),
+              "bvop: the native and thread sources give equal batches")
+        rows = video_rows(model, predictor, records["bvop_video"], lookup, frames_x, 1,
+                          "bvop_video")
+        check(sorted(rows) == [("clip", i) for i in range(BVOP_FRAMES)],
+              "bvop: every frame once")
+        want = video_lines(rows, "clip", range(BVOP_FRAMES), affine, classes, thresh)
+        for run in runs:
+            with open(os.path.join(tmp, run, "clip_det.txt")) as f:
+                check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
+        out["lines"] = len(want.splitlines())
+        out["window"] = window_idle_share(lambda: stream_detect_video(
+            clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
+            batch_size=VIDEO_B, draw=False, device=dev))
+        out["window"]["frames"] = BVOP_FRAMES
+
+        # 3. the detect CLI over the AVI
+        set_launches(kernels)
+        t = time.perf_counter()
+        done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
+                            clip, "--output", os.path.join(tmp, "cli"), "--data-shape",
+                            str(IMAGE_SIZE), "--batch-size", str(VIDEO_B), "--thresh",
+                            str(thresh), "--save-detections", "--no-draw"],
+                           built=(model, classes))
+        runs["bvop_detect_cli"] = done / (time.perf_counter() - t)
+        launches["bvop_detect"] = path_batches(kernels, "bvop_detect", batches)
+        check(done == BVOP_FRAMES, "detect: every frame of the B-VOP AVI")
+        with open(os.path.join(tmp, "cli", "clip_det.txt")) as f:
+            check(f.read() == want, "detect: clip_det.txt equal to the direct predictor's")
+        out["frames_per_s"] = runs
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
@@ -4876,11 +5021,12 @@ def kernel_table() -> dict:
 
 
 CHILD_FLAG = "--phases"
-CHILD_GROUPS = ("train", "detector_train", "int8_and_export", "data_parallel")
+CHILD_GROUPS = ("mpeg4_bvop", "train", "detector_train", "int8_and_export", "data_parallel")
 
 
 def child_main(group: str) -> int:
     """One group of phases in a process of its own (``child_phases``):
+    ``mpeg4_bvop`` (the main path's model made again from its seed),
     ``train``, ``detector_train``, ``int8_and_export`` (the main path's model and
     frames made again from their seeds, then the ``int8`` and ``export``
     phases), or ``data_parallel``.  Its last line is its launch counts (and K5's rows in the
@@ -4912,6 +5058,16 @@ def child_main(group: str) -> int:
 
         model, _ = get_model(MODEL)
         load_flat(model, init_flat(MODEL, seed=0))
+        if group == "mpeg4_bvop":
+            from viddet_tpu_torch import native
+            from viddet_tpu_torch.data.names import COCO_CLASSES
+
+            native.build()  # the parent's build, found by its source hash
+            launches = mpeg4_bvop_phase(dev, kernels, model, COCO_CLASSES,
+                                        make_predictor(model))
+            emit({"phase": f"{group}_result", "launches": launches, "k5_rows": k5_rows,
+                  "incomplete_windows": INCOMPLETE_WINDOWS, "spins_lost": SPINS_LOST})
+            return 0
         rng = np.random.default_rng(0)  # main_path_phase's frames
         images = torch.from_numpy(rng.integers(
             0, 256, (max(E2E_BATCHES), IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)).pin_memory()
@@ -5016,6 +5172,7 @@ def main() -> int:
     serving_phase(dev, frcnn_predictor, FRCNN_MODEL, FRCNN_SIZE, requests=8)
     del frcnn_predictor
     torch.cuda.empty_cache()  # the children's memory
+    launches.update(child_phases("mpeg4_bvop")["launches"])
     launches.update(child_phases("train")["launches"])
     child = child_phases("detector_train")
     launches.update(child["launches"])

@@ -21,11 +21,20 @@
   samples of 0 under half-sample vectors with rounding type 1, where
   libavcodec's x86 averages differ from the exact ones.  The tests hold
   the port to OpenCV's decode of these files live.
+* ``xvid_bf2_640x480.avi``: 48 frames at 640x480, 25 fps, two B-VOPs
+  between references (``bf`` 2), encoded by the same libavcodec route and
+  laid out as an ``XVID`` AVI by ``tests.torch_mp4_helpers.write_avi``;
+  and ``xvid_bf2_640x480.json``, its digests as OpenCV decodes them, for
+  the card (``chip_smoke.py``'s ``mpeg4_bvop`` phase).
+
+The B-VOP streams of the CPU tests come from the same route at test time
+(``lavc_stream``, ``write_lavc_mp4``, ``write_lavc_avi``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import glob
 import hashlib
 import json
@@ -39,6 +48,8 @@ CHIP_VIDEO = os.path.join(HERE, "mp4v_640x480.mp4")
 CHIP_DIGESTS = os.path.join(HERE, "mp4v_640x480.json")
 FEATURES = os.path.join(HERE, "mpeg4_features.mp4")
 DARK = os.path.join(HERE, "mpeg4_dark.mp4")
+CHIP_BVOP_VIDEO = os.path.join(HERE, "xvid_bf2_640x480.avi")
+CHIP_BVOP_DIGESTS = os.path.join(HERE, "xvid_bf2_640x480.json")
 
 
 def moving_scene(n: int, w: int, h: int, seed: int):
@@ -72,6 +83,26 @@ def moving_scene(n: int, w: int, h: int, seed: int):
     return frames
 
 
+def write_digests(video: str, out: str, width: int, height: int, count: int) -> None:
+    """Each frame's SHA-256 of the Y plane and of the RGB frame as
+    ``cv2.VideoCapture`` (FFmpeg) decodes ``video``, into ``out``."""
+    digests = []
+    ys = cv2.VideoCapture(video, cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])
+    bgr = cv2.VideoCapture(video, cv2.CAP_FFMPEG)
+    while True:
+        ok_y, y = ys.read()
+        ok_c, c = bgr.read()
+        if not (ok_y and ok_c):
+            break
+        rgb = np.ascontiguousarray(c[..., ::-1])
+        digests.append({"y": hashlib.sha256(y.reshape(height, width).tobytes()).hexdigest(),
+                        "rgb": hashlib.sha256(rgb.tobytes()).hexdigest()})
+    assert len(digests) == count
+    with open(out, "w") as f:
+        json.dump({"width": width, "height": height, "frames": digests}, f, indent=0)
+        f.write("\n")
+
+
 def write_chip_fixture() -> None:
     frames = moving_scene(48, 640, 480, seed=0)
     writer = cv2.VideoWriter(CHIP_VIDEO, cv2.VideoWriter_fourcc(*"mp4v"), 25, (640, 480))
@@ -79,21 +110,14 @@ def write_chip_fixture() -> None:
     for f in frames:
         writer.write(f)
     writer.release()
-    digests = []
-    ys = cv2.VideoCapture(CHIP_VIDEO, cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])
-    bgr = cv2.VideoCapture(CHIP_VIDEO, cv2.CAP_FFMPEG)
-    while True:
-        ok_y, y = ys.read()
-        ok_c, c = bgr.read()
-        if not (ok_y and ok_c):
-            break
-        rgb = np.ascontiguousarray(c[..., ::-1])
-        digests.append({"y": hashlib.sha256(y.reshape(480, 640).tobytes()).hexdigest(),
-                        "rgb": hashlib.sha256(rgb.tobytes()).hexdigest()})
-    assert len(digests) == 48
-    with open(CHIP_DIGESTS, "w") as f:
-        json.dump({"width": 640, "height": 480, "frames": digests}, f, indent=0)
-        f.write("\n")
+    write_digests(CHIP_VIDEO, CHIP_DIGESTS, 640, 480, 48)
+
+
+def write_chip_bvop_fixture() -> None:
+    stream = lavc_stream(moving_scene(48, 640, 480, seed=0), {"bf": 2, "b": 600000})
+    assert "B" in stream.types
+    write_lavc_avi(CHIP_BVOP_VIDEO, stream, b"XVID")
+    write_digests(CHIP_BVOP_VIDEO, CHIP_BVOP_DIGESTS, 640, 480, 48)
 
 
 class Lavc:
@@ -122,12 +146,36 @@ class Lavc:
         u.av_frame_get_buffer.argtypes = [p, ctypes.c_int]
         u.av_frame_make_writable.argtypes = [p]
         u.av_frame_free.argtypes = [p]
+        u.av_malloc.restype = p
+        u.av_malloc.argtypes = [ctypes.c_size_t]
+        u.av_opt_find.restype = p
+        u.av_opt_find.argtypes = [p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
 
-    def encode(self, planes, width: int, height: int, options: dict):
-        """(Y, U, V) uint8 planes per frame -> the packets' bytes."""
+    def set_matrices(self, ctx, intra, inter) -> None:
+        """AVCodecContext.intra_matrix / inter_matrix (raster order), which no
+        AVOption names: the two pointers lie 24 and 16 bytes before
+        ``intra_dc_precision`` (option "dc"), after ``mb_decision`` ("mbd")."""
+        def offset(name):
+            option = self.avutil.av_opt_find(ctx, name, None, 0, 0)
+            return ctypes.cast(option, ctypes.POINTER(ctypes.c_int))[4]  # AVOption.offset
+
+        dc, mbd = offset(b"dc"), offset(b"mbd")
+        assert (mbd + 4 + 7) // 8 * 8 == dc - 24, (mbd, dc)
+        for delta, matrix in ((24, intra), (16, inter)):
+            buf = self.avutil.av_malloc(128)  # freed by avcodec_free_context
+            ctypes.memmove(buf, (ctypes.c_uint16 * 64)(*matrix), 128)
+            ctypes.c_void_p.from_address(ctx + dc - delta).value = buf
+
+    def encode(self, planes, width: int, height: int, options: dict, matrices=None):
+        """(Y, U, V) uint8 planes per frame -> the packets' bytes, in decode
+        order; ``self.pts`` gets each packet's presentation time in frames.
+        ``matrices``: custom (intra, inter) quantiser matrices, 64 values
+        each in raster order (with ``mpeg_quant``)."""
         a, u = self.avcodec, self.avutil
         codec = a.avcodec_find_encoder_by_name(b"mpeg4")
         ctx = a.avcodec_alloc_context3(codec)
+        if matrices:
+            self.set_matrices(ctx, *matrices)
         base = {"video_size": f"{width}x{height}", "pixel_format": "yuv420p",
                 "time_base": "1/25"}
         for key, value in {**base, **options}.items():
@@ -141,13 +189,14 @@ class Lavc:
         ints[26], ints[27], ints[29] = width, height, 0  # AVFrame width, height, format yuv420p
         assert u.av_frame_get_buffer(frame, 0) == 0
         pkt = a.av_packet_alloc()
-        out = []
+        out, self.pts = [], []
 
         def drain():
             while a.avcodec_receive_packet(ctx, pkt) >= 0:
                 fields = ctypes.cast(pkt, ctypes.POINTER(ctypes.c_void_p))
                 size = ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int))[8]  # AVPacket.size
                 out.append(ctypes.string_at(fields[3], size))  # AVPacket.data
+                self.pts.append(ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int64))[1])
                 a.av_packet_unref(pkt)
 
         for yuv in planes:
@@ -172,6 +221,63 @@ def write_lavc(path: str, planes, width: int, height: int, options: dict) -> Non
     packets = Lavc().encode(planes, width, height, options)
     vop = packets[0].find(b"\x00\x00\x01\xb6")  # the headers before it go in the esds
     write_mp4(path, [packets[0][vop:]] + packets[1:], width, height, config=packets[0][:vop])
+
+
+@dataclasses.dataclass
+class LavcStream:
+    """An encoded stream: the packets in decode order, each one's
+    presentation time in frames, its VOP type (I, P, B) and the frame size."""
+
+    packets: list
+    pts: list
+    types: str
+    width: int
+    height: int
+
+
+def lavc_stream(frames, options: dict, matrices=None) -> LavcStream:
+    """BGR ``frames`` through libavcodec's mpeg4 encoder (``bf`` B-VOPs,
+    ``mpeg_quant``, ``flags``, ...; ``matrices`` as ``Lavc.encode``)."""
+    h, w = frames[0].shape[:2]
+    lavc = Lavc()
+    packets = lavc.encode([i420(f) for f in frames], w, h, options, matrices)
+    types = "".join("IPBS"[p[p.find(b"\x00\x00\x01\xb6") + 4] >> 6] for p in packets)
+    return LavcStream(packets, lavc.pts, types, w, h)
+
+
+def write_lavc_mp4(path: str, stream: LavcStream, shift: bool = True,
+                   ctts_version: int = 0) -> str:
+    """``stream`` in an MP4 laid out as FFmpeg's muxer lays out B-frames: a
+    ``ctts`` of each sample's composition offset (512 ticks a frame) and,
+    with ``shift``, the edit list that starts the movie at the first
+    sample's; version 1 offsets start at 0 (some negative) and need no
+    shift."""
+    from tests.torch_mp4_helpers import write_mp4
+
+    delay = 0 if ctts_version else max(i - p for i, p in enumerate(stream.pts))
+    ctts = [(p - i + delay) * 512 for i, p in enumerate(stream.pts)]
+    edits = [(len(ctts) * 40, ctts[0], 1)] if shift else None
+    first = stream.packets[0]
+    vop = first.find(b"\x00\x00\x01\xb6")  # the headers before it go in the esds
+    return write_mp4(path, [first[vop:]] + stream.packets[1:], stream.width, stream.height,
+                     config=first[:vop], ctts=ctts, ctts_version=ctts_version, edits=edits)
+
+
+def write_lavc_avi(path: str, stream: LavcStream, fourcc: bytes = b"XVID",
+                   packed: bool = False, user_data: bytes = b"") -> str:
+    """``stream`` as the chunks of an AVI (the headers stay at the head of
+    the first), packed as DivX packs B-frames with ``packed``, with
+    ``user_data`` (for instance DivX's ``DivX503b1393p``) after the VOL."""
+    from tests.torch_mp4_helpers import pack_bframes, write_avi
+
+    packets = list(stream.packets)
+    if user_data:
+        first = packets[0]
+        at = min(i for i in (first.find(b"\x00\x00\x01\xb3"), first.find(b"\x00\x00\x01\xb6"))
+                 if i >= 0)
+        packets[0] = first[:at] + b"\x00\x00\x01\xb2" + user_data + first[at:]
+    chunks = pack_bframes(packets, stream.types, 5) if packed else packets
+    return write_avi(path, chunks, stream.width, stream.height, fourcc=fourcc)
 
 
 def i420(bgr):
@@ -203,5 +309,6 @@ def write_feature_fixtures() -> None:
 if __name__ == "__main__":
     write_chip_fixture()
     write_feature_fixtures()
-    for path in (CHIP_VIDEO, FEATURES, DARK):
+    write_chip_bvop_fixture()
+    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO):
         print(path, os.path.getsize(path), "bytes")

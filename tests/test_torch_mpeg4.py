@@ -15,9 +15,11 @@ against FFmpeg's as the opencv-python wheel bundles it, on the CPU.
   samples of 0 under libavcodec's x86 no-rounding averages.  The same
   holds.
 * A non-coded VOP repeats the picture before it; this FFmpeg build
-  returns no frame for it (ROADMAP Queue 3).  B- and S-VOPs and each VOL
-  feature the decoder does not have raise ValueError naming it; a corrupt
-  sample raises naming the file and the frame, after the frames before it.
+  returns no frame for it (ROADMAP Queue 3).  S-VOPs, a stream that does
+  not start with an I-VOP and each VOL feature the decoder does not have
+  raise ValueError naming it; a corrupt sample raises naming the file and
+  the frame, after the frames before it.  (B-VOPs and MPEG quantisation
+  are decoded: ``tests/test_torch_mpeg4_bvop.py``.)
 """
 
 import os
@@ -162,7 +164,10 @@ def test_non_coded_vop_repeats_the_picture_before_it(clips, tmp_path):
 @pytest.mark.parametrize("flags,named", [
     (dict(interlaced=1), "interlaced"),
     (dict(sprite=2), "global motion compensation"),
-    (dict(quant_type=1), "quant_type 1"),
+    (dict(newpred=1), "NEWPRED"),
+    (dict(reduced_resolution=1), "reduced-resolution"),
+    (dict(not_8_bit=1), "not_8_bit"),
+    (dict(scalability=1), "scalability"),
     (dict(quarter_sample=1), "quarter-sample"),
     (dict(data_partitioned=1), "data partitioning"),
     (dict(data_partitioned=1, reversible_vlc=1), "reversible VLC"),
@@ -183,16 +188,26 @@ def test_refused_vol_features_raise_naming_them(flags, named, clips, tmp_path):
 
 @pytest.mark.parametrize("kind,named", [(2, "B-VOP"), (3, "S-VOP")])
 def test_b_and_s_vops_raise_naming_the_frame(kind, named, clips, tmp_path):
+    """An S-VOP raises naming its frame, from the index and from the
+    decoder alone.  B-VOPs are decoded; a stream that starts with one
+    raises naming frame 0, and the decoder alone drops a B-VOP before two
+    reference pictures, as libavcodec does."""
     reader = Mp4Reader(clips["edge"])
     samples = [reader.sample(i) for i in range(len(reader))]
-    at = samples[3].find(b"\x00\x00\x01\xb6") + 4
-    samples[3] = samples[3][:at] + bytes([(samples[3][at] & 0x3F) | kind << 6]) + \
-        samples[3][at + 1:]
+    frame = 3 if kind == 3 else 0
+    sample = samples[frame]
+    at = sample.find(b"\x00\x00\x01\xb6") + 4
+    samples[frame] = sample[:at] + bytes([(sample[at] & 0x3F) | kind << 6]) + sample[at + 1:]
     path = write_mp4(str(tmp_path / "b.mp4"), samples, 200, 136, config=reader.index.config)
-    with pytest.raises(ValueError, match=f"frame 3 at offset .*{named}"):
+    want = (f"frame 3 at offset .*{named}" if kind == 3
+            else f"frame 0 at offset .*{named}.*does not start with an I-VOP")
+    with pytest.raises(ValueError, match=want):
         list(iterate_frames(path))
+    decoder = Mpeg4Decoder(reader.index.config)
+    if kind == 2:
+        assert decoder.decode(samples[0]) is None and decoder.flush() is None
+        return
     with pytest.raises(ValueError, match=named):  # the decoder alone refuses it too
-        decoder = Mpeg4Decoder(reader.index.config)
         for s in samples:
             decoder.decode(s)
 

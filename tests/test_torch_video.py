@@ -11,9 +11,10 @@ on the CPU.
 * The port's files, OpenDML ``AVIX`` segments included (the segment limit
   lowered to a few KB), open in both cv2 backends with the frame count,
   size and fps (relative 1e-3) they were written with.
-* A truncated file reads to its last whole frame; an XVID ``.avi``, an
-  H.264 ``.mp4``, an ``.mkv``, a ``.webm`` and a webcam index raise
-  ValueError naming what is missing.
+* A truncated file reads to its last whole frame; an ``.avi`` of another
+  codec (H.264), an H.264 ``.mp4``, an ``.mkv``, a ``.webm`` and a webcam
+  index raise ValueError naming what is missing (MPEG-4 Part 2 AVIs read:
+  ``tests/test_torch_avi_mpeg4.py``).
 * ``NativeFrameSource`` (C++ thread) equals ``FrameSource`` +
   ``ValTransform`` bit for bit, letterboxed and plain, uint8 and
   normalized, every 1 and 3; ``close()`` ends a blocked consumer; a corrupt
@@ -102,7 +103,7 @@ def test_reader_frames_equal_cv2_mjpeg_and_imdecode(writer, size, tmp_path):
     with AviReader(path) as video:
         for i, (g, w_) in enumerate(zip(got, want)):
             np.testing.assert_array_equal(g, w_, err_msg=f"frame {i}")
-            raw = cv2.imdecode(np.frombuffer(video.jpeg(i), np.uint8), cv2.IMREAD_COLOR)
+            raw = cv2.imdecode(np.frombuffer(video.sample(i), np.uint8), cv2.IMREAD_COLOR)
             np.testing.assert_array_equal(g, raw[..., ::-1], err_msg=f"frame {i}")
     bgr = [f for _, f in iterate_frames(path, every=5, rgb=False)]
     assert len(bgr) == 3
@@ -197,15 +198,15 @@ def test_unclosed_port_file_reads_every_written_frame(tmp_path):
 
 
 def test_non_jpeg_avi_raises_naming_the_fourcc_and_ffmpeg(tmp_path):
-    path = str(tmp_path / "x.avi")
-    vw = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"XVID"), 10.0, (64, 48))
-    assert vw.isOpened()
-    for f in photo_frames(3):
-        vw.write(f)
-    vw.release()
+    """An AVI whose video is neither Motion-JPEG nor MPEG-4 Part 2 (here
+    the port's own file with its fourcc set to H264) raises naming the
+    fourcc; cv2's XVID files read (``tests/test_torch_avi_mpeg4.py``)."""
+    path = write_video(str(tmp_path / "x.avi"), photo_frames(3), 10.0, "port")
+    data = open(path, "rb").read().replace(b"MJPG", b"H264")
+    open(path, "wb").write(data)
     for fn in (probe_video, lambda p: FrameSource(p, ValTransform((32, 32))),
                lambda p: NativeFrameSource(p, (32, 32))):
-        with pytest.raises(ValueError, match="XVID.*FFmpeg"):
+        with pytest.raises(ValueError, match="'H264', not Motion-JPEG or MPEG-4 Part 2.*FFmpeg"):
             fn(path)
     bad = tmp_path / "bad.avi"
     bad.write_bytes(b"RIFF\0\0\0\0WAVEfmt ")

@@ -57,11 +57,14 @@ def write_mp4(path: str, samples: Sequence[bytes], width: int, height: int, *,
               moov_first: bool = False, large_mdat: bool = False, mdat_to_end: bool = False,
               per_chunk: int = 1, co64: bool = False, stz2: bool = False,
               edits: Optional[List[Tuple[int, int, int]]] = None, mdhd_version: int = 0,
-              keyframes: Optional[Sequence[int]] = None, brand: bytes = b"isom") -> str:
+              keyframes: Optional[Sequence[int]] = None, brand: bytes = b"isom",
+              ctts: Optional[Sequence[int]] = None, ctts_version: int = 0) -> str:
     """An MP4 (or, with ``brand`` b"qt  ", a QuickTime file) of one video
     track holding ``samples``; ``edits`` are (segment duration in the
     movie's 1000 ticks a second, media time, rate) entries; ``deltas`` the
-    stts durations (512 each by default)."""
+    stts durations (512 each by default); ``ctts`` each sample's
+    composition offset (a ``ctts`` box of ``ctts_version``; version 1
+    offsets may be negative)."""
     n = len(samples)
     deltas = list(deltas) if deltas is not None else [512] * n
     duration = sum(deltas)
@@ -95,6 +98,16 @@ def write_mp4(path: str, samples: Sequence[bytes], width: int, height: int, *,
                 runs.append([1, d])
         stts = full_box(b"stts", 0, 0, struct.pack(">I", len(runs)) + b"".join(
             struct.pack(">II", c, d) for c, d in runs))
+        if ctts is not None:
+            offset_runs = []
+            for c in ctts:
+                if offset_runs and offset_runs[-1][1] == c:
+                    offset_runs[-1][0] += 1
+                else:
+                    offset_runs.append([1, c])
+            stts += full_box(b"ctts", ctts_version, 0, struct.pack(">I", len(offset_runs))
+                             + b"".join(struct.pack(">Ii" if ctts_version else ">II", c, d)
+                                        for c, d in offset_runs))
         chunks = [list(range(i, min(i + per_chunk, n))) for i in range(0, n, per_chunk)]
         stsc_runs = []
         for c, members in enumerate(chunks):
@@ -168,6 +181,66 @@ def remux(src: str, dst: str, **kw) -> str:
     return write_mp4(dst, samples, index.width, index.height, **kw)
 
 
+def avi_chunk(cid: bytes, payload: bytes) -> bytes:
+    return cid + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def avi_list(kind: bytes, payload: bytes) -> bytes:
+    return b"LIST" + struct.pack("<I", 4 + len(payload)) + kind + payload
+
+
+def write_avi(path: str, chunks: Sequence[bytes], width: int, height: int, *,
+              fourcc: bytes = b"XVID", rate: int = 25, scale: int = 1,
+              extradata: bytes = b"") -> str:
+    """An AVI 1.0 file with an ``idx1`` of one video stream whose ``00dc``
+    chunks are ``chunks`` as given (MPEG-4 VOPs, packed or not; an empty
+    one is a dropped frame); ``extradata`` follows the BITMAPINFOHEADER in
+    ``strf``.  A chunk holding an I-VOP is a key frame."""
+    n = len(chunks)
+    biggest = max(len(c) for c in chunks)
+    avih = struct.pack("<14I", 1000000 * scale // rate, 0, 0, 0x10, n, 0, 1, biggest, width,
+                       height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIHHHH", b"vids", fourcc, 0, 0, 0, 0, scale, rate, 0, n,
+                       biggest, 0xFFFFFFFF, 0, 0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), width, height, 1, 24, fourcc,
+                       width * height * 3, 0, 0, 0, 0) + extradata
+    hdrl = avi_list(b"hdrl", avi_chunk(b"avih", avih) + avi_list(
+        b"strl", avi_chunk(b"strh", strh) + avi_chunk(b"strf", strf)))
+    movi, index, at = b"", b"", 4
+    for c in chunks:
+        vop = c.find(b"\x00\x00\x01\xb6")
+        key = 0x10 if vop >= 0 and c[vop + 4] >> 6 == 0 else 0
+        index += struct.pack("<4sIII", b"00dc", key, at, len(c))
+        movi += avi_chunk(b"00dc", c)
+        at += 8 + len(c) + (len(c) & 1)
+    body = b"AVI " + hdrl + avi_list(b"movi", movi) + avi_chunk(b"idx1", index)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+    return path
+
+
+def non_coded_vop(time_bits: int, increment: int = 0) -> bytes:
+    """A non-coded P-VOP (vop_coded 0): the placeholder of packed B-frames."""
+    bits = (BitWriter().put(1, 2).put(0, 1).put(1, 1).put(increment, time_bits).put(1, 1)
+            .put(0, 1))
+    return b"\x00\x00\x01\xb6" + bits.stuffed()
+
+
+def pack_bframes(packets: Sequence[bytes], types: str, time_bits: int) -> List[bytes]:
+    """DivX's packed B-frames: each I- or P-VOP followed in decode order by
+    one B-VOP shares its chunk with it, and a placeholder non-coded VOP
+    fills the B-VOP's place, so that a chunk is a frame in display order."""
+    out, i = [], 0
+    while i < len(packets):
+        if types[i] != "B" and i + 1 < len(packets) and types[i + 1] == "B":
+            out += [packets[i] + packets[i + 1], non_coded_vop(time_bits)]
+            i += 2
+        else:
+            out.append(packets[i])
+            i += 1
+    return out
+
+
 class BitWriter:
     def __init__(self):
         self.bits: List[int] = []
@@ -184,24 +257,33 @@ class BitWriter:
 
 def vol_config(width: int, height: int, *, shape: int = 0, interlaced: int = 0,
                sprite: int = 0, quant_type: int = 0, quarter_sample: int = 0,
-               data_partitioned: int = 0, reversible_vlc: int = 0) -> bytes:
+               data_partitioned: int = 0, reversible_vlc: int = 0, not_8_bit: int = 0,
+               newpred: int = 0, reduced_resolution: int = 0, scalability: int = 0,
+               matrices: Tuple[Optional[Sequence[int]], Optional[Sequence[int]]] = (None, None),
+               ) -> bytes:
     """VOS, VO and a version-2 VOL header (so quarter_sample is coded) with
-    the given flags: the decoder configuration of an ``esds``."""
+    the given flags: the decoder configuration of an ``esds``.  With
+    ``quant_type``, ``matrices`` are the (intra, inter) values to load, in
+    zigzag order as the header carries them (a 0 ends a shorter list), or
+    None for the default matrix."""
     b = BitWriter()
     b.put(0, 1).put(1, 8).put(1, 1).put(2, 4).put(1, 3)  # random access, type, verid 2
     b.put(1, 4).put(0, 1)  # square pixels, no vol_control_parameters
     b.put(shape, 2).put(1, 1).put(25, 16).put(1, 1).put(0, 1)  # 25 ticks a second
     if shape == 0:
         b.put(1, 1).put(width, 13).put(1, 1).put(height, 13).put(1, 1)
-    b.put(interlaced, 1).put(1, 1).put(sprite, 2).put(0, 1)  # obmc_disable, not_8_bit
+    b.put(interlaced, 1).put(1, 1).put(sprite, 2).put(not_8_bit, 1)  # obmc_disable
     b.put(quant_type, 1)
     if quant_type:
-        b.put(0, 1).put(0, 1)  # default matrices
+        for matrix in matrices:
+            b.put(matrix is not None, 1)
+            for v in matrix or ():
+                b.put(v, 8)
     b.put(quarter_sample, 1).put(1, 1).put(1, 1)  # complexity estimation off, no resync
     b.put(data_partitioned, 1)
     if data_partitioned:
         b.put(reversible_vlc, 1)
-    b.put(0, 1).put(0, 1).put(0, 1)  # newpred, reduced resolution, scalability
+    b.put(newpred, 1).put(reduced_resolution, 1).put(scalability, 1)
     return (b"\x00\x00\x01\xb0\x01\x00\x00\x01\xb5\x09\x00\x00\x01\x00\x00\x00\x01\x20"
             + b.stuffed())
 

@@ -14,9 +14,10 @@ prescales JPEGs in the DCT domain and so does not equal OpenCV; this codec
 leaves the scale alone.
 
 For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
-bit for bit, and ``VideoStream`` reads, decodes and transforms the frames
-of a Motion-JPEG AVI (indexed by ``native.avi``) on a C++ thread into a
-ring of frames.
+bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video, and
+``VideoStream`` reads, decodes and transforms the frames of a Motion-JPEG
+or MPEG-4 stream (indexed by ``native.avi`` or ``native.mp4``) on a C++
+thread into a ring of frames.
 
 The library links nothing beyond the C++ standard library.  It is built
 into ``build/viddet_tpu_torch/native/<hash>/`` at the repository root
@@ -104,6 +105,7 @@ def library() -> ctypes.CDLL:
             lib.vd_mpeg4_open.argtypes = [p, size, ctypes.POINTER(i), ctypes.POINTER(i), p, i]
             lib.vd_mpeg4_open.restype = p
             lib.vd_mpeg4_decode.argtypes = [p, p, size, p, p, i]
+            lib.vd_mpeg4_flush.argtypes = [p, p]
             lib.vd_mpeg4_planes.argtypes = [p, p, p, p]
             lib.vd_mpeg4_free.argtypes = [p]
             lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, p, p, i, p, i, i, i, i, i,
@@ -114,7 +116,7 @@ def library() -> ctypes.CDLL:
             lib.vd_video_free.argtypes = [p]
             for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
                        lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next,
-                       lib.vd_mpeg4_decode):
+                       lib.vd_mpeg4_decode, lib.vd_mpeg4_flush):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -306,12 +308,17 @@ def frame_transform(rgb: np.ndarray, size, letterbox: bool = True,
 
 
 class Mpeg4Decoder:
-    """An MPEG-4 Part 2 (Simple Profile) decoder: ``config`` is the decoder
-    configuration (the VOS / VO / VOL headers of an MP4's ``esds``), and
-    ``decode(sample)`` decodes one sample's VOP into the (H, W, 3) uint8
-    RGB frame that ``cv2.VideoCapture``'s FFmpeg backend returns.  A
+    """An MPEG-4 Part 2 decoder (Simple and Advanced Simple Profile without
+    quarter-sample, interlace or global motion compensation): ``config`` is
+    the decoder configuration (the VOS / VO / VOL headers of an MP4's
+    ``esds`` or at the head of an AVI's first frame), and ``decode(sample)``
+    decodes one sample's VOP.  Pictures come out in display order, each the
+    (H, W, 3) uint8 RGB frame that ``cv2.VideoCapture``'s FFmpeg backend
+    returns: unless the VOL says low_delay, a reference (I or P) picture is
+    held until the next one arrives and shown then, a B-VOP's picture is
+    shown at once, and ``flush()`` gives the one still held at the end.  A
     feature the decoder does not have raises ValueError naming it, at
-    ``__init__`` for one the VOL announces and at ``decode`` for a B- or
+    ``__init__`` for one the VOL announces and at ``decode`` for an
     S-VOP."""
 
     def __init__(self, config: bytes, name: str = "<stream>"):
@@ -326,17 +333,29 @@ class Mpeg4Decoder:
         self.width, self.height = w.value, h.value  # the VOL's
 
     def decode(self, sample: bytes, name: str = "", rgb: bool = True):
-        """Decode one sample; the RGB frame, or None when ``rgb`` is False
-        (a frame skipped, still decoded for the ones after it)."""
+        """Decode one sample.  Returns the picture that is now ready to show
+        as an RGB frame (True when ``rgb`` is False: a frame skipped, still
+        decoded for the ones after it), or None when none is: a reference
+        picture held for display order, or a B-VOP libavcodec drops (one
+        before two references)."""
         err = ctypes.create_string_buffer(_ERR_LEN)
         out = np.empty((self.height, self.width, 3), np.uint8) if rgb else None
-        if self._lib.vd_mpeg4_decode(self._handle, sample, len(sample),
-                                     out.ctypes.data if rgb else None, err, _ERR_LEN):
+        rc = self._lib.vd_mpeg4_decode(self._handle, sample, len(sample),
+                                       out.ctypes.data if rgb else None, err, _ERR_LEN)
+        if rc < 0:
             raise ValueError(f"{name or self.name}: MPEG-4 decode: {_message(err)}")
-        return out
+        return None if not rc else out if rgb else True
+
+    def flush(self, rgb: bool = True):
+        """At the end of the stream: the picture still held, as ``decode``
+        returns it, or None."""
+        out = np.empty((self.height, self.width, 3), np.uint8) if rgb else None
+        if not self._lib.vd_mpeg4_flush(self._handle, out.ctypes.data if rgb else None):
+            return None
+        return out if rgb else True
 
     def planes(self):
-        """The last decoded picture's (Y, U, V) planes, H x W and two of
+        """The (Y, U, V) planes of the picture shown last, H x W and two of
         H/2 x W/2."""
         y = np.empty((self.height, self.width), np.uint8)
         u = np.empty((self.height // 2, self.width // 2), np.uint8)
@@ -354,14 +373,36 @@ class Mpeg4Decoder:
             self.close()
 
 
+def mpeg4_frames(config: bytes, samples, name: str, every: int = 1):
+    """(display index, RGB frame) of every ``every``-th picture of an
+    MPEG-4 stream whose samples (in decode order) ``samples`` yields; every
+    sample is decoded, only the kept pictures converted to RGB.  A sample
+    that fails raises ValueError naming ``name`` and its number."""
+    decoder = Mpeg4Decoder(config, name)
+    shown = 0
+    try:
+        for i, sample in enumerate(samples):
+            frame = decoder.decode(sample, f"{name} frame {i}", rgb=shown % every == 0)
+            if frame is not None:
+                if shown % every == 0:
+                    yield shown, frame
+                shown += 1
+        frame = decoder.flush(rgb=shown % every == 0)
+        if frame is not None and shown % every == 0:
+            yield shown, frame
+    finally:
+        decoder.close()
+
+
 class VideoStream:
     """Frames ``indices`` (ascending) of a video whose samples lie at file
     ``offsets`` / ``sizes`` (one per frame of the file), read, decoded and
     transformed (``frame_transform``) on a C++ thread into a ring of
     ``capacity`` frames; the thread starts here.  ``codec`` "jpeg" decodes
-    only the kept frames; "mpeg4" (configured by ``config``, an MP4's
-    decoder configuration) decodes every frame up to the last kept one in
-    order and transforms only the kept ones.  Iterating yields (index, x,
+    only the kept frames; "mpeg4" (configured by ``config``, the stream's
+    decoder configuration) decodes the samples in decode order up to the
+    last kept picture and transforms only the kept ones, ``indices``
+    counting pictures in display order.  Iterating yields (index, x,
     affine) in order and raises ValueError for a frame that fails to read
     or decode, after the frames before it.  ``close()`` stops the thread
     and ends an iteration blocked in another thread."""

@@ -1,8 +1,19 @@
-"""Motion-JPEG in an AVI container, read and written without FFmpeg.
+"""AVI files read and written without FFmpeg: Motion-JPEG and MPEG-4 Part 2
+video in, Motion-JPEG out.
 
 Each frame of a Motion-JPEG AVI is a whole JPEG, so the port's codec
 (``native.decode_jpeg`` / ``native.encode_jpeg``) does the pixels and this
-module only walks and writes the RIFF tree.
+module only walks and writes the RIFF tree.  An MPEG-4 Part 2 stream (the
+``XVID``, ``DIVX``, ``FMP4``, ... fourccs OpenCV and FFmpeg write) goes to
+the port's MPEG-4 decoder (``native.Mpeg4Decoder``), configured by the
+``strf`` extradata after the BITMAPINFOHEADER, or where there is none by
+the VOS / VOL headers at the head of the first frame.  Packed B-frames (a
+P-VOP and the B-VOP shown before it in one chunk, then a placeholder
+chunk, as DivX and XviD write them) are unpacked as FFmpeg's
+``mpeg4_unpack_bframes`` filter unpacks them: the B-VOP's bytes take the
+place of the next chunk that holds one VOP, and a chunk that holds none
+is dropped.  The frames are then the samples in decode order, and the
+decoder gives them out in display order.
 
 Reading (``read_index``) walks ``hdrl`` (``avih``; per stream ``strl``
 with ``strh`` and a ``strf`` BITMAPINFOHEADER), then every ``movi`` list in
@@ -13,8 +24,9 @@ only.  The frames are the first video stream's
 (``idx1``, ``indx``, ``ix##``) and other streams' chunks are skipped, and
 an empty chunk (a writer's dropped frame) is not a frame.  ``idx1`` is
 not read: a file cut short by a crash, its sizes never patched, reads up
-to its last whole frame.  A video stream whose compression is not JPEG
-raises ValueError: decoding it needs FFmpeg, which the port does not link.
+to its last whole frame.  A video stream whose compression is neither
+raises ValueError naming it: decoding it needs FFmpeg, which the port does
+not link.
 
 Writing (``AviWriter``) gives AVI 1.0 with an ``idx1`` index; past
 ``segment_bytes`` (1 GiB, as FFmpeg's muxer) a file continues in OpenDML
@@ -35,7 +47,11 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 
+from viddet_tpu_torch.native.mp4 import VOP_START, check_decoder_config, check_vops
+
 JPEG_FOURCCS = ("MJPG", "JPEG")  # the compressions read, compared in upper case
+MPEG4_FOURCCS = ("XVID", "DIVX", "DX50", "FMP4", "MP4V", "M4S2")  # MPEG-4 Part 2
+BITMAPINFOHEADER = 40  # bytes; a strf's extradata follows
 QUALITY = 95  # the JPEG quality of written frames, OpenCV's MJPEG writer's
 SEGMENT_BYTES = 1 << 30
 MASTER_INDEX_ENTRIES = 256  # super-index slots reserved in the header (FFmpeg's count)
@@ -45,8 +61,9 @@ AVIIF_KEYFRAME = 0x10
 
 @dataclasses.dataclass
 class AviIndex:
-    """What ``read_index`` finds: the first video stream's geometry and rate,
-    and each frame's JPEG as (file offset, size)."""
+    """What ``read_index`` finds: the first video stream's geometry, codec
+    and rate, and each frame's sample as (file offset, size): a JPEG, or an
+    MPEG-4 VOP in decode order."""
 
     path: str
     width: int
@@ -56,6 +73,8 @@ class AviIndex:
     offsets: np.ndarray  # int64, file offset of each frame's data
     sizes: np.ndarray  # int64
     truncated: bool  # the walk met a chunk cut short by the end of the file
+    codec: str = "jpeg"  # or "mpeg4" (``native.VideoStream``'s codec)
+    config: bytes = b""  # the MPEG-4 decoder configuration (VOS / VO / VOL)
 
     @property
     def fps(self) -> float:
@@ -65,14 +84,12 @@ class AviIndex:
     def frame_count(self) -> int:
         return len(self.offsets)
 
-    codec = "jpeg"  # every frame a JPEG (``native.VideoStream``'s codec)
-    config = b""
-
 
 def read_index(path: str) -> AviIndex:
     """Walk the AVI at ``path``; see the module's docstring.  Raises
     ValueError for a file that is not an AVI, has no video stream, or
-    whose video is not Motion-JPEG."""
+    whose video is neither Motion-JPEG nor MPEG-4 Part 2, and for an
+    MPEG-4 stream with an S-VOP or that does not start with an I-VOP."""
     path = str(path)
     size = os.path.getsize(path)
     with open(path, "rb") as f:
@@ -111,13 +128,48 @@ class _Walk:
             raise ValueError(f"{self.path}: video stream {video} has no BITMAPINFOHEADER")
         _, width, height, _, _, compression = struct.unpack_from("<IiiHH4s", strf)
         fourcc = compression.decode("latin-1")
-        if fourcc.upper() not in JPEG_FOURCCS:
-            raise ValueError(f"{self.path}: the video stream is {fourcc!r}, not Motion-JPEG; "
-                             f"decoding it needs FFmpeg, which the port does not link")
-        offsets = np.array([o for o, _ in self.frames], np.int64)
-        sizes = np.array([s for _, s in self.frames], np.int64)
+        if fourcc.upper() in JPEG_FOURCCS:
+            codec, config, frames = "jpeg", b"", self.frames
+        elif fourcc.upper() in MPEG4_FOURCCS:
+            codec, frames = "mpeg4", self.unpack_bframes()
+            config = strf[BITMAPINFOHEADER:]
+            if not config and frames:  # the headers before the first frame's VOP
+                offset, size = frames[0]
+                at = self.data.find(VOP_START, offset, offset + size)
+                config = bytes(self.data[offset:at if at >= 0 else offset + size])
+        else:
+            raise ValueError(f"{self.path}: the video stream is {fourcc!r}, not Motion-JPEG or "
+                             f"MPEG-4 Part 2; decoding it needs FFmpeg, which the port does "
+                             f"not link")
+        offsets = np.array([o for o, _ in frames], np.int64)
+        sizes = np.array([s for _, s in frames], np.int64)
+        if codec == "mpeg4":
+            check_vops(self.data, offsets, sizes, self.fail)
         return AviIndex(self.path, width, abs(height), strh[1], strh[0], offsets, sizes,
-                        self.truncated)
+                        self.truncated, codec, config)
+
+    def fail(self, what: str):
+        raise ValueError(f"{self.path}: {what}")
+
+    def unpack_bframes(self) -> List[Tuple[int, int]]:
+        """The chunks as FFmpeg's ``mpeg4_unpack_bframes`` leaves them: a
+        chunk with two or more VOPs keeps its first and hands the rest on
+        to the next chunk that holds exactly one VOP (the placeholder),
+        whose bytes it replaces; a chunk with no VOP is dropped."""
+        out, packed = [], None
+        for offset, size in self.frames:
+            end = offset + size
+            first = self.data.find(VOP_START, offset, end)
+            second = self.data.find(VOP_START, first + 4, end) if first >= 0 else -1
+            if second >= 0:
+                packed = (second, end - second)  # a second one unpaired is dropped, as there
+                out.append((offset, second - offset))
+            elif first >= 0 and packed is not None:
+                out.append(packed)
+                packed = None
+            elif first >= 0:
+                out.append((offset, size))
+        return out
 
     def _end(self, pos: int, length: int, parent_end: int) -> int:
         """A list's end; a size never patched (0) or past its parent runs to
@@ -159,30 +211,39 @@ class _Walk:
 
 
 class AviReader:
-    """Frames of a Motion-JPEG AVI as JPEG bytes, by index."""
+    """The video samples of an AVI by index (a JPEG, or an MPEG-4 VOP in
+    decode order), and its frames decoded (``frames``)."""
 
     def __init__(self, path: str):
         self.index = read_index(path)
+        if self.index.codec == "mpeg4":  # the VOL's refusals, before any frame is decoded
+            check_decoder_config(self.index)
         self._file = open(path, "rb")
 
     def __len__(self) -> int:
         return self.index.frame_count
 
-    def jpeg(self, i: int) -> bytes:
+    def sample(self, i: int) -> bytes:
         self._file.seek(int(self.index.offsets[i]))
         return self._file.read(int(self.index.sizes[i]))
 
     def __iter__(self) -> Iterator[bytes]:
         for i in range(len(self)):
-            yield self.jpeg(i)
+            yield self.sample(i)
 
     def frames(self, every: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
-        """(index, RGB frame) of every ``every``-th frame; the frames
-        between are not decoded."""
-        from viddet_tpu_torch.native import decode_jpeg
+        """(index, RGB frame) of every ``every``-th frame in display order.
+        A JPEG frame skipped by ``every`` is not decoded; an MPEG-4 stream
+        is decoded whole."""
+        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames
 
+        index = self.index
+        if index.codec == "mpeg4":
+            yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
+                                    index.path, every)
+            return
         for i in range(0, len(self), every):
-            yield i, decode_jpeg(self.jpeg(i), f"{self.index.path} frame {i}")
+            yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")
 
     def close(self) -> None:
         self._file.close()

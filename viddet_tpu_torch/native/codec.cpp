@@ -1664,16 +1664,20 @@ void frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w
 constexpr long long kMaxPixels = 1LL << 30;  // native/__init__.py MAX_PIXELS
 
 // ---------------------------------------------------------------------------
-// MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile video, as libavcodec's
-// mpeg4 decoder reconstructs it.  The tables are the standard's (H.263
-// Tables 7, 8, 13, 14 and 16; 14496-2 Tables B-13, B-14 and B-16); the
+// MPEG-4 Part 2 (ISO/IEC 14496-2) Simple and Advanced Simple Profile video
+// (B-VOPs and MPEG quantisation; not quarter-sample, interlace or GMC), as
+// libavcodec's mpeg4 decoder reconstructs it and shows it (display
+// order).  The tables are the standard's (H.263 Tables 7, 8, 13, 14 and
+// 16; 14496-2 Tables B-13, B-14 and B-16, the default matrices); the
 // arithmetic follows libavcodec where the standard leaves it open: the
 // 8-bit simple_idct with its DC-only row shortcut, DC and AC prediction
-// with its slice-edge rules, motion-vector prediction and the H.263
-// chroma rounding, unrestricted vectors replicating the edge of the
-// macroblock-aligned picture (libavcodec's h_edge_pos / v_edge_pos), the
-// H.263 inverse quantiser with the third escape's clip, and the x86
-// half-sample averages libavcodec takes by default (Mpeg4Decoder::average).
+// with its slice-edge rules, motion-vector prediction (zeroing a vector in
+// place at a packet's start) and the H.263 chroma rounding, unrestricted
+// vectors replicating the edge of the macroblock-aligned picture
+// (libavcodec's h_edge_pos / v_edge_pos), the H.263 inverse quantiser with
+// the third escape's clip, its MPEG inverse quantiser, direct mode's
+// scaled vectors, and the x86 half-sample averages libavcodec takes by
+// default (Mpeg4Decoder::average).
 
 // Big-endian bit reader over [p, p + n); reads past the end give zeros and
 // `over()` tells.
@@ -1967,21 +1971,51 @@ struct Picture {
   Plane y, u, v;
 };
 
+// 14496-2's default quantiser matrices (libavcodec's
+// ff_mpeg4_default_intra_matrix / _non_intra_matrix), in raster order.
+const uint8_t kDefaultIntraMatrix[64] = {
+    8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28, 20, 21, 22, 23, 24, 26,
+    28, 30, 21, 22, 23, 24, 26, 28, 30, 32, 22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28,
+    30, 32, 35, 38, 25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45};
+const uint8_t kDefaultInterMatrix[64] = {
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24, 18, 19, 20, 21, 22, 23,
+    24, 25, 19, 20, 21, 22, 23, 24, 26, 27, 20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24,
+    26, 27, 28, 30, 22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
+
+constexpr int kSimpleVo = 1, kAdvancedSimpleVo = 17;  // video_object_type_indication
+
 struct Mpeg4Decoder {
   // VOL
   bool have_vol = false;
-  int width = 0, height = 0, mb_w = 0, mb_h = 0, time_bits = 1;
+  int width = 0, height = 0, mb_w = 0, mb_h = 0, time_bits = 1, resolution = 1, vo_type = 0;
+  bool vol_control = false;  // the VOL carried vol_control_parameters
+  bool low_delay = true;     // no B-VOPs: each picture is shown as it is decoded
+  bool mpeg_quant = false;   // quant_type 1, with these matrices (raster order)
+  uint8_t intra_matrix[64] = {}, inter_matrix[64] = {};
+  // time, kept as libavcodec's decode_vop_header keeps it: the seconds of
+  // the newest I/P-VOP (or GOV) and of the one before, the newest I/P-VOP's
+  // time in ticks, and direct mode's TRD (pp_time) and TRB (pb_time)
+  int64_t time_base = 0, last_time_base = 0, last_non_b_time = 0;
+  uint16_t pp_time = 0, pb_time = 0;
+  int pictures = 0;  // coded VOP headers read (libavcodec's picture_number)
   // VOP
-  int vop_type = 0, rounding = 0, qscale = 1, fcode = 1, dc_threshold = 99;
-  Picture cur, ref;
-  bool have_ref = false;
+  int vop_type = 0, rounding = 0, qscale = 1, fcode = 1, bcode = 1, dc_threshold = 99;
+  // the two newest reference (I/P) pictures, `ref` the newer; `cur` is the
+  // picture being decoded, and after a B-VOP the B picture
+  Picture cur, ref, past;
+  int refs = 0;                    // reference pictures decoded
+  bool held = false;               // `ref` is not yet shown (display order)
+  const Picture* shown = nullptr;  // the picture shown last
+  // `ref`'s macroblocks, for the B-VOPs after it: not coded, four vectors
+  std::vector<uint8_t> ref_skip, ref_four;
+  int last_mv[2][2] = {};  // B-VOP vector predictors: forward, backward
   // prediction state; luma blocks on a (2 mb_h + 1) x (2 mb_w + 2) grid, chroma
   // on (mb_h + 1) x (mb_w + 2), each with a border row above and a border
   // column on either side
   int bstride = 0, cstride = 0;
   std::vector<int16_t> dc[3];                   // scaled DC predictors
   std::vector<std::array<int16_t, 16>> ac[3];   // [1..7] left column, [9..15] top row
-  std::vector<std::array<int16_t, 2>> mv;       // luma block vectors, half samples
+  std::vector<std::array<int16_t, 2>> mv;       // `ref`'s luma block vectors, half samples
   std::vector<int8_t> mb_q;                     // each macroblock's qscale
   // the current video packet's first macroblock, and whether the macroblock
   // being decoded lies in the packet's first row of macroblocks
@@ -1999,56 +2033,90 @@ struct Mpeg4Decoder {
     return n;
   }
 
-  // Walk the start codes of `data`: VOL headers are read, a VOP decoded.
-  // Returns whether a VOP was decoded (a coded or a non-coded one).
-  bool feed(const uint8_t* data, size_t n, bool allow_vop) {
-    bool got = false;
+  // Walk the start codes of `data`: VOL and GOV headers are read, a VOP
+  // decoded.  Returns -1 without a VOP, else whether a picture is ready to
+  // show (`shown`).
+  int feed(const uint8_t* data, size_t n, bool allow_vop) {
+    int ready = -1;
     for (size_t i = next_start(data, n, 0); i + 4 <= n;) {
       const uint8_t code = data[i + 3];
       const size_t body = i + 4, end = next_start(data, n, body);
+      Mpeg4Bits b(data + body, end - body);
       if (code >= 0x20 && code <= 0x2F) {
-        Mpeg4Bits b(data + body, end - body);
         parse_vol(b);
+      } else if (code == 0xB3) {
+        parse_gov(b);
       } else if (code == 0xB6) {
         if (!allow_vop) fail("the decoder configuration holds a VOP");
-        if (got) fail("the sample holds more than one VOP (packed B-VOPs are not decoded)");
+        if (ready >= 0)
+          fail("the sample holds more than one VOP (packed B-frames, which the port unpacks "
+               "only in AVI)");
         if (!have_vol) fail("a VOP before any video object layer header");
-        Mpeg4Bits b(data + body, end - body);
-        decode_vop(b);
-        got = true;
+        ready = decode_vop(b);
       }
-      // the others (VOS, user data, GOV, VO, ...) carry nothing the
-      // decoder needs
+      // the others (VOS, user data, VO, ...) carry nothing the decoder needs
       i = end;
     }
-    return got;
+    return ready;
+  }
+
+  // Decode one sample; whether a picture is ready to show, in display order.
+  bool decode(const uint8_t* data, size_t n) {
+    const int ready = feed(data, n, true);
+    if (ready < 0) fail("the sample holds no VOP");
+    return ready;
+  }
+
+  // At the end of the stream: the reference picture still held, if any.
+  bool flush() {
+    if (!held) return false;
+    held = false;
+    shown = &ref;
+    return true;
+  }
+
+  // load_intra_quant_mat / load_nonintra_quant_mat: up to 64 values in
+  // zigzag order; a 0 ends them and the last value fills the rest.
+  void load_matrix(Mpeg4Bits& b, uint8_t* m) {
+    int i = 0, last = 0;
+    for (; i < 64; ++i) {
+      if (b.left() < 8) fail("the quantisation matrix is truncated");
+      const int v = static_cast<int>(b.get(8));
+      if (!v) break;
+      last = v;
+      m[kZigzag[i]] = static_cast<uint8_t>(v);
+    }
+    for (; i < 64; ++i) m[kZigzag[i]] = static_cast<uint8_t>(last);
   }
 
   void parse_vol(Mpeg4Bits& b) {
     b.skip(1);  // random_accessible_vol
-    b.skip(8);  // video_object_type_indication
+    vo_type = static_cast<int>(b.get(8));
     int verid = 1;
     if (b.get1()) {  // is_object_layer_identifier
       verid = static_cast<int>(b.get(4));
       b.skip(3);
     }
     if (b.get(4) == 15) b.skip(16);  // aspect_ratio_info, extended PAR
-    if (b.get1()) {                  // vol_control_parameters
+    vol_control = b.get1();
+    if (vol_control) {
       const int chroma = static_cast<int>(b.get(2));
       if (chroma != 1) fail("chroma format %d is not 4:2:0", chroma);
-      b.skip(1);       // low_delay: B-VOPs are refused where they appear
-      if (b.get1())    // vbv_parameters
+      low_delay = b.get1();
+      if (b.get1())  // vbv_parameters
         b.skip(15 + 1 + 15 + 1 + 15 + 1 + 3 + 11 + 1 + 15 + 1);
+    } else if (!pictures) {  // libavcodec's default, set before the first picture only
+      low_delay = vo_type == kSimpleVo || vo_type == kAdvancedSimpleVo;
     }
     const int shape = static_cast<int>(b.get(2));
     if (shape != 0)
       fail("non-rectangular shape (video_object_layer_shape %d) is not decoded", shape);
     b.skip(1);
-    const int resolution = static_cast<int>(b.get(16));
-    if (!resolution) fail("vop_time_increment_resolution is 0");
+    const int res = static_cast<int>(b.get(16));
+    if (!res) fail("vop_time_increment_resolution is 0");
     b.skip(1);
     time_bits = 1;
-    while ((1 << time_bits) < resolution) ++time_bits;
+    while ((1 << time_bits) < res) ++time_bits;
     if (b.get1()) b.skip(time_bits);  // fixed_vop_rate, fixed_vop_time_increment
     b.skip(1);
     const int w = static_cast<int>(b.get(13));
@@ -2061,7 +2129,13 @@ struct Mpeg4Decoder {
     if (sprite) fail("sprites and global motion compensation (sprite_enable %d) are not decoded",
                      sprite);
     if (b.get1()) fail("video of other than 8 bits (not_8_bit) is not decoded");
-    if (b.get1()) fail("MPEG quantisation (quant_type 1) is not decoded");
+    const bool mpeg = b.get1();  // quant_type
+    if (mpeg) {
+      std::memcpy(intra_matrix, kDefaultIntraMatrix, 64);
+      std::memcpy(inter_matrix, kDefaultInterMatrix, 64);
+      if (b.get1()) load_matrix(b, intra_matrix);
+      if (b.get1()) load_matrix(b, inter_matrix);
+    }
     if (verid != 1 && b.get1()) fail("quarter-sample motion compensation is not decoded");
     if (!b.get1()) fail("complexity estimation headers are not decoded");
     b.skip(1);  // resync_marker_disable: video packets are found either way
@@ -2080,6 +2154,18 @@ struct Mpeg4Decoder {
       fail("the video object layer changes size from %dx%d to %dx%d", width, height, w, h);
     if (!have_vol) allocate(w, h);
     have_vol = true;
+    resolution = res;
+    mpeg_quant = mpeg;
+  }
+
+  // group_of_vop: the seconds of its time code become the time base (a GOV
+  // header of zeros is ignored, as libavcodec ignores it)
+  void parse_gov(Mpeg4Bits& b) {
+    if (!b.peek(23)) return;
+    const int hours = static_cast<int>(b.get(5)), minutes = static_cast<int>(b.get(6));
+    b.skip(1);
+    const int seconds = static_cast<int>(b.get(6));
+    time_base = seconds + 60 * (minutes + 60 * hours);
   }
 
   void allocate(int w, int h) {
@@ -2089,7 +2175,7 @@ struct Mpeg4Decoder {
     height = h;
     mb_w = (w + 15) / 16;
     mb_h = (h + 15) / 16;
-    for (Picture* p : {&cur, &ref}) {
+    for (Picture* p : {&cur, &ref, &past}) {
       p->y.reset(mb_w * 16, mb_h * 16);
       p->u.reset(mb_w * 8, mb_h * 8);
       p->v.reset(mb_w * 8, mb_h * 8);
@@ -2106,56 +2192,137 @@ struct Mpeg4Decoder {
     ac[2].assign(cn, {});
     mv.assign(bn, {0, 0});
     mb_q.assign(static_cast<size_t>(mb_w) * mb_h, 1);
+    ref_skip.assign(static_cast<size_t>(mb_w) * mb_h, 0);
+    ref_four.assign(static_cast<size_t>(mb_w) * mb_h, 0);
   }
 
   // -- VOP ------------------------------------------------------------------
 
-  void decode_vop(Mpeg4Bits& b) {
+  // Decode a VOP; whether a picture is ready to show.  Display order is
+  // libavcodec's: unless low_delay, a reference picture is held until the
+  // next one (or the end) arrives, and a B-VOP's picture is shown at once.
+  bool decode_vop(Mpeg4Bits& b) {
+    static const char kType[] = "IPBS";
     const int type = static_cast<int>(b.get(2));
-    if (type == 2) fail("B-VOPs are not decoded");
     if (type == 3) fail("S-VOPs (sprites, global motion compensation) are not decoded");
+    if (type == 2 && low_delay && !vol_control) low_delay = false;  // libavcodec's repair
+    int incr = 0;
     while (b.get1()) {  // modulo_time_base
       if (b.over()) fail("the VOP header is truncated");
+      ++incr;
     }
-    b.skip(1 + time_bits + 1);  // marker, vop_time_increment, marker
-    if (!b.get1()) {            // vop_coded 0: the previous picture again
-      if (!have_ref) fail("a non-coded VOP before any picture");
-      return;
+    b.skip(1);
+    const int64_t increment = b.get(time_bits);
+    b.skip(1);
+    if (type != 2) {
+      last_time_base = time_base;
+      time_base += incr;
+      const int64_t time = time_base * resolution + increment;
+      pp_time = static_cast<uint16_t>(time - last_non_b_time);
+      last_non_b_time = time;
+    } else {
+      const int64_t time = (last_time_base + incr) * resolution + increment;
+      pb_time = static_cast<uint16_t>(pp_time - (last_non_b_time - time));
+      // out of order: libavcodec drops the B-VOP
+      if (pp_time <= pb_time || !pb_time) return false;
     }
+    if (!b.get1()) return not_coded(type);  // vop_coded 0
     rounding = type == 1 ? b.get1() : 0;
     dc_threshold = kDcThreshold[b.get(3)];
     qscale = static_cast<int>(b.get(5));
     if (!qscale) fail("vop_quant is 0");
-    fcode = 1;
-    if (type == 1) {
+    fcode = bcode = 1;
+    if (type != 0) {
       fcode = static_cast<int>(b.get(3));
       if (!fcode) fail("vop_fcode_forward is 0");
-      if (!have_ref) fail("a P-VOP before any I-VOP");
     }
+    if (type == 2) {
+      bcode = static_cast<int>(b.get(3));
+      if (!bcode) fail("vop_fcode_backward is 0");
+    }
+    if (type == 1 && !refs) fail("a P-VOP before any I-VOP");
     if (b.over()) fail("the VOP header is truncated");
+    if (!vo_type && !vol_control && !pictures) low_delay = true;  // libavcodec's divx4 rule
+    ++pictures;
+    if (type == 2 && refs < 2) return false;  // libavcodec drops a B-VOP before two references
     vop_type = type;
     resync_x = resync_y = 0;
     first_line = true;
     for (mb_y = 0; mb_y < mb_h; ++mb_y) {
       for (mb_x = 0; mb_x < mb_w; ++mb_x) {
-        if ((mb_x || mb_y) && resync_ahead(b)) video_packet(b);
+        const size_t mb = static_cast<size_t>(mb_y) * mb_w + mb_x;
+        // a B-VOP's macroblock whose co-located one was not coded takes no
+        // bits, so a packet may start after it
+        if ((mb_x || mb_y) && resync_ahead(b) &&
+            !(type == 2 && ref_skip[mb] && packet_mb(b) > static_cast<int>(mb)))
+          video_packet(b);
         if (resync_x == mb_x && resync_y + 1 == mb_y) first_line = false;
         try {
-          macroblock(b);
+          if (type == 2)
+            b_macroblock(b, ref_skip[mb]);
+          else
+            macroblock(b);
         } catch (const CodecError& e) {
-          fail("%s-VOP macroblock (%d, %d): %s", type ? "P" : "I", mb_x, mb_y, e.msg.c_str());
+          fail("%c-VOP macroblock (%d, %d): %s", kType[type], mb_x, mb_y, e.msg.c_str());
         }
-        if (b.over()) fail("%s-VOP macroblock (%d, %d): the VOP is truncated", type ? "P" : "I",
-                           mb_x, mb_y);
+        if (b.over())
+          fail("%c-VOP macroblock (%d, %d): the VOP is truncated", kType[type], mb_x, mb_y);
       }
     }
-    std::swap(cur, ref);  // the new picture is the next reference
-    have_ref = true;
+    if (type == 2) {  // never a reference
+      shown = &cur;
+      return true;
+    }
+    std::swap(past, ref);  // the new picture is the newer reference
+    std::swap(ref, cur);
+    ++refs;
+    return show_reference();
+  }
+
+  // A new reference picture in `ref`: shown at once under low_delay, else
+  // the one before it is shown now and it is held.
+  bool show_reference() {
+    if (low_delay) {
+      shown = &ref;
+      return true;
+    }
+    if (held) {
+      shown = &past;
+      return true;
+    }
+    held = true;
+    return false;
+  }
+
+  // vop_coded 0.  A non-coded I- or P-VOP is the newest reference again:
+  // it repeats it (shown as the next reference), and for the B-VOPs after
+  // it each of its macroblocks counts as not coded.  A non-coded B-VOP
+  // repeats the picture shown before it.  (libavcodec shows nothing for
+  // either.)
+  bool not_coded(int type) {
+    if (!refs) fail("a non-coded VOP before any picture");
+    if (type == 2) return shown != nullptr;
+    past = ref;
+    std::fill(ref_skip.begin(), ref_skip.end(), 1);
+    std::fill(ref_four.begin(), ref_four.end(), 0);
+    std::fill(mv.begin(), mv.end(), std::array<int16_t, 2>{0, 0});
+    ++refs;
+    return show_reference();
   }
 
   static constexpr int kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};
 
-  int packet_prefix() const { return vop_type == 0 ? 16 : 16 + fcode - 1; }
+  // the zero bits of a resync marker: 14496-2's, libavcodec's
+  // ff_mpeg4_get_video_packet_prefix_length
+  int packet_prefix() const {
+    return vop_type == 0 ? 16 : vop_type == 1 ? 15 + fcode : 15 + std::max({fcode, bcode, 2});
+  }
+
+  int packet_number_bits() const {
+    int bits = 1;
+    while ((1 << bits) < mb_w * mb_h) ++bits;
+    return bits;
+  }
 
   // Whether stuffing to the next byte and a resync marker come next.
   bool resync_ahead(const Mpeg4Bits& b) const {
@@ -2168,12 +2335,18 @@ struct Mpeg4Decoder {
     return true;
   }
 
+  // The first macroblock of the video packet ahead (after resync_ahead).
+  int packet_mb(const Mpeg4Bits& b) const {
+    Mpeg4Bits c = b;
+    c.skip(8 - (c.pos & 7));
+    c.skip(packet_prefix() + 1);
+    return static_cast<int>(c.get(packet_number_bits()));
+  }
+
   void video_packet(Mpeg4Bits& b) {
     b.skip(8 - (b.pos & 7));
     b.skip(packet_prefix() + 1);
-    int bits = 1;
-    while ((1 << bits) < mb_w * mb_h) ++bits;
-    const int mb = static_cast<int>(b.get(bits));
+    const int mb = static_cast<int>(b.get(packet_number_bits()));
     if (mb != mb_y * mb_w + mb_x)
       fail("a video packet starts at macroblock %d, expected %d", mb, mb_y * mb_w + mb_x);
     const int q = static_cast<int>(b.get(5));
@@ -2183,12 +2356,14 @@ struct Mpeg4Decoder {
         if (b.over()) fail("the video packet header is truncated");
       }
       b.skip(1 + time_bits + 1 + 2 + 3);  // time, marker, coding type, intra_dc_vlc_thr
-      if (vop_type == 1) b.skip(3);       // vop_fcode_forward
+      if (vop_type != 0) b.skip(3);       // vop_fcode_forward
+      if (vop_type == 2) b.skip(3);       // vop_fcode_backward
     }
     if (b.over()) fail("the video packet header is truncated");
     resync_x = mb_x;
     resync_y = mb_y;
     first_line = true;
+    std::memset(last_mv, 0, sizeof(last_mv));
     // forget the AC predictors the packet may not use (libavcodec's
     // ff_mpeg4_clean_buffers): from the block above-left of this
     // macroblock through the blocks left of it, in raster order
@@ -2209,6 +2384,7 @@ struct Mpeg4Decoder {
     return static_cast<size_t>(2 * mb_y + (n >> 1) + 1) * bstride + 2 * mb_x + (n & 1) + 1;
   }
   size_t cpos() const { return static_cast<size_t>(mb_y + 1) * cstride + mb_x + 1; }
+  size_t mb_index() const { return static_cast<size_t>(mb_y) * mb_w + mb_x; }
 
   void set_qscale(int q) { qscale = q < 1 ? 1 : q > 31 ? 31 : q; }
   int dc_scale(int n) const {
@@ -2221,6 +2397,7 @@ struct Mpeg4Decoder {
     static const int kDquant[4] = {-1, -2, 1, 2};
     int cbpc;
     bool intra, dquant, four = false;
+    ref_skip[mb_index()] = ref_four[mb_index()] = 0;
     if (vop_type == 1) {
       do {
         if (b.get1()) {  // not_coded: the reference, unmoved
@@ -2259,20 +2436,26 @@ struct Mpeg4Decoder {
     if (!four) {
       int px, py;
       predict_mv(0, px, py);
-      v[0] = {static_cast<int16_t>(read_mv(b, px)), 0};
-      v[0][1] = static_cast<int16_t>(read_mv(b, py));
+      v[0] = {static_cast<int16_t>(read_mv(b, px, fcode)), 0};
+      v[0][1] = static_cast<int16_t>(read_mv(b, py, fcode));
       for (int n = 0; n < 4; ++n) mv[bpos(n)] = v[0];
     } else {
       for (int n = 0; n < 4; ++n) {
         int px, py;
         predict_mv(n, px, py);
-        v[n][0] = static_cast<int16_t>(read_mv(b, px));
-        v[n][1] = static_cast<int16_t>(read_mv(b, py));
+        v[n][0] = static_cast<int16_t>(read_mv(b, px, fcode));
+        v[n][1] = static_cast<int16_t>(read_mv(b, py, fcode));
         mv[bpos(n)] = v[n];
       }
+      ref_four[mb_index()] = 1;
     }
     clear_intra();
-    motion(v, four);
+    motion(ref, v, four, rounding, false);
+    texture(b, cbp);
+  }
+
+  // The inter blocks of `cbp`, added to the prediction in `cur`.
+  void texture(Mpeg4Bits& b, int cbp) {
     int16_t block[64];
     for (int n = 0; n < 6; ++n) {
       if (!(cbp & (32 >> n))) continue;
@@ -2298,9 +2481,10 @@ struct Mpeg4Decoder {
 
   void skipped() {
     for (int n = 0; n < 4; ++n) mv[bpos(n)] = {0, 0};
+    ref_skip[mb_index()] = 1;
     clear_intra();
     std::array<int16_t, 2> v[4] = {};
-    motion(v, false);
+    motion(ref, v, false, rounding, false);
   }
 
   // an inter macroblock leaves no intra predictors behind
@@ -2313,7 +2497,74 @@ struct Mpeg4Decoder {
       dc[p][cpos()] = 1024;
       ac[p][cpos()] = {};
     }
-    mb_q[static_cast<size_t>(mb_y) * mb_w + mb_x] = static_cast<int8_t>(qscale);
+    mb_q[mb_index()] = static_cast<int8_t>(qscale);
+  }
+
+  // -- B-VOP macroblocks (libavcodec's mpeg4_decode_mb for B pictures) ------
+
+  // modb, mb_type, cbpb, dbquant and the vectors; then forward prediction
+  // from `past`, backward from `ref`, or their average, and the texture.
+  // `skip`: the co-located macroblock of `ref` was not coded, so this one
+  // takes no bits and is `past` unmoved.
+  void b_macroblock(Mpeg4Bits& b, bool skip) {
+    if (!mb_x) std::memset(last_mv, 0, sizeof(last_mv));  // each row starts from zero
+    std::array<int16_t, 2> fv[4] = {}, bv[4] = {};
+    bool forward = true, backward = false, four = false;
+    int cbp = 0;
+    if (!skip) {
+      int type = 0;  // mb_type: 0 direct, 1 interpolate, 2 backward, 3 forward
+      int dx = 0, dy = 0;
+      if (!b.get1()) {  // modb 1: direct, with no delta vector and no texture
+        const bool no_texture = b.get1();
+        while (type < 4 && !b.get1()) ++type;
+        if (type == 4) fail("bad mb_type code");
+        if (!no_texture) cbp = static_cast<int>(b.get(6));
+        if (type && cbp && b.get1()) set_qscale(qscale + (b.get1() ? 2 : -2));
+        forward = type == 1 || type == 3;
+        backward = type == 1 || type == 2;
+        if (forward) coded_vector(b, 0, fcode, fv);
+        if (backward) coded_vector(b, 1, bcode, bv);
+        if (!type) {
+          dx = read_mv(b, 0, 1);
+          dy = read_mv(b, 0, 1);
+        }
+      }
+      if (!type) {
+        direct(dx, dy, fv, bv, four);
+        forward = backward = true;
+      }
+    }
+    if (forward) motion(past, fv, four, 0, false);
+    if (backward) motion(ref, bv, four, 0, forward);
+    texture(b, cbp);
+  }
+
+  // One coded vector from the row's predictor (0 forward, 1 backward).
+  void coded_vector(Mpeg4Bits& b, int dir, int code, std::array<int16_t, 2>* v) {
+    for (int c = 0; c < 2; ++c) last_mv[dir][c] = read_mv(b, last_mv[dir][c], code);
+    for (int n = 0; n < 4; ++n)
+      v[n] = {static_cast<int16_t>(last_mv[dir][0]), static_cast<int16_t>(last_mv[dir][1])};
+  }
+
+  // Direct mode (libavcodec's ff_mpeg4_set_direct_mv): the co-located
+  // vectors of `ref` scaled by TRB / TRD, plus the delta; four vectors when
+  // the co-located macroblock had four.
+  void direct(int dx, int dy, std::array<int16_t, 2>* fv, std::array<int16_t, 2>* bv,
+              bool& four) {
+    four = ref_four[mb_index()];
+    const int trb = pb_time, trd = pp_time;
+    for (int n = 0; n < (four ? 4 : 1); ++n) {
+      const std::array<int16_t, 2>& p = mv[bpos(n)];
+      for (int c = 0; c < 2; ++c) {
+        const int d = c ? dy : dx, f = p[c] * trb / trd + d;
+        fv[n][c] = static_cast<int16_t>(f);
+        bv[n][c] = static_cast<int16_t>(d ? f - p[c] : p[c] * (trb - trd) / trd);
+      }
+    }
+    for (int n = four ? 4 : 1; n < 4; ++n) {
+      fv[n] = fv[0];
+      bv[n] = bv[0];
+    }
   }
 
   static int mid(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
@@ -2321,7 +2572,7 @@ struct Mpeg4Decoder {
   // libavcodec's ff_h263_pred_motion, with its first-row rules
   void predict_mv(int n, int& px, int& py) {
     const size_t at = bpos(n);
-    const std::array<int16_t, 2>& A = mv[at - 1];
+    std::array<int16_t, 2>& A = mv[at - 1];
     static const int kOff[4] = {2, 1, 1, -1};
     if (first_line && n < 3) {
       if (n == 0) {
@@ -2350,11 +2601,14 @@ struct Mpeg4Decoder {
           py = A[1];
         }
       } else {
+        // at a packet's first macroblock libavcodec zeroes A, the left
+        // macroblock's block 3, in place: later predictions and the
+        // B-VOPs' direct mode see the zero
+        if (mb_x == resync_x) mv[at - 1] = {0, 0};
         const auto& B = mv[at - bstride];
         const auto& C = mv[at + kOff[2] - bstride];
-        const int ax = mb_x == resync_x ? 0 : A[0], ay = mb_x == resync_x ? 0 : A[1];
-        px = mid(ax, B[0], C[0]);
-        py = mid(ay, B[1], C[1]);
+        px = mid(A[0], B[0], C[0]);
+        py = mid(A[1], B[1], C[1]);
       }
       return;
     }
@@ -2364,16 +2618,16 @@ struct Mpeg4Decoder {
     py = mid(A[1], B[1], C[1]);
   }
 
-  int read_mv(Mpeg4Bits& b, int pred) {
+  int read_mv(Mpeg4Bits& b, int pred, int code_f) {
     const int code = t.mvd.read(b);
     if (code < 0) fail("bad motion vector code");
     if (!code) return pred;
     const bool negative = b.get1();
-    const int shift = fcode - 1;
+    const int shift = code_f - 1;
     int v = code;
     if (shift) v = (((v - 1) << shift) | static_cast<int>(b.get(shift))) + 1;
     v = pred + (negative ? -v : v);
-    const int bits = 5 + fcode;  // wrap into the f_code's range
+    const int bits = 5 + code_f;  // wrap into the f_code's range
     v &= (1 << bits) - 1;
     return v >= (1 << (bits - 1)) ? v - (1 << bits) : v;
   }
@@ -2445,8 +2699,27 @@ struct Mpeg4Decoder {
     }
   }
 
+  // An inter block, dequantised: H.263's qmul / qadd while the levels are
+  // read, or MPEG's matrix after them, as libavcodec's
+  // dct_unquantize_mpeg2_inter does it, with its mismatch control (the
+  // least significant bit of coefficient 63 flipped when the levels' sum
+  // is even).
   void inter_block(Mpeg4Bits& b, int16_t* block) {
-    coefficients(b, block, kZigzag, 0, false, qscale << 1, (qscale - 1) | 1);
+    if (!mpeg_quant) {
+      coefficients(b, block, kZigzag, 0, false, qscale << 1, (qscale - 1) | 1);
+      return;
+    }
+    coefficients(b, block, kZigzag, 0, false, 1, 0);
+    int sum = -1;
+    for (int i = 0; i < 64; ++i) {
+      const int l = block[i];
+      if (!l) continue;
+      const int m = ((2 * std::abs(l) + 1) * qscale * inter_matrix[i]) >> 4;
+      const int v = l < 0 ? -m : m;
+      block[i] = static_cast<int16_t>(v);
+      sum += v;
+    }
+    block[63] = static_cast<int16_t>(block[63] ^ (sum & 1));
   }
 
   // libavcodec's ff_mpeg4_pred_dc: the prediction direction (0 left, 1 top)
@@ -2535,12 +2808,24 @@ struct Mpeg4Decoder {
       }
       if (!dc_vlc) block[0] = static_cast<int16_t>(predict_dc(n, block[0], dir));
       predict_ac(n, block, dir, ac_pred);
-      // the H.263 inverse quantiser (libavcodec's dct_unquantize_h263_intra)
-      const int qmul = qscale << 1, qadd = (qscale - 1) | 1;
+      // the inverse quantiser: H.263's (libavcodec's
+      // dct_unquantize_h263_intra), or MPEG's with the intra matrix and no
+      // mismatch control (its dct_unquantize_mpeg2_intra when not asked
+      // for bit exactness)
       block[0] = static_cast<int16_t>(block[0] * dc_scale(n));
-      for (int i = 1; i < 64; ++i) {
-        const int l = block[i];
-        if (l) block[i] = static_cast<int16_t>(l < 0 ? l * qmul - qadd : l * qmul + qadd);
+      if (mpeg_quant) {
+        for (int i = 1; i < 64; ++i) {
+          const int l = block[i];
+          if (!l) continue;
+          const int m = (2 * std::abs(l) * qscale * intra_matrix[i]) >> 4;
+          block[i] = static_cast<int16_t>(l < 0 ? -m : m);
+        }
+      } else {
+        const int qmul = qscale << 1, qadd = (qscale - 1) | 1;
+        for (int i = 1; i < 64; ++i) {
+          const int l = block[i];
+          if (l) block[i] = static_cast<int16_t>(l < 0 ? l * qmul - qadd : l * qmul + qadd);
+        }
       }
       uint8_t* dst;
       ptrdiff_t stride;
@@ -2554,14 +2839,16 @@ struct Mpeg4Decoder {
   // The half-sample average of a w x h block at integer (x, y) + (fx, fy)
   // half samples of `src`, whose samples outside [0, ew) x [0, eh) repeat
   // the edge: (a + b + 1 - rounding) >> 1 and (a + b + c + d + 2 -
-  // rounding) >> 2, rounding being the P-VOP's vop_rounding_type.  Except
-  // as libavcodec's x86 hpeldsp computes it when not asked for bit
-  // exactness: an 8-wide block (a 4MV luma block, chroma) under rounding 1
-  // with a half sample in one direction takes pavgb of b and a - 1
-  // (saturated), a being the left sample, or the sample of the odd row;
-  // that is (a + b) >> 1 except where a is 0.
-  void average(uint8_t* dst, ptrdiff_t ds, Plane& src, int ew, int eh, int x, int y, int fx,
-               int fy, int w, int h) {
+  // rounding) >> 2, rounding being the P-VOP's vop_rounding_type (0 in a
+  // B-VOP).  Except as libavcodec's x86 hpeldsp computes it when not asked
+  // for bit exactness: an 8-wide block (a 4MV luma block, chroma) under
+  // rounding 1 with a half sample in one direction takes pavgb of b and
+  // a - 1 (saturated), a being the left sample, or the sample of the odd
+  // row; that is (a + b) >> 1 except where a is 0.  With `avg` (a B-VOP's
+  // backward half of an average) the prediction is averaged into `dst`,
+  // (d + p + 1) >> 1.
+  void average(uint8_t* dst, ptrdiff_t ds, const Plane& src, int ew, int eh, int x, int y,
+               int fx, int fy, int w, int h, int rnd, bool avg) {
     uint8_t buf[17 * 17] = {};
     const int bw = w + fx, bh = h + fy;
     for (int r = 0; r < bh; ++r) {
@@ -2569,13 +2856,13 @@ struct Mpeg4Decoder {
       const uint8_t* row = src.px.data() + static_cast<size_t>(sy) * src.w;
       for (int c = 0; c < bw; ++c) buf[r * 17 + c] = row[std::min(std::max(x + c, 0), ew - 1)];
     }
-    const bool pavgb = rounding && w == 8 && fx != fy;
+    const bool pavgb = rnd && w == 8 && fx != fy;
     for (int r = 0; r < h; ++r)
       for (int c = 0; c < w; ++c) {
         const uint8_t* p = buf + r * 17 + c;
         int a = p[0], b = fx ? p[1] : p[17], v;
         if (fx && fy) {
-          v = (a + b + p[17] + p[18] + 2 - rounding) >> 2;
+          v = (a + b + p[17] + p[18] + 2 - rnd) >> 2;
         } else if (pavgb) {
           if (fx || (r & 1))
             a = std::max(a - 1, 0);
@@ -2583,15 +2870,19 @@ struct Mpeg4Decoder {
             b = std::max(b - 1, 0);
           v = (a + b + 1) >> 1;
         } else if (fx || fy) {
-          v = (a + b + 1 - rounding) >> 1;
+          v = (a + b + 1 - rnd) >> 1;
         } else {
           v = a;
         }
-        dst[r * ds + c] = static_cast<uint8_t>(v);
+        uint8_t& d = dst[r * ds + c];
+        d = static_cast<uint8_t>(avg ? (d + v + 1) >> 1 : v);
       }
   }
 
-  void motion(const std::array<int16_t, 2>* v, bool four) {
+  // The current macroblock of `cur` predicted from `src` by one vector or
+  // four (libavcodec's mpeg_motion / hpel_motion and chroma_4mv_motion).
+  void motion(const Picture& src, const std::array<int16_t, 2>* v, bool four, int rnd,
+              bool avg) {
     uint8_t* dy = cur.y.at(mb_x * 16, mb_y * 16);
     const ptrdiff_t ys = cur.y.w, cs = cur.u.w;
     uint8_t* du = cur.u.at(mb_x * 8, mb_y * 8);
@@ -2601,8 +2892,8 @@ struct Mpeg4Decoder {
     int cx, cy;
     if (!four) {
       const int mx = v[0][0], my = v[0][1];
-      average(dy, ys, ref.y, ew, eh, mb_x * 16 + (mx >> 1), mb_y * 16 + (my >> 1), mx & 1, my & 1,
-              16, 16);
+      average(dy, ys, src.y, ew, eh, mb_x * 16 + (mx >> 1), mb_y * 16 + (my >> 1), mx & 1,
+              my & 1, 16, 16, rnd, avg);
       // libavcodec's mpeg_motion for H.263: the chroma position is the luma
       // one halved; a half sample where the luma vector is not a multiple of 4
       const int sx = mb_x * 16 + (mx >> 1), sy = mb_y * 16 + (my >> 1);
@@ -2610,8 +2901,8 @@ struct Mpeg4Decoder {
       cy = sy >> 1;
       cmx = (mx & 1) | ((mx & 2) >> 1);
       cmy = (my & 1) | ((my & 2) >> 1);
-      average(du, cs, ref.u, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8);
-      average(dv, cs, ref.v, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8);
+      average(du, cs, src.u, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8, rnd, avg);
+      average(dv, cs, src.v, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8, rnd, avg);
       return;
     }
     int sumx = 0, sumy = 0;
@@ -2623,7 +2914,8 @@ struct Mpeg4Decoder {
       if (x != width) fx = mx & 1;
       y = std::min(std::max(y, -16), height);
       if (y != height) fy = my & 1;
-      average(dy + (n >> 1) * 8 * ys + (n & 1) * 8, ys, ref.y, ew, eh, x, y, fx, fy, 8, 8);
+      average(dy + (n >> 1) * 8 * ys + (n & 1) * 8, ys, src.y, ew, eh, x, y, fx, fy, 8, 8, rnd,
+              avg);
       sumx += mx;
       sumy += my;
     }
@@ -2636,12 +2928,9 @@ struct Mpeg4Decoder {
     if (cx == (width >> 1)) fx = 0;
     cy = std::min(std::max(mb_y * 8 + (cmy >> 1), -8), height >> 1);
     if (cy == (height >> 1)) fy = 0;
-    average(du, cs, ref.u, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8);
-    average(dv, cs, ref.v, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8);
+    average(du, cs, src.u, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8, rnd, avg);
+    average(dv, cs, src.v, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8, rnd, avg);
   }
-
-  // The last picture (the reference after a decode) as planes.
-  const Picture& picture() const { return ref; }
 };
 
 // yuv420p -> RGB as swscale's x86 unscaled converter does it for BT.601
@@ -2687,12 +2976,29 @@ struct VideoStream {
   std::condition_variable not_full, not_empty;
   std::thread worker;
 
+  // Wait for a free slot of the ring; false once stopped.
+  bool wait_slot() {
+    std::unique_lock<std::mutex> lock(m);
+    not_full.wait(lock, [&] { return stopped || produced - consumed < ring.size(); });
+    return !stopped;
+  }
+
+  // Transform `rgb` into the next slot (free: the consumer copies a slot out
+  // before counting it) and publish it as frame `index`.
+  void put(const uint8_t* rgb, int ih, int iw, int32_t index, std::vector<uint8_t>& staged) {
+    const size_t slot = produced % ring.size();
+    frame_transform(rgb, ih, iw, ring[slot].data(), h, w, letterbox, normalize,
+                    ring_affine[slot].data(), staged);
+    ring_index[slot] = index;
+    std::lock_guard<std::mutex> lock(m);
+    ++produced;
+    not_empty.notify_one();
+  }
+
   void run() {
     std::vector<uint8_t> sample, rgb, staged;
-    std::unique_ptr<Mpeg4Decoder> mpeg4;
-    int32_t decoded = 0;  // MPEG-4: the samples fed so far, in order
     FILE* f = std::fopen(path.c_str(), "rb");
-    auto read = [&](int32_t k) {
+    auto read = [&](size_t k) {
       sample.resize(static_cast<size_t>(sizes[k]));
       if (fseeko(f, static_cast<off_t>(offsets[k]), SEEK_SET) != 0 ||
           std::fread(sample.data(), 1, sample.size(), f) != sample.size())
@@ -2700,54 +3006,10 @@ struct VideoStream {
     };
     try {
       if (!f) fail("cannot open the video");
-      if (mpeg4_config) {
-        mpeg4.reset(new Mpeg4Decoder());
-        mpeg4->feed(config.data(), config.size(), false);
-        if (!mpeg4->have_vol) fail("the decoder configuration holds no video object layer header");
-        rgb.resize(static_cast<size_t>(mpeg4->width) * mpeg4->height * 3);
-      }
-      for (size_t i = 0; i < indices.size(); ++i) {
-        {
-          std::unique_lock<std::mutex> lock(m);
-          not_full.wait(lock, [&] { return stopped || produced - consumed < ring.size(); });
-          if (stopped) break;
-        }
-        int32_t frame = indices[i];
-        int ih, iw;
-        try {
-          if (mpeg4) {  // every sample up to the kept one, in order
-            for (; decoded <= indices[i]; ++decoded) {
-              frame = decoded;
-              read(decoded);
-              if (!mpeg4->feed(sample.data(), sample.size(), true)) fail("the sample holds no VOP");
-            }
-            yuv420_to_rgb(mpeg4->picture(), mpeg4->width, mpeg4->height, rgb.data());
-            ih = mpeg4->height;
-            iw = mpeg4->width;
-          } else {
-            read(frame);
-            JpegDecoder d(sample.data(), sample.size(), false);
-            d.parse();
-            if (!d.have_sof) fail("JPEG holds no frame header");
-            if (static_cast<long long>(d.width) * d.height > kMaxPixels)
-              fail("%dx%d exceeds the decoder's %lld pixels", d.width, d.height, kMaxPixels);
-            rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
-            d.output_rgb(rgb.data());
-            ih = d.height;
-            iw = d.width;
-          }
-          // the slot is free: the consumer has copied it out before counting it
-          const size_t slot = produced % ring.size();
-          frame_transform(rgb.data(), ih, iw, ring[slot].data(), h, w, letterbox, normalize,
-                          ring_affine[slot].data(), staged);
-          ring_index[slot] = indices[i];
-        } catch (const CodecError& e) {
-          fail("frame %d: %s", frame, e.msg.c_str());
-        }
-        std::lock_guard<std::mutex> lock(m);
-        ++produced;
-        not_empty.notify_one();
-      }
+      if (mpeg4_config)
+        run_mpeg4(read, sample, rgb, staged);
+      else
+        run_jpeg(read, sample, rgb, staged);
     } catch (const CodecError& e) {
       std::lock_guard<std::mutex> lock(m);
       error = path + ": " + e.msg;
@@ -2759,6 +3021,59 @@ struct VideoStream {
     std::lock_guard<std::mutex> lock(m);
     done = true;
     not_empty.notify_all();
+  }
+
+  // Motion-JPEG: only the kept frames are read and decoded.
+  template <typename Read>
+  void run_jpeg(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
+                std::vector<uint8_t>& staged) {
+    for (const int32_t frame : indices) {
+      if (!wait_slot()) return;
+      try {
+        read(frame);
+        JpegDecoder d(sample.data(), sample.size(), false);
+        d.parse();
+        if (!d.have_sof) fail("JPEG holds no frame header");
+        if (static_cast<long long>(d.width) * d.height > kMaxPixels)
+          fail("%dx%d exceeds the decoder's %lld pixels", d.width, d.height, kMaxPixels);
+        rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
+        d.output_rgb(rgb.data());
+        put(rgb.data(), d.height, d.width, frame, staged);
+      } catch (const CodecError& e) {
+        fail("frame %d: %s", frame, e.msg.c_str());
+      }
+    }
+  }
+
+  // MPEG-4 Part 2: every sample is decoded in order (then the held
+  // picture flushed); the pictures come out in display order, and those
+  // whose display index is kept are converted and transformed.
+  template <typename Read>
+  void run_mpeg4(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
+                 std::vector<uint8_t>& staged) {
+    Mpeg4Decoder d;
+    d.feed(config.data(), config.size(), false);
+    if (!d.have_vol) fail("the decoder configuration holds no video object layer header");
+    rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
+    int32_t display = 0;  // the display index of the next picture shown
+    size_t kept = 0;      // indices[kept] is the next frame to keep
+    for (size_t k = 0; k <= offsets.size() && kept < indices.size(); ++k) {
+      bool ready;
+      try {
+        if (k < offsets.size()) {
+          read(k);
+          ready = d.decode(sample.data(), sample.size());
+        } else {
+          ready = d.flush();
+        }
+      } catch (const CodecError& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      }
+      if (!ready || display++ != indices[kept]) continue;
+      if (!wait_slot()) return;
+      yuv420_to_rgb(*d.shown, d.width, d.height, rgb.data());
+      put(rgb.data(), d.height, d.width, indices[kept++], staged);
+    }
   }
 
   int next(void* out, float* affine, int* index, char* err, int err_len) {
@@ -2813,14 +3128,16 @@ void* vd_mpeg4_open(const uint8_t* config, unsigned long size, int* width, int* 
   return nullptr;
 }
 
-// Decode one sample; with `rgb`, write the picture (width x height x 3).
+// Decode one sample: 1 when a picture is ready to show (in display order;
+// with `rgb`, written there, width x height x 3), 0 when none is, -1 on an
+// error.
 int vd_mpeg4_decode(void* handle, const uint8_t* data, unsigned long size, uint8_t* rgb,
                     char* err, int err_len) {
   auto* d = static_cast<Mpeg4Decoder*>(handle);
   try {
-    if (!d->feed(data, size, true)) fail("the sample holds no VOP");
-    if (rgb) yuv420_to_rgb(d->picture(), d->width, d->height, rgb);
-    return 0;
+    if (!d->decode(data, size)) return 0;
+    if (rgb) yuv420_to_rgb(*d->shown, d->width, d->height, rgb);
+    return 1;
   } catch (const CodecError& e) {
     return report(e, err, err_len);
   } catch (const std::bad_alloc&) {
@@ -2829,10 +3146,21 @@ int vd_mpeg4_decode(void* handle, const uint8_t* data, unsigned long size, uint8
   }
 }
 
-// The last picture's planes: y width x height, u and v (width/2) x (height/2).
+// At the end of the stream: 1 and the held picture (into `rgb` if given),
+// or 0 when no picture is held.
+int vd_mpeg4_flush(void* handle, uint8_t* rgb) {
+  auto* d = static_cast<Mpeg4Decoder*>(handle);
+  if (!d->flush()) return 0;
+  if (rgb) yuv420_to_rgb(*d->shown, d->width, d->height, rgb);
+  return 1;
+}
+
+// The planes of the picture shown last: y width x height, u and v
+// (width/2) x (height/2).
 void vd_mpeg4_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
   auto* d = static_cast<Mpeg4Decoder*>(handle);
-  const Picture& p = d->picture();
+  if (!d->shown) return;
+  const Picture& p = *d->shown;
   for (int r = 0; r < d->height; ++r)
     std::memcpy(y + static_cast<size_t>(r) * d->width, p.y.px.data() + static_cast<size_t>(r) * p.y.w,
                 d->width);

@@ -10,8 +10,9 @@ after ``mdat``), 64-bit box sizes and a size of 0 ("to the end of the
 file").  In ``moov`` it reads ``mvhd``, then each ``trak`` (``tkhd``,
 ``edts`` / ``elst``, ``mdia`` with ``mdhd``, ``hdlr`` and ``minf`` /
 ``stbl``) and takes the first track whose handler is ``vide``.  From
-``stbl`` it reads ``stsd`` (the sample entry), ``stts``, ``stsc``,
-``stsz`` or ``stz2``, ``stco`` or ``co64`` and ``stss``.
+``stbl`` it reads ``stsd`` (the sample entry), ``stts``, ``ctts``
+(versions 0 and 1), ``stsc``, ``stsz`` or ``stz2``, ``stco`` or ``co64``
+and ``stss``.
 
 Two sample entries are read:
 
@@ -19,16 +20,20 @@ Two sample entries are read:
   MPEG-4 Part 2 video, decoded by the port's own decoder in
   ``codec.cpp`` (``native.Mpeg4Decoder``).  The configuration is the
   ``DecoderSpecificInfo`` bytes (the VOS, VO and VOL headers).  Each
-  sample is one VOP; there are no B-VOPs in what the decoder accepts, so
-  decode order is display order.
+  sample is one VOP, in decode order.  With B-VOPs, display order differs:
+  the decoder holds each I- or P-VOP's picture until the next one arrives
+  and shows a B-VOP's at once, so frame ``k`` is the ``k``-th picture it
+  shows (``ctts`` gives the same order; it is read for the edit list).
 * ``jpeg``: one baseline JPEG per sample, for ``native.decode_jpeg``.
 
 Any other codec raises ValueError naming it (H.264, HEVC, AV1, VP9 and
 the rest need FFmpeg, which the port does not link), as does an edit
-list other than the identity (one entry, media time 0, rate 1), a sample
-table that does not add up, and a sample that lies past the end of the
-file (a truncated ``mdat``).  All of it raises in ``read_index``, before
-a frame is decoded.
+list other than the identity or the shift an MP4 muxer writes with
+B-frames (one entry, rate 1, whose media time is the first sample's
+composition offset), an S-VOP or a stream that does not start with an
+I-VOP, a sample table that does not add up, and a sample that lies past
+the end of the file (a truncated ``mdat``).  All of it raises in
+``read_index``, before a frame is decoded.
 
 ``fps`` is what FFmpeg's demuxer (and so ``cv2.CAP_PROP_FPS``) reports:
 the media timescale times the number of samples in ``stts`` over the sum
@@ -54,7 +59,7 @@ REFUSED = {
     b"mjpa": "Motion-JPEG format A (mjpa)", b"mjpb": "Motion-JPEG format B (mjpb)",
 }
 VOP_START = b"\x00\x00\x01\xb6"
-VOP_REFUSED = {2: "a B-VOP", 3: "an S-VOP (sprite / global motion compensation)"}
+VOP_TYPES = "IPBS"  # vop_coding_type 0..3
 
 
 @dataclasses.dataclass
@@ -89,6 +94,36 @@ def read_index(path: str) -> Mp4Index:
             raise ValueError(f"{path}: not an MP4 / QuickTime file ({size} bytes)")
         with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as data:
             return _Walk(path, data, size).run()
+
+
+def check_vops(data, offsets: np.ndarray, sizes: np.ndarray, fail) -> None:
+    """Refuse, before anything is decoded, an MPEG-4 stream with a sample
+    that holds no VOP or an S-VOP, or whose first VOP is not an I-VOP:
+    ``fail(message)`` raises."""
+    for i, (offset, size) in enumerate(zip(offsets.tolist(), sizes.tolist())):
+        at = data.find(VOP_START, offset, offset + size)
+        if at < 0 or at + 4 >= offset + size:
+            fail(f"frame {i} at offset {offset} holds no VOP")
+        kind = data[at + 4] >> 6
+        if kind == 3:
+            fail(f"frame {i} at offset {offset} is an S-VOP (sprite / global motion "
+                 "compensation), which the port's MPEG-4 decoder does not decode")
+        if i == 0 and kind != 0:
+            fail(f"frame 0 at offset {offset} is a {VOP_TYPES[kind]}-VOP: the stream does not "
+                 "start with an I-VOP")
+
+
+def check_decoder_config(index) -> None:
+    """Open and close a decoder on ``index.config`` (an ``Mp4Index`` or an
+    AVI's index): a VOL feature the decoder does not have raises
+    ValueError here, as does a VOL whose size is not the container's."""
+    from viddet_tpu_torch.native import Mpeg4Decoder
+
+    decoder = Mpeg4Decoder(index.config, index.path)
+    decoder.close()
+    if (decoder.width, decoder.height) != (index.width, index.height):
+        raise ValueError(f"{index.path}: the video object layer is {decoder.width}x"
+                         f"{decoder.height}, the container says {index.width}x{index.height}")
 
 
 def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
@@ -176,9 +211,6 @@ class _Walk:
             ">IQ" if version else ">II", self.data, mdhd[0] + (20 if version else 12))
         if not timescale:
             self.fail("the video track's 'mdhd' has a timescale of 0")
-        for kind, s, e in self.boxes(start, end, "trak"):
-            if kind == b"edts":
-                self.edit_list(s, e, movie_scale, timescale, media_duration)
         minf = self.child(*mdia, b"minf", "mdia")
         stbl = self.child(*minf, b"stbl", "minf")
         tables = {k: (s, e) for k, s, e in self.boxes(*stbl, "stbl")}
@@ -189,13 +221,17 @@ class _Walk:
         offsets = self.sample_offsets(tables, sizes)
         count, duration = self.time_to_sample(tables)
         fps = timescale * count / duration if duration else 0.0
+        first_offset = self.first_composition_offset(tables)
+        for kind, s, e in self.boxes(start, end, "trak"):
+            if kind == b"edts":
+                self.edit_list(s, e, movie_scale, timescale, media_duration, first_offset)
         bad = np.nonzero(offsets + sizes > self.size)[0]
         if len(bad):
             i = int(bad[0])
             self.fail(f"frame {i} at offset {int(offsets[i])} ({int(sizes[i])} bytes) runs past "
                       f"the end of the file ({self.size} bytes): the 'mdat' box is truncated")
         if codec == "mpeg4":
-            self.vop_types(offsets, sizes)
+            check_vops(self.data, offsets, sizes, self.fail)
         keyframes = None
         if b"stss" in tables:
             s, e = tables[b"stss"]
@@ -206,25 +242,13 @@ class _Walk:
             keyframes = np.frombuffer(self.data, ">u4", n, s + 8).astype(np.int64) - 1
         return Mp4Index(self.path, width, height, codec, config, fps, offsets, sizes, keyframes)
 
-    def vop_types(self, offsets: np.ndarray, sizes: np.ndarray) -> None:
-        """Refuse, before anything is decoded, a stream with a sample that
-        holds no VOP, a B- or S-VOP, or a P-VOP first."""
-        for i, (offset, size) in enumerate(zip(offsets.tolist(), sizes.tolist())):
-            at = self.data.find(VOP_START, offset, offset + size)
-            if at < 0 or at + 4 >= offset + size:
-                self.fail(f"frame {i} at offset {offset} holds no VOP")
-            kind = self.data[at + 4] >> 6
-            if kind in VOP_REFUSED:
-                self.fail(f"frame {i} at offset {offset} is {VOP_REFUSED[kind]}, which the port's "
-                          "MPEG-4 decoder does not decode")
-            if i == 0 and kind != 0:
-                self.fail(f"frame 0 at offset {offset} is a P-VOP: the stream does not start "
-                          "with an I-VOP")
-
     def edit_list(self, start: int, end: int, movie_scale: int, timescale: int,
-                  media_duration: int) -> None:
-        """Accept no edit list or the identity: one entry, media time 0, rate
-        1, covering the media to within one movie tick."""
+                  media_duration: int, first_offset: int) -> None:
+        """Accept no edit list, or one entry of rate 1 covering the media to
+        within one movie tick whose media time is the first sample's
+        composition offset: 0, the identity, without ``ctts``; with it, the
+        shift an MP4 muxer writes for B-frames, so that the first picture
+        shown starts the movie."""
         for kind, s, e in self.boxes(start, end, "edts"):
             if kind != b"elst":
                 continue
@@ -239,10 +263,26 @@ class _Walk:
             seg, media_time, rate, frac = entries[0]
             short = (movie_scale and
                      (seg + 1) * timescale < media_duration * movie_scale)
-            if len(entries) != 1 or media_time != 0 or (rate, frac) != (1, 0) or short:
+            if (len(entries) != 1 or media_time != first_offset or (rate, frac) != (1, 0)
+                    or short):
                 self.fail(f"the video track has an edit list the port does not apply "
                           f"({n} entries, first: duration {seg}, media time {media_time}, "
-                          f"rate {rate + frac / 65536:g}); only the identity edit is read")
+                          f"rate {rate + frac / 65536:g}); only the identity edit or the shift by "
+                          f"the first composition offset ({first_offset}) is read")
+
+    def first_composition_offset(self, tables) -> int:
+        """The first sample's composition offset from ``ctts`` (version 0
+        or 1; 0 without one)."""
+        if b"ctts" not in tables:
+            return 0
+        s, e = tables[b"ctts"]
+        version = self.full(s, e, 8, "ctts")
+        (n,) = struct.unpack_from(">I", self.data, s + 4)
+        if 8 + 8 * n > e - s:
+            self.fail("box 'ctts' is truncated")
+        if not n:
+            return 0
+        return struct.unpack_from(">i" if version else ">I", self.data, s + 12)[0]
 
     def sample_entry(self, start: int, end: int) -> Tuple[int, int, str, bytes]:
         self.full(start, end, 16, "stsd")
@@ -382,14 +422,7 @@ class Mp4Reader:
     def __init__(self, path: str):
         self.index = read_index(path)
         if self.index.codec == "mpeg4":  # the VOL's refusals, before any frame is decoded
-            from viddet_tpu_torch.native import Mpeg4Decoder
-
-            decoder = Mpeg4Decoder(self.index.config, self.index.path)
-            decoder.close()
-            if (decoder.width, decoder.height) != (self.index.width, self.index.height):
-                raise ValueError(f"{path}: the video object layer is {decoder.width}x"
-                                 f"{decoder.height}, the sample entry says {self.index.width}x"
-                                 f"{self.index.height}")
+            check_decoder_config(self.index)
         self._file = open(path, "rb")
 
     def __len__(self) -> int:
@@ -400,25 +433,19 @@ class Mp4Reader:
         return self._file.read(int(self.index.sizes[i]))
 
     def frames(self, every: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
-        """(index, RGB frame) of every ``every``-th frame.  An MPEG-4 stream
-        is decoded whole, since each P-VOP needs the one before it; a JPEG
-        frame skipped by ``every`` is not decoded."""
-        from viddet_tpu_torch.native import Mpeg4Decoder, decode_jpeg
+        """(index, RGB frame) of every ``every``-th frame in display order.
+        An MPEG-4 stream is decoded whole, since each P- and B-VOP needs the
+        pictures before it; a JPEG frame skipped by ``every`` is not
+        decoded."""
+        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames
 
         index = self.index
         if index.codec == "jpeg":
             for i in range(0, len(self), every):
                 yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")
             return
-        decoder = Mpeg4Decoder(index.config, index.path)
-        try:
-            for i in range(len(self)):
-                frame = decoder.decode(self.sample(i), f"{index.path} frame {i}",
-                                       rgb=i % every == 0)
-                if i % every == 0:
-                    yield i, frame
-        finally:
-            decoder.close()
+        yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
+                                index.path, every)
 
     def close(self) -> None:
         self._file.close()

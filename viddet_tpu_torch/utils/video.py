@@ -4,19 +4,23 @@ frame iteration and extraction, and the annotated-video writer.
 The JAX package reads and writes video through OpenCV's FFmpeg backend.
 The port links no FFmpeg.  It reads
 
-* Motion-JPEG AVI files (``native.avi``), each frame a JPEG for the port's
-  codec, so a frame equals what ``cv2.VideoCapture(path,
+* AVI files (``native.avi``) holding Motion-JPEG, each frame a JPEG for
+  the port's codec, so a frame equals what ``cv2.VideoCapture(path,
   cv2.CAP_OPENCV_MJPEG)`` returns and what ``cv2.imdecode`` gives for the
-  frame's bytes;
+  frame's bytes; or MPEG-4 Part 2 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
+  ``MP4V``, ``M4S2``, packed B-frames unpacked);
 * MP4 and QuickTime files (``.mp4``, ``.mov``; ``native.mp4``) holding
-  MPEG-4 Part 2 Simple Profile video, decoded by the port's own decoder
-  (``native.Mpeg4Decoder``) to what ``cv2.VideoCapture``'s FFmpeg backend
-  returns, or Motion-JPEG (``jpeg`` samples), each frame what
-  ``cv2.imdecode`` gives for the sample's bytes.
+  MPEG-4 Part 2 or Motion-JPEG (``jpeg`` samples).
 
-Matroska and WebM (``.mkv``, ``.webm``), another codec (H.264, HEVC, ...),
-a non-JPEG stream in an ``.avi`` and a webcam index raise ValueError,
-naming what is missing.  ``VideoWriter`` writes ``.avi`` only.
+MPEG-4 Part 2 (Simple and Advanced Simple Profile: B-VOPs, MPEG
+quantisation; not quarter-sample, interlace or global motion
+compensation) is decoded by the port's own decoder
+(``native.Mpeg4Decoder``) to what ``cv2.VideoCapture``'s FFmpeg backend
+returns, frames in display order.
+
+Matroska and WebM (``.mkv``, ``.webm``), another codec (H.264, HEVC, ...)
+and a webcam index raise ValueError, naming what is missing.
+``VideoWriter`` writes Motion-JPEG ``.avi`` only.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from viddet_tpu_torch.native.mp4 import Mp4Reader
 
 VIDEO_EXT = ".avi"  # the container the port writes
 READERS = {".avi": AviReader, ".mp4": Mp4Reader, ".mov": Mp4Reader}
-READS = "Motion-JPEG .avi and MPEG-4 Part 2 or Motion-JPEG .mp4 / .mov files"
+READS = "MPEG-4 Part 2 or Motion-JPEG video in .avi, .mp4 and .mov files"
 
 
 def check_source(source) -> None:
@@ -52,8 +56,8 @@ def check_output(path) -> None:
     """Raise ValueError unless ``path`` names an ``.avi``, the one container
     the port writes."""
     if os.path.splitext(str(path))[1].lower() != VIDEO_EXT:
-        raise ValueError(f"{path}: writing anything but a Motion-JPEG .avi needs FFmpeg, "
-                         "which the port does not link")
+        raise ValueError(f"{path}: the port writes Motion-JPEG .avi files only; writing "
+                         "anything else needs FFmpeg, which the port does not link")
 
 
 def open_video(source):
@@ -86,10 +90,10 @@ def probe_video(path: str) -> dict:
 
 def iterate_frames(path: str, every: int = 1, rgb: bool = True
                    ) -> Iterator[Tuple[int, np.ndarray]]:
-    """Yield (frame_index, frame) of every ``every``-th frame, RGB, or BGR
-    (as OpenCV returns it) when ``rgb`` is False.  JPEG frames skipped by
-    ``every`` are not decoded; an MPEG-4 stream is decoded whole, each
-    P-VOP needing the picture before it."""
+    """Yield (frame_index, frame) of every ``every``-th frame in display
+    order, RGB, or BGR (as OpenCV returns it) when ``rgb`` is False.  JPEG
+    frames skipped by ``every`` are not decoded; an MPEG-4 stream is
+    decoded whole, each P- and B-VOP needing the pictures before it."""
     with open_video(path) as video:
         for idx, frame in video.frames(every):
             yield idx, frame if rgb else np.ascontiguousarray(frame[..., ::-1])
