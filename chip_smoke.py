@@ -355,6 +355,12 @@ BVOP_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "xvid_bf2_640x480.avi")
 BVOP_DIGESTS = BVOP_FIXTURE[:-len(".avi")] + ".json"
 BVOP_FRAMES = 48
+# The WebM phase: the committed VP8 WebM (tests/fixtures/make_mp4_fixture.py)
+# and its OpenCV digests.
+WEBM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "vp8_640x480.webm")
+WEBM_DIGESTS = WEBM_FIXTURE[:-len(".webm")] + ".json"
+WEBM_FRAMES = 48
 
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
@@ -3601,6 +3607,95 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
     return launches
 
 
+def frame_digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def fixture_runs(dev, kernels, model, classes, predictor, fixture: str, frames, prefix: str,
+                 out: dict) -> dict:
+    """A committed video fixture's runs at the main path's model and batch
+    8, its ``frames`` (RGB, display order) already held to OpenCV's
+    digests: ``stream_detect_video`` drawn (``FrameSource``) and not drawn
+    (``NativeFrameSource``), then ``cli.detect.main --input`` the file.
+    Checks: each run's launches (``{prefix}_video``,
+    ``{prefix}_video_native``, ``{prefix}_detect``), each batch through
+    ``video_rows``, every saved line equal to the direct predictor's, both
+    sources' batches equal.  Into ``out``: the direct step's and each run's
+    frames/s, the card's idle share over a native run.  Returns the
+    launches."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from viddet_tpu_torch.cli import detect
+    from viddet_tpu_torch.data.transforms import ValTransform
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.infer.stream import stream_detect_video
+
+    count = len(frames)
+    transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True, normalize=False)
+    launches = {}
+    frames_x = {"clip": np.stack([transform(f)[0] for f in frames])}
+    affine = transform(frames[0])[2]
+    lookup = {hashlib.sha1(x.tobytes()).digest(): ("clip", i)
+              for i, x in enumerate(frames_x["clip"])}
+    out["direct_frames_per_s"] = direct_frames_per_s(predictor, frames_x["clip"], dev)
+    first = predictor(to_device_batch(frames_x["clip"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
+    thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip" + os.path.splitext(fixture)[1])
+        shutil.copyfile(fixture, clip)
+        batches = -(-count // VIDEO_B)
+
+        # drawn through FrameSource, then not drawn through NativeFrameSource
+        runs, records = {}, {}
+        drawn, native = f"{prefix}_video", f"{prefix}_video_native"
+        for run, draw in ((drawn, True), (native, False)):
+            records[run] = []
+            set_launches(kernels)
+            stats = stream_detect_video(clip, recorded(predictor, records[run]), transform,
+                                        classes, output_dir=os.path.join(tmp, run),
+                                        thresh=thresh, batch_size=VIDEO_B, draw=draw,
+                                        save_detections=True, device=dev)
+            launches[run] = path_batches(kernels, run, batches)
+            check(stats["frames"] == count, f"{run}: every frame")
+            runs[run] = stats["fps"]
+        check(all(torch.equal(a[0], b[0]) for a, b in zip(records[drawn], records[native])),
+              f"{prefix}: the native and thread sources give equal batches")
+        rows = video_rows(model, predictor, records[drawn], lookup, frames_x, 1, drawn)
+        check(sorted(rows) == [("clip", i) for i in range(count)], f"{prefix}: every frame once")
+        want = video_lines(rows, "clip", range(count), affine, classes, thresh)
+        for run in runs:
+            with open(os.path.join(tmp, run, "clip_det.txt")) as f:
+                check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
+        out["lines"] = len(want.splitlines())
+        out["window"] = window_idle_share(lambda: stream_detect_video(
+            clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
+            batch_size=VIDEO_B, draw=False, device=dev))
+        out["window"]["frames"] = count
+
+        # the detect CLI over the file
+        set_launches(kernels)
+        t = time.perf_counter()
+        done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
+                            clip, "--output", os.path.join(tmp, "cli"), "--data-shape",
+                            str(IMAGE_SIZE), "--batch-size", str(VIDEO_B), "--thresh",
+                            str(thresh), "--save-detections", "--no-draw"],
+                           built=(model, classes))
+        runs[f"{prefix}_detect_cli"] = done / (time.perf_counter() - t)
+        launches[f"{prefix}_detect"] = path_batches(kernels, f"{prefix}_detect", batches)
+        check(done == count, f"detect: every frame of {os.path.basename(clip)}")
+        with open(os.path.join(tmp, "cli", "clip_det.txt")) as f:
+            check(f.read() == want, f"detect ({prefix}): clip_det.txt equal to the direct "
+                                    "predictor's")
+        out["frames_per_s"] = runs
+    return launches
+
+
 def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
     """MPEG-4 Part 2 with B-VOPs in an AVI: the committed 640x480 ``XVID``
     fixture (48 frames, 25 fps, two B-VOPs between references, made by the
@@ -3614,30 +3709,16 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
     equal.  Frames/s: the reader on one host thread (demux + decode + RGB,
     decode + RGB, decode alone), each run beside the direct step; the
     card's idle share over a native run."""
-    import hashlib
     import json
-    import tempfile
 
-    import torch
-
-    from viddet_tpu_torch.cli import detect
-    from viddet_tpu_torch.data.transforms import ValTransform
-    from viddet_tpu_torch.infer.service import to_device_batch
-    from viddet_tpu_torch.infer.stream import stream_detect_video
     from viddet_tpu_torch.native import Mpeg4Decoder
     from viddet_tpu_torch.native.avi import AviReader
     from viddet_tpu_torch.utils.video import iterate_frames, probe_video
 
     t_phase = time.perf_counter()
-    size = (IMAGE_SIZE, IMAGE_SIZE)
-    transform = ValTransform(size, letterbox_resize=True, normalize=False)
     out = {"phase": "mpeg4_bvop", "model": MODEL, "size": IMAGE_SIZE, "batch": VIDEO_B,
            "fixture": os.path.relpath(BVOP_FIXTURE, os.path.dirname(os.path.abspath(__file__))),
            "nvidia_smi": nvidia_smi_line()}  # the card of this child's rates
-    launches = {}
-
-    def sha(a) -> str:
-        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
     # 1. the fixture, decoded in display order to OpenCV's digests
     with open(BVOP_DIGESTS) as f:
@@ -3658,9 +3739,10 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
         if frame is None:
             continue
         i = len(frames)
-        check(i < BVOP_FRAMES and sha(decoder.planes()[0]) == digests[i]["y"],
+        check(i < BVOP_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
               f"bvop frame {i}: the Y plane's digest is OpenCV's")
-        check(sha(frame) == digests[i]["rgb"], f"bvop frame {i}: the RGB digest is OpenCV's")
+        check(frame_digest(frame) == digests[i]["rgb"],
+              f"bvop frame {i}: the RGB digest is OpenCV's")
         frames.append(frame)
     decoder.close()
     check(len(frames) == BVOP_FRAMES, f"the B-VOP fixture shows {len(frames)} frames")
@@ -3679,62 +3761,77 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
         decoder.close()
     out["reader_frames_per_s"] = rates  # one host thread
 
-    frames_x = {"clip": np.stack([transform(f)[0] for f in frames])}
-    affine = transform(frames[0])[2]
-    lookup = {hashlib.sha1(x.tobytes()).digest(): ("clip", i)
-              for i, x in enumerate(frames_x["clip"])}
-    out["direct_frames_per_s"] = direct_frames_per_s(predictor, frames_x["clip"], dev)
-    first = predictor(to_device_batch(frames_x["clip"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
-    thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
+    launches = fixture_runs(dev, kernels, model, classes, predictor, BVOP_FIXTURE, frames,
+                            "bvop", out)
+    out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
 
-    with tempfile.TemporaryDirectory() as tmp:
-        clip = os.path.join(tmp, "clip.avi")
-        shutil.copyfile(BVOP_FIXTURE, clip)
-        batches = -(-BVOP_FRAMES // VIDEO_B)
 
-        # 2. drawn through FrameSource, then not drawn through NativeFrameSource
-        runs, records = {}, {}
-        for run, draw in (("bvop_video", True), ("bvop_video_native", False)):
-            records[run] = []
-            set_launches(kernels)
-            stats = stream_detect_video(clip, recorded(predictor, records[run]), transform,
-                                        classes, output_dir=os.path.join(tmp, run),
-                                        thresh=thresh, batch_size=VIDEO_B, draw=draw,
-                                        save_detections=True, device=dev)
-            launches[run] = path_batches(kernels, run, batches)
-            check(stats["frames"] == BVOP_FRAMES, f"{run}: every frame")
-            runs[run] = stats["fps"]
-        check(all(torch.equal(a[0], b[0]) for a, b in zip(records["bvop_video"],
-                                                          records["bvop_video_native"])),
-              "bvop: the native and thread sources give equal batches")
-        rows = video_rows(model, predictor, records["bvop_video"], lookup, frames_x, 1,
-                          "bvop_video")
-        check(sorted(rows) == [("clip", i) for i in range(BVOP_FRAMES)],
-              "bvop: every frame once")
-        want = video_lines(rows, "clip", range(BVOP_FRAMES), affine, classes, thresh)
-        for run in runs:
-            with open(os.path.join(tmp, run, "clip_det.txt")) as f:
-                check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
-        out["lines"] = len(want.splitlines())
-        out["window"] = window_idle_share(lambda: stream_detect_video(
-            clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
-            batch_size=VIDEO_B, draw=False, device=dev))
-        out["window"]["frames"] = BVOP_FRAMES
+def webm_phase(dev, kernels, model, classes, predictor) -> dict:
+    """VP8 in WebM: the committed 640x480 fixture (48 shown frames at 25
+    fps and 3 hidden alt-ref frames, key and inter frames, split vectors,
+    golden and alt-ref references, four token partitions; made by the
+    wheel's libavcodec, ``tests/fixtures/make_mp4_fixture.py``) decoded to
+    the SHA-256 of each Y plane and RGB frame that OpenCV's FFmpeg gave;
+    then ``fixture_runs`` over it (``webm_video``, ``webm_video_native``,
+    ``webm_detect``).  Frames/s: the reader on one host thread (demux +
+    decode + RGB, decode + RGB, decode alone), each run beside the direct
+    step; the card's idle share over a native run."""
+    import json
 
-        # 3. the detect CLI over the AVI
-        set_launches(kernels)
+    from viddet_tpu_torch.native import Vp8Decoder
+    from viddet_tpu_torch.native.mkv import MkvReader
+    from viddet_tpu_torch.utils.video import iterate_frames, probe_video
+
+    t_phase = time.perf_counter()
+    out = {"phase": "webm", "model": MODEL, "size": IMAGE_SIZE, "batch": VIDEO_B,
+           "fixture": os.path.relpath(WEBM_FIXTURE, os.path.dirname(os.path.abspath(__file__))),
+           "nvidia_smi": nvidia_smi_line()}  # the card of this child's rates
+
+    # 1. the fixture, decoded to OpenCV's digests
+    with open(WEBM_DIGESTS) as f:
+        digests = json.load(f)["frames"]
+    info = probe_video(WEBM_FIXTURE)
+    check(info == {"fps": float(VIDEO_FPS), "frame_count": WEBM_FRAMES, "width": CODEC_W,
+                   "height": CODEC_H}, f"the WebM fixture probes as written: {info}")
+    with MkvReader(WEBM_FIXTURE) as reader:
+        check(reader.index.codec == "vp8", "the WebM fixture is VP8")
+        samples = [reader.sample(i) for i in range(len(reader.index.offsets))]
+    decoder = Vp8Decoder(WEBM_FIXTURE)
+    frames = []
+    for sample in samples:
+        frame = decoder.decode(sample)
+        if frame is None:
+            continue
+        i = len(frames)
+        check(i < WEBM_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
+              f"webm frame {i}: the Y plane's digest is OpenCV's")
+        check(frame_digest(frame) == digests[i]["rgb"], f"webm frame {i}: the RGB digest is "
+                                                        "OpenCV's")
+        frames.append(frame)
+    features = decoder.features
+    decoder.close()
+    check(len(frames) == WEBM_FRAMES, f"the WebM fixture shows {len(frames)} frames")
+    need = {"split vectors", "golden reference", "alt-ref reference", "hidden frame",
+            "token partitions"}
+    check(need <= features, f"the WebM fixture uses {sorted(need - features)}")
+    out.update(digests_equal=WEBM_FRAMES, samples=len(samples), features=sorted(features))
+    rates = {}
+    t = time.perf_counter()
+    check(sum(1 for _ in iterate_frames(WEBM_FIXTURE)) == WEBM_FRAMES, "iterate_frames: 48")
+    rates["demux_decode_rgb"] = WEBM_FRAMES / (time.perf_counter() - t)
+    for what, rgb in (("decode_rgb", True), ("decode", False)):
+        decoder = Vp8Decoder()
         t = time.perf_counter()
-        done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
-                            clip, "--output", os.path.join(tmp, "cli"), "--data-shape",
-                            str(IMAGE_SIZE), "--batch-size", str(VIDEO_B), "--thresh",
-                            str(thresh), "--save-detections", "--no-draw"],
-                           built=(model, classes))
-        runs["bvop_detect_cli"] = done / (time.perf_counter() - t)
-        launches["bvop_detect"] = path_batches(kernels, "bvop_detect", batches)
-        check(done == BVOP_FRAMES, "detect: every frame of the B-VOP AVI")
-        with open(os.path.join(tmp, "cli", "clip_det.txt")) as f:
-            check(f.read() == want, "detect: clip_det.txt equal to the direct predictor's")
-        out["frames_per_s"] = runs
+        for sample in samples:
+            decoder.decode(sample, rgb=rgb)
+        rates[what] = WEBM_FRAMES / (time.perf_counter() - t)
+        decoder.close()
+    out["reader_frames_per_s"] = rates  # one host thread
+
+    launches = fixture_runs(dev, kernels, model, classes, predictor, WEBM_FIXTURE, frames,
+                            "webm", out)
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
@@ -5021,12 +5118,13 @@ def kernel_table() -> dict:
 
 
 CHILD_FLAG = "--phases"
-CHILD_GROUPS = ("mpeg4_bvop", "train", "detector_train", "int8_and_export", "data_parallel")
+CHILD_GROUPS = ("mpeg4_bvop", "webm", "train", "detector_train", "int8_and_export",
+                "data_parallel")
 
 
 def child_main(group: str) -> int:
     """One group of phases in a process of its own (``child_phases``):
-    ``mpeg4_bvop`` (the main path's model made again from its seed),
+    ``mpeg4_bvop`` or ``webm`` (the main path's model made again from its seed),
     ``train``, ``detector_train``, ``int8_and_export`` (the main path's model and
     frames made again from their seeds, then the ``int8`` and ``export``
     phases), or ``data_parallel``.  Its last line is its launch counts (and K5's rows in the
@@ -5058,13 +5156,13 @@ def child_main(group: str) -> int:
 
         model, _ = get_model(MODEL)
         load_flat(model, init_flat(MODEL, seed=0))
-        if group == "mpeg4_bvop":
+        if group in ("mpeg4_bvop", "webm"):
             from viddet_tpu_torch import native
             from viddet_tpu_torch.data.names import COCO_CLASSES
 
             native.build()  # the parent's build, found by its source hash
-            launches = mpeg4_bvop_phase(dev, kernels, model, COCO_CLASSES,
-                                        make_predictor(model))
+            phase = mpeg4_bvop_phase if group == "mpeg4_bvop" else webm_phase
+            launches = phase(dev, kernels, model, COCO_CLASSES, make_predictor(model))
             emit({"phase": f"{group}_result", "launches": launches, "k5_rows": k5_rows,
                   "incomplete_windows": INCOMPLETE_WINDOWS, "spins_lost": SPINS_LOST})
             return 0
@@ -5173,6 +5271,7 @@ def main() -> int:
     del frcnn_predictor
     torch.cuda.empty_cache()  # the children's memory
     launches.update(child_phases("mpeg4_bvop")["launches"])
+    launches.update(child_phases("webm")["launches"])
     launches.update(child_phases("train")["launches"])
     child = child_phases("detector_train")
     launches.update(child["launches"])

@@ -27,8 +27,19 @@
   and ``xvid_bf2_640x480.json``, its digests as OpenCV decodes them, for
   the card (``chip_smoke.py``'s ``mpeg4_bvop`` phase).
 
+* ``vp8_640x480.webm``: 48 frames at 640x480, 25 fps, VP8 from the same
+  libavcodec's libvpx encoder in two passes (alt-ref frames, hidden), four
+  token partitions and a key frame every 24 frames, laid out as a WebM by
+  ``tests.torch_mkv_helpers.write_mkv``; and ``vp8_640x480.json``, its
+  digests as OpenCV decodes them, for the card (``chip_smoke.py``'s
+  ``webm`` phase).  The port's decoder checks that the stream uses split
+  vectors, the golden and alt-ref frames, hidden frames and token
+  partitions.  Remake only it with ``python -m
+  tests.fixtures.make_mp4_fixture webm``.
+
 The B-VOP streams of the CPU tests come from the same route at test time
-(``lavc_stream``, ``write_lavc_mp4``, ``write_lavc_avi``).
+(``lavc_stream``, ``write_lavc_mp4``, ``write_lavc_avi``), as do the VP8
+streams (``tests.torch_mkv_helpers.vp8_packets``).
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ FEATURES = os.path.join(HERE, "mpeg4_features.mp4")
 DARK = os.path.join(HERE, "mpeg4_dark.mp4")
 CHIP_BVOP_VIDEO = os.path.join(HERE, "xvid_bf2_640x480.avi")
 CHIP_BVOP_DIGESTS = os.path.join(HERE, "xvid_bf2_640x480.json")
+CHIP_WEBM_VIDEO = os.path.join(HERE, "vp8_640x480.webm")
+CHIP_WEBM_DIGESTS = os.path.join(HERE, "vp8_640x480.json")
 
 
 def moving_scene(n: int, w: int, h: int, seed: int):
@@ -120,8 +133,27 @@ def write_chip_bvop_fixture() -> None:
     write_digests(CHIP_BVOP_VIDEO, CHIP_BVOP_DIGESTS, 640, 480, 48)
 
 
+def write_chip_webm_fixture() -> None:
+    from tests.torch_mkv_helpers import vp8_webm
+    from viddet_tpu_torch.native import Vp8Decoder
+    from viddet_tpu_torch.native.mkv import MkvReader
+
+    vp8_webm(CHIP_WEBM_VIDEO, moving_scene(48, 640, 480, seed=0),
+             {"b": 1200000, "auto-alt-ref": 1, "lag-in-frames": 16, "slices": 4, "g": 24},
+             two_pass=True)
+    decoder = Vp8Decoder(CHIP_WEBM_VIDEO)
+    with MkvReader(CHIP_WEBM_VIDEO) as reader:
+        for i in range(len(reader.index.offsets)):
+            decoder.decode(reader.sample(i), rgb=False)
+    need = {"split vectors", "golden reference", "alt-ref reference", "hidden frame",
+            "token partitions", "B_PRED", "vectors off the frame"}
+    assert need <= decoder.features, need - decoder.features
+    write_digests(CHIP_WEBM_VIDEO, CHIP_WEBM_DIGESTS, 640, 480, 48)
+
+
 class Lavc:
-    """FFmpeg's mpeg4 encoder from the opencv-python wheel's libavcodec."""
+    """FFmpeg's encoders (mpeg4, and libvpx for VP8) from the opencv-python
+    wheel's libavcodec."""
 
     def __init__(self):
         libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)),
@@ -166,16 +198,31 @@ class Lavc:
             ctypes.memmove(buf, (ctypes.c_uint16 * 64)(*matrix), 128)
             ctypes.c_void_p.from_address(ctx + dc - delta).value = buf
 
-    def encode(self, planes, width: int, height: int, options: dict, matrices=None):
+    def stats_fields(self, ctx) -> int:
+        """The offset of AVCodecContext.stats_out, which no AVOption names:
+        it and stats_in are the two pointers before ``workaround_bugs``
+        (option "bug")."""
+        option = self.avutil.av_opt_find(ctx, b"bug", None, 0, 0)
+        return ctypes.cast(option, ctypes.POINTER(ctypes.c_int))[4] - 16
+
+    def encode(self, planes, width: int, height: int, options: dict, matrices=None,
+               encoder: str = "mpeg4", stats: bytes = b""):
         """(Y, U, V) uint8 planes per frame -> the packets' bytes, in decode
         order; ``self.pts`` gets each packet's presentation time in frames.
         ``matrices``: custom (intra, inter) quantiser matrices, 64 values
-        each in raster order (with ``mpeg_quant``)."""
+        each in raster order (with ``mpeg_quant``); ``encoder``: the
+        libavcodec encoder's name ("libvpx" writes VP8).  A first pass
+        (``flags`` "+pass1") leaves its statistics in ``self.stats``; a
+        second (``flags`` "+pass2") reads them from ``stats``."""
         a, u = self.avcodec, self.avutil
-        codec = a.avcodec_find_encoder_by_name(b"mpeg4")
+        codec = a.avcodec_find_encoder_by_name(encoder.encode())
         ctx = a.avcodec_alloc_context3(codec)
         if matrices:
             self.set_matrices(ctx, *matrices)
+        stats_in = ctypes.create_string_buffer(stats) if stats else None
+        if stats:
+            ctypes.c_void_p.from_address(ctx + self.stats_fields(ctx) + 8).value = (
+                ctypes.addressof(stats_in))
         base = {"video_size": f"{width}x{height}", "pixel_format": "yuv420p",
                 "time_base": "1/25"}
         for key, value in {**base, **options}.items():
@@ -199,8 +246,9 @@ class Lavc:
                 self.pts.append(ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int64))[1])
                 a.av_packet_unref(pkt)
 
-        for yuv in planes:
+        for n, yuv in enumerate(planes):
             u.av_frame_make_writable(frame)
+            ctypes.cast(frame, ctypes.POINTER(ctypes.c_int64))[17] = n  # AVFrame.pts
             for k, plane in enumerate(yuv):
                 stride = ints[16 + k]  # AVFrame.linesize
                 for r in range(plane.shape[0]):
@@ -209,6 +257,10 @@ class Lavc:
             drain()
         a.avcodec_send_frame(ctx, None)
         drain()
+        out_stats = ctypes.c_char_p.from_address(ctx + self.stats_fields(ctx)).value
+        self.stats = out_stats or b""
+        if stats:
+            ctypes.c_void_p.from_address(ctx + self.stats_fields(ctx) + 8).value = None
         for free, handle in ((a.av_packet_free, pkt), (u.av_frame_free, frame),
                              (a.avcodec_free_context, ctx)):
             free(ctypes.byref(ctypes.c_void_p(handle)))
@@ -307,8 +359,12 @@ def write_feature_fixtures() -> None:
 
 
 if __name__ == "__main__":
-    write_chip_fixture()
-    write_feature_fixtures()
-    write_chip_bvop_fixture()
-    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO):
+    import sys
+
+    if sys.argv[1:] != ["webm"]:
+        write_chip_fixture()
+        write_feature_fixtures()
+        write_chip_bvop_fixture()
+    write_chip_webm_fixture()
+    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO, CHIP_WEBM_VIDEO):
         print(path, os.path.getsize(path), "bytes")

@@ -30,6 +30,7 @@ import pytest
 import viddet_tpu.cli.detect as jax_detect
 import viddet_tpu.native as jax_native
 import viddet_tpu_torch.cli.detect as torch_detect
+from tests.torch_mkv_helpers import vp9_mkv
 from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
 from viddet_tpu.models.zoo import get_model as jax_get_model
@@ -105,14 +106,18 @@ def test_detect_cli_no_draw_writes_text_only(image_dir, weights, tmp_path):
 
 @pytest.mark.parametrize("source", ["clip.mp4", "0", "a.mp4,b.avi", "CLIP.MKV"])
 def test_unreadable_video_input_raises_naming_what_is_missing(source, tmp_path):
-    """An H.264 track and a Matroska file need FFmpeg, and a webcam index
-    capture support, none of which the port has (it reads Motion-JPEG .avi
-    and MPEG-4 Part 2 or Motion-JPEG .mp4 / .mov)."""
+    """An H.264 track and a VP9 track need FFmpeg, and a webcam index
+    capture support, none of which the port has (it reads Motion-JPEG .avi,
+    MPEG-4 Part 2 or Motion-JPEG .mp4 / .mov, and VP8, MPEG-4 Part 2 or
+    Motion-JPEG .mkv / .webm)."""
     missing = "capture" if source == "0" else "FFmpeg"
     if ".mp4" in source:  # each .mp4 an H.264 one
         missing = "H.264.*FFmpeg"
         source = ",".join(h264_mp4(str(tmp_path / "in" / s)) if s.endswith(".mp4") else s
                           for s in source.split(","))
+    if source == "CLIP.MKV":  # a Matroska file of a VP9 track
+        missing = "VP9.*FFmpeg"
+        source = vp9_mkv(str(tmp_path / "in" / source))
     out = tmp_path / "out"
     with pytest.raises(ValueError, match=missing):
         torch_detect.main(["--input", source, "--output", str(out), "--platform", "cpu"])

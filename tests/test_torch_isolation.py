@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, no
 OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's) and
-no PIL, and its native library (image codec, MPEG-4 Part 2 decoder, video
-frames) links no image or video library (it decodes and encodes in its own
-C++, bit for bit libjpeg-turbo's, libpng's and libavcodec's results, and
-walks AVI and MP4 / QuickTime files in Python)."""
+no PIL, and its native library (image codec, MPEG-4 Part 2 and VP8
+decoders, video frames) links no image or video library (it decodes and
+encodes in its own C++, bit for bit libjpeg-turbo's, libpng's and
+libavcodec's results, and walks AVI, MP4 / QuickTime and Matroska / WebM
+files in Python)."""
 
 import ast
 import os
@@ -53,7 +54,8 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.cli.train_ssd, viddet_tpu_torch.cli.train_faster_rcnn, "
         "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
         "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms, "
-        "viddet_tpu_torch.native.avi, viddet_tpu_torch.native.mp4, viddet_tpu_torch.utils.video, "
+        "viddet_tpu_torch.native.avi, viddet_tpu_torch.native.mp4, viddet_tpu_torch.native.mkv, "
+        "viddet_tpu_torch.utils.video, "
         "viddet_tpu_torch.utils.gif, "
         "viddet_tpu_torch.cli.extract_frames, viddet_tpu_torch.cli.visualise, "
         "viddet_tpu_torch.quant, viddet_tpu_torch.infer.export, viddet_tpu_torch.ops, "
@@ -182,18 +184,21 @@ def test_int8_conv_never_takes_the_float64_route_off_the_cpu(monkeypatch):
 
 
 def test_codec_build_links_no_image_library():
-    """One ``g++`` call, with no ``-l`` flag: no libjpeg, libpng or zlib."""
+    """One ``g++`` call over the repository's sources (``codec.cpp`` and
+    the VP8 decoder ``vp8.cpp``), with no ``-l`` flag: no libjpeg, libpng,
+    zlib, libvpx or FFmpeg."""
     from viddet_tpu_torch.native import build_command
 
     cmd = build_command(Path("libviddet_codec.so"))
     assert cmd[0] == "g++"
-    assert not {"-ljpeg", "-lpng", "-lz"} & set(cmd)
+    assert [Path(a).name for a in cmd if a.endswith(".cpp")] == ["codec.cpp", "vp8.cpp"]
+    assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec"} & set(cmd)
     assert [a for a in cmd if a.startswith("-l") or a == "-pthread"] == ["-pthread"]
 
 
 def test_native_library_needs_no_image_or_video_library():
     """The built library's dynamic dependencies are the C and C++ runtimes
-    only: no libjpeg, libpng, zlib, libav* (FFmpeg), swscale or V4L2."""
+    only: no libjpeg, libpng, zlib, libvpx, libav* (FFmpeg), swscale or V4L2."""
     import re
 
     from viddet_tpu_torch.native import build
@@ -210,18 +215,21 @@ def test_native_library_needs_no_image_or_video_library():
 
 def test_video_code_includes_and_imports_nothing_outside():
     """``codec.cpp`` (JPEG, PNG, the MPEG-4 Part 2 decoder, the video
-    stream) includes C++ standard headers only; ``native/mp4.py`` and
-    ``native/avi.py`` import the standard library, numpy and the port."""
+    stream), ``vp8.cpp`` and ``vp8.h`` (the VP8 decoder) include C++
+    standard headers and ``vp8.h`` only; ``native/mp4.py``,
+    ``native/avi.py`` and ``native/mkv.py`` import the standard library,
+    numpy and the port."""
     import re
 
-    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]',
-                              (PORT / "native" / "codec.cpp").read_text()))
     standard = {"algorithm", "array", "cmath", "condition_variable", "cstdarg", "cstddef",
                 "cstdint", "cstdio", "cstdlib", "cstring", "memory", "mutex", "new", "string",
                 "thread", "vector"}
-    assert includes <= standard, includes - standard
-    allowed = {"__future__", "dataclasses", "fractions", "mmap", "os", "struct", "typing",
-               "numpy", "viddet_tpu_torch"}
-    for name in ("mp4.py", "avi.py"):
+    for name in ("codec.cpp", "vp8.cpp", "vp8.h"):
+        includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]',
+                                  (PORT / "native" / name).read_text()))
+        assert includes <= standard | {"vp8.h"}, (name, includes - standard)
+    allowed = {"__future__", "dataclasses", "fractions", "math", "mmap", "os", "struct",
+               "typing", "numpy", "viddet_tpu_torch"}
+    for name in ("mp4.py", "avi.py", "mkv.py"):
         tops = {m.split(".")[0] for m in _imports(PORT / "native" / name)}
         assert tops <= allowed, (name, tops - allowed)

@@ -15,8 +15,8 @@ surfaces over it, against OpenCV and the JAX package on the CPU.
 * Refusals: an H.264, HEVC, AV1 or VP9 track, an ``mp4v`` track of
   another object type, a non-identity edit list, a truncated ``mdat`` and
   a file cut before its ``moov`` raise ValueError naming what, before any
-  thread starts or anything is written.  ``.mkv``, ``.webm`` and webcam
-  indices raise as before.
+  thread starts or anything is written.  Other containers (``.flv``,
+  ``.ts``) and webcam indices raise as before.
 * Surfaces against JAX (tiny float32 YOLOv3 at 64 px, JAX reading through
   cv2's default backend with its native source off): ``stream_detect_video``
   (both sources, every 1 and 3), ``stream_detect_videos`` over an ``.mp4``
@@ -167,9 +167,9 @@ def test_mjpeg_mov_frames_equal_cv2_imdecode(files, monkeypatch, capsys):
 
 
 def test_check_source_and_the_containers():
-    for name in ("a.mp4", "B.MOV", "c.avi"):
+    for name in ("a.mp4", "B.MOV", "c.avi", "a.mkv", "B.WEBM"):
         check_source(name)
-    for name, missing in (("a.mkv", "FFmpeg"), ("a.webm", "FFmpeg"), (0, "capture")):
+    for name, missing in (("a.flv", "FFmpeg"), ("a.ts", "FFmpeg"), (0, "capture")):
         with pytest.raises(ValueError, match=missing):
             check_source(name)
 

@@ -29,6 +29,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests.torch_mkv_helpers import other_codec_mkv, vp9_mkv
 from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu_torch.data.transforms import ValTransform
 from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource
@@ -220,6 +221,11 @@ def test_other_sources_raise_naming_what_is_missing(source, tmp_path):
     path = source
     if source == "clip.mp4":  # the port reads MP4, but not an H.264 track
         path, missing = h264_mp4(str(tmp_path / "in" / source)), "H.264.*FFmpeg"
+    if source == "CLIP.MKV":  # nor Matroska's
+        path = other_codec_mkv(str(tmp_path / "in" / source), "V_MPEG4/ISO/AVC")
+        missing = "H.264.*FFmpeg"
+    if source == "a.webm":  # it reads WebM, but not a VP9 track
+        path, missing = vp9_mkv(str(tmp_path / "in" / source)), "VP9.*FFmpeg"
     for fn in (probe_video, lambda p: list(iterate_frames(p)),
                lambda p: FrameSource(p, ValTransform((32, 32))),
                lambda p: NativeFrameSource(p, (32, 32))):

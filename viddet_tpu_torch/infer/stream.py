@@ -4,8 +4,8 @@ the frame sources, the pipelined ``stream_detect`` loop and
 
   source:  any iterator of (idx, rgb, x, affine), x the transformed frame:
            ``FrameSource`` (a Python decode thread) or ``NativeFrameSource``
-           (a C++ one) over a Motion-JPEG AVI or an MPEG-4 Part 2 or
-           Motion-JPEG MP4 / QuickTime file
+           (a C++ one) over a Motion-JPEG or MPEG-4 Part 2 AVI, MP4 /
+           QuickTime or Matroska file, or a VP8 WebM / Matroska one
   submit:  batch the frames -> one pinned copy to the device -> predictor
   drain:   the previous batch's (ids, scores, boxes) -> host
 

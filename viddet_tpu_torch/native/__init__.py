@@ -14,16 +14,16 @@ prescales JPEGs in the DCT domain and so does not equal OpenCV; this codec
 leaves the scale alone.
 
 For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
-bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video, and
-``VideoStream`` reads, decodes and transforms the frames of a Motion-JPEG
-or MPEG-4 stream (indexed by ``native.avi`` or ``native.mp4``) on a C++
-thread into a ring of frames.
+bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video, ``Vp8Decoder``
+VP8 (``vp8.cpp``), and ``VideoStream`` reads, decodes and transforms the
+frames of a Motion-JPEG, MPEG-4 or VP8 stream (indexed by ``native.avi``,
+``native.mp4`` or ``native.mkv``) on a C++ thread into a ring of frames.
 
-The library links nothing beyond the C++ standard library.  It is built
-into ``build/viddet_tpu_torch/native/<hash>/`` at the repository root
-(``build/`` is git-ignored), keyed by a hash of the source and the flags,
-the way ``kernels/build.py`` keys the CUDA kernels.  Nothing is built at
-import time.  A failed build raises with the compiler's output; there is
+The library (``codec.cpp`` and ``vp8.cpp``) links nothing beyond the C++
+standard library.  It is built into ``build/viddet_tpu_torch/native/<hash>/``
+at the repository root (``build/`` is git-ignored), keyed by a hash of the
+sources and the flags, the way ``kernels/build.py`` keys the CUDA kernels.
+Nothing is built at import time.  A failed build raises with the compiler's output; there is
 no other codec to fall back to.  ``ctypes`` releases the GIL for each
 call, so the loader's threads decode in parallel.
 """
@@ -42,7 +42,10 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "codec.cpp"
+HERE = Path(__file__).resolve().parent
+SOURCE = HERE / "codec.cpp"  # JPEG, PNG, MPEG-4 Part 2, the video stream
+VP8_SOURCE = HERE / "vp8.cpp"  # the VP8 decoder, with its header
+VP8_HEADER = HERE / "vp8.h"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
 # no fused multiply-add: the video transform's float steps round as numpy's do
@@ -60,15 +63,22 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+def sources() -> list:
+    """The library's C++ sources, compiled in one call."""
+    return [SOURCE, VP8_SOURCE]
+
+
 def _digest() -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for path in sources() + [VP8_HEADER]:
+        h.update(path.read_bytes())
     h.update(repr((FLAGS, LIBS)).encode())
     return h.hexdigest()[:16]
 
 
 def build_command(output: Path) -> list:
     """The one compiler call that builds the library."""
-    return ["g++", *FLAGS, str(SOURCE), "-o", str(output), *LIBS]
+    return ["g++", *FLAGS, *map(str, sources()), "-o", str(output), *LIBS]
 
 
 def build() -> Path:
@@ -108,6 +118,14 @@ def library() -> ctypes.CDLL:
             lib.vd_mpeg4_flush.argtypes = [p, p]
             lib.vd_mpeg4_planes.argtypes = [p, p, p, p]
             lib.vd_mpeg4_free.argtypes = [p]
+            lib.vd_vp8_open.restype = p
+            lib.vd_vp8_decode.argtypes = [p, p, size, p, i]
+            lib.vd_vp8_size.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i)]
+            lib.vd_vp8_features.argtypes = [p]
+            lib.vd_vp8_features.restype = ctypes.c_uint
+            lib.vd_vp8_rgb.argtypes = [p, p]
+            lib.vd_vp8_planes.argtypes = [p, p, p, p]
+            lib.vd_vp8_free.argtypes = [p]
             lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, p, p, i, p, i, i, i, i, i,
                                           i, p, i]
             lib.vd_video_open.restype = p
@@ -116,7 +134,8 @@ def library() -> ctypes.CDLL:
             lib.vd_video_free.argtypes = [p]
             for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
                        lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next,
-                       lib.vd_mpeg4_decode, lib.vd_mpeg4_flush):
+                       lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_vp8_decode,
+                       lib.vd_vp8_rgb, lib.vd_vp8_planes):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -394,6 +413,105 @@ def mpeg4_frames(config: bytes, samples, name: str, every: int = 1):
         decoder.close()
 
 
+# vp8.h's Feature bits: what the frames a Vp8Decoder decoded used
+VP8_FEATURES = {name: 1 << bit for bit, name in enumerate((
+    "key frame", "inter frame", "hidden frame", "B_PRED", "split vectors", "segmentation",
+    "segment map update", "token partitions", "golden reference", "alt-ref reference",
+    "vectors off the frame", "bilinear filters", "full-pixel chroma", "simple loop filter",
+    "sharpness", "loop filter deltas", "no entropy refresh", "intra in inter frames", "new vectors",
+    "buffer copies", "sign bias"))}
+
+
+class Vp8Decoder:
+    """A VP8 decoder (RFC 6386, every version and feature), bit for bit the
+    reference decoder and so FFmpeg's: ``decode(frame)`` decodes one frame
+    (one sample of a WebM / Matroska ``V_VP8`` track) and returns the
+    (H, W, 3) uint8 RGB frame ``cv2.VideoCapture``'s FFmpeg backend
+    returns, or None for a hidden frame (an alt-ref frame with show_frame
+    0, decoded for the frames after it and never shown).  The size is the
+    key frame's (``size``: width, height; 0 before the first).  A frame that
+    fails (a truncated partition, a bad or changing size, an inter frame
+    before any key frame) raises ValueError naming it."""
+
+    def __init__(self, name: str = "<stream>"):
+        self._lib = library()
+        self.name = name
+        self._handle = self._lib.vd_vp8_open()
+        if not self._handle:
+            raise MemoryError(f"{name}: cannot allocate a VP8 decoder")
+
+    @property
+    def size(self):
+        """(width, height) of the key frames."""
+        w, h = ctypes.c_int(), ctypes.c_int()
+        self._lib.vd_vp8_size(self._handle, ctypes.byref(w), ctypes.byref(h))
+        return w.value, h.value
+
+    @property
+    def features(self) -> set:
+        """The names (``VP8_FEATURES``) of what the frames decoded so far
+        used."""
+        bits = self._lib.vd_vp8_features(self._handle)
+        return {name for name, bit in VP8_FEATURES.items() if bits & bit}
+
+    def decode(self, frame: bytes, name: str = "", rgb: bool = True):
+        """Decode one frame: its RGB frame when it is shown (True when
+        ``rgb`` is False), None when it is hidden."""
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = self._lib.vd_vp8_decode(self._handle, frame, len(frame), err, _ERR_LEN)
+        if rc < 0:
+            raise ValueError(f"{name or self.name}: VP8 decode: {_message(err)}")
+        if not rc:
+            return None
+        if not rgb:
+            return True
+        w, h = self.size
+        out = np.empty((h, w, 3), np.uint8)
+        self._lib.vd_vp8_rgb(self._handle, out.ctypes.data)
+        return out
+
+    def planes(self):
+        """The (Y, U, V) planes of the frame shown last, H x W and two of
+        ceil(H/2) x ceil(W/2)."""
+        w, h = self.size
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        if self._lib.vd_vp8_planes(self._handle, y.ctypes.data, u.ctypes.data, v.ctypes.data):
+            raise ValueError(f"{self.name}: no VP8 frame has been shown")
+        return y, u, v
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.vd_vp8_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()
+
+
+def vp8_frames(samples, name: str, every: int = 1):
+    """(display index, RGB frame) of every ``every``-th shown frame of a VP8
+    stream whose frames ``samples`` yields; every frame is decoded (a hidden
+    one takes no index), only the kept ones converted to RGB.  A frame that
+    fails raises ValueError naming ``name`` and its number."""
+    decoder = Vp8Decoder(name)
+    shown = 0
+    try:
+        for i, sample in enumerate(samples):
+            frame = decoder.decode(sample, f"{name} frame {i}", rgb=shown % every == 0)
+            if frame is not None:
+                if shown % every == 0:
+                    yield shown, frame
+                shown += 1
+    finally:
+        decoder.close()
+
+
+CODECS = {"jpeg": 0, "mpeg4": 1, "vp8": 2}  # VideoStream's codec numbers
+
+
 class VideoStream:
     """Frames ``indices`` (ascending) of a video whose samples lie at file
     ``offsets`` / ``sizes`` (one per frame of the file), read, decoded and
@@ -410,8 +528,8 @@ class VideoStream:
     def __init__(self, path: str, offsets, sizes, indices, size, letterbox: bool = True,
                  normalize: bool = True, capacity: int = 64, codec: str = "jpeg",
                  config: bytes = b""):
-        if codec not in ("jpeg", "mpeg4"):
-            raise ValueError(f"VideoStream decodes jpeg or mpeg4, not {codec!r}")
+        if codec not in CODECS:
+            raise ValueError(f"VideoStream decodes jpeg, mpeg4 or vp8, not {codec!r}")
         self._lib = library()
         offsets = np.ascontiguousarray(offsets, np.int64)
         sizes = np.ascontiguousarray(sizes, np.int64)
@@ -422,7 +540,7 @@ class VideoStream:
         self._lock = threading.Lock()
         self._busy = self._closed = False
         self._handle = self._lib.vd_video_open(
-            os.fsencode(path), int(codec == "mpeg4"), config or None, len(config),
+            os.fsencode(path), CODECS[codec], config or None, len(config),
             offsets.ctypes.data, sizes.ctypes.data, len(offsets), indices.ctypes.data,
             len(indices), self._h, self._w, int(letterbox), int(normalize), int(capacity), err,
             _ERR_LEN)

@@ -99,6 +99,28 @@ def read_index(path: str) -> AviIndex:
             return _Walk(path, data, size).run()
 
 
+def unpack_bframes(data, frames: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """MPEG-4 frames (offset, size) as FFmpeg's ``mpeg4_unpack_bframes``
+    leaves them: a frame with two or more VOPs keeps its first and hands
+    the rest on to the next frame that holds exactly one VOP (the
+    placeholder), whose bytes it replaces; a frame with no VOP is
+    dropped."""
+    out, packed = [], None
+    for offset, size in frames:
+        end = offset + size
+        first = data.find(VOP_START, offset, end)
+        second = data.find(VOP_START, first + 4, end) if first >= 0 else -1
+        if second >= 0:
+            packed = (second, end - second)  # a second one unpaired is dropped, as there
+            out.append((offset, second - offset))
+        elif first >= 0 and packed is not None:
+            out.append(packed)
+            packed = None
+        elif first >= 0:
+            out.append((offset, size))
+    return out
+
+
 class _Walk:
     def __init__(self, path: str, data, size: int):
         self.path, self.data, self.size = path, data, size
@@ -131,7 +153,7 @@ class _Walk:
         if fourcc.upper() in JPEG_FOURCCS:
             codec, config, frames = "jpeg", b"", self.frames
         elif fourcc.upper() in MPEG4_FOURCCS:
-            codec, frames = "mpeg4", self.unpack_bframes()
+            codec, frames = "mpeg4", unpack_bframes(self.data, self.frames)
             config = strf[BITMAPINFOHEADER:]
             if not config and frames:  # the headers before the first frame's VOP
                 offset, size = frames[0]
@@ -150,26 +172,6 @@ class _Walk:
 
     def fail(self, what: str):
         raise ValueError(f"{self.path}: {what}")
-
-    def unpack_bframes(self) -> List[Tuple[int, int]]:
-        """The chunks as FFmpeg's ``mpeg4_unpack_bframes`` leaves them: a
-        chunk with two or more VOPs keeps its first and hands the rest on
-        to the next chunk that holds exactly one VOP (the placeholder),
-        whose bytes it replaces; a chunk with no VOP is dropped."""
-        out, packed = [], None
-        for offset, size in self.frames:
-            end = offset + size
-            first = self.data.find(VOP_START, offset, end)
-            second = self.data.find(VOP_START, first + 4, end) if first >= 0 else -1
-            if second >= 0:
-                packed = (second, end - second)  # a second one unpaired is dropped, as there
-                out.append((offset, second - offset))
-            elif first >= 0 and packed is not None:
-                out.append(packed)
-                packed = None
-            elif first >= 0:
-                out.append((offset, size))
-        return out
 
     def _end(self, pos: int, length: int, parent_end: int) -> int:
         """A list's end; a size never patched (0) or past its parent runs to

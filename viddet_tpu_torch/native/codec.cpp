@@ -60,7 +60,21 @@
 //   vd_mpeg4_planes(handle, y, u, v) copies out the last picture's planes
 //   vd_mpeg4_free(handle)
 //
-// Video frames (of a Motion-JPEG AVI or MP4, or of an MPEG-4 stream):
+// VP8 video (a WebM / Matroska track that native/mkv.py has indexed) is
+// decoded by vp8.cpp (vd_vp8::Decoder); its frames go through the same
+// yuv420p -> RGB step:
+//   vd_vp8_open() -> handle
+//   vd_vp8_decode(handle, frame, size, err, err_len)
+//           decodes one frame: 1 when it is shown, 0 for a hidden frame
+//           (an alt-ref), -1 and a message for a frame that fails
+//   vd_vp8_size(handle, &width, &height), vd_vp8_features(handle)
+//   vd_vp8_rgb(handle, rgb) the frame shown last as RGB
+//   vd_vp8_planes(handle, y, u, v) and its planes, width x height and
+//           two of ((width + 1) / 2) x ((height + 1) / 2)
+//   vd_vp8_free(handle)
+//
+// Video frames (of a Motion-JPEG AVI, MP4 or Matroska file, or of an MPEG-4 or
+// VP8 stream):
 //   vd_frame_transform(rgb, ih, iw, out, h, w, letterbox, normalize, affine)
 //           data/transforms.py's ValTransform on one uint8 RGB frame, bit for
 //           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
@@ -72,16 +86,16 @@
 //           starts a thread that decodes frames `indices` (ascending) of the
 //           file's `samples` samples and transforms each into a ring of
 //           `capacity` frames: codec 0 reads and decodes only the kept
-//           JPEGs; codec 1 (MPEG-4, configured by `config`) decodes every
-//           sample up to the last kept one in order, since each P-VOP needs
-//           the picture before it
+//           JPEGs; codec 1 (MPEG-4, configured by `config`) and codec 2
+//           (VP8) decode every sample up to the last kept one in order,
+//           since each inter frame needs the pictures before it
 //   vd_video_next(handle, out, affine, &index, err, err_len)
 //           blocks for the next frame: 1 and the frame, 0 at the end or
 //           after vd_video_stop, -1 and the message of the frame that failed
 //   vd_video_stop(handle) wakes both sides; vd_video_free(handle) joins the
 //           thread and frees (never while a vd_video_next call is running).
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off codec.cpp
+// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off codec.cpp vp8.cpp
 //        -o libviddet_codec.so -pthread
 
 #include <algorithm>
@@ -100,6 +114,8 @@
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "vp8.h"
 
 namespace {
 
@@ -2936,12 +2952,13 @@ struct Mpeg4Decoder {
 // yuv420p -> RGB as swscale's x86 unscaled converter does it for BT.601
 // limited range (the yuv2rgb SIMD path OpenCV's FFmpeg reader takes):
 // 16-bit fixed point with pmulhw's floor, saturated to 0..255.
-void yuv420_to_rgb(const Picture& p, int width, int height, uint8_t* rgb) {
+void yuv420_to_rgb(const uint8_t* py, int y_stride, const uint8_t* pu, const uint8_t* pv,
+                   int c_stride, int width, int height, uint8_t* rgb) {
   constexpr int kY = 9539, kVr = 13075, kUb = 16525, kUg = -3209, kVg = -6660, kYOff = 128;
   for (int y = 0; y < height; ++y) {
-    const uint8_t* ys = p.y.px.data() + static_cast<size_t>(y) * p.y.w;
-    const uint8_t* us = p.u.px.data() + static_cast<size_t>(y >> 1) * p.u.w;
-    const uint8_t* vs = p.v.px.data() + static_cast<size_t>(y >> 1) * p.v.w;
+    const uint8_t* ys = py + static_cast<size_t>(y) * y_stride;
+    const uint8_t* us = pu + static_cast<size_t>(y >> 1) * c_stride;
+    const uint8_t* vs = pv + static_cast<size_t>(y >> 1) * c_stride;
     uint8_t* out = rgb + static_cast<size_t>(y) * width * 3;
     for (int x = 0; x < width; ++x) {
       const int u = us[x >> 1] * 8 - 1024, v = vs[x >> 1] * 8 - 1024;
@@ -2956,12 +2973,21 @@ void yuv420_to_rgb(const Picture& p, int width, int height, uint8_t* rgb) {
   }
 }
 
+void yuv420_to_rgb(const Picture& p, int width, int height, uint8_t* rgb) {
+  yuv420_to_rgb(p.y.px.data(), p.y.w, p.u.px.data(), p.v.px.data(), p.u.w, width, height, rgb);
+}
+
+void vp8_to_rgb(const vd_vp8::Decoder& d, uint8_t* rgb) {
+  yuv420_to_rgb(d.plane(0), d.stride(0), d.plane(1), d.plane(2), d.stride(1), d.width(),
+                d.height(), rgb);
+}
+
 
 struct VideoStream {
   std::string path;
   std::vector<int64_t> offsets, sizes;  // every sample of the file
   std::vector<int32_t> indices;         // the frames kept, ascending
-  bool mpeg4_config = false;            // MPEG-4 Part 2, configured by `config`; else JPEG
+  int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8
   std::vector<uint8_t> config;
   int h, w;
   bool letterbox, normalize;
@@ -3006,8 +3032,10 @@ struct VideoStream {
     };
     try {
       if (!f) fail("cannot open the video");
-      if (mpeg4_config)
+      if (codec == 1)
         run_mpeg4(read, sample, rgb, staged);
+      else if (codec == 2)
+        run_vp8(read, sample, rgb, staged);
       else
         run_jpeg(read, sample, rgb, staged);
     } catch (const CodecError& e) {
@@ -3073,6 +3101,33 @@ struct VideoStream {
       if (!wait_slot()) return;
       yuv420_to_rgb(*d.shown, d.width, d.height, rgb.data());
       put(rgb.data(), d.height, d.width, indices[kept++], staged);
+    }
+  }
+
+  // VP8: every frame is decoded in order; the shown ones count in display
+  // order (a hidden alt-ref frame takes no index), and those kept are
+  // converted and transformed.
+  template <typename Read>
+  void run_vp8(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
+               std::vector<uint8_t>& staged) {
+    vd_vp8::Decoder d;
+    int32_t display = 0;
+    size_t kept = 0;
+    for (size_t k = 0; k < offsets.size() && kept < indices.size(); ++k) {
+      bool shown;
+      try {
+        read(k);
+        shown = d.decode(sample.data(), sample.size());
+      } catch (const vd_vp8::Error& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      } catch (const CodecError& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      }
+      if (!shown || display++ != indices[kept]) continue;
+      if (!wait_slot()) return;
+      rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
+      vp8_to_rgb(d, rgb.data());
+      put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
     }
   }
 
@@ -3173,6 +3228,56 @@ void vd_mpeg4_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
 
 void vd_mpeg4_free(void* handle) { delete static_cast<Mpeg4Decoder*>(handle); }
 
+void* vd_vp8_open() {
+  try {
+    return new vd_vp8::Decoder();
+  } catch (const std::bad_alloc&) {
+    return nullptr;
+  }
+}
+
+int vd_vp8_decode(void* handle, const uint8_t* data, unsigned long size, char* err, int err_len) {
+  try {
+    return static_cast<vd_vp8::Decoder*>(handle)->decode(data, size) ? 1 : 0;
+  } catch (const vd_vp8::Error& e) {
+    std::snprintf(err, err_len, "%s", e.msg.c_str());
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+  }
+  return -1;
+}
+
+void vd_vp8_size(void* handle, int* width, int* height) {
+  const auto* d = static_cast<vd_vp8::Decoder*>(handle);
+  *width = d->width();
+  *height = d->height();
+}
+
+unsigned vd_vp8_features(void* handle) { return static_cast<vd_vp8::Decoder*>(handle)->features(); }
+
+// The frame shown last, as RGB (width x height x 3); 0, or -1 before any.
+int vd_vp8_rgb(void* handle, uint8_t* rgb) {
+  const auto* d = static_cast<vd_vp8::Decoder*>(handle);
+  if (!d->plane(0)) return -1;
+  vp8_to_rgb(*d, rgb);
+  return 0;
+}
+
+int vd_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
+  const auto* d = static_cast<vd_vp8::Decoder*>(handle);
+  if (!d->plane(0)) return -1;
+  const int w = d->width(), h = d->height(), cw = (w + 1) / 2, ch = (h + 1) / 2;
+  for (int r = 0; r < h; ++r)
+    std::memcpy(y + static_cast<size_t>(r) * w, d->plane(0) + static_cast<size_t>(r) * d->stride(0), w);
+  for (int r = 0; r < ch; ++r) {
+    std::memcpy(u + static_cast<size_t>(r) * cw, d->plane(1) + static_cast<size_t>(r) * d->stride(1), cw);
+    std::memcpy(v + static_cast<size_t>(r) * cw, d->plane(2) + static_cast<size_t>(r) * d->stride(2), cw);
+  }
+  return 0;
+}
+
+void vd_vp8_free(void* handle) { delete static_cast<vd_vp8::Decoder*>(handle); }
+
 int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w, int letterbox,
                        int normalize, float* affine) {
   try {
@@ -3189,7 +3294,7 @@ void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned
                     const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
                     int capacity, char* err, int err_len) {
   try {
-    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 1)
+    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 2)
       fail("bad video stream arguments (codec %d, %d of %d frames, %dx%d, capacity %d)", codec,
            n, samples, w, h, capacity);
     for (int i = 0; i < n; ++i)
@@ -3197,7 +3302,7 @@ void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned
         fail("frame index %d is out of order or not in the file's %d", indices[i], samples);
     auto* s = new VideoStream();
     s->path = path;
-    s->mpeg4_config = codec == 1;
+    s->codec = codec;
     s->config.assign(config, config + config_size);
     s->offsets.assign(offsets, offsets + samples);
     s->sizes.assign(sizes, sizes + samples);

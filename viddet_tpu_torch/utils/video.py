@@ -10,17 +10,21 @@ The port links no FFmpeg.  It reads
   frame's bytes; or MPEG-4 Part 2 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
   ``MP4V``, ``M4S2``, packed B-frames unpacked);
 * MP4 and QuickTime files (``.mp4``, ``.mov``; ``native.mp4``) holding
-  MPEG-4 Part 2 or Motion-JPEG (``jpeg`` samples).
+  MPEG-4 Part 2 or Motion-JPEG (``jpeg`` samples);
+* Matroska and WebM files (``.mkv``, ``.webm``; ``native.mkv``) holding
+  VP8, MPEG-4 Part 2 or Motion-JPEG (``V_MJPEG``, or a VfW fourcc the
+  AVI reader reads).
 
-MPEG-4 Part 2 (Simple and Advanced Simple Profile: B-VOPs, MPEG
-quantisation; not quarter-sample, interlace or global motion
-compensation) is decoded by the port's own decoder
-(``native.Mpeg4Decoder``) to what ``cv2.VideoCapture``'s FFmpeg backend
-returns, frames in display order.
+VP8 (every version and feature of RFC 6386) is decoded by the port's own
+decoder (``native.Vp8Decoder``) and MPEG-4 Part 2 (Simple and Advanced
+Simple Profile: B-VOPs, MPEG quantisation; not quarter-sample, interlace
+or global motion compensation) by another (``native.Mpeg4Decoder``), each
+to what ``cv2.VideoCapture``'s FFmpeg backend returns, frames in display
+order.
 
-Matroska and WebM (``.mkv``, ``.webm``), another codec (H.264, HEVC, ...)
-and a webcam index raise ValueError, naming what is missing.
-``VideoWriter`` writes Motion-JPEG ``.avi`` only.
+Another container, another codec (VP9, AV1, H.264, HEVC, ...), a
+Matroska ContentEncoding and a webcam index raise ValueError, naming what
+is missing.  ``VideoWriter`` writes Motion-JPEG ``.avi`` only.
 """
 
 from __future__ import annotations
@@ -32,17 +36,21 @@ import numpy as np
 
 from viddet_tpu_torch.native import encode_jpeg, encode_png
 from viddet_tpu_torch.native.avi import AviReader, AviWriter
+from viddet_tpu_torch.native.mkv import MkvReader
 from viddet_tpu_torch.native.mp4 import Mp4Reader
 
 VIDEO_EXT = ".avi"  # the container the port writes
-READERS = {".avi": AviReader, ".mp4": Mp4Reader, ".mov": Mp4Reader}
-READS = "MPEG-4 Part 2 or Motion-JPEG video in .avi, .mp4 and .mov files"
+READERS = {".avi": AviReader, ".mp4": Mp4Reader, ".mov": Mp4Reader, ".mkv": MkvReader,
+           ".webm": MkvReader}
+READS = ("MPEG-4 Part 2 or Motion-JPEG video in .avi, .mp4 and .mov files, and VP8, MPEG-4 "
+         "Part 2 or Motion-JPEG video in .mkv and .webm files")
 
 
 def check_source(source) -> None:
     """Raise ValueError unless ``source`` names a file in a container the
-    port can read: a webcam index needs capture support (V4L2), and
-    another container needs FFmpeg.  Nothing is opened."""
+    port can read (AVI, MP4 / QuickTime, Matroska / WebM): a webcam index
+    needs capture support (V4L2), and another container needs FFmpeg.
+    Nothing is opened."""
     if isinstance(source, int):
         raise ValueError(f"webcam {source}: the port has no video capture support (V4L2); "
                          f"it reads {READS} only")
@@ -62,8 +70,8 @@ def check_output(path) -> None:
 
 def open_video(source):
     """The reader of ``source`` by its container (``check_source`` first):
-    ``AviReader`` or ``Mp4Reader``, each with ``index`` (fps, frame_count,
-    width, height, codec), ``len`` and ``frames(every)``.  A codec or
+    ``AviReader``, ``Mp4Reader`` or ``MkvReader``, each with ``index`` (fps,
+    frame_count, width, height, codec), ``len`` and ``frames(every)``.  A codec or
     feature the port does not decode raises ValueError here."""
     check_source(source)
     if not os.path.exists(str(source)):
@@ -92,8 +100,8 @@ def iterate_frames(path: str, every: int = 1, rgb: bool = True
                    ) -> Iterator[Tuple[int, np.ndarray]]:
     """Yield (frame_index, frame) of every ``every``-th frame in display
     order, RGB, or BGR (as OpenCV returns it) when ``rgb`` is False.  JPEG
-    frames skipped by ``every`` are not decoded; an MPEG-4 stream is
-    decoded whole, each P- and B-VOP needing the pictures before it."""
+    frames skipped by ``every`` are not decoded; an MPEG-4 or VP8 stream is
+    decoded whole, each inter frame needing the pictures before it."""
     with open_video(path) as video:
         for idx, frame in video.frames(every):
             yield idx, frame if rgb else np.ascontiguousarray(frame[..., ::-1])
