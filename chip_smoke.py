@@ -76,7 +76,7 @@ Phases, each printed as one JSON line:
             frames/s and clips/s beside the direct step, and the card's idle
             share over one window of each;
 12. video:  two seeded 640x480 Motion-JPEG AVIs of 256 frames at 25 fps
-            written by ``utils.video.VideoWriter``; with the main path's
+            written by ``native.avi.AviWriter``; with the main path's
             model at batch 8, ``stream_detect_video`` drawing and saving
             detections (``FrameSource``), again without drawing
             (``NativeFrameSource``), ``stream_detect_videos`` over both
@@ -86,11 +86,18 @@ Phases, each printed as one JSON line:
             twice), each batch's frames equal to the decoded and
             transformed frames and its kernel tail equal to its plain tail
             on the same head outputs, every saved line equal to the direct
-            predictor's, the ``_det.avi`` read back frame for frame, both
-            sources' batches equal, the extracted JPEGs equal to the
-            encoder's bytes; frames/s of each run beside the direct step,
-            the writer's, the reader's and each source's frames/s, and the
-            card's idle share over one window;
+            predictor's, the drawn ``_det.mp4`` (MPEG-4 Part 2, as the JAX
+            package writes it) read back by the port's reader, equal byte
+            for byte to a fresh ``VideoWriter``'s file of the drawn frames,
+            each frame decoded equal to the encoder's reconstruction and
+            within DRAWN_PSNR_DB of its drawn frame (so too the ``mp4``,
+            ``mpeg4_bvop`` and ``webm`` phases' drawn outputs and
+            ``visualise --video``'s), both sources' batches equal, the
+            extracted JPEGs equal to the encoder's bytes; frames/s of each
+            run beside the direct step, the Motion-JPEG writer's, the MPEG-4
+            encoder's alone, the reader's and each source's frames/s, and
+            the card's idle share over one window (``--phases video`` runs
+            this phase and ``mp4`` alone);
 13. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files with the main
             path's model: every ``.txt`` equal to the direct predictor,
             every ``_det.jpg`` decoding; images/s;
@@ -361,6 +368,12 @@ WEBM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "vp8_640x480.webm")
 WEBM_DIGESTS = WEBM_FIXTURE[:-len(".webm")] + ".json"
 WEBM_FRAMES = 48
+# Every drawn _det.mp4 (MPEG-4 Part 2 from the port's encoder): each frame's
+# PSNR against the drawn frame is at least this, a floor that a wrong colour
+# conversion or a broken decode falls far below.  tests/test_torch_mpeg4_enc.py
+# holds the encoder to it on the phases' kinds of frame with 32 labelled boxes
+# each on the CPU (23.0 dB at worst there; fewer boxes, higher).
+DRAWN_PSNR_DB = 20.0
 
 # Launches per main-path batch of each path; a kernel missing from a path
 # must not launch there.
@@ -3178,18 +3191,20 @@ def direct_frames_per_s(infer, xs, dev) -> float:
 
 def video_phase(dev, kernels, model, classes, predictor) -> dict:
     """Two seeded 640x480 Motion-JPEG AVIs (256 frames, 25 fps) written by
-    ``VideoWriter``, read back by the port's reader; then with the main
+    ``AviWriter``, read back by the port's reader; then with the main
     path's model at batch 8 ``stream_detect_video`` (drawn, through
     ``FrameSource``; then not drawn, through ``NativeFrameSource``),
     ``stream_detect_videos`` over both with yolo3_darknet53_k3_vid (k = 3),
     ``cli.detect.main`` over one AVI and ``cli.extract_frames.main --every
     4``.  Checks: each run's launches, each batch through ``video_rows``,
-    every saved line equal to the direct predictor's, the ``_det.avi``
-    frame for frame, both sources' batches equal, the extracted files equal
-    to the encoder's bytes.  Frames/s of each run (host clock, the whole
-    call) beside the direct step on the same transformed frames; the
-    writer's (each AVI on its own thread), the reader's (demux + decode,
-    one thread); the card's idle share over a native run of the first
+    every saved line equal to the direct predictor's, the drawn
+    ``_det.mp4`` (``check_drawn_mp4``), both sources' batches equal, the
+    extracted files equal to the encoder's bytes.  Frames/s of each run
+    (host clock, the whole call) beside the direct step on the same
+    transformed frames; the Motion-JPEG writer's (each AVI on its own
+    thread), the MPEG-4 encoder's alone (one thread, 640x480), the
+    reader's (demux + decode, one thread); the card's idle share over a
+    native run of the first
     VIDEO_IDLE_FRAMES frames.  The threshold keeps about VIDEO_BOXES boxes
     a frame (see the constants)."""
     import contextlib
@@ -3205,10 +3220,10 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
     from viddet_tpu_torch.infer.service import to_device_batch
     from viddet_tpu_torch.infer.stream import stream_detect_video
     from viddet_tpu_torch.models.zoo import get_model
-    from viddet_tpu_torch.native import decode_jpeg, encode_jpeg
+    from viddet_tpu_torch.native import Mpeg4Encoder, decode_jpeg, encode_jpeg
     from viddet_tpu_torch.native.avi import AviReader, AviWriter, read_index
     from viddet_tpu_torch.utils.image import draw_detections
-    from viddet_tpu_torch.utils.video import VideoWriter, iterate_frames
+    from viddet_tpu_torch.utils.video import iterate_frames, writer_rate
     from viddet_tpu_torch.weights import init_flat, load_flat
 
     t_phase = time.perf_counter()
@@ -3231,7 +3246,7 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
 
         def write(name):  # each on its own thread: the encoder releases the GIL
             t = time.perf_counter()
-            with VideoWriter(paths[name], VIDEO_FPS, (CODEC_W, CODEC_H)) as writer:
+            with AviWriter(paths[name], CODEC_W, CODEC_H, VIDEO_FPS) as writer:
                 for image in images[name]:
                     writer.write(image)
             return VIDEO_FRAMES / (time.perf_counter() - t)
@@ -3239,6 +3254,13 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
         out["writer_frames_per_s"] = in_threads(write, list(paths), len(paths))[0]
         out["avi_mb"] = os.path.getsize(paths["a"]) / 1e6
         lap("generate_and_write")
+        encoder = Mpeg4Encoder(CODEC_W, CODEC_H, *writer_rate(VIDEO_FPS))
+        t = time.perf_counter()
+        for image in images["a"]:  # the encoder alone, on one thread
+            encoder.encode(image)
+        out["mpeg4_writer_frames_per_s"] = VIDEO_FRAMES / (time.perf_counter() - t)
+        encoder.close()
+        lap("mpeg4_encode")
         t = time.perf_counter()
         decoded = {"a": [f for _, f in iterate_frames(paths["a"])]}
         out["reader_frames_per_s"] = VIDEO_FRAMES / (time.perf_counter() - t)
@@ -3291,18 +3313,13 @@ def video_phase(dev, kernels, model, classes, predictor) -> dict:
         out["lines"] = len(want.splitlines())
         out["boxes_per_frame"] = float(np.mean([(r[1] >= thresh).sum() for r in rows.values()]))
         lap("rows_check")
-        drawn = os.path.join(tmp, "video", "a_det.avi")
-        index = read_index(drawn)
-        check((index.frame_count, index.width, index.height, index.fps)
-              == (VIDEO_FRAMES, CODEC_W, CODEC_H, VIDEO_FPS), "a_det.avi: 256 frames, 25 fps")
         vis = [draw_detections(decoded["a"][idx], invert_affine_to_boxes(rows[("a", idx)][2],
                                                                          affine),
                                rows[("a", idx)][0], rows[("a", idx)][1], classes, thresh)
                for idx in range(VIDEO_FRAMES)]
-        vis = in_threads(lambda v: decode_jpeg(encode_jpeg(v, 95)), vis, ENCODE_WORKERS)
-        for idx, frame in iterate_frames(drawn):
-            check(np.array_equal(frame, vis[idx]),
-                  f"a_det.avi frame {idx} is the drawn frame at JPEG q 95")
+        out["drawn"] = check_drawn_mp4(os.path.join(tmp, "video", "a_det.mp4"), vis, VIDEO_FPS,
+                                       "a_det.mp4")
+        del vis
         lap("drawn_check")
         short = os.path.join(tmp, "short.avi")  # the first frames of a.avi, their bytes as stored
         with AviReader(paths["a"]) as video, AviWriter(short, CODEC_W, CODEC_H,
@@ -3390,8 +3407,8 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
     AVI of its frames (split into RIFF segments of MP4_SEGMENT_BYTES) in one
     batch, and ``cli.detect.main --input clip.mp4``.  Checks: each run's
     launches, each batch through ``video_rows``, every saved line equal to
-    the direct predictor's, the drawn ``clip_det.avi``, both sources'
-    batches equal.  Also what ran on no card before: ``NativeFrameSource``
+    the direct predictor's, the drawn ``clip_det.mp4`` (``check_drawn_mp4``),
+    both sources' batches equal.  Also what ran on no card before: ``NativeFrameSource``
     normalized and without letterbox against ``FrameSource`` bit for bit,
     the split AVI read back, and ``cli.visualise`` with ``--video`` and
     ``--gif`` (``utils/gif.py``).  Frames/s: the MP4 reader on one thread
@@ -3412,7 +3429,6 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
     from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource, stream_detect_video
     from viddet_tpu_torch.native import Mpeg4Decoder, decode_jpeg, encode_jpeg
     from viddet_tpu_torch.native.avi import AviReader, AviWriter
-    from viddet_tpu_torch.native.avi import read_index as avi_index
     from viddet_tpu_torch.native.mp4 import Mp4Reader
     from viddet_tpu_torch.utils.gif import write_gif
     from viddet_tpu_torch.utils.image import draw_detections
@@ -3496,16 +3512,12 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
             with open(os.path.join(tmp, run, "clip_det.txt")) as f:
                 check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
         out["lines"] = len(want.splitlines())
-        drawn = os.path.join(tmp, "mp4_video", "clip_det.avi")
-        index = avi_index(drawn)
-        check((index.frame_count, index.width, index.height, index.fps)
-              == (MP4_FRAMES, CODEC_W, CODEC_H, VIDEO_FPS), "clip_det.avi: 48 frames, 25 fps")
-        for idx, frame in iterate_frames(drawn, every=8):
-            ids, scores, boxes = rows[("clip", idx)]
-            vis = draw_detections(frames[idx], invert_affine_to_boxes(boxes, affine), ids,
-                                  scores, classes, thresh)
-            check(np.array_equal(frame, decode_jpeg(encode_jpeg(vis, 95))),
-                  f"clip_det.avi frame {idx} is the drawn frame at JPEG q 95")
+        vis = [draw_detections(frames[idx], invert_affine_to_boxes(rows[("clip", idx)][2],
+                                                                   affine),
+                               rows[("clip", idx)][0], rows[("clip", idx)][1], classes, thresh)
+               for idx in range(MP4_FRAMES)]
+        out["drawn"] = check_drawn_mp4(os.path.join(tmp, "mp4_video", "clip_det.mp4"), vis,
+                                       VIDEO_FPS, "mp4: clip_det.mp4")
         out["window"] = window_idle_share(lambda: stream_detect_video(
             clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
             batch_size=VIDEO_B, draw=False, device=dev))
@@ -3583,21 +3595,20 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
         with contextlib.redirect_stdout(sys.stderr):
             n = visualise.main(["--dataset", "synthetic", "--data-root", "synthetic",
                                 "--output", vis_dir, "--max-images", str(MP4_VIS_FRAMES),
-                                "--video", "v.avi", "--gif", "v.gif", "--fps", "10"])
+                                "--video", "v.mp4", "--gif", "v.gif", "--fps", "10"])
         check(n == MP4_VIS_FRAMES, f"visualise: {MP4_VIS_FRAMES} visualisations")
         ds, _ = get_dataset("synthetic", "synthetic", split="val")
         gif_frames = []
-        with AviReader(os.path.join(vis_dir, "v.avi")) as video:
-            check(len(video) == MP4_VIS_FRAMES, "visualise: v.avi holds every visualisation")
-            for i in range(MP4_VIS_FRAMES):
-                img, label = ds[i]
-                vis = draw_detections(img, label[:, :4], label[:, 4], np.ones(len(label)),
-                                      list(ds.classes), thresh=0.0)
-                with open(os.path.join(vis_dir, f"{i:06d}_vis.jpg"), "rb") as f:
-                    jpeg = f.read()
-                check(jpeg == encode_jpeg(vis, 95) == video.sample(i),
-                      f"visualise: frame {i} is the drawn image at JPEG q 95, in both files")
-                gif_frames.append(vis)
+        for i in range(MP4_VIS_FRAMES):
+            img, label = ds[i]
+            vis = draw_detections(img, label[:, :4], label[:, 4], np.ones(len(label)),
+                                  list(ds.classes), thresh=0.0)
+            with open(os.path.join(vis_dir, f"{i:06d}_vis.jpg"), "rb") as f:
+                check(f.read() == encode_jpeg(vis, 95),
+                      f"visualise: {i:06d}_vis.jpg is the drawn image at JPEG q 95")
+            gif_frames.append(vis)
+        out["visualise_video"] = check_drawn_mp4(os.path.join(vis_dir, "v.mp4"), gif_frames, 10,
+                                                 "visualise: v.mp4")
         write_gif(os.path.join(tmp, "want.gif"), gif_frames, duration_ms=100, loop=0)
         with open(os.path.join(vis_dir, "v.gif"), "rb") as a, \
                 open(os.path.join(tmp, "want.gif"), "rb") as b:
@@ -3605,6 +3616,58 @@ def mp4_phase(dev, kernels, model, classes, predictor) -> dict:
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
+
+
+def check_drawn_mp4(path: str, vis, fps, label: str) -> dict:
+    """A drawn ``_det.mp4`` against the drawn frames ``vis`` (RGB, in
+    order): the port's reader gives their count, size and ``fps``; the
+    file is the bytes a fresh ``VideoWriter`` writes from them; each frame
+    the port's decoder shows equals that encoder's reconstruction bit for
+    bit; each frame's PSNR against its drawn frame is at least
+    DRAWN_PSNR_DB.  Returns the file's bytes beside the JPEG bytes of the
+    same frames at q 95 (what the Motion-JPEG ``_det.avi`` held before),
+    the PSNR (worst, mean) and the fresh writer's frames/s (one thread,
+    encode and mux)."""
+    import tempfile
+
+    from viddet_tpu_torch.native import Mpeg4Decoder, encode_jpeg
+    from viddet_tpu_torch.native.mp4 import Mp4Reader
+    from viddet_tpu_torch.utils.video import VideoWriter
+
+    h, w = vis[0].shape[:2]
+    with Mp4Reader(path) as reader:
+        index = reader.index
+        check((index.frame_count, index.width, index.height, index.fps) == (len(vis), w, h, fps),
+              f"{label}: {len(vis)} frames of {w}x{h} at {fps} fps")
+        samples = [reader.sample(i) for i in range(len(reader))]
+        config = index.config
+    planes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh = os.path.join(tmp, os.path.basename(path))
+        t = time.perf_counter()
+        with VideoWriter(fresh, fps, (w, h)) as writer:
+            for frame in vis:
+                writer.write(frame)
+                planes.append(writer.planes())
+        writer_fps = len(vis) / (time.perf_counter() - t)
+        with open(fresh, "rb") as a, open(path, "rb") as b:
+            check(a.read() == b.read(), f"{label}: the bytes a fresh VideoWriter writes")
+    decoder = Mpeg4Decoder(config, path)
+    psnr = []
+    for i, (sample, want) in enumerate(zip(samples, planes)):
+        frame = decoder.decode(sample, f"{path} frame {i}")
+        check(frame is not None, f"{label}: frame {i} shown at once (low_delay)")
+        check(all(np.array_equal(a, b) for a, b in zip(decoder.planes(), want)),
+              f"{label}: frame {i} decodes to the encoder's reconstruction")
+        mse = np.mean((frame.astype(np.float64) - vis[i].astype(np.float64)) ** 2)
+        psnr.append(99.0 if mse == 0 else float(10 * np.log10(255.0**2 / mse)))
+    decoder.close()
+    check(min(psnr) >= DRAWN_PSNR_DB,
+          f"{label}: every frame's PSNR at least {DRAWN_PSNR_DB} dB (worst {min(psnr):.2f})")
+    jpeg_bytes = sum(in_threads(lambda v: len(encode_jpeg(v, 95)), vis, ENCODE_WORKERS))
+    return {"mp4_bytes": os.path.getsize(path), "mjpeg_q95_bytes": jpeg_bytes,
+            "psnr_min_db": min(psnr), "psnr_mean_db": float(np.mean(psnr)),
+            "fresh_writer_frames_per_s": writer_fps}
 
 
 def frame_digest(a) -> str:
@@ -3621,19 +3684,21 @@ def fixture_runs(dev, kernels, model, classes, predictor, fixture: str, frames, 
     (``NativeFrameSource``), then ``cli.detect.main --input`` the file.
     Checks: each run's launches (``{prefix}_video``,
     ``{prefix}_video_native``, ``{prefix}_detect``), each batch through
-    ``video_rows``, every saved line equal to the direct predictor's, both
-    sources' batches equal.  Into ``out``: the direct step's and each run's
-    frames/s, the card's idle share over a native run.  Returns the
-    launches."""
+    ``video_rows``, every saved line equal to the direct predictor's, the
+    drawn ``clip_det.mp4`` (``check_drawn_mp4``), both sources' batches
+    equal.  Into ``out``: the direct step's and each run's frames/s, the
+    drawn file's check, the card's idle share over a native run.  Returns
+    the launches."""
     import hashlib
     import tempfile
 
     import torch
 
     from viddet_tpu_torch.cli import detect
-    from viddet_tpu_torch.data.transforms import ValTransform
+    from viddet_tpu_torch.data.transforms import ValTransform, invert_affine_to_boxes
     from viddet_tpu_torch.infer.service import to_device_batch
     from viddet_tpu_torch.infer.stream import stream_detect_video
+    from viddet_tpu_torch.utils.image import draw_detections
 
     count = len(frames)
     transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True, normalize=False)
@@ -3673,6 +3738,11 @@ def fixture_runs(dev, kernels, model, classes, predictor, fixture: str, frames, 
             with open(os.path.join(tmp, run, "clip_det.txt")) as f:
                 check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
         out["lines"] = len(want.splitlines())
+        vis = [draw_detections(frames[i], invert_affine_to_boxes(rows[("clip", i)][2], affine),
+                               rows[("clip", i)][0], rows[("clip", i)][1], classes, thresh)
+               for i in range(count)]
+        out["drawn"] = check_drawn_mp4(os.path.join(tmp, drawn, "clip_det.mp4"), vis,
+                                       VIDEO_FPS, f"{prefix}: clip_det.mp4")
         out["window"] = window_idle_share(lambda: stream_detect_video(
             clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
             batch_size=VIDEO_B, draw=False, device=dev))
@@ -5119,7 +5189,7 @@ def kernel_table() -> dict:
 
 CHILD_FLAG = "--phases"
 CHILD_GROUPS = ("mpeg4_bvop", "webm", "train", "detector_train", "int8_and_export",
-                "data_parallel")
+                "data_parallel", "video")
 
 
 def child_main(group: str) -> int:
@@ -5128,7 +5198,10 @@ def child_main(group: str) -> int:
     ``train``, ``detector_train``, ``int8_and_export`` (the main path's model and
     frames made again from their seeds, then the ``int8`` and ``export``
     phases), or ``data_parallel``.  Its last line is its launch counts (and K5's rows in the
-    train steps), with the profiler windows it had to take again."""
+    train steps), with the profiler windows it had to take again.  ``video``
+    (the ``video`` and ``mp4`` phases, which ``main`` runs in its own
+    process) is for a run of those two alone: ``python3 chip_smoke.py
+    --phases video``."""
     import torch
 
     from viddet_tpu_torch.kernels import build
@@ -5156,13 +5229,18 @@ def child_main(group: str) -> int:
 
         model, _ = get_model(MODEL)
         load_flat(model, init_flat(MODEL, seed=0))
-        if group in ("mpeg4_bvop", "webm"):
+        if group in ("mpeg4_bvop", "webm", "video"):
             from viddet_tpu_torch import native
             from viddet_tpu_torch.data.names import COCO_CLASSES
 
             native.build()  # the parent's build, found by its source hash
-            phase = mpeg4_bvop_phase if group == "mpeg4_bvop" else webm_phase
-            launches = phase(dev, kernels, model, COCO_CLASSES, make_predictor(model))
+            predictor = make_predictor(model)
+            if group == "video":
+                launches = video_phase(dev, kernels, model, COCO_CLASSES, predictor)
+                launches.update(mp4_phase(dev, kernels, model, COCO_CLASSES, predictor))
+            else:
+                phase = mpeg4_bvop_phase if group == "mpeg4_bvop" else webm_phase
+                launches = phase(dev, kernels, model, COCO_CLASSES, predictor)
             emit({"phase": f"{group}_result", "launches": launches, "k5_rows": k5_rows,
                   "incomplete_windows": INCOMPLETE_WINDOWS, "spins_lost": SPINS_LOST})
             return 0

@@ -37,6 +37,14 @@
   partitions.  Remake only it with ``python -m
   tests.fixtures.make_mp4_fixture webm``.
 
+* ``mpeg4_damaged.mp4``: 26 frames at 200x136 from the same libavcodec
+  route with four vectors a macroblock (``+mv4``), the adaptive
+  quantisation masks and two B-VOPs between references (``bf`` 2).
+  libavcodec's own decoder finds an ``mb_type`` code that 14496-2 does
+  not have in its tenth sample ("illegal MB_type") and conceals the rest;
+  the port raises there (ROADMAP Queue 3, item B).  Remake only
+  it with ``python -m tests.fixtures.make_mp4_fixture damaged``.
+
 The B-VOP streams of the CPU tests come from the same route at test time
 (``lavc_stream``, ``write_lavc_mp4``, ``write_lavc_avi``), as do the VP8
 streams (``tests.torch_mkv_helpers.vp8_packets``).
@@ -63,6 +71,7 @@ CHIP_BVOP_VIDEO = os.path.join(HERE, "xvid_bf2_640x480.avi")
 CHIP_BVOP_DIGESTS = os.path.join(HERE, "xvid_bf2_640x480.json")
 CHIP_WEBM_VIDEO = os.path.join(HERE, "vp8_640x480.webm")
 CHIP_WEBM_DIGESTS = os.path.join(HERE, "vp8_640x480.json")
+DAMAGED = os.path.join(HERE, "mpeg4_damaged.mp4")
 
 
 def moving_scene(n: int, w: int, h: int, seed: int):
@@ -358,13 +367,25 @@ def write_feature_fixtures() -> None:
     write_lavc(DARK, planes, w, h, {"flags": "+mv4", "qmin": 2, "qmax": 4, "b": 2000000})
 
 
+DAMAGED_OPTIONS = {"flags": "+mv4", "lumi_mask": 0.6, "dark_mask": 0.6, "p_mask": 0.8,
+                   "scplx_mask": 0.5, "tcplx_mask": 0.5, "b": 150000, "bf": 2}
+
+
+def write_damaged_fixture() -> None:
+    write_lavc_mp4(DAMAGED, lavc_stream(moving_scene(26, 200, 136, seed=3), DAMAGED_OPTIONS))
+
+
 if __name__ == "__main__":
     import sys
 
-    if sys.argv[1:] != ["webm"]:
-        write_chip_fixture()
-        write_feature_fixtures()
-        write_chip_bvop_fixture()
-    write_chip_webm_fixture()
-    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO, CHIP_WEBM_VIDEO):
+    if sys.argv[1:] == ["damaged"]:
+        write_damaged_fixture()
+    else:
+        if sys.argv[1:] != ["webm"]:
+            write_chip_fixture()
+            write_feature_fixtures()
+            write_chip_bvop_fixture()
+            write_damaged_fixture()
+        write_chip_webm_fixture()
+    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO, CHIP_WEBM_VIDEO, DAMAGED):
         print(path, os.path.getsize(path), "bytes")

@@ -54,6 +54,7 @@ from tests.test_torch_mp4 import tiny_weights  # noqa: F401  (a fixture)
 from tests.test_torch_stream import twin_models
 from tests.test_torch_video_stream import CLASSES, CPU, _cli, assert_txt_equal, transforms
 from tests.torch_mp4_helpers import cv2_views, write_avi
+from tests.torch_video_helpers import assert_drawn_video
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
 from viddet_tpu.infer.multistream import stream_detect_videos as jax_stream_detect_videos
 from viddet_tpu.infer.stream import stream_detect_video as jax_stream_detect_video
@@ -260,17 +261,20 @@ def test_extract_frames_equals_jax(name, files, tmp_path, jax_reads_ffmpeg):
 
 def test_visualise_writes_back_extracted_frames(files, tmp_path):
     """``extract_frames`` over the B-VOP AVI, then ``visualise --images
-    --video`` over its frames: the video holds each frame, in order, as
-    the JPEG the image was read from re-encoded at q 95."""
+    --video`` over its frames: the video holds each frame, in order, as the
+    MPEG-4 Part 2 a fresh ``VideoWriter`` writes from the images read back
+    (the frames at q 95), which cv2 decodes as the port does."""
     frames = tmp_path / "frames"
     assert torch_extract.main(["--input", files["bf2"], "--output", str(frames)]) == 20
     out = tmp_path / "vis"
     assert torch_visualise.main(["--images", str(frames), "--output", str(out), "--video",
                                  "v.avi", "--fps", "25"]) == 20
     decoded = [f for _, f in iterate_frames(files["bf2"])]
+    images = []
     with AviReader(str(out / "v.avi")) as video:
-        assert len(video) == 20
+        assert len(video) == 20 and video.index.codec == "mpeg4"
         for i in range(20):
             jpeg = decode_jpeg((frames / f"{i:08d}.jpg").read_bytes())
             np.testing.assert_array_equal(jpeg, decode_jpeg(encode_jpeg(decoded[i], 95)))
-            assert video.sample(i) == encode_jpeg(jpeg, 95)
+            images.append(jpeg)
+    assert_drawn_video(str(out / "v.avi"), images, 25)

@@ -18,8 +18,10 @@ surfaces over it, against OpenCV and the JAX package on the CPU.
   does not read, a ContentEncoding (header stripping, encryption), another
   DocType, a newer DocTypeReadVersion, no video track, a VP8 track that
   starts with an inter frame, a key frame of another size than the track
-  or of a changing size, and a file cut inside a block raise ValueError
-  naming what, before any thread starts or anything is written.
+  or of a changing size, and a file cut inside its Tracks raise ValueError
+  naming what, before any thread starts or anything is written.  A
+  recording cut inside a block reads to its last whole frame, equal to
+  JAX's read through cv2, ``probe_video`` included.
 * Surfaces against JAX (tiny float32 YOLOv3 at 64 px; JAX reads through
   cv2's FFmpeg, its native source off): ``probe_video``, ``iterate_frames``
   (bit for bit), ``stream_detect_video`` (both sources), the two sources'
@@ -49,6 +51,7 @@ from tests.test_torch_video_stream import CLASSES, CPU, _cli, assert_txt_equal, 
 from tests.torch_mkv_helpers import (encryption, header_stripping, other_codec_mkv, track_entry,
                                      vp8_packets, vp8_webm, write_mkv)
 from tests.torch_mp4_helpers import cv2_views, pack_bframes
+from tests.torch_video_helpers import cv2_props
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
 from viddet_tpu.infer.multistream import stream_detect_videos as jax_stream_detect_videos
 from viddet_tpu.infer.stream import stream_detect_video as jax_stream_detect_video
@@ -244,16 +247,47 @@ def test_refusals_raise_before_any_frame(case, vp8, tmp_path):
 
 
 def test_size_changes_and_cut_files_raise_naming_the_frame(vp8, tmp_path):
+    """A key frame of another size, and a file cut inside its Tracks
+    element (the frames' cut is read: ``test_cut_files_read_to_...``)."""
     packets, _ = vp8
     small, _ = vp8_packets(moving_scene(2, 64, 48, seed=1), {"b": 100000})
     path = write_mkv(str(tmp_path / "s.webm"), packets[:6] + small, W, H)
     refused(path, tmp_path, "VP8 key frame 6 changes the frame size from 128x96 to 64x48")
-    for unknown, match in ((False, "the segment is truncated"),
-                           (True, "a block at offset [0-9]+ runs past the end of the file")):
-        full = write_mkv(str(tmp_path / "full.webm"), packets, W, H, unknown_sizes=unknown)
-        cut = tmp_path / "cut.webm"  # a recording cut inside frame 9
-        cut.write_bytes(open(full, "rb").read()[: int(read_index(full).offsets[9]) + 10])
-        refused(str(cut), tmp_path, match)
+    for unknown in (False, True):
+        full = open(write_mkv(str(tmp_path / "full.webm"), packets, W, H, unknown_sizes=unknown),
+                    "rb").read()
+        cut = tmp_path / "cut.webm"  # cut inside the Tracks element
+        cut.write_bytes(full[: full.find(b"\x16\x54\xae\x6b") + 12])
+        refused(str(cut), tmp_path, "element 0x1654AE6B at offset [0-9]+ is truncated")
+
+
+@pytest.mark.parametrize("unknown", [False, True])
+@pytest.mark.parametrize("where", [-2, 0, 10])
+def test_cut_files_read_to_their_last_whole_frame(unknown, where, vp8, tmp_path,
+                                                  jax_reads_ffmpeg):
+    """A recording cut inside frame 9 (its block header, at its payload's
+    first byte, or inside the payload), in a segment and clusters of known
+    or of unknown size: ``probe_video`` equals JAX's (OpenCV's count is the
+    Duration's 12), and the port's frames, through ``iterate_frames`` and
+    both frame sources, equal JAX's ``iterate_frames`` through cv2: the
+    nine whole frames, as FFmpeg drops the cut block."""
+    packets, _ = vp8
+    full = write_mkv(str(tmp_path / "full.webm"), packets, W, H, unknown_sizes=unknown)
+    cut = tmp_path / "cut.webm"
+    cut.write_bytes(open(full, "rb").read()[: int(read_index(full).offsets[9]) + where])
+    path = str(cut)
+    assert probe_video(path) == jax_probe_video(path)
+    assert probe_video(path)["frame_count"] == 12 and len(MkvReader(path)) == 9
+    got, want = list(iterate_frames(path)), list(jax_iterate_frames(path))
+    assert [i for i, _ in got] == [i for i, _ in want] == list(range(9))
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    port_t, _ = transforms()
+    native = list(NativeFrameSource(path, (SIZE, SIZE), normalize=False))
+    thread = list(FrameSource(path, port_t))
+    assert [n[0] for n in native] == [t[0] for t in thread] == list(range(9))
+    for n, t in zip(native, thread):
+        np.testing.assert_array_equal(n[2], t[2])
 
 
 # --------------------------------------------------------------- surfaces
@@ -287,8 +321,11 @@ def test_stream_detect_video_webm_equals_jax(draw, every, vp8, tmp_path, jax_rea
     want = jax_stream_detect_video(path, jax_infer, variables, jax_t, CLASSES,
                                    output_dir=str(tmp_path / "jax"), **kw)
     assert stats["frames"] == want["frames"] == len(range(0, 12, every))
-    assert sorted(os.listdir(tmp_path / "port")) == (["clip_det.avi", "clip_det.txt"] if draw
+    assert sorted(os.listdir(tmp_path / "port")) == (["clip_det.mp4", "clip_det.txt"] if draw
                                                      else ["clip_det.txt"])
+    if draw:  # as JAX's _det.mp4 opens in cv2
+        assert cv2_props(str(tmp_path / "port" / "clip_det.mp4")) == cv2_props(
+            str(tmp_path / "jax" / "clip_det.mp4"))
     assert assert_txt_equal(str(tmp_path / "port" / "clip_det.txt"),
                             str(tmp_path / "jax" / "clip_det.txt")) > 0
 

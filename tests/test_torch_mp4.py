@@ -13,9 +13,10 @@ surfaces over it, against OpenCV and the JAX package on the CPU.
   sample exactly, as the AVI frames do; cv2's default (FFmpeg) backend,
   what JAX reads, decodes them off by many grey levels (ROADMAP Queue 3).
 * Refusals: an H.264, HEVC, AV1 or VP9 track, an ``mp4v`` track of
-  another object type, a non-identity edit list, a truncated ``mdat`` and
-  a file cut before its ``moov`` raise ValueError naming what, before any
-  thread starts or anything is written.  Other containers (``.flv``,
+  another object type, a non-identity edit list, an ``mdat`` cut before
+  its first whole frame and a file cut inside its ``moov`` raise ValueError
+  naming what, before any thread starts or anything is written.  An
+  ``mdat`` cut later reads to its last whole frame, as JAX's cv2 does.  Other containers (``.flv``,
   ``.ts``) and webcam indices raise as before.
 * Surfaces against JAX (tiny float32 YOLOv3 at 64 px, JAX reading through
   cv2's default backend with its native source off): ``stream_detect_video``
@@ -46,6 +47,7 @@ from tests.test_torch_stream import SIZE, twin_models
 from tests.test_torch_video import photo_frames, write_video
 from tests.test_torch_video_stream import CLASSES, CPU, _cli, assert_txt_equal, transforms
 from tests.torch_mp4_helpers import cv2_views, remux, write_mp4
+from tests.torch_video_helpers import cv2_props
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
 from viddet_tpu.models.zoo import get_model as jax_get_model
 from viddet_tpu.train.state import save_weights_npz
@@ -209,14 +211,45 @@ def test_edit_lists_other_than_the_identity_raise(edits, files, tmp_path):
 
 
 def test_truncated_files_raise_naming_what_is_missing(files, tmp_path):
+    """Cut inside the moov (mdat first), or before the first whole frame
+    (moov first): no frame can be read.  A cut mdat with whole frames
+    reads (``test_cut_mdat_reads_to_its_last_whole_frame``)."""
     data = open(remux(files["a.mp4"], str(tmp_path / "full.mp4"), moov_first=True), "rb").read()
     index = read_index(str(tmp_path / "full.mp4"))
     cut = tmp_path / "cut.mp4"
-    cut.write_bytes(data[: int(index.offsets[8]) + 10])  # inside frame 8
-    refused(str(cut), tmp_path, f"frame 8 at offset {int(index.offsets[8])}.*truncated")
+    cut.write_bytes(data[: int(index.offsets[0]) + 10])  # inside frame 0
+    refused(str(cut), tmp_path, f"frame 0 at offset {int(index.offsets[0])}.*truncated")
     tail = tmp_path / "tail.mp4"  # mdat first, cut inside the moov
     tail.write_bytes(open(files["a.mp4"], "rb").read()[:-200])
     refused(str(tail), tmp_path, "'moov' in the file is truncated")
+
+
+@pytest.mark.parametrize("where", ["boundary", "inside"])
+def test_cut_mdat_reads_to_its_last_whole_frame(where, files, tmp_path, jax_reads_like_the_port):
+    """moov first, the mdat cut at frame 8's first byte or inside it:
+    ``probe_video`` equals JAX's (OpenCV reports the sample table's 11),
+    and the port's frames, through ``iterate_frames`` and both frame
+    sources, are JAX's through cv2 up to the last whole frame.  Cut inside
+    frame 8, FFmpeg also shows a concealed picture from the sample's head,
+    which the port does not (ROADMAP Queue 3): measured, one frame more."""
+    data = open(remux(files["a.mp4"], str(tmp_path / "full.mp4"), moov_first=True), "rb").read()
+    index = read_index(str(tmp_path / "full.mp4"))
+    cut = tmp_path / "cut.mp4"
+    cut.write_bytes(data[: int(index.offsets[8]) + (10 if where == "inside" else 0)])
+    path = str(cut)
+    assert probe_video(path) == jax_probe_video(path)
+    assert probe_video(path)["frame_count"] == 11 and len(Mp4Reader(path)) == 8
+    got, want = list(iterate_frames(path)), list(jax_iterate_frames(path))
+    assert [i for i, _ in got] == list(range(8))
+    assert len(want) == 8 + (where == "inside")
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    port_t, _ = transforms()
+    native = list(NativeFrameSource(path, (SIZE, SIZE), normalize=False))
+    thread = list(FrameSource(path, port_t))
+    assert [n[0] for n in native] == [t[0] for t in thread] == list(range(8))
+    for n, t in zip(native, thread):
+        np.testing.assert_array_equal(n[2], t[2])
 
 
 # --------------------------------------------------------------- surfaces
@@ -234,8 +267,11 @@ def test_stream_detect_video_mp4_equals_jax(draw, every, files, tmp_path,
     want = jax_stream_detect_video(path, jax_infer, variables, jax_t, CLASSES,
                                    output_dir=str(tmp_path / "jax"), **kw)
     assert stats["frames"] == want["frames"] == len(range(0, 11, every))
-    assert sorted(os.listdir(tmp_path / "port")) == (["a_det.avi", "a_det.txt"] if draw
+    assert sorted(os.listdir(tmp_path / "port")) == (["a_det.mp4", "a_det.txt"] if draw
                                                      else ["a_det.txt"])
+    if draw:  # as JAX's _det.mp4 opens in cv2
+        assert cv2_props(str(tmp_path / "port" / "a_det.mp4")) == cv2_props(
+            str(tmp_path / "jax" / "a_det.mp4"))
     assert assert_txt_equal(str(tmp_path / "port" / "a_det.txt"),
                             str(tmp_path / "jax" / "a_det.txt")) > 0
 

@@ -27,13 +27,15 @@ offset (or ``ctts`` version 1 without one).
 * Quarter-sample and interlaced streams, and edit lists other than the
   identity or the first-offset shift, raise ValueError naming them
   before any frame is decoded.
+* A stream that is invalid (``mpeg4_damaged.mp4``) raises at the
+  macroblock where FFmpeg's decoder finds the same fault and conceals.
 """
 
 import cv2
 import numpy as np
 import pytest
 
-from tests.fixtures.make_mp4_fixture import lavc_stream, moving_scene, write_lavc_mp4
+from tests.fixtures.make_mp4_fixture import DAMAGED, lavc_stream, moving_scene, write_lavc_mp4
 from tests.torch_mp4_helpers import BitWriter, cv2_views, vol_config, write_mp4
 from viddet_tpu_torch.data.transforms import ValTransform
 from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource
@@ -265,3 +267,32 @@ def test_edit_lists_other_than_the_first_offset_shift_raise(edits, clips, tmp_pa
                      ctts=ctts, edits=edits)
     with pytest.raises(ValueError, match=r"edit list.*first composition offset \(512\)"):
         probe_video(path)
+
+
+def test_a_damaged_stream_raises_where_ffmpeg_conceals():
+    """``tests/fixtures/mpeg4_damaged.mp4`` (libavcodec's own encoder:
+    ``+mv4``, adaptive quantisation, two B-VOPs; ROADMAP Queue 3, item B).
+    Its tenth sample, a B-VOP, holds at macroblock (2, 6) an ``mb_type``
+    code of four 0 bits, which 14496-2's B-VOP ``mb_type`` codes (1, 01,
+    001, 0001) do not include: the stream is invalid there.  libavcodec's decoder says so at the same
+    macroblock ("illegal MB_type", "Error at MB: 86", counting 14 a row)
+    and conceals, so cv2 gives all 26 frames; the port gives the 8 frames
+    before it, equal to cv2's, then raises naming the file, the frame and
+    the macroblock, through both frame sources."""
+    want = cv2_views(DAMAGED, "bgr")
+    assert len(want) == 26
+    got = []
+    with pytest.raises(ValueError, match=r"mpeg4_damaged.mp4 frame 9: .*B-VOP macroblock "
+                                         r"\(2, 6\): bad mb_type code"):
+        for _, frame in iterate_frames(DAMAGED):
+            got.append(frame)
+    assert len(got) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w[..., ::-1])
+    for source in (FrameSource(DAMAGED, ValTransform((32, 32))), NativeFrameSource(DAMAGED,
+                                                                                    (32, 32))):
+        seen = []
+        with pytest.raises(ValueError, match="frame 9: .*bad mb_type code"):
+            for item in source:
+                seen.append(item[0])
+        assert seen == list(range(8))

@@ -14,7 +14,9 @@ on the CPU.
 * A truncated file reads to its last whole frame; an ``.avi`` of another
   codec (H.264), an H.264 ``.mp4``, an ``.mkv``, a ``.webm`` and a webcam
   index raise ValueError naming what is missing (MPEG-4 Part 2 AVIs read:
-  ``tests/test_torch_avi_mpeg4.py``).
+  ``tests/test_torch_avi_mpeg4.py``).  ``VideoWriter`` writes MPEG-4 Part 2
+  into ``.avi`` and ``.mp4`` at OpenCV's rate, refuses ``.mkv`` and
+  ``.webm`` (``tests/test_torch_video_out.py``).
 * ``NativeFrameSource`` (C++ thread) equals ``FrameSource`` +
   ``ValTransform`` bit for bit, letterboxed and plain, uint8 and
   normalized, every 1 and 3; ``close()`` ends a blocked consumer; a corrupt
@@ -231,19 +233,39 @@ def test_other_sources_raise_naming_what_is_missing(source, tmp_path):
                lambda p: NativeFrameSource(p, (32, 32))):
         with pytest.raises(ValueError, match=missing):
             fn(path)
-    if not isinstance(source, int):
+    if not isinstance(source, int) and source != "clip.mp4":  # .mp4 is written (MPEG-4)
         with pytest.raises(ValueError, match="FFmpeg"):
             VideoWriter(str(tmp_path / "out" / source), 10, (64, 48))
         assert not os.path.exists(tmp_path / "out")
+    elif source == "clip.mp4":
+        with VideoWriter(str(tmp_path / "out" / source), 10, (64, 48)) as writer:
+            writer.write(np.zeros((48, 64, 3), np.uint8))
+        assert probe_video(str(tmp_path / "out" / source))["frame_count"] == 1
 
 
 def test_video_writer_writes_avi_at_the_given_rate(tmp_path):
+    """An .avi from ``VideoWriter`` holds MPEG-4 Part 2 (as JAX's ``mp4v``
+    writer's) at the rate OpenCV stores for 25 / 3 fps, 8333 / 1000, which
+    cv2 reads back as from JAX's file; the port's AviWriter keeps
+    Motion-JPEG and the exact 25 / 3 for fixtures."""
     frames = photo_frames(5)
     with VideoWriter(str(tmp_path / "sub" / "w.avi"), 25 / 3, (64, 48)) as vw:
         for f in frames:
             vw.write(f)
     index = read_index(str(tmp_path / "sub" / "w.avi"))
-    assert (index.rate, index.scale, index.frame_count) == (25, 3, 5)
+    assert (index.rate, index.scale, index.frame_count, index.codec) == (8333, 1000, 5, "mpeg4")
+    jax = cv2.VideoWriter(str(tmp_path / "jax.avi"), cv2.VideoWriter_fourcc(*"mp4v"), 25 / 3,
+                          (64, 48))
+    for f in frames:
+        jax.write(f[..., ::-1].copy())
+    jax.release()
+    caps = [cv2.VideoCapture(str(p), cv2.CAP_FFMPEG)
+            for p in (tmp_path / "sub" / "w.avi", tmp_path / "jax.avi")]
+    assert [(c.get(cv2.CAP_PROP_FPS), c.get(cv2.CAP_PROP_FRAME_COUNT)) for c in caps] == [
+        (8.333, 5.0)] * 2
+    write_video(str(tmp_path / "m.avi"), frames, 25 / 3, "port")
+    m = read_index(str(tmp_path / "m.avi"))
+    assert (m.rate, m.scale, m.frame_count, m.codec) == (25, 3, 5, "jpeg")
     with pytest.raises(ValueError, match="frame of"):
         AviWriter(str(tmp_path / "z.avi"), 64, 48, 10).write(np.zeros((10, 10, 3), np.uint8))
 

@@ -19,9 +19,11 @@ deterministic ranking.  The ``{stem}_det.txt`` files agree frame by frame
 and line for line: frame indices and class names exactly, scores within
 1e-5 and boxes within 1e-3 input pixels (the golden tolerances) plus the
 printed precision (``%.4f`` / ``%.1f``, each side rounding by up to half
-of it); lines whose scores lie closer than that may come in either order.  The port
-writes ``{stem}_det.avi`` where JAX writes ``{stem}_det.mp4``; each of its
-frames is the drawn frame through one JPEG round trip at quality 95.
+of it); lines whose scores lie closer than that may come in either order.  Both
+write ``{stem}_det.mp4`` (MPEG-4 Part 2): the port's is the bytes a fresh
+``VideoWriter`` writes from the drawn frames, cv2 decodes it to the port's
+own decoder's frames, and cv2 opens it with the frame count, size and fps
+of JAX's (``tests/torch_video_helpers.py`` ``assert_drawn_video``).
 """
 
 import functools
@@ -42,6 +44,7 @@ import viddet_tpu_torch.infer.multistream as torch_multistream
 import viddet_tpu_torch.models.zoo as torch_zoo
 from tests.test_torch_stream import SIZE, twin_models
 from tests.test_torch_video import photo_frames, write_video
+from tests.torch_video_helpers import assert_drawn_video, cv2_props
 from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
 from viddet_tpu.data.transforms import ValTransform as JaxValTransform
@@ -56,10 +59,8 @@ from viddet_tpu_torch.infer.multistream import open_sources, stream_detect_multi
 from viddet_tpu_torch.infer.stream import (
     FrameSource, NativeFrameSource, stream_detect, stream_detect_video,
 )
-from viddet_tpu_torch.native import decode_jpeg, encode_jpeg
-from viddet_tpu_torch.native.avi import read_index
+from viddet_tpu_torch.native.mp4 import read_index as read_mp4_index
 from viddet_tpu_torch.utils.image import draw_detections
-from viddet_tpu_torch.utils.video import iterate_frames
 
 CPU = torch.device("cpu")
 CLASSES = ["a", "b"]
@@ -117,10 +118,6 @@ def assert_txt_equal(got_path: str, want_path: str) -> int:
     return len(got)
 
 
-def read_avi(path: str):
-    return [f for _, f in iterate_frames(path)]
-
-
 @pytest.mark.parametrize("draw,every", [(True, 2), (False, 1), (False, 3)])
 def test_stream_detect_video_equals_jax(draw, every, videos, tmp_path, jax_reads_mjpeg):
     jax_infer, variables, infer = twin_models()
@@ -132,24 +129,23 @@ def test_stream_detect_video_equals_jax(draw, every, videos, tmp_path, jax_reads
                                    output_dir=str(tmp_path / "jax"), **kw)
     n = len(range(0, 11, every))
     assert stats["frames"] == want["frames"] == n
-    assert sorted(os.listdir(tmp_path / "port")) == (["a_det.avi", "a_det.txt"] if draw
+    assert sorted(os.listdir(tmp_path / "port")) == (["a_det.mp4", "a_det.txt"] if draw
                                                      else ["a_det.txt"])
     lines = assert_txt_equal(str(tmp_path / "port" / "a_det.txt"),
                              str(tmp_path / "jax" / "a_det.txt"))
     assert lines > 0
     if draw:
-        index = read_index(str(tmp_path / "port" / "a_det.avi"))
+        index = read_mp4_index(str(tmp_path / "port" / "a_det.mp4"))
         assert (index.frame_count, index.width, index.height) == (n, FRAME_W, FRAME_H)
         assert index.fps == pytest.approx(10 / every)
         expect = []
         for idx, rgb, affine, ids, scores, boxes in stream_detect(
                 FrameSource(videos[0], port_t, every=every), infer, 4, (SIZE, SIZE),
                 device=CPU):
-            drawn = draw_detections(rgb, invert_affine_to_boxes(boxes, affine), ids, scores,
-                                    CLASSES, 0.0)
-            expect.append(decode_jpeg(encode_jpeg(drawn, 95)))
-        for got, w in zip(read_avi(str(tmp_path / "port" / "a_det.avi")), expect):
-            np.testing.assert_array_equal(got, w)
+            expect.append(draw_detections(rgb, invert_affine_to_boxes(boxes, affine), ids,
+                                          scores, CLASSES, 0.0))
+        assert_drawn_video(str(tmp_path / "port" / "a_det.mp4"), expect, 10 / every,
+                           str(tmp_path / "jax" / "a_det.mp4"))
 
 
 def test_stream_detect_video_end_to_end(videos, tmp_path):
@@ -162,7 +158,7 @@ def test_stream_detect_video_end_to_end(videos, tmp_path):
                                 draw=True, save_detections=True, device=CPU)
     assert stats["frames"] == 6 and stats["fps"] > 0
     assert os.path.exists(os.path.join(out, "a_det.txt"))
-    cap = cv2.VideoCapture(os.path.join(out, "a_det.avi"), cv2.CAP_OPENCV_MJPEG)
+    cap = cv2.VideoCapture(os.path.join(out, "a_det.mp4"), cv2.CAP_FFMPEG)
     assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 6
     assert int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)) == FRAME_W
     cap.release()
@@ -218,10 +214,13 @@ def test_stream_detect_videos_equals_jax(k, draw, videos, tmp_path, jax_reads_mj
         assert assert_txt_equal(str(tmp_path / "port" / f"{stem}_det.txt"),
                                 str(tmp_path / "jax" / f"{stem}_det.txt")) > 0
     names = sorted(os.listdir(tmp_path / "port"))
-    assert names == sorted(["a_det.txt", "b_det.txt"] + (["a_det.avi", "b_det.avi"] if draw
+    assert names == sorted(["a_det.txt", "b_det.txt"] + (["a_det.mp4", "b_det.mp4"] if draw
                                                          else []))
     if draw:
-        assert read_index(str(tmp_path / "port" / "b_det.avi")).frame_count == 7
+        assert read_mp4_index(str(tmp_path / "port" / "b_det.mp4")).frame_count == 7
+        for stem in ("a", "b"):
+            assert cv2_props(str(tmp_path / "port" / f"{stem}_det.mp4")) == cv2_props(
+                str(tmp_path / "jax" / f"{stem}_det.mp4"))
 
 
 def test_multistream_single_frame_ordering(videos):
@@ -329,15 +328,15 @@ def test_detect_cli_videos_equal_jax(case, videos, weights, tmp_path, monkeypatc
 
 
 def test_detect_cli_routes_and_flush_defaults(videos, weights, tmp_path, monkeypatch):
-    """One file: stream_detect_video, drawn to {stem}_det.avi.  Several
+    """One file: stream_detect_video, drawn to {stem}_det.mp4.  Several
     files: stream_detect_videos with --flush-ms 200 unless given."""
     seen = []
     original = torch_multistream.stream_detect_videos
     monkeypatch.setattr(torch_multistream, "stream_detect_videos",
                         lambda *a, **k: seen.append(k["flush_ms"]) or original(*a, **k))
     assert _cli(torch_detect.main, videos[1], str(tmp_path / "one"), weights[1]) == 7
-    assert sorted(os.listdir(tmp_path / "one")) == ["b_det.avi", "b_det.txt"]
-    assert read_index(str(tmp_path / "one" / "b_det.avi")).frame_count == 7
+    assert sorted(os.listdir(tmp_path / "one")) == ["b_det.mp4", "b_det.txt"]
+    assert read_mp4_index(str(tmp_path / "one" / "b_det.mp4")).frame_count == 7
     assert not seen
     _cli(torch_detect.main, ",".join(videos), str(tmp_path / "two"), weights[1], "--no-draw")
     _cli(torch_detect.main, ",".join(videos), str(tmp_path / "two"), weights[1], "--no-draw",

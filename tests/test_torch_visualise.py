@@ -3,8 +3,10 @@ package's, on the CPU (mirrors ``tests/integration/test_cli.py``'s
 ``test_visualise_cli_side_by_side`` and ``test_extract_frames_cli``).
 
 * ``visualise --side-by-side`` draws GT | detections at twice the width,
-  the same layout as JAX's; ``--video`` writes a Motion-JPEG ``.avi``
-  (JAX: ``mp4v``) and refuses any other extension before writing.
+  the same layout as JAX's; ``--video`` writes MPEG-4 Part 2 into the
+  ``.mp4``, ``.mov`` or ``.avi`` it names, as JAX's ``mp4v`` writer does
+  (``tests/test_torch_video_out.py``), and refuses any other extension
+  before writing.
 * ``visualise --gif``: the port's own GIF encoder, decoded here with PIL,
   has JAX's (PIL's) frame count, size, duration and loop, and each frame's
   PSNR against the drawn frame is no more than 1 dB below that of JAX's
@@ -109,11 +111,11 @@ def test_visualise_video_writes_avi_and_refuses_other_containers(tmp_path):
     frames = [f for _, f in iterate_frames(os.path.join(out, "v.avi"))]
     assert len(frames) == 4
     assert frames[0].shape == imread_rgb(os.path.join(out, "000000_vis.jpg")).shape
-    cap = cv2.VideoCapture(os.path.join(out, "v.avi"), cv2.CAP_OPENCV_MJPEG)
+    cap = cv2.VideoCapture(os.path.join(out, "v.avi"), cv2.CAP_FFMPEG)  # MPEG-4 Part 2
     assert cap.get(cv2.CAP_PROP_FPS) == pytest.approx(12.5)
     cap.release()
     with pytest.raises(ValueError, match="FFmpeg"):
-        torch_visualise.main(SYNTH + ["--output", str(tmp_path / "no"), "--video", "v.mp4"])
+        torch_visualise.main(SYNTH + ["--output", str(tmp_path / "no"), "--video", "v.mkv"])
     assert not os.path.exists(tmp_path / "no")
 
 

@@ -14,7 +14,7 @@ Videos (Motion-JPEG ``.avi``, MPEG-4 Part 2 or Motion-JPEG ``.mp4`` /
 ``infer.stream.stream_detect_video``; several (comma-separated, any mix of
 those), ``--temporal-k`` > 1 (a k-frame clip model) or a live source go
 through ``infer.multistream.stream_detect_videos``.  They write
-``{stem}_det.avi`` (JAX: ``_det.mp4``) and ``{stem}_det.txt``.  Another
+``{stem}_det.mp4`` (MPEG-4 Part 2, as JAX's) and ``{stem}_det.txt``.  Another
 container or codec, or a webcam index, raises ValueError before the model
 is built or anything is written.
 

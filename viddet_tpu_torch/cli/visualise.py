@@ -4,8 +4,9 @@ dataset or a directory, optionally assembling an annotated video or GIF.
 
 Detections are read from the ``.txt`` files ``detect --save-detections``
 writes (``<class> <score> <x1> <y1> <x2> <y2>`` per line).  ``--video``
-writes a Motion-JPEG ``.avi`` (``utils.video.VideoWriter``; JAX writes
-``mp4v``), ``--gif`` an animated GIF from the port's own encoder
+writes MPEG-4 Part 2 (``mp4v``) into the ``.mp4``, ``.mov`` or ``.avi`` it
+names, as JAX's does (``utils.video.VideoWriter``, the port's own encoder
+and muxers), ``--gif`` an animated GIF from the port's own encoder
 (``utils.gif``; JAX saves through PIL), each frame scaled to
 ``--gif-max-width`` by the port's ``cv2.resize``-exact resize.
 
@@ -13,7 +14,7 @@ Examples:
   python -m viddet_tpu_torch.cli.visualise --dataset voc --data-root /data/VOCdevkit \\
       --split val --output vis/ --max-images 50
   python -m viddet_tpu_torch.cli.visualise --images frames/ --detections dets/ \\
-      --output vis/ --video out.avi --fps 25
+      --output vis/ --video out.mp4 --fps 25
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--thresh", type=float, default=0.5)
     p.add_argument("--max-images", type=int, default=0)
     p.add_argument("--video", default="",
-                   help="also write a Motion-JPEG .avi of the frames")
+                   help="also write a video of the frames (.mp4, .mov or .avi; MPEG-4 Part 2)")
     p.add_argument("--gif", default="", help="also write an animated GIF of the frames")
     p.add_argument("--fps", type=float, default=25.0)
     p.add_argument("--gif-max-width", type=int, default=480,
@@ -80,7 +81,7 @@ def main(argv=None):
     if args.video:
         from viddet_tpu_torch.utils.video import VideoWriter, check_output
 
-        check_output(args.video)  # .avi only, before anything is written
+        check_output(args.video)  # .mp4, .mov or .avi, before anything is written
     os.makedirs(args.output, exist_ok=True)
 
     frames = []  # (stem, rgb image, gt label or None)

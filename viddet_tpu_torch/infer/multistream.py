@@ -282,7 +282,7 @@ def stream_detect_videos(
     logger=None,
     device=None,
 ) -> dict:
-    """N videos -> per-stream ``{stem}_det.avi`` / ``{stem}_det.txt`` through
+    """N videos -> per-stream ``{stem}_det.mp4`` / ``{stem}_det.txt`` through
     one shared batch (``stream_detect_multi``; k > 1 for a temporal model).
     ``flush_ms`` bounds how long a partial batch waits.  Returns {frames,
     seconds, fps, per_stream}."""
@@ -299,7 +299,7 @@ def stream_detect_videos(
             base, _, tag = name.partition("#")
             stem = os.path.splitext(base)[0] + (f"_{tag}" if tag else "")
             if draw:
-                writers[name] = VideoWriter(os.path.join(output_dir, f"{stem}_det.avi"),
+                writers[name] = VideoWriter(os.path.join(output_dir, f"{stem}_det.mp4"),
                                             src.fps / every, (src.width, src.height))
             if save_detections:
                 det_files[name] = open(os.path.join(output_dir, f"{stem}_det.txt"), "w")

@@ -135,7 +135,7 @@ class NativeFrameSource:
         with open_video(path) as video:
             index = video.index
         self.fps, self.width, self.height = index.fps or 30.0, index.width, index.height
-        keep = np.arange(0, index.frame_count, every)
+        keep = np.arange(0, index.shown, every)  # the whole frames of a cut file
         self._stream = VideoStream(str(path), index.offsets, index.sizes, keep, size,
                                    letterbox_resize, normalize, queue_size, codec=index.codec,
                                    config=index.config)
@@ -227,7 +227,7 @@ def stream_detect_video(
     logger=None,
     device=None,
 ) -> dict:
-    """A video -> ``{stem}_det.avi`` of annotated frames at ``fps / every``
+    """A video -> ``{stem}_det.mp4`` of annotated frames at ``fps / every``
     (``draw``) and ``{stem}_det.txt`` of detections at or above ``thresh``
     (``save_detections``).  ``infer`` and ``device`` as ``stream_detect``
     takes them.  Returns {frames, seconds, fps}."""
@@ -239,7 +239,7 @@ def stream_detect_video(
     try:
         os.makedirs(output_dir, exist_ok=True)
         if draw:
-            writer = VideoWriter(os.path.join(output_dir, f"{stem}_det.avi"),
+            writer = VideoWriter(os.path.join(output_dir, f"{stem}_det.mp4"),
                                  source.fps / every, (source.width, source.height))
         if save_detections:
             det_file = open(os.path.join(output_dir, f"{stem}_det.txt"), "w")

@@ -14,12 +14,13 @@ prescales JPEGs in the DCT domain and so does not equal OpenCV; this codec
 leaves the scale alone.
 
 For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
-bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video, ``Vp8Decoder``
+bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video and
+``Mpeg4Encoder`` encodes it (``mpeg4enc.cpp``), ``Vp8Decoder`` decodes
 VP8 (``vp8.cpp``), and ``VideoStream`` reads, decodes and transforms the
 frames of a Motion-JPEG, MPEG-4 or VP8 stream (indexed by ``native.avi``,
 ``native.mp4`` or ``native.mkv``) on a C++ thread into a ring of frames.
 
-The library (``codec.cpp`` and ``vp8.cpp``) links nothing beyond the C++
+The library (``codec.cpp``, ``vp8.cpp`` and ``mpeg4enc.cpp``) links nothing beyond the C++
 standard library.  It is built into ``build/viddet_tpu_torch/native/<hash>/``
 at the repository root (``build/`` is git-ignored), keyed by a hash of the
 sources and the flags, the way ``kernels/build.py`` keys the CUDA kernels.
@@ -46,6 +47,8 @@ HERE = Path(__file__).resolve().parent
 SOURCE = HERE / "codec.cpp"  # JPEG, PNG, MPEG-4 Part 2, the video stream
 VP8_SOURCE = HERE / "vp8.cpp"  # the VP8 decoder, with its header
 VP8_HEADER = HERE / "vp8.h"
+MPEG4ENC_SOURCE = HERE / "mpeg4enc.cpp"  # the MPEG-4 Part 2 encoder
+MPEG4_HEADER = HERE / "mpeg4.h"  # what the MPEG-4 decoder and encoder share
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
 # no fused multiply-add: the video transform's float steps round as numpy's do
@@ -65,12 +68,12 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list:
     """The library's C++ sources, compiled in one call."""
-    return [SOURCE, VP8_SOURCE]
+    return [SOURCE, VP8_SOURCE, MPEG4ENC_SOURCE]
 
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for path in sources() + [VP8_HEADER]:
+    for path in sources() + [VP8_HEADER, MPEG4_HEADER]:
         h.update(path.read_bytes())
     h.update(repr((FLAGS, LIBS)).encode())
     return h.hexdigest()[:16]
@@ -118,6 +121,14 @@ def library() -> ctypes.CDLL:
             lib.vd_mpeg4_flush.argtypes = [p, p]
             lib.vd_mpeg4_planes.argtypes = [p, p, p, p]
             lib.vd_mpeg4_free.argtypes = [p]
+            lib.vd_mpeg4enc_open.argtypes = [i, i, i, i, p, i]
+            lib.vd_mpeg4enc_open.restype = p
+            lib.vd_mpeg4enc_config.argtypes = [p, p, size]
+            lib.vd_mpeg4enc_config.restype = size
+            lib.vd_mpeg4enc_encode.argtypes = [p, p, p, size, ctypes.POINTER(size),
+                                               ctypes.POINTER(i), p, i]
+            lib.vd_mpeg4enc_planes.argtypes = [p, p, p, p]
+            lib.vd_mpeg4enc_free.argtypes = [p]
             lib.vd_vp8_open.restype = p
             lib.vd_vp8_decode.argtypes = [p, p, size, p, i]
             lib.vd_vp8_size.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -134,7 +145,8 @@ def library() -> ctypes.CDLL:
             lib.vd_video_free.argtypes = [p]
             for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
                        lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next,
-                       lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_vp8_decode,
+                       lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_mpeg4enc_encode,
+                       lib.vd_vp8_decode,
                        lib.vd_vp8_rgb, lib.vd_vp8_planes):
                 fn.restype = i
             _lib = lib
@@ -385,6 +397,69 @@ class Mpeg4Decoder:
     def close(self) -> None:
         if self._handle:
             self._lib.vd_mpeg4_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()
+
+
+class Mpeg4Encoder:
+    """An MPEG-4 Part 2 Simple Profile encoder (``mpeg4enc.cpp``) of
+    ``width`` x ``height`` RGB frames (both even) at ``fps_num / fps_den``
+    frames a second: ``config`` is the decoder configuration (VOS, VO and
+    VOL headers: an MP4's ``esds``, or the head of an AVI's key frames),
+    ``encode(rgb)`` gives one VOP's bytes and whether it is an I-VOP, and
+    ``planes()`` the reconstruction of the frame encoded last, which a
+    decoder (``Mpeg4Decoder``, FFmpeg) shows bit for bit.  A failure raises
+    ValueError naming ``name`` and the frame."""
+
+    def __init__(self, width: int, height: int, fps_num: int, fps_den: int,
+                 name: str = "<stream>"):
+        self._lib = library()
+        self.name, self.width, self.height = name, int(width), int(height)
+        self.frames = 0
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        self._handle = self._lib.vd_mpeg4enc_open(self.width, self.height, int(fps_num),
+                                                  int(fps_den), err, _ERR_LEN)
+        if not self._handle:
+            raise ValueError(f"{name}: MPEG-4 encoder: {_message(err)}")
+        n = self._lib.vd_mpeg4enc_config(self._handle, None, 0)
+        out = np.empty(n, np.uint8)
+        self._lib.vd_mpeg4enc_config(self._handle, out.ctypes.data, n)
+        self.config = out.tobytes()
+        mbs = ((self.width + 15) // 16) * ((self.height + 15) // 16)
+        # every coefficient of every block as a third escape (30 bits), and the headers
+        self._out = np.empty(64 + mbs * (8 + 6 * 64 * 4), np.uint8)
+
+    def encode(self, rgb: np.ndarray):
+        """One (height, width, 3) uint8 RGB frame -> (VOP bytes, key)."""
+        rgb = np.ascontiguousarray(rgb)
+        if rgb.dtype != np.uint8 or rgb.shape != (self.height, self.width, 3):
+            raise ValueError(f"{self.name} frame {self.frames}: the encoder takes "
+                             f"({self.height}, {self.width}, 3) uint8, got {rgb.shape} "
+                             f"{rgb.dtype}")
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        size, key = ctypes.c_ulong(), ctypes.c_int()
+        if self._lib.vd_mpeg4enc_encode(self._handle, rgb.ctypes.data, self._out.ctypes.data,
+                                        len(self._out), ctypes.byref(size), ctypes.byref(key),
+                                        err, _ERR_LEN):
+            raise ValueError(f"{self.name} frame {self.frames}: MPEG-4 encode: {_message(err)}")
+        self.frames += 1
+        return self._out[: size.value].tobytes(), bool(key.value)
+
+    def planes(self):
+        """The (Y, U, V) planes the frame encoded last decodes to, H x W and
+        two of H/2 x W/2."""
+        y = np.empty((self.height, self.width), np.uint8)
+        u = np.empty((self.height // 2, self.width // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.vd_mpeg4enc_planes(self._handle, y.ctypes.data, u.ctypes.data, v.ctypes.data)
+        return y, u, v
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.vd_mpeg4enc_free(self._handle)
             self._handle = None
 
     def __del__(self):

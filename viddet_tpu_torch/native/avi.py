@@ -1,5 +1,5 @@
 """AVI files read and written without FFmpeg: Motion-JPEG and MPEG-4 Part 2
-video in, Motion-JPEG out.
+video in and out.
 
 Each frame of a Motion-JPEG AVI is a whole JPEG, so the port's codec
 (``native.decode_jpeg`` / ``native.encode_jpeg``) does the pixels and this
@@ -28,7 +28,10 @@ to its last whole frame.  A video stream whose compression is neither
 raises ValueError naming it: decoding it needs FFmpeg, which the port does
 not link.
 
-Writing (``AviWriter``) gives AVI 1.0 with an ``idx1`` index; past
+Writing (``AviWriter``) gives AVI 1.0 with an ``idx1`` index, of
+Motion-JPEG frames or, with ``codec="mpeg4"``, of the MPEG-4 Part 2
+samples ``utils.video.VideoWriter`` encodes (the ``mp4v`` fourcc OpenCV's
+``mp4v`` writer puts in an AVI, key frames flagged); past
 ``segment_bytes`` (1 GiB, as FFmpeg's muxer) a file continues in OpenDML
 ``AVIX`` segments, each ``movi`` list with its ``ix00`` index and the
 header's ``indx`` super index pointing at them (see ``AviWriter`` for the
@@ -82,6 +85,11 @@ class AviIndex:
 
     @property
     def frame_count(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def shown(self) -> int:
+        """The frames that can be read (an AVI's count is these)."""
         return len(self.offsets)
 
 
@@ -275,9 +283,18 @@ def _list(kind: bytes, payload: bytes) -> bytes:
     return b"LIST" + struct.pack("<I", 4 + len(payload)) + kind + payload
 
 
+WRITTEN = {"jpeg": b"MJPG", "mpeg4": b"mp4v"}  # the fourcc of each codec written
+
+
 class AviWriter:
-    """Write a Motion-JPEG AVI: ``write(rgb)`` encodes a frame at
-    ``QUALITY``, ``write_jpeg(data)`` stores JPEG bytes as they are.
+    """Write an AVI: Motion-JPEG, where ``write(rgb)`` encodes a frame at
+    ``QUALITY`` and ``write_jpeg(data)`` stores JPEG bytes as they are, or
+    with ``codec="mpeg4"`` MPEG-4 Part 2, where ``write_sample(data, key)``
+    stores one VOP (an I-VOP's sample carrying the VOS / VOL headers before
+    it, as OpenCV's writer puts them in an AVI) under the fourcc ``mp4v``
+    (never ``XVID`` or ``DIVX``: FFmpeg takes those, without user data, for
+    XviD's or DivX's streams and changes its IDCT or rules), its
+    ``AVIIF_KEYFRAME`` flag and ``ix00`` key bit set by ``key``.
     ``close()`` writes the indexes and the final counts.
 
     ``segment_bytes`` is the most a RIFF segment holds before the next frame
@@ -288,10 +305,13 @@ class AviWriter:
     AVI 1.0 file of its own, needs both to see the segment's frames."""
 
     def __init__(self, path: str, width: int, height: int, fps,
-                 segment_bytes: int = SEGMENT_BYTES):
+                 segment_bytes: int = SEGMENT_BYTES, codec: str = "jpeg"):
         if not 0 < width < 65536 or not 0 < height < 65536:
             raise ValueError(f"cannot write a {width}x{height} video")
+        if codec not in WRITTEN:
+            raise ValueError(f"AviWriter writes jpeg or mpeg4, not {codec!r}")
         self.path, self.width, self.height = str(path), int(width), int(height)
+        self.codec, self.fourcc = codec, WRITTEN[codec]
         self.rate, self.scale = fps_ratio(fps)
         self.segment_bytes = int(segment_bytes)
         self._f = open(self.path, "wb")
@@ -324,10 +344,10 @@ class AviWriter:
         avih = struct.pack("<14I", round(1e6 * self.scale / self.rate), 0, 0,
                            AVIF_HASINDEX | AVIF_ISINTERLEAVED | AVIF_TRUSTCKTYPE, frames0, 0,
                            1, self._max_chunk, self.width, self.height, 0, 0, 0, 0)
-        strh = struct.pack("<4s4sIHHIIIIIIIIHHHH", b"vids", b"MJPG", 0, 0, 0, 0, self.scale,
+        strh = struct.pack("<4s4sIHHIIIIIIIIHHHH", b"vids", self.fourcc, 0, 0, 0, 0, self.scale,
                            self.rate, 0, self._total, self._max_chunk, 0xFFFFFFFF, 0, 0, 0,
                            self.width, self.height)
-        strf = struct.pack("<IiiHH4sIiiII", 40, self.width, self.height, 1, 24, b"MJPG",
+        strf = struct.pack("<IiiHH4sIiiII", 40, self.width, self.height, 1, 24, self.fourcc,
                            self.width * self.height * 3, 0, 0, 0, 0)
         strl = _chunk(b"strh", strh) + _chunk(b"strf", strf)
         if not first:
@@ -358,15 +378,28 @@ class AviWriter:
             seg["ix"] = self._tell()
             self._f.write(b"ix00" + struct.pack("<IHBBI4sQI", 24 + 8 * len(seg["frames"]), 2, 0,
                                                 1, len(seg["frames"]), b"00dc", base, 0))
-            self._f.write(b"".join(struct.pack("<II", o - base, n) for o, n in seg["frames"]))
+            # bit 31 of a size marks a frame that is not a key frame
+            self._f.write(b"".join(struct.pack("<II", o - base, n | (0 if key else 1 << 31))
+                                   for o, n, key in seg["frames"]))
             seg["ix_size"] = self._tell() - seg["ix"]
         self._end(seg["movi"])
         self._f.write(_chunk(b"idx1", b"".join(
-            struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME, o - 8 - base, n)
-            for o, n in seg["frames"])))
+            struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME if key else 0, o - 8 - base, n)
+            for o, n, key in seg["frames"])))
         self._end(seg["riff"])
 
     def write_jpeg(self, data: bytes) -> None:
+        if self.codec != "jpeg":
+            raise ValueError(f"{self.path}: an MPEG-4 AVI takes write_sample, not JPEG frames")
+        self._store(data, True)
+
+    def write_sample(self, data: bytes, key: bool) -> None:
+        """Store one MPEG-4 sample (a VOP, an I-VOP's with the headers)."""
+        if self.codec != "mpeg4":
+            raise ValueError(f"{self.path}: a Motion-JPEG AVI takes JPEG frames, not samples")
+        self._store(data, key)
+
+    def _store(self, data: bytes, key: bool) -> None:
         seg = self._segments[-1]
         chunk = 8 + len(data) + (len(data) & 1)
         if seg["frames"] and self._tell() + chunk - seg["riff"] > self.segment_bytes:
@@ -375,7 +408,7 @@ class AviWriter:
             self._close_segment(odml=True)
             self._open_segment()
             seg = self._segments[-1]
-        seg["frames"].append((self._tell() + 8, len(data)))
+        seg["frames"].append((self._tell() + 8, len(data), key))
         self._f.write(_chunk(b"00dc", data))
         self._total += 1
         self._max_chunk = max(self._max_chunk, len(data))

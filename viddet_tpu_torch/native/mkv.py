@@ -37,10 +37,22 @@ Any other codec (VP9, AV1, H.264, HEVC, Theora, ...) raises ValueError
 naming it: decoding it needs FFmpeg, which the port does not link.  So does
 a ``ContentEncoding`` (compression, header stripping included, or
 encryption), a track whose frames do not start with a key frame, a VP8
-key frame whose size is not the track's or changes, a block or element
-that runs past the end of the file or of its parent, and a file that is
-not Matroska.  All of it raises in ``read_index``, before a frame is
-decoded.
+key frame whose size is not the track's or changes, an element that runs
+past the end of its parent, a file cut inside its header, ``Info`` or
+``Tracks``, and a file that is not Matroska.  All of it raises in
+``read_index``, before a frame is decoded.
+
+A file cut short (a recording whose writer stopped, or a download that
+did) is read to its last whole block, as FFmpeg's demuxer reads it: a
+segment or cluster of known size that the end of the file cuts, an
+unknown-size cluster whose last block runs past it, or an element header
+cut in two all end the walk there, and the frames are those of the blocks
+before.
+
+``frame_count`` is what OpenCV reports (``CAP_PROP_FRAME_COUNT``): the
+segment's ``Duration`` (``Info``) times ``fps``, rounded, where there is
+one, else the frames shown.  For a cut file it is the count before the
+cut, as OpenCV's; the frames read are the whole ones.
 
 ``fps`` is what FFmpeg's demuxer (and so ``cv2.CAP_PROP_FPS``) reports:
 with ``DefaultDuration``, 1e9 over it reduced as ``av_reduce`` reduces it
@@ -98,11 +110,12 @@ class MkvIndex:
     fps: float
     offsets: np.ndarray  # int64
     sizes: np.ndarray  # int64
-    shown: int  # the frames shown: VP8's hidden frames are not
+    shown: int  # the frames shown that lie wholly in the file: VP8's hidden frames are not
+    stated: int  # the frame count OpenCV reports: Duration x fps where Info has a Duration
 
     @property
     def frame_count(self) -> int:
-        return self.shown
+        return self.stated
 
 
 def read_index(path: str) -> MkvIndex:
@@ -206,6 +219,8 @@ class _Walk:
     def __init__(self, path: str, data, size: int):
         self.path, self.data, self.size = path, data, size
         self.scale = 1_000_000  # TimestampScale, ns a tick
+        self.duration = 0.0  # Info's Duration, in ticks; 0 without one
+        self.cut = False  # the end of the file cut the walk short
         self.tracks: List[_Track] = []
         self.blocks: List[Tuple[int, int, int, int]] = []  # (track, block payload, end, time)
 
@@ -265,10 +280,8 @@ class _Walk:
             eid, body, size = self.element(pos, self.size, "the file")
             end = self.size if size == UNKNOWN else body + size
             if eid == SEGMENT:
-                if end > self.size:
-                    self.fail(f"the segment is truncated (it ends at {end}, past the file's "
-                              f"{self.size} bytes)")
-                self.segment(body, end)
+                self.cut = end > self.size  # a recording cut short: read what is whole
+                self.segment(body, min(end, self.size))
                 return self.index()
             if size == UNKNOWN or end > self.size:
                 self.fail(f"top-level element 0x{eid:X} is truncated")
@@ -290,9 +303,23 @@ class _Walk:
             self.fail(f"it needs a {doc_type} reader of version {read_version} (EBML read "
                       f"version {ebml_read}); the port reads versions up to {READ_VERSION}")
 
+    def header_cut(self, pos: int) -> bool:
+        """Whether the end of the file cuts the element header (ID and
+        size) at ``pos`` in two."""
+        first = self.data[pos]
+        length = 8 - first.bit_length() + 1 if first else 9
+        if length > 4 or pos + length >= self.size:
+            return pos + min(length, 4) >= self.size
+        size_first = self.data[pos + length]
+        size_length = 8 - size_first.bit_length() + 1 if size_first else 9
+        return pos + length + min(size_length, 8) > self.size
+
     def segment(self, start: int, end: int) -> None:
         pos = start
         while pos < end:
+            if end == self.size and self.header_cut(pos):
+                self.cut = True
+                return
             eid, body, size = self.element(pos, end, "the segment")
             if eid in (EBML, SEGMENT):  # a second segment: the first is read
                 return
@@ -303,12 +330,20 @@ class _Walk:
                 continue
             stop = body + size
             if stop > end:
+                if stop > self.size and eid not in (INFO, TRACKS):  # cut by the end of the file
+                    self.cut = True
+                    if eid == CLUSTER:
+                        self.cluster(body, self.size, unknown=False)
+                    return
                 what = "a cluster" if eid == CLUSTER else f"element 0x{eid:X}"
                 self.fail(f"{what} at offset {pos} is truncated (it ends at {stop}, past {end})")
             if eid == INFO:
                 for cid, s, e in self.children(body, stop, "Info"):
                     if cid == 0x2AD7B1:
                         self.scale = self.uint(s, e) or 1_000_000
+                    elif cid == 0x4489 and e - s in (4, 8):
+                        self.duration = struct.unpack_from(">f" if e - s == 4 else ">d",
+                                                           self.data, s)[0]
             elif eid == TRACKS:
                 for cid, s, e in self.children(body, stop, "Tracks"):
                     if cid == TRACK_ENTRY:
@@ -345,16 +380,20 @@ class _Walk:
         unknown size, at the first element of the segment's level)."""
         pos, time = start, 0
         while pos < end:
+            if end == self.size and self.header_cut(pos):
+                self.cut = True
+                return end
             eid, body, size = self.element(pos, end, "a cluster")
             if unknown and (eid in SEGMENT_CHILDREN - {0xEC, 0xBF} or eid in (EBML, SEGMENT)):
                 return pos
             if size == UNKNOWN:
                 self.fail(f"element 0x{eid:X} in a cluster has an unknown size")
             stop = body + size
+            if stop > self.size:  # cut by the end of the file: the blocks before are whole
+                self.cut = True
+                return self.size
             if stop > end:
-                self.fail(f"a block at offset {pos} runs past the end of the file ({self.size} "
-                          f"bytes)" if stop > self.size else
-                          f"element 0x{eid:X} at offset {pos} runs past the end of its cluster")
+                self.fail(f"element 0x{eid:X} at offset {pos} runs past the end of its cluster")
             if eid == CLUSTER_TIMESTAMP:
                 time = self.uint(body, stop)
             elif eid == SIMPLE_BLOCK:
@@ -459,7 +498,12 @@ class _Walk:
             fps = num / den
         else:
             fps = estimate_fps(np.array(times, np.int64))
-        return MkvIndex(self.path, width, height, codec, config, fps, offsets, sizes, shown)
+        stated = shown
+        if self.duration > 0 and fps > 0:  # OpenCV: floor(seconds * fps + 0.5), whole µs
+            seconds = int(self.duration * self.scale / 1000) / 1e6
+            stated = int(math.floor(seconds * fps + 0.5)) or shown
+        return MkvIndex(self.path, width, height, codec, config, fps, offsets, sizes, shown,
+                        stated)
 
     def codec(self, track: _Track) -> Tuple[str, bytes, str]:
         """(codec, decoder configuration, VfW fourcc or "") of the track."""
@@ -521,7 +565,7 @@ class MkvReader:
         self._file = open(path, "rb")
 
     def __len__(self) -> int:
-        return self.index.frame_count
+        return self.index.shown
 
     def sample(self, i: int) -> bytes:
         self._file.seek(int(self.index.offsets[i]))

@@ -31,9 +31,18 @@ the rest need FFmpeg, which the port does not link), as does an edit
 list other than the identity or the shift an MP4 muxer writes with
 B-frames (one entry, rate 1, whose media time is the first sample's
 composition offset), an S-VOP or a stream that does not start with an
-I-VOP, a sample table that does not add up, and a sample that lies past
-the end of the file (a truncated ``mdat``).  All of it raises in
-``read_index``, before a frame is decoded.
+I-VOP, a sample table that does not add up, and a file cut before or
+inside its ``moov``.  All of it raises in ``read_index``, before a frame
+is decoded.
+
+A file cut inside its ``mdat`` (``moov`` first, as a recorder that
+reserves it writes, and the end lost) is read to its last whole sample:
+the samples that run past the end of the file are dropped from the index,
+as FFmpeg's demuxer drops them.  ``frame_count`` is still the sample
+table's count, which OpenCV reports (``CAP_PROP_FRAME_COUNT``); ``shown``
+is the frames that can be read.  Where the cut falls inside a sample,
+FFmpeg decodes that sample's head and shows a concealed picture; the port
+ends before it (ROADMAP Queue 3).
 
 ``fps`` is what FFmpeg's demuxer (and so ``cv2.CAP_PROP_FPS``) reports:
 the media timescale times the number of samples in ``stts`` over the sum
@@ -47,7 +56,7 @@ import dataclasses
 import mmap
 import os
 import struct
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -73,12 +82,18 @@ class Mp4Index:
     codec: str  # "mpeg4" or "jpeg"
     config: bytes  # the MPEG-4 decoder configuration (VOS / VO / VOL); b"" for JPEG
     fps: float
-    offsets: np.ndarray  # int64
+    offsets: np.ndarray  # int64, the samples that lie wholly in the file
     sizes: np.ndarray  # int64
     keyframes: Optional[np.ndarray]  # sample numbers from stss (0-based); None: every sample
+    stated: int  # the sample table's count, which OpenCV reports for a cut file too
 
     @property
     def frame_count(self) -> int:
+        return self.stated
+
+    @property
+    def shown(self) -> int:
+        """The frames that can be read."""
         return len(self.offsets)
 
 
@@ -225,11 +240,14 @@ class _Walk:
         for kind, s, e in self.boxes(start, end, "trak"):
             if kind == b"edts":
                 self.edit_list(s, e, movie_scale, timescale, media_duration, first_offset)
+        stated = len(offsets)
         bad = np.nonzero(offsets + sizes > self.size)[0]
-        if len(bad):
-            i = int(bad[0])
-            self.fail(f"frame {i} at offset {int(offsets[i])} ({int(sizes[i])} bytes) runs past "
-                      f"the end of the file ({self.size} bytes): the 'mdat' box is truncated")
+        if len(bad):  # a cut mdat: the samples before the first cut one
+            if not bad[0]:
+                self.fail(f"frame 0 at offset {int(offsets[0])} ({int(sizes[0])} bytes) runs past "
+                          f"the end of the file ({self.size} bytes): the 'mdat' box is truncated "
+                          "before its first whole frame")
+            offsets, sizes = offsets[: int(bad[0])], sizes[: int(bad[0])]
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
         keyframes = None
@@ -240,7 +258,8 @@ class _Walk:
             if 8 + 4 * n > e - s:
                 self.fail("box 'stss' is truncated")
             keyframes = np.frombuffer(self.data, ">u4", n, s + 8).astype(np.int64) - 1
-        return Mp4Index(self.path, width, height, codec, config, fps, offsets, sizes, keyframes)
+        return Mp4Index(self.path, width, height, codec, config, fps, offsets, sizes, keyframes,
+                        stated)
 
     def edit_list(self, start: int, end: int, movie_scale: int, timescale: int,
                   media_duration: int, first_offset: int) -> None:
@@ -426,7 +445,7 @@ class Mp4Reader:
         self._file = open(path, "rb")
 
     def __len__(self) -> int:
-        return self.index.frame_count
+        return self.index.shown
 
     def sample(self, i: int) -> bytes:
         self._file.seek(int(self.index.offsets[i]))
@@ -449,6 +468,144 @@ class Mp4Reader:
 
     def close(self) -> None:
         self._file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# -------------------------------------------------------------------- writing
+
+MOVIE_TIMESCALE = 1000  # mvhd's, as FFmpeg's muxer writes it
+CHUNK_BYTES = 1 << 20  # a chunk holds samples up to this many bytes
+BRANDS = {False: (b"isom", 0x200, (b"isom", b"iso2", b"mp41")), True: (b"qt  ", 0x200, (b"qt  ",))}
+IDENTITY = (0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)  # the unit matrix
+
+
+def _box(kind: bytes, *payload: bytes) -> bytes:
+    body = b"".join(payload)
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _full(kind: bytes, version: int, flags: int, *payload: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags), *payload)
+
+
+def _put_descriptor(tag: int, payload: bytes) -> bytes:
+    n = len(payload)  # the four-byte size form, as FFmpeg writes it
+    return bytes([tag, 0x80 | (n >> 21) & 0x7F, 0x80 | (n >> 14) & 0x7F,
+                  0x80 | (n >> 7) & 0x7F, n & 0x7F]) + payload
+
+
+class Mp4Writer:
+    """Write one MPEG-4 Part 2 video track as FFmpeg's ``mov`` muxer writes
+    it without faststart: ``ftyp`` (``isom``, or QuickTime's ``qt  `` when
+    ``quicktime``), a placeholder box, ``mdat`` (its size patched at
+    ``close``, in the 64-bit form past 4 GiB), then ``moov`` with ``mvhd``
+    and one ``trak`` (``tkhd``, ``mdia`` with ``mdhd``, ``hdlr`` ``vide``
+    and ``minf``: ``vmhd``, ``dinf``, ``stbl``).  ``stbl`` holds ``stsd``
+    (an ``mp4v`` sample entry whose ``esds`` carries object type 0x20 and
+    ``config``, the VOS / VO / VOL headers), ``stts``, ``stss`` (the key
+    samples), ``stsc``, ``stsz`` and ``stco``, or ``co64`` once a chunk
+    lies past 4 GiB.  ``rate`` is (num, den): frames of den / num seconds;
+    the media timescale is num, doubled up to at least 10000 as FFmpeg's
+    muxer takes it.  ``write_sample(data, key)`` appends one VOP."""
+
+    def __init__(self, path: str, width: int, height: int, rate: Tuple[int, int],
+                 config: bytes, quicktime: bool = False):
+        self.path, self.width, self.height = str(path), int(width), int(height)
+        self.config, self.quicktime = bytes(config), quicktime
+        num, den = rate
+        self.timescale, self.delta = num, den
+        while self.timescale < 10000:
+            self.timescale, self.delta = 2 * self.timescale, 2 * self.delta
+        self.sizes: List[int] = []
+        self.keys: List[int] = []
+        self.chunks: List[List[int]] = []  # [offset, samples, bytes]
+        self._f = open(self.path, "wb")
+        major, minor, compatible = BRANDS[quicktime]
+        self._f.write(_box(b"ftyp", major, struct.pack(">I", minor), *compatible))
+        self._mdat = self._f.tell()  # the placeholder, then the mdat header
+        self._f.write(_box(b"wide" if quicktime else b"free"))
+        self._f.write(struct.pack(">I4s", 8, b"mdat"))
+
+    def write_sample(self, data: bytes, key: bool) -> None:
+        at = self._f.tell()
+        chunk = self.chunks[-1] if self.chunks else None
+        if chunk is None or chunk[2] + len(data) > CHUNK_BYTES:
+            self.chunks.append([at, 0, 0])
+            chunk = self.chunks[-1]
+        chunk[1] += 1
+        chunk[2] += len(data)
+        self._f.write(data)
+        if key:
+            self.keys.append(len(self.sizes) + 1)
+        self.sizes.append(len(data))
+
+    def _moov(self) -> bytes:
+        n = len(self.sizes)
+        media = n * self.delta
+        movie = -(-media * MOVIE_TIMESCALE // self.timescale)  # rounded up, as FFmpeg
+        mvhd = _full(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, MOVIE_TIMESCALE, movie),
+                     struct.pack(">IH", 0x10000, 0x100), bytes(10), struct.pack(">9I", *IDENTITY),
+                     bytes(24), struct.pack(">I", 2))
+        tkhd = _full(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, movie), bytes(8),
+                     struct.pack(">hhhH", 0, 0, 0, 0), struct.pack(">9I", *IDENTITY),
+                     struct.pack(">II", self.width << 16, self.height << 16))
+        language = 0x7FFF if self.quicktime else 0x55C4  # "und"
+        mdhd = _full(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, self.timescale, media,
+                                                language, 0))
+        name = b"\x0cVideoHandler" if self.quicktime else b"VideoHandler\0"
+        hdlr = _full(b"hdlr", 0, 0, b"mhlr" if self.quicktime else bytes(4), b"vide", bytes(12),
+                     name)
+        vmhd = _full(b"vmhd", 0, 1, bytes(8))
+        dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1), _full(b"url ", 0, 1)))
+        decoder = (bytes([MPEG4_VISUAL, 0x11]) + bytes(3)
+                   + struct.pack(">II", 0, 0) + _put_descriptor(5, self.config))
+        es = struct.pack(">HB", 1, 0) + _put_descriptor(4, decoder) + _put_descriptor(6, b"\x02")
+        entry = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
+                     struct.pack(">HHII", self.width, self.height, 0x480000, 0x480000), bytes(4),
+                     struct.pack(">H", 1), bytes(32), struct.pack(">Hh", 24, -1),
+                     _full(b"esds", 0, 0, _put_descriptor(3, es)))
+        stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1), entry)
+        stts = _full(b"stts", 0, 0, struct.pack(">III", 1, n, self.delta) if n else
+                     struct.pack(">I", 0))
+        stss = _full(b"stss", 0, 0, struct.pack(f">I{len(self.keys)}I", len(self.keys),
+                                                *self.keys))
+        runs: List[Tuple[int, int]] = []  # (first chunk, samples a chunk)
+        for i, (_, count, _) in enumerate(self.chunks):
+            if not runs or runs[-1][1] != count:
+                runs.append((i + 1, count))
+        stsc = _full(b"stsc", 0, 0, struct.pack(">I", len(runs)),
+                     *(struct.pack(">III", first, count, 1) for first, count in runs))
+        stsz = _full(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *self.sizes))
+        offsets = [c[0] for c in self.chunks]
+        wide = any(o >= 1 << 32 for o in offsets)
+        stco = _full(b"co64" if wide else b"stco", 0, 0,
+                     struct.pack(f">I{len(offsets)}{'Q' if wide else 'I'}", len(offsets),
+                                 *offsets))
+        stbl = _box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
+        minf = _box(b"minf", vmhd, dinf, stbl)
+        return _box(b"moov", mvhd, _box(b"trak", tkhd, _box(b"mdia", mdhd, hdlr, minf)))
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        try:
+            end = self._f.tell()
+            payload = end - self._mdat - 16
+            self._f.seek(self._mdat)
+            if payload + 8 < 1 << 32:
+                self._f.seek(self._mdat + 8)
+                self._f.write(struct.pack(">I", payload + 8))
+            else:  # the placeholder becomes the 64-bit size
+                self._f.write(struct.pack(">I4sQ", 1, b"mdat", payload + 16))
+            self._f.seek(end)
+            self._f.write(self._moov())
+        finally:
+            self._f.close()
 
     def __enter__(self):
         return self

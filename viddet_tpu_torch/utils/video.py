@@ -24,22 +24,36 @@ order.
 
 Another container, another codec (VP9, AV1, H.264, HEVC, ...), a
 Matroska ContentEncoding and a webcam index raise ValueError, naming what
-is missing.  ``VideoWriter`` writes Motion-JPEG ``.avi`` only.
+is missing.
+
+``VideoWriter`` writes what the JAX package's writer (``cv2.VideoWriter``
+with the ``mp4v`` fourcc) writes: MPEG-4 Part 2 from the port's own
+encoder (``native.Mpeg4Encoder``), in the container the extension names:
+``.mp4`` and ``.mov`` (``native.mp4.Mp4Writer``, the QuickTime brand for
+``.mov``) and ``.avi`` (``native.avi.AviWriter``, fourcc ``mp4v``).  The
+frame rate is stored as OpenCV stores it, so OpenCV reads back the fps it
+reads from JAX's file, and an odd width or height loses its last column or
+row, as OpenCV's writer truncates it.  Any other extension raises
+ValueError before anything is written; nothing falls back to another
+codec or container.
 """
 
 from __future__ import annotations
 
+import math
 import os
+from fractions import Fraction
 from typing import Iterator, Tuple
 
 import numpy as np
 
-from viddet_tpu_torch.native import encode_jpeg, encode_png
+from viddet_tpu_torch.native import Mpeg4Encoder, encode_jpeg, encode_png
 from viddet_tpu_torch.native.avi import AviReader, AviWriter
 from viddet_tpu_torch.native.mkv import MkvReader
-from viddet_tpu_torch.native.mp4 import Mp4Reader
+from viddet_tpu_torch.native.mp4 import Mp4Reader, Mp4Writer
 
-VIDEO_EXT = ".avi"  # the container the port writes
+WRITES = (".mp4", ".mov", ".avi")  # the containers the port writes, MPEG-4 Part 2 in each
+CONTAINERS = {".mkv": "Matroska (.mkv)", ".webm": "WebM (.webm)"}  # read, not written
 READERS = {".avi": AviReader, ".mp4": Mp4Reader, ".mov": Mp4Reader, ".mkv": MkvReader,
            ".webm": MkvReader}
 READS = ("MPEG-4 Part 2 or Motion-JPEG video in .avi, .mp4 and .mov files, and VP8, MPEG-4 "
@@ -61,11 +75,34 @@ def check_source(source) -> None:
 
 
 def check_output(path) -> None:
-    """Raise ValueError unless ``path`` names an ``.avi``, the one container
-    the port writes."""
-    if os.path.splitext(str(path))[1].lower() != VIDEO_EXT:
-        raise ValueError(f"{path}: the port writes Motion-JPEG .avi files only; writing "
-                         "anything else needs FFmpeg, which the port does not link")
+    """Raise ValueError unless ``path`` names an ``.mp4``, ``.mov`` or
+    ``.avi``, the containers the port writes."""
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext not in WRITES:
+        what = CONTAINERS.get(ext, ext or "extensionless")
+        raise ValueError(f"{path}: the port does not write {what} files; it writes MPEG-4 Part 2 "
+                         "video in .mp4, .mov and .avi files (another container needs FFmpeg, "
+                         "which the port does not link)")
+
+
+def writer_rate(fps) -> Tuple[int, int]:
+    """(num, den): the frame rate as OpenCV's FFmpeg writer stores it, a
+    decimal fraction within 0.001 of ``fps`` (29.97 for 30000/1001), its
+    common factors removed as FFmpeg's encoder removes them; num is the
+    VOL's vop_time_increment_resolution, den the ticks a frame."""
+    fps = float(fps)
+    if not fps > 0 or math.isinf(fps):
+        raise ValueError(f"frame rate must be positive, got {fps}")
+    num, den = int(fps + 0.5), 1
+    while abs(num / den - fps) > 0.001:
+        den *= 10
+        num = int(fps * den + 0.5)
+    g = math.gcd(num, den)
+    num, den = num // g, den // g
+    if num > 65535:
+        raise ValueError(f"frame rate {fps}: {num}/{den} needs a vop_time_increment_resolution "
+                         "above MPEG-4's 65535")
+    return num, den
 
 
 def open_video(source):
@@ -126,19 +163,50 @@ def extract_frames(video_path: str, out_dir: str, every: int = 1, ext: str = "jp
 
 
 class VideoWriter:
-    """Annotated-video writer: RGB frames in, a Motion-JPEG ``.avi`` out
-    (JPEG quality 95).  ``size`` is (width, height)."""
+    """Annotated-video writer: RGB frames in, MPEG-4 Part 2 out, in the
+    ``.mp4``, ``.mov`` or ``.avi`` that ``path`` names (see the module's
+    docstring).  ``size`` is (width, height); an odd one is truncated to
+    even, as OpenCV's writer truncates it.  A frame of another size, a
+    container the port does not write and a failed encode raise
+    ValueError."""
 
     def __init__(self, path: str, fps, size: Tuple[int, int]):
         check_output(path)
+        self.size = (int(size[0]), int(size[1]))
+        width, height = self.size[0] & ~1, self.size[1] & ~1
+        if width < 2 or height < 2:
+            raise ValueError(f"{path}: cannot write a {size[0]}x{size[1]} video")
+        num, den = writer_rate(fps)
+        # the encoder first: a build failure or a size it refuses raises before a file is made
+        self._encoder = Mpeg4Encoder(width, height, num, den, name=str(path))
+        self._crop = (height, width)
+        ext = os.path.splitext(str(path))[1].lower()
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._writer = AviWriter(path, size[0], size[1], fps)
+        if ext == ".avi":
+            self._in_band = self._encoder.config  # OpenCV's AVI carries the headers in-band
+            self._writer = AviWriter(path, width, height, Fraction(num, den), codec="mpeg4")
+        else:
+            self._in_band = b""
+            self._writer = Mp4Writer(path, width, height, (num, den), self._encoder.config,
+                                     quicktime=ext == ".mov")
 
     def write(self, frame_rgb: np.ndarray) -> None:
-        self._writer.write(frame_rgb)
+        if frame_rgb.shape[:2] != (self.size[1], self.size[0]):
+            raise ValueError(f"frame of {frame_rgb.shape[1]}x{frame_rgb.shape[0]} in a "
+                             f"{self.size[0]}x{self.size[1]} video")
+        vop, key = self._encoder.encode(frame_rgb[: self._crop[0], : self._crop[1]])
+        self._writer.write_sample(self._in_band + vop if key else vop, key)
+
+    def planes(self):
+        """The (Y, U, V) planes that a decoder shows for the frame written
+        last: the encoder's reconstruction."""
+        return self._encoder.planes()
 
     def close(self) -> None:
-        self._writer.close()
+        try:
+            self._writer.close()
+        finally:
+            self._encoder.close()
 
     def __enter__(self):
         return self
