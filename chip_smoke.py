@@ -240,7 +240,7 @@ Phases, each printed as one JSON line:
             of 32, the lines that differ are reported: cuDNN's bf16
             convolutions round by an image's place in the batch);
 22. profiler: the profiler windows that missed a launch and were taken
-            again;
+            again; then ``script``, the seconds since ``main`` began;
 23. kernels: one line listing every ported kernel;
 then the card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": ...}``.
 
@@ -362,6 +362,12 @@ BVOP_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "xvid_bf2_640x480.avi")
 BVOP_DIGESTS = BVOP_FIXTURE[:-len(".avi")] + ".json"
 BVOP_FRAMES = 48
+# ... and in the same phase the quarter-sample XviD AVI (XviD's user data,
+# so the XviD IDCT; tests/fixtures/make_mp4_fixture.py xvid_qpel).
+QPEL_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "xvid_qpel_640x480.avi")
+QPEL_DIGESTS = QPEL_FIXTURE[:-len(".avi")] + ".json"
+QPEL_FRAMES, QPEL_USER_DATA = 48, b"\x00\x00\x01\xb2XviD0050"
 # The WebM phase: the committed VP8 WebM (tests/fixtures/make_mp4_fixture.py)
 # and its OpenCV digests.
 WEBM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
@@ -3778,11 +3784,12 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
     saved line equal to the direct predictor's, both sources' batches
     equal.  Frames/s: the reader on one host thread (demux + decode + RGB,
     decode + RGB, decode alone), each run beside the direct step; the
-    card's idle share over a native run."""
-    import json
-
-    from viddet_tpu_torch.native import Mpeg4Decoder
-    from viddet_tpu_torch.native.avi import AviReader
+    card's idle share over a native run.  Then the quarter-sample XviD
+    fixture (``xvid_qpel_640x480.avi``: ``+qpel+mv4``, two B-VOPs between
+    references, XviD's user data, so the XviD IDCT) decoded to its digests,
+    its decoder's frames/s on one host thread, and one not-drawn
+    ``stream_detect_video`` over it (``qpel_native_run``); ``qpel.extra_s``
+    is what that part adds to the phase."""
     from viddet_tpu_torch.utils.video import iterate_frames, probe_video
 
     t_phase = time.perf_counter()
@@ -3791,50 +3798,138 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
            "nvidia_smi": nvidia_smi_line()}  # the card of this child's rates
 
     # 1. the fixture, decoded in display order to OpenCV's digests
-    with open(BVOP_DIGESTS) as f:
-        digests = json.load(f)["frames"]
     info = probe_video(BVOP_FIXTURE)
     check(info == {"fps": float(VIDEO_FPS), "frame_count": BVOP_FRAMES, "width": CODEC_W,
                    "height": CODEC_H}, f"the B-VOP fixture probes as written: {info}")
-    with AviReader(BVOP_FIXTURE) as reader:
-        check(reader.index.codec == "mpeg4", "the B-VOP fixture is MPEG-4 Part 2")
-        config = reader.index.config
+    config, fourcc, samples, types, frames, _ = mpeg4_fixture_frames(
+        BVOP_FIXTURE, BVOP_DIGESTS, BVOP_FRAMES, "bvop")
+    check(types.count("B") >= 16, f"the fixture has B-VOPs: {types}")
+    out.update(digests_equal=BVOP_FRAMES, types=types)
+    rates = {}
+    t = time.perf_counter()
+    check(sum(1 for _ in iterate_frames(BVOP_FIXTURE)) == BVOP_FRAMES, "iterate_frames: 48")
+    rates["demux_decode_rgb"] = BVOP_FRAMES / (time.perf_counter() - t)
+    rates.update(mpeg4_decode_rates(config, fourcc, samples, BVOP_FRAMES))
+    out["reader_frames_per_s"] = rates  # one host thread
+
+    launches = fixture_runs(dev, kernels, model, classes, predictor, BVOP_FIXTURE, frames,
+                            "bvop", out)
+
+    # 2. the quarter-sample XviD fixture: its digests, and one not-drawn run
+    t_qpel = time.perf_counter()
+    qpel = out["qpel"] = {"fixture": os.path.relpath(
+        QPEL_FIXTURE, os.path.dirname(os.path.abspath(__file__)))}
+    info = probe_video(QPEL_FIXTURE)
+    check(info == {"fps": float(VIDEO_FPS), "frame_count": QPEL_FRAMES, "width": CODEC_W,
+                   "height": CODEC_H}, f"the qpel fixture probes as written: {info}")
+    config, fourcc, samples, types, frames, stream = mpeg4_fixture_frames(
+        QPEL_FIXTURE, QPEL_DIGESTS, QPEL_FRAMES, "qpel")
+    check(fourcc == "XVID" and QPEL_USER_DATA in config,
+          f"the qpel fixture is an XVID AVI with XviD's user data ({fourcc})")
+    check(types.count("B") >= 16, f"the qpel fixture has B-VOPs: {types}")
+    check(stream["quarter_sample"] and stream["xvid_build"] == 50 and stream["idct"] == "xvid"
+          and stream["lavc_build"] is None,
+          f"the qpel fixture decodes as XviD's quarter-sample stream: {stream}")
+    qpel.update(digests_equal=QPEL_FRAMES, types=types, stream=stream,
+                reader_frames_per_s=mpeg4_decode_rates(config, fourcc, samples, QPEL_FRAMES))
+    launches.update(qpel_native_run(dev, kernels, model, classes, predictor, frames, qpel))
+    qpel["extra_s"] = time.perf_counter() - t_qpel
+    out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
+
+
+def mpeg4_fixture_frames(path: str, digests_path: str, count: int, what: str):
+    """An MPEG-4 AVI fixture decoded in display order, each frame's Y plane
+    and RGB held to OpenCV's digests.  Returns (config, fourcc, samples,
+    VOP types, RGB frames, the decoder's ``stream_info``)."""
+    import json
+
+    from viddet_tpu_torch.native import Mpeg4Decoder
+    from viddet_tpu_torch.native.avi import AviReader
+
+    with open(digests_path) as f:
+        digests = json.load(f)["frames"]
+    with AviReader(path) as reader:
+        check(reader.index.codec == "mpeg4", f"the {what} fixture is MPEG-4 Part 2")
+        config, fourcc = reader.index.config, reader.index.fourcc
         samples = [reader.sample(i) for i in range(len(reader))]
     types = "".join("IPBS"[s[s.find(b"\x00\x00\x01\xb6") + 4] >> 6] for s in samples)
-    check(types.count("B") >= 16, f"the fixture has B-VOPs: {types}")
-    decoder = Mpeg4Decoder(config, BVOP_FIXTURE)
+    decoder = Mpeg4Decoder(config, path, fourcc)
     frames = []
     for sample in samples + [None]:
         frame = decoder.decode(sample) if sample is not None else decoder.flush()
         if frame is None:
             continue
         i = len(frames)
-        check(i < BVOP_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
-              f"bvop frame {i}: the Y plane's digest is OpenCV's")
+        check(i < count and frame_digest(decoder.planes()[0]) == digests[i]["y"],
+              f"{what} frame {i}: the Y plane's digest is OpenCV's")
         check(frame_digest(frame) == digests[i]["rgb"],
-              f"bvop frame {i}: the RGB digest is OpenCV's")
+              f"{what} frame {i}: the RGB digest is OpenCV's")
         frames.append(frame)
+    stream = decoder.stream_info
     decoder.close()
-    check(len(frames) == BVOP_FRAMES, f"the B-VOP fixture shows {len(frames)} frames")
-    out.update(digests_equal=BVOP_FRAMES, types=types)
+    check(len(frames) == count, f"the {what} fixture shows {len(frames)} frames")
+    return config, fourcc, samples, types, frames, stream
+
+
+def mpeg4_decode_rates(config: bytes, fourcc: str, samples, count: int) -> dict:
+    """Frames a second of the decoder on one host thread over ``samples``:
+    decode + RGB, and decode alone."""
+    from viddet_tpu_torch.native import Mpeg4Decoder
+
     rates = {}
-    t = time.perf_counter()
-    check(sum(1 for _ in iterate_frames(BVOP_FIXTURE)) == BVOP_FRAMES, "iterate_frames: 48")
-    rates["demux_decode_rgb"] = BVOP_FRAMES / (time.perf_counter() - t)
     for what, rgb in (("decode_rgb", True), ("decode", False)):
-        decoder = Mpeg4Decoder(config)
+        decoder = Mpeg4Decoder(config, fourcc=fourcc)
         t = time.perf_counter()
         for sample in samples:
             decoder.decode(sample, rgb=rgb)
         decoder.flush(rgb=rgb)
-        rates[what] = BVOP_FRAMES / (time.perf_counter() - t)
+        rates[what] = count / (time.perf_counter() - t)
         decoder.close()
-    out["reader_frames_per_s"] = rates  # one host thread
+    return rates
 
-    launches = fixture_runs(dev, kernels, model, classes, predictor, BVOP_FIXTURE, frames,
-                            "bvop", out)
-    out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
-    emit(out)
+
+def qpel_native_run(dev, kernels, model, classes, predictor, frames, out: dict) -> dict:
+    """One not-drawn ``stream_detect_video`` over the quarter-sample fixture
+    (``NativeFrameSource``) with the main path's model at batch 8: its
+    launches (one hierarchical tail a batch), each batch through
+    ``video_rows`` and every saved line equal to the direct predictor's.
+    Into ``out``: the run's frames/s and the direct step's.  Returns the
+    launches."""
+    import hashlib
+    import tempfile
+
+    from viddet_tpu_torch.data.transforms import ValTransform
+    from viddet_tpu_torch.infer.service import to_device_batch
+    from viddet_tpu_torch.infer.stream import stream_detect_video
+
+    count, run = len(frames), "qpel_video_native"
+    transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True, normalize=False)
+    frames_x = {"clip": np.stack([transform(f)[0] for f in frames])}
+    affine = transform(frames[0])[2]
+    lookup = {hashlib.sha1(x.tobytes()).digest(): ("clip", i)
+              for i, x in enumerate(frames_x["clip"])}
+    out["direct_frames_per_s"] = direct_frames_per_s(predictor, frames_x["clip"], dev)
+    first = predictor(to_device_batch(frames_x["clip"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
+    thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.avi")
+        shutil.copyfile(QPEL_FIXTURE, clip)
+        record = []
+        set_launches(kernels)
+        stats = stream_detect_video(clip, recorded(predictor, record), transform, classes,
+                                    output_dir=os.path.join(tmp, run), thresh=thresh,
+                                    batch_size=VIDEO_B, draw=False, save_detections=True,
+                                    device=dev)
+        launches = {run: path_batches(kernels, run, -(-count // VIDEO_B))}
+        check(stats["frames"] == count, f"{run}: every frame")
+        rows = video_rows(model, predictor, record, lookup, frames_x, 1, run)
+        check(sorted(rows) == [("clip", i) for i in range(count)], f"{run}: every frame once")
+        want = video_lines(rows, "clip", range(count), affine, classes, thresh)
+        with open(os.path.join(tmp, run, "clip_det.txt")) as f:
+            check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
+        out.update(lines=len(want.splitlines()), frames_per_s=stats["fps"])
     return launches
 
 
@@ -5281,6 +5376,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     from viddet_tpu_torch.kernels import build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5362,6 +5458,8 @@ def main() -> int:
     launches.update(child_phases("data_parallel")["launches"])
     emit({"phase": "profiler", "incomplete_windows": INCOMPLETE_WINDOWS,
           "windows_with_spins_lost": len(SPINS_LOST), "spins_lost": SPINS_LOST})
+    # every phase, the kernels' build and the child processes included
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"viddet_tpu_torch/csrc/{src}",

@@ -26,6 +26,15 @@
   laid out as an ``XVID`` AVI by ``tests.torch_mp4_helpers.write_avi``;
   and ``xvid_bf2_640x480.json``, its digests as OpenCV decodes them, for
   the card (``chip_smoke.py``'s ``mpeg4_bvop`` phase).
+* ``xvid_qpel_640x480.avi``: 48 frames at 640x480, 25 fps, quarter-sample
+  vectors and four vectors a macroblock (``+qpel+mv4``) with two B-VOPs
+  between references, from the same libavcodec route, its ``Lavc`` user
+  data replaced by XviD's ``XviD0050`` (so FFmpeg, and the port, decode it
+  with the XviD IDCT), as an ``XVID`` AVI; and ``xvid_qpel_640x480.json``,
+  its digests as OpenCV decodes them, for the card (``chip_smoke.py``'s
+  ``mpeg4_bvop`` phase).  Remake only it with ``python -m
+  tests.fixtures.make_mp4_fixture xvid_qpel``: it is written only where
+  OpenCV reads every frame and the port's decoder equals it.
 
 * ``vp8_640x480.webm``: 48 frames at 640x480, 25 fps, VP8 from the same
   libavcodec's libvpx encoder in two passes (alt-ref frames, hidden), four
@@ -66,6 +75,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CHIP_VIDEO = os.path.join(HERE, "mp4v_640x480.mp4")
 CHIP_DIGESTS = os.path.join(HERE, "mp4v_640x480.json")
 FEATURES = os.path.join(HERE, "mpeg4_features.mp4")
+CHIP_QPEL_VIDEO = os.path.join(HERE, "xvid_qpel_640x480.avi")
+CHIP_QPEL_DIGESTS = os.path.join(HERE, "xvid_qpel_640x480.json")
+USER_DATA, VOP = b"\x00\x00\x01\xb2", b"\x00\x00\x01\xb6"
 DARK = os.path.join(HERE, "mpeg4_dark.mp4")
 CHIP_BVOP_VIDEO = os.path.join(HERE, "xvid_bf2_640x480.avi")
 CHIP_BVOP_DIGESTS = os.path.join(HERE, "xvid_bf2_640x480.json")
@@ -140,6 +152,42 @@ def write_chip_bvop_fixture() -> None:
     assert "B" in stream.types
     write_lavc_avi(CHIP_BVOP_VIDEO, stream, b"XVID")
     write_digests(CHIP_BVOP_VIDEO, CHIP_BVOP_DIGESTS, 640, 480, 48)
+
+
+QPEL_USER_DATA = b"XviD0050"
+
+
+def write_chip_qpel_fixture() -> None:
+    """The quarter-sample XviD AVI: libavcodec's stream (``+qpel+mv4``, two
+    B-VOPs between references) with its own user data replaced by XviD's,
+    so FFmpeg reads it as XviD's (its IDCT).  Written only if OpenCV
+    reads all 48 frames, and the port's decoder (which reports what it
+    read) finds the user data and quarter-sample vectors and gives
+    OpenCV's frames: a stream libavcodec's decoder found damaged would
+    fail here."""
+    from tests.torch_mp4_helpers import cv2_views
+    from viddet_tpu_torch.native import Mpeg4Decoder
+    from viddet_tpu_torch.native.avi import AviReader
+
+    stream = lavc_stream(moving_scene(48, 640, 480, seed=0),
+                         {"bf": 2, "flags": "+qpel+mv4", "b": 600000})
+    assert stream.types.count("B") >= 16, stream.types
+    write_lavc_avi(CHIP_QPEL_VIDEO, stream.with_user_data(QPEL_USER_DATA), b"XVID")
+    want = cv2_views(CHIP_QPEL_VIDEO, "y")
+    assert len(want) == 48
+    with AviReader(CHIP_QPEL_VIDEO) as reader:
+        decoder = Mpeg4Decoder(reader.index.config, CHIP_QPEL_VIDEO, reader.index.fourcc)
+        ys = []
+        for i in range(len(reader)):
+            if decoder.decode(reader.sample(i), rgb=False):
+                ys.append(decoder.planes()[0])
+        if decoder.flush(rgb=False):
+            ys.append(decoder.planes()[0])
+    info = decoder.stream_info
+    assert info["quarter_sample"] and info["xvid_build"] == 50 and info["idct"] == "xvid", info
+    assert info["lavc_build"] is None, info
+    assert len(ys) == 48 and all(np.array_equal(y, w.reshape(y.shape)) for y, w in zip(ys, want))
+    write_digests(CHIP_QPEL_VIDEO, CHIP_QPEL_DIGESTS, 640, 480, 48)
 
 
 def write_chip_webm_fixture() -> None:
@@ -295,6 +343,23 @@ class LavcStream:
     width: int
     height: int
 
+    def with_user_data(self, user_data: bytes = b"", own: bool = False) -> "LavcStream":
+        """The stream with ``user_data`` (``XviD0050``, ``DivX503b1393``, ...)
+        before the first VOL or GOV, and libavcodec's own (its ``Lavc``
+        version, which its decoder reads, before each I-VOP's headers) kept
+        only with ``own``."""
+        packets = list(self.packets)
+        for i, packet in enumerate(packets):
+            start = packet.find(USER_DATA, 0, max(packet.find(VOP), 0))
+            if not own and start >= 0:
+                packets[i] = packet[:start] + packet[packet.find(b"\x00\x00\x01", start + 4):]
+        first = packets[0]
+        if user_data:
+            at = min(i for i in (first.find(b"\x00\x00\x01\xb3"), first.find(VOP))
+                     if i >= 0)
+            first = first[:at] + USER_DATA + user_data + first[at:]
+        return dataclasses.replace(self, packets=[first] + packets[1:])
+
 
 def lavc_stream(frames, options: dict, matrices=None) -> LavcStream:
     """BGR ``frames`` through libavcodec's mpeg4 encoder (``bf`` B-VOPs,
@@ -328,15 +393,11 @@ def write_lavc_avi(path: str, stream: LavcStream, fourcc: bytes = b"XVID",
                    packed: bool = False, user_data: bytes = b"") -> str:
     """``stream`` as the chunks of an AVI (the headers stay at the head of
     the first), packed as DivX packs B-frames with ``packed``, with
-    ``user_data`` (for instance DivX's ``DivX503b1393p``) after the VOL."""
+    ``user_data`` (for instance DivX's ``DivX503b1393p``) after the VOL,
+    beside libavcodec's own."""
     from tests.torch_mp4_helpers import pack_bframes, write_avi
 
-    packets = list(stream.packets)
-    if user_data:
-        first = packets[0]
-        at = min(i for i in (first.find(b"\x00\x00\x01\xb3"), first.find(b"\x00\x00\x01\xb6"))
-                 if i >= 0)
-        packets[0] = first[:at] + b"\x00\x00\x01\xb2" + user_data + first[at:]
+    packets = stream.with_user_data(user_data, own=True).packets
     chunks = pack_bframes(packets, stream.types, 5) if packed else packets
     return write_avi(path, chunks, stream.width, stream.height, fourcc=fourcc)
 
@@ -380,12 +441,16 @@ if __name__ == "__main__":
 
     if sys.argv[1:] == ["damaged"]:
         write_damaged_fixture()
+    elif sys.argv[1:] == ["xvid_qpel"]:
+        write_chip_qpel_fixture()
     else:
         if sys.argv[1:] != ["webm"]:
             write_chip_fixture()
             write_feature_fixtures()
             write_chip_bvop_fixture()
+            write_chip_qpel_fixture()
             write_damaged_fixture()
         write_chip_webm_fixture()
-    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO, CHIP_WEBM_VIDEO, DAMAGED):
+    for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO, CHIP_QPEL_VIDEO, CHIP_WEBM_VIDEO,
+                 DAMAGED):
         print(path, os.path.getsize(path), "bytes")

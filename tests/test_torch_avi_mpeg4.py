@@ -16,13 +16,13 @@ package on the CPU.
   ``mpeg4_unpack_bframes`` does and equals OpenCV's read of the unpacked
   file (ROADMAP Queue 3).
 * XviD's user data (``XviD0050``), or an ``XVID`` fourcc with no user
-  data, makes FFmpeg switch to its XviD IDCT; the port decodes such a
-  file as it decodes Lavc's: the gap is measured here, at most 5 grey
-  levels of RGB (ROADMAP Queue 3).
+  data, makes FFmpeg switch to its XviD IDCT, and the port with it: every
+  frame equals OpenCV's bit for bit (the other encoders' user data and
+  quarter-sample streams: test_torch_mpeg4_xvid.py).
 * ``NativeFrameSource`` equals ``FrameSource`` + ``ValTransform`` bit for
-  bit at ``every`` 1, 2 and 3; an AVI of another codec, a quarter-sample
-  stream and one that does not start with an I-VOP raise ValueError
-  naming them before any frame is decoded.
+  bit at ``every`` 1, 2 and 3; an AVI of another codec and a stream that
+  does not start with an I-VOP raise ValueError naming them before any
+  frame is decoded.
 * Surfaces against JAX (tiny float32 YOLOv3 at 64 px; JAX reads through
   cv2's FFmpeg backend, unpatched, its native source off):
   ``stream_detect_video`` drawn and not over a B-VOP AVI and MP4,
@@ -106,7 +106,7 @@ def assert_frames_equal(path: str, want_path: str) -> None:
     """The port's Y planes and RGB frames of ``path``, with its frame count
     and fps, equal OpenCV's (FFmpeg) of ``want_path``."""
     reader = AviReader(path)
-    decoder = Mpeg4Decoder(reader.index.config)
+    decoder = Mpeg4Decoder(reader.index.config, path, reader.index.fourcc)
     ys = []
     for i in range(len(reader)):
         if decoder.decode(reader.sample(i), rgb=False):
@@ -144,18 +144,16 @@ def test_packed_b_frames_unpack_where_ffmpeg_reads_them_packed(files):
 
 
 @pytest.mark.parametrize("case", ["xvid_user_data", "xvid_fourcc_alone"])
-def test_xvid_user_data_is_a_measured_gap(case, files):
+def test_xvid_streams_take_the_xvid_idct(case, files):
     """FFmpeg decodes a stream whose user data names XviD, or an ``XVID``
-    stream with no user data at all, with its XviD IDCT; the port keeps
-    libavcodec's simple IDCT.  Same frame count, RGB within 5 grey levels
-    (measured: 2-5 a frame)."""
+    stream with no user data at all, with its XviD IDCT, and so does the
+    port: every frame equals OpenCV's bit for bit, and differs from the
+    same stream read as libavcodec's own (its simple IDCT)."""
+    assert_frames_equal(files[case], files[case])
     ours = [f for _, f in iterate_frames(files[case])]
-    ffmpeg = [f[..., ::-1] for f in cv2_views(files[case], "bgr")]
-    assert len(ours) == len(ffmpeg) == 24
-    gaps = [int(np.abs(a.astype(int) - b).max()) for a, b in zip(ours, ffmpeg)]
-    assert 0 < max(gaps) <= 5, gaps
-    for a, (_, b) in zip(ours, iterate_frames(files["bf1"])):  # the port ignores user data
-        np.testing.assert_array_equal(a, b)
+    lavc = [f for _, f in iterate_frames(files["bf1"])]
+    assert len(ours) == len(lavc) == 24
+    assert any(not np.array_equal(a, b) for a, b in zip(ours, lavc))
 
 
 @pytest.mark.parametrize("name", ["XVID", "bf2"])
@@ -174,10 +172,8 @@ def test_native_source_equals_frame_source(name, files):
 
 
 def test_refused_streams_raise_before_any_frame(files, tmp_path):
-    qpel = lavc_stream(moving_scene(6, 96, 64, seed=1), {"bf": 1, "flags": "+qpel"})
     stream = lavc_stream(moving_scene(6, 96, 64, seed=1), {"bf": 1})
     cases = [
-        (write_lavc_avi(str(tmp_path / "q.avi"), qpel), "quarter-sample"),
         (write_avi(str(tmp_path / "p.avi"), [stream.packets[0][:stream.packets[0].find(
             b"\x00\x00\x01\xb6")] + stream.packets[1]] + stream.packets[2:], 96, 64),
          "frame 0 .*P-VOP.*does not start with an I-VOP"),

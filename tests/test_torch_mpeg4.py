@@ -168,7 +168,6 @@ def test_non_coded_vop_repeats_the_picture_before_it(clips, tmp_path):
     (dict(reduced_resolution=1), "reduced-resolution"),
     (dict(not_8_bit=1), "not_8_bit"),
     (dict(scalability=1), "scalability"),
-    (dict(quarter_sample=1), "quarter-sample"),
     (dict(data_partitioned=1), "data partitioning"),
     (dict(data_partitioned=1, reversible_vlc=1), "reversible VLC"),
     (dict(shape=2), "non-rectangular shape"),

@@ -24,9 +24,9 @@ offset (or ``ctts`` version 1 without one).
 * A non-coded B-VOP repeats the picture shown before it, and a
   non-coded P-VOP is the newest reference again, where this FFmpeg build
   shows nothing (ROADMAP Queue 3).
-* Quarter-sample and interlaced streams, and edit lists other than the
-  identity or the first-offset shift, raise ValueError naming them
-  before any frame is decoded.
+* Interlaced streams, and edit lists other than the identity or the
+  first-offset shift, raise ValueError naming them before any frame is
+  decoded (quarter-sample streams are decoded: test_torch_mpeg4_xvid.py).
 * A stream that is invalid (``mpeg4_damaged.mp4``) raises at the
   macroblock where FFmpeg's decoder finds the same fault and conceals.
 """
@@ -239,8 +239,7 @@ def test_non_coded_p_vop_in_a_b_vop_stream_is_the_reference_again(clips, tmp_pat
     assert np.array_equal(ours[shown_before + 3], held)  # shown again after its two B-VOPs
 
 
-@pytest.mark.parametrize("flags,named", [("+qpel", "quarter-sample"),
-                                         ("+ildct", "interlaced")])
+@pytest.mark.parametrize("flags,named", [("+ildct", "interlaced")])
 def test_refused_streams_raise_before_any_frame(flags, named, tmp_path):
     stream = lavc_stream(moving_scene(6, 96, 64, seed=1), {"bf": 1, "flags": flags})
     path = write_lavc_mp4(str(tmp_path / "r.mp4"), stream)

@@ -138,7 +138,7 @@ class NativeFrameSource:
         keep = np.arange(0, index.shown, every)  # the whole frames of a cut file
         self._stream = VideoStream(str(path), index.offsets, index.sizes, keep, size,
                                    letterbox_resize, normalize, queue_size, codec=index.codec,
-                                   config=index.config)
+                                   config=index.config, fourcc=index.fourcc)
 
     def __iter__(self):
         for idx, x, affine in self._stream:

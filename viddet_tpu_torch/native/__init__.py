@@ -115,11 +115,13 @@ def library() -> ctypes.CDLL:
             lib.vd_png_raw_size.argtypes = [i, i, i, i, i]
             lib.vd_png_raw_size.restype = size
             lib.vd_frame_transform.argtypes = [p, i, i, p, i, i, i, i, p]
-            lib.vd_mpeg4_open.argtypes = [p, size, ctypes.POINTER(i), ctypes.POINTER(i), p, i]
+            lib.vd_mpeg4_open.argtypes = [p, size, ctypes.c_char_p, ctypes.POINTER(i),
+                                          ctypes.POINTER(i), p, i]
             lib.vd_mpeg4_open.restype = p
             lib.vd_mpeg4_decode.argtypes = [p, p, size, p, p, i]
             lib.vd_mpeg4_flush.argtypes = [p, p]
             lib.vd_mpeg4_planes.argtypes = [p, p, p, p]
+            lib.vd_mpeg4_info.argtypes = [p, p]
             lib.vd_mpeg4_free.argtypes = [p]
             lib.vd_mpeg4enc_open.argtypes = [i, i, i, i, p, i]
             lib.vd_mpeg4enc_open.restype = p
@@ -137,8 +139,8 @@ def library() -> ctypes.CDLL:
             lib.vd_vp8_rgb.argtypes = [p, p]
             lib.vd_vp8_planes.argtypes = [p, p, p, p]
             lib.vd_vp8_free.argtypes = [p]
-            lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, p, p, i, p, i, i, i, i, i,
-                                          i, p, i]
+            lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, p, p, i,
+                                          p, i, i, i, i, i, i, p, i]
             lib.vd_video_open.restype = p
             lib.vd_video_next.argtypes = [p, p, p, ctypes.POINTER(i), p, i]
             lib.vd_video_stop.argtypes = [p]
@@ -338,27 +340,39 @@ def frame_transform(rgb: np.ndarray, size, letterbox: bool = True,
     return out, affine
 
 
+# codec.cpp's kBug* bits: libavcodec's workaround_bugs flags the decoder follows
+MPEG4_WORKAROUNDS = {"edge": 1, "dc_clip": 2, "qpel_chroma": 4, "qpel_chroma2": 8,
+                     "std_qpel": 16}
+
+
 class Mpeg4Decoder:
-    """An MPEG-4 Part 2 decoder (Simple and Advanced Simple Profile without
-    quarter-sample, interlace or global motion compensation): ``config`` is
-    the decoder configuration (the VOS / VO / VOL headers of an MP4's
-    ``esds`` or at the head of an AVI's first frame), and ``decode(sample)``
-    decodes one sample's VOP.  Pictures come out in display order, each the
-    (H, W, 3) uint8 RGB frame that ``cv2.VideoCapture``'s FFmpeg backend
-    returns: unless the VOL says low_delay, a reference (I or P) picture is
-    held until the next one arrives and shown then, a B-VOP's picture is
-    shown at once, and ``flush()`` gives the one still held at the end.  A
+    """An MPEG-4 Part 2 decoder (Simple and Advanced Simple Profile: B-VOPs,
+    MPEG quantisation and quarter-sample vectors; not interlace or global
+    motion compensation): ``config`` is the decoder configuration (the VOS
+    / VO / VOL headers of an MP4's ``esds`` or at the head of an AVI's first
+    frame), ``fourcc`` the container's tag of the stream (an AVI's or a VfW
+    Matroska track's, ``mp4v`` in MP4), and ``decode(sample)`` decodes one
+    sample's VOP.  As libavcodec does, the decoder reads who wrote the
+    stream from its user data (``XviD####``, ``DivX###b####``, ``Lavc``)
+    and the fourcc (``XVID`` alone means an early XviD, ``DIVX`` with a bare
+    VOL DivX 4), and decodes such a stream with that encoder's IDCT and
+    workarounds.  Pictures come out in display order, each the (H, W, 3)
+    uint8 RGB frame that ``cv2.VideoCapture``'s FFmpeg backend returns:
+    unless the VOL says low_delay, a reference (I or P) picture is held
+    until the next one arrives and shown then, a B-VOP's picture is shown
+    at once, and ``flush()`` gives the one still held at the end.  A
     feature the decoder does not have raises ValueError naming it, at
     ``__init__`` for one the VOL announces and at ``decode`` for an
     S-VOP."""
 
-    def __init__(self, config: bytes, name: str = "<stream>"):
+    def __init__(self, config: bytes, name: str = "<stream>", fourcc: str = ""):
         self._lib = library()
         self.name = name
         err = ctypes.create_string_buffer(_ERR_LEN)
         w, h = ctypes.c_int(), ctypes.c_int()
-        self._handle = self._lib.vd_mpeg4_open(config, len(config), ctypes.byref(w),
-                                               ctypes.byref(h), err, _ERR_LEN)
+        self._handle = self._lib.vd_mpeg4_open(config, len(config),
+                                               fourcc.encode("latin-1")[:4],
+                                               ctypes.byref(w), ctypes.byref(h), err, _ERR_LEN)
         if not self._handle:
             raise ValueError(f"{name}: MPEG-4 decoder configuration: {_message(err)}")
         self.width, self.height = w.value, h.value  # the VOL's
@@ -393,6 +407,23 @@ class Mpeg4Decoder:
         v = np.empty_like(u)
         self._lib.vd_mpeg4_planes(self._handle, y.ctypes.data, u.ctypes.data, v.ctypes.data)
         return y, u, v
+
+    @property
+    def stream_info(self) -> dict:
+        """What the decoder has read so far of the stream and its encoder:
+        ``quarter_sample``, ``xvid_build``, ``divx_version``, ``divx_build``
+        and ``lavc_build`` (None where unknown), the libavcodec
+        ``workarounds`` in force (``MPEG4_WORKAROUNDS``' names) and the
+        ``idct`` ("simple" or "xvid")."""
+        info = np.empty(7, np.int32)
+        self._lib.vd_mpeg4_info(self._handle, info.ctypes.data)
+        q, xvid, divx, divx_build, lavc, bugs, xvid_idct = info.tolist()
+        known = lambda v: None if v == -1 else v  # noqa: E731
+        return {"quarter_sample": bool(q), "xvid_build": known(xvid),
+                "divx_version": known(divx), "divx_build": known(divx_build),
+                "lavc_build": known(lavc),
+                "workarounds": [n for n, bit in MPEG4_WORKAROUNDS.items() if bugs & bit],
+                "idct": "xvid" if xvid_idct else "simple"}
 
     def close(self) -> None:
         if self._handle:
@@ -467,12 +498,13 @@ class Mpeg4Encoder:
             self.close()
 
 
-def mpeg4_frames(config: bytes, samples, name: str, every: int = 1):
+def mpeg4_frames(config: bytes, samples, name: str, every: int = 1, fourcc: str = ""):
     """(display index, RGB frame) of every ``every``-th picture of an
-    MPEG-4 stream whose samples (in decode order) ``samples`` yields; every
-    sample is decoded, only the kept pictures converted to RGB.  A sample
-    that fails raises ValueError naming ``name`` and its number."""
-    decoder = Mpeg4Decoder(config, name)
+    MPEG-4 stream (tagged ``fourcc`` by its container) whose samples (in
+    decode order) ``samples`` yields; every sample is decoded, only the
+    kept pictures converted to RGB.  A sample that fails raises ValueError
+    naming ``name`` and its number."""
+    decoder = Mpeg4Decoder(config, name, fourcc)
     shown = 0
     try:
         for i, sample in enumerate(samples):
@@ -593,16 +625,16 @@ class VideoStream:
     transformed (``frame_transform``) on a C++ thread into a ring of
     ``capacity`` frames; the thread starts here.  ``codec`` "jpeg" decodes
     only the kept frames; "mpeg4" (configured by ``config``, the stream's
-    decoder configuration) decodes the samples in decode order up to the
-    last kept picture and transforms only the kept ones, ``indices``
-    counting pictures in display order.  Iterating yields (index, x,
+    decoder configuration, and ``fourcc``, the container's tag) decodes the
+    samples in decode order up to the last kept picture and transforms only
+    the kept ones, ``indices`` counting pictures in display order.  Iterating yields (index, x,
     affine) in order and raises ValueError for a frame that fails to read
     or decode, after the frames before it.  ``close()`` stops the thread
     and ends an iteration blocked in another thread."""
 
     def __init__(self, path: str, offsets, sizes, indices, size, letterbox: bool = True,
                  normalize: bool = True, capacity: int = 64, codec: str = "jpeg",
-                 config: bytes = b""):
+                 config: bytes = b"", fourcc: str = ""):
         if codec not in CODECS:
             raise ValueError(f"VideoStream decodes jpeg, mpeg4 or vp8, not {codec!r}")
         self._lib = library()
@@ -616,7 +648,7 @@ class VideoStream:
         self._busy = self._closed = False
         self._handle = self._lib.vd_video_open(
             os.fsencode(path), CODECS[codec], config or None, len(config),
-            offsets.ctypes.data, sizes.ctypes.data, len(offsets), indices.ctypes.data,
+            fourcc.encode("latin-1")[:4], offsets.ctypes.data, sizes.ctypes.data, len(offsets), indices.ctypes.data,
             len(indices), self._h, self._w, int(letterbox), int(normalize), int(capacity), err,
             _ERR_LEN)
         if not self._handle:

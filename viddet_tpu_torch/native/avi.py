@@ -7,7 +7,10 @@ module only walks and writes the RIFF tree.  An MPEG-4 Part 2 stream (the
 ``XVID``, ``DIVX``, ``FMP4``, ... fourccs OpenCV and FFmpeg write) goes to
 the port's MPEG-4 decoder (``native.Mpeg4Decoder``), configured by the
 ``strf`` extradata after the BITMAPINFOHEADER, or where there is none by
-the VOS / VOL headers at the head of the first frame.  Packed B-frames (a
+the VOS / VOL headers at the head of the first frame, and told the
+``strf`` compression, as FFmpeg's decoder is told its codec tag: an
+``XVID`` or ``DIVX`` stream without user data is decoded as early XviD's
+or DivX 4's (``AviIndex.fourcc``).  Packed B-frames (a
 P-VOP and the B-VOP shown before it in one chunk, then a placeholder
 chunk, as DivX and XviD write them) are unpacked as FFmpeg's
 ``mpeg4_unpack_bframes`` filter unpacks them: the B-VOP's bytes take the
@@ -78,6 +81,7 @@ class AviIndex:
     truncated: bool  # the walk met a chunk cut short by the end of the file
     codec: str = "jpeg"  # or "mpeg4" (``native.VideoStream``'s codec)
     config: bytes = b""  # the MPEG-4 decoder configuration (VOS / VO / VOL)
+    fourcc: str = ""  # the strf compression, which FFmpeg's MPEG-4 decoder reads too
 
     @property
     def fps(self) -> float:
@@ -176,7 +180,7 @@ class _Walk:
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
         return AviIndex(self.path, width, abs(height), strh[1], strh[0], offsets, sizes,
-                        self.truncated, codec, config)
+                        self.truncated, codec, config, fourcc)
 
     def fail(self, what: str):
         raise ValueError(f"{self.path}: {what}")
@@ -250,7 +254,7 @@ class AviReader:
         index = self.index
         if index.codec == "mpeg4":
             yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
-                                    index.path, every)
+                                    index.path, every, index.fourcc)
             return
         for i in range(0, len(self), every):
             yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")

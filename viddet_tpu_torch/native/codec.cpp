@@ -44,20 +44,25 @@
 // and vd_png_raw_size(width, height, bit_depth, color_type, interlace), the
 // inflated size of a valid header's rows (no error to report).
 //
-// MPEG-4 Part 2 video (the samples of an MP4 / QuickTime file that
-// native/mp4.py has indexed): Simple Profile I- and P-VOPs as libavcodec's
-// decoder gives them (see the section's comment), then yuv420p -> RGB as
-// swscale's x86 converter gives it for BT.601 limited range, so a frame
-// equals what cv2.VideoCapture's FFmpeg backend returns.
-//   vd_mpeg4_open(config, size, &width, &height, err, err_len) -> handle or
-//           null; reads the VOS / VO / VOL headers of the decoder configuration;
-//           a feature the decoder does not have (B- and S-VOPs, interlace,
-//           quarter-sample, MPEG quantisation, data partitioning, reversible
-//           VLC, non-rectangular shape) raises naming it
+// MPEG-4 Part 2 video (the samples of an MP4 / QuickTime, AVI or Matroska
+// file that native/mp4.py, avi.py or mkv.py has indexed): Simple and
+// Advanced Simple Profile (I-, P- and B-VOPs, MPEG quantisation,
+// quarter-sample vectors, and the encoder workarounds libavcodec keys on
+// user data and the fourcc) as libavcodec's decoder gives them (see the
+// section's comment), then yuv420p -> RGB as swscale's x86 converter gives
+// it for BT.601 limited range, so a frame equals what cv2.VideoCapture's
+// FFmpeg backend returns.
+//   vd_mpeg4_open(config, size, fourcc, &width, &height, err, err_len) ->
+//           handle or null; reads the VOS / VO / VOL headers and user data
+//           of the decoder configuration (fourcc: the container's tag, or
+//           ""); a feature the decoder does not have (S-VOPs, interlace,
+//           data partitioning, reversible VLC, NEWPRED, reduced resolution,
+//           scalability, not_8_bit, non-rectangular shape) raises naming it
 //   vd_mpeg4_decode(handle, sample, size, rgb, err, err_len)
 //           decodes the sample's VOP (a non-coded one repeats the picture
 //           before it) and, with rgb, writes the picture as RGB
 //   vd_mpeg4_planes(handle, y, u, v) copies out the last picture's planes
+//   vd_mpeg4_info(handle, out) what it read of the encoder (7 ints)
 //   vd_mpeg4_free(handle)
 //
 // VP8 video (a WebM / Matroska track that native/mkv.py has indexed) is
@@ -80,9 +85,9 @@
 //           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
 //           arithmetic (transforms.py _resize), the letterbox's 128 border,
 //           and the ImageNet normalisation in float32, step by step
-//   vd_video_open(path, codec, config, config_size, offsets, sizes, samples,
-//                 indices, n, h, w, letterbox, normalize, capacity, err,
-//                 err_len) -> handle or null
+//   vd_video_open(path, codec, config, config_size, fourcc, offsets, sizes,
+//                 samples, indices, n, h, w, letterbox, normalize, capacity,
+//                 err, err_len) -> handle or null
 //           starts a thread that decodes frames `indices` (ascending) of the
 //           file's `samples` samples and transforms each into a ring of
 //           `capacity` frames: codec 0 reads and decodes only the kept
@@ -1687,19 +1692,24 @@ constexpr long long kMaxPixels = 1LL << 30;  // native/__init__.py MAX_PIXELS
 
 // ---------------------------------------------------------------------------
 // MPEG-4 Part 2 (ISO/IEC 14496-2) Simple and Advanced Simple Profile video
-// (B-VOPs and MPEG quantisation; not quarter-sample, interlace or GMC), as
-// libavcodec's mpeg4 decoder reconstructs it and shows it (display
-// order).  The tables are the standard's (mpeg4.h: H.263 Tables 7, 8, 13,
-// 14 and 16; 14496-2 Tables B-13, B-14 and B-16; here the default matrices); the
-// arithmetic follows libavcodec where the standard leaves it open: the
-// 8-bit simple_idct with its DC-only row shortcut, DC and AC prediction
-// with its slice-edge rules, motion-vector prediction (zeroing a vector in
-// place at a packet's start) and the H.263 chroma rounding, unrestricted
-// vectors replicating the edge of the macroblock-aligned picture
-// (libavcodec's h_edge_pos / v_edge_pos), the H.263 inverse quantiser with
-// the third escape's clip, its MPEG inverse quantiser, direct mode's
-// scaled vectors, and the x86 half-sample averages libavcodec takes by
-// default (Mpeg4Decoder::average).
+// (B-VOPs, MPEG quantisation and quarter-sample vectors; not interlace or
+// GMC), as libavcodec's mpeg4 decoder reconstructs it and shows it
+// (display order).  The tables are the standard's (mpeg4.h: H.263 Tables
+// 7, 8, 13, 14 and 16; 14496-2 Tables B-13, B-14 and B-16; here the default
+// matrices); the arithmetic follows libavcodec where the standard leaves it
+// open: the 8-bit simple_idct with its DC-only row shortcut, DC and AC
+// prediction with its slice-edge rules, motion-vector prediction (zeroing
+// a vector in place at a packet's start) and the H.263 chroma rounding,
+// unrestricted vectors replicating the edge of the macroblock-aligned
+// picture (libavcodec's h_edge_pos / v_edge_pos), the H.263 inverse
+// quantiser with the third escape's clip, its MPEG inverse quantiser,
+// direct mode's scaled vectors, the x86 half-sample averages libavcodec
+// takes by default (mpeg4.h average) and qpeldsp's quarter-sample filter
+// (mpeg4.h qpel_predict).  Like libavcodec it reads the encoder and its
+// build from user data (XviD, DivX, Lavc) and the fourcc, and from them
+// takes the XviD IDCT, the picture's own edge, unclipped DC predictors, the
+// early encoders' quarter-sample chroma and luma, and 16x16 direct mode
+// (Mpeg4Decoder::workaround).
 
 // Big-endian bit reader over [p, p + n); reads past the end give zeros and
 // `over()` tells.
@@ -1788,6 +1798,11 @@ const uint8_t kDefaultInterMatrix[64] = {
 
 constexpr int kSimpleVo = 1, kAdvancedSimpleVo = 17;  // video_object_type_indication
 
+// libavcodec's workaround_bugs flags that change what the decoder computes
+// (Mpeg4Decoder::workaround)
+constexpr unsigned kBugEdge = 1, kBugDcClip = 2, kBugQpelChroma = 4, kBugQpelChroma2 = 8,
+                   kBugStdQpel = 16;
+
 struct Mpeg4Decoder {
   // VOL
   bool have_vol = false;
@@ -1802,6 +1817,15 @@ struct Mpeg4Decoder {
   int64_t time_base = 0, last_time_base = 0, last_non_b_time = 0;
   uint16_t pp_time = 0, pb_time = 0;
   int pictures = 0;  // coded VOP headers read (libavcodec's picture_number)
+  bool quarter = false;  // quarter_sample: vectors in quarter samples
+  // who wrote the stream, as libavcodec's decode_user_data reads it from
+  // user data (-1 unknown), and the container's fourcc (upper case)
+  int xvid_build = -1, divx_version = -1, divx_build = -1, lavc_build = -1;
+  uint32_t codec_tag = 0;
+  // what libavcodec's ff_mpeg4_workaround_bugs derives from them (kBug*),
+  // the XviD IDCT, and the edge of FF_BUG_EDGE once a VOP header saw it
+  unsigned bugs = 0;
+  bool xvid_idct = false, picture_edge = false;
   // VOP
   int vop_type = 0, rounding = 0, qscale = 1, fcode = 1, bcode = 1, dc_threshold = 99;
   // the two newest reference (I/P) pictures, `ref` the newer; `cur` is the
@@ -1829,6 +1853,16 @@ struct Mpeg4Decoder {
 
   const Mpeg4Tables& t = mpeg4_tables();
 
+  // A decoder for a stream the container tags `tag` (its fourcc: an AVI's,
+  // a VfW Matroska track's, "mp4v"; or empty), which libavcodec reads in
+  // upper case.
+  explicit Mpeg4Decoder(const char* tag = "") {
+    for (int i = 0; i < 4 && tag && tag[i]; ++i) {
+      const uint8_t c = static_cast<uint8_t>(tag[i]);
+      codec_tag |= uint32_t(c >= 'a' && c <= 'z' ? c - 'a' + 'A' : c) << (8 * i);
+    }
+  }
+
   // -- headers --------------------------------------------------------------
 
   static size_t next_start(const uint8_t* d, size_t n, size_t from) {
@@ -1848,6 +1882,8 @@ struct Mpeg4Decoder {
       Mpeg4Bits b(data + body, end - body);
       if (code >= 0x20 && code <= 0x2F) {
         parse_vol(b);
+      } else if (code == 0xB2 && ready < 0) {
+        parse_user_data(data + body, n - body);
       } else if (code == 0xB3) {
         parse_gov(b);
       } else if (code == 0xB6) {
@@ -1858,10 +1894,99 @@ struct Mpeg4Decoder {
         if (!have_vol) fail("a VOP before any video object layer header");
         ready = decode_vop(b);
       }
-      // the others (VOS, user data, VO, ...) carry nothing the decoder needs
+      // the others (VOS, VO, ...) carry nothing the decoder needs
       i = end;
     }
     return ready;
+  }
+
+  // libavcodec's decode_user_data: up to 255 bytes, to where 23 zero bits
+  // start (the next start code), read with sscanf as there; the forms its
+  // encoder, XviD and DivX write name the encoder and its build.
+  void parse_user_data(const uint8_t* d, size_t n) {
+    char buf[256];
+    size_t i = 0;
+    auto at = [&](size_t k) { return k < n ? d[k] : 0; };
+    for (; i < 255 && i < n; ++i) {
+      if (!at(i) && !at(i + 1) && !(at(i + 2) & 0xFE)) break;
+      buf[i] = static_cast<char>(d[i]);
+    }
+    buf[i] = 0;
+    int ver = 0, ver2 = 0, ver3 = 0, build = 0;
+    char last = 0;
+    int e = std::sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
+    if (e < 2) e = std::sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
+    if (e >= 2) {
+      divx_version = ver;
+      divx_build = build;
+    }
+    e = std::sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+    if (e != 4)
+      e = std::sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2, &ver3, &build);
+    if (e != 4) {
+      e = std::sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+      if (e > 1) build = ((ver & 0xFF) << 16) + ((ver2 & 0xFF) << 8) + (ver3 & 0xFF);
+    }
+    if (e != 4 && !std::strcmp(buf, "ffmpeg")) lavc_build = 4600;
+    if (e == 4) lavc_build = build;
+    if (std::sscanf(buf, "XviD%d", &build) == 1) xvid_build = build;
+  }
+
+  static constexpr uint32_t fourcc(const char (&c)[5]) {
+    return uint32_t(uint8_t(c[0])) | uint32_t(uint8_t(c[1])) << 8 | uint32_t(uint8_t(c[2])) << 16 |
+           uint32_t(uint8_t(c[3])) << 24;
+  }
+
+  // libavcodec's ff_mpeg4_workaround_bugs (FF_BUG_AUTODETECT), run after
+  // each coded VOP header: the encoder the fourcc implies where user data
+  // named none, then the bugs of its build (they accumulate) and, once an
+  // XviD build is known, the XviD IDCT.  Comparisons libavcodec makes
+  // unsigned let -1 (unknown) through none of them.  Not followed: the
+  // padding score (it only moves resync detection in damaged streams),
+  // FF_BUG_IEDGE (Lavc 55.x builds, interlaced chroma in one buffer),
+  // FF_BUG_HPEL_CHROMA and FF_BUG_XVID_ILACE (field vectors; interlace is
+  // refused) and FF_BUG_UMP4 (a fourcc the readers do not take).
+  void workaround() {
+    const bool named = xvid_build != -1 || divx_version != -1 || lavc_build != -1;
+    if (!named && (codec_tag == fourcc("XVID") || codec_tag == fourcc("XVIX") ||
+                   codec_tag == fourcc("RMP4") || codec_tag == fourcc("ZMP4") ||
+                   codec_tag == fourcc("SIPP")))
+      xvid_build = 0;
+    if (xvid_build == -1 && divx_version == -1 && lavc_build == -1 &&
+        codec_tag == fourcc("DIVX") && vo_type == 0 && !vol_control)
+      divx_version = 400;  // DivX 4
+    if (xvid_build >= 0 && divx_version >= 0) divx_version = divx_build = -1;
+    const unsigned xvid = static_cast<unsigned>(xvid_build);
+    const unsigned lavc = static_cast<unsigned>(lavc_build);
+    const unsigned divx = static_cast<unsigned>(divx_version);
+    if (divx_version >= 500 && divx_build < 1814) bugs |= kBugQpelChroma;
+    if (divx_version > 502 && divx_build < 1814) bugs |= kBugQpelChroma2;
+    if (xvid <= 1) bugs |= kBugQpelChroma;
+    if (xvid <= 12) bugs |= kBugEdge;
+    if (xvid <= 32) bugs |= kBugDcClip;
+    if (lavc < 4653) bugs |= kBugStdQpel;
+    if (lavc < 4670) bugs |= kBugEdge;
+    if (lavc <= 4712) bugs |= kBugDcClip;
+    if (divx < 500) bugs |= kBugEdge;
+    if (xvid_build >= 0) xvid_idct = true;
+  }
+
+  // The current VOP's motion compensation rules.
+  McRules rules() const {
+    McRules r;
+    r.ew = picture_edge ? width : mb_w * 16;
+    r.eh = picture_edge ? height : mb_h * 16;
+    r.qpel = quarter;
+    r.qpel_chroma = bugs & kBugQpelChroma2 ? 2 : bugs & kBugQpelChroma ? 1 : 0;
+    r.old_qpel = bugs & kBugStdQpel;
+    return r;
+  }
+
+  void idct(int16_t* block, uint8_t* dst, ptrdiff_t stride, bool add) const {
+    if (xvid_idct)
+      vd_mpeg4::xvid_idct(block, dst, stride, add);
+    else
+      simple_idct(block, dst, stride, add);
   }
 
   // Decode one sample; whether a picture is ready to show, in display order.
@@ -1940,7 +2065,7 @@ struct Mpeg4Decoder {
       if (b.get1()) load_matrix(b, intra_matrix);
       if (b.get1()) load_matrix(b, inter_matrix);
     }
-    if (verid != 1 && b.get1()) fail("quarter-sample motion compensation is not decoded");
+    const bool qpel = verid != 1 && b.get1();
     if (!b.get1()) fail("complexity estimation headers are not decoded");
     b.skip(1);  // resync_marker_disable: video packets are found either way
     if (b.get1()) {
@@ -1960,6 +2085,7 @@ struct Mpeg4Decoder {
     have_vol = true;
     resolution = res;
     mpeg_quant = mpeg;
+    quarter = qpel;
   }
 
   // group_of_vop: the seconds of its time code become the time base (a GOV
@@ -2046,8 +2172,11 @@ struct Mpeg4Decoder {
     }
     if (type == 1 && !refs) fail("a P-VOP before any I-VOP");
     if (b.over()) fail("the VOP header is truncated");
-    if (!vo_type && !vol_control && !pictures) low_delay = true;  // libavcodec's divx4 rule
+    // libavcodec's divx4 rule
+    if (!vo_type && !vol_control && divx_version == -1 && !pictures) low_delay = true;
+    if (bugs & kBugEdge) picture_edge = true;  // the header reads the bugs found so far
     ++pictures;
+    workaround();
     if (type == 2 && refs < 2) return false;  // libavcodec drops a B-VOP before two references
     vop_type = type;
     resync_x = resync_y = 0;
@@ -2264,7 +2393,7 @@ struct Mpeg4Decoder {
       uint8_t* dst;
       ptrdiff_t stride;
       target(n, dst, stride);
-      simple_idct(block, dst, stride, true);
+      idct(block, dst, stride, true);
     }
   }
 
@@ -2352,6 +2481,11 @@ struct Mpeg4Decoder {
   void direct(int dx, int dy, std::array<int16_t, 2>* fv, std::array<int16_t, 2>* bv,
               bool& four) {
     four = ref_four[mb_index()];
+    // quarter-sample direct mode predicts four 8x8 blocks from the one
+    // vector too (libavcodec skips that under FF_BUG_DIRECT_BLOCKSIZE only
+    // where the caller set it: it tests avctx->workaround_bugs, which the
+    // detection never writes)
+    const bool split = !four && quarter;
     const int trb = pb_time, trd = pp_time;
     for (int n = 0; n < (four ? 4 : 1); ++n) {
       const std::array<int16_t, 2>& p = mv[bpos(n)];
@@ -2365,6 +2499,7 @@ struct Mpeg4Decoder {
       fv[n] = fv[0];
       bv[n] = bv[0];
     }
+    four = four || split;
   }
 
   // libavcodec's ff_h263_pred_motion, with its first-row rules
@@ -2419,7 +2554,7 @@ struct Mpeg4Decoder {
   // the current macroblock of `cur` predicted from `src` (mpeg4.h motion)
   void predict(const Picture& src, const std::array<int16_t, 2>* v, bool four, int rnd,
                bool avg) {
-    motion(cur, src, mb_x, mb_y, mb_w, mb_h, width, height, v, four, rnd, avg);
+    motion(cur, src, mb_x, mb_y, width, height, rules(), v, four, rnd, avg);
   }
 
   int read_mv(Mpeg4Bits& b, int pred, int code_f) {
@@ -2549,8 +2684,8 @@ struct Mpeg4Decoder {
     }
     pred = (pred + (scale >> 1)) / scale;
     level += pred;
-    int stored = level * scale;
-    if (stored & ~2047) stored = stored < 0 ? 0 : 2047;
+    int stored = level * scale;  // clipped to 2047 unless FF_BUG_DC_CLIP
+    if (stored & ~2047) stored = stored < 0 ? 0 : bugs & kBugDcClip ? stored : 2047;
     d[at] = static_cast<int16_t>(stored);
     return level;
   }
@@ -2634,7 +2769,7 @@ struct Mpeg4Decoder {
       uint8_t* dst;
       ptrdiff_t stride;
       target(n, dst, stride);
-      simple_idct(block, dst, stride, false);
+      idct(block, dst, stride, false);
     }
   }
 
@@ -2680,6 +2815,7 @@ struct VideoStream {
   std::vector<int32_t> indices;         // the frames kept, ascending
   int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8
   std::vector<uint8_t> config;
+  std::string fourcc;                   // MPEG-4's container tag
   int h, w;
   bool letterbox, normalize;
   size_t frame_bytes;
@@ -2770,7 +2906,7 @@ struct VideoStream {
   template <typename Read>
   void run_mpeg4(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
                  std::vector<uint8_t>& staged) {
-    Mpeg4Decoder d;
+    Mpeg4Decoder d(fourcc.c_str());
     d.feed(config.data(), config.size(), false);
     if (!d.have_vol) fail("the decoder configuration holds no video object layer header");
     rgb.resize(static_cast<size_t>(d.width) * d.height * 3);
@@ -2855,11 +2991,11 @@ struct VideoStream {
 extern "C" {
 
 
-void* vd_mpeg4_open(const uint8_t* config, unsigned long size, int* width, int* height,
-                    char* err, int err_len) {
+void* vd_mpeg4_open(const uint8_t* config, unsigned long size, const char* fourcc, int* width,
+                    int* height, char* err, int err_len) {
   Mpeg4Decoder* d = nullptr;
   try {
-    d = new Mpeg4Decoder();
+    d = new Mpeg4Decoder(fourcc);
     d->feed(config, size, false);
     if (!d->have_vol) fail("the decoder configuration holds no video object layer header");
     *width = d->width;
@@ -2906,6 +3042,17 @@ int vd_mpeg4_flush(void* handle, uint8_t* rgb) {
 void vd_mpeg4_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
   auto* d = static_cast<Mpeg4Decoder*>(handle);
   if (d->shown) copy_planes(*d->shown, d->width, d->height, y, u, v);
+}
+
+// What the decoder has read of the stream so far, into 7 ints:
+// quarter_sample, the XviD build, the DivX version and build, the
+// libavcodec build (-1 where unknown), the workaround bits (kBug*) and
+// whether the XviD IDCT is in use.
+void vd_mpeg4_info(void* handle, int* out) {
+  const auto* d = static_cast<const Mpeg4Decoder*>(handle);
+  const int info[7] = {d->quarter,     d->xvid_build,          d->divx_version, d->divx_build,
+                       d->lavc_build, static_cast<int>(d->bugs), d->xvid_idct};
+  std::memcpy(out, info, sizeof(info));
 }
 
 void vd_mpeg4_free(void* handle) { delete static_cast<Mpeg4Decoder*>(handle); }
@@ -2972,7 +3119,7 @@ int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int
 }
 
 void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned long config_size,
-                    const int64_t* offsets, const int64_t* sizes, int samples,
+                    const char* fourcc, const int64_t* offsets, const int64_t* sizes, int samples,
                     const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
                     int capacity, char* err, int err_len) {
   try {
@@ -2986,6 +3133,7 @@ void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned
     s->path = path;
     s->codec = codec;
     s->config.assign(config, config + config_size);
+    s->fourcc = fourcc ? fourcc : "";
     s->offsets.assign(offsets, offsets + samples);
     s->sizes.assign(sizes, sizes + samples);
     s->indices.assign(indices, indices + n);

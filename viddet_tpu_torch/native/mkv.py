@@ -112,6 +112,7 @@ class MkvIndex:
     sizes: np.ndarray  # int64
     shown: int  # the frames shown that lie wholly in the file: VP8's hidden frames are not
     stated: int  # the frame count OpenCV reports: Duration x fps where Info has a Duration
+    fourcc: str = ""  # a V_MS/VFW/FOURCC track's compression (FFmpeg's MPEG-4 decoder reads it)
 
     @property
     def frame_count(self) -> int:
@@ -503,7 +504,7 @@ class _Walk:
             seconds = int(self.duration * self.scale / 1000) / 1e6
             stated = int(math.floor(seconds * fps + 0.5)) or shown
         return MkvIndex(self.path, width, height, codec, config, fps, offsets, sizes, shown,
-                        stated)
+                        stated, fourcc)
 
     def codec(self, track: _Track) -> Tuple[str, bytes, str]:
         """(codec, decoder configuration, VfW fourcc or "") of the track."""
@@ -584,7 +585,7 @@ class MkvReader:
             for i in range(0, len(index.offsets), every):
                 yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")
         elif index.codec == "mpeg4":
-            yield from mpeg4_frames(index.config, samples, index.path, every)
+            yield from mpeg4_frames(index.config, samples, index.path, every, index.fourcc)
         else:
             yield from vp8_frames(samples, index.path, every)
 

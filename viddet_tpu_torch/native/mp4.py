@@ -86,6 +86,7 @@ class Mp4Index:
     sizes: np.ndarray  # int64
     keyframes: Optional[np.ndarray]  # sample numbers from stss (0-based); None: every sample
     stated: int  # the sample table's count, which OpenCV reports for a cut file too
+    fourcc: str = ""  # "mp4v" for MPEG-4 Part 2 (the codec tag FFmpeg's decoder reads)
 
     @property
     def frame_count(self) -> int:
@@ -134,7 +135,7 @@ def check_decoder_config(index) -> None:
     ValueError here, as does a VOL whose size is not the container's."""
     from viddet_tpu_torch.native import Mpeg4Decoder
 
-    decoder = Mpeg4Decoder(index.config, index.path)
+    decoder = Mpeg4Decoder(index.config, index.path, index.fourcc)
     decoder.close()
     if (decoder.width, decoder.height) != (index.width, index.height):
         raise ValueError(f"{index.path}: the video object layer is {decoder.width}x"
@@ -259,7 +260,7 @@ class _Walk:
                 self.fail("box 'stss' is truncated")
             keyframes = np.frombuffer(self.data, ">u4", n, s + 8).astype(np.int64) - 1
         return Mp4Index(self.path, width, height, codec, config, fps, offsets, sizes, keyframes,
-                        stated)
+                        stated, "mp4v" if codec == "mpeg4" else "")
 
     def edit_list(self, start: int, end: int, movie_scale: int, timescale: int,
                   media_duration: int, first_offset: int) -> None:
@@ -464,7 +465,7 @@ class Mp4Reader:
                 yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")
             return
         yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
-                                index.path, every)
+                                index.path, every, index.fourcc)
 
     def close(self) -> None:
         self._file.close()

@@ -4,7 +4,9 @@
 // it: the standard's prefix-code tables (the encoder builds its code
 // tables from them), the escapes' run / level limits, the DC scaler,
 // libavcodec's 8-bit simple_idct, the macroblock-aligned planes, and the
-// half-sample motion compensation with its edge rule.
+// half-sample motion compensation with its edge rule.  The decoder alone
+// uses libavcodec's XviD IDCT and the quarter-sample motion compensation
+// (McRules), which the encoder never writes.
 #pragma once
 
 #include <algorithm>
@@ -232,6 +234,87 @@ inline void simple_idct(int16_t* block, uint8_t* dst, ptrdiff_t stride, bool add
   }
 }
 
+// libavcodec's XviD IDCT (xvididct.c, the C form of its SSE2 code, which
+// x86 runs): rows with per-row tables and rounders into 11 fractional
+// bits, columns through tangents at 16 bits (pmulhw's floor) and a shift
+// of 6.  Its DC-only and zero-row shortcuts equal the general formulas,
+// so they are not taken apart here; rows 1 and 2 of zeros still come out
+// as 1s (their rounders), as there.
+inline constexpr int kXvidTab[4][7] = {{22725, 21407, 19266, 16384, 12873, 8867, 4520},
+                                       {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+                                       {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+                                       {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+inline constexpr int kXvidRowTab[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+inline constexpr int kXvidRowRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+
+inline int16_t saturate16(int v) {  // packssdw
+  return static_cast<int16_t>(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+inline void xvid_idct_row(int16_t* in, const int* c, int rnd) {
+  const int k = c[3] * in[0] + rnd;
+  const int a0 = k + c[1] * in[2] + c[3] * in[4] + c[5] * in[6];
+  const int a1 = k + c[5] * in[2] - c[3] * in[4] - c[1] * in[6];
+  const int a2 = k - c[5] * in[2] - c[3] * in[4] + c[1] * in[6];
+  const int a3 = k - c[1] * in[2] + c[3] * in[4] - c[5] * in[6];
+  const int b0 = c[0] * in[1] + c[2] * in[3] + c[4] * in[5] + c[6] * in[7];
+  const int b1 = c[2] * in[1] - c[6] * in[3] - c[0] * in[5] - c[4] * in[7];
+  const int b2 = c[4] * in[1] - c[0] * in[3] + c[6] * in[5] + c[2] * in[7];
+  const int b3 = c[6] * in[1] - c[4] * in[3] + c[2] * in[5] - c[0] * in[7];
+  in[0] = saturate16((a0 + b0) >> 11);
+  in[1] = saturate16((a1 + b1) >> 11);
+  in[2] = saturate16((a2 + b2) >> 11);
+  in[3] = saturate16((a3 + b3) >> 11);
+  in[4] = saturate16((a3 - b3) >> 11);
+  in[5] = saturate16((a2 - b2) >> 11);
+  in[6] = saturate16((a1 - b1) >> 11);
+  in[7] = saturate16((a0 - b0) >> 11);
+}
+
+// (c * x) >> 16 in 32 bits, as xvididct.c's MULT
+inline int xvid_mult(int c, int x) {
+  return static_cast<int>(static_cast<uint32_t>(c) * static_cast<uint32_t>(x)) >> 16;
+}
+
+inline void xvid_idct_col(const int16_t* in, int out[8]) {
+  constexpr int kTan1 = 0x32EC, kTan2 = 0x6A0A, kTan3 = 0xAB0E, kSqrt2 = 0x5A82;
+  // odd part
+  int m0 = xvid_mult(kTan1, in[56]) + in[8];
+  int m1 = xvid_mult(kTan1, in[8]) - in[56];
+  int m2 = xvid_mult(kTan3, in[40]) + in[24];
+  int m3 = xvid_mult(kTan3, in[24]) - in[40];
+  const int m7 = m0 + m2, m4 = m1 - m3;
+  m0 -= m2;
+  m1 += m3;
+  const int m6 = 2 * xvid_mult(kSqrt2, m0 + m1), m5 = 2 * xvid_mult(kSqrt2, m0 - m1);
+  // even part
+  const int e3 = xvid_mult(kTan2, in[48]) + in[16], e2 = xvid_mult(kTan2, in[16]) - in[48];
+  const int e0 = in[0] + in[32], e1 = in[0] - in[32];
+  const int t0 = e0 + e3, t3 = e0 - e3, t1 = e1 + e2, t2 = e1 - e2;
+  out[0] = static_cast<int16_t>((t0 + m7) >> 6);
+  out[7] = static_cast<int16_t>((t0 - m7) >> 6);
+  out[3] = static_cast<int16_t>((t3 + m4) >> 6);
+  out[4] = static_cast<int16_t>((t3 - m4) >> 6);
+  out[1] = static_cast<int16_t>((t1 + m6) >> 6);
+  out[6] = static_cast<int16_t>((t1 - m6) >> 6);
+  out[2] = static_cast<int16_t>((t2 + m5) >> 6);
+  out[5] = static_cast<int16_t>((t2 - m5) >> 6);
+}
+
+// The XviD IDCT of `block` (natural order), written or added to `dst` as
+// simple_idct does it.
+inline void xvid_idct(int16_t* block, uint8_t* dst, ptrdiff_t stride, bool add) {
+  for (int r = 0; r < 8; ++r) xvid_idct_row(block + 8 * r, kXvidTab[kXvidRowTab[r]], kXvidRowRnd[r]);
+  int out[8];
+  for (int c = 0; c < 8; ++c) {
+    xvid_idct_col(block + c, out);
+    for (int k = 0; k < 8; ++k) {
+      uint8_t& d = dst[k * stride + c];
+      d = clip_pixel(add ? d + out[k] : out[k]);
+    }
+  }
+}
+
 // One 8-bit plane with a stride of whole macroblocks.
 struct Plane {
   int w = 0, h = 0;  // the allocated (macroblock-aligned) size
@@ -322,59 +405,237 @@ inline void average(uint8_t* dst, ptrdiff_t ds, const Plane& src, int ew, int eh
   }
 }
 
+// The (n + 1) x (n + 1) samples at (x, y) of `src` that a quarter-sample
+// n x n block reads, those outside [0, ew) x [0, eh) repeating the edge
+// (libavcodec's emulated_edge_mc); a pointer into the plane where none is.
+inline const uint8_t* qpel_source(const Plane& src, int ew, int eh, int x, int y, int n,
+                                  uint8_t* buf, ptrdiff_t& stride) {
+  if (x >= 0 && y >= 0 && x + n + 1 <= ew && y + n + 1 <= eh) {
+    stride = src.w;
+    return src.px.data() + static_cast<size_t>(y) * src.w + x;
+  }
+  for (int r = 0; r <= n; ++r) {
+    const uint8_t* row = src.px.data() + static_cast<size_t>(std::min(std::max(y + r, 0), eh - 1)) * src.w;
+    for (int c = 0; c <= n; ++c) buf[r * 17 + c] = row[std::min(std::max(x + c, 0), ew - 1)];
+  }
+  stride = 17;
+  return buf;
+}
+
+// 14496-2's quarter-sample lowpass (7.6.2.1) as libavcodec's qpeldsp
+// computes it: n outputs from the n + 1 samples s[0], s[step], ..., each of
+// the 8 taps (-1, 3, -6, 20, 20, -6, 3, -1) beyond either end mirrored back
+// into them, then (v + 16) >> 5, or (v + 15) >> 5 with no_rnd, clipped.
+inline void qpel_lowpass(uint8_t* out, ptrdiff_t ostep, const uint8_t* s, ptrdiff_t step, int n,
+                         int no_rnd) {
+  int e[16 + 8];  // s[-3 .. n + 3], mirrored
+  for (int j = -3; j <= n + 3; ++j) e[j + 3] = s[(j < 0 ? -1 - j : j > n ? 2 * n + 1 - j : j) * step];
+  for (int i = 0; i < n; ++i) {
+    const int* p = e + i + 3;
+    const int v = 20 * (p[0] + p[1]) - 6 * (p[-1] + p[2]) + 3 * (p[-2] + p[3]) - (p[-3] + p[4]);
+    out[i * ostep] = clip_pixel((v + 16 - no_rnd) >> 5);
+  }
+}
+
+// The n x n prediction at quarter position (qx, qy) from the (n + 1)^2
+// samples at `s`, as libavcodec's put[_no_rnd]_qpel{8,16}_mcXY: the
+// horizontal half samples (n + 1 rows, averaged with the integer ones for
+// a quarter in x), their vertical lowpass, and the average of the two
+// nearest; a half position in one direction alone is that lowpass. Every
+// average is (a + b + 1 - no_rnd) >> 1.  `old` gives the _old_c forms
+// libavcodec keeps for its own early encoders (FF_BUG_STD_QPEL): at a
+// quarter in both directions, or a quarter in x and a half in y, the
+// vertical half samples of the integer ones join the average, (a + b + c +
+// d + 2 - no_rnd) >> 2.
+inline void qpel_predict(uint8_t* dst, ptrdiff_t ds, const uint8_t* s, ptrdiff_t ss, int n,
+                         int qx, int qy, int no_rnd, bool old) {
+  uint8_t h[17 * 17], hv[16 * 16], vv[16 * 16];
+  auto avg2 = [&](int a, int b) { return static_cast<uint8_t>((a + b + 1 - no_rnd) >> 1); };
+  auto vertical = [&](uint8_t* out, ptrdiff_t os, const uint8_t* in, ptrdiff_t is) {
+    for (int c = 0; c < n; ++c) qpel_lowpass(out + c, os, in + c, is, n, no_rnd);
+  };
+  auto horizontal = [&](uint8_t* out, ptrdiff_t os, int rows) {
+    for (int r = 0; r < rows; ++r) qpel_lowpass(out + r * os, 1, s + r * ss, 1, n, no_rnd);
+  };
+  if (!qy) {
+    if (!qx) {
+      for (int r = 0; r < n; ++r) std::memcpy(dst + r * ds, s + r * ss, n);
+      return;
+    }
+    horizontal(h, 17, n);
+    for (int r = 0; r < n; ++r)
+      for (int c = 0; c < n; ++c)
+        dst[r * ds + c] = qx == 2 ? h[r * 17 + c] : avg2(h[r * 17 + c], s[r * ss + c + (qx == 3)]);
+    return;
+  }
+  if (!qx) {
+    vertical(vv, 16, s, ss);
+    for (int r = 0; r < n; ++r)
+      for (int c = 0; c < n; ++c)
+        dst[r * ds + c] = qy == 2 ? vv[r * 16 + c] : avg2(vv[r * 16 + c], s[(r + (qy == 3)) * ss + c]);
+    return;
+  }
+  horizontal(h, 17, n + 1);
+  if (old && qx != 2) {  // the _old_c forms: 11, 31, 13, 33, 12, 32
+    const int dx = qx == 3;
+    vertical(vv, 16, s + dx, ss);
+    vertical(hv, 16, h, 17);
+    for (int r = 0; r < n; ++r)
+      for (int c = 0; c < n; ++c) {
+        uint8_t& d = dst[r * ds + c];
+        if (qy == 2) {
+          d = avg2(vv[r * 16 + c], hv[r * 16 + c]);
+        } else {
+          const int dy = qy == 3;
+          d = static_cast<uint8_t>((s[(r + dy) * ss + c + dx] + h[(r + dy) * 17 + c] + vv[r * 16 + c] +
+                                    hv[r * 16 + c] + 2 - no_rnd) >> 2);
+        }
+      }
+    return;
+  }
+  if (qx != 2)  // the horizontal quarter samples, n + 1 rows
+    for (int r = 0; r <= n; ++r)
+      for (int c = 0; c < n; ++c) h[r * 17 + c] = avg2(h[r * 17 + c], s[r * ss + c + (qx == 3)]);
+  if (qy == 2) {
+    vertical(dst, ds, h, 17);
+    return;
+  }
+  vertical(hv, 16, h, 17);
+  for (int r = 0; r < n; ++r)
+    for (int c = 0; c < n; ++c)
+      dst[r * ds + c] = avg2(h[(r + (qy == 3)) * 17 + c], hv[r * 16 + c]);
+}
+
+// A quarter-sample n x n block at integer (x, y) + (qx, qy) quarters of
+// `src` into `dst`, or averaged into it with `avg`: (d + p + 1) >> 1.
+inline void qpel_block(uint8_t* dst, ptrdiff_t ds, const Plane& src, int ew, int eh, int x, int y,
+                       int qx, int qy, int n, int rnd, bool avg, bool old) {
+  uint8_t buf[17 * 17], pred[16 * 16];
+  ptrdiff_t ss;
+  const uint8_t* s = qpel_source(src, ew, eh, x, y, n, buf, ss);
+  if (!avg) {
+    qpel_predict(dst, ds, s, ss, n, qx, qy, rnd, old);
+    return;
+  }
+  qpel_predict(pred, 16, s, ss, n, qx, qy, rnd, old);
+  for (int r = 0; r < n; ++r)
+    for (int c = 0; c < n; ++c) dst[r * ds + c] = static_cast<uint8_t>((dst[r * ds + c] + pred[r * 16 + c] + 1) >> 1);
+}
+
+// How a stream's motion compensation reads a reference picture: its edge
+// (libavcodec's h_edge_pos / v_edge_pos: the macroblock-aligned size, or
+// the picture's own under FF_BUG_EDGE), and for quarter-sample vectors the
+// chroma rule (0 the standard's, 1 FF_BUG_QPEL_CHROMA, 2
+// FF_BUG_QPEL_CHROMA2) and the old luma forms (FF_BUG_STD_QPEL).
+struct McRules {
+  int ew = 0, eh = 0;
+  bool qpel = false;
+  int qpel_chroma = 0;
+  bool old_qpel = false;
+};
+
 // Macroblock (mb_x, mb_y) of `cur` predicted from `src` by one vector or
-// four (libavcodec's mpeg_motion / hpel_motion and chroma_4mv_motion), in
-// a picture of width x height in mb_w x mb_h macroblocks.
-inline void motion(Picture& cur, const Picture& src, int mb_x, int mb_y, int mb_w, int mb_h,
-                   int width, int height, const std::array<int16_t, 2>* v, bool four, int rnd,
+// four (libavcodec's mpeg_motion / qpel_motion, hpel_motion / the quarter
+// form of its apply_8x8, and chroma_4mv_motion), in a picture of width x
+// height.  A one-vector macroblock's chroma repeats the edge only where
+// its luma block did (libavcodec decides both on the luma vector) and else
+// reads the plane as it lies, past the edge of FF_BUG_EDGE too.
+inline void motion(Picture& cur, const Picture& src, int mb_x, int mb_y, int width, int height,
+                   const McRules& rules, const std::array<int16_t, 2>* v, bool four, int rnd,
                    bool avg) {
   uint8_t* dy = cur.y.at(mb_x * 16, mb_y * 16);
   const ptrdiff_t ys = cur.y.w, cs = cur.u.w;
   uint8_t* du = cur.u.at(mb_x * 8, mb_y * 8);
   uint8_t* dv = cur.v.at(mb_x * 8, mb_y * 8);
-  const int ew = mb_w * 16, eh = mb_h * 16;
+  const int ew = rules.ew, eh = rules.eh;
+  auto beyond = [](int at, int limit) {
+    return static_cast<unsigned>(at) >= static_cast<unsigned>(std::max(limit, 0));
+  };
   int cmx, cmy;  // chroma vector, half samples
-  int cx, cy;
   if (!four) {
     const int mx = v[0][0], my = v[0][1];
-    average(dy, ys, src.y, ew, eh, mb_x * 16 + (mx >> 1), mb_y * 16 + (my >> 1), mx & 1,
-            my & 1, 16, 16, rnd, avg);
-    // libavcodec's mpeg_motion for H.263: the chroma position is the luma
-    // one halved; a half sample where the luma vector is not a multiple of 4
-    const int sx = mb_x * 16 + (mx >> 1), sy = mb_y * 16 + (my >> 1);
-    cx = sx >> 1;
-    cy = sy >> 1;
-    cmx = (mx & 1) | ((mx & 2) >> 1);
-    cmy = (my & 1) | ((my & 2) >> 1);
-    average(du, cs, src.u, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8, rnd, avg);
-    average(dv, cs, src.v, ew >> 1, eh >> 1, cx, cy, cmx, cmy, 8, 8, rnd, avg);
+    int sx, sy, cx, cy;
+    bool emu;
+    if (rules.qpel) {
+      sx = mb_x * 16 + (mx >> 2);
+      sy = mb_y * 16 + (my >> 2);
+      qpel_block(dy, ys, src.y, ew, eh, sx, sy, mx & 3, my & 3, 16, rnd, avg, rules.old_qpel);
+      emu = beyond(sx, ew - (mx & 3) - 15) || beyond(sy, eh - (my & 3) - 15);
+      static const int kRtab[8] = {0, 0, 1, 1, 0, 0, 0, 1};
+      if (rules.qpel_chroma == 2) {
+        cmx = (mx >> 1) + kRtab[mx & 7];
+        cmy = (my >> 1) + kRtab[my & 7];
+      } else if (rules.qpel_chroma == 1) {
+        cmx = (mx >> 1) | (mx & 1);
+        cmy = (my >> 1) | (my & 1);
+      } else {
+        cmx = mx / 2;
+        cmy = my / 2;
+      }
+      cmx = (cmx >> 1) | (cmx & 1);
+      cmy = (cmy >> 1) | (cmy & 1);
+      cx = mb_x * 8 + (cmx >> 1);
+      cy = mb_y * 8 + (cmy >> 1);
+    } else {
+      sx = mb_x * 16 + (mx >> 1);
+      sy = mb_y * 16 + (my >> 1);
+      average(dy, ys, src.y, ew, eh, sx, sy, mx & 1, my & 1, 16, 16, rnd, avg);
+      emu = beyond(sx, ew - (mx & 1) - 15) || beyond(sy, eh - (my & 1) - 15);
+      // libavcodec's mpeg_motion for H.263: the chroma position is the luma
+      // one halved; a half sample where the luma vector is not a multiple of 4
+      cmx = (mx & 1) | ((mx & 2) >> 1);
+      cmy = (my & 1) | ((my & 2) >> 1);
+      cx = sx >> 1;
+      cy = sy >> 1;
+    }
+    const int cw = emu ? ew >> 1 : src.u.w, ch = emu ? eh >> 1 : src.u.h;
+    average(du, cs, src.u, cw, ch, cx, cy, cmx & 1, cmy & 1, 8, 8, rnd, avg);
+    average(dv, cs, src.v, cw, ch, cx, cy, cmx & 1, cmy & 1, 8, 8, rnd, avg);
     return;
   }
   int sumx = 0, sumy = 0;
   for (int n = 0; n < 4; ++n) {
     const int mx = v[n][0], my = v[n][1];
-    int x = mb_x * 16 + (n & 1) * 8 + (mx >> 1), y = mb_y * 16 + (n >> 1) * 8 + (my >> 1);
+    uint8_t* d = dy + (n >> 1) * 8 * ys + (n & 1) * 8;
+    const int shift = rules.qpel ? 2 : 1, frac = rules.qpel ? 3 : 1;
+    int x = mb_x * 16 + (n & 1) * 8 + (mx >> shift), y = mb_y * 16 + (n >> 1) * 8 + (my >> shift);
     int fx = 0, fy = 0;
     x = std::min(std::max(x, -16), width);
-    if (x != width) fx = mx & 1;
+    if (x != width) fx = mx & frac;
     y = std::min(std::max(y, -16), height);
-    if (y != height) fy = my & 1;
-    average(dy + (n >> 1) * 8 * ys + (n & 1) * 8, ys, src.y, ew, eh, x, y, fx, fy, 8, 8, rnd,
-            avg);
-    sumx += mx;
-    sumy += my;
+    if (y != height) fy = my & frac;
+    if (rules.qpel) {
+      qpel_block(d, ys, src.y, ew, eh, x, y, fx, fy, 8, rnd, avg, rules.old_qpel);
+      sumx += mx / 2;  // libavcodec's chroma of four quarter-sample vectors
+      sumy += my / 2;
+    } else {
+      average(d, ys, src.y, ew, eh, x, y, fx, fy, 8, 8, rnd, avg);
+      sumx += mx;
+      sumy += my;
+    }
   }
   // the H.263 chroma rounding of the four vectors' sum
   static const uint8_t kRound[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
   cmx = kRound[sumx & 15] + ((sumx >> 3) & ~1);
   cmy = kRound[sumy & 15] + ((sumy >> 3) & ~1);
   int fx = cmx & 1, fy = cmy & 1;
-  cx = std::min(std::max(mb_x * 8 + (cmx >> 1), -8), width >> 1);
+  const int cx = std::min(std::max(mb_x * 8 + (cmx >> 1), -8), width >> 1);
   if (cx == (width >> 1)) fx = 0;
-  cy = std::min(std::max(mb_y * 8 + (cmy >> 1), -8), height >> 1);
+  const int cy = std::min(std::max(mb_y * 8 + (cmy >> 1), -8), height >> 1);
   if (cy == (height >> 1)) fy = 0;
   average(du, cs, src.u, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8, rnd, avg);
   average(dv, cs, src.v, ew >> 1, eh >> 1, cx, cy, fx, fy, 8, 8, rnd, avg);
+}
+
+// Half-sample prediction with the macroblock-aligned edge of a picture of
+// mb_w x mb_h macroblocks (what the encoder reconstructs).
+inline void motion(Picture& cur, const Picture& src, int mb_x, int mb_y, int mb_w, int mb_h,
+                   int width, int height, const std::array<int16_t, 2>* v, bool four, int rnd,
+                   bool avg) {
+  McRules rules;
+  rules.ew = mb_w * 16;
+  rules.eh = mb_h * 16;
+  motion(cur, src, mb_x, mb_y, width, height, rules, v, four, rnd, avg);
 }
 
 }  // namespace vd_mpeg4

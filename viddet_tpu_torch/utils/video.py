@@ -17,10 +17,11 @@ The port links no FFmpeg.  It reads
 
 VP8 (every version and feature of RFC 6386) is decoded by the port's own
 decoder (``native.Vp8Decoder``) and MPEG-4 Part 2 (Simple and Advanced
-Simple Profile: B-VOPs, MPEG quantisation; not quarter-sample, interlace
-or global motion compensation) by another (``native.Mpeg4Decoder``), each
-to what ``cv2.VideoCapture``'s FFmpeg backend returns, frames in display
-order.
+Simple Profile: B-VOPs, MPEG quantisation, quarter-sample vectors, and
+the XviD IDCT and encoder workarounds FFmpeg keys on user data and the
+fourcc; not interlace or global motion compensation) by another
+(``native.Mpeg4Decoder``), each to what ``cv2.VideoCapture``'s FFmpeg
+backend returns, frames in display order.
 
 Another container, another codec (VP9, AV1, H.264, HEVC, ...), a
 Matroska ContentEncoding and a webcam index raise ValueError, naming what
