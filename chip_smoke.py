@@ -374,6 +374,13 @@ WEBM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "vp8_640x480.webm")
 WEBM_DIGESTS = WEBM_FIXTURE[:-len(".webm")] + ".json"
 WEBM_FRAMES = 48
+# ... and in the same phase the VP9 WebM: two passes with alt-ref frames
+# (superframes of hidden frames, compound prediction), 2 tile columns,
+# backward adaptation (tests/fixtures/make_mp4_fixture.py vp9).
+VP9_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "vp9_640x480.webm")
+VP9_DIGESTS = VP9_FIXTURE[:-len(".webm")] + ".json"
+VP9_FRAMES = 48
 # Every drawn _det.mp4 (MPEG-4 Part 2 from the port's encoder): each frame's
 # PSNR against the drawn frame is at least this, a floor that a wrong colour
 # conversion or a broken decode falls far below.  tests/test_torch_mpeg4_enc.py
@@ -3788,7 +3795,7 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
     fixture (``xvid_qpel_640x480.avi``: ``+qpel+mv4``, two B-VOPs between
     references, XviD's user data, so the XviD IDCT) decoded to its digests,
     its decoder's frames/s on one host thread, and one not-drawn
-    ``stream_detect_video`` over it (``qpel_native_run``); ``qpel.extra_s``
+    ``stream_detect_video`` over it (``fixture_native_run``); ``qpel.extra_s``
     is what that part adds to the phase."""
     from viddet_tpu_torch.utils.video import iterate_frames, probe_video
 
@@ -3832,7 +3839,8 @@ def mpeg4_bvop_phase(dev, kernels, model, classes, predictor) -> dict:
           f"the qpel fixture decodes as XviD's quarter-sample stream: {stream}")
     qpel.update(digests_equal=QPEL_FRAMES, types=types, stream=stream,
                 reader_frames_per_s=mpeg4_decode_rates(config, fourcc, samples, QPEL_FRAMES))
-    launches.update(qpel_native_run(dev, kernels, model, classes, predictor, frames, qpel))
+    launches.update(fixture_native_run(dev, kernels, model, classes, predictor, frames, qpel,
+                                       QPEL_FIXTURE, "qpel_video_native"))
     qpel["extra_s"] = time.perf_counter() - t_qpel
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
@@ -3890,12 +3898,15 @@ def mpeg4_decode_rates(config: bytes, fourcc: str, samples, count: int) -> dict:
     return rates
 
 
-def qpel_native_run(dev, kernels, model, classes, predictor, frames, out: dict) -> dict:
-    """One not-drawn ``stream_detect_video`` over the quarter-sample fixture
-    (``NativeFrameSource``) with the main path's model at batch 8: its
-    launches (one hierarchical tail a batch), each batch through
+def fixture_native_run(dev, kernels, model, classes, predictor, frames, out: dict,
+                       fixture: str, run: str, idle: bool = False) -> dict:
+    """One not-drawn ``stream_detect_video`` over a committed fixture
+    (``NativeFrameSource``; ``frames`` its RGB frames, already held to
+    OpenCV's digests) with the main path's model at batch 8: its launches
+    (one hierarchical tail a batch, as ``run``), each batch through
     ``video_rows`` and every saved line equal to the direct predictor's.
-    Into ``out``: the run's frames/s and the direct step's.  Returns the
+    Into ``out``: the run's frames/s and the direct step's, and with
+    ``idle`` the card's idle share over another such run.  Returns the
     launches."""
     import hashlib
     import tempfile
@@ -3904,7 +3915,7 @@ def qpel_native_run(dev, kernels, model, classes, predictor, frames, out: dict) 
     from viddet_tpu_torch.infer.service import to_device_batch
     from viddet_tpu_torch.infer.stream import stream_detect_video
 
-    count, run = len(frames), "qpel_video_native"
+    count = len(frames)
     transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True, normalize=False)
     frames_x = {"clip": np.stack([transform(f)[0] for f in frames])}
     affine = transform(frames[0])[2]
@@ -3914,8 +3925,8 @@ def qpel_native_run(dev, kernels, model, classes, predictor, frames, out: dict) 
     first = predictor(to_device_batch(frames_x["clip"][:VIDEO_B], VIDEO_B, dev))[1].cpu().numpy()
     thresh = out["thresh"] = float(np.median(first[:, VIDEO_BOXES - 1]))
     with tempfile.TemporaryDirectory() as tmp:
-        clip = os.path.join(tmp, "clip.avi")
-        shutil.copyfile(QPEL_FIXTURE, clip)
+        clip = os.path.join(tmp, "clip" + os.path.splitext(fixture)[1])
+        shutil.copyfile(fixture, clip)
         record = []
         set_launches(kernels)
         stats = stream_detect_video(clip, recorded(predictor, record), transform, classes,
@@ -3930,6 +3941,11 @@ def qpel_native_run(dev, kernels, model, classes, predictor, frames, out: dict) 
         with open(os.path.join(tmp, run, "clip_det.txt")) as f:
             check(f.read() == want, f"{run}: clip_det.txt equal to the direct predictor's")
         out.update(lines=len(want.splitlines()), frames_per_s=stats["fps"])
+        if idle:
+            out["window"] = window_idle_share(lambda: stream_detect_video(
+                clip, predictor, transform, classes, output_dir=os.path.join(tmp, "idle"),
+                batch_size=VIDEO_B, draw=False, device=dev))
+            out["window"]["frames"] = count
     return launches
 
 
@@ -3942,7 +3958,10 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
     then ``fixture_runs`` over it (``webm_video``, ``webm_video_native``,
     ``webm_detect``).  Frames/s: the reader on one host thread (demux +
     decode + RGB, decode + RGB, decode alone), each run beside the direct
-    step; the card's idle share over a native run."""
+    step; the card's idle share over a native run.  Then VP9 in WebM
+    (``vp9``): the committed 640x480 VP9 fixture decoded to its digests, its
+    reader's rates, and one not-drawn run (``vp9_video_native``) with the
+    card's idle share over another; ``vp9.extra_s`` is what it adds."""
     import json
 
     from viddet_tpu_torch.native import Vp8Decoder
@@ -3997,8 +4016,69 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
 
     launches = fixture_runs(dev, kernels, model, classes, predictor, WEBM_FIXTURE, frames,
                             "webm", out)
+    launches.update(vp9_part(dev, kernels, model, classes, predictor, out))
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
+    return launches
+
+
+def vp9_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
+    """The VP9 fixture: probed, decoded (superframes, hidden frames) to the
+    SHA-256 of each Y plane and RGB frame OpenCV's FFmpeg gave, the reader's
+    frames/s on one host thread (demux + decode + RGB, decode + RGB, decode
+    alone), then ``fixture_native_run`` (``vp9_video_native``) with the
+    card's idle share.  Into ``phase_out["vp9"]``.  Returns the launches."""
+    import json
+
+    from viddet_tpu_torch.native import Vp9Decoder
+    from viddet_tpu_torch.native.mkv import MkvReader
+    from viddet_tpu_torch.utils.video import iterate_frames, probe_video
+
+    t_part = time.perf_counter()
+    out = phase_out["vp9"] = {"fixture": os.path.relpath(
+        VP9_FIXTURE, os.path.dirname(os.path.abspath(__file__)))}
+    with open(VP9_DIGESTS) as f:
+        digests = json.load(f)["frames"]
+    info = probe_video(VP9_FIXTURE)
+    check(info == {"fps": float(VIDEO_FPS), "frame_count": VP9_FRAMES, "width": CODEC_W,
+                   "height": CODEC_H}, f"the VP9 fixture probes as written: {info}")
+    with MkvReader(VP9_FIXTURE) as reader:
+        check(reader.index.codec == "vp9", "the VP9 fixture is VP9")
+        samples = [reader.sample(i) for i in range(len(reader.index.offsets))]
+    decoder = Vp9Decoder(VP9_FIXTURE)
+    frames = []
+    for sample in samples:
+        frame = decoder.decode(sample)
+        if frame is None:
+            continue
+        i = len(frames)
+        check(i < VP9_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
+              f"vp9 frame {i}: the Y plane's digest is OpenCV's")
+        check(frame_digest(frame) == digests[i]["rgb"], f"vp9 frame {i}: the RGB digest is "
+                                                        "OpenCV's")
+        frames.append(frame)
+    features = decoder.features
+    decoder.close()
+    check(len(frames) == VP9_FRAMES, f"the VP9 fixture shows {len(frames)} frames")
+    need = {"superframe", "hidden frame", "compound prediction", "tile columns",
+            "probability adaptation"}
+    check(need <= features, f"the VP9 fixture uses {sorted(need - features)}")
+    out.update(digests_equal=VP9_FRAMES, samples=len(samples), features=sorted(features))
+    rates = {}
+    t = time.perf_counter()
+    check(sum(1 for _ in iterate_frames(VP9_FIXTURE)) == VP9_FRAMES, "vp9 iterate_frames: 48")
+    rates["demux_decode_rgb"] = VP9_FRAMES / (time.perf_counter() - t)
+    for what, rgb in (("decode_rgb", True), ("decode", False)):
+        decoder = Vp9Decoder()
+        t = time.perf_counter()
+        for sample in samples:
+            decoder.decode(sample, rgb=rgb)
+        rates[what] = VP9_FRAMES / (time.perf_counter() - t)
+        decoder.close()
+    out["reader_frames_per_s"] = rates  # one host thread
+    launches = fixture_native_run(dev, kernels, model, classes, predictor, frames, out,
+                                  VP9_FIXTURE, "vp9_video_native", idle=True)
+    out["extra_s"] = time.perf_counter() - t_part
     return launches
 
 

@@ -83,6 +83,8 @@ CHIP_BVOP_VIDEO = os.path.join(HERE, "xvid_bf2_640x480.avi")
 CHIP_BVOP_DIGESTS = os.path.join(HERE, "xvid_bf2_640x480.json")
 CHIP_WEBM_VIDEO = os.path.join(HERE, "vp8_640x480.webm")
 CHIP_WEBM_DIGESTS = os.path.join(HERE, "vp8_640x480.json")
+CHIP_VP9_VIDEO = os.path.join(HERE, "vp9_640x480.webm")
+CHIP_VP9_DIGESTS = os.path.join(HERE, "vp9_640x480.json")
 DAMAGED = os.path.join(HERE, "mpeg4_damaged.mp4")
 
 
@@ -263,12 +265,13 @@ class Lavc:
         return ctypes.cast(option, ctypes.POINTER(ctypes.c_int))[4] - 16
 
     def encode(self, planes, width: int, height: int, options: dict, matrices=None,
-               encoder: str = "mpeg4", stats: bytes = b""):
+               encoder: str = "mpeg4", stats: bytes = b"", pix_fmt: str = "yuv420p"):
         """(Y, U, V) uint8 planes per frame -> the packets' bytes, in decode
         order; ``self.pts`` gets each packet's presentation time in frames.
         ``matrices``: custom (intra, inter) quantiser matrices, 64 values
         each in raster order (with ``mpeg_quant``); ``encoder``: the
-        libavcodec encoder's name ("libvpx" writes VP8).  A first pass
+        libavcodec encoder's name ("libvpx" writes VP8, "libvpx-vp9" VP9);
+        ``pix_fmt`` the planes' layout ("yuv420p" or "yuv444p").  A first pass
         (``flags`` "+pass1") leaves its statistics in ``self.stats``; a
         second (``flags`` "+pass2") reads them from ``stats``."""
         a, u = self.avcodec, self.avutil
@@ -280,7 +283,7 @@ class Lavc:
         if stats:
             ctypes.c_void_p.from_address(ctx + self.stats_fields(ctx) + 8).value = (
                 ctypes.addressof(stats_in))
-        base = {"video_size": f"{width}x{height}", "pixel_format": "yuv420p",
+        base = {"video_size": f"{width}x{height}", "pixel_format": pix_fmt,
                 "time_base": "1/25"}
         for key, value in {**base, **options}.items():
             if u.av_opt_set(ctx, key.encode(), str(value).encode(), 1) < 0:
@@ -290,7 +293,8 @@ class Lavc:
         frame = u.av_frame_alloc()
         ints = ctypes.cast(frame, ctypes.POINTER(ctypes.c_int))
         ptrs = ctypes.cast(frame, ctypes.POINTER(ctypes.c_void_p))
-        ints[26], ints[27], ints[29] = width, height, 0  # AVFrame width, height, format yuv420p
+        # AVFrame width, height, format (AV_PIX_FMT_YUV420P 0, AV_PIX_FMT_YUV444P 5)
+        ints[26], ints[27], ints[29] = width, height, {"yuv420p": 0, "yuv444p": 5}[pix_fmt]
         assert u.av_frame_get_buffer(frame, 0) == 0
         pkt = a.av_packet_alloc()
         out, self.pts = [], []
@@ -436,6 +440,33 @@ def write_damaged_fixture() -> None:
     write_lavc_mp4(DAMAGED, lavc_stream(moving_scene(26, 200, 136, seed=3), DAMAGED_OPTIONS))
 
 
+def write_chip_vp9_fixture() -> None:
+    """The card's VP9 WebM: 48 shown frames at 25 fps from libvpx-vp9's two
+    passes with alt-ref frames (superframes of hidden frames), 2 tile
+    columns and backward adaptation (frame-parallel 0); written only if the
+    port's decoder reports those features and gives OpenCV's Y planes."""
+    from tests.torch_mkv_helpers import vp9_webm
+    from tests.torch_mp4_helpers import cv2_views
+    from viddet_tpu_torch.native import Vp9Decoder
+    from viddet_tpu_torch.native.mkv import MkvReader
+
+    vp9_webm(CHIP_VP9_VIDEO, moving_scene(48, 640, 480, seed=0),
+             {"b": 800000, "auto-alt-ref": 1, "lag-in-frames": 25, "tile-columns": 1,
+              "frame-parallel": 0, "g": 48}, two_pass=True)
+    want = cv2_views(CHIP_VP9_VIDEO, "y")
+    decoder, ys = Vp9Decoder(CHIP_VP9_VIDEO), []
+    with MkvReader(CHIP_VP9_VIDEO) as reader:
+        for i in range(len(reader.index.offsets)):
+            if decoder.decode(reader.sample(i), rgb=False):
+                ys.append(decoder.planes()[0])
+    need = {"superframe", "hidden frame", "compound prediction", "tile columns",
+            "probability adaptation"}
+    assert need <= decoder.features, need - decoder.features
+    assert len(ys) == len(want) == 48
+    assert all(np.array_equal(y, w.reshape(-1)[: y.size].reshape(y.shape)) for y, w in zip(ys, want))
+    write_digests(CHIP_VP9_VIDEO, CHIP_VP9_DIGESTS, 640, 480, 48)
+
+
 if __name__ == "__main__":
     import sys
 
@@ -443,6 +474,8 @@ if __name__ == "__main__":
         write_damaged_fixture()
     elif sys.argv[1:] == ["xvid_qpel"]:
         write_chip_qpel_fixture()
+    elif sys.argv[1:] == ["vp9"]:
+        write_chip_vp9_fixture()
     else:
         if sys.argv[1:] != ["webm"]:
             write_chip_fixture()
@@ -452,5 +485,5 @@ if __name__ == "__main__":
             write_damaged_fixture()
         write_chip_webm_fixture()
     for path in (CHIP_VIDEO, FEATURES, DARK, CHIP_BVOP_VIDEO, CHIP_QPEL_VIDEO, CHIP_WEBM_VIDEO,
-                 DAMAGED):
+                 CHIP_VP9_VIDEO, DAMAGED):
         print(path, os.path.getsize(path), "bytes")

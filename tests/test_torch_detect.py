@@ -106,16 +106,16 @@ def test_detect_cli_no_draw_writes_text_only(image_dir, weights, tmp_path):
 
 @pytest.mark.parametrize("source", ["clip.mp4", "0", "a.mp4,b.avi", "CLIP.MKV"])
 def test_unreadable_video_input_raises_naming_what_is_missing(source, tmp_path):
-    """An H.264 track and a VP9 track need FFmpeg, and a webcam index
-    capture support, none of which the port has (it reads Motion-JPEG .avi,
-    MPEG-4 Part 2 or Motion-JPEG .mp4 / .mov, and VP8, MPEG-4 Part 2 or
-    Motion-JPEG .mkv / .webm)."""
+    """An H.264 track and a VP9 profile 1 (4:4:4) track need FFmpeg, and a
+    webcam index capture support, none of which the port has (it reads
+    Motion-JPEG .avi, MPEG-4 Part 2, VP9 profile 0 or Motion-JPEG .mp4 / .mov,
+    and VP8, VP9 profile 0, MPEG-4 Part 2 or Motion-JPEG .mkv / .webm)."""
     missing = "capture" if source == "0" else "FFmpeg"
     if ".mp4" in source:  # each .mp4 an H.264 one
         missing = "H.264.*FFmpeg"
         source = ",".join(h264_mp4(str(tmp_path / "in" / s)) if s.endswith(".mp4") else s
                           for s in source.split(","))
-    if source == "CLIP.MKV":  # a Matroska file of a VP9 track
+    if source == "CLIP.MKV":  # a Matroska file of a VP9 profile 1 (4:4:4) track
         missing = "VP9.*FFmpeg"
         source = vp9_mkv(str(tmp_path / "in" / source))
     out = tmp_path / "out"

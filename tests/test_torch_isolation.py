@@ -184,17 +184,24 @@ def test_int8_conv_never_takes_the_float64_route_off_the_cpu(monkeypatch):
 
 
 def test_codec_build_links_no_image_library():
-    """One ``g++`` call over the repository's sources (``codec.cpp``, the
-    VP8 decoder ``vp8.cpp`` and the MPEG-4 encoder ``mpeg4enc.cpp``), with
-    no ``-l`` flag: no libjpeg, libpng, zlib, libvpx or FFmpeg."""
-    from viddet_tpu_torch.native import build_command
+    """One ``g++ -c`` call per repository source (``codec.cpp``, the VP8
+    decoder ``vp8.cpp``, the VP9 decoder ``vp9.cpp`` and the MPEG-4 encoder
+    ``mpeg4enc.cpp``) and one link of their objects, with no ``-l`` flag
+    anywhere: no libjpeg, libpng, zlib, libvpx or FFmpeg."""
+    from viddet_tpu_torch.native import build_command, compile_commands
 
-    cmd = build_command(Path("libviddet_codec.so"))
-    assert cmd[0] == "g++"
-    assert [Path(a).name for a in cmd if a.endswith(".cpp")] == ["codec.cpp", "vp8.cpp",
-                                                                "mpeg4enc.cpp"]
-    assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec"} & set(cmd)
-    assert [a for a in cmd if a.startswith("-l") or a == "-pthread"] == ["-pthread"]
+    compiles = compile_commands(Path("objects"))
+    link = build_command(Path("libviddet_codec.so"), Path("objects"))
+    names = ["codec", "vp8", "vp9", "mpeg4enc"]
+    assert [[Path(a).name for a in cmd if a.endswith(".cpp")] for cmd in compiles] == [
+        [n + ".cpp"] for n in names]
+    assert all(cmd[0] == "g++" and "-c" in cmd for cmd in compiles)
+    assert link[0] == "g++" and "-shared" in link
+    assert [Path(a).name for a in link if a.endswith(".o")] == [n + ".o" for n in names]
+    for cmd in compiles + [link]:
+        assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec"} & set(cmd)
+        assert not [a for a in cmd if a.startswith("-l")]
+    assert [a for a in link if a == "-pthread"] == ["-pthread"]
 
 
 def test_native_library_needs_no_image_or_video_library():
@@ -216,10 +223,10 @@ def test_native_library_needs_no_image_or_video_library():
 
 def test_video_code_includes_and_imports_nothing_outside():
     """``codec.cpp`` (JPEG, PNG, the MPEG-4 Part 2 decoder, the video
-    stream), ``vp8.cpp`` and ``vp8.h`` (the VP8 decoder), ``mpeg4enc.cpp``
-    (the MPEG-4 Part 2 encoder) and ``mpeg4.h`` (what the MPEG-4 decoder
-    and encoder share) include C++ standard headers and the port's two
-    headers only; ``native/mp4.py``, ``native/avi.py``, ``native/mkv.py``
+    stream), ``vp8.cpp`` and ``vp8.h`` (the VP8 decoder), ``vp9.cpp`` and
+    ``vp9.h`` (the VP9 decoder), ``mpeg4enc.cpp`` (the MPEG-4 Part 2
+    encoder) and ``mpeg4.h`` (what the MPEG-4 decoder and encoder share)
+    include C++ standard headers and the port's three headers only; ``native/mp4.py``, ``native/avi.py``, ``native/mkv.py``
     and ``utils/video.py`` import the standard library, numpy and the
     port."""
     import re
@@ -227,10 +234,10 @@ def test_video_code_includes_and_imports_nothing_outside():
     standard = {"algorithm", "array", "cmath", "condition_variable", "cstdarg", "cstddef",
                 "cstdint", "cstdio", "cstdlib", "cstring", "memory", "mutex", "new", "string",
                 "thread", "vector"}
-    for name in ("codec.cpp", "vp8.cpp", "vp8.h", "mpeg4enc.cpp", "mpeg4.h"):
+    for name in ("codec.cpp", "vp8.cpp", "vp8.h", "vp9.cpp", "vp9.h", "mpeg4enc.cpp", "mpeg4.h"):
         includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]',
                                   (PORT / "native" / name).read_text()))
-        assert includes <= standard | {"vp8.h", "mpeg4.h"}, (name, includes - standard)
+        assert includes <= standard | {"vp8.h", "vp9.h", "mpeg4.h"}, (name, includes - standard)
     allowed = {"__future__", "dataclasses", "fractions", "math", "mmap", "os", "struct",
                "typing", "numpy", "viddet_tpu_torch"}
     for name in ("native/mp4.py", "native/avi.py", "native/mkv.py", "utils/video.py"):

@@ -14,7 +14,7 @@ surfaces over it, against OpenCV and the JAX package on the CPU.
   (``V_MPEG4/ISO/ASP``) and ``MJPG`` (``V_MJPEG``), B-VOP streams as
   ``V_MPEG4/ISO/ASP`` and as ``V_MS/VFW/FOURCC`` ``XVID`` with packed
   B-frames: MPEG-4 frames equal OpenCV's, JPEG frames ``cv2.imdecode``'s.
-* Refusals: VP9, AV1, H.264, HEVC and Theora tracks, a VfW fourcc the port
+* Refusals: VP9 profile 1 (4:4:4), AV1, H.264, HEVC and Theora tracks, a VfW fourcc the port
   does not read, a ContentEncoding (header stripping, encryption), another
   DocType, a newer DocTypeReadVersion, no video track, a VP8 track that
   starts with an inter frame, a key frame of another size than the track
@@ -49,7 +49,7 @@ from tests.test_torch_mp4 import refused, tiny_weights  # noqa: F401
 from tests.test_torch_stream import SIZE, twin_models
 from tests.test_torch_video_stream import CLASSES, CPU, _cli, assert_txt_equal, transforms
 from tests.torch_mkv_helpers import (encryption, header_stripping, other_codec_mkv, track_entry,
-                                     vp8_packets, vp8_webm, write_mkv)
+                                     vp8_packets, vp8_webm, vp9_mkv, write_mkv)
 from tests.torch_mp4_helpers import cv2_views, pack_bframes
 from tests.torch_video_helpers import cv2_props
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
@@ -214,7 +214,7 @@ def test_mjpeg_in_matroska_equals_cv2_imdecode(files):
 
 
 REFUSALS = {
-    "VP9": (dict(codec="V_VP9"), "'V_VP9' \\(VP9\\).*FFmpeg"),
+    "VP9": (dict(codec="V_VP9"), "VP9 profile 1 .*FFmpeg"),  # 4:4:4; profile 0 is read
     "AV1": (dict(codec="V_AV1"), "AV1.*FFmpeg"),
     "H.264": (dict(codec="V_MPEG4/ISO/AVC"), "H.264.*FFmpeg"),
     "HEVC": (dict(codec="V_MPEGH/ISO/HEVC"), "HEVC.*FFmpeg"),
@@ -239,7 +239,9 @@ def test_refusals_raise_before_any_frame(case, vp8, tmp_path):
     kw = dict(kw)
     frames = packets[kw.pop("start", 0):]
     w, h = kw.pop("size", (W, H))
-    if kw.get("codec", "V_VP8") != "V_VP8" and "private" not in kw:
+    if kw.get("codec") == "V_VP9":
+        path = vp9_mkv(str(tmp_path / "in" / "a.mkv"))
+    elif kw.get("codec", "V_VP8") != "V_VP8" and "private" not in kw:
         path = other_codec_mkv(str(tmp_path / "in" / "a.mkv"), kw["codec"])
     else:
         path = write_mkv(str(tmp_path / "a.webm"), frames, w, h, **kw)

@@ -12,7 +12,7 @@ surfaces over it, against OpenCV and the JAX package on the CPU.
 * Motion-JPEG in QuickTime: each frame equals ``cv2.imdecode`` of its
   sample exactly, as the AVI frames do; cv2's default (FFmpeg) backend,
   what JAX reads, decodes them off by many grey levels (ROADMAP Queue 3).
-* Refusals: an H.264, HEVC, AV1 or VP9 track, an ``mp4v`` track of
+* Refusals: an H.264, HEVC, AV1 or VP9 profile 1 (4:4:4) track, an ``mp4v`` track of
   another object type, a non-identity edit list, an ``mdat`` cut before
   its first whole frame and a file cut inside its ``moov`` raise ValueError
   naming what, before any thread starts or anything is written.  An
@@ -195,11 +195,13 @@ def refused(path: str, tmp_path, match: str) -> None:
 
 
 @pytest.mark.parametrize("kind,named", [(b"avc1", "H.264"), (b"hvc1", "HEVC"),
-                                        (b"av01", "AV1"), (b"vp09", "VP9"),
+                                        (b"av01", "AV1"), (b"vp09", "VP9 profile 1"),
                                         (b"mp4v", "object type is 0x6a")])
 def test_other_codecs_raise_naming_them(kind, named, tmp_path):
+    # a vp09 track's vpcC: profile 1, 8-bit, 4:4:4 (profile 0 is read)
+    config = bytes([1, 10, 0x86, 1, 1, 1, 0, 0]) if kind == b"vp09" else b""
     path = write_mp4(str(tmp_path / "x.mp4"), [b"\0\0\0\x05\x65\x88\x80\x10\x00"] * 3, 64, 48,
-                     kind=kind, object_type=0x6A)
+                     kind=kind, object_type=0x6A, config=config)
     refused(path, tmp_path, f"{named}.*FFmpeg")
 
 

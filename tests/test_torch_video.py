@@ -226,7 +226,7 @@ def test_other_sources_raise_naming_what_is_missing(source, tmp_path):
     if source == "CLIP.MKV":  # nor Matroska's
         path = other_codec_mkv(str(tmp_path / "in" / source), "V_MPEG4/ISO/AVC")
         missing = "H.264.*FFmpeg"
-    if source == "a.webm":  # it reads WebM, but not a VP9 track
+    if source == "a.webm":  # it reads WebM, but not a VP9 profile 1 (4:4:4) track
         path, missing = vp9_mkv(str(tmp_path / "in" / source)), "VP9.*FFmpeg"
     for fn in (probe_video, lambda p: list(iterate_frames(p)),
                lambda p: FrameSource(p, ValTransform((32, 32))),

@@ -1,8 +1,8 @@
-"""Helpers for the Matroska / WebM and VP8 tests: an EBML writer that lays
-out a Matroska file's elements as a test asks (unknown-size segments and
-clusters, each lacing type, ``BlockGroup``s, audio blocks between the
-video's, a second video track, content encodings, other codecs), VP8
-streams from the libvpx encoder inside the opencv-python wheel's
+"""Helpers for the Matroska / WebM, VP8 and VP9 tests: an EBML writer that
+lays out a Matroska file's elements as a test asks (unknown-size segments
+and clusters, each lacing type, ``BlockGroup``s, audio blocks between the
+video's, a second video track, content encodings, other codecs), VP8 and
+VP9 streams from the libvpx encoders inside the opencv-python wheel's
 libavcodec, and the planes a stream is encoded from."""
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 import cv2
 import numpy as np
 
-from tests.fixtures.make_mp4_fixture import Lavc
+from tests.fixtures.make_mp4_fixture import Lavc, moving_scene
 
 UNKNOWN_SIZE = b"\x01\xff\xff\xff\xff\xff\xff\xff"
 
@@ -177,7 +177,16 @@ def other_codec_mkv(path: str, codec: str, doc_type: str = "matroska") -> str:
 
 
 def vp9_mkv(path: str) -> str:
-    return other_codec_mkv(path, "V_VP9", "webm" if path.endswith(".webm") else "matroska")
+    """A Matroska / WebM file (by its extension) of a VP9 profile 1 (4:4:4)
+    track, which the port refuses: three frames at 64x48, its directory
+    made."""
+    import os
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    packets, _ = vp9_packets(moving_scene(3, 64, 48, seed=2), {"profile": 1, "b": 200000},
+                             pix_fmt="yuv444p")
+    return write_mkv(path, packets, 64, 48, codec="V_VP9",
+                     doc_type="webm" if path.endswith(".webm") else "matroska")
 
 
 def yuv420(bgr: np.ndarray):
@@ -207,6 +216,36 @@ def vp8_packets(frames, options: dict, two_pass: bool = False):
     packets = lavc.encode(planes, w, h, options, encoder="libvpx", stats=lavc.stats if two_pass
                           else b"")
     return packets, list(lavc.pts)
+
+
+def vp9_packets(frames, options: dict, two_pass: bool = False, pix_fmt: str = "yuv420p"):
+    """BGR ``frames`` through libavcodec's libvpx-vp9 encoder, as
+    ``vp8_packets``: (packets, each one's presentation time in frames).  A
+    packet is a frame or a superframe (hidden alt-ref frames before the one
+    shown).  ``pix_fmt`` "yuv444p" (with ``profile`` 1) writes 4:4:4."""
+    h, w = frames[0].shape[:2]
+    if pix_fmt == "yuv444p":
+        planes = [tuple(np.ascontiguousarray(p) for p in cv2.split(cv2.cvtColor(f, cv2.COLOR_BGR2YUV)))
+                  for f in frames]
+    else:
+        planes = [yuv420(f) for f in frames]
+    lavc = Lavc()
+    lavc.avutil.av_log_set_level(16)
+    if two_pass:
+        lavc.encode(planes, w, h, {**options, "flags": "+pass1"}, encoder="libvpx-vp9",
+                    pix_fmt=pix_fmt)
+        options = {**options, "flags": "+pass2"}
+    packets = lavc.encode(planes, w, h, options, encoder="libvpx-vp9",
+                          stats=lavc.stats if two_pass else b"", pix_fmt=pix_fmt)
+    return packets, list(lavc.pts)
+
+
+def vp9_webm(path: str, frames, options: dict, two_pass: bool = False, **layout) -> str:
+    """``frames`` encoded by ``vp9_packets`` into a WebM by ``write_mkv``,
+    each sample at its presentation time (40 ms a frame)."""
+    h, w = frames[0].shape[:2]
+    packets, pts = vp9_packets(frames, options, two_pass)
+    return write_mkv(path, packets, w, h, codec="V_VP9", times=[p * 40 for p in pts], **layout)
 
 
 def vp8_webm(path: str, frames, options: dict, two_pass: bool = False, **layout) -> str:

@@ -44,6 +44,8 @@ def sample_entry(kind: bytes, width: int, height: int, config: bytes = b"",
                + descriptor(5, config))
         es = struct.pack(">HB", 1, 0) + descriptor(4, dcd) + descriptor(6, b"\x02")
         children = full_box(b"esds", 0, 0, descriptor(3, es))
+    elif kind == b"vp09":  # config: the vpcC payload; by default profile 0, 8-bit 4:2:0
+        children = full_box(b"vpcC", 1, 0, config or bytes([0, 10, 0x82, 1, 1, 1, 0, 0]))
     elif kind in (b"avc1", b"avc3"):
         children = box(b"avcC", bytes([1, 0x64, 0, 0x1F, 0xFF, 0xE0, 0]))
     elif kind in (b"hvc1", b"hev1"):

@@ -5,7 +5,8 @@ the frame sources, the pipelined ``stream_detect`` loop and
   source:  any iterator of (idx, rgb, x, affine), x the transformed frame:
            ``FrameSource`` (a Python decode thread) or ``NativeFrameSource``
            (a C++ one) over a Motion-JPEG or MPEG-4 Part 2 AVI, MP4 /
-           QuickTime or Matroska file, or a VP8 WebM / Matroska one
+           QuickTime or Matroska file, or a VP8 or VP9 WebM / Matroska one
+           (VP9 in MP4 too)
   submit:  batch the frames -> one pinned copy to the device -> predictor
   drain:   the previous batch's (ids, scores, boxes) -> host
 

@@ -16,12 +16,15 @@ leaves the scale alone.
 For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
 bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video and
 ``Mpeg4Encoder`` encodes it (``mpeg4enc.cpp``), ``Vp8Decoder`` decodes
-VP8 (``vp8.cpp``), and ``VideoStream`` reads, decodes and transforms the
-frames of a Motion-JPEG, MPEG-4 or VP8 stream (indexed by ``native.avi``,
-``native.mp4`` or ``native.mkv``) on a C++ thread into a ring of frames.
+VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``), and
+``VideoStream`` reads, decodes and transforms the frames of a Motion-JPEG,
+MPEG-4, VP8 or VP9 stream (indexed by ``native.avi``, ``native.mp4`` or
+``native.mkv``) on a C++ thread into a ring of frames.
 
-The library (``codec.cpp``, ``vp8.cpp`` and ``mpeg4enc.cpp``) links nothing beyond the C++
-standard library.  It is built into ``build/viddet_tpu_torch/native/<hash>/``
+The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp`` and ``mpeg4enc.cpp``) links nothing
+beyond the C++ standard library.  Each source is compiled to an object on its own,
+all at once, and the objects are linked; the library is built into
+``build/viddet_tpu_torch/native/<hash>/``
 at the repository root (``build/`` is git-ignored), keyed by a hash of the
 sources and the flags, the way ``kernels/build.py`` keys the CUDA kernels.
 Nothing is built at import time.  A failed build raises with the compiler's output; there is
@@ -47,12 +50,14 @@ HERE = Path(__file__).resolve().parent
 SOURCE = HERE / "codec.cpp"  # JPEG, PNG, MPEG-4 Part 2, the video stream
 VP8_SOURCE = HERE / "vp8.cpp"  # the VP8 decoder, with its header
 VP8_HEADER = HERE / "vp8.h"
+VP9_SOURCE = HERE / "vp9.cpp"  # the VP9 decoder, with its header
+VP9_HEADER = HERE / "vp9.h"
 MPEG4ENC_SOURCE = HERE / "mpeg4enc.cpp"  # the MPEG-4 Part 2 encoder
 MPEG4_HEADER = HERE / "mpeg4.h"  # what the MPEG-4 decoder and encoder share
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
 # no fused multiply-add: the video transform's float steps round as numpy's do
-FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+FLAGS = ["-O3", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 LIBS = ["-pthread"]
 _ERR_LEN = 512
 
@@ -67,32 +72,49 @@ _lib: ctypes.CDLL | None = None
 
 
 def sources() -> list:
-    """The library's C++ sources, compiled in one call."""
-    return [SOURCE, VP8_SOURCE, MPEG4ENC_SOURCE]
+    """The library's C++ sources, each compiled to an object of its own."""
+    return [SOURCE, VP8_SOURCE, VP9_SOURCE, MPEG4ENC_SOURCE]
 
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for path in sources() + [VP8_HEADER, MPEG4_HEADER]:
+    for path in sources() + [VP8_HEADER, VP9_HEADER, MPEG4_HEADER]:
         h.update(path.read_bytes())
     h.update(repr((FLAGS, LIBS)).encode())
     return h.hexdigest()[:16]
 
 
-def build_command(output: Path) -> list:
-    """The one compiler call that builds the library."""
-    return ["g++", *FLAGS, *map(str, sources()), "-o", str(output), *LIBS]
+def compile_commands(objects: Path) -> list:
+    """One compiler call per source, each writing its object into ``objects``."""
+    return [["g++", *FLAGS, "-c", str(src), "-o", str(objects / (src.stem + ".o"))]
+            for src in sources()]
+
+
+def build_command(output: Path, objects: Path = Path(".")) -> list:
+    """The call that links the objects of ``compile_commands`` into the library."""
+    return ["g++", "-shared", *(str(objects / (src.stem + ".o")) for src in sources()), "-o",
+            str(output), *LIBS]
 
 
 def build() -> Path:
-    """Compile the library if this source hash has none yet."""
+    """Compile the library if this source hash has none yet: every source at
+    once, then one link."""
     lib_path = BUILD_ROOT / _digest() / LIB_NAME
     if lib_path.exists():
         return lib_path
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         staged = Path(tmp) / LIB_NAME
-        cmd = build_command(staged)
+        cmds = compile_commands(Path(tmp))
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        for cmd, proc in zip(cmds, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                raise RuntimeError(f"image codec build failed:\n$ {' '.join(cmd)}\n{err}")
+        cmd = build_command(staged, Path(tmp))
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"image codec build failed:\n$ {' '.join(cmd)}\n{proc.stderr}")
@@ -138,6 +160,14 @@ def library() -> ctypes.CDLL:
             lib.vd_vp8_features.restype = ctypes.c_uint
             lib.vd_vp8_rgb.argtypes = [p, p]
             lib.vd_vp8_planes.argtypes = [p, p, p, p]
+            lib.vd_vp9_open.restype = p
+            lib.vd_vp9_decode.argtypes = [p, p, size, p, i]
+            lib.vd_vp9_size.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i)]
+            lib.vd_vp9_features.argtypes = [p]
+            lib.vd_vp9_features.restype = ctypes.c_uint
+            lib.vd_vp9_rgb.argtypes = [p, p]
+            lib.vd_vp9_planes.argtypes = [p, p, p, p]
+            lib.vd_vp9_free.argtypes = [p]
             lib.vd_vp8_free.argtypes = [p]
             lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, p, p, i,
                                           p, i, i, i, i, i, i, p, i]
@@ -528,53 +558,60 @@ VP8_FEATURES = {name: 1 << bit for bit, name in enumerate((
     "sharpness", "loop filter deltas", "no entropy refresh", "intra in inter frames", "new vectors",
     "buffer copies", "sign bias"))}
 
+# vp9.h's Feature bits: what the frames a Vp9Decoder decoded used
+VP9_FEATURES = {name: 1 << bit for bit, name in enumerate((
+    "key frame", "inter frame", "hidden frame", "superframe", "show existing frame",
+    "intra-only frame", "compound prediction", "blocks below 8x8", "tile columns", "tile rows",
+    "lossless", "segmentation", "segment map prediction", "segment quantiser",
+    "segment loop filter level", "segment reference", "segment skip", "switchable filters",
+    "smooth filter", "sharp filter", "bilinear filter", "probability adaptation",
+    "error resilient", "frame parallel", "previous frame vectors", "high precision vectors",
+    "32x32 transforms", "loop filter deltas", "sharpness", "vectors off the frame",
+    "intra in inter frames", "colour information"))}
 
-class Vp8Decoder:
-    """A VP8 decoder (RFC 6386, every version and feature), bit for bit the
-    reference decoder and so FFmpeg's: ``decode(frame)`` decodes one frame
-    (one sample of a WebM / Matroska ``V_VP8`` track) and returns the
-    (H, W, 3) uint8 RGB frame ``cv2.VideoCapture``'s FFmpeg backend
-    returns, or None for a hidden frame (an alt-ref frame with show_frame
-    0, decoded for the frames after it and never shown).  The size is the
-    key frame's (``size``: width, height; 0 before the first).  A frame that
-    fails (a truncated partition, a bad or changing size, an inter frame
-    before any key frame) raises ValueError naming it."""
+
+class _VpxDecoder:
+    """What the VP8 and VP9 decoders share: the C calls ``vd_<prefix>_*``."""
+
+    prefix = ""
+    label = ""
+    features_by_name: dict = {}
 
     def __init__(self, name: str = "<stream>"):
         self._lib = library()
         self.name = name
-        self._handle = self._lib.vd_vp8_open()
+        self._call = lambda fn, *args: getattr(self._lib, f"vd_{self.prefix}_{fn}")(*args)
+        self._handle = self._call("open")
         if not self._handle:
-            raise MemoryError(f"{name}: cannot allocate a VP8 decoder")
+            raise MemoryError(f"{name}: cannot allocate a {self.label} decoder")
 
     @property
     def size(self):
-        """(width, height) of the key frames."""
+        """(width, height) of the frames (0 before the first)."""
         w, h = ctypes.c_int(), ctypes.c_int()
-        self._lib.vd_vp8_size(self._handle, ctypes.byref(w), ctypes.byref(h))
+        self._call("size", self._handle, ctypes.byref(w), ctypes.byref(h))
         return w.value, h.value
 
     @property
     def features(self) -> set:
-        """The names (``VP8_FEATURES``) of what the frames decoded so far
-        used."""
-        bits = self._lib.vd_vp8_features(self._handle)
-        return {name for name, bit in VP8_FEATURES.items() if bits & bit}
+        """The names of what the frames decoded so far used."""
+        bits = self._call("features", self._handle)
+        return {name for name, bit in self.features_by_name.items() if bits & bit}
 
     def decode(self, frame: bytes, name: str = "", rgb: bool = True):
-        """Decode one frame: its RGB frame when it is shown (True when
-        ``rgb`` is False), None when it is hidden."""
+        """Decode one sample: the RGB frame it shows (True when ``rgb`` is
+        False), or None when it shows none."""
         err = ctypes.create_string_buffer(_ERR_LEN)
-        rc = self._lib.vd_vp8_decode(self._handle, frame, len(frame), err, _ERR_LEN)
+        rc = self._call("decode", self._handle, frame, len(frame), err, _ERR_LEN)
         if rc < 0:
-            raise ValueError(f"{name or self.name}: VP8 decode: {_message(err)}")
+            raise ValueError(f"{name or self.name}: {self.label} decode: {_message(err)}")
         if not rc:
             return None
         if not rgb:
             return True
         w, h = self.size
         out = np.empty((h, w, 3), np.uint8)
-        self._lib.vd_vp8_rgb(self._handle, out.ctypes.data)
+        self._call("rgb", self._handle, out.ctypes.data)
         return out
 
     def planes(self):
@@ -584,13 +621,13 @@ class Vp8Decoder:
         y = np.empty((h, w), np.uint8)
         u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
         v = np.empty_like(u)
-        if self._lib.vd_vp8_planes(self._handle, y.ctypes.data, u.ctypes.data, v.ctypes.data):
-            raise ValueError(f"{self.name}: no VP8 frame has been shown")
+        if self._call("planes", self._handle, y.ctypes.data, u.ctypes.data, v.ctypes.data):
+            raise ValueError(f"{self.name}: no {self.label} frame has been shown")
         return y, u, v
 
     def close(self) -> None:
         if self._handle:
-            self._lib.vd_vp8_free(self._handle)
+            self._call("free", self._handle)
             self._handle = None
 
     def __del__(self):
@@ -598,12 +635,37 @@ class Vp8Decoder:
             self.close()
 
 
-def vp8_frames(samples, name: str, every: int = 1):
-    """(display index, RGB frame) of every ``every``-th shown frame of a VP8
-    stream whose frames ``samples`` yields; every frame is decoded (a hidden
-    one takes no index), only the kept ones converted to RGB.  A frame that
-    fails raises ValueError naming ``name`` and its number."""
-    decoder = Vp8Decoder(name)
+class Vp8Decoder(_VpxDecoder):
+    """A VP8 decoder (RFC 6386, every version and feature), bit for bit the
+    reference decoder and so FFmpeg's: ``decode(frame)`` decodes one frame
+    (one sample of a WebM / Matroska ``V_VP8`` track) and returns the
+    (H, W, 3) uint8 RGB frame ``cv2.VideoCapture``'s FFmpeg backend
+    returns, or None for a hidden frame (an alt-ref frame with show_frame
+    0, decoded for the frames after it and never shown).  The size is the
+    key frame's (``size``: width, height; 0 before the first).  A frame that
+    fails (a truncated partition, a bad or changing size, an inter frame
+    before any key frame) raises ValueError naming it.  ``features`` names
+    (``VP8_FEATURES``) what the frames decoded so far used."""
+
+    prefix, label, features_by_name = "vp8", "VP8", VP8_FEATURES
+
+
+class Vp9Decoder(_VpxDecoder):
+    """A VP9 profile 0 (8-bit 4:2:0) decoder, bit for bit the reference
+    decoder and so FFmpeg's: ``decode(sample)`` decodes one sample of a
+    WebM / Matroska ``V_VP9`` or MP4 ``vp09`` track (one frame, or a
+    superframe: hidden frames and the one shown) and returns the (H, W, 3)
+    uint8 RGB frame ``cv2.VideoCapture``'s FFmpeg backend returns, or None
+    when the sample shows no frame.  A frame that fails (truncated, a bad
+    header, an inter frame before any key frame) or that needs what the port
+    does not decode (profiles 1-3, a reference of another size, a change of
+    frame size) raises ValueError naming it.  ``features`` names
+    (``VP9_FEATURES``) what the frames decoded so far used."""
+
+    prefix, label, features_by_name = "vp9", "VP9", VP9_FEATURES
+
+
+def _vpx_frames(decoder: _VpxDecoder, samples, name: str, every: int):
     shown = 0
     try:
         for i, sample in enumerate(samples):
@@ -616,7 +678,21 @@ def vp8_frames(samples, name: str, every: int = 1):
         decoder.close()
 
 
-CODECS = {"jpeg": 0, "mpeg4": 1, "vp8": 2}  # VideoStream's codec numbers
+def vp8_frames(samples, name: str, every: int = 1):
+    """(display index, RGB frame) of every ``every``-th shown frame of a VP8
+    stream whose frames ``samples`` yields; every frame is decoded (a hidden
+    one takes no index), only the kept ones converted to RGB.  A frame that
+    fails raises ValueError naming ``name`` and its number."""
+    yield from _vpx_frames(Vp8Decoder(name), samples, name, every)
+
+
+def vp9_frames(samples, name: str, every: int = 1):
+    """``vp8_frames`` for a VP9 stream: a sample that shows no frame (hidden
+    frames alone) takes no index."""
+    yield from _vpx_frames(Vp9Decoder(name), samples, name, every)
+
+
+CODECS = {"jpeg": 0, "mpeg4": 1, "vp8": 2, "vp9": 3}  # VideoStream's codec numbers
 
 
 class VideoStream:
@@ -636,7 +712,7 @@ class VideoStream:
                  normalize: bool = True, capacity: int = 64, codec: str = "jpeg",
                  config: bytes = b"", fourcc: str = ""):
         if codec not in CODECS:
-            raise ValueError(f"VideoStream decodes jpeg, mpeg4 or vp8, not {codec!r}")
+            raise ValueError(f"VideoStream decodes jpeg, mpeg4, vp8 or vp9, not {codec!r}")
         self._lib = library()
         offsets = np.ascontiguousarray(offsets, np.int64)
         sizes = np.ascontiguousarray(sizes, np.int64)

@@ -78,8 +78,15 @@
 //           two of ((width + 1) / 2) x ((height + 1) / 2)
 //   vd_vp8_free(handle)
 //
-// Video frames (of a Motion-JPEG AVI, MP4 or Matroska file, or of an MPEG-4 or
-// VP8 stream):
+// VP9 video (a WebM / Matroska or MP4 track, profile 0) is decoded by vp9.cpp
+// (vd_vp9::Decoder) through the same step, with the same calls:
+//   vd_vp9_open(), vd_vp9_decode(handle, sample, size, err, err_len) (a
+//           sample may be a superframe of several frames: 1 when it shows
+//           one), vd_vp9_size, vd_vp9_features, vd_vp9_rgb, vd_vp9_planes,
+//           vd_vp9_free
+//
+// Video frames (of a Motion-JPEG AVI, MP4 or Matroska file, or of an MPEG-4,
+// VP8 or VP9 stream):
 //   vd_frame_transform(rgb, ih, iw, out, h, w, letterbox, normalize, affine)
 //           data/transforms.py's ValTransform on one uint8 RGB frame, bit for
 //           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
@@ -91,8 +98,8 @@
 //           starts a thread that decodes frames `indices` (ascending) of the
 //           file's `samples` samples and transforms each into a ring of
 //           `capacity` frames: codec 0 reads and decodes only the kept
-//           JPEGs; codec 1 (MPEG-4, configured by `config`) and codec 2
-//           (VP8) decode every sample up to the last kept one in order,
+//           JPEGs; codec 1 (MPEG-4, configured by `config`), codec 2 (VP8)
+//           and codec 3 (VP9) decode every sample up to the last kept one in order,
 //           since each inter frame needs the pictures before it
 //   vd_video_next(handle, out, affine, &index, err, err_len)
 //           blocks for the next frame: 1 and the frame, 0 at the end or
@@ -103,8 +110,9 @@
 // MPEG-4 Part 2 encoding (what utils/video.py VideoWriter writes) is
 // mpeg4enc.cpp's (vd_mpeg4enc_*); it and the decoder here share mpeg4.h.
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off codec.cpp vp8.cpp
-//        mpeg4enc.cpp -o libviddet_codec.so -pthread
+// Build: each of codec.cpp, vp8.cpp, vp9.cpp and mpeg4enc.cpp compiled with
+//        g++ -O3 -fPIC -std=c++17 -ffp-contract=off -c, then linked with
+//        g++ -shared ... -o libviddet_codec.so -pthread (native/__init__.py)
 
 #include <algorithm>
 #include <array>
@@ -125,6 +133,7 @@
 
 #include "mpeg4.h"
 #include "vp8.h"
+#include "vp9.h"
 
 namespace {
 
@@ -2775,12 +2784,54 @@ struct Mpeg4Decoder {
 
 };
 
-// yuv420p -> RGB as swscale's x86 unscaled converter does it for BT.601
-// limited range (the yuv2rgb SIMD path OpenCV's FFmpeg reader takes):
-// 16-bit fixed point with pmulhw's floor, saturated to 0..255.
+// swscale's x86 yuv2rgb coefficients (luma scale, chroma terms, luma
+// offset), as sws_setColorspaceDetails sets them; BT.601 limited range unless
+// a stream signals otherwise.
+struct YuvCoeffs {
+  int y = 9539, vr = 13075, ub = 16525, ug = -3209, vg = -6660, y_off = 128;
+};
+
+// The coefficients for a VP9 stream's colour space (its header's
+// color_space, mapped as FFmpeg maps it to swscale's table) and range, as
+// OpenCV's reader hands them to swscale.
+YuvCoeffs vp9_coeffs(int color_space, bool full_range) {
+  static const int64_t kTable[3][4] = {{104597, 132201, 25675, 53279},   // BT.601
+                                       {117489, 138438, 13975, 34925},   // BT.709
+                                       {117579, 136230, 16907, 35559}};  // SMPTE 240M
+  static const int64_t kBt2020[4] = {110013, 140363, 12277, 42626};
+  const int64_t* t = color_space == 2 ? kTable[1] : color_space == 4 ? kTable[2]
+                   : color_space == 5 ? kBt2020 : kTable[0];
+  int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3], cy = 1 << 16, oy = 0;
+  if (!full_range) {
+    cy = (cy * 255) / 219;
+    oy = 16 << 16;
+  } else {
+    crv = (crv * 224) / 255;
+    cbu = (cbu * 224) / 255;
+    cgu = (cgu * 224) / 255;
+    cgv = (cgv * 224) / 255;
+  }
+  auto round16 = [](int64_t f) {
+    const int64_t r = (f + (1 << 15)) >> 16;
+    return static_cast<int>(r < -0x7FFF ? -0x8000 : r > 0x7FFF ? 0x7FFF : r);
+  };
+  YuvCoeffs k;
+  k.y = round16(cy * (1 << 13));
+  k.vr = round16(crv * (1 << 13));
+  k.ub = round16(cbu * (1 << 13));
+  k.ug = round16(cgu * (1 << 13));
+  k.vg = round16(cgv * (1 << 13));
+  k.y_off = round16(oy * (1 << 3));
+  return k;
+}
+
+// yuv420p -> RGB as swscale's x86 unscaled converter does it (the yuv2rgb
+// SIMD path OpenCV's FFmpeg reader takes): 16-bit fixed point with pmulhw's
+// floor, saturated to 0..255.
 void yuv420_to_rgb(const uint8_t* py, int y_stride, const uint8_t* pu, const uint8_t* pv,
-                   int c_stride, int width, int height, uint8_t* rgb) {
-  constexpr int kY = 9539, kVr = 13075, kUb = 16525, kUg = -3209, kVg = -6660, kYOff = 128;
+                   int c_stride, int width, int height, uint8_t* rgb,
+                   const YuvCoeffs& k = YuvCoeffs()) {
+  const int kY = k.y, kVr = k.vr, kUb = k.ub, kUg = k.ug, kVg = k.vg, kYOff = k.y_off;
   for (int y = 0; y < height; ++y) {
     const uint8_t* ys = py + static_cast<size_t>(y) * y_stride;
     const uint8_t* us = pu + static_cast<size_t>(y >> 1) * c_stride;
@@ -2808,12 +2859,17 @@ void vp8_to_rgb(const vd_vp8::Decoder& d, uint8_t* rgb) {
                 d.height(), rgb);
 }
 
+void vp9_to_rgb(const vd_vp9::Decoder& d, uint8_t* rgb) {
+  yuv420_to_rgb(d.plane(0), d.stride(0), d.plane(1), d.plane(2), d.stride(1), d.width(),
+                d.height(), rgb, vp9_coeffs(d.color_space(), d.full_range()));
+}
+
 
 struct VideoStream {
   std::string path;
   std::vector<int64_t> offsets, sizes;  // every sample of the file
   std::vector<int32_t> indices;         // the frames kept, ascending
-  int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8
+  int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8, 3 VP9
   std::vector<uint8_t> config;
   std::string fourcc;                   // MPEG-4's container tag
   int h, w;
@@ -2863,6 +2919,8 @@ struct VideoStream {
         run_mpeg4(read, sample, rgb, staged);
       else if (codec == 2)
         run_vp8(read, sample, rgb, staged);
+      else if (codec == 3)
+        run_vp9(read, sample, rgb, staged);
       else
         run_jpeg(read, sample, rgb, staged);
     } catch (const CodecError& e) {
@@ -2954,6 +3012,32 @@ struct VideoStream {
       if (!wait_slot()) return;
       rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
       vp8_to_rgb(d, rgb.data());
+      put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
+    }
+  }
+
+  // VP9: as VP8, a sample (a superframe of hidden frames and the one shown)
+  // counting once when it shows a frame.
+  template <typename Read>
+  void run_vp9(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
+               std::vector<uint8_t>& staged) {
+    vd_vp9::Decoder d;
+    int32_t display = 0;
+    size_t kept = 0;
+    for (size_t k = 0; k < offsets.size() && kept < indices.size(); ++k) {
+      bool shown;
+      try {
+        read(k);
+        shown = d.decode(sample.data(), sample.size());
+      } catch (const vd_vp9::Error& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      } catch (const CodecError& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      }
+      if (!shown || display++ != indices[kept]) continue;
+      if (!wait_slot()) return;
+      rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
+      vp9_to_rgb(d, rgb.data());
       put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
     }
   }
@@ -3107,6 +3191,56 @@ int vd_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
 
 void vd_vp8_free(void* handle) { delete static_cast<vd_vp8::Decoder*>(handle); }
 
+void* vd_vp9_open() {
+  try {
+    return new vd_vp9::Decoder();
+  } catch (const std::bad_alloc&) {
+    return nullptr;
+  }
+}
+
+int vd_vp9_decode(void* handle, const uint8_t* data, unsigned long size, char* err, int err_len) {
+  try {
+    return static_cast<vd_vp9::Decoder*>(handle)->decode(data, size) ? 1 : 0;
+  } catch (const vd_vp9::Error& e) {
+    std::snprintf(err, err_len, "%s", e.msg.c_str());
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+  }
+  return -1;
+}
+
+void vd_vp9_size(void* handle, int* width, int* height) {
+  const auto* d = static_cast<vd_vp9::Decoder*>(handle);
+  *width = d->width();
+  *height = d->height();
+}
+
+unsigned vd_vp9_features(void* handle) { return static_cast<vd_vp9::Decoder*>(handle)->features(); }
+
+// The frame shown last, as RGB (width x height x 3); 0, or -1 before any.
+int vd_vp9_rgb(void* handle, uint8_t* rgb) {
+  const auto* d = static_cast<vd_vp9::Decoder*>(handle);
+  if (!d->plane(0)) return -1;
+  vp9_to_rgb(*d, rgb);
+  return 0;
+}
+
+int vd_vp9_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
+  const auto* d = static_cast<vd_vp9::Decoder*>(handle);
+  if (!d->plane(0)) return -1;
+  const int w = d->width(), h = d->height(), cw = (w + 1) / 2, ch = (h + 1) / 2;
+  for (int r = 0; r < h; ++r)
+    std::memcpy(y + static_cast<size_t>(r) * w, d->plane(0) + static_cast<size_t>(r) * d->stride(0), w);
+  for (int r = 0; r < ch; ++r) {
+    std::memcpy(u + static_cast<size_t>(r) * cw, d->plane(1) + static_cast<size_t>(r) * d->stride(1), cw);
+    std::memcpy(v + static_cast<size_t>(r) * cw, d->plane(2) + static_cast<size_t>(r) * d->stride(2), cw);
+  }
+  return 0;
+}
+
+void vd_vp9_free(void* handle) { delete static_cast<vd_vp9::Decoder*>(handle); }
+
 int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w, int letterbox,
                        int normalize, float* affine) {
   try {
@@ -3123,7 +3257,7 @@ void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned
                     const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
                     int capacity, char* err, int err_len) {
   try {
-    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 2)
+    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 3)
       fail("bad video stream arguments (codec %d, %d of %d frames, %dx%d, capacity %d)", codec,
            n, samples, w, h, capacity);
     for (int i = 0; i < n; ++i)

@@ -25,6 +25,13 @@ The codecs:
   ``native.Vp8Decoder``).  A frame with show_frame 0 (an alt-ref frame) is
   decoded and not shown, as FFmpeg shows it; ``frame_count`` counts the
   shown frames.
+* ``V_VP9``: decoded by the port's VP9 decoder (``vp9.cpp``,
+  ``native.Vp9Decoder``), profile 0 (8-bit 4:2:0).  A block is one sample:
+  a frame, or a superframe of hidden frames and the one shown;
+  ``frame_count`` counts the shown frames (a ``show_existing_frame`` one
+  too).  ``check_vp9`` reads every frame's uncompressed header and refuses,
+  before a frame is decoded, a track that does not start with a key frame,
+  another profile and a change of frame size.
 * ``V_MPEG4/ISO/SP``, ``/ASP`` and ``/AP``: MPEG-4 Part 2, configured by the
   track's ``CodecPrivate`` (its VOS / VOL headers; without one, the
   headers at the head of the first frame), for ``native.Mpeg4Decoder``.
@@ -33,7 +40,7 @@ The codecs:
   compression, read as ``native/avi.py`` reads it (MPEG-4 Part 2 fourccs
   with packed B-frames unpacked, Motion-JPEG).
 
-Any other codec (VP9, AV1, H.264, HEVC, Theora, ...) raises ValueError
+Any other codec (AV1, H.264, HEVC, Theora, ...) raises ValueError
 naming it: decoding it needs FFmpeg, which the port does not link.  So does
 a ``ContentEncoding`` (compression, header stripping included, or
 encryption), a track whose frames do not start with a key frame, a VP8
@@ -89,7 +96,7 @@ READ_VERSION = 4  # the highest DocTypeReadVersion read
 MPEG4_CODECS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 # codecs the port does not decode, by name
 REFUSED = {
-    "V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
+    "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
     "V_THEORA": "Theora", "V_MPEG1": "MPEG-1 video", "V_MPEG2": "MPEG-2 video",
     "V_MS/VFW/FOURCC": "a VfW codec", "V_UNCOMPRESSED": "uncompressed video",
     "V_PRORES": "ProRes", "V_FFV1": "FFV1", "V_REAL/RV40": "RealVideo",
@@ -105,7 +112,7 @@ class MkvIndex:
     path: str
     width: int
     height: int
-    codec: str  # "vp8", "mpeg4" or "jpeg"
+    codec: str  # "vp8", "vp9", "mpeg4" or "jpeg"
     config: bytes  # the MPEG-4 decoder configuration (VOS / VOL); b"" otherwise
     fps: float
     offsets: np.ndarray  # int64
@@ -202,6 +209,123 @@ def vp8_frame_size(data, offset: int, size: int) -> Optional[Tuple[int, int]]:
         return (0, 0)
     w, h = struct.unpack_from("<HH", head, 3)
     return w & 0x3FFF, h & 0x3FFF
+
+
+class _Bits:
+    """Bits of a VP9 uncompressed header, most significant first."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def read(self, n: int = 1) -> int:
+        v = 0
+        for _ in range(n):
+            if self.pos >= 8 * len(self.data):
+                raise EOFError
+            v = (v << 1) | (self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1
+            self.pos += 1
+        return v
+
+
+def vp9_superframe(data, offset: int, size: int) -> List[Tuple[int, int]]:
+    """(offset, size) of the frames of the VP9 sample at data[offset:offset +
+    size]: those a superframe index at its end lists (the marker byte
+    0b110xxxxx at both ends of the index), else the sample itself."""
+    marker = data[offset + size - 1] if size else 0
+    if marker & 0xE0 == 0xC0:
+        frames, mag = (marker & 7) + 1, ((marker >> 3) & 3) + 1
+        index = 2 + mag * frames
+        if size >= index and data[offset + size - index] == marker:
+            out, at, p = [], offset, offset + size - index + 1
+            for _ in range(frames):
+                n = int.from_bytes(data[p : p + mag], "little")
+                p += mag
+                if n:
+                    out.append((at, n))
+                at += n
+            return out
+    return [(offset, size)]
+
+
+VP9_SYNC = 0x498342
+
+
+def vp9_header(frame: bytes):
+    """(kind, shows, size) of a VP9 frame from its uncompressed header: kind
+    "key", "intra-only", "inter" or "existing" (show_existing_frame); the
+    size (width, height) where the header codes one.  Raises ValueError for
+    a profile other than 0 and EOFError for a header cut short."""
+    b = _Bits(frame)
+    if b.read(2) != 2:
+        raise EOFError  # not a frame marker: the decoder names it
+    profile = b.read() | b.read() << 1
+    if profile == 3:
+        profile += b.read()
+    if profile:
+        raise ValueError(f"VP9 profile {profile} (a bit depth above 8 or chroma other than "
+                         "4:2:0)")
+    if b.read():
+        return "existing", True, None
+    key, show, error_res = b.read() == 0, b.read(), b.read()
+    if key:
+        if b.read(24) != VP9_SYNC:
+            raise EOFError
+        if b.read(3) == 7:  # sRGB colour: 4:4:4, never profile 0
+            raise ValueError("a VP9 sRGB (4:4:4) frame")
+        b.read()
+        return "key", bool(show), (b.read(16) + 1, b.read(16) + 1)
+    intra_only = b.read() if not show else 0
+    if not error_res:
+        b.read(2)
+    if intra_only:
+        if b.read(24) != VP9_SYNC:
+            raise EOFError
+        b.read(8)
+        return "intra-only", bool(show), (b.read(16) + 1, b.read(16) + 1)
+    b.read(8 + 3 * 4)
+    for _ in range(3):
+        if b.read():  # the size of a reference
+            return "inter", bool(show), None
+    return "inter", bool(show), (b.read(16) + 1, b.read(16) + 1)
+
+
+def check_vp9(data, offsets: np.ndarray, sizes: np.ndarray, width: int, height: int,
+              fail) -> Tuple[int, int, int]:
+    """Refuse a VP9 track that does not start with a key frame, is not
+    profile 0 (8-bit 4:2:0), or whose frame size is not the track's (when it
+    states one) or changes (the sizes its headers code); returns (samples
+    that show a frame, width, height)."""
+    shown, size = 0, None
+    for i, (offset, n) in enumerate(zip(offsets.tolist(), sizes.tolist())):
+        sample_shows = False
+        for at, length in vp9_superframe(data, offset, n):
+            try:
+                kind, show, coded = vp9_header(bytes(data[at : at + min(length, 64)]))
+            except EOFError:
+                if size is None:
+                    fail(f"VP9 frame {i} at offset {offset} has a bad or truncated header")
+                continue  # the decoder names it, after the frames before it
+            except ValueError as e:
+                fail(f"{e} in frame {i}, which the port does not decode; decoding it needs "
+                     "FFmpeg, which the port does not link")
+            if size is None and kind != "key":
+                fail("the VP9 track does not start with a key frame")
+            sample_shows |= show
+            if coded is None:
+                continue
+            if size is None:
+                size = coded
+                if (width, height) not in ((0, 0), size):
+                    fail(f"the VP9 frames are {size[0]}x{size[1]}, the track says "
+                         f"{width}x{height}")
+            elif coded != size:
+                fail(f"VP9 frame {i} changes the frame size from {size[0]}x{size[1]} to "
+                     f"{coded[0]}x{coded[1]}, which the port does not follow (FFmpeg does; "
+                     "the port does not link it)")
+        shown += sample_shows
+    if size is None:
+        fail("the VP9 track has no key frame")
+    return shown, size[0], size[1]
 
 
 @dataclasses.dataclass
@@ -494,6 +618,8 @@ class _Walk:
             check_vops(self.data, offsets, sizes, self.fail)
         elif codec == "vp8":
             shown, width, height = self.check_vp8(offsets, sizes, width, height)
+        elif codec == "vp9":
+            shown, width, height = check_vp9(self.data, offsets, sizes, width, height, self.fail)
         if video.default_duration:
             num, den = reduce_fraction(10**9, video.default_duration, 30000)
             fps = num / den
@@ -511,6 +637,8 @@ class _Walk:
         cid = track.codec_id
         if cid == "V_VP8":
             return "vp8", b"", ""
+        if cid == "V_VP9":
+            return "vp9", b"", ""
         if cid in MPEG4_CODECS:
             return "mpeg4", track.private, ""
         if cid == "V_MJPEG":
@@ -525,7 +653,7 @@ class _Walk:
                       "not decode; decoding it needs FFmpeg, which the port does not link")
         name = REFUSED.get(cid, "a codec the port does not read")
         self.fail(f"the video track's codec is {cid!r} ({name}); decoding it needs FFmpeg, which "
-                  "the port does not link (it reads VP8, MPEG-4 Part 2 and Motion-JPEG)")
+                  "the port does not link (it reads VP8, VP9, MPEG-4 Part 2 and Motion-JPEG)")
 
     def check_vp8(self, offsets: np.ndarray, sizes: np.ndarray, width: int,
                   height: int) -> Tuple[int, int, int]:
@@ -574,10 +702,10 @@ class MkvReader:
 
     def frames(self, every: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, RGB frame) of every ``every``-th shown frame in display
-        order.  VP8 and MPEG-4 streams are decoded whole, each inter frame
-        needing the ones before it; a JPEG frame skipped by ``every`` is
-        not decoded."""
-        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames, vp8_frames
+        order.  VP8, VP9 and MPEG-4 streams are decoded whole, each inter
+        frame needing the ones before it; a JPEG frame skipped by ``every``
+        is not decoded."""
+        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames, vp8_frames, vp9_frames
 
         index = self.index
         samples = (self.sample(i) for i in range(len(index.offsets)))
@@ -586,6 +714,8 @@ class MkvReader:
                 yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")
         elif index.codec == "mpeg4":
             yield from mpeg4_frames(index.config, samples, index.path, every, index.fourcc)
+        elif index.codec == "vp9":
+            yield from vp9_frames(samples, index.path, every)
         else:
             yield from vp8_frames(samples, index.path, every)
 

@@ -25,8 +25,13 @@ Two sample entries are read:
   and shows a B-VOP's at once, so frame ``k`` is the ``k``-th picture it
   shows (``ctts`` gives the same order; it is read for the edit list).
 * ``jpeg``: one baseline JPEG per sample, for ``native.decode_jpeg``.
+* ``vp09`` with its ``vpcC`` configuration: VP9, decoded by the port's VP9
+  decoder (``vp9.cpp``, ``native.Vp9Decoder``).  Profile 0 (8-bit 4:2:0) is
+  read; the ``vpcC`` box's profile, bit depth and chroma subsampling and
+  each frame's uncompressed header (``native.mkv.check_vp9``) refuse the
+  rest before a frame is decoded.  A sample is a frame or a superframe.
 
-Any other codec raises ValueError naming it (H.264, HEVC, AV1, VP9 and
+Any other codec raises ValueError naming it (H.264, HEVC, AV1 and
 the rest need FFmpeg, which the port does not link), as does an edit
 list other than the identity or the shift an MP4 muxer writes with
 B-frames (one entry, rate 1, whose media time is the first sample's
@@ -64,7 +69,7 @@ MPEG4_VISUAL = 0x20  # objectTypeIndication of MPEG-4 Part 2 video
 # sample entries that need a decoder the port does not have, by name
 REFUSED = {
     b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)", b"hvc1": "HEVC (hvc1)",
-    b"hev1": "HEVC (hev1)", b"av01": "AV1 (av01)", b"vp09": "VP9 (vp09)",
+    b"hev1": "HEVC (hev1)", b"av01": "AV1 (av01)",
     b"mjpa": "Motion-JPEG format A (mjpa)", b"mjpb": "Motion-JPEG format B (mjpb)",
 }
 VOP_START = b"\x00\x00\x01\xb6"
@@ -79,7 +84,7 @@ class Mp4Index:
     path: str
     width: int
     height: int
-    codec: str  # "mpeg4" or "jpeg"
+    codec: str  # "mpeg4", "vp9" or "jpeg"
     config: bytes  # the MPEG-4 decoder configuration (VOS / VO / VOL); b"" for JPEG
     fps: float
     offsets: np.ndarray  # int64, the samples that lie wholly in the file
@@ -251,6 +256,10 @@ class _Walk:
             offsets, sizes = offsets[: int(bad[0])], sizes[: int(bad[0])]
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
+        elif codec == "vp9":
+            from viddet_tpu_torch.native.mkv import check_vp9
+
+            check_vp9(self.data, offsets, sizes, width, height, self.fail)
         keyframes = None
         if b"stss" in tables:
             s, e = tables[b"stss"]
@@ -317,12 +326,15 @@ class _Walk:
         name = kind.decode("latin-1")
         if kind == b"jpeg":
             return width, height, "jpeg", b""
+        if kind == b"vp09":
+            self.vp9_config(*self.child(pos + 86, pos + length, b"vpcC", "the 'vp09' sample entry"))
+            return width, height, "vp9", b""
         if kind in REFUSED:
             self.fail(f"the video is {REFUSED[kind]}; decoding it needs FFmpeg, which the port "
-                      "does not link (it reads MPEG-4 Part 2 and Motion-JPEG)")
+                      "does not link (it reads MPEG-4 Part 2, VP9 and Motion-JPEG)")
         if kind != b"mp4v":
             self.fail(f"the video codec {name!r} is not one the port reads; decoding it needs "
-                      "FFmpeg, which the port does not link (it reads MPEG-4 Part 2 and "
+                      "FFmpeg, which the port does not link (it reads MPEG-4 Part 2, VP9 and "
                       "Motion-JPEG)")
         esds = self.child(pos + 86, pos + length, b"esds", "the 'mp4v' sample entry")
         object_type, config = self.decoder_config(*esds)
@@ -331,6 +343,20 @@ class _Walk:
                       f"video (0x{MPEG4_VISUAL:02x}); decoding it needs FFmpeg, which the port "
                       "does not link")
         return width, height, "mpeg4", config
+
+    def vp9_config(self, start: int, end: int) -> None:
+        """Refuse a ``vpcC`` (VP codec configuration) of another profile than
+        0, a bit depth other than 8 or chroma other than 4:2:0."""
+        version = self.full(start, end, 8, "vpcC")
+        profile, _level, packed = struct.unpack_from(">BBB", self.data, start + 4)
+        depth = packed >> 4
+        # version 1: depth (4 bits), chroma (3), full range (1); version 0:
+        # depth and colour space (4 bits each), then chroma (4 bits)
+        chroma = (packed >> 1) & 7 if version else self.data[start + 7] >> 4
+        if profile != 0 or depth != 8 or chroma > 1:
+            self.fail(f"the video is VP9 profile {profile}, {depth}-bit, chroma subsampling "
+                      f"{chroma} (4:2:0 is 0 or 1); the port decodes profile 0 (8-bit 4:2:0) "
+                      "only: decoding it needs FFmpeg, which the port does not link")
 
     def decoder_config(self, start: int, end: int) -> Tuple[int, bytes]:
         """(objectTypeIndication, DecoderSpecificInfo bytes) of an ``esds``."""
@@ -457,12 +483,15 @@ class Mp4Reader:
         An MPEG-4 stream is decoded whole, since each P- and B-VOP needs the
         pictures before it; a JPEG frame skipped by ``every`` is not
         decoded."""
-        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames
+        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames, vp9_frames
 
         index = self.index
         if index.codec == "jpeg":
             for i in range(0, len(self), every):
                 yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")
+            return
+        if index.codec == "vp9":
+            yield from vp9_frames((self.sample(i) for i in range(len(self))), index.path, every)
             return
         yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
                                 index.path, every, index.fourcc)
