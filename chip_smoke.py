@@ -58,6 +58,9 @@ Phases, each printed as one JSON line:
             and PNG encoders to files and back through its decoder: PNGs
             exact, each JPEG equal to its decode in a second thread; encode
             and decode rates on one thread and on the loader's 4 (host CPU);
+            then the still fixtures (``tests/fixtures/stills/``: WebP, GIF,
+            BMP, PNG with eXIf, 16-bit PPM) each to its OpenCV digest, and
+            lossy WebP, lossless WebP and GIF decode rates;
 9. evaluate_files: ``cli.evaluate.evaluate`` over 256 of them as JPEG files
             in the VOC layout (XML from seeded boxes), YOLOv3-416
             Darknet-53 over VOC's 20 classes (bf16, seeded weights), batch
@@ -66,7 +69,9 @@ Phases, each printed as one JSON line:
             predictor on the file decoded apart from the loader;
 10. http:   ``cli.serve.serve_forever`` on 127.0.0.1 with the main path's
             model (batch 8, flush 5 ms): ``/healthz``, then 8 client threads
-            posting JPEG and PNG uploads for 5 s, every reply equal to
+            posting JPEG and PNG uploads and six still fixtures (WebP
+            lossy and lossless, GIF, PPM, 8-bit BMP, PNG with eXIf) for 5
+            s, every reply equal to
             ``detections_to_json`` of the direct predictor on the decoded
             upload; requests/s, latency p50 / p95, batch fill, launches;
 11. stream: ``stream_detect`` over 128 frames at batch 8 with the main
@@ -98,9 +103,10 @@ Phases, each printed as one JSON line:
             encoder's alone, the reader's and each source's frames/s, and
             the card's idle share over one window (``--phases video`` runs
             this phase and ``mp4`` alone);
-13. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files with the main
-            path's model: every ``.txt`` equal to the direct predictor,
-            every ``_det.jpg`` decoding; images/s;
+13. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files and an 8-bit
+            BMP with the main path's model, then a WebP given alone: every
+            ``.txt`` equal to the direct predictor, every ``_det.jpg``
+            decoding; images/s;
 14. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
             seeded weights, batches of 8 clips of k = 3 frames (24 frames
             through Darknet-53), under each aggregation (max, stack, mean,
@@ -342,6 +348,23 @@ HTTP_THREADS, HTTP_SECONDS, HTTP_UPLOADS, HTTP_SEED = 8, 5.0, 16, 6
 STREAM_FRAMES, STREAM_B, STREAM_SEED = 128, 8, 7
 MULTI_STREAMS, MULTI_FRAMES = 2, 48
 DETECT_FILES, DETECT_SEED = 16, 8
+# The still images cv2 reads beside JPEG and PNG (tests/fixtures/make_image_fixtures.py):
+# WebP, GIF, BMP, PNG with eXIf and 16-bit PPM files with their OpenCV digests.
+# The codec phase decodes each to its digest and times lossy WebP, lossless WebP
+# and GIF over STILL_COPIES copies; the HTTP phase uploads STILL_UPLOADS
+# beside its JPEGs and PNGs; the detect phase reads DETECT_STILL in its
+# directory and DETECT_SINGLE given alone as --input.
+STILLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                          "stills")
+STILLS_DIGESTS = STILLS_DIR + ".json"
+STILL_COPIES = 32
+STILL_RATES = {"webp_lossy": "webp_lossy_640x480.webp",
+               "webp_lossless": "webp_lossless_320x240.webp",
+               "gif": "gif_animated_interlaced_320x240.gif"}
+STILL_UPLOADS = ("webp_lossy_640x480.webp", "webp_lossless_320x240.webp",
+                 "gif_animated_interlaced_320x240.gif", "ppm16_160x120.ppm",
+                 "bmp8_320x240.bmp", "png_exif_320x240.png")
+DETECT_STILL, DETECT_SINGLE = "bmp8_320x240.bmp", "webp_lossy_640x480.webp"
 # The video phase: two Motion-JPEG AVIs of seeded 640x480 frames at 25 fps,
 # detected at batch 8; extract_frames takes every 4th frame.
 # Random weights score ~100 boxes a frame above 0.5; the threshold is the
@@ -2593,7 +2616,8 @@ def codec_phase() -> dict:
     """64 seeded 640x480 images written by the port's JPEG (q 95) and PNG
     encoders and read back by its decoder: PNGs exactly, each JPEG equal to
     its decode in a second thread; decode rates on one thread and on the
-    loader's 4, encode rates on ENCODE_WORKERS (host CPU figures)."""
+    loader's 4, encode rates on ENCODE_WORKERS (host CPU figures); then the
+    still fixtures (``stills_check``)."""
     import tempfile
 
     from viddet_tpu_torch.data.base import decode_rgb, imread_rgb
@@ -2638,8 +2662,46 @@ def codec_phase() -> dict:
                 rates[f"decode_{workers}_threads"] = {"mb_per_s": mb / dt,
                                                       "images_per_s": CODEC_IMAGES / dt}
             out["rates"][kind] = rates
+    out["stills"] = stills_check()
     out["phase_s"] = time.perf_counter() - t0
     emit(out)
+    return out
+
+
+def still(name: str) -> bytes:
+    with open(os.path.join(STILLS_DIR, name), "rb") as f:
+        return f.read()
+
+
+def stills_check() -> dict:
+    """Every still fixture decoded by ``decode_rgb`` to the shape and RGB
+    digest OpenCV gave it; decode rates of lossy WebP, lossless WebP and GIF
+    over STILL_COPIES copies on one thread and on the loader's 4 (host CPU
+    figures, MB/s of the files' bytes)."""
+    import hashlib
+
+    from viddet_tpu_torch.data.base import decode_rgb
+
+    with open(STILLS_DIGESTS) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests.items()):
+        rgb = decode_rgb(still(name), name)
+        check(list(rgb.shape) == want["shape"]
+              and hashlib.sha256(rgb.tobytes()).hexdigest() == want["rgb_sha256"],
+              f"{name} decodes to OpenCV's digest")
+    out = {"files": len(digests), "all_equal_cv2": True, "rates": {}}
+    for kind, name in STILL_RATES.items():
+        blobs = [still(name)] * STILL_COPIES
+        mb = len(blobs[0]) * STILL_COPIES / 1e6
+        rates = {"file": name, "bytes_mb": mb}
+        for workers in (1, EVAL_WORKERS):
+            decode_rgb(blobs[0], "warm")
+            t = time.perf_counter()
+            in_threads(lambda b: decode_rgb(b, kind), blobs, workers)
+            dt = time.perf_counter() - t
+            rates[f"decode_{workers}_threads"] = {"mb_per_s": mb / dt,
+                                                  "images_per_s": STILL_COPIES / dt}
+        out["rates"][kind] = rates
     return out
 
 
@@ -2771,10 +2833,11 @@ def hier_batches(kernels, what: str) -> int:
 def http_phase(dev, kernels, model, classes, predictor) -> dict:
     """``cli.serve.serve_forever`` on 127.0.0.1, port 0, with the main
     path's model at the CLI's defaults (batch 8, flush 5 ms): ``/healthz``
-    answers, then 8 client threads post JPEG and PNG uploads for about
-    HTTP_SECONDS; every reply equal to ``detections_to_json`` of the direct
-    predictor on the same decoded image; requests/s, latency p50 / p95 and
-    the batch fill."""
+    answers, then 8 client threads post JPEG and PNG uploads and the still
+    fixtures of STILL_UPLOADS (WebP, GIF, PPM, 8-bit BMP, PNG with eXIf) for
+    about HTTP_SECONDS; every reply equal to ``detections_to_json`` of the
+    direct predictor on the same decoded image; requests/s, latency p50 /
+    p95 and the batch fill."""
     import logging
     import urllib.request
 
@@ -2794,6 +2857,7 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
         h, w = ((480, 640), (360, 500), (600, 400), (416, 416))[i % 4]
         image = photo_like(rng, h, w)
         uploads.append(encode_jpeg(image, 95) if i % 2 == 0 else encode_png(image))
+    uploads += [still(name) for name in STILL_UPLOADS]
     transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True, normalize=False)
     expected = []
     for data in uploads:
@@ -2814,6 +2878,7 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
             health = json.loads(resp.read())
         check(health["status"] == "ok" and health["num_classes"] == len(classes), "/healthz")
         latencies, mismatched, errors = [], [], []
+        answered = [0] * len(uploads)
         deadline = time.perf_counter() + HTTP_SECONDS
 
         def client(offset):
@@ -2830,6 +2895,7 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
                     errors.append(repr(exc))
                     return
                 latencies.append((time.perf_counter() - t) * 1e3)
+                answered[k] += 1
                 if got != expected[k]:
                     mismatched.append(k)
                 i += HTTP_THREADS
@@ -2849,6 +2915,8 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
         server.viddet_service.close()
     check(not errors, f"no HTTP request failed: {errors[:3]}")
     check(not mismatched, f"every reply equals the direct predictor's JSON {mismatched[:8]}")
+    stills = dict(zip(STILL_UPLOADS, answered[len(uploads) - len(STILL_UPLOADS):]))
+    check(all(stills.values()), f"every still upload answered {stills}")
     batches = hier_batches(kernels, "http")
     launches = {name: fn.launches for name, fn in kernels.items()}
     out = {"phase": "http", "model": MODEL, "size": IMAGE_SIZE, "batch_size": args.batch_size,
@@ -2858,7 +2926,7 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
            "latency_ms_p50": float(np.percentile(latencies, 50)),
            "latency_ms_p95": float(np.percentile(latencies, 95)),
            "batches": batches, "service": stats, "all_equal_direct": True,
-           "phase_s": time.perf_counter() - t_phase}
+           "still_replies": stills, "phase_s": time.perf_counter() - t_phase}
     emit(out)
     return launches
 
@@ -3053,10 +3121,12 @@ def stream_phase(dev, kernels, predictor) -> dict:
 
 
 def detect_phase(dev, kernels, model, classes, predictor) -> dict:
-    """``cli.detect.main`` over a directory of 8 JPEG and 8 PNG files with the
-    main path's model at batch 8: every ``{stem}.txt`` equal to the direct
-    predictor's lines on the same decoded file, every ``{stem}_det.jpg``
-    decoding to its original's size; images/s."""
+    """``cli.detect.main`` over a directory of 8 JPEG and 8 PNG files and
+    cv2's 8-bit palette BMP (DETECT_STILL) with the main path's model at
+    batch 8: every ``{stem}.txt`` equal to the direct predictor's lines on
+    the same decoded file, every ``{stem}_det.jpg`` decoding to its
+    original's size; images/s.  Then one WebP (DETECT_SINGLE) given alone
+    as ``--input``: its ``.txt`` equal to the direct predictor's, one tail."""
     import tempfile
 
     from viddet_tpu_torch.cli import detect
@@ -3077,6 +3147,8 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
             name = f"{i:02d}.jpg" if i % 2 == 0 else f"{i:02d}.png"
             with open(os.path.join(src, name), "wb") as f:
                 f.write(encode_jpeg(image, 95) if i % 2 == 0 else encode_png(image))
+        with open(os.path.join(src, DETECT_STILL), "wb") as f:
+            f.write(still(DETECT_STILL))
         set_launches(kernels)
         t0 = time.perf_counter()
         done = detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input", src,
@@ -3085,9 +3157,9 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
                            built=(model, classes))
         wall = time.perf_counter() - t0
         torch_sync()
-        check(done == DETECT_FILES, "detect did every file")
+        check(done == DETECT_FILES + 1, "detect did every file")
         batches = hier_batches(kernels, "detect")
-        check(batches == -(-DETECT_FILES // bs), "detect: one tail a batch")
+        check(batches == -(-(DETECT_FILES + 1) // bs), "detect: one tail a batch")
         launches = {name: fn.launches for name, fn in kernels.items()}
         files = sorted(os.listdir(src))
         transform = ValTransform((IMAGE_SIZE, IMAGE_SIZE), letterbox_resize=True,
@@ -3110,8 +3182,30 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
                 lines += len(got.splitlines())
                 drawn = imread_rgb(os.path.join(dst, f"{stem}_det.jpg"))
                 check(drawn.shape == origs[j].shape, f"{stem}_det.jpg decodes")
-    emit({"phase": "detect", "model": MODEL, "size": IMAGE_SIZE, "files": DETECT_FILES,
-          "batch": bs, "seconds": wall, "images_per_s": DETECT_FILES / wall,
+        # one WebP given alone as --input, as JAX's collect_inputs takes a single file
+        single = os.path.join(tmp, DETECT_SINGLE)
+        with open(single, "wb") as f:
+            f.write(still(DETECT_SINGLE))
+        set_launches(kernels)
+        check(detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
+                           single, "--output", os.path.join(tmp, "single"), "--data-shape",
+                           str(IMAGE_SIZE), "--batch-size", str(bs), "--thresh", "0.05",
+                           "--save-detections", "--no-draw"], built=(model, classes)) == 1,
+              "detect did the single WebP")
+        torch_sync()
+        check(hier_batches(kernels, "detect single WebP") == 1, "detect single WebP: one tail")
+        orig = imread_rgb(single)
+        x, _, affine = transform(orig)
+        d_ids, d_scores, d_boxes = (t.cpu().numpy()[0] for t in predictor(
+            to_device_batch(x[None], bs, dev)))
+        want = detect.detection_lines(d_ids, d_scores, invert_affine_to_boxes(d_boxes, affine),
+                                      classes, 0.05)
+        stem = os.path.splitext(DETECT_SINGLE)[0]
+        with open(os.path.join(tmp, "single", f"{stem}.txt")) as fh:
+            check(fh.read() == want, f"detect {stem}.txt equal to the direct predictor")
+    emit({"phase": "detect", "model": MODEL, "size": IMAGE_SIZE, "files": DETECT_FILES + 1,
+          "still_in_directory": DETECT_STILL, "single_input": DETECT_SINGLE,
+          "batch": bs, "seconds": wall, "images_per_s": (DETECT_FILES + 1) / wall,
           "lines": lines, "batches": batches, "all_equal_direct": True,
           "phase_s": time.perf_counter() - t_phase})
     return launches

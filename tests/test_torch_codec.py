@@ -449,11 +449,11 @@ def test_bad_bmps_raise():
     good = cv2.imencode(".bmp", _image(8, 8, seed=13))[1].tobytes()
     with pytest.raises(ValueError, match="truncated"):
         decode_bmp(good[:-40], "short")
-    rle = good[:30] + struct.pack("<I", 1) + good[34:]
-    with pytest.raises(ValueError, match="compressed"):
+    rle = good[:30] + struct.pack("<I", 1) + good[34:]  # RLE8 of 24-bit pixels: cv2 refuses it
+    with pytest.raises(ValueError, match="24 bits, compression 1"):
         decode_bmp(rle, "rle")
-    eight_bit = good[:28] + struct.pack("<H", 8) + good[30:]
-    with pytest.raises(ValueError, match="unsupported"):
+    eight_bit = good[:28] + struct.pack("<H", 8) + good[30:]  # no room for its 256 colours
+    with pytest.raises(ValueError, match="palette is truncated"):
         decode_bmp(eight_bit, "8-bit")
 
 
@@ -466,9 +466,11 @@ def test_decode_rgb_dispatches_on_magic_bytes(tmp_path):
         path = tmp_path / (name + ".bin")
         path.write_bytes(data)
         np.testing.assert_array_equal(imread_rgb(str(path)), _cv2_rgb(data))
-    for junk in (b"", b"GIF89a" + bytes(20), b"\x00" * 64):
-        with pytest.raises(ValueError, match="junk.*not a JPEG, PNG or BMP"):
+    for junk in (b"", b"\x00" * 64):
+        with pytest.raises(ValueError, match="junk.*not a JPEG, PNG, BMP, WebP, GIF or PNM"):
             decode_rgb(junk, "junk")
+    with pytest.raises(ValueError, match="junk: GIF screen of size 0x0"):  # a GIF, but empty
+        decode_rgb(b"GIF89a" + bytes(20), "junk")
 
 
 # ---------------------------------------------------------------------------

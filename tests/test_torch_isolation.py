@@ -55,6 +55,7 @@ def test_import_leaves_jax_unloaded():
         "viddet_tpu_torch.train.state, viddet_tpu_torch.train.targets, "
         "viddet_tpu_torch.train.losses, viddet_tpu_torch.data.clip_transforms, "
         "viddet_tpu_torch.native.avi, viddet_tpu_torch.native.mp4, viddet_tpu_torch.native.mkv, "
+        "viddet_tpu_torch.native.webp, viddet_tpu_torch.native.gif, viddet_tpu_torch.native.pnm, "
         "viddet_tpu_torch.utils.video, "
         "viddet_tpu_torch.utils.gif, "
         "viddet_tpu_torch.cli.extract_frames, viddet_tpu_torch.cli.visualise, "
@@ -185,28 +186,30 @@ def test_int8_conv_never_takes_the_float64_route_off_the_cpu(monkeypatch):
 
 def test_codec_build_links_no_image_library():
     """One ``g++ -c`` call per repository source (``codec.cpp``, the VP8
-    decoder ``vp8.cpp``, the VP9 decoder ``vp9.cpp`` and the MPEG-4 encoder
-    ``mpeg4enc.cpp``) and one link of their objects, with no ``-l`` flag
-    anywhere: no libjpeg, libpng, zlib, libvpx or FFmpeg."""
+    decoder ``vp8.cpp``, the VP9 decoder ``vp9.cpp``, the MPEG-4 encoder
+    ``mpeg4enc.cpp``, WebP's bitstreams ``webp.cpp`` and GIF's LZW
+    ``gif.cpp``) and one link of their objects, with no ``-l`` flag
+    anywhere: no libjpeg, libpng, zlib, libvpx, libwebp, giflib or FFmpeg."""
     from viddet_tpu_torch.native import build_command, compile_commands
 
     compiles = compile_commands(Path("objects"))
     link = build_command(Path("libviddet_codec.so"), Path("objects"))
-    names = ["codec", "vp8", "vp9", "mpeg4enc"]
+    names = ["codec", "vp8", "vp9", "mpeg4enc", "webp", "gif"]
     assert [[Path(a).name for a in cmd if a.endswith(".cpp")] for cmd in compiles] == [
         [n + ".cpp"] for n in names]
     assert all(cmd[0] == "g++" and "-c" in cmd for cmd in compiles)
     assert link[0] == "g++" and "-shared" in link
     assert [Path(a).name for a in link if a.endswith(".o")] == [n + ".o" for n in names]
     for cmd in compiles + [link]:
-        assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec"} & set(cmd)
+        assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec", "-lwebp", "-lgif"} & set(cmd)
         assert not [a for a in cmd if a.startswith("-l")]
     assert [a for a in link if a == "-pthread"] == ["-pthread"]
 
 
 def test_native_library_needs_no_image_or_video_library():
     """The built library's dynamic dependencies are the C and C++ runtimes
-    only: no libjpeg, libpng, zlib, libvpx, libav* (FFmpeg), swscale or V4L2."""
+    only: no libjpeg, libpng, zlib, libvpx, libwebp, giflib, libav* (FFmpeg),
+    swscale or V4L2."""
     import re
 
     from viddet_tpu_torch.native import build
@@ -225,16 +228,20 @@ def test_video_code_includes_and_imports_nothing_outside():
     """``codec.cpp`` (JPEG, PNG, the MPEG-4 Part 2 decoder, the video
     stream), ``vp8.cpp`` and ``vp8.h`` (the VP8 decoder), ``vp9.cpp`` and
     ``vp9.h`` (the VP9 decoder), ``mpeg4enc.cpp`` (the MPEG-4 Part 2
-    encoder) and ``mpeg4.h`` (what the MPEG-4 decoder and encoder share)
-    include C++ standard headers and the port's three headers only; ``native/mp4.py``, ``native/avi.py``, ``native/mkv.py``
-    and ``utils/video.py`` import the standard library, numpy and the
-    port."""
+    encoder), ``mpeg4.h`` (what the MPEG-4 decoder and encoder share),
+    ``webp.cpp`` (WebP's bitstreams) and ``gif.cpp`` (GIF's LZW) include C++
+    standard headers and the port's three headers only (no ``webp/decode.h``,
+    ``gif_lib.h``, ``png.h`` or OpenCV header); ``native/mp4.py``,
+    ``native/avi.py``, ``native/mkv.py``, ``native/webp.py``,
+    ``native/gif.py``, ``native/pnm.py`` and ``utils/video.py`` import the
+    standard library, numpy and the port (no cv2 or PIL)."""
     import re
 
     standard = {"algorithm", "array", "cmath", "condition_variable", "cstdarg", "cstddef",
                 "cstdint", "cstdio", "cstdlib", "cstring", "memory", "mutex", "new", "string",
                 "thread", "vector"}
-    for name in ("codec.cpp", "vp8.cpp", "vp8.h", "vp9.cpp", "vp9.h", "mpeg4enc.cpp", "mpeg4.h"):
+    for name in ("codec.cpp", "vp8.cpp", "vp8.h", "vp9.cpp", "vp9.h", "mpeg4enc.cpp", "mpeg4.h",
+                 "webp.cpp", "gif.cpp"):
         includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]',
                                   (PORT / "native" / name).read_text()))
         assert includes <= standard | {"vp8.h", "vp9.h", "mpeg4.h"}, (name, includes - standard)

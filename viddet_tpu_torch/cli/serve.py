@@ -7,13 +7,16 @@ detection requests, fused into shared device batches by
 
 Endpoints:
   GET  /healthz          -> {"status": "ok", model/class info, counters}
-  POST /detect           -> body = encoded image (JPEG, PNG or BMP);
+  POST /detect           -> body = encoded image (JPEG, PNG, BMP, WebP,
+                            GIF or PNM / PAM, as cv2.imdecode reads them);
                             optional ?thresh=0.5 query overrides the default;
                             reply  = {"width", "height", "detections":
                             [{"class_id", "class_name", "score",
                               "box": [x1, y1, x2, y2]}]}   (original coords)
 
-An upload the port's codec cannot decode gets a 400.  ``--quant int8``
+An upload the port's codec cannot decode gets a 400: a truncated or
+corrupt file, or a TIFF, AVIF, JPEG 2000, Radiance HDR, PFM or Sun raster
+image (formats cv2 reads and the port does not yet), named in the reply.  ``--quant int8``
 calibrates on ``--calib-images`` before serving, as ``cli.detect`` does.
 
 Example, on the card:
@@ -73,8 +76,9 @@ def parse_args(argv=None):
 
 
 def decode_image_bytes(data: bytes) -> np.ndarray:
-    """Encoded image bytes (JPEG, PNG or BMP) -> upright RGB uint8, as
-    ``cv2.imdecode`` and a BGR-to-RGB swap give it; ValueError otherwise."""
+    """Encoded image bytes (JPEG, PNG, BMP, WebP, GIF or PNM / PAM) ->
+    upright RGB uint8, as ``cv2.imdecode`` and a BGR-to-RGB swap give it;
+    ValueError otherwise."""
     return decode_rgb(data, "upload")
 
 

@@ -6,10 +6,10 @@ loader pads to a static count with -1).  Every dataset also exposes
 ``classes`` (display names) and ``wn_classes`` (WordNet ids, for
 cross-dataset combination).
 
-Images are read with the port's codec (``native``: JPEG, PNG and BMP) and
-turned upright by their EXIF orientation, which together equal the JAX
-package's ``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for
-bit.
+Images are read with the port's codec (``native``: JPEG, PNG, BMP, WebP,
+GIF and PNM / PAM) and turned upright by their EXIF orientation (JPEG, PNG
+``eXIf``, WebP ``EXIF``), which together equal the JAX package's
+``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for bit.
 """
 
 from __future__ import annotations
@@ -19,7 +19,21 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from viddet_tpu_torch.native import PNG_SIGNATURE, decode_bmp, decode_jpeg, decode_png
+from viddet_tpu_torch.native.gif import GIF_SIGNATURES, decode_gif
+from viddet_tpu_torch.native.pnm import decode_pnm
+from viddet_tpu_torch.native.webp import decode_webp
 from viddet_tpu_torch.utils.image import apply_orientation, exif_orientation_of
+
+# Formats cv2 reads that the port does not, by their magic bytes: a file of
+# one of them raises naming it rather than as unknown bytes.
+UNREAD_FORMATS = (
+    ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*")),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
+    ("JPEG 2000", lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51"),
+    ("Radiance HDR", lambda d: d.startswith((b"#?RADIANCE", b"#?RGBE"))),
+    ("PFM", lambda d: d[:2] in (b"PF", b"Pf") and d[2:3].isspace()),
+    ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
+)
 
 
 class DetectionDataset:
@@ -67,16 +81,26 @@ class DetectionDataset:
 
 
 def decode_rgb(data: bytes, name: str) -> np.ndarray:
-    """JPEG, PNG or BMP bytes (told apart by their magic bytes) -> upright
-    (H, W, 3) uint8 RGB; raises ValueError for bytes it cannot decode
-    (``name`` says which)."""
+    """JPEG, PNG, BMP, WebP, GIF or PNM / PAM bytes (told apart by their
+    magic bytes, as ``cv2.imdecode`` tells them apart) -> upright (H, W, 3)
+    uint8 RGB; raises ValueError for bytes it cannot decode (``name`` says
+    which), naming the format of a file cv2 reads and the port does not."""
     if data[:2] == b"\xff\xd8":
         return apply_orientation(decode_jpeg(data, name), exif_orientation_of(data))
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data, name)
     if data[:2] == b"BM":
         return decode_bmp(data, name)
-    raise ValueError(f"{name}: not a JPEG, PNG or BMP image")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data, name)
+    if data[:6] in GIF_SIGNATURES:
+        return decode_gif(data, name)
+    if len(data) > 2 and data[0] == ord("P") and data[1] in b"1234567" and data[2:3].isspace():
+        return decode_pnm(data, name)
+    for kind, matches in UNREAD_FORMATS:
+        if matches(data):
+            raise ValueError(f"{name}: {kind} images are not decoded by the port")
+    raise ValueError(f"{name}: not a JPEG, PNG, BMP, WebP, GIF or PNM image")
 
 
 def imread_rgb(path: str) -> np.ndarray:

@@ -5,8 +5,12 @@ standard library's ``zlib``) and BMP's headers read here.
 Decoding gives what ``cv2.imdecode(buf, IMREAD_COLOR)`` followed by a
 BGR-to-RGB swap gives, bit for bit: JPEG (baseline and progressive
 Huffman, any integral sampling, greyscale, CMYK and YCCK), PNG (every
-colour type and bit depth, Adam7) and uncompressed 24- and 32-bit BMP.
-The EXIF orientation is applied by the caller (``data.base.decode_rgb``).
+colour type and bit depth, Adam7, the ``eXIf`` orientation, an APNG's
+first frame) and every BMP form OpenCV reads (palettes, RLE8 and RLE4,
+16-, 24- and 32-bit, the OS/2 header); WebP (``native.webp`` with
+``webp.cpp``), GIF (``native.gif`` with ``gif.cpp``) and PNM / PAM
+(``native.pnm``) likewise.  A JPEG's EXIF orientation is applied by the
+caller (``data.base.decode_rgb``).
 ``encode_jpeg`` writes the bytes ``cv2.imencode(".jpg", bgr,
 [IMWRITE_JPEG_QUALITY, q])`` writes; ``encode_png`` writes filter-0 PNGs
 whose pixels round-trip.  The JAX package's ``viddet_tpu/native/decode.cpp``
@@ -21,8 +25,8 @@ VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``), and
 MPEG-4, VP8 or VP9 stream (indexed by ``native.avi``, ``native.mp4`` or
 ``native.mkv``) on a C++ thread into a ring of frames.
 
-The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp`` and ``mpeg4enc.cpp``) links nothing
-beyond the C++ standard library.  Each source is compiled to an object on its own,
+The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp``, ``mpeg4enc.cpp``, ``webp.cpp``
+and ``gif.cpp``) links nothing beyond the C++ standard library.  Each source is compiled to an object on its own,
 all at once, and the objects are linked; the library is built into
 ``build/viddet_tpu_torch/native/<hash>/``
 at the repository root (``build/`` is git-ignored), keyed by a hash of the
@@ -54,6 +58,8 @@ VP9_SOURCE = HERE / "vp9.cpp"  # the VP9 decoder, with its header
 VP9_HEADER = HERE / "vp9.h"
 MPEG4ENC_SOURCE = HERE / "mpeg4enc.cpp"  # the MPEG-4 Part 2 encoder
 MPEG4_HEADER = HERE / "mpeg4.h"  # what the MPEG-4 decoder and encoder share
+WEBP_SOURCE = HERE / "webp.cpp"  # WebP's lossless bitstream and lossy RGB step
+GIF_SOURCE = HERE / "gif.cpp"  # GIF's LZW
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
 # no fused multiply-add: the video transform's float steps round as numpy's do
@@ -66,6 +72,7 @@ JPEG_SOI = b"\xff\xd8\xff"
 # OpenCV's default limit on a decoded image (CV_IO_MAX_IMAGE_PIXELS), so a
 # forged header cannot make a decode allocate without bound.
 MAX_PIXELS = 1 << 30
+MAX_SIDE = 1 << 20  # CV_IO_MAX_IMAGE_WIDTH and _HEIGHT
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -73,7 +80,7 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list:
     """The library's C++ sources, each compiled to an object of its own."""
-    return [SOURCE, VP8_SOURCE, VP9_SOURCE, MPEG4ENC_SOURCE]
+    return [SOURCE, VP8_SOURCE, VP9_SOURCE, MPEG4ENC_SOURCE, WEBP_SOURCE, GIF_SOURCE]
 
 
 def _digest() -> str:
@@ -169,6 +176,10 @@ def library() -> ctypes.CDLL:
             lib.vd_vp9_planes.argtypes = [p, p, p, p]
             lib.vd_vp9_free.argtypes = [p]
             lib.vd_vp8_free.argtypes = [p]
+            lib.vd_vp8l_decode.argtypes = [p, size, i, i, p, ctypes.POINTER(ctypes.c_uint),
+                                           ctypes.POINTER(ctypes.c_uint), p, i]
+            lib.vd_webp_lossy.argtypes = [p, size, i, i, p, p, i]
+            lib.vd_gif_lzw.argtypes = [p, size, i, p, size, ctypes.POINTER(size), p, i]
             lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, p, p, i,
                                           p, i, i, i, i, i, i, p, i]
             lib.vd_video_open.restype = p
@@ -178,8 +189,8 @@ def library() -> ctypes.CDLL:
             for fn in (lib.vd_jpeg_header, lib.vd_jpeg_decode, lib.vd_jpeg_encode,
                        lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next,
                        lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_mpeg4enc_encode,
-                       lib.vd_vp8_decode,
-                       lib.vd_vp8_rgb, lib.vd_vp8_planes):
+                       lib.vd_vp8_decode, lib.vd_vp8_rgb, lib.vd_vp8_planes,
+                       lib.vd_vp8l_decode, lib.vd_webp_lossy, lib.vd_gif_lzw):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -192,6 +203,8 @@ def _message(err) -> str:
 def _check_size(name: str, width: int, height: int) -> None:
     if width * height > MAX_PIXELS:
         raise ValueError(f"{name}: {width}x{height} exceeds the decoder's {MAX_PIXELS} pixels")
+    if max(width, height) > MAX_SIDE:
+        raise ValueError(f"{name}: {width}x{height} exceeds the decoder's {MAX_SIDE} pixels a side")
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -215,7 +228,8 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def _png_chunks(data: bytes, name: str):
-    """(type, payload) of each chunk, CRCs checked, up to IEND."""
+    """(type, payload) of each chunk up to IEND, CRCs checked: a critical
+    chunk with a bad one raises, an ancillary one is dropped."""
     pos = len(PNG_SIGNATURE)
     while True:
         if pos + 8 > len(data):
@@ -226,23 +240,52 @@ def _png_chunks(data: bytes, name: str):
             raise ValueError(f"{name}: PNG chunk {kind!r} is truncated")
         payload = data[pos + 8 : end]
         (crc,) = struct.unpack_from(">I", data, end)
-        if zlib.crc32(kind + payload) != crc:
+        if zlib.crc32(kind + payload) == crc:
+            yield kind, payload
+        elif not kind[0] & 0x20:  # critical: uppercase first letter
             raise ValueError(f"{name}: PNG chunk {kind!r} has a bad CRC")
-        yield kind, payload
+        # libpng warns of an ancillary chunk with a bad CRC and drops it
         if kind == b"IEND":
             return
         pos = end + 4
 
 
+def _png_raster(lib, stream: bytes, width: int, height: int, depth: int, color: int,
+                interlace: int, palette: bytes, name: str) -> np.ndarray:
+    """Inflate and unfilter one image's zlib stream into (height, width, 3) RGB."""
+    expected = lib.vd_png_raw_size(width, height, depth, color, interlace)
+    try:
+        raw = bytearray(zlib.decompressobj().decompress(stream, expected))
+    except zlib.error as exc:
+        raise ValueError(f"{name}: PNG image data is corrupt ({exc})") from None
+    if len(raw) < expected:
+        raise ValueError(f"{name}: PNG image data stream is short "
+                         f"({len(raw)} of {expected} bytes)")
+    out = np.empty((height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    raw_buf = (ctypes.c_char * max(len(raw), 1)).from_buffer(raw) if raw else None
+    if lib.vd_png_unfilter(raw_buf, len(raw), width, height, depth, color, interlace,
+                           palette or None, len(palette) // 3, out.ctypes.data, err, _ERR_LEN):
+        raise ValueError(f"{name}: PNG decode: {_message(err)}")
+    return out
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB, as ``cv2.imdecode(IMREAD_COLOR)``
     gives it: 16-bit samples keep their high byte, grey of 1, 2 or 4 bits
-    scales to 8, palettes expand, alpha and tRNS are dropped and gAMA is
-    ignored.  Raises ValueError for a bad CRC, a short or corrupt stream, a
-    missing palette or an unknown critical chunk."""
+    scales to 8, palettes expand, alpha and tRNS are dropped, gAMA is
+    ignored, and the EXIF orientation of the first ``eXIf`` chunk that
+    starts with a TIFF header (before or after the image data) is applied.
+    An APNG whose default image is not its first frame (its first ``fcTL``
+    follows the ``IDAT`` chunks) gives that first frame, on a black canvas
+    at its offset.  Raises ValueError for a bad CRC, a short or corrupt
+    stream, a missing palette or an unknown critical chunk."""
+    from viddet_tpu_torch.utils.image import apply_orientation, tiff_orientation
+
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG")
-    header, palette, idat = None, b"", []
+    header, palette, idat, exif = None, b"", [], None
+    animated, controls, frame, frame_data = False, 0, None, []
     for kind, payload in _png_chunks(data, name):
         if kind == b"IHDR":
             if len(payload) != 13:
@@ -252,6 +295,19 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
             palette = payload
         elif kind == b"IDAT":
             idat.append(payload)
+        elif kind == b"acTL":
+            animated = True
+        elif kind == b"fcTL":
+            controls += 1
+            if controls == 1 and idat and animated:  # the first frame is not the default image
+                if len(payload) != 26:
+                    raise ValueError(f"{name}: bad APNG fcTL chunk")
+                frame = struct.unpack_from(">IIII", payload, 4)  # width, height, x, y
+        elif kind == b"fdAT":
+            if frame is not None and controls == 1:
+                frame_data.append(payload[4:])  # after the sequence number
+        elif kind == b"eXIf" and exif is None and payload[:4] in (b"II*\0", b"MM\0*"):
+            exif = payload  # libpng keeps the first with a TIFF header, as cv2 sees it
         elif kind != b"IEND" and not kind[0] & 0x20:  # critical: uppercase first letter
             raise ValueError(f"{name}: PNG has an unknown critical chunk {kind!r}")
     if header is None:
@@ -265,53 +321,212 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise ValueError(f"{name}: palette PNG without a valid PLTE chunk")
     _check_size(name, width, height)
     lib = library()
-    expected = lib.vd_png_raw_size(width, height, depth, color, interlace)
-    try:
-        raw = bytearray(zlib.decompressobj().decompress(b"".join(idat), expected))
-    except zlib.error as exc:
-        raise ValueError(f"{name}: PNG image data is corrupt ({exc})") from None
-    if len(raw) < expected:
-        raise ValueError(f"{name}: PNG image data stream is short "
-                         f"({len(raw)} of {expected} bytes)")
-    out = np.empty((height, width, 3), np.uint8)
-    err = ctypes.create_string_buffer(_ERR_LEN)
-    raw_buf = (ctypes.c_char * max(len(raw), 1)).from_buffer(raw) if raw else None
-    pal = palette or None
-    if lib.vd_png_unfilter(raw_buf, len(raw), width, height, depth, color, interlace, pal,
-                           len(palette) // 3, out.ctypes.data, err, _ERR_LEN):
-        raise ValueError(f"{name}: PNG decode: {_message(err)}")
-    return out
+    if frame is None:
+        out = _png_raster(lib, b"".join(idat), width, height, depth, color, interlace, palette,
+                          name)
+    else:
+        fw, fh, x, y = frame
+        if not fw or not fh or x + fw > width or y + fh > height:
+            raise ValueError(f"{name}: APNG frame {fw}x{fh}+{x}+{y} leaves the "
+                             f"{width}x{height} image")
+        out = np.zeros((height, width, 3), np.uint8)
+        out[y : y + fh, x : x + fw] = _png_raster(lib, b"".join(frame_data), fw, fh, depth, color,
+                                                  interlace, palette, name)
+    return out if exif is None else apply_orientation(out, tiff_orientation(exif))
+
+
+BMP_RGB, BMP_RLE8, BMP_RLE4, BMP_BITFIELDS = range(4)
+
+
+def _bmp_header(data: bytes, name: str):
+    """(width, height, bpp, compression, palette) as OpenCV's ``BmpDecoder``
+    reads them: a 12-byte OS/2 core header (3-byte palette entries, always
+    bottom-up) or a header of 36 bytes or more, whose planes field is not
+    read and whose palette (or 16-bit masks) comes right after it.  bpp 15
+    stands for 16-bit 5-5-5.  Raises ValueError for what OpenCV refuses."""
+    if len(data) < 18:
+        raise ValueError(f"{name}: BMP header is truncated")
+    size = struct.unpack_from("<i", data, 14)[0]
+    pos = 14 + size
+    if size >= 36:
+        if len(data) < 50:
+            raise ValueError(f"{name}: BMP header is truncated")
+        width, height, bpp, compression = struct.unpack_from("<iiIi", data, 18)
+        bpp >>= 16
+        colours = struct.unpack_from("<i", data, 46)[0]
+        if not 0 <= compression <= BMP_BITFIELDS:
+            raise ValueError(f"{name}: unsupported BMP compression method {compression}")
+        allowed = ((bpp in (1, 4, 8, 16, 24, 32) and compression == BMP_RGB)
+                   or (bpp in (16, 32) and compression == BMP_BITFIELDS)
+                   or (bpp == 4 and compression == BMP_RLE4)
+                   or (bpp == 8 and compression == BMP_RLE8))
+        if width <= 0 or height == 0 or not allowed:
+            raise ValueError(f"{name}: unsupported BMP (header {size}, {width}x{height}, "
+                             f"{bpp} bits, compression {compression})")
+        palette = b""
+        if bpp <= 8:
+            if not 0 <= colours <= 256:
+                raise ValueError(f"{name}: bad BMP colour count {colours}")
+            count = colours or 1 << bpp
+            palette = data[pos : pos + 4 * count]
+            if len(palette) < 4 * count:
+                raise ValueError(f"{name}: BMP palette is truncated")
+        elif bpp == 16 and compression == BMP_BITFIELDS:
+            if pos + 12 > len(data):
+                raise ValueError(f"{name}: BMP bit fields are truncated")
+            red, green, blue = struct.unpack_from("<III", data, pos)
+            if (red, green, blue) == (0x7C00, 0x3E0, 0x1F):
+                bpp = 15
+            elif (red, green, blue) != (0xF800, 0x7E0, 0x1F):
+                raise ValueError(f"{name}: unsupported 16-bit BMP bit fields "
+                                 f"{(red, green, blue)}")
+        elif bpp == 16:
+            bpp = 15
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(palette, np.uint8).reshape(-1, 4)
+        pal[: len(entries)] = entries[:, 2::-1]
+        return width, height, bpp, compression, pal
+    if size == 12:
+        if len(data) < 26:
+            raise ValueError(f"{name}: BMP header is truncated")
+        width, height, _, bpp = struct.unpack_from("<HHHH", data, 18)
+        if width <= 0 or height == 0 or bpp not in (1, 4, 8, 24, 32):
+            raise ValueError(f"{name}: unsupported OS/2 BMP ({width}x{height}, {bpp} bits)")
+        pal = np.zeros((256, 3), np.uint8)
+        if bpp <= 8:
+            palette = data[pos : pos + 3 * (1 << bpp)]
+            if len(palette) < 3 << bpp:
+                raise ValueError(f"{name}: BMP palette is truncated")
+            pal[: 1 << bpp] = np.frombuffer(palette, np.uint8).reshape(-1, 3)[:, ::-1]
+        return width, height, bpp, BMP_RGB, pal
+    raise ValueError(f"{name}: unsupported BMP header size {size}")
+
+
+def _bmp_rle(data: bytes, pos: int, width: int, height: int, four: bool, name: str):
+    """The palette indices of a BI_RLE8 or BI_RLE4 bitmap, rows in file
+    order, as OpenCV's ``BmpDecoder`` fills them: an end of line, a delta
+    and an end of bitmap fill the pixels they pass over with palette entry
+    0.  In RLE8 a delta counts dx + dy * width pixels in raster order, an
+    end of bitmap fills the rest, a run that ends a row moves to the next
+    one and an end of line right after it is skipped; in RLE4 a delta moves
+    dx pixels (dy is read and dropped), an end of bitmap ends only the row
+    and a run never leaves its row."""
+    out = np.zeros(width * height, np.uint8)
+    x = y = 0
+    after_wrap = False
+    n = len(data)
+
+    def fill(count: int) -> None:  # OpenCV's FillUniColor with entry 0
+        nonlocal x, y
+        while True:
+            end = min(x + count, width)
+            count -= end - x
+            out[y * width + x : y * width + end] = 0
+            x = end
+            if x >= width:
+                x, y = 0, y + 1
+                if y >= height:
+                    return
+            if count <= 0:
+                return
+
+    while True:
+        if pos + 2 > n:
+            raise ValueError(f"{name}: BMP RLE data is truncated")
+        run, code = data[pos], data[pos + 1]
+        pos += 2
+        if run:
+            if x + run > width:
+                raise ValueError(f"{name}: BMP RLE run passes the end of a row")
+            base = y * width + x
+            if four:
+                out[base : base + run : 2] = code >> 4
+                out[base + 1 : base + run : 2] = code & 15
+                x += run
+            else:
+                out[base : base + run] = code
+                x += run
+                after_wrap = x >= width
+                if after_wrap:
+                    x, y = 0, y + 1
+                    if y >= height:
+                        break
+        elif code > 2:
+            if x + code > width:
+                raise ValueError(f"{name}: BMP RLE run passes the end of a row")
+            size = ((code + 1) // 2 + 1) & ~1 if four else (code + 1) & ~1
+            if pos + size > n:
+                raise ValueError(f"{name}: BMP RLE data is truncated")
+            raw = np.frombuffer(data, np.uint8, size, pos)
+            pos += size
+            if four:
+                raw = np.stack([raw >> 4, raw & 15], 1).reshape(-1)
+            base = y * width + x
+            out[base : base + code] = raw[:code]
+            x += code
+            after_wrap = False
+        else:
+            if four or code or not after_wrap or x > 0:
+                dx, dy = width - x, height - y
+                if code == 2:
+                    if pos + 2 > n:
+                        raise ValueError(f"{name}: BMP RLE data is truncated")
+                    dx, dy = data[pos], data[pos + 1]
+                    pos += 2
+                if not four and y >= height:
+                    break
+                fill(dx + (dy * width if code and not four else 0))
+            after_wrap = False
+            if y >= height:
+                break
+    return out.reshape(height, width)
 
 
 def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Uncompressed 24- or 32-bit BMP bytes -> (H, W, 3) uint8 RGB, bottom-up
-    or top-down, the 32-bit form's fourth byte dropped as
-    ``cv2.imdecode(IMREAD_COLOR)`` drops it.  Other forms raise ValueError."""
-    if data[:2] != b"BM" or len(data) < 30:
+    """BMP bytes -> (H, W, 3) uint8 RGB, the forms and the results of
+    ``cv2.imdecode(IMREAD_COLOR)``: 1-, 4- and 8-bit palettes (a colour
+    count of 0 meaning 2^bpp, entries past a short palette black), BI_RLE8
+    and BI_RLE4, 16-bit 5-5-5 and (under BI_BITFIELDS) 5-6-5 with each
+    channel shifted up and not replicated, 24-bit, 32-bit (the fourth byte
+    dropped, bit fields not read), the 12-byte OS/2 core header, bottom-up
+    or top-down.  What OpenCV refuses raises ValueError."""
+    if data[:2] != b"BM":
         raise ValueError(f"{name}: not a BMP")
-    (offset,) = struct.unpack_from("<I", data, 10)
-    header_size, width, height, planes, bpp = struct.unpack_from("<IiiHH", data, 14)
-    compression = struct.unpack_from("<I", data, 30)[0] if header_size >= 40 else 0
-    if header_size not in (40, 52, 56, 108, 124) or planes != 1 or bpp not in (24, 32):
-        raise ValueError(f"{name}: unsupported BMP (header {header_size}, {bpp} bits)")
-    if compression == 3 and bpp == 32:  # BI_BITFIELDS: only the layout of BI_RGB
-        masks = struct.unpack_from("<III", data, 54)  # after the 40-byte header, or inside it
-        if masks != (0xFF0000, 0xFF00, 0xFF):
-            raise ValueError(f"{name}: unsupported BMP bit fields {masks}")
-    elif compression != 0:
-        raise ValueError(f"{name}: compressed BMP (method {compression}) is not supported")
-    if width <= 0 or height == 0:
-        raise ValueError(f"{name}: bad BMP size {width}x{height}")
-    rows, channels = abs(height), bpp // 8
+    width, height, bpp, compression, palette = _bmp_header(data, name)
+    rows = abs(height)
     _check_size(name, width, rows)
-    stride = (width * channels + 3) & ~3
-    if offset + stride * rows > len(data):
-        raise ValueError(f"{name}: BMP pixel data is truncated")
-    pixels = np.frombuffer(data, np.uint8, stride * rows, offset).reshape(rows, stride)
-    bgr = pixels[:, : width * channels].reshape(rows, width, channels)[..., 2::-1]
+    if width * rows * 3 >= 1 << 30:  # the BMP reader's own 1 GiB limit
+        raise ValueError(f"{name}: {width}x{rows} BMP exceeds the reader's 1 GiB")
+    offset = struct.unpack_from("<i", data, 10)[0]
+    if not 0 <= offset <= len(data):
+        raise ValueError(f"{name}: BMP pixel data offset {offset} is past the end")
+    if compression in (BMP_RLE8, BMP_RLE4):
+        rgb = palette[_bmp_rle(data, offset, width, rows, compression == BMP_RLE4, name)]
+    else:
+        stride = ((width * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & ~3
+        if offset + stride * rows > len(data):
+            raise ValueError(f"{name}: BMP pixel data is truncated")
+        pixels = np.frombuffer(data, np.uint8, stride * rows, offset).reshape(rows, stride)
+        if bpp <= 8:
+            bits = np.unpackbits(pixels, axis=1) if bpp < 8 else pixels
+            if bpp == 4:
+                bits = bits.reshape(rows, -1, 4)
+                bits = (bits[..., 0] << 3 | bits[..., 1] << 2 | bits[..., 2] << 1
+                        | bits[..., 3])
+            rgb = palette[bits[:, :width]]
+        elif bpp in (15, 16):
+            t = pixels[:, : 2 * width].view("<u2").astype(np.uint16)
+            if bpp == 15:
+                b, g, r = t << 3, (t >> 2) & 0xF8, (t >> 7) & 0xF8
+            else:
+                b, g, r = t << 3, (t >> 3) & 0xFC, (t >> 8) & 0xF8
+            rgb = np.stack([r, g, b], -1).astype(np.uint8)
+        else:
+            channels = bpp // 8
+            rgb = pixels[:, : width * channels].reshape(rows, width, channels)[..., 2::-1]
     if height > 0:  # bottom-up
-        bgr = bgr[::-1]
-    return np.ascontiguousarray(bgr)
+        rgb = rgb[::-1]
+    return np.ascontiguousarray(rgb)
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:

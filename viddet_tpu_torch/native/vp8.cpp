@@ -460,10 +460,19 @@ class BoolDecoder {
     value_ = 0;
     count_ = -8;
     range_ = 255;
+    bits_ = 8 * static_cast<uint64_t>(size);
+    shifts_ = 0;
+    overrun_ = size == 0;
     fill();
   }
 
+  // Whether a read needed bits past the end of the data (libwebp's eof_: a
+  // read with fewer than 8 unread bits left; an empty partition from the start).
+  bool overrun() const { return overrun_; }
+  bool size_zero() const { return bits_ == 0; }
+
   int read(int prob) {
+    if (shifts_ + 8 > bits_) overrun_ = true;
     const uint32_t split = 1 + (((range_ - 1) * static_cast<uint32_t>(prob)) >> 8);
     if (count_ < 0) fill();
     const uint64_t big = static_cast<uint64_t>(split) << 56;
@@ -480,6 +489,7 @@ class BoolDecoder {
     range_ <<= shift;
     value_ <<= shift;
     count_ -= shift;
+    shifts_ += shift;
     return bit;
   }
 
@@ -524,6 +534,8 @@ class BoolDecoder {
   uint64_t value_ = 0;
   int count_ = 0;
   uint32_t range_ = 255;
+  uint64_t bits_ = 0, shifts_ = 0;  // the data's bits, and the bits read so far
+  bool overrun_ = false;
 };
 
 // ---------------------------------------------------------------- state
@@ -915,6 +927,7 @@ struct Decoder::Impl {
   int golden_source = 0, altref_source = 0;  // 0 this frame, else the buffer before it
   int partitions = 1;
   BoolDecoder tokens[8];
+  bool overrun = false;  // the last frame read past the end of a partition
 
   std::vector<MbInfo> mbs;  // (mb_rows + 1) x (mb_cols + 1), a zero border above and left
   std::vector<uint8_t> intra_top;                   // key frames: sub-modes above, 4 a column
@@ -1012,6 +1025,8 @@ bool Decoder::Impl::decode(const uint8_t* data, size_t size) {
   for (auto& a : above_nz) a.fill(0);
   for (int y = 0; y < mb_rows; ++y) decode_row(y);
   if (lf_level) loop_filter();
+  overrun = bd.overrun() || tokens[partitions - 1].size_zero();
+  for (int i = 0; i < std::min(partitions, mb_rows); ++i) overrun = overrun || tokens[i].overrun();
 
   // the references, from the buffers before this frame
   std::shared_ptr<Frame> old[4] = {cur, ref[kLast], ref[kGolden], ref[kAltref]};
@@ -1625,5 +1640,7 @@ const uint8_t* Decoder::plane(int c) const {
 int Decoder::stride(int c) const { return c == 0 ? impl_->mb_cols * 16 : impl_->mb_cols * 8; }
 
 uint32_t Decoder::features() const { return impl_->features; }
+
+bool Decoder::overrun() const { return impl_->overrun; }
 
 }  // namespace vd_vp8

@@ -62,6 +62,10 @@ class Decoder {
   const uint8_t* plane(int c) const;
   int stride(int c) const;
   uint32_t features() const;
+  // Whether the last frame read past the end of its first partition, of a
+  // token partition a macroblock row uses, or had an empty last token
+  // partition: libvpx and FFmpeg read zeros there, libwebp refuses the frame.
+  bool overrun() const;
 
  private:
   struct Impl;

@@ -1,7 +1,8 @@
 """Image helpers (counterpart of ``viddet_tpu/utils/image.py``): per-class
 colours and box drawing, the EXIF orientation of JPEG images (on bytes as
-well as on a path) with the flips and transposes that turn a decoded raster
-upright, and ``imwrite`` / ``imencode_jpeg`` through the port's codec.
+well as on a path) and of PNG ``eXIf`` and WebP ``EXIF`` payloads, with the
+flips and transposes that turn a decoded raster upright, and ``imwrite`` /
+``imencode_jpeg`` through the port's codec.
 
 ``cv2.imread`` and ``cv2.imdecode`` apply the orientation; the port's
 JPEG decoder, as libjpeg, returns the raster as stored.  Without OpenCV
@@ -143,7 +144,11 @@ def exif_orientation(path: str, max_scan: int = 65536) -> int:
 
 
 def exif_orientation_of(head: bytes) -> int:
-    """EXIF Orientation tag (1..8) in the leading bytes of a JPEG, or 1."""
+    """EXIF Orientation tag (1..8) in the leading bytes of a JPEG, or in a
+    bare TIFF-header EXIF payload (a PNG ``eXIf`` or WebP ``EXIF`` chunk,
+    ``II`` or ``MM``), or 1."""
+    if head[:2] in (b"II", b"MM"):
+        return tiff_orientation(head)
     if not head.startswith(b"\xff\xd8"):
         return 1
     i = 2
@@ -158,25 +163,33 @@ def exif_orientation_of(head: bytes) -> int:
         if seg_len < 2:
             break
         if marker == 0xE1 and head[i + 4 : i + 10] == b"Exif\x00\x00":
-            tiff = head[i + 10 : i + 2 + seg_len]
-            if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
-                return 1
-            endian = "<" if tiff[:2] == b"II" else ">"
-            try:
-                ifd = struct.unpack_from(endian + "I", tiff, 4)[0]
-                count = struct.unpack_from(endian + "H", tiff, ifd)[0]
-                for k in range(count):
-                    off = ifd + 2 + k * 12
-                    tag = struct.unpack_from(endian + "H", tiff, off)[0]
-                    if tag == 0x0112:
-                        val = struct.unpack_from(endian + "H", tiff, off + 8)[0]
-                        return val if 1 <= val <= 8 else 1
-            except struct.error:
-                return 1
-            return 1
+            return tiff_orientation(head[i + 10 : i + 2 + seg_len])
         if marker == 0xDA:  # start of scan: no EXIF past image data
             break
         i += 2 + seg_len
+    return 1
+
+
+def tiff_orientation(tiff: bytes) -> int:
+    """The Orientation tag (1..8) of the first IFD of an EXIF payload that
+    starts with its TIFF header (``II`` or ``MM``, 42, the IFD's offset), or
+    1 when the payload is malformed or holds none."""
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    endian = "<" if tiff[:2] == b"II" else ">"
+    try:
+        if struct.unpack_from(endian + "H", tiff, 2)[0] != 42:
+            return 1
+        ifd = struct.unpack_from(endian + "I", tiff, 4)[0]
+        count = struct.unpack_from(endian + "H", tiff, ifd)[0]
+        for k in range(count):
+            off = ifd + 2 + k * 12
+            tag = struct.unpack_from(endian + "H", tiff, off)[0]
+            if tag == 0x0112:
+                val = struct.unpack_from(endian + "H", tiff, off + 8)[0]
+                return val if 1 <= val <= 8 else 1
+    except struct.error:
+        return 1
     return 1
 
 
