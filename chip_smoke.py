@@ -404,6 +404,13 @@ VP9_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
                            "vp9_640x480.webm")
 VP9_DIGESTS = VP9_FIXTURE[:-len(".webm")] + ".json"
 VP9_FRAMES = 48
+# ... and the H.264 MP4: CAVLC I and P pictures from the tests' own encoder,
+# an IDR every 12 frames, two slices a picture, the loop filter on
+# (tests/fixtures/make_h264_fixture.py).
+H264_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "h264_640x480.mp4")
+H264_DIGESTS = H264_FIXTURE[:-len(".mp4")] + ".json"
+H264_FRAMES = 48
 # Every drawn _det.mp4 (MPEG-4 Part 2 from the port's encoder): each frame's
 # PSNR against the drawn frame is at least this, a floor that a wrong colour
 # conversion or a broken decode falls far below.  tests/test_torch_mpeg4_enc.py
@@ -4055,7 +4062,8 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
     step; the card's idle share over a native run.  Then VP9 in WebM
     (``vp9``): the committed 640x480 VP9 fixture decoded to its digests, its
     reader's rates, and one not-drawn run (``vp9_video_native``) with the
-    card's idle share over another; ``vp9.extra_s`` is what it adds."""
+    card's idle share over another; ``vp9.extra_s`` is what it adds.  Then
+    H.264 in MP4 (``h264``) the same way (``h264_video_native``)."""
     import json
 
     from viddet_tpu_torch.native import Vp8Decoder
@@ -4111,6 +4119,7 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
     launches = fixture_runs(dev, kernels, model, classes, predictor, WEBM_FIXTURE, frames,
                             "webm", out)
     launches.update(vp9_part(dev, kernels, model, classes, predictor, out))
+    launches.update(h264_part(dev, kernels, model, classes, predictor, out))
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
@@ -4172,6 +4181,68 @@ def vp9_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
     out["reader_frames_per_s"] = rates  # one host thread
     launches = fixture_native_run(dev, kernels, model, classes, predictor, frames, out,
                                   VP9_FIXTURE, "vp9_video_native", idle=True)
+    out["extra_s"] = time.perf_counter() - t_part
+    return launches
+
+
+def h264_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
+    """The H.264 fixture: probed, decoded (CAVLC I and P pictures, two
+    slices a picture, the loop filter) to the SHA-256 of each Y plane and RGB
+    frame OpenCV's FFmpeg gave, the reader's frames/s on one host thread
+    (demux + decode + RGB, decode + RGB, decode alone), then
+    ``fixture_native_run`` (``h264_video_native``) with the card's idle
+    share.  Into ``phase_out["h264"]``.  Returns the launches."""
+    import json
+
+    from viddet_tpu_torch.native import H264Decoder
+    from viddet_tpu_torch.native.mp4 import Mp4Reader
+    from viddet_tpu_torch.utils.video import iterate_frames, probe_video
+
+    t_part = time.perf_counter()
+    out = phase_out["h264"] = {"fixture": os.path.relpath(
+        H264_FIXTURE, os.path.dirname(os.path.abspath(__file__)))}
+    with open(H264_DIGESTS) as f:
+        digests = json.load(f)["frames"]
+    info = probe_video(H264_FIXTURE)
+    check(info == {"fps": float(VIDEO_FPS), "frame_count": H264_FRAMES, "width": CODEC_W,
+                   "height": CODEC_H}, f"the H.264 fixture probes as written: {info}")
+    with Mp4Reader(H264_FIXTURE) as reader:
+        check(reader.index.codec == "h264", "the H.264 fixture is H.264")
+        config = reader.index.config
+        samples = [reader.sample(i) for i in range(len(reader.index.offsets))]
+    decoder = H264Decoder(config, H264_FIXTURE)
+    frames = []
+    for sample in samples:
+        frame = decoder.decode(sample)
+        if frame is None:
+            continue
+        i = len(frames)
+        check(i < H264_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
+              f"h264 frame {i}: the Y plane's digest is OpenCV's")
+        check(frame_digest(frame) == digests[i]["rgb"], f"h264 frame {i}: the RGB digest is "
+                                                        "OpenCV's")
+        frames.append(frame)
+    features = decoder.features
+    decoder.close()
+    check(len(frames) == H264_FRAMES, f"the H.264 fixture shows {len(frames)} frames")
+    need = {"IDR picture", "P slices", "intra 4x4", "intra 16x16", "skipped macroblocks",
+            "P 16x16", "several slices"}
+    check(need <= features, f"the H.264 fixture uses {sorted(need - features)}")
+    out.update(digests_equal=H264_FRAMES, samples=len(samples), features=sorted(features))
+    rates = {}
+    t = time.perf_counter()
+    check(sum(1 for _ in iterate_frames(H264_FIXTURE)) == H264_FRAMES, "h264 iterate_frames: 48")
+    rates["demux_decode_rgb"] = H264_FRAMES / (time.perf_counter() - t)
+    for what, rgb in (("decode_rgb", True), ("decode", False)):
+        decoder = H264Decoder(config)
+        t = time.perf_counter()
+        for sample in samples:
+            decoder.decode(sample, rgb=rgb)
+        rates[what] = H264_FRAMES / (time.perf_counter() - t)
+        decoder.close()
+    out["reader_frames_per_s"] = rates  # one host thread
+    launches = fixture_native_run(dev, kernels, model, classes, predictor, frames, out,
+                                  H264_FIXTURE, "h264_video_native", idle=True)
     out["extra_s"] = time.perf_counter() - t_part
     return launches
 

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no Flax, nothing of ``viddet_tpu``, no
 OpenCV (it resizes in its own integer arithmetic, bit for bit OpenCV's) and
-no PIL, and its native library (image codec, MPEG-4 Part 2 and VP8
-decoders, video frames) links no image or video library (it decodes and
+no PIL, and its native library (image codec, MPEG-4 Part 2, VP8, VP9 and
+H.264 decoders, video frames) links no image or video library (it decodes and
 encodes in its own C++, bit for bit libjpeg-turbo's, libpng's and
 libavcodec's results, and walks AVI, MP4 / QuickTime and Matroska / WebM
 files in Python)."""
@@ -186,22 +186,24 @@ def test_int8_conv_never_takes_the_float64_route_off_the_cpu(monkeypatch):
 
 def test_codec_build_links_no_image_library():
     """One ``g++ -c`` call per repository source (``codec.cpp``, the VP8
-    decoder ``vp8.cpp``, the VP9 decoder ``vp9.cpp``, the MPEG-4 encoder
-    ``mpeg4enc.cpp``, WebP's bitstreams ``webp.cpp`` and GIF's LZW
-    ``gif.cpp``) and one link of their objects, with no ``-l`` flag
-    anywhere: no libjpeg, libpng, zlib, libvpx, libwebp, giflib or FFmpeg."""
+    decoder ``vp8.cpp``, the VP9 decoder ``vp9.cpp``, the H.264 decoder
+    ``h264.cpp``, the MPEG-4 encoder ``mpeg4enc.cpp``, WebP's bitstreams
+    ``webp.cpp`` and GIF's LZW ``gif.cpp``) and one link of their objects,
+    with no ``-l`` flag anywhere: no libjpeg, libpng, zlib, libvpx, libwebp,
+    giflib, libx264, OpenH264 or FFmpeg."""
     from viddet_tpu_torch.native import build_command, compile_commands
 
     compiles = compile_commands(Path("objects"))
     link = build_command(Path("libviddet_codec.so"), Path("objects"))
-    names = ["codec", "vp8", "vp9", "mpeg4enc", "webp", "gif"]
+    names = ["codec", "vp8", "vp9", "h264", "mpeg4enc", "webp", "gif"]
     assert [[Path(a).name for a in cmd if a.endswith(".cpp")] for cmd in compiles] == [
         [n + ".cpp"] for n in names]
     assert all(cmd[0] == "g++" and "-c" in cmd for cmd in compiles)
     assert link[0] == "g++" and "-shared" in link
     assert [Path(a).name for a in link if a.endswith(".o")] == [n + ".o" for n in names]
     for cmd in compiles + [link]:
-        assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec", "-lwebp", "-lgif"} & set(cmd)
+        assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec", "-lwebp", "-lgif", "-lx264",
+                    "-lopenh264"} & set(cmd)
         assert not [a for a in cmd if a.startswith("-l")]
     assert [a for a in link if a == "-pthread"] == ["-pthread"]
 
@@ -227,11 +229,12 @@ def test_native_library_needs_no_image_or_video_library():
 def test_video_code_includes_and_imports_nothing_outside():
     """``codec.cpp`` (JPEG, PNG, the MPEG-4 Part 2 decoder, the video
     stream), ``vp8.cpp`` and ``vp8.h`` (the VP8 decoder), ``vp9.cpp`` and
-    ``vp9.h`` (the VP9 decoder), ``mpeg4enc.cpp`` (the MPEG-4 Part 2
+    ``vp9.h`` (the VP9 decoder), ``h264.cpp`` and ``h264.h`` (the H.264
+    decoder), ``mpeg4enc.cpp`` (the MPEG-4 Part 2
     encoder), ``mpeg4.h`` (what the MPEG-4 decoder and encoder share),
     ``webp.cpp`` (WebP's bitstreams) and ``gif.cpp`` (GIF's LZW) include C++
-    standard headers and the port's three headers only (no ``webp/decode.h``,
-    ``gif_lib.h``, ``png.h`` or OpenCV header); ``native/mp4.py``,
+    standard headers and the port's four headers only (no ``webp/decode.h``,
+    ``gif_lib.h``, ``png.h``, x264 or OpenCV header); ``native/mp4.py``,
     ``native/avi.py``, ``native/mkv.py``, ``native/webp.py``,
     ``native/gif.py``, ``native/pnm.py`` and ``utils/video.py`` import the
     standard library, numpy and the port (no cv2 or PIL)."""
@@ -240,11 +243,12 @@ def test_video_code_includes_and_imports_nothing_outside():
     standard = {"algorithm", "array", "cmath", "condition_variable", "cstdarg", "cstddef",
                 "cstdint", "cstdio", "cstdlib", "cstring", "memory", "mutex", "new", "string",
                 "thread", "vector"}
-    for name in ("codec.cpp", "vp8.cpp", "vp8.h", "vp9.cpp", "vp9.h", "mpeg4enc.cpp", "mpeg4.h",
-                 "webp.cpp", "gif.cpp"):
+    for name in ("codec.cpp", "vp8.cpp", "vp8.h", "vp9.cpp", "vp9.h", "h264.cpp", "h264.h",
+                 "mpeg4enc.cpp", "mpeg4.h", "webp.cpp", "gif.cpp"):
         includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]',
                                   (PORT / "native" / name).read_text()))
-        assert includes <= standard | {"vp8.h", "vp9.h", "mpeg4.h"}, (name, includes - standard)
+        assert includes <= standard | {"vp8.h", "vp9.h", "h264.h", "mpeg4.h"}, (
+            name, includes - standard)
     allowed = {"__future__", "dataclasses", "fractions", "math", "mmap", "os", "struct",
                "typing", "numpy", "viddet_tpu_torch"}
     for name in ("native/mp4.py", "native/avi.py", "native/mkv.py", "utils/video.py"):

@@ -12,8 +12,8 @@ on the CPU.
   lowered to a few KB), open in both cv2 backends with the frame count,
   size and fps (relative 1e-3) they were written with.
 * A truncated file reads to its last whole frame; an ``.avi`` of another
-  codec (H.264), an H.264 ``.mp4``, an ``.mkv``, a ``.webm`` and a webcam
-  index raise ValueError naming what is missing (MPEG-4 Part 2 AVIs read:
+  codec (HuffYUV), a CABAC H.264 ``.mp4`` and ``.mkv``, a ``.webm`` of VP9
+  profile 1 and a webcam index raise ValueError naming what is missing (MPEG-4 Part 2 AVIs read:
   ``tests/test_torch_avi_mpeg4.py``).  ``VideoWriter`` writes MPEG-4 Part 2
   into ``.avi`` and ``.mp4`` at OpenCV's rate, refuses ``.mkv`` and
   ``.webm`` (``tests/test_torch_video_out.py``).
@@ -31,7 +31,7 @@ import cv2
 import numpy as np
 import pytest
 
-from tests.torch_mkv_helpers import other_codec_mkv, vp9_mkv
+from tests.torch_mkv_helpers import h264_cabac_mkv, vp9_mkv
 from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu_torch.data.transforms import ValTransform
 from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource
@@ -201,15 +201,18 @@ def test_unclosed_port_file_reads_every_written_frame(tmp_path):
 
 
 def test_non_jpeg_avi_raises_naming_the_fourcc_and_ffmpeg(tmp_path):
-    """An AVI whose video is neither Motion-JPEG nor MPEG-4 Part 2 (here
-    the port's own file with its fourcc set to H264) raises naming the
-    fourcc; cv2's XVID files read (``tests/test_torch_avi_mpeg4.py``)."""
+    """An AVI whose video is none of Motion-JPEG, MPEG-4 Part 2 and H.264
+    (here the port's own file with its fourcc set to HFYU, HuffYUV) raises
+    naming the fourcc; cv2's XVID files read
+    (``tests/test_torch_avi_mpeg4.py``), H.264 ones too
+    (``tests/test_torch_h264.py``)."""
     path = write_video(str(tmp_path / "x.avi"), photo_frames(3), 10.0, "port")
-    data = open(path, "rb").read().replace(b"MJPG", b"H264")
+    data = open(path, "rb").read().replace(b"MJPG", b"HFYU")
     open(path, "wb").write(data)
     for fn in (probe_video, lambda p: FrameSource(p, ValTransform((32, 32))),
                lambda p: NativeFrameSource(p, (32, 32))):
-        with pytest.raises(ValueError, match="'H264', not Motion-JPEG or MPEG-4 Part 2.*FFmpeg"):
+        with pytest.raises(ValueError,
+                           match="'HFYU', not Motion-JPEG, MPEG-4 Part 2 or H.264.*FFmpeg"):
             fn(path)
     bad = tmp_path / "bad.avi"
     bad.write_bytes(b"RIFF\0\0\0\0WAVEfmt ")
@@ -221,11 +224,11 @@ def test_non_jpeg_avi_raises_naming_the_fourcc_and_ffmpeg(tmp_path):
 def test_other_sources_raise_naming_what_is_missing(source, tmp_path):
     missing = "capture" if isinstance(source, int) else "FFmpeg"
     path = source
-    if source == "clip.mp4":  # the port reads MP4, but not an H.264 track
-        path, missing = h264_mp4(str(tmp_path / "in" / source)), "H.264.*FFmpeg"
-    if source == "CLIP.MKV":  # nor Matroska's
-        path = other_codec_mkv(str(tmp_path / "in" / source), "V_MPEG4/ISO/AVC")
-        missing = "H.264.*FFmpeg"
+    if source == "clip.mp4":  # the port reads MP4 and H.264, but not CABAC
+        path, missing = h264_mp4(str(tmp_path / "in" / source)), "H.264.*CABAC.*FFmpeg"
+    if source == "CLIP.MKV":  # nor in Matroska
+        path = h264_cabac_mkv(str(tmp_path / "in" / source))
+        missing = "H.264.*CABAC.*FFmpeg"
     if source == "a.webm":  # it reads WebM, but not a VP9 profile 1 (4:4:4) track
         path, missing = vp9_mkv(str(tmp_path / "in" / source)), "VP9.*FFmpeg"
     for fn in (probe_video, lambda p: list(iterate_frames(p)),

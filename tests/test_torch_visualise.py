@@ -169,7 +169,7 @@ def test_extract_frames_multi_input_and_refusals(tmp_path):
     assert torch_extract.main(["--input", f"{a},{b}", "--output", str(tmp_path / "o")]) == 7
     assert sorted(os.listdir(tmp_path / "o")) == ["a", "b"]
     assert len(os.listdir(tmp_path / "o" / "b")) == 3
-    with pytest.raises(ValueError, match="H.264.*FFmpeg"):
+    with pytest.raises(ValueError, match="H.264.*CABAC.*FFmpeg"):
         torch_extract.main(["--input", f"{a},{h264_mp4(str(tmp_path / 'c.mp4'))}", "--output",
                             str(tmp_path / "none")])
     assert not os.path.exists(tmp_path / "none")

@@ -176,6 +176,19 @@ def other_codec_mkv(path: str, codec: str, doc_type: str = "matroska") -> str:
                      doc_type=doc_type)
 
 
+def h264_cabac_mkv(path: str) -> str:
+    """A Matroska file of a CABAC H.264 track (``V_MPEG4/ISO/AVC``), which
+    the port refuses, its directory made."""
+    import os
+
+    from tests.torch_h264_writer import cabac_track
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    config, samples = cabac_track(64, 48)
+    return write_mkv(path, samples, 64, 48, codec="V_MPEG4/ISO/AVC", private=config,
+                     doc_type="matroska")
+
+
 def vp9_mkv(path: str) -> str:
     """A Matroska / WebM file (by its extension) of a VP9 profile 1 (4:4:4)
     track, which the port refuses: three frames at 64x48, its directory

@@ -46,8 +46,8 @@ def sample_entry(kind: bytes, width: int, height: int, config: bytes = b"",
         children = full_box(b"esds", 0, 0, descriptor(3, es))
     elif kind == b"vp09":  # config: the vpcC payload; by default profile 0, 8-bit 4:2:0
         children = full_box(b"vpcC", 1, 0, config or bytes([0, 10, 0x82, 1, 1, 1, 0, 0]))
-    elif kind in (b"avc1", b"avc3"):
-        children = box(b"avcC", bytes([1, 0x64, 0, 0x1F, 0xFF, 0xE0, 0]))
+    elif kind in (b"avc1", b"avc3"):  # config: the avcC payload
+        children = box(b"avcC", config or bytes([1, 0x64, 0, 0x1F, 0xFF, 0xE0, 0]))
     elif kind in (b"hvc1", b"hev1"):
         children = box(b"hvcC", bytes(23))
     return box(kind, visual + children)
@@ -165,10 +165,14 @@ def write_mp4(path: str, samples: Sequence[bytes], width: int, height: int, *,
 
 
 def h264_mp4(path: str) -> str:
-    """An MP4 whose one video track is H.264 (an ``avc1`` sample entry),
-    made without an encoder: three samples of a few bytes each."""
+    """An MP4 whose one video track is H.264 the port refuses: an ``avc1``
+    sample entry whose avcC's PPS selects CABAC, and three samples of a few
+    bytes each (``torch_h264_writer.cabac_track``)."""
+    from tests.torch_h264_writer import cabac_track
+
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    return write_mp4(path, [b"\0\0\0\x05\x65\x88\x80\x10\x00"] * 3, 64, 48, kind=b"avc1")
+    config, samples = cabac_track(64, 48)
+    return write_mp4(path, samples, 64, 48, kind=b"avc1", config=config)
 
 
 def remux(src: str, dst: str, **kw) -> str:

@@ -20,12 +20,13 @@ leaves the scale alone.
 For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
 bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video and
 ``Mpeg4Encoder`` encodes it (``mpeg4enc.cpp``), ``Vp8Decoder`` decodes
-VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``), and
+VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``),
+``H264Decoder`` decodes CAVLC I and P H.264 (``h264.cpp``), and
 ``VideoStream`` reads, decodes and transforms the frames of a Motion-JPEG,
-MPEG-4, VP8 or VP9 stream (indexed by ``native.avi``, ``native.mp4`` or
+MPEG-4, VP8, VP9 or H.264 stream (indexed by ``native.avi``, ``native.mp4`` or
 ``native.mkv``) on a C++ thread into a ring of frames.
 
-The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp``, ``mpeg4enc.cpp``, ``webp.cpp``
+The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp``, ``h264.cpp``, ``mpeg4enc.cpp``, ``webp.cpp``
 and ``gif.cpp``) links nothing beyond the C++ standard library.  Each source is compiled to an object on its own,
 all at once, and the objects are linked; the library is built into
 ``build/viddet_tpu_torch/native/<hash>/``
@@ -56,6 +57,8 @@ VP8_SOURCE = HERE / "vp8.cpp"  # the VP8 decoder, with its header
 VP8_HEADER = HERE / "vp8.h"
 VP9_SOURCE = HERE / "vp9.cpp"  # the VP9 decoder, with its header
 VP9_HEADER = HERE / "vp9.h"
+H264_SOURCE = HERE / "h264.cpp"  # the H.264 decoder, with its header
+H264_HEADER = HERE / "h264.h"
 MPEG4ENC_SOURCE = HERE / "mpeg4enc.cpp"  # the MPEG-4 Part 2 encoder
 MPEG4_HEADER = HERE / "mpeg4.h"  # what the MPEG-4 decoder and encoder share
 WEBP_SOURCE = HERE / "webp.cpp"  # WebP's lossless bitstream and lossy RGB step
@@ -80,12 +83,13 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list:
     """The library's C++ sources, each compiled to an object of its own."""
-    return [SOURCE, VP8_SOURCE, VP9_SOURCE, MPEG4ENC_SOURCE, WEBP_SOURCE, GIF_SOURCE]
+    return [SOURCE, VP8_SOURCE, VP9_SOURCE, H264_SOURCE, MPEG4ENC_SOURCE, WEBP_SOURCE,
+            GIF_SOURCE]
 
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for path in sources() + [VP8_HEADER, VP9_HEADER, MPEG4_HEADER]:
+    for path in sources() + [VP8_HEADER, VP9_HEADER, H264_HEADER, MPEG4_HEADER]:
         h.update(path.read_bytes())
     h.update(repr((FLAGS, LIBS)).encode())
     return h.hexdigest()[:16]
@@ -175,6 +179,17 @@ def library() -> ctypes.CDLL:
             lib.vd_vp9_rgb.argtypes = [p, p]
             lib.vd_vp9_planes.argtypes = [p, p, p, p]
             lib.vd_vp9_free.argtypes = [p]
+            lib.vd_h264_open.argtypes = [p, size, p, i]
+            lib.vd_h264_open.restype = p
+            lib.vd_h264_decode.argtypes = [p, p, size, p, i]
+            lib.vd_h264_probe.argtypes = [p, p, size, p, i]
+            lib.vd_h264_size.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i)]
+            lib.vd_h264_features.argtypes = [p]
+            lib.vd_h264_features.restype = ctypes.c_ulonglong
+            lib.vd_h264_info.argtypes = [p, p]
+            lib.vd_h264_rgb.argtypes = [p, p]
+            lib.vd_h264_planes.argtypes = [p, p, p, p]
+            lib.vd_h264_free.argtypes = [p]
             lib.vd_vp8_free.argtypes = [p]
             lib.vd_vp8l_decode.argtypes = [p, size, i, i, p, ctypes.POINTER(ctypes.c_uint),
                                            ctypes.POINTER(ctypes.c_uint), p, i]
@@ -190,7 +205,9 @@ def library() -> ctypes.CDLL:
                        lib.vd_png_unfilter, lib.vd_frame_transform, lib.vd_video_next,
                        lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_mpeg4enc_encode,
                        lib.vd_vp8_decode, lib.vd_vp8_rgb, lib.vd_vp8_planes,
-                       lib.vd_vp8l_decode, lib.vd_webp_lossy, lib.vd_gif_lzw):
+                       lib.vd_vp8l_decode, lib.vd_webp_lossy, lib.vd_gif_lzw,
+                       lib.vd_h264_decode, lib.vd_h264_probe, lib.vd_h264_rgb,
+                       lib.vd_h264_planes):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -785,6 +802,22 @@ VP9_FEATURES = {name: 1 << bit for bit, name in enumerate((
     "intra in inter frames", "colour information"))}
 
 
+# h264.h's Feature bits: what the pictures an H264Decoder decoded used
+H264_FEATURES = {name: 1 << bit for bit, name in enumerate((
+    "IDR picture", "non-IDR I picture", "P slices", "intra 4x4", "intra 16x16", "I_PCM",
+    "P 16x16", "P 16x8", "P 8x16", "P_8x8", "P_8x8ref0", "8x4 sub-partitions",
+    "4x8 sub-partitions", "4x4 sub-partitions", "skipped macroblocks", "intra in P slices",
+    "several references", "reference list modification", "long-term references", "MMCO 1",
+    "MMCO 2", "MMCO 3", "MMCO 4", "MMCO 5", "MMCO 6", "non-reference pictures", "POC type 0",
+    "POC type 1", "POC type 2", "frame_num wrap", "frame_num gap", "several slices",
+    "deblocking off", "deblocking within slices", "deblocking offsets", "constrained intra",
+    "cropping", "colour description", "full range", "High profile", "access unit delimiters",
+    "SEI", "filler data", "other NAL units", "level escapes", "vectors off the frame",
+    "chroma QP offset", "second chroma QP offset", "Annex B", "length prefixes", "timing info",
+    "bitstream restriction", "parameter set ids", "QP deltas", "quarter-sample vectors",
+    "level prefix 16"))}
+
+
 class _VpxDecoder:
     """What the VP8 and VP9 decoders share: the C calls ``vd_<prefix>_*``."""
 
@@ -880,6 +913,53 @@ class Vp9Decoder(_VpxDecoder):
     prefix, label, features_by_name = "vp9", "VP9", VP9_FEATURES
 
 
+class H264Decoder(_VpxDecoder):
+    """An H.264 decoder of the port's own (``h264.cpp``): CAVLC I and P
+    pictures, progressive, 8-bit 4:2:0, 4x4 transforms and flat scaling, bit
+    for bit FFmpeg's.  ``config`` is the track's avcC (its NAL length size
+    and parameter sets); for Annex B samples (an AVI's), parameter sets with
+    start codes or nothing.
+    ``decode(sample)`` decodes one access unit and returns the (H, W, 3)
+    uint8 RGB picture ``cv2.VideoCapture``'s FFmpeg backend returns, cropped
+    and converted with the VUI's colour space and range, or None for a
+    sample of parameter sets or SEI alone; pictures leave in decode order.
+    What the port does not decode (CABAC, B slices, interlace, the 8x8
+    transform, ...) and a damaged sample raise ValueError naming it.
+    ``probe(sample)`` reads a sample's parameter sets and slice headers
+    only, raising for what ``decode`` would refuse there; ``info`` is the
+    active SPS's VUI (matrix_coefficients, full range, num_units_in_tick,
+    time_scale); ``features`` names (``H264_FEATURES``) what the pictures
+    decoded so far used."""
+
+    prefix, label, features_by_name = "h264", "H.264", H264_FEATURES
+
+    def __init__(self, config: bytes = b"", name: str = "<stream>"):
+        self._lib = library()
+        self.name = name
+        self._call = lambda fn, *args: getattr(self._lib, f"vd_h264_{fn}")(*args)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        config = bytes(config)
+        self._handle = self._lib.vd_h264_open(config or None, len(config), err, _ERR_LEN)
+        if not self._handle:
+            raise ValueError(f"{name}: H.264 decoder configuration: {_message(err)}")
+
+    def probe(self, address: int, size: int, name: str = "") -> bool:
+        """Read the parameter sets and slice headers of the sample of ``size``
+        bytes at memory ``address``: True when it holds a picture."""
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = self._call("probe", self._handle, address, size, err, _ERR_LEN)
+        if rc < 0:
+            raise ValueError(f"{name or self.name}: H.264: {_message(err)}")
+        return bool(rc)
+
+    @property
+    def info(self) -> dict:
+        out = (ctypes.c_uint * 4)()
+        self._call("info", self._handle, out)
+        return {"matrix": out[0], "full_range": bool(out[1]), "num_units_in_tick": out[2],
+                "time_scale": out[3]}
+
+
 def _vpx_frames(decoder: _VpxDecoder, samples, name: str, every: int):
     shown = 0
     try:
@@ -907,7 +987,14 @@ def vp9_frames(samples, name: str, every: int = 1):
     yield from _vpx_frames(Vp9Decoder(name), samples, name, every)
 
 
-CODECS = {"jpeg": 0, "mpeg4": 1, "vp8": 2, "vp9": 3}  # VideoStream's codec numbers
+def h264_frames(config: bytes, samples, name: str, every: int = 1):
+    """``vp8_frames`` for an H.264 stream configured by ``config`` (an avcC,
+    or empty for Annex B): a sample that completes no picture takes no
+    index."""
+    yield from _vpx_frames(H264Decoder(config, name), samples, name, every)
+
+
+CODECS = {"jpeg": 0, "mpeg4": 1, "vp8": 2, "vp9": 3, "h264": 4}  # VideoStream's codec numbers
 
 
 class VideoStream:
@@ -927,7 +1014,7 @@ class VideoStream:
                  normalize: bool = True, capacity: int = 64, codec: str = "jpeg",
                  config: bytes = b"", fourcc: str = ""):
         if codec not in CODECS:
-            raise ValueError(f"VideoStream decodes jpeg, mpeg4, vp8 or vp9, not {codec!r}")
+            raise ValueError(f"VideoStream decodes jpeg, mpeg4, vp8, vp9 or h264, not {codec!r}")
         self._lib = library()
         offsets = np.ascontiguousarray(offsets, np.int64)
         sizes = np.ascontiguousarray(sizes, np.int64)

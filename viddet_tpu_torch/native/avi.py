@@ -16,7 +16,12 @@ chunk, as DivX and XviD write them) are unpacked as FFmpeg's
 ``mpeg4_unpack_bframes`` filter unpacks them: the B-VOP's bytes take the
 place of the next chunk that holds one VOP, and a chunk that holds none
 is dropped.  The frames are then the samples in decode order, and the
-decoder gives them out in display order.
+decoder gives them out in display order.  An H.264 stream (``H264``,
+``X264``, ``AVC1``, ``DAVC``, compared in upper case) holds one access unit
+a chunk, Annex B (start codes), its parameter sets in band or in the
+``strf`` extradata, for the port's H.264 decoder (``native.H264Decoder``);
+``native.mp4.check_h264`` refuses what that decoder does not decode before a
+frame is decoded.
 
 Reading (``read_index``) walks ``hdrl`` (``avih``; per stream ``strl``
 with ``strh`` and a ``strf`` BITMAPINFOHEADER), then every ``movi`` list in
@@ -27,7 +32,7 @@ only.  The frames are the first video stream's
 (``idx1``, ``indx``, ``ix##``) and other streams' chunks are skipped, and
 an empty chunk (a writer's dropped frame) is not a frame.  ``idx1`` is
 not read: a file cut short by a crash, its sizes never patched, reads up
-to its last whole frame.  A video stream whose compression is neither
+to its last whole frame.  A video stream whose compression is none of these
 raises ValueError naming it: decoding it needs FFmpeg, which the port does
 not link.
 
@@ -53,10 +58,11 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 
-from viddet_tpu_torch.native.mp4 import VOP_START, check_decoder_config, check_vops
+from viddet_tpu_torch.native.mp4 import VOP_START, check_decoder_config, check_h264, check_vops
 
 JPEG_FOURCCS = ("MJPG", "JPEG")  # the compressions read, compared in upper case
 MPEG4_FOURCCS = ("XVID", "DIVX", "DX50", "FMP4", "MP4V", "M4S2")  # MPEG-4 Part 2
+H264_FOURCCS = ("H264", "X264", "AVC1", "DAVC")  # H.264, Annex B samples
 BITMAPINFOHEADER = 40  # bytes; a strf's extradata follows
 QUALITY = 95  # the JPEG quality of written frames, OpenCV's MJPEG writer's
 SEGMENT_BYTES = 1 << 30
@@ -79,8 +85,8 @@ class AviIndex:
     offsets: np.ndarray  # int64, file offset of each frame's data
     sizes: np.ndarray  # int64
     truncated: bool  # the walk met a chunk cut short by the end of the file
-    codec: str = "jpeg"  # or "mpeg4" (``native.VideoStream``'s codec)
-    config: bytes = b""  # the MPEG-4 decoder configuration (VOS / VO / VOL)
+    codec: str = "jpeg"  # or "mpeg4", "h264" (``native.VideoStream``'s codec)
+    config: bytes = b""  # the MPEG-4 decoder configuration (VOS / VO / VOL); H.264's extradata
     fourcc: str = ""  # the strf compression, which FFmpeg's MPEG-4 decoder reads too
 
     @property
@@ -171,14 +177,21 @@ class _Walk:
                 offset, size = frames[0]
                 at = self.data.find(VOP_START, offset, offset + size)
                 config = bytes(self.data[offset:at if at >= 0 else offset + size])
+        elif fourcc.upper() in H264_FOURCCS:
+            codec, config, frames = "h264", strf[BITMAPINFOHEADER:], self.frames
         else:
-            raise ValueError(f"{self.path}: the video stream is {fourcc!r}, not Motion-JPEG or "
-                             f"MPEG-4 Part 2; decoding it needs FFmpeg, which the port does "
-                             f"not link")
+            raise ValueError(f"{self.path}: the video stream is {fourcc!r}, not Motion-JPEG, "
+                             f"MPEG-4 Part 2 or H.264; decoding it needs FFmpeg, which the port "
+                             f"does not link")
         offsets = np.array([o for o, _ in frames], np.int64)
         sizes = np.array([s for _, s in frames], np.int64)
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
+        elif codec == "h264":
+            if not len(offsets):
+                self.fail("the H.264 stream has no frames")
+            width, height, _ = check_h264(self.data, offsets, sizes, config, self.path,
+                                          self.fail)
         return AviIndex(self.path, width, abs(height), strh[1], strh[0], offsets, sizes,
                         self.truncated, codec, config, fourcc)
 
@@ -247,14 +260,18 @@ class AviReader:
 
     def frames(self, every: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, RGB frame) of every ``every``-th frame in display order.
-        A JPEG frame skipped by ``every`` is not decoded; an MPEG-4 stream
-        is decoded whole."""
-        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames
+        A JPEG frame skipped by ``every`` is not decoded; an MPEG-4 or H.264
+        stream is decoded whole."""
+        from viddet_tpu_torch.native import decode_jpeg, h264_frames, mpeg4_frames
 
         index = self.index
         if index.codec == "mpeg4":
             yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
                                     index.path, every, index.fourcc)
+            return
+        if index.codec == "h264":
+            yield from h264_frames(index.config, (self.sample(i) for i in range(len(self))),
+                                   index.path, every)
             return
         for i in range(0, len(self), every):
             yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")

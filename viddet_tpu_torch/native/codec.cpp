@@ -85,8 +85,23 @@
 //           one), vd_vp9_size, vd_vp9_features, vd_vp9_rgb, vd_vp9_planes,
 //           vd_vp9_free
 //
+// H.264 video (CAVLC I and P pictures: an MP4 / Matroska track configured by
+// its avcC, or Annex B samples of an AVI) is decoded by h264.cpp
+// (vd_h264::Decoder) through the same step, with the VUI's colour space and
+// range:
+//   vd_h264_open(config, size, err, err_len) -> handle or null (config: an
+//           avcC; for Annex B, parameter sets with start codes or nothing)
+//   vd_h264_decode(handle, sample, size, err, err_len): 1 when the sample
+//           completes a picture, 0 when it holds none, -1 and a message
+//   vd_h264_probe(handle, sample, size, err, err_len) parameter sets and
+//           slice headers only, for the refusals before any frame: 1 when
+//           the sample holds a picture
+//   vd_h264_size, vd_h264_features (64 bits), vd_h264_info (matrix, full
+//           range, num_units_in_tick, time_scale), vd_h264_rgb,
+//           vd_h264_planes, vd_h264_free
+//
 // Video frames (of a Motion-JPEG AVI, MP4 or Matroska file, or of an MPEG-4,
-// VP8 or VP9 stream):
+// VP8, VP9 or H.264 stream):
 //   vd_frame_transform(rgb, ih, iw, out, h, w, letterbox, normalize, affine)
 //           data/transforms.py's ValTransform on one uint8 RGB frame, bit for
 //           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
@@ -98,8 +113,9 @@
 //           starts a thread that decodes frames `indices` (ascending) of the
 //           file's `samples` samples and transforms each into a ring of
 //           `capacity` frames: codec 0 reads and decodes only the kept
-//           JPEGs; codec 1 (MPEG-4, configured by `config`), codec 2 (VP8)
-//           and codec 3 (VP9) decode every sample up to the last kept one in order,
+//           JPEGs; codec 1 (MPEG-4, configured by `config`), codec 2 (VP8),
+//           codec 3 (VP9) and codec 4 (H.264, `config` its avcC or empty)
+//           decode every sample up to the last kept one in order,
 //           since each inter frame needs the pictures before it
 //   vd_video_next(handle, out, affine, &index, err, err_len)
 //           blocks for the next frame: 1 and the frame, 0 at the end or
@@ -110,7 +126,8 @@
 // MPEG-4 Part 2 encoding (what utils/video.py VideoWriter writes) is
 // mpeg4enc.cpp's (vd_mpeg4enc_*); it and the decoder here share mpeg4.h.
 //
-// Build: each of codec.cpp, vp8.cpp, vp9.cpp and mpeg4enc.cpp compiled with
+// Build: each of codec.cpp, vp8.cpp, vp9.cpp, h264.cpp, mpeg4enc.cpp, webp.cpp
+//        and gif.cpp compiled with
 //        g++ -O3 -fPIC -std=c++17 -ffp-contract=off -c, then linked with
 //        g++ -shared ... -o libviddet_codec.so -pthread (native/__init__.py)
 
@@ -134,6 +151,7 @@
 #include "mpeg4.h"
 #include "vp8.h"
 #include "vp9.h"
+#include "h264.h"
 
 namespace {
 
@@ -2791,16 +2809,25 @@ struct YuvCoeffs {
   int y = 9539, vr = 13075, ub = 16525, ug = -3209, vg = -6660, y_off = 128;
 };
 
-// The coefficients for a VP9 stream's colour space (its header's
-// color_space, mapped as FFmpeg maps it to swscale's table) and range, as
-// OpenCV's reader hands them to swscale.
-YuvCoeffs vp9_coeffs(int color_space, bool full_range) {
-  static const int64_t kTable[3][4] = {{104597, 132201, 25675, 53279},   // BT.601
-                                       {117489, 138438, 13975, 34925},   // BT.709
-                                       {117579, 136230, 16907, 35559}};  // SMPTE 240M
-  static const int64_t kBt2020[4] = {110013, 140363, 12277, 42626};
-  const int64_t* t = color_space == 2 ? kTable[1] : color_space == 4 ? kTable[2]
-                   : color_space == 5 ? kBt2020 : kTable[0];
+// The coefficients for a colour space (an AVColorSpace value: an H.264
+// VUI's matrix_coefficients as they stand, a VP9 header's color_space
+// mapped by vp9_color_space) and range, as OpenCV's reader hands them to
+// swscale: sws_getCoefficients' table (ff_yuv2rgb_coeffs), whose default is
+// BT.601, then sws_setColorspaceDetails' fixed point.
+YuvCoeffs swscale_coeffs(int colorspace, bool full_range) {
+  static const int64_t kTable[11][4] = {
+      {104597, 132201, 25675, 53279},  // 0: RGB / no sequence display extension
+      {117489, 138438, 13975, 34925},  // 1: BT.709
+      {104597, 132201, 25675, 53279},  // 2: unspecified
+      {104597, 132201, 25675, 53279},  // 3: reserved
+      {104448, 132798, 24759, 53109},  // 4: FCC
+      {104597, 132201, 25675, 53279},  // 5: BT.470 B/G
+      {104597, 132201, 25675, 53279},  // 6: SMPTE 170M
+      {117579, 136230, 16907, 35559},  // 7: SMPTE 240M
+      {104597, 132201, 25675, 53279},  // 8: YCgCo, which swscale takes as its default
+      {110013, 140363, 12277, 42626},  // 9: BT.2020 non-constant luminance
+      {110013, 140363, 12277, 42626}}; // 10: BT.2020 constant luminance
+  const int64_t* t = kTable[colorspace >= 0 && colorspace <= 10 ? colorspace : 5];
   int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3], cy = 1 << 16, oy = 0;
   if (!full_range) {
     cy = (cy * 255) / 219;
@@ -2823,6 +2850,14 @@ YuvCoeffs vp9_coeffs(int color_space, bool full_range) {
   k.vg = round16(cgv * (1 << 13));
   k.y_off = round16(oy * (1 << 3));
   return k;
+}
+
+// A VP9 header's color_space (0 unknown, 1 BT.601, 2 BT.709, 3 SMPTE 170,
+// 4 SMPTE 240, 5 BT.2020, 6 reserved, 7 sRGB) as FFmpeg's VP9 decoder maps
+// it to an AVColorSpace.
+int vp9_color_space(int color_space) {
+  static const int kSpace[8] = {2, 5, 1, 6, 7, 9, 3, 0};
+  return color_space >= 0 && color_space < 8 ? kSpace[color_space] : 2;
 }
 
 // yuv420p -> RGB as swscale's x86 unscaled converter does it (the yuv2rgb
@@ -2859,9 +2894,14 @@ void vp8_to_rgb(const vd_vp8::Decoder& d, uint8_t* rgb) {
                 d.height(), rgb);
 }
 
+void h264_to_rgb(const vd_h264::Decoder& d, uint8_t* rgb) {
+  yuv420_to_rgb(d.plane(0), d.stride(0), d.plane(1), d.plane(2), d.stride(1), d.width(),
+                d.height(), rgb, swscale_coeffs(d.matrix(), d.full_range()));
+}
+
 void vp9_to_rgb(const vd_vp9::Decoder& d, uint8_t* rgb) {
   yuv420_to_rgb(d.plane(0), d.stride(0), d.plane(1), d.plane(2), d.stride(1), d.width(),
-                d.height(), rgb, vp9_coeffs(d.color_space(), d.full_range()));
+                d.height(), rgb, swscale_coeffs(vp9_color_space(d.color_space()), d.full_range()));
 }
 
 
@@ -2869,7 +2909,7 @@ struct VideoStream {
   std::string path;
   std::vector<int64_t> offsets, sizes;  // every sample of the file
   std::vector<int32_t> indices;         // the frames kept, ascending
-  int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8, 3 VP9
+  int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8, 3 VP9, 4 H.264 (an avcC `config`, or none for Annex B)
   std::vector<uint8_t> config;
   std::string fourcc;                   // MPEG-4's container tag
   int h, w;
@@ -2921,6 +2961,8 @@ struct VideoStream {
         run_vp8(read, sample, rgb, staged);
       else if (codec == 3)
         run_vp9(read, sample, rgb, staged);
+      else if (codec == 4)
+        run_h264(read, sample, rgb, staged);
       else
         run_jpeg(read, sample, rgb, staged);
     } catch (const CodecError& e) {
@@ -3039,6 +3081,37 @@ struct VideoStream {
       rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
       vp9_to_rgb(d, rgb.data());
       put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
+    }
+  }
+
+  // H.264: every sample decoded in order; pictures leave in decode order, a
+  // sample completing one counts once.
+  template <typename Read>
+  void run_h264(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
+                std::vector<uint8_t>& staged) {
+    std::unique_ptr<vd_h264::Decoder> d;
+    try {
+      d.reset(new vd_h264::Decoder(config.data(), config.size()));
+    } catch (const vd_h264::Error& e) {
+      fail("the decoder configuration: %s", e.msg.c_str());
+    }
+    int32_t display = 0;
+    size_t kept = 0;
+    for (size_t k = 0; k < offsets.size() && kept < indices.size(); ++k) {
+      bool shown;
+      try {
+        read(k);
+        shown = d->decode(sample.data(), sample.size());
+      } catch (const vd_h264::Error& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      } catch (const CodecError& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      }
+      if (!shown || display++ != indices[kept]) continue;
+      if (!wait_slot()) return;
+      rgb.resize(static_cast<size_t>(d->width()) * d->height() * 3);
+      h264_to_rgb(*d, rgb.data());
+      put(rgb.data(), d->height(), d->width(), indices[kept++], staged);
     }
   }
 
@@ -3241,6 +3314,81 @@ int vd_vp9_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
 
 void vd_vp9_free(void* handle) { delete static_cast<vd_vp9::Decoder*>(handle); }
 
+void* vd_h264_open(const uint8_t* config, unsigned long size, char* err, int err_len) {
+  try {
+    return new vd_h264::Decoder(config, size);
+  } catch (const vd_h264::Error& e) {
+    std::snprintf(err, err_len, "%s", e.msg.c_str());
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+  }
+  return nullptr;
+}
+
+int vd_h264_decode(void* handle, const uint8_t* data, unsigned long size, char* err, int err_len) {
+  try {
+    return static_cast<vd_h264::Decoder*>(handle)->decode(data, size) ? 1 : 0;
+  } catch (const vd_h264::Error& e) {
+    std::snprintf(err, err_len, "%s", e.msg.c_str());
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+  }
+  return -1;
+}
+
+int vd_h264_probe(void* handle, const uint8_t* data, unsigned long size, char* err, int err_len) {
+  try {
+    return static_cast<vd_h264::Decoder*>(handle)->probe(data, size) ? 1 : 0;
+  } catch (const vd_h264::Error& e) {
+    std::snprintf(err, err_len, "%s", e.msg.c_str());
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, err_len, "out of memory");
+  }
+  return -1;
+}
+
+void vd_h264_size(void* handle, int* width, int* height) {
+  const auto* d = static_cast<vd_h264::Decoder*>(handle);
+  *width = d->width();
+  *height = d->height();
+}
+
+unsigned long long vd_h264_features(void* handle) {
+  return static_cast<vd_h264::Decoder*>(handle)->features();
+}
+
+// matrix_coefficients, full range, num_units_in_tick, time_scale
+void vd_h264_info(void* handle, unsigned* out) {
+  const auto* d = static_cast<vd_h264::Decoder*>(handle);
+  out[0] = static_cast<unsigned>(d->matrix());
+  out[1] = d->full_range();
+  out[2] = d->num_units_in_tick();
+  out[3] = d->time_scale();
+}
+
+// The picture shown last, as RGB (width x height x 3); 0, or -1 before any.
+int vd_h264_rgb(void* handle, uint8_t* rgb) {
+  const auto* d = static_cast<vd_h264::Decoder*>(handle);
+  if (!d->plane(0)) return -1;
+  h264_to_rgb(*d, rgb);
+  return 0;
+}
+
+int vd_h264_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
+  const auto* d = static_cast<vd_h264::Decoder*>(handle);
+  if (!d->plane(0)) return -1;
+  const int w = d->width(), h = d->height(), cw = (w + 1) / 2, ch = (h + 1) / 2;
+  for (int r = 0; r < h; ++r)
+    std::memcpy(y + static_cast<size_t>(r) * w, d->plane(0) + static_cast<size_t>(r) * d->stride(0), w);
+  for (int r = 0; r < ch; ++r) {
+    std::memcpy(u + static_cast<size_t>(r) * cw, d->plane(1) + static_cast<size_t>(r) * d->stride(1), cw);
+    std::memcpy(v + static_cast<size_t>(r) * cw, d->plane(2) + static_cast<size_t>(r) * d->stride(2), cw);
+  }
+  return 0;
+}
+
+void vd_h264_free(void* handle) { delete static_cast<vd_h264::Decoder*>(handle); }
+
 int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int w, int letterbox,
                        int normalize, float* affine) {
   try {
@@ -3257,7 +3405,7 @@ void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned
                     const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
                     int capacity, char* err, int err_len) {
   try {
-    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 3)
+    if (n < 0 || samples < 0 || h <= 0 || w <= 0 || capacity <= 0 || codec < 0 || codec > 4)
       fail("bad video stream arguments (codec %d, %d of %d frames, %dx%d, capacity %d)", codec,
            n, samples, w, h, capacity);
     for (int i = 0; i < n; ++i)

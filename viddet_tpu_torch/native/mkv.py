@@ -32,6 +32,11 @@ The codecs:
   too).  ``check_vp9`` reads every frame's uncompressed header and refuses,
   before a frame is decoded, a track that does not start with a key frame,
   another profile and a change of frame size.
+* ``V_MPEG4/ISO/AVC``: H.264, its ``CodecPrivate`` an avcC, decoded by the
+  port's H.264 decoder (``h264.cpp``, ``native.H264Decoder``), CAVLC I and P
+  pictures; ``native.mp4.check_h264`` reads the parameter sets and every
+  frame's slice headers and refuses what the decoder does not decode before a
+  frame is decoded.  The size is the SPS's, cropped as FFmpeg crops it.
 * ``V_MPEG4/ISO/SP``, ``/ASP`` and ``/AP``: MPEG-4 Part 2, configured by the
   track's ``CodecPrivate`` (its VOS / VOL headers; without one, the
   headers at the head of the first frame), for ``native.Mpeg4Decoder``.
@@ -40,7 +45,7 @@ The codecs:
   compression, read as ``native/avi.py`` reads it (MPEG-4 Part 2 fourccs
   with packed B-frames unpacked, Motion-JPEG).
 
-Any other codec (AV1, H.264, HEVC, Theora, ...) raises ValueError
+Any other codec (AV1, HEVC, Theora, ...) raises ValueError
 naming it: decoding it needs FFmpeg, which the port does not link.  So does
 a ``ContentEncoding`` (compression, header stripping included, or
 encryption), a track whose frames do not start with a key frame, a VP8
@@ -63,7 +68,9 @@ cut, as OpenCV's; the frames read are the whole ones.
 
 ``fps`` is what FFmpeg's demuxer (and so ``cv2.CAP_PROP_FPS``) reports:
 with ``DefaultDuration``, 1e9 over it reduced as ``av_reduce`` reduces it
-(to terms of at most 30000); without it, the frames' mean rate from their
+(to terms of at most 30000); without it, for H.264 with VUI timing info, one
+over the packet duration FFmpeg's parser derives from it (``h264_fps``);
+otherwise the frames' mean rate from their
 timestamps, snapped as ``avformat_find_stream_info`` snaps an estimate to
 a standard rate within 1% (ROADMAP Queue 3 holds where FFmpeg's estimate,
 from the first frames only, differs).
@@ -82,7 +89,7 @@ import numpy as np
 
 from viddet_tpu_torch.native.avi import (BITMAPINFOHEADER, JPEG_FOURCCS, MPEG4_FOURCCS,
                                          unpack_bframes)
-from viddet_tpu_torch.native.mp4 import VOP_START, check_decoder_config, check_vops
+from viddet_tpu_torch.native.mp4 import VOP_START, check_decoder_config, check_h264, check_vops
 
 EBML, SEGMENT, CLUSTER = 0x1A45DFA3, 0x18538067, 0x1F43B675
 INFO, TRACKS, TRACK_ENTRY = 0x1549A966, 0x1654AE6B, 0xAE
@@ -96,7 +103,7 @@ READ_VERSION = 4  # the highest DocTypeReadVersion read
 MPEG4_CODECS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 # codecs the port does not decode, by name
 REFUSED = {
-    "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
+    "V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC",
     "V_THEORA": "Theora", "V_MPEG1": "MPEG-1 video", "V_MPEG2": "MPEG-2 video",
     "V_MS/VFW/FOURCC": "a VfW codec", "V_UNCOMPRESSED": "uncompressed video",
     "V_PRORES": "ProRes", "V_FFV1": "FFV1", "V_REAL/RV40": "RealVideo",
@@ -112,8 +119,8 @@ class MkvIndex:
     path: str
     width: int
     height: int
-    codec: str  # "vp8", "vp9", "mpeg4" or "jpeg"
-    config: bytes  # the MPEG-4 decoder configuration (VOS / VOL); b"" otherwise
+    codec: str  # "vp8", "vp9", "h264", "mpeg4" or "jpeg"
+    config: bytes  # the MPEG-4 decoder configuration (VOS / VOL), H.264's avcC; b"" otherwise
     fps: float
     offsets: np.ndarray  # int64
     sizes: np.ndarray  # int64
@@ -186,7 +193,29 @@ def estimate_fps(timestamps_ns: np.ndarray) -> float:
     span = int(timestamps_ns.max() - timestamps_ns.min())
     if span <= 0:
         return 0.0
-    num, den = reduce_fraction((len(timestamps_ns) - 1) * 10**9, span, 60000)
+    return snapped_rate((len(timestamps_ns) - 1) * 10**9, span)
+
+
+def h264_fps(info: dict, scale: int) -> float:
+    """The rate FFmpeg estimates for an H.264 track without
+    DefaultDuration from its SPS timing (``H264Decoder.info``): its parser
+    gives each packet a duration of 2 * num_units_in_tick / time_scale
+    seconds, rounded down to ticks of ``scale`` ns (none when the frame rate
+    reaches 1000, or the duration rounds to 0), and the rate is one over it,
+    snapped as ``estimate_fps`` snaps; 0 without timing info."""
+    tick, time_scale = info["num_units_in_tick"], info["time_scale"]
+    if not tick or not time_scale or 2 * tick * 1000 <= time_scale:
+        return 0.0
+    duration = (10**9 * 2 * tick) // (time_scale * scale)
+    if not duration:
+        return 0.0
+    return snapped_rate(10**9, duration * scale)
+
+
+def snapped_rate(num: int, den: int) -> float:
+    """num / den frames a second reduced to terms of at most 60000, then the
+    nearest standard rate within 1% (``avformat_find_stream_info``)."""
+    num, den = reduce_fraction(num, den, 60000)
     fps = num / den
     best, best_error = 0, 0.01
     for rate in standard_rates():
@@ -620,11 +649,15 @@ class _Walk:
             shown, width, height = self.check_vp8(offsets, sizes, width, height)
         elif codec == "vp9":
             shown, width, height = check_vp9(self.data, offsets, sizes, width, height, self.fail)
+        elif codec == "h264":
+            width, height, info = check_h264(self.data, offsets, sizes, config, self.path,
+                                             self.fail)
         if video.default_duration:
             num, den = reduce_fraction(10**9, video.default_duration, 30000)
             fps = num / den
         else:
-            fps = estimate_fps(np.array(times, np.int64))
+            fps = h264_fps(info, self.scale) if codec == "h264" else 0.0
+            fps = fps or estimate_fps(np.array(times, np.int64))
         stated = shown
         if self.duration > 0 and fps > 0:  # OpenCV: floor(seconds * fps + 0.5), whole µs
             seconds = int(self.duration * self.scale / 1000) / 1e6
@@ -639,6 +672,10 @@ class _Walk:
             return "vp8", b"", ""
         if cid == "V_VP9":
             return "vp9", b"", ""
+        if cid == "V_MPEG4/ISO/AVC":
+            if not track.private:
+                self.fail("the H.264 track has no CodecPrivate (its avcC decoder configuration)")
+            return "h264", track.private, ""
         if cid in MPEG4_CODECS:
             return "mpeg4", track.private, ""
         if cid == "V_MJPEG":
@@ -653,7 +690,8 @@ class _Walk:
                       "not decode; decoding it needs FFmpeg, which the port does not link")
         name = REFUSED.get(cid, "a codec the port does not read")
         self.fail(f"the video track's codec is {cid!r} ({name}); decoding it needs FFmpeg, which "
-                  "the port does not link (it reads VP8, VP9, MPEG-4 Part 2 and Motion-JPEG)")
+                  "the port does not link (it reads H.264, VP8, VP9, MPEG-4 Part 2 and "
+                  "Motion-JPEG)")
 
     def check_vp8(self, offsets: np.ndarray, sizes: np.ndarray, width: int,
                   height: int) -> Tuple[int, int, int]:
@@ -702,10 +740,11 @@ class MkvReader:
 
     def frames(self, every: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
         """(index, RGB frame) of every ``every``-th shown frame in display
-        order.  VP8, VP9 and MPEG-4 streams are decoded whole, each inter
+        order.  VP8, VP9, H.264 and MPEG-4 streams are decoded whole, each inter
         frame needing the ones before it; a JPEG frame skipped by ``every``
         is not decoded."""
-        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames, vp8_frames, vp9_frames
+        from viddet_tpu_torch.native import (decode_jpeg, h264_frames, mpeg4_frames, vp8_frames,
+                                             vp9_frames)
 
         index = self.index
         samples = (self.sample(i) for i in range(len(index.offsets)))
@@ -716,6 +755,8 @@ class MkvReader:
             yield from mpeg4_frames(index.config, samples, index.path, every, index.fourcc)
         elif index.codec == "vp9":
             yield from vp9_frames(samples, index.path, every)
+        elif index.codec == "h264":
+            yield from h264_frames(index.config, samples, index.path, every)
         else:
             yield from vp8_frames(samples, index.path, every)
 

@@ -14,7 +14,7 @@ file").  In ``moov`` it reads ``mvhd``, then each ``trak`` (``tkhd``,
 (versions 0 and 1), ``stsc``, ``stsz`` or ``stz2``, ``stco`` or ``co64``
 and ``stss``.
 
-Two sample entries are read:
+These sample entries are read:
 
 * ``mp4v`` whose ``esds`` decoder configuration has object type 0x20:
   MPEG-4 Part 2 video, decoded by the port's own decoder in
@@ -25,14 +25,23 @@ Two sample entries are read:
   and shows a B-VOP's at once, so frame ``k`` is the ``k``-th picture it
   shows (``ctts`` gives the same order; it is read for the edit list).
 * ``jpeg``: one baseline JPEG per sample, for ``native.decode_jpeg``.
+* ``avc1`` and ``avc3`` with their ``avcC`` configuration (its NAL length
+  size and parameter sets; ``avc3`` may send them in band too): H.264,
+  decoded by the port's H.264 decoder (``h264.cpp``, ``native.H264Decoder``):
+  CAVLC I and P pictures, progressive 8-bit 4:2:0.  ``check_h264`` reads the
+  parameter sets and every sample's slice headers and refuses what that
+  decoder does not decode (CABAC, B slices, interlace, ...) before a frame
+  is decoded; a ``ctts`` with composition offsets (frames out of decode
+  order: B-frames) is refused too.  The size is the SPS's, cropped as FFmpeg
+  crops it, which is what OpenCV reports.
 * ``vp09`` with its ``vpcC`` configuration: VP9, decoded by the port's VP9
   decoder (``vp9.cpp``, ``native.Vp9Decoder``).  Profile 0 (8-bit 4:2:0) is
   read; the ``vpcC`` box's profile, bit depth and chroma subsampling and
   each frame's uncompressed header (``native.mkv.check_vp9``) refuse the
   rest before a frame is decoded.  A sample is a frame or a superframe.
 
-Any other codec raises ValueError naming it (H.264, HEVC, AV1 and
-the rest need FFmpeg, which the port does not link), as does an edit
+Any other codec raises ValueError naming it (HEVC, AV1 and the rest need
+FFmpeg, which the port does not link), as does an edit
 list other than the identity or the shift an MP4 muxer writes with
 B-frames (one entry, rate 1, whose media time is the first sample's
 composition offset), an S-VOP or a stream that does not start with an
@@ -68,8 +77,7 @@ import numpy as np
 MPEG4_VISUAL = 0x20  # objectTypeIndication of MPEG-4 Part 2 video
 # sample entries that need a decoder the port does not have, by name
 REFUSED = {
-    b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)", b"hvc1": "HEVC (hvc1)",
-    b"hev1": "HEVC (hev1)", b"av01": "AV1 (av01)",
+    b"hvc1": "HEVC (hvc1)", b"hev1": "HEVC (hev1)", b"av01": "AV1 (av01)",
     b"mjpa": "Motion-JPEG format A (mjpa)", b"mjpb": "Motion-JPEG format B (mjpb)",
 }
 VOP_START = b"\x00\x00\x01\xb6"
@@ -84,8 +92,8 @@ class Mp4Index:
     path: str
     width: int
     height: int
-    codec: str  # "mpeg4", "vp9" or "jpeg"
-    config: bytes  # the MPEG-4 decoder configuration (VOS / VO / VOL); b"" for JPEG
+    codec: str  # "mpeg4", "vp9", "h264" or "jpeg"
+    config: bytes  # the MPEG-4 decoder configuration (VOS / VO / VOL), H.264's avcC; else b""
     fps: float
     offsets: np.ndarray  # int64, the samples that lie wholly in the file
     sizes: np.ndarray  # int64
@@ -132,6 +140,33 @@ def check_vops(data, offsets: np.ndarray, sizes: np.ndarray, fail) -> None:
         if i == 0 and kind != 0:
             fail(f"frame 0 at offset {offset} is a {VOP_TYPES[kind]}-VOP: the stream does not "
                  "start with an I-VOP")
+
+
+def check_h264(data, offsets: np.ndarray, sizes: np.ndarray, config: bytes, path: str,
+               fail) -> Tuple[int, int, dict]:
+    """Read the parameter sets of ``config`` (an avcC; for Annex B samples,
+    parameter sets with start codes or b"") and every sample's parameter sets
+    and slice headers without decoding a macroblock: what the port's H.264
+    decoder refuses (CABAC, B slices, interlace, the High profiles' 8x8
+    transform and scaling matrices, FMO, a change of size, pictures out of
+    decode order, ...) raises here, before any frame is decoded, as does a
+    sample holding no picture.  Returns the pictures' width and height as
+    FFmpeg crops them and the SPS's VUI (``H264Decoder.info``)."""
+    from viddet_tpu_torch.native import H264Decoder
+
+    probe = H264Decoder(config, path)
+    view = np.frombuffer(data, np.uint8)
+    try:
+        base = view.ctypes.data
+        for i, (offset, size) in enumerate(zip(offsets.tolist(), sizes.tolist())):
+            if not probe.probe(base + offset, size, f"{path} frame {i}"):
+                fail(f"frame {i} at offset {offset} holds no H.264 picture (parameter sets or "
+                     "SEI alone)")
+        width, height = probe.size
+        return width, height, probe.info
+    finally:
+        del view
+        probe.close()
 
 
 def check_decoder_config(index) -> None:
@@ -256,6 +291,12 @@ class _Walk:
             offsets, sizes = offsets[: int(bad[0])], sizes[: int(bad[0])]
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
+        elif codec == "h264":
+            if self.any_composition_offset(tables):
+                self.fail("the H.264 track has composition offsets ('ctts'): its frames are shown "
+                          "out of decode order (B-frames), which the port's H.264 decoder does "
+                          "not decode; decoding it needs FFmpeg, which the port does not link")
+            width, height, _ = check_h264(self.data, offsets, sizes, config, self.path, self.fail)
         elif codec == "vp9":
             from viddet_tpu_torch.native.mkv import check_vp9
 
@@ -299,6 +340,19 @@ class _Walk:
                           f"rate {rate + frac / 65536:g}); only the identity edit or the shift by "
                           f"the first composition offset ({first_offset}) is read")
 
+    def any_composition_offset(self, tables) -> bool:
+        """Whether ``ctts`` gives any sample a composition offset other than
+        the first sample's."""
+        if b"ctts" not in tables:
+            return False
+        s, e = tables[b"ctts"]
+        version = self.full(s, e, 8, "ctts")
+        (n,) = struct.unpack_from(">I", self.data, s + 4)
+        if 8 + 8 * n > e - s:
+            self.fail("box 'ctts' is truncated")
+        runs = np.frombuffer(self.data, ">i4" if version else ">u4", 2 * n, s + 8).reshape(n, 2)
+        return bool(n) and bool((runs[:, 1] != runs[0, 1]).any())
+
     def first_composition_offset(self, tables) -> int:
         """The first sample's composition offset from ``ctts`` (version 0
         or 1; 0 without one)."""
@@ -329,13 +383,17 @@ class _Walk:
         if kind == b"vp09":
             self.vp9_config(*self.child(pos + 86, pos + length, b"vpcC", "the 'vp09' sample entry"))
             return width, height, "vp9", b""
+        if kind in (b"avc1", b"avc3"):
+            start, stop = self.child(pos + 86, pos + length, b"avcC",
+                                     f"the {name!r} sample entry")
+            return width, height, "h264", bytes(self.data[start:stop])
         if kind in REFUSED:
             self.fail(f"the video is {REFUSED[kind]}; decoding it needs FFmpeg, which the port "
-                      "does not link (it reads MPEG-4 Part 2, VP9 and Motion-JPEG)")
+                      "does not link (it reads H.264, MPEG-4 Part 2, VP9 and Motion-JPEG)")
         if kind != b"mp4v":
             self.fail(f"the video codec {name!r} is not one the port reads; decoding it needs "
-                      "FFmpeg, which the port does not link (it reads MPEG-4 Part 2, VP9 and "
-                      "Motion-JPEG)")
+                      "FFmpeg, which the port does not link (it reads H.264, MPEG-4 Part 2, VP9 "
+                      "and Motion-JPEG)")
         esds = self.child(pos + 86, pos + length, b"esds", "the 'mp4v' sample entry")
         object_type, config = self.decoder_config(*esds)
         if object_type != MPEG4_VISUAL:
@@ -483,7 +541,7 @@ class Mp4Reader:
         An MPEG-4 stream is decoded whole, since each P- and B-VOP needs the
         pictures before it; a JPEG frame skipped by ``every`` is not
         decoded."""
-        from viddet_tpu_torch.native import decode_jpeg, mpeg4_frames, vp9_frames
+        from viddet_tpu_torch.native import decode_jpeg, h264_frames, mpeg4_frames, vp9_frames
 
         index = self.index
         if index.codec == "jpeg":
@@ -492,6 +550,10 @@ class Mp4Reader:
             return
         if index.codec == "vp9":
             yield from vp9_frames((self.sample(i) for i in range(len(self))), index.path, every)
+            return
+        if index.codec == "h264":
+            yield from h264_frames(index.config, (self.sample(i) for i in range(len(self))),
+                                   index.path, every)
             return
         yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
                                 index.path, every, index.fourcc)

@@ -7,24 +7,29 @@ The port links no FFmpeg.  It reads
 * AVI files (``native.avi``) holding Motion-JPEG, each frame a JPEG for
   the port's codec, so a frame equals what ``cv2.VideoCapture(path,
   cv2.CAP_OPENCV_MJPEG)`` returns and what ``cv2.imdecode`` gives for the
-  frame's bytes; or MPEG-4 Part 2 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
-  ``MP4V``, ``M4S2``, packed B-frames unpacked);
+  frame's bytes; MPEG-4 Part 2 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
+  ``MP4V``, ``M4S2``, packed B-frames unpacked); or H.264 (``H264``,
+  ``X264``, ``AVC1``, ``DAVC``, Annex B);
 * MP4 and QuickTime files (``.mp4``, ``.mov``; ``native.mp4``) holding
-  MPEG-4 Part 2, VP9 (``vp09``) or Motion-JPEG (``jpeg`` samples);
+  H.264 (``avc1``, ``avc3``), MPEG-4 Part 2, VP9 (``vp09``) or Motion-JPEG
+  (``jpeg`` samples);
 * Matroska and WebM files (``.mkv``, ``.webm``; ``native.mkv``) holding
-  VP8, VP9, MPEG-4 Part 2 or Motion-JPEG (``V_MJPEG``, or a VfW fourcc the
-  AVI reader reads).
+  H.264 (``V_MPEG4/ISO/AVC``), VP8, VP9, MPEG-4 Part 2 or Motion-JPEG
+  (``V_MJPEG``, or a VfW fourcc the AVI reader reads).
 
-VP8 (every version and feature of RFC 6386) is decoded by the port's own
-decoder (``native.Vp8Decoder``), VP9 profile 0 (8-bit 4:2:0) by another
-(``native.Vp9Decoder``) and MPEG-4 Part 2 (Simple and Advanced
+H.264 (CAVLC I and P pictures, progressive 8-bit 4:2:0: Constrained
+Baseline, Baseline and the Main and High streams that keep to those tools)
+is decoded by the port's own decoder (``native.H264Decoder``), VP8 (every
+version and feature of RFC 6386) by another (``native.Vp8Decoder``), VP9
+profile 0 (8-bit 4:2:0) by another (``native.Vp9Decoder``) and MPEG-4 Part 2 (Simple and Advanced
 Simple Profile: B-VOPs, MPEG quantisation, quarter-sample vectors, and
 the XviD IDCT and encoder workarounds FFmpeg keys on user data and the
 fourcc; not interlace or global motion compensation) by another
 (``native.Mpeg4Decoder``), each to what ``cv2.VideoCapture``'s FFmpeg
 backend returns, frames in display order.
 
-Another container, another codec (VP9 profiles 1-3, AV1, H.264, HEVC, ...), a
+Another container, another codec (HEVC, AV1, VP9 profiles 1-3, ...) or what a
+decoder does not decode (H.264's CABAC, B slices, interlace, ...), a
 Matroska ContentEncoding and a webcam index raise ValueError, naming what
 is missing.
 
@@ -58,9 +63,9 @@ WRITES = (".mp4", ".mov", ".avi")  # the containers the port writes, MPEG-4 Part
 CONTAINERS = {".mkv": "Matroska (.mkv)", ".webm": "WebM (.webm)"}  # read, not written
 READERS = {".avi": AviReader, ".mp4": Mp4Reader, ".mov": Mp4Reader, ".mkv": MkvReader,
            ".webm": MkvReader}
-READS = ("MPEG-4 Part 2 or Motion-JPEG video in .avi files, MPEG-4 Part 2, VP9 or Motion-JPEG "
-         "video in .mp4 and .mov files, and VP8, VP9, MPEG-4 Part 2 or Motion-JPEG video in "
-         ".mkv and .webm files")
+READS = ("H.264, MPEG-4 Part 2 or Motion-JPEG video in .avi files, H.264, MPEG-4 Part 2, VP9 "
+         "or Motion-JPEG video in .mp4 and .mov files, and H.264, VP8, VP9, MPEG-4 Part 2 or "
+         "Motion-JPEG video in .mkv and .webm files")
 
 
 def check_source(source) -> None:
@@ -140,8 +145,8 @@ def iterate_frames(path: str, every: int = 1, rgb: bool = True
                    ) -> Iterator[Tuple[int, np.ndarray]]:
     """Yield (frame_index, frame) of every ``every``-th frame in display
     order, RGB, or BGR (as OpenCV returns it) when ``rgb`` is False.  JPEG
-    frames skipped by ``every`` are not decoded; an MPEG-4, VP8 or VP9 stream is
-    decoded whole, each inter frame needing the pictures before it."""
+    frames skipped by ``every`` are not decoded; an H.264, MPEG-4, VP8 or VP9
+    stream is decoded whole, each inter frame needing the pictures before it."""
     with open_video(path) as video:
         for idx, frame in video.frames(every):
             yield idx, frame if rgb else np.ascontiguousarray(frame[..., ::-1])
