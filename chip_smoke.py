@@ -411,6 +411,12 @@ H264_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "h264_640x480.mp4")
 H264_DIGESTS = H264_FIXTURE[:-len(".mp4")] + ".json"
 H264_FRAMES = 48
+# ... and the High profile H.264 Matroska file: CABAC, the 8x8 transform
+# (intra 8x8 and 8x8 inter residuals) and PPS scaling lists, from the same
+# encoder, two slices a picture (tests/fixtures/make_h264_cabac_fixture.py).
+H264_CABAC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                  "fixtures", "h264_cabac_640x480.mkv")
+H264_CABAC_DIGESTS = H264_CABAC_FIXTURE[:-len(".mkv")] + ".json"
 # Every drawn _det.mp4 (MPEG-4 Part 2 from the port's encoder): each frame's
 # PSNR against the drawn frame is at least this, a floor that a wrong colour
 # conversion or a broken decode falls far below.  tests/test_torch_mpeg4_enc.py
@@ -4063,7 +4069,9 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
     (``vp9``): the committed 640x480 VP9 fixture decoded to its digests, its
     reader's rates, and one not-drawn run (``vp9_video_native``) with the
     card's idle share over another; ``vp9.extra_s`` is what it adds.  Then
-    H.264 in MP4 (``h264``) the same way (``h264_video_native``)."""
+    H.264 in MP4 (``h264``, CAVLC) the same way (``h264_video_native``),
+    and High profile H.264 in Matroska (``h264_cabac``: CABAC, the 8x8
+    transform, scaling lists; ``h264_cabac_video_native``)."""
     import json
 
     from viddet_tpu_torch.native import Vp8Decoder
@@ -4120,6 +4128,7 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
                             "webm", out)
     launches.update(vp9_part(dev, kernels, model, classes, predictor, out))
     launches.update(h264_part(dev, kernels, model, classes, predictor, out))
+    launches.update(h264_part(dev, kernels, model, classes, predictor, out, cabac=True))
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
@@ -4185,32 +4194,38 @@ def vp9_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
     return launches
 
 
-def h264_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
-    """The H.264 fixture: probed, decoded (CAVLC I and P pictures, two
-    slices a picture, the loop filter) to the SHA-256 of each Y plane and RGB
-    frame OpenCV's FFmpeg gave, the reader's frames/s on one host thread
-    (demux + decode + RGB, decode + RGB, decode alone), then
-    ``fixture_native_run`` (``h264_video_native``) with the card's idle
-    share.  Into ``phase_out["h264"]``.  Returns the launches."""
+def h264_part(dev, kernels, model, classes, predictor, phase_out: dict,
+              cabac: bool = False) -> dict:
+    """An H.264 fixture: the MP4 (CAVLC I and P pictures), or with ``cabac``
+    the Matroska file (CABAC, the 8x8 transform, intra 8x8, PPS scaling
+    lists); two slices a picture, the loop filter on.  Probed, decoded to the
+    SHA-256 of each Y plane and RGB frame OpenCV's FFmpeg gave, the reader's
+    frames/s on one host thread (demux + decode + RGB, decode + RGB, decode
+    alone), then ``fixture_native_run`` (``h264_video_native`` /
+    ``h264_cabac_video_native``) with the card's idle share.  Into
+    ``phase_out["h264"]`` / ``["h264_cabac"]``.  Returns the launches."""
     import json
 
     from viddet_tpu_torch.native import H264Decoder
+    from viddet_tpu_torch.native.mkv import MkvReader
     from viddet_tpu_torch.native.mp4 import Mp4Reader
     from viddet_tpu_torch.utils.video import iterate_frames, probe_video
 
     t_part = time.perf_counter()
-    out = phase_out["h264"] = {"fixture": os.path.relpath(
-        H264_FIXTURE, os.path.dirname(os.path.abspath(__file__)))}
-    with open(H264_DIGESTS) as f:
+    key = "h264_cabac" if cabac else "h264"
+    fixture = H264_CABAC_FIXTURE if cabac else H264_FIXTURE
+    out = phase_out[key] = {"fixture": os.path.relpath(
+        fixture, os.path.dirname(os.path.abspath(__file__)))}
+    with open(H264_CABAC_DIGESTS if cabac else H264_DIGESTS) as f:
         digests = json.load(f)["frames"]
-    info = probe_video(H264_FIXTURE)
+    info = probe_video(fixture)
     check(info == {"fps": float(VIDEO_FPS), "frame_count": H264_FRAMES, "width": CODEC_W,
-                   "height": CODEC_H}, f"the H.264 fixture probes as written: {info}")
-    with Mp4Reader(H264_FIXTURE) as reader:
-        check(reader.index.codec == "h264", "the H.264 fixture is H.264")
+                   "height": CODEC_H}, f"the {key} fixture probes as written: {info}")
+    with (MkvReader if cabac else Mp4Reader)(fixture) as reader:
+        check(reader.index.codec == "h264", f"the {key} fixture is H.264")
         config = reader.index.config
         samples = [reader.sample(i) for i in range(len(reader.index.offsets))]
-    decoder = H264Decoder(config, H264_FIXTURE)
+    decoder = H264Decoder(config, fixture)
     frames = []
     for sample in samples:
         frame = decoder.decode(sample)
@@ -4218,20 +4233,22 @@ def h264_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
             continue
         i = len(frames)
         check(i < H264_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
-              f"h264 frame {i}: the Y plane's digest is OpenCV's")
-        check(frame_digest(frame) == digests[i]["rgb"], f"h264 frame {i}: the RGB digest is "
+              f"{key} frame {i}: the Y plane's digest is OpenCV's")
+        check(frame_digest(frame) == digests[i]["rgb"], f"{key} frame {i}: the RGB digest is "
                                                         "OpenCV's")
         frames.append(frame)
     features = decoder.features
     decoder.close()
-    check(len(frames) == H264_FRAMES, f"the H.264 fixture shows {len(frames)} frames")
-    need = {"IDR picture", "P slices", "intra 4x4", "intra 16x16", "skipped macroblocks",
-            "P 16x16", "several slices"}
-    check(need <= features, f"the H.264 fixture uses {sorted(need - features)}")
+    check(len(frames) == H264_FRAMES, f"the {key} fixture shows {len(frames)} frames")
+    need = {"IDR picture", "P slices", "intra 16x16", "skipped macroblocks", "P 16x16",
+            "several slices"} | ({"CABAC", "8x8 transform", "intra 8x8", "PPS scaling matrices",
+                                  "default scaling lists", "scaling fall-back"} if cabac
+                                 else {"intra 4x4"})
+    check(need <= features, f"the {key} fixture uses {sorted(need - features)}")
     out.update(digests_equal=H264_FRAMES, samples=len(samples), features=sorted(features))
     rates = {}
     t = time.perf_counter()
-    check(sum(1 for _ in iterate_frames(H264_FIXTURE)) == H264_FRAMES, "h264 iterate_frames: 48")
+    check(sum(1 for _ in iterate_frames(fixture)) == H264_FRAMES, f"{key} iterate_frames: 48")
     rates["demux_decode_rgb"] = H264_FRAMES / (time.perf_counter() - t)
     for what, rgb in (("decode_rgb", True), ("decode", False)):
         decoder = H264Decoder(config)
@@ -4242,7 +4259,7 @@ def h264_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
         decoder.close()
     out["reader_frames_per_s"] = rates  # one host thread
     launches = fixture_native_run(dev, kernels, model, classes, predictor, frames, out,
-                                  H264_FIXTURE, "h264_video_native", idle=True)
+                                  fixture, f"{key}_video_native", idle=True)
     out["extra_s"] = time.perf_counter() - t_part
     return launches
 

@@ -31,14 +31,16 @@ WIDTH, HEIGHT, FRAMES, GOP, QP = 640, 480, 48, 12, 28
 
 
 def plain_stream(frames_rgb, width: int, height: int, gop: int, qp: int, slices: int = 2,
-                 refs: int = 2):
+                 refs: int = 2, sps=None, pps=None):
     """Access units (NAL units each) of the plain encoder over
     ``frames_rgb``, each P picture predicted from the port decoder's planes
-    of the picture before; the SPS and PPS lead the first."""
+    of the picture before; the SPS and PPS (``sps`` / ``pps``, or Baseline
+    CAVLC ones) lead the first."""
     from viddet_tpu_torch.native import H264Decoder
 
-    writer = W.Writer(width, height, seed=0, sps=W.Sps(max_num_ref_frames=refs, level=30),
-                      pps=W.Pps(init_qp=qp))
+    writer = W.Writer(width, height, seed=0,
+                      sps=sps or W.Sps(max_num_ref_frames=refs, level=30),
+                      pps=pps or W.Pps(init_qp=qp))
     decoder = H264Decoder(b"", "plain encoder")
     units = []
     for i, rgb in enumerate(frames_rgb):

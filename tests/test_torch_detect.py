@@ -106,13 +106,13 @@ def test_detect_cli_no_draw_writes_text_only(image_dir, weights, tmp_path):
 
 @pytest.mark.parametrize("source", ["clip.mp4", "0", "a.mp4,b.avi", "CLIP.MKV"])
 def test_unreadable_video_input_raises_naming_what_is_missing(source, tmp_path):
-    """A CABAC H.264 track and a VP9 profile 1 (4:4:4) track need FFmpeg,
+    """A High 10 H.264 track and a VP9 profile 1 (4:4:4) track need FFmpeg,
     and a webcam index capture support, none of which the port has (it reads
-    CAVLC H.264, MPEG-4 Part 2, VP9 profile 0 and Motion-JPEG in the
+    8-bit H.264, MPEG-4 Part 2, VP9 profile 0 and Motion-JPEG in the
     containers it knows)."""
     missing = "capture" if source == "0" else "FFmpeg"
-    if ".mp4" in source:  # each .mp4 a CABAC H.264 one
-        missing = "H.264.*CABAC.*FFmpeg"
+    if ".mp4" in source:  # each .mp4 a High 10 H.264 one
+        missing = "H.264.*bit depth.*FFmpeg"
         source = ",".join(h264_mp4(str(tmp_path / "in" / s)) if s.endswith(".mp4") else s
                           for s in source.split(","))
     if source == "CLIP.MKV":  # a Matroska file of a VP9 profile 1 (4:4:4) track

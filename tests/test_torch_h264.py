@@ -300,13 +300,9 @@ def _in_band(path, units):
 
 
 PARAMETER_REFUSALS = {
-    "CABAC": (W.Sps(profile=77), W.Pps(cabac=1), "CABAC"),
     "FMO": (W.Sps(), W.Pps(slice_groups=2), "slice groups \\(FMO"),
     "weighted prediction": (W.Sps(profile=77), W.Pps(weighted_pred=1), "weighted prediction"),
     "redundant pictures": (W.Sps(), W.Pps(redundant=1), "redundant pictures"),
-    "8x8 transform": (W.Sps(profile=100), W.Pps(transform_8x8=1), "8x8 transform"),
-    "PPS scaling matrices": (W.Sps(profile=100), W.Pps(scaling=1), "scaling matrices"),
-    "SPS scaling matrices": (W.Sps(profile=100, scaling=1), W.Pps(), "scaling matrices"),
     "4:4:4": (W.Sps(profile=244, chroma_format=3), W.Pps(), "chroma format 4:4:4"),
     "4:2:2": (W.Sps(profile=122, chroma_format=2), W.Pps(), "chroma format 4:2:2"),
     "monochrome": (W.Sps(profile=100, chroma_format=0), W.Pps(), "4:0:0"),

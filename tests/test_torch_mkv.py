@@ -44,7 +44,7 @@ import viddet_tpu.native as jax_native
 import viddet_tpu_torch.cli.detect as torch_detect
 import viddet_tpu_torch.cli.extract_frames as torch_extract
 import viddet_tpu_torch.infer.multistream as torch_multistream
-from tests.torch_h264_writer import cabac_track
+from tests.torch_h264_writer import high10_track
 from tests.fixtures.make_mp4_fixture import lavc_stream, moving_scene
 from tests.test_torch_mp4 import refused, tiny_weights  # noqa: F401
 from tests.test_torch_stream import SIZE, twin_models
@@ -217,8 +217,8 @@ def test_mjpeg_in_matroska_equals_cv2_imdecode(files):
 REFUSALS = {
     "VP9": (dict(codec="V_VP9"), "VP9 profile 1 .*FFmpeg"),  # 4:4:4; profile 0 is read
     "AV1": (dict(codec="V_AV1"), "AV1.*FFmpeg"),
-    "H.264": (dict(codec="V_MPEG4/ISO/AVC", private=cabac_track(W, H)[0]),
-              "H.264.*CABAC.*FFmpeg"),
+    "H.264": (dict(codec="V_MPEG4/ISO/AVC", private=high10_track(W, H)[0]),
+              "H.264.*bit depth.*FFmpeg"),
     "HEVC": (dict(codec="V_MPEGH/ISO/HEVC"), "HEVC.*FFmpeg"),
     "Theora": (dict(codec="V_THEORA"), "Theora.*FFmpeg"),
     "VfW H264": (dict(codec="V_MS/VFW/FOURCC", private=struct.pack("<IiiHH4s", 40, W, H, 1, 24,

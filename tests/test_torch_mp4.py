@@ -46,7 +46,7 @@ from tests.test_torch_mpeg4 import write_clip
 from tests.test_torch_stream import SIZE, twin_models
 from tests.test_torch_video import photo_frames, write_video
 from tests.test_torch_video_stream import CLASSES, CPU, _cli, assert_txt_equal, transforms
-from tests.torch_h264_writer import cabac_track
+from tests.torch_h264_writer import high10_track
 from tests.torch_mp4_helpers import cv2_views, remux, write_mp4
 from tests.torch_video_helpers import cv2_props
 from viddet_tpu.core.precision import FLOAT32_POLICY as JAX_F32
@@ -195,15 +195,15 @@ def refused(path: str, tmp_path, match: str) -> None:
         assert not out.exists()
 
 
-@pytest.mark.parametrize("kind,named", [(b"avc1", "H.264.*CABAC"), (b"hvc1", "HEVC"),
+@pytest.mark.parametrize("kind,named", [(b"avc1", "H.264.*bit depth"), (b"hvc1", "HEVC"),
                                         (b"av01", "AV1"), (b"vp09", "VP9 profile 1"),
                                         (b"mp4v", "object type is 0x6a")])
 def test_other_codecs_raise_naming_them(kind, named, tmp_path):
     # a vp09 track's vpcC: profile 1, 8-bit, 4:4:4 (profile 0 is read); an
-    # avc1 track's avcC: a CABAC picture parameter set (CAVLC is read)
+    # avc1 track's avcC: a High 10 sequence parameter set (8-bit is read)
     config = bytes([1, 10, 0x86, 1, 1, 1, 0, 0]) if kind == b"vp09" else b""
     if kind == b"avc1":
-        config = cabac_track(64, 48)[0]
+        config = high10_track(64, 48)[0]
     path = write_mp4(str(tmp_path / "x.mp4"), [b"\0\0\0\x05\x65\x88\x80\x10\x00"] * 3, 64, 48,
                      kind=kind, object_type=0x6A, config=config)
     refused(path, tmp_path, f"{named}.*FFmpeg")

@@ -12,7 +12,7 @@ on the CPU.
   lowered to a few KB), open in both cv2 backends with the frame count,
   size and fps (relative 1e-3) they were written with.
 * A truncated file reads to its last whole frame; an ``.avi`` of another
-  codec (HuffYUV), a CABAC H.264 ``.mp4`` and ``.mkv``, a ``.webm`` of VP9
+  codec (HuffYUV), a High 10 H.264 ``.mp4`` and ``.mkv``, a ``.webm`` of VP9
   profile 1 and a webcam index raise ValueError naming what is missing (MPEG-4 Part 2 AVIs read:
   ``tests/test_torch_avi_mpeg4.py``).  ``VideoWriter`` writes MPEG-4 Part 2
   into ``.avi`` and ``.mp4`` at OpenCV's rate, refuses ``.mkv`` and
@@ -31,7 +31,7 @@ import cv2
 import numpy as np
 import pytest
 
-from tests.torch_mkv_helpers import h264_cabac_mkv, vp9_mkv
+from tests.torch_mkv_helpers import h264_high10_mkv, vp9_mkv
 from tests.torch_mp4_helpers import h264_mp4
 from viddet_tpu_torch.data.transforms import ValTransform
 from viddet_tpu_torch.infer.stream import FrameSource, NativeFrameSource
@@ -224,11 +224,11 @@ def test_non_jpeg_avi_raises_naming_the_fourcc_and_ffmpeg(tmp_path):
 def test_other_sources_raise_naming_what_is_missing(source, tmp_path):
     missing = "capture" if isinstance(source, int) else "FFmpeg"
     path = source
-    if source == "clip.mp4":  # the port reads MP4 and H.264, but not CABAC
-        path, missing = h264_mp4(str(tmp_path / "in" / source)), "H.264.*CABAC.*FFmpeg"
+    if source == "clip.mp4":  # the port reads MP4 and H.264, but not High 10
+        path, missing = h264_mp4(str(tmp_path / "in" / source)), "H.264.*bit depth.*FFmpeg"
     if source == "CLIP.MKV":  # nor in Matroska
-        path = h264_cabac_mkv(str(tmp_path / "in" / source))
-        missing = "H.264.*CABAC.*FFmpeg"
+        path = h264_high10_mkv(str(tmp_path / "in" / source))
+        missing = "H.264.*bit depth.*FFmpeg"
     if source == "a.webm":  # it reads WebM, but not a VP9 profile 1 (4:4:4) track
         path, missing = vp9_mkv(str(tmp_path / "in" / source)), "VP9.*FFmpeg"
     for fn in (probe_video, lambda p: list(iterate_frames(p)),

@@ -268,7 +268,7 @@ def test_open_sources_closes_the_opened_ones_when_one_fails(videos, monkeypatch,
     closed = []
     original = FrameSource.close
     monkeypatch.setattr(FrameSource, "close", lambda self: closed.append(1) or original(self))
-    with pytest.raises(ValueError, match="H.264.*CABAC.*FFmpeg"):
+    with pytest.raises(ValueError, match="H.264.*bit depth.*FFmpeg"):
         open_sources([videos[0], h264_mp4(str(tmp_path / "c.mp4"))], ValTransform((SIZE, SIZE)))
     assert closed == [1]
 

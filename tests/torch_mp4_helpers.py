@@ -166,12 +166,12 @@ def write_mp4(path: str, samples: Sequence[bytes], width: int, height: int, *,
 
 def h264_mp4(path: str) -> str:
     """An MP4 whose one video track is H.264 the port refuses: an ``avc1``
-    sample entry whose avcC's PPS selects CABAC, and three samples of a few
-    bytes each (``torch_h264_writer.cabac_track``)."""
-    from tests.torch_h264_writer import cabac_track
+    sample entry whose avcC's SPS is High 10, and three samples of a few
+    bytes each (``torch_h264_writer.high10_track``)."""
+    from tests.torch_h264_writer import high10_track
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    config, samples = cabac_track(64, 48)
+    config, samples = high10_track(64, 48)
     return write_mp4(path, samples, 64, 48, kind=b"avc1", config=config)
 
 

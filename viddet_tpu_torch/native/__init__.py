@@ -21,7 +21,7 @@ For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
 bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video and
 ``Mpeg4Encoder`` encodes it (``mpeg4enc.cpp``), ``Vp8Decoder`` decodes
 VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``),
-``H264Decoder`` decodes CAVLC I and P H.264 (``h264.cpp``), and
+``H264Decoder`` decodes I and P H.264, CAVLC or CABAC (``h264.cpp``), and
 ``VideoStream`` reads, decodes and transforms the frames of a Motion-JPEG,
 MPEG-4, VP8, VP9 or H.264 stream (indexed by ``native.avi``, ``native.mp4`` or
 ``native.mkv``) on a C++ thread into a ring of frames.
@@ -187,6 +187,7 @@ def library() -> ctypes.CDLL:
             lib.vd_h264_features.argtypes = [p]
             lib.vd_h264_features.restype = ctypes.c_ulonglong
             lib.vd_h264_info.argtypes = [p, p]
+            lib.vd_h264_contexts.argtypes = [p, p]
             lib.vd_h264_rgb.argtypes = [p, p]
             lib.vd_h264_planes.argtypes = [p, p, p, p]
             lib.vd_h264_free.argtypes = [p]
@@ -815,7 +816,9 @@ H264_FEATURES = {name: 1 << bit for bit, name in enumerate((
     "SEI", "filler data", "other NAL units", "level escapes", "vectors off the frame",
     "chroma QP offset", "second chroma QP offset", "Annex B", "length prefixes", "timing info",
     "bitstream restriction", "parameter set ids", "QP deltas", "quarter-sample vectors",
-    "level prefix 16"))}
+    "level prefix 16", "CABAC", "8x8 transform", "intra 8x8", "SPS scaling matrices",
+    "PPS scaling matrices", "default scaling lists", "I_PCM in CABAC", "scaling fall-back"))}
+H264_CONTEXTS = 460  # h264.h's kContexts: the CABAC context variables I / P frame coding uses
 
 
 class _VpxDecoder:
@@ -914,17 +917,17 @@ class Vp9Decoder(_VpxDecoder):
 
 
 class H264Decoder(_VpxDecoder):
-    """An H.264 decoder of the port's own (``h264.cpp``): CAVLC I and P
-    pictures, progressive, 8-bit 4:2:0, 4x4 transforms and flat scaling, bit
-    for bit FFmpeg's.  ``config`` is the track's avcC (its NAL length size
+    """An H.264 decoder of the port's own (``h264.cpp``): I and P pictures,
+    CAVLC or CABAC, progressive, 8-bit 4:2:0, the 4x4 and 8x8 transforms and
+    scaling matrices, bit for bit FFmpeg's.  ``config`` is the track's avcC (its NAL length size
     and parameter sets); for Annex B samples (an AVI's), parameter sets with
     start codes or nothing.
     ``decode(sample)`` decodes one access unit and returns the (H, W, 3)
     uint8 RGB picture ``cv2.VideoCapture``'s FFmpeg backend returns, cropped
     and converted with the VUI's colour space and range, or None for a
     sample of parameter sets or SEI alone; pictures leave in decode order.
-    What the port does not decode (CABAC, B slices, interlace, the 8x8
-    transform, ...) and a damaged sample raise ValueError naming it.
+    What the port does not decode (B slices, interlace, weighted
+    prediction, ...) and a damaged sample raise ValueError naming it.
     ``probe(sample)`` reads a sample's parameter sets and slice headers
     only, raising for what ``decode`` would refuse there; ``info`` is the
     active SPS's VUI (matrix_coefficients, full range, num_units_in_tick,
@@ -951,6 +954,14 @@ class H264Decoder(_VpxDecoder):
         if rc < 0:
             raise ValueError(f"{name or self.name}: H.264: {_message(err)}")
         return bool(rc)
+
+    @property
+    def contexts(self) -> np.ndarray:
+        """(``H264_CONTEXTS``,) bool: the CABAC context variables (by
+        ctxIdx) that have decoded a bin since the decoder was made."""
+        out = np.zeros(H264_CONTEXTS, np.uint8)
+        self._call("contexts", self._handle, out.ctypes.data)
+        return out.astype(bool)
 
     @property
     def info(self) -> dict:

@@ -85,7 +85,7 @@
 //           one), vd_vp9_size, vd_vp9_features, vd_vp9_rgb, vd_vp9_planes,
 //           vd_vp9_free
 //
-// H.264 video (CAVLC I and P pictures: an MP4 / Matroska track configured by
+// H.264 video (I and P pictures, CAVLC or CABAC: an MP4 / Matroska track configured by
 // its avcC, or Annex B samples of an AVI) is decoded by h264.cpp
 // (vd_h264::Decoder) through the same step, with the VUI's colour space and
 // range:
@@ -97,7 +97,8 @@
 //           slice headers only, for the refusals before any frame: 1 when
 //           the sample holds a picture
 //   vd_h264_size, vd_h264_features (64 bits), vd_h264_info (matrix, full
-//           range, num_units_in_tick, time_scale), vd_h264_rgb,
+//           range, num_units_in_tick, time_scale), vd_h264_contexts (the
+//           CABAC contexts used, vd_h264::kContexts flags), vd_h264_rgb,
 //           vd_h264_planes, vd_h264_free
 //
 // Video frames (of a Motion-JPEG AVI, MP4 or Matroska file, or of an MPEG-4,
@@ -3364,6 +3365,10 @@ void vd_h264_info(void* handle, unsigned* out) {
   out[1] = d->full_range();
   out[2] = d->num_units_in_tick();
   out[3] = d->time_scale();
+}
+
+void vd_h264_contexts(void* handle, uint8_t* out) {
+  static_cast<vd_h264::Decoder*>(handle)->contexts(out);
 }
 
 // The picture shown last, as RGB (width x height x 3); 0, or -1 before any.

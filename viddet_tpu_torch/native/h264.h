@@ -1,8 +1,9 @@
-// The port's H.264 decoder (h264.cpp): CAVLC I and P pictures, progressive,
-// 8-bit 4:2:0, 4x4 transforms and flat scaling, as ITU-T H.264 (ISO/IEC
-// 14496-10) defines them, which is bit for bit FFmpeg's on the planes.
-// Constrained Baseline, Baseline without FMO, ASO or redundant pictures, and
-// Main and High streams that keep to those tools.  No library beyond the
+// The port's H.264 decoder (h264.cpp): I and P pictures, CAVLC or CABAC,
+// progressive, 8-bit 4:2:0, the 4x4 and 8x8 transforms (intra 8x8 prediction
+// included) and scaling matrices, as ITU-T H.264 (ISO/IEC 14496-10) defines
+// them, which is bit for bit FFmpeg's on the planes.  Constrained Baseline,
+// Baseline without FMO, ASO or redundant pictures, and Main and High streams
+// without B slices, interlace or weighted prediction.  No library beyond the
 // C++ standard one.
 #pragma once
 
@@ -79,7 +80,19 @@ enum Feature : uint64_t {
   kQpDelta = 1ull << 53,         // mb_qp_delta other than 0
   kFractionalMv = 1ull << 54,    // quarter-sample motion vectors
   kLevelPrefix16 = 1ull << 55,   // a level_prefix of 16 or more (High profiles)
+  kCabac = 1ull << 56,           // CABAC slices (entropy_coding_mode_flag 1)
+  kTransform8x8 = 1ull << 57,    // macroblocks with transform_size_8x8_flag 1
+  kIntra8x8 = 1ull << 58,        // I_NxN macroblocks with the 8x8 transform (Intra_8x8)
+  kScalingSps = 1ull << 59,      // scaling matrices in the sequence parameter set
+  kScalingPps = 1ull << 60,      // scaling matrices in the picture parameter set
+  kScalingDefault = 1ull << 61,  // a default scaling list (useDefaultScalingMatrixFlag or rule A)
+  kPcmCabac = 1ull << 62,        // I_PCM in a CABAC slice (the engine initialised after it)
+  kScalingFallback = 1ull << 63,  // a scaling list taken from another by fall-back rule A or B
 };
+
+// The CABAC context variables a frame-coded I / P 4:2:0 stream can use:
+// ctxIdx below kContexts (9.3.1.1).
+constexpr int kContexts = 460;
 
 class Decoder {
  public:
@@ -121,6 +134,9 @@ class Decoder {
   // timing info).
   uint32_t num_units_in_tick() const;
   uint32_t time_scale() const;
+  // Which CABAC context variables (ctxIdx 0 .. kContexts - 1) the decoder
+  // has read a bin with since it was made: `out` takes kContexts flags.
+  void contexts(uint8_t* out) const;
 
  private:
   struct Impl;
