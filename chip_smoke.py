@@ -80,7 +80,7 @@ Phases, each printed as one JSON line:
             result equal to the direct predictor on the batch that held it;
             frames/s and clips/s beside the direct step, and the card's idle
             share over one window of each;
-12. video:  two seeded 640x480 Motion-JPEG AVIs of 256 frames at 25 fps
+12. video:  two seeded 640x480 Motion-JPEG AVIs of 128 frames at 25 fps
             written by ``native.avi.AviWriter``; with the main path's
             model at batch 8, ``stream_detect_video`` drawing and saving
             detections (``FrameSource``), again without drawing
@@ -370,7 +370,7 @@ DETECT_STILL, DETECT_SINGLE = "bmp8_320x240.bmp", "webp_lossy_640x480.webp"
 # Random weights score ~100 boxes a frame above 0.5; the threshold is the
 # median over the first batch of each frame's VIDEO_BOXES-th score, so a
 # drawn frame holds about as many boxes as a trained model's would.
-VIDEO_FRAMES, VIDEO_FPS, VIDEO_B, VIDEO_EVERY, VIDEO_SEED = 256, 25, 8, 4, 9
+VIDEO_FRAMES, VIDEO_FPS, VIDEO_B, VIDEO_EVERY, VIDEO_SEED = 128, 25, 8, 4, 9
 VIDEO_BOXES, VIDEO_IDLE_FRAMES = 8, 64
 # The MP4 phase: the committed mp4v fixture (tests/fixtures/make_mp4_fixture.py)
 # and its OpenCV digests; an AVI of its frames split every MP4_SEGMENT_BYTES
@@ -417,6 +417,13 @@ H264_FRAMES = 48
 H264_CABAC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                                   "fixtures", "h264_cabac_640x480.mkv")
 H264_CABAC_DIGESTS = H264_CABAC_FIXTURE[:-len(".mkv")] + ".json"
+# ... and the B-frame H.264 MP4: a High profile CABAC B pyramid with spatial
+# and temporal direct prediction, explicit weights (P and B) in the first IDR
+# period and implicit ones in the second, bitstream_restriction, ctts and the
+# shifted edit list (tests/fixtures/make_h264_bframes_fixture.py).
+H264_BFRAMES_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                    "fixtures", "h264_bframes_640x480.mp4")
+H264_BFRAMES_DIGESTS = H264_BFRAMES_FIXTURE[:-len(".mp4")] + ".json"
 # Every drawn _det.mp4 (MPEG-4 Part 2 from the port's encoder): each frame's
 # PSNR against the drawn frame is at least this, a floor that a wrong colour
 # conversion or a broken decode falls far below.  tests/test_torch_mpeg4_enc.py
@@ -3310,7 +3317,7 @@ def direct_frames_per_s(infer, xs, dev) -> float:
 
 
 def video_phase(dev, kernels, model, classes, predictor) -> dict:
-    """Two seeded 640x480 Motion-JPEG AVIs (256 frames, 25 fps) written by
+    """Two seeded 640x480 Motion-JPEG AVIs (128 frames, 25 fps) written by
     ``AviWriter``, read back by the port's reader; then with the main
     path's model at batch 8 ``stream_detect_video`` (drawn, through
     ``FrameSource``; then not drawn, through ``NativeFrameSource``),
@@ -4070,8 +4077,10 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
     reader's rates, and one not-drawn run (``vp9_video_native``) with the
     card's idle share over another; ``vp9.extra_s`` is what it adds.  Then
     H.264 in MP4 (``h264``, CAVLC) the same way (``h264_video_native``),
-    and High profile H.264 in Matroska (``h264_cabac``: CABAC, the 8x8
-    transform, scaling lists; ``h264_cabac_video_native``)."""
+    High profile H.264 in Matroska (``h264_cabac``: CABAC, the 8x8
+    transform, scaling lists; ``h264_cabac_video_native``), and B-frame
+    H.264 in MP4 (``h264_bframes``: a B pyramid, direct and weighted
+    prediction, FFmpeg's output order; ``h264_bframes_video_native``)."""
     import json
 
     from viddet_tpu_torch.native import Vp8Decoder
@@ -4127,8 +4136,8 @@ def webm_phase(dev, kernels, model, classes, predictor) -> dict:
     launches = fixture_runs(dev, kernels, model, classes, predictor, WEBM_FIXTURE, frames,
                             "webm", out)
     launches.update(vp9_part(dev, kernels, model, classes, predictor, out))
-    launches.update(h264_part(dev, kernels, model, classes, predictor, out))
-    launches.update(h264_part(dev, kernels, model, classes, predictor, out, cabac=True))
+    for kind in ("h264", "h264_cabac", "h264_bframes"):
+        launches.update(h264_part(dev, kernels, model, classes, predictor, out, kind))
     out.update(all_equal_direct=True, phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches
@@ -4194,67 +4203,78 @@ def vp9_part(dev, kernels, model, classes, predictor, phase_out: dict) -> dict:
     return launches
 
 
-def h264_part(dev, kernels, model, classes, predictor, phase_out: dict,
-              cabac: bool = False) -> dict:
-    """An H.264 fixture: the MP4 (CAVLC I and P pictures), or with ``cabac``
+H264_PARTS = {  # fixture, digests, what each holds beyond I / P basics
+    "h264": (H264_FIXTURE, H264_DIGESTS, {"intra 4x4", "P 16x16", "skipped macroblocks"}),
+    "h264_cabac": (H264_CABAC_FIXTURE, H264_CABAC_DIGESTS,
+                   {"CABAC", "8x8 transform", "intra 8x8", "PPS scaling matrices",
+                    "default scaling lists", "scaling fall-back", "P 16x16",
+                    "skipped macroblocks"}),
+    "h264_bframes": (H264_BFRAMES_FIXTURE, H264_BFRAMES_DIGESTS,
+                     {"CABAC", "8x8 transform", "B slices", "spatial direct", "temporal direct",
+                      "explicit weights", "implicit weights", "reference B pictures",
+                      "reordered output", "bi-prediction", "B_Skip", "bitstream restriction"}),
+}
+
+
+def h264_part(dev, kernels, model, classes, predictor, phase_out: dict, key: str) -> dict:
+    """An H.264 fixture of ``H264_PARTS``: the MP4 (CAVLC I and P pictures),
     the Matroska file (CABAC, the 8x8 transform, intra 8x8, PPS scaling
-    lists); two slices a picture, the loop filter on.  Probed, decoded to the
-    SHA-256 of each Y plane and RGB frame OpenCV's FFmpeg gave, the reader's
-    frames/s on one host thread (demux + decode + RGB, decode + RGB, decode
-    alone), then ``fixture_native_run`` (``h264_video_native`` /
-    ``h264_cabac_video_native``) with the card's idle share.  Into
-    ``phase_out["h264"]`` / ``["h264_cabac"]``.  Returns the launches."""
+    lists) or the B-frame MP4 (a CABAC B pyramid, spatial and temporal
+    direct, explicit and implicit weights, pictures reordered); two slices a
+    picture, the loop filter on.  Probed, decoded (its last pictures flushed)
+    to the SHA-256 of each Y plane and RGB frame OpenCV's FFmpeg gave, the
+    reader's frames/s on one host thread (demux + decode + RGB, decode + RGB,
+    decode alone), then ``fixture_native_run`` (``{key}_video_native``) with
+    the card's idle share.  Into ``phase_out[key]``.  Returns the
+    launches."""
     import json
 
     from viddet_tpu_torch.native import H264Decoder
-    from viddet_tpu_torch.native.mkv import MkvReader
-    from viddet_tpu_torch.native.mp4 import Mp4Reader
-    from viddet_tpu_torch.utils.video import iterate_frames, probe_video
+    from viddet_tpu_torch.utils.video import iterate_frames, open_video, probe_video
 
     t_part = time.perf_counter()
-    key = "h264_cabac" if cabac else "h264"
-    fixture = H264_CABAC_FIXTURE if cabac else H264_FIXTURE
+    fixture, digest_file, need = H264_PARTS[key]
     out = phase_out[key] = {"fixture": os.path.relpath(
         fixture, os.path.dirname(os.path.abspath(__file__)))}
-    with open(H264_CABAC_DIGESTS if cabac else H264_DIGESTS) as f:
+    with open(digest_file) as f:
         digests = json.load(f)["frames"]
     info = probe_video(fixture)
     check(info == {"fps": float(VIDEO_FPS), "frame_count": H264_FRAMES, "width": CODEC_W,
                    "height": CODEC_H}, f"the {key} fixture probes as written: {info}")
-    with (MkvReader if cabac else Mp4Reader)(fixture) as reader:
+    with open_video(fixture) as reader:
         check(reader.index.codec == "h264", f"the {key} fixture is H.264")
-        config = reader.index.config
+        config, reorder = reader.index.config, reader.index.reorder
         samples = [reader.sample(i) for i in range(len(reader.index.offsets))]
-    decoder = H264Decoder(config, fixture)
+    decoder = H264Decoder(config, fixture, reorder)
     frames = []
-    for sample in samples:
-        frame = decoder.decode(sample)
-        if frame is None:
-            continue
-        i = len(frames)
-        check(i < H264_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
-              f"{key} frame {i}: the Y plane's digest is OpenCV's")
-        check(frame_digest(frame) == digests[i]["rgb"], f"{key} frame {i}: the RGB digest is "
-                                                        "OpenCV's")
-        frames.append(frame)
+    for sample in samples + [None]:
+        frame = decoder.decode(sample) if sample is not None else decoder.flush()
+        while frame is not None:
+            i = len(frames)
+            check(i < H264_FRAMES and frame_digest(decoder.planes()[0]) == digests[i]["y"],
+                  f"{key} frame {i}: the Y plane's digest is OpenCV's")
+            check(frame_digest(frame) == digests[i]["rgb"], f"{key} frame {i}: the RGB digest "
+                                                            "is OpenCV's")
+            frames.append(frame)
+            frame = decoder.flush() if sample is None else None
     features = decoder.features
     decoder.close()
     check(len(frames) == H264_FRAMES, f"the {key} fixture shows {len(frames)} frames")
-    need = {"IDR picture", "P slices", "intra 16x16", "skipped macroblocks", "P 16x16",
-            "several slices"} | ({"CABAC", "8x8 transform", "intra 8x8", "PPS scaling matrices",
-                                  "default scaling lists", "scaling fall-back"} if cabac
-                                 else {"intra 4x4"})
+    need = need | {"IDR picture", "P slices", "intra 16x16", "several slices"}
     check(need <= features, f"the {key} fixture uses {sorted(need - features)}")
-    out.update(digests_equal=H264_FRAMES, samples=len(samples), features=sorted(features))
+    out.update(digests_equal=H264_FRAMES, samples=len(samples), reorder=reorder,
+               features=sorted(features))
     rates = {}
     t = time.perf_counter()
     check(sum(1 for _ in iterate_frames(fixture)) == H264_FRAMES, f"{key} iterate_frames: 48")
     rates["demux_decode_rgb"] = H264_FRAMES / (time.perf_counter() - t)
     for what, rgb in (("decode_rgb", True), ("decode", False)):
-        decoder = H264Decoder(config)
+        decoder = H264Decoder(config, fixture, reorder)
         t = time.perf_counter()
         for sample in samples:
             decoder.decode(sample, rgb=rgb)
+        while decoder.flush(rgb=rgb) is not None:
+            pass
         rates[what] = H264_FRAMES / (time.perf_counter() - t)
         decoder.close()
     out["reader_frames_per_s"] = rates  # one host thread

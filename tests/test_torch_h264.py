@@ -203,15 +203,17 @@ def avi(path, units, w, h):
 
 def decode_all(path):
     """Each picture's (RGB, Y) through ``H264Decoder`` over the file's
-    samples, and the decoder's features."""
+    samples, in the order shown (the waiting pictures flushed at the end),
+    and the decoder's features."""
     with open_video(path) as video:
         index = video.index
-        decoder = H264Decoder(index.config, path)
+        decoder = H264Decoder(index.config, path, index.reorder)
         out = []
-        for i in range(len(index.offsets)):
-            rgb = decoder.decode(video.sample(i))
-            if rgb is not None:
+        for i in range(len(index.offsets) + 1):
+            rgb = decoder.decode(video.sample(i)) if i < len(index.offsets) else decoder.flush()
+            while rgb is not None:
                 out.append((rgb, decoder.planes()[0]))
+                rgb = decoder.flush() if i == len(index.offsets) else None
     features = decoder.features
     decoder.close()
     return out, features
@@ -301,7 +303,9 @@ def _in_band(path, units):
 
 PARAMETER_REFUSALS = {
     "FMO": (W.Sps(), W.Pps(slice_groups=2), "slice groups \\(FMO"),
-    "weighted prediction": (W.Sps(profile=77), W.Pps(weighted_pred=1), "weighted prediction"),
+    # decoded since B slices and weighted prediction are: the case now holds
+    # its pictures to cv2's
+    "weighted prediction": (W.Sps(profile=77), W.Pps(weighted_pred=1), None),
     "redundant pictures": (W.Sps(), W.Pps(redundant=1), "redundant pictures"),
     "4:4:4": (W.Sps(profile=244, chroma_format=3), W.Pps(), "chroma format 4:4:4"),
     "4:2:2": (W.Sps(profile=122, chroma_format=2), W.Pps(), "chroma format 4:2:2"),
@@ -320,18 +324,34 @@ PARAMETER_REFUSALS = {
 def test_parameter_set_refusals_raise_before_any_frame(case, tmp_path):
     """In an avcC, a tool the decoder does not decode raises on every
     surface before a frame is decoded or anything written, naming it and
-    FFmpeg."""
+    FFmpeg; a tool it now decodes (weighted prediction) gives cv2's
+    pictures."""
     sps, pps, match = PARAMETER_REFUSALS[case]
     sps = W.Sps(**{**sps.__dict__, "mb_w": 3, "mb_h": 2})
     os.makedirs(tmp_path / "in")
+    if match is None:
+        writer = W.Writer(48, 32, seed=1, sps=sps, pps=pps)
+        units = [writer.parameter_sets() + writer.random_picture("IDR")[0]] + [
+            writer.random_picture("P")[0] for _ in range(3)]
+        path = write_mp4(str(tmp_path / "in" / "w.mp4"), [W.length_prefixed(_vcl(u))
+                                                          for u in units], 48, 32,
+                         kind=b"avc1", config=W.avcc([sps.nal()], [pps.nal()]))
+        assert_equal_cv2(path, case, {"explicit weights"}, count=4)
+        return
     path = _mp4_with_sets(str(tmp_path / "in" / "r.mp4"), [sps], [pps])
     refused(path, tmp_path, f"{match}.*FFmpeg")
 
 
 def in_band_refusal(case):
+    """The units and the refusal's message; for what is decoded now (B
+    slices, pictures out of decoding order) the message is None."""
     base = stream(48, 32, 3, 4)
     if case == "B slice":
-        return base[:2] + [[_slice_of_type(1)]], "frame 2: H.264: H.264 B slices.*FFmpeg"
+        writer = W.Writer(48, 32, seed=3, sps=W.Sps(profile=77, poc_type=0, max_num_ref_frames=2))
+        units = [writer.parameter_sets() + writer.random_picture("IDR")[0],
+                 writer.random_picture("P", poc={"lsb": 4})[0],
+                 writer.random_picture("B", poc={"lsb": 2}, ref_idc=0)[0]]
+        return units, None
     if case == "SP slice":
         return base[:2] + [[_slice_of_type(3)]], "frame 2: H.264: H.264 SP slices.*FFmpeg"
     if case == "SI slice":
@@ -347,7 +367,7 @@ def in_band_refusal(case):
         units = [writer.parameter_sets() + writer.random_picture("IDR")[0],
                  writer.random_picture("P", poc={"lsb": 4})[0],
                  writer.random_picture("P", poc={"lsb": 2})[0]]
-        return units, "frame 2: H.264: picture order count 2 follows 4.*B-frame.*FFmpeg"
+        return units, None
     units = [base[0], [u for u in base[1] if u[0] & 31 in (1, 5)] + [W.nal_unit(0, 2, b"\x80")]]
     return units, "frame 1: H.264: H.264 data partitioning.*FFmpeg"
 
@@ -356,24 +376,36 @@ def in_band_refusal(case):
                                   "no IDR first", "pictures out of order",
                                   "data partitioning"])
 def test_in_band_refusals_raise_before_any_frame(case, tmp_path):
-    """In band (an AVI's Annex B samples), a refused slice, a change of size
-    or an order the port does not follow raises before any frame, naming
-    the file and the frame."""
+    """In band (an AVI's Annex B samples), a refused slice or a change of
+    size raises before any frame, naming the file and the frame; B slices
+    and pictures out of decoding order (decoded now) give cv2's pictures in
+    cv2's order."""
     units, match = in_band_refusal(case)
     os.makedirs(tmp_path / "in")
     path = _in_band(str(tmp_path / "in" / "r.avi"), units)
+    if match is None:
+        used = assert_equal_cv2(path, case, count=len(units))
+        assert "reordered output" in used
+        return
     refused(path, tmp_path, match)
 
 
 def test_mp4_composition_offsets_raise_naming_b_frames(tmp_path):
-    units = stream(48, 32, 1, 3)
-    writer = W.Writer(48, 32, seed=1)
+    """Composition offsets ('ctts') and the shifted edit list of B-frames:
+    decoded now, the pictures cv2's, in display order (FFmpeg's reorder
+    depth from the offsets)."""
+    writer = W.Writer(48, 32, seed=1, sps=W.Sps(profile=77, poc_type=0, max_num_ref_frames=2))
+    units = [writer.parameter_sets() + writer.random_picture("IDR")[0],
+             writer.random_picture("P", poc={"lsb": 4})[0],
+             writer.random_picture("B", poc={"lsb": 2}, ref_idc=0)[0]]
     sps, pps = [s.nal() for s in writer.sps], [p.nal() for p in writer.pps]
     samples = [W.length_prefixed([u for u in unit if u[0] & 31 not in (7, 8)]) for unit in units]
     os.makedirs(tmp_path / "in")
     path = write_mp4(str(tmp_path / "in" / "c.mp4"), samples, 48, 32, kind=b"avc1",
                      config=W.avcc(sps, pps), ctts=[512, 1024, 0], edits=[(120, 512, 1)])
-    refused(path, tmp_path, "composition offsets.*B-frames.*FFmpeg")
+    used = assert_equal_cv2(path, "ctts", {"B slices", "reordered output"}, count=3)
+    assert "pictures not shown" not in used
+    assert probe_video(path) == jax_probe_video(path)
 
 
 @pytest.mark.parametrize("damage", ["truncated", "flipped"])

@@ -289,13 +289,18 @@ def test_random_cabac_streams_equal_cv2(seed, tmp_path):
 
 
 def test_random_streams_reach_every_context():
-    """The seeded streams decode a bin with every context variable frame-
-    coded I / P 4:2:0 can reach (and with no other), so a context rule the
-    writer and the decoder share is held to cv2 somewhere."""
+    """The seeded streams (these I / P ones and the CABAC B ones of
+    ``test_torch_h264_bslices``) decode a bin with every context variable
+    frame-coded I / P / B 4:2:0 can reach (and with no other), so a context
+    rule the writer and the decoder share is held to cv2 somewhere."""
+    from tests.test_torch_h264_bslices import RANDOM_SEEDS as B_SEEDS
+    from tests.test_torch_h264_bslices import random_b
+
     used = np.zeros(H264_CONTEXTS, bool)
-    for seed in RANDOM_SEEDS:
-        units, _, _ = random_cabac(seed)
-        decoder = H264Decoder(b"", f"seed {seed}")
+    streams = [random_cabac(seed)[0] for seed in RANDOM_SEEDS]
+    streams += [random_b(seed)[0] for seed in B_SEEDS if seed % 2]  # the CABAC ones
+    for k, units in enumerate(streams):
+        decoder = H264Decoder(b"", f"stream {k}")
         for unit in units:
             decoder.decode(W.annexb(unit), rgb=False)
         used |= decoder.contexts
@@ -307,21 +312,43 @@ def test_random_streams_reach_every_context():
 
 
 def test_refusals_still_raise_with_cabac(tmp_path):
-    """Weighted prediction and B slices stay refused in a CABAC stream,
-    before any frame."""
-    units = stream(48, 32, 54, 2, sps=MAIN, pps=cabac())
-    b = W.Bits().ue(0).ue(1).ue(0).u(4, 1)
-    units.append([W.nal_unit(1, 1, b.u(8, 0).trailing().bytes())])
+    """Weighted prediction and B slices, once refused, decode in a CABAC
+    stream as cv2 decodes them; SP slices stay refused, before any frame."""
+    writer = W.Writer(48, 32, seed=54, sps=W.Sps(profile=77, poc_type=0, max_num_ref_frames=2),
+                      pps=cabac(weighted_pred=1, weighted_bipred=1))
+    units = [writer.parameter_sets() + writer.random_picture("IDR")[0],
+             writer.random_picture("P", poc={"lsb": 4})[0],
+             writer.random_picture("B", poc={"lsb": 2}, ref_idc=0)[0]]
     path = avi(str(tmp_path / "b.avi"), units, 48, 32)
+    assert_equal_cv2(path, "B and weights", {"CABAC", "B slices", "explicit weights"},
+                     count=3)
+    units = stream(48, 32, 54, 2, sps=MAIN, pps=cabac())
+    b = W.Bits().ue(0).ue(3).ue(0).u(4, 1)
+    units.append([W.nal_unit(1, 1, b.u(8, 0).trailing().bytes())])
+    path = avi(str(tmp_path / "sp.avi"), units, 48, 32)
     frames = []
-    with pytest.raises(ValueError, match="frame 2: .*H.264 B slices.*FFmpeg"):
+    with pytest.raises(ValueError, match="frame 2: .*H.264 SP slices.*FFmpeg"):
         for i, _ in iterate_frames(path):
             frames.append(i)
     assert frames == []
-    units = stream(48, 32, 54, 2, sps=MAIN, pps=cabac(weighted_pred=1))
-    path = avi(str(tmp_path / "w.avi"), units, 48, 32)
-    with pytest.raises(ValueError, match="weighted prediction.*FFmpeg"):
-        probe_video(path)
+
+
+@pytest.mark.parametrize("seed,cr_offset", [(12, None), (19, None), (25, None), (4, -3), (7, -3),
+                                            (8, -3)])
+def test_cavlc_8x8_blocks_coded_without_coefficients_deblock_as_ffmpeg(seed, cr_offset,
+                                                                       tmp_path):
+    """CAVLC may code an 8x8 block (its coded_block_pattern bit) whose four
+    4x4 lists hold no coefficient.  With equal chroma QP offsets FFmpeg's
+    fast loop filter then takes bS 2 on every edge of an inter macroblock
+    that codes 8x8 blocks 0-2; with two offsets its filter reads the
+    coefficients, as the standard does."""
+    pps = W.Pps(transform_8x8=1, num_ref_idx_default=2, cb_offset=2 if cr_offset else 0,
+                cr_offset=cr_offset)
+    writer = W.Writer(32, 64, seed=seed, sps=high(max_num_ref_frames=2), pps=pps)
+    units = [writer.parameter_sets() + writer.random_picture("IDR", slices=2)[0]]
+    units += [writer.random_picture("P", slices=2)[0] for _ in range(8)]
+    path = avi(str(tmp_path / "e.avi"), units, 32, 64)
+    assert_equal_cv2(path, f"seed {seed}", {"8x8 transform", "P slices"}, count=9)
 
 
 def test_damaged_cabac_slice_raises(tmp_path):

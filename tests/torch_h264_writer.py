@@ -3,14 +3,16 @@ length-prefixed NAL units out).  Nothing in the port imports it.
 
 The wheel's libavcodec has an H.264 decoder and no H.264 encoder, so the
 tests write their streams here and hold the port's decoder to OpenCV's
-FFmpeg on them.  The writer covers what the port decodes: I and P slices in
-CAVLC or CABAC (the arithmetic encoder of 9.3.4 with its terminate and flush
-procedures, every binarisation and context selection), progressive 8-bit
-4:2:0, the 4x4 and 8x8 transforms with intra 8x8 prediction, SPS / PPS
-scaling lists (the default-list escape and absent lists included), and every
-slice, reference and NAL feature of the decoder, plus the fields of what it
-refuses (B slices, interlace, 10-bit, ...) so that a test can write a
-refused stream.  The CABAC tables (the contexts' (m, n) pairs, rangeTabLPS,
+FFmpeg on them.  The writer covers what the port decodes: I, P and B slices
+in CAVLC or CABAC (the arithmetic encoder of 9.3.4 with its terminate and
+flush procedures, every binarisation and context selection), progressive
+8-bit 4:2:0, the 4x4 and 8x8 transforms with intra 8x8 prediction, SPS / PPS
+scaling lists (the default-list escape and absent lists included), spatial
+and temporal direct prediction (derived as the decoder derives it, for the
+vector predictors after it), explicit and implicit weighted prediction,
+every slice, reference and NAL feature of the decoder, plus the fields of
+what it refuses (interlace, 10-bit, ...) so that a test can write a refused
+stream.  The CABAC tables (the contexts' (m, n) pairs, rangeTabLPS,
 transIdxLPS and the 8x8 blocks' context increments) are read from the
 decoder's source: a wrong entry shows against OpenCV.
 
@@ -26,9 +28,11 @@ counts) and writes one access unit a call:
   memory management operations as asked.
 * ``encode_picture(rgb, ...)``: a plain encoder: intra 16x16, 4x4 or (with
   the PPS's 8x8 transform) 8x8 chosen by SAD, P_L0_16x16 from a small
-  full-sample search, P_Skip, a quantised residual (8x8 transform for inter
-  macroblocks when the PPS allows it; the active scaling lists), its
-  references the planes the port's decoder gives back.
+  full-sample search, P_Skip, in B pictures B_Skip / B_Direct_16x16 (where
+  the direct vectors are whole samples) and B_L0 / L1 / Bi_16x16, a
+  quantised residual (8x8 transform for inter macroblocks when the PPS
+  allows it; the active scaling lists), its references the planes the
+  port's decoder gives back.
 
 The macroblock layer mirrors the decoder's neighbour rules (availability
 across slices, nC, the predicted intra mode, the vector predictors): a
@@ -38,6 +42,7 @@ mismatch makes FFmpeg and the port disagree, which the tests then see.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import re
 import struct
@@ -143,11 +148,91 @@ TRANS_LPS = _decoder_table("kTransLps")
 SIG8X8 = _decoder_table("kSig8x8")
 LAST8X8 = _decoder_table("kLast8x8")
 CBF_CAT, SIG_CAT, ABS_CAT = [0, 4, 8, 12, 16, 0], [0, 15, 29, 44, 47, 0], [0, 10, 20, 30, 39, 0]
-# the contexts (ctxIdx) frame-coded I / P 4:2:0 reaches: mb_type I and P, mb_skip_flag,
-# sub_mb_type, mvd, ref_idx, mb_qp_delta, the intra modes, coded_block_pattern, coded_block_flag,
-# the significance maps and levels of ctxBlockCat 0-4, transform_size_8x8_flag, ctxBlockCat 5
-REACHABLE_CONTEXTS = (list(range(3, 24)) + list(range(40, 70)) + list(range(73, 276))
-                      + list(range(399, 436)))
+# the contexts (ctxIdx) frame-coded I / P / B 4:2:0 reaches: mb_type I, P and B, mb_skip_flag
+# of P and B, sub_mb_type of P and B, mvd, ref_idx, mb_qp_delta, the intra modes,
+# coded_block_pattern, coded_block_flag, the significance maps and levels of ctxBlockCat 0-4,
+# transform_size_8x8_flag, ctxBlockCat 5
+REACHABLE_CONTEXTS = (list(range(3, 70)) + list(range(73, 276)) + list(range(399, 436)))
+
+
+# Table 7-14's B mb_types 1-21: (shape 0 16x16, 1 16x8, 2 8x16; the first and
+# second partition's lists, bit 0 list 0, bit 1 list 1)
+B_TYPES = [None, (0, 1, 0), (0, 2, 0), (0, 3, 0), (1, 1, 1), (2, 1, 1), (1, 2, 2), (2, 2, 2),
+           (1, 1, 2), (2, 1, 2), (1, 2, 1), (2, 2, 1), (1, 1, 3), (2, 1, 3), (1, 2, 3), (2, 2, 3),
+           (1, 3, 1), (2, 3, 1), (1, 3, 2), (2, 3, 2), (1, 3, 3), (2, 3, 3)]
+# Table 7-18's B sub_mb_types: (lists, 0 8x8 / 1 8x4 / 2 4x8 / 3 4x4); 0 is B_Direct_8x8
+B_SUBS = [(0, 0), (1, 0), (2, 0), (3, 0), (1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (1, 3),
+          (2, 3), (3, 3)]
+SUB_PARTS = {t: (1, 2, 2, 4)[B_SUBS[t][1]] for t in range(1, 13)}
+
+
+def random_weights(rng, counts: Sequence[int], denoms: Optional[Tuple[int, int]] = None) -> dict:
+    """A pred_weight_table for lists of ``counts`` entries: denominators
+    0-6 (or ``denoms``), some entries left at their defaults, weights within
+    [-64, 64] and offsets across [-128, 127], so that any two weights add up
+    to what a B slice allows (at a denominator of 7, at most 127: every
+    entry is sent, its weight at most 63)."""
+    ld, cd = denoms or (int(rng.integers(0, 7)), int(rng.integers(0, 7)))
+
+    def entry(denom, sent=False):
+        if denom == 7:
+            return (int(rng.integers(-64, 64)), int(rng.integers(-128, 128)))
+        if not sent and rng.random() < 0.25:
+            return None
+        w = (int(rng.integers(-64, 65)) if rng.random() < 0.25 else
+             max(-64, min(64, (1 << denom) + int(rng.integers(-(1 << denom) // 2 - 1,
+                                                                (1 << denom) // 2 + 2)))))
+        o = int(rng.integers(-128, 128)) if rng.random() < 0.25 else int(rng.integers(-12, 13))
+        return (w, o)
+    lists = []
+    for n in counts:
+        rows = []
+        for _ in range(n):
+            chroma = (None if cd < 7 and rng.random() < 0.3 else
+                      (entry(cd, True), entry(cd, True)))
+            rows.append((entry(ld), chroma))
+        lists.append(rows)
+    return {"luma_denom": ld, "chroma_denom": cd, "lists": lists}
+
+
+def implicit_weight(state, r0: int, r1: int) -> int:
+    """8.4.2.3.1's w0 of list 0 entry ``r0`` with list 1 entry ``r1``."""
+    a, b = state.lists[0][r0], state.lists[1][r1]
+    if a.long_idx >= 0 or b.long_idx >= 0:
+        return 32
+    td = max(-128, min(127, b.poc - a.poc))
+    if not td:
+        return 32
+    tb = max(-128, min(127, state.poc - a.poc))
+    tx = int((16384 + abs(td) // 2) / td)
+    scale = (tb * tx + 32) >> 8
+    return 64 - scale if -64 <= scale <= 128 else 32
+
+
+def plain_weights(lists: int) -> dict:
+    """The plain encoder's pred_weight_table (one entry a list): list 0
+    slightly brighter, list 1 slightly darker, chroma weighted too."""
+    rows = [[((33, 2), ((31, -1), (33, 1)))], [((31, -2), ((33, 1), (31, -1)))]]
+    return {"luma_denom": 5, "chroma_denom": 5, "lists": rows[:lists]}
+
+
+def write_weights(b: Bits, w: dict) -> None:
+    """pred_weight_table() (7.3.3.2) of ``random_weights``' form."""
+    b.ue(w["luma_denom"]).ue(w["chroma_denom"])
+    for rows in w["lists"]:
+        for luma, chroma in rows:
+            b.u(1, luma is not None)
+            if luma is not None:
+                b.se(luma[0]).se(luma[1])
+            b.u(1, chroma is not None)
+            if chroma is not None:
+                for cw, co in chroma:
+                    b.se(cw).se(co)
+
+
+def wrap16(v: int) -> int:
+    """``v`` as an int16 holds it (FFmpeg's motion vectors)."""
+    return ((v + 32768) & 0xFFFF) - 32768
 
 
 def pos_class8(pos: int) -> int:
@@ -350,6 +435,7 @@ class Sps:
     # "default", or values in scan order); no lists: all 8 absent
     scaling: int = 0
     lists: Optional[list] = None
+    direct_8x8_inference: int = 1
     # the fields of what the decoder refuses
     chroma_format: int = 1
     bit_depth: int = 8
@@ -381,7 +467,7 @@ class Sps:
         b.u(1, self.frame_mbs_only)
         if not self.frame_mbs_only:
             b.u(1, 0)
-        b.u(1, 1)  # direct_8x8_inference_flag
+        b.u(1, self.direct_8x8_inference)
         b.u(1, self.crop is not None)
         if self.crop is not None:
             for v in self.crop:
@@ -422,6 +508,9 @@ class Pps:
     id: int = 0
     sps_id: int = 0
     num_ref_idx_default: int = 1
+    num_ref_idx_l1_default: int = 1
+    weighted_pred: int = 0
+    weighted_bipred: int = 0  # weighted_bipred_idc: 0 default, 1 explicit, 2 implicit
     init_qp: int = 26
     cb_offset: int = 0
     cr_offset: Optional[int] = None  # a second offset (the High profiles' PPS tail) when set
@@ -436,7 +525,6 @@ class Pps:
     lists: Optional[list] = None
     # the fields of what the decoder refuses
     slice_groups: int = 1
-    weighted_pred: int = 0
     redundant: int = 0
 
     def rbsp(self) -> bytes:
@@ -446,7 +534,8 @@ class Pps:
             b.ue(0)  # slice_group_map_type 0 (interleaved)
             for _ in range(self.slice_groups):
                 b.ue(0)
-        b.ue(self.num_ref_idx_default - 1).ue(0).u(1, self.weighted_pred).u(2, 0)
+        b.ue(self.num_ref_idx_default - 1).ue(self.num_ref_idx_l1_default - 1)
+        b.u(1, self.weighted_pred).u(2, self.weighted_bipred)
         b.se(self.init_qp - 26).se(0).se(self.cb_offset)
         b.u(1, self.deblocking_control).u(1, self.constrained_intra).u(1, self.redundant)
         if self.cr_offset is not None or self.transform_8x8 or self.scaling:
@@ -582,16 +671,24 @@ class CabacEncoder:
 # ------------------------------------------------------------ the writer
 
 I4, I8, I16, PCM, INTER, SKIP = "I4", "I8", "I16", "PCM", "P", "SKIP"
+# shapes of a macroblock's motion (the decoder's Shape): what a B picture's
+# direct prediction reads of its co-located macroblock
+S16X16, S16X8, S8X16, S8X8 = 0, 1, 2, 3
 
 
 @dataclasses.dataclass
 class Ref:
-    """A reference frame as the writer tracks it (and its planes, for the
-    plain encoder)."""
+    """A reference frame as the writer tracks it: its order count, its
+    planes for the plain encoder, and the motion a B picture's direct
+    prediction reads when it is the co-located picture (per list the 4x4
+    blocks' vectors and reference indices, per macroblock intra and shape,
+    the frame_num of each entry of its last slice's lists)."""
     frame_num: int
     long_idx: int = -1  # -1: short-term
     key: int = 0  # identity
     planes: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+    poc: Optional[int] = None
+    motion: Optional[dict] = None
 
 
 class Writer:
@@ -614,6 +711,9 @@ class Writer:
         self.poc_count = 0  # pictures since the order restarted
         self.pictures = 0
         self.next_key = 1
+        # the decoder's order count state (8.2.1): the last reference
+        # picture's msb and lsb, the last picture's FrameNumOffset and frame_num
+        self.prev_msb = self.prev_lsb = self.prev_offset = self.prev_frame_num = 0
 
     # ----------------------------------------------------------- headers
 
@@ -653,11 +753,55 @@ class Writer:
             pred = no_wrap
         return mods
 
+    def order_count(self, sps: Sps, poc: dict, frame_num: int, ref_idc: int, idr: bool,
+                    mmco5: bool) -> Optional[int]:
+        """The picture's order count as the decoder derives it (types 0 and
+        2; None for type 1), and the state moved on."""
+        if idr:
+            self.prev_msb = self.prev_lsb = self.prev_offset = self.prev_frame_num = 0
+        offset = self.prev_offset + (sps.max_frame_num if frame_num < self.prev_frame_num else 0)
+        value, msb = None, self.prev_msb
+        if sps.poc_type == 0:
+            lsb, top = poc["lsb"], 1 << sps.log2_max_poc_lsb
+            if lsb < self.prev_lsb and self.prev_lsb - lsb >= top // 2:
+                msb = self.prev_msb + top
+            elif lsb > self.prev_lsb and lsb - self.prev_lsb > top // 2:
+                msb = self.prev_msb - top
+            value = msb + lsb
+        elif sps.poc_type == 2:
+            value = 2 * (offset + frame_num) - (0 if ref_idc else 1)
+        if ref_idc:
+            self.prev_msb, self.prev_lsb = msb, poc.get("lsb", 0)
+        self.prev_offset, self.prev_frame_num = offset, 0 if mmco5 else frame_num
+        return value
+
+    def b_lists(self, poc: int) -> Tuple[List[Ref], List[Ref]]:
+        """A B slice's initial lists: short-term pictures by order count
+        (list 0 those at most ``poc`` nearest first, then those after; list 1
+        the other way round), long-term ones after; list 1's first two
+        swapped when the lists are equal."""
+        shorts = [r for r in self.refs if r.long_idx < 0]
+        longs = sorted((r for r in self.refs if r.long_idx >= 0), key=lambda r: r.long_idx)
+        before = sorted((r for r in shorts if r.poc <= poc), key=lambda r: -r.poc)
+        after = sorted((r for r in shorts if r.poc > poc), key=lambda r: r.poc)
+        l0, l1 = before + after + longs, after + before + longs
+        if len(l1) > 1 and all(a is b for a, b in zip(l0, l1)):
+            l1[0], l1[1] = l1[1], l1[0]
+        return l0, l1
+
     def slice_header(self, b: Bits, *, idr: bool, ref_idc: int, first_mb: int, slice_type: int,
                      pps: Pps, sps: Sps, frame_num: int, idr_pic_id: int, poc: dict,
-                     num_ref_idx: Optional[int], mods: Sequence[Tuple[int, int]],
-                     marking: dict, qp: int, deblock: Tuple[int, int, int],
-                     cabac_init_idc: int = 0) -> None:
+                     num_ref_idx, mods, marking: dict, qp: int, deblock: Tuple[int, int, int],
+                     cabac_init_idc: int = 0, direct_spatial: int = 1,
+                     weights: Optional[dict] = None) -> None:
+        """``num_ref_idx``: None (the PPS's), an int (list 0), or a pair (B);
+        ``mods``: list 0's modifications, or a pair of lists (B)."""
+        kind = slice_type % 5
+        if kind == 1:
+            mods = list(mods) if mods else [[], []]
+            counts = num_ref_idx
+        else:
+            mods, counts = [mods], (num_ref_idx,)
         b.ue(first_mb).ue(slice_type).ue(pps.id).u(sps.log2_max_frame_num, frame_num)
         if idr:
             b.ue(idr_pic_id)
@@ -669,17 +813,21 @@ class Writer:
             b.se(poc.get("delta", 0))
             if pps.bottom_field_pic_order:
                 b.se(0)
-        if slice_type % 5 in (0, 1, 3):
-            b.u(1, num_ref_idx is not None)
-            if num_ref_idx is not None:
-                b.ue(num_ref_idx - 1)
-            if slice_type % 5 == 1:
-                b.u(1, 0)  # direct_spatial... never reached: B slices are refused before
-            b.u(1, bool(mods))
-            for idc, v in mods:
-                b.ue(idc).ue(v)
-            if mods:
-                b.ue(3)
+        if kind == 1:
+            b.u(1, direct_spatial)
+        if kind in (0, 1, 3):
+            b.u(1, counts is not None and counts[0] is not None)
+            if counts is not None and counts[0] is not None:
+                for n in counts:
+                    b.ue(n - 1)
+            for lm in mods:
+                b.u(1, bool(lm))
+                for idc, v in lm:
+                    b.ue(idc).ue(v)
+                if lm:
+                    b.ue(3)
+        if weights is not None:
+            write_weights(b, weights)
         if ref_idc:
             if idr:
                 b.u(1, 0).u(1, marking.get("long", 0))
@@ -704,48 +852,67 @@ class Writer:
 
     def _picture(self, *, kind: str, ref_idc: int, pps: Pps, slices: Sequence[int],
                  qps: Sequence[int], deblocks: Sequence[Tuple[int, int, int]],
-                 num_ref_idx: Optional[int], order: Sequence[Ref], marking: dict,
-                 mb_source, poc: Optional[dict] = None,
-                 idcs: Optional[Sequence[int]] = None) -> Tuple[List[bytes], dict]:
+                 num_ref_idx, order, marking: dict, mb_source, poc: Optional[dict] = None,
+                 idcs: Optional[Sequence[int]] = None, direct_spatial: int = 1,
+                 weights: Optional[dict] = None) -> Tuple[List[bytes], dict]:
+        """One access unit of ``kind`` "IDR", "I", "P" or "B": for B,
+        ``num_ref_idx`` and ``order`` are pairs (each list's)."""
         sps = self.sps_for(pps)
         idr = kind == "IDR"
-        max_fn = sps.max_frame_num
         if idr:
             self.refs, self.max_long_idx = [], -1
             self.frame_num = self.poc_count = 0
         frame_num = self.frame_num
         poc = dict(poc or self.next_poc(sps))
-        ref_list: List[Ref] = []
-        mods: List[Tuple[int, int]] = []
-        if kind == "P":
-            n = num_ref_idx or pps.num_ref_idx_default
-            base = self.initial_list(frame_num, sps)
-            if order:
-                mods = self.modifications(order, frame_num, sps)
-                rest = [r for r in base if all(r is not o for o in order)]
-                ref_list = (list(order) + rest)[:n]
-            else:
-                ref_list = base[:n]
-        state = PictureState(self, pps, sps, ref_list)
-        state.n_active = (num_ref_idx or pps.num_ref_idx_default) if kind == "P" else 0
+        mmco5 = any(op[0] == 5 for op in marking.get("mmco") or ())
+        value = self.order_count(sps, poc, frame_num, ref_idc, idr, mmco5)
+        lists: List[List[Ref]] = [[], []]
+        mods: list = [[], []]
+        counts = [0, 0]
+        if kind in ("P", "B"):
+            assert kind == "P" or value is not None, "B pictures need order counts of type 0 or 2"
+            pairs = list(num_ref_idx) if kind == "B" else [num_ref_idx]
+            orders = list(order) if kind == "B" else [order]
+            base = self.b_lists(value) if kind == "B" else [self.initial_list(frame_num, sps)]
+            for l in range(len(base)):
+                n = pairs[l] or (pps.num_ref_idx_l1_default if l else pps.num_ref_idx_default)
+                counts[l] = n
+                orders[l] = list(orders[l])[:n]
+                if orders[l]:
+                    mods[l] = self.modifications(orders[l], frame_num, sps)
+                    rest = [r for r in base[l] if all(r is not o for o in orders[l])]
+                    lists[l] = (list(orders[l]) + rest)[:n]
+                else:
+                    lists[l] = base[l][:n]
+        state = PictureState(self, pps, sps, lists[0], lists[1] if kind == "B" else None)
+        state.n_active = counts[0]
+        state.n_active1 = counts[1]
+        state.spatial = bool(direct_spatial)
+        state.poc = value
+        if kind == "B":
+            state.prepare_direct()
+        state.weights = weights
         units = []
         starts = list(slices) + [self.mb_w * self.mb_h]
+        types = {"IDR": 2, "I": 2, "P": 0, "B": 1}
         for s, first in enumerate(slices):
             b = Bits()
-            slice_type = {"IDR": 7, "I": 7, "P": 5}[kind] if s == 0 else {"IDR": 2, "I": 2,
-                                                                           "P": 0}[kind]
+            slice_type = types[kind] + (5 if s == 0 else 0)
             self.slice_header(b, idr=idr, ref_idc=ref_idc, first_mb=first,
                               slice_type=slice_type, pps=pps, sps=sps, frame_num=frame_num,
                               idr_pic_id=self.pictures % 65536, poc=poc,
-                              num_ref_idx=num_ref_idx if kind == "P" else None, mods=mods,
+                              num_ref_idx=(tuple(num_ref_idx) if kind == "B" and num_ref_idx[0]
+                                           else num_ref_idx if kind == "P" else None),
+                              mods=mods if kind == "B" else mods[0],
                               marking=marking, qp=qps[s], deblock=deblocks[s],
-                              cabac_init_idc=idcs[s] if idcs else 0)
-            state.slice_data(b, s, first, starts[s + 1], kind == "P", qps[s], mb_source,
+                              cabac_init_idc=idcs[s] if idcs else 0,
+                              direct_spatial=direct_spatial, weights=weights)
+            state.slice_data(b, s, first, starts[s + 1], types[kind], qps[s], mb_source,
                              idcs[s] if idcs else 0)
             # CABAC's flush writes the stop bit
             units.append(nal_unit(ref_idc, 5 if idr else 1,
                                   (b.align() if pps.cabac else b.trailing()).bytes()))
-        info = {"frame_num": frame_num, "poc": poc, "state": state}
+        info = {"frame_num": frame_num, "poc": poc, "state": state, "order_count": value}
         self.after_picture(sps, idr, ref_idc, marking, frame_num, state)
         return units, info
 
@@ -756,6 +923,7 @@ class Writer:
         for _ in range(gap):
             self.sliding_window(sps, self.frame_num)
             self.refs.append(Ref(self.frame_num, key=self.new_key()))
+            self.prev_frame_num = self.frame_num
             self.frame_num = (self.frame_num + 1) % sps.max_frame_num
 
     def mmco(self, *ops: int, pps: Optional[Pps] = None) -> list:
@@ -823,7 +991,8 @@ class Writer:
         self.poc_count += 1
         if not ref_idc:
             return
-        cur = Ref(frame_num, key=self.new_key(), planes=state.recon)
+        cur = Ref(frame_num, key=self.new_key(), planes=state.recon, poc=state.poc,
+                  motion=state.motion())
         ops = marking.get("mmco")
         if idr:
             if marking.get("long"):
@@ -871,14 +1040,18 @@ class Writer:
                        qp_range: Tuple[int, int] = (0, 51), escapes: bool = True,
                        gap: int = 0, poc: Optional[dict] = None,
                        coeff_density: float = 0.5, cabac_init_idc: Optional[int] = None,
-                       transform_8x8: float = 0.5) -> Tuple[List[bytes], dict]:
+                       transform_8x8: float = 0.5, direct_spatial: int = 1,
+                       weights: Optional[dict] = None) -> Tuple[List[bytes], dict]:
         """One access unit of seeded legal syntax; ``deblock`` None, "off",
         "slices" or "offsets" sets each slice's disable_deblocking_filter_idc
-        and offsets; ``modify`` reorders the list at random.  With the PPS's
-        8x8 transform, ``transform_8x8`` is the share of I_NxN macroblocks
-        that are I_8x8 and of inter macroblocks with transform_size_8x8_flag
-        (where allowed); each CABAC P slice takes ``cabac_init_idc``, or one
-        at random."""
+        and offsets; ``modify`` reorders the list (B: each list) at random.
+        With the PPS's 8x8 transform, ``transform_8x8`` is the share of I_NxN
+        macroblocks that are I_8x8 and of inter macroblocks with
+        transform_size_8x8_flag (where allowed); each CABAC P or B slice takes
+        ``cabac_init_idc``, or one at random.  A B picture (``kind`` "B",
+        order count ``poc``) takes ``num_ref_idx`` as a pair and
+        ``direct_spatial``; where the PPS sends a pred_weight_table, it is
+        ``weights``, or one at random (``random_weights``)."""
         rng = self.rng
         pps = pps or self.pps[0]
         sps = self.sps_for(pps)
@@ -903,11 +1076,30 @@ class Writer:
                                  int(rng.integers(-6, 7))))
         if gap:
             self.skip_frame_nums(sps, gap)
-        order: List[Ref] = []
+        order: list = []
         if kind == "P" and modify:
             candidates = list(self.refs)
             rng.shuffle(candidates)
             order = candidates[: int(rng.integers(1, len(candidates) + 1))]
+        if kind == "B":
+            order = [[], []]
+            for l in range(2):
+                if modify and rng.random() < 0.7:
+                    candidates = list(self.refs)
+                    rng.shuffle(candidates)
+                    order[l] = candidates[: int(rng.integers(1, len(candidates) + 1))]
+            num_ref_idx = tuple(num_ref_idx) if num_ref_idx else (None, None)
+            n0, n1 = pps.num_ref_idx_default, pps.num_ref_idx_l1_default
+            if not num_ref_idx[0] and max(n0, n1) > len(self.refs):
+                # no more entries than references: FFmpeg fills the rest with a default
+                # picture and forgets its order counts, which the decoder does not model
+                num_ref_idx = (min(n0, len(self.refs)), min(n1, len(self.refs)))
+        if weights is None and ((pps.weighted_pred and kind == "P") or
+                                (pps.weighted_bipred == 1 and kind == "B")):
+            counts = ((num_ref_idx[0] or pps.num_ref_idx_default,
+                       num_ref_idx[1] or pps.num_ref_idx_l1_default) if kind == "B"
+                      else (num_ref_idx or pps.num_ref_idx_default,))
+            weights = random_weights(rng, counts)
         marking = {"long": int(long_term)} if kind == "IDR" else (
             {"mmco": mmco} if mmco is not None else {})
         source = RandomMbs(rng, mb_kinds=mb_kinds, pcm=pcm, sub_partitions=sub_partitions,
@@ -918,23 +1110,34 @@ class Writer:
                 for _ in firsts]
         return self._picture(kind=kind, ref_idc=ref_idc, pps=pps, slices=firsts, qps=qps,
                              deblocks=deblocks, num_ref_idx=num_ref_idx, order=order,
-                             marking=marking, mb_source=source, poc=poc, idcs=idcs)
+                             marking=marking, mb_source=source, poc=poc, idcs=idcs,
+                             direct_spatial=direct_spatial, weights=weights)
 
     # ---------------------------------------------------- plain encoding
 
     def encode_picture(self, rgb: np.ndarray, kind: str = "P", *, qp: int = 28, slices: int = 1,
-                       search: int = 4) -> Tuple[List[bytes], dict]:
+                       search: int = 4, pps: Optional[Pps] = None, poc: Optional[dict] = None,
+                       ref_idc: int = 1, direct_spatial: int = 1) -> Tuple[List[bytes], dict]:
         """One access unit coding ``rgb`` (H x W x 3 uint8, the writer's
-        size); a P picture predicts from the last reference, whose planes
-        the caller sets with ``set_reference_planes`` (the decoder's)."""
-        pps = self.pps[0]
+        size); a P picture predicts from the last reference, a B picture
+        (order count ``poc``) from the nearest before and after it, each
+        reference's planes set by the caller with ``set_reference_planes``
+        (the decoder's).  Where ``pps`` sends a pred_weight_table, it is
+        ``plain_weights``'."""
+        pps = pps or self.pps[0]
         y, u, v = rgb_to_yuv420(rgb, 16 * self.mb_w, 16 * self.mb_h)
         total = self.mb_w * self.mb_h
         firsts = [i * total // slices for i in range(slices)]
         source = PlainMbs((y, u, v), qp, search)
-        return self._picture(kind=kind, ref_idc=1, pps=pps, slices=firsts, qps=[qp] * slices,
-                             deblocks=[(0, 0, 0)] * slices, num_ref_idx=1, order=(),
-                             marking={}, mb_source=source)
+        weights = None
+        if (pps.weighted_pred and kind == "P") or (pps.weighted_bipred == 1 and kind == "B"):
+            weights = plain_weights(2 if kind == "B" else 1)
+        return self._picture(kind=kind, ref_idc=ref_idc, pps=pps, slices=firsts,
+                             qps=[qp] * slices, deblocks=[(0, 0, 0)] * slices,
+                             num_ref_idx=(1, 1) if kind == "B" else 1,
+                             order=([], []) if kind == "B" else (), marking={},
+                             mb_source=source, poc=poc, direct_spatial=direct_spatial,
+                             weights=weights)
 
     def set_reference_planes(self, planes: Tuple[np.ndarray, np.ndarray, np.ndarray]) -> None:
         """The decoded (deblocked, uncropped) planes of the last reference."""
@@ -967,9 +1170,12 @@ class PictureState:
     """The neighbour state of one picture as the decoder keeps it, and the
     macroblock layer's writing."""
 
-    def __init__(self, writer: Writer, pps: Pps, sps: Sps, ref_list: List[Ref]):
+    def __init__(self, writer: Writer, pps: Pps, sps: Sps, ref_list: List[Ref],
+                 list1: Optional[List[Ref]] = None):
         self.w = writer
         self.pps, self.sps, self.list = pps, sps, ref_list
+        self.lists = [ref_list, list1 or []]
+        self.b_slice = list1 is not None
         mb_w, mb_h = writer.mb_w, writer.mb_h
         self.mb_w, self.mb_h = mb_w, mb_h
         self.kind = [None] * (mb_w * mb_h)
@@ -977,24 +1183,62 @@ class PictureState:
         self.nz = np.zeros((4 * mb_h, 4 * mb_w), np.int32)
         self.nz_c = [np.zeros((2 * mb_h, 2 * mb_w), np.int32) for _ in range(2)]
         self.modes = np.full((4 * mb_h, 4 * mb_w), 2, np.int32)
-        self.ref = np.full((4 * mb_h, 4 * mb_w), -1, np.int32)
-        self.mv = np.zeros((4 * mb_h, 4 * mb_w, 2), np.int32)
+        # per list and 4x4 block: reference index (-1 where the list does not
+        # predict) and vector; per 4x4 block whether it is direct; per
+        # macroblock B_Skip / B_Direct_16x16 and the motion's shape
+        self.refs = [np.full((4 * mb_h, 4 * mb_w), -1, np.int32) for _ in range(2)]
+        self.mvs = [np.zeros((4 * mb_h, 4 * mb_w, 2), np.int32) for _ in range(2)]
+        self.ref, self.mv = self.refs[0], self.mvs[0]
+        self.direct = np.zeros((4 * mb_h, 4 * mb_w), bool)
+        self.mb_direct = [False] * (mb_w * mb_h)
+        self.shape = [S16X16] * (mb_w * mb_h)
         # what CABAC's contexts read: per macroblock transform_size_8x8_flag,
         # coded_block_pattern (I_PCM 0x2F), intra_chroma_pred_mode, the DC
-        # blocks' coded_block_flag; per 4x4 block |mvd| (capped at 64)
+        # blocks' coded_block_flag; per list and 4x4 block |mvd| (capped at 64)
         self.t8 = [0] * (mb_w * mb_h)
         self.cbp = [0] * (mb_w * mb_h)
         self.cmode = [0] * (mb_w * mb_h)
         self.dcf = [0] * (mb_w * mb_h)
-        self.mvd = np.zeros((4 * mb_h, 4 * mb_w, 2), np.int32)
+        self.mvds = [np.zeros((4 * mb_h, 4 * mb_w, 2), np.int32) for _ in range(2)]
+        self.mvd = self.mvds[0]
         self.cab: Optional[CabacEncoder] = None
         self.last_dqp = False
         self.w4, self.w8 = resolve_scaling(sps, pps)
         self.cur_slice = 0
-        self.done = 0
+        self.done = [0, 0]  # per list, the current macroblock's 4x4 blocks whose motion is known
         self.recon = (np.zeros((16 * mb_h, 16 * mb_w), np.int32),
                       np.zeros((8 * mb_h, 8 * mb_w), np.int32),
                       np.zeros((8 * mb_h, 8 * mb_w), np.int32))
+        self.spatial, self.poc, self.weights = True, None, None
+        self.n_active = self.n_active1 = 0
+
+    def motion(self) -> dict:
+        """What a later B picture reads of this one as its co-located picture."""
+        return {"mv": [m.copy() for m in self.mvs], "ref": [r.copy() for r in self.refs],
+                "intra": [k in (I4, I8, I16, PCM) for k in self.kind], "shape": list(self.shape),
+                "lists": [[r.frame_num for r in self.lists[0]],
+                          [r.frame_num for r in self.lists[1]] if self.b_slice else []]}
+
+    def prepare_direct(self) -> None:
+        """The temporal direct prediction's DistScaleFactor by list 0 index
+        and map of the co-located picture's indices to list 0."""
+        col = self.lists[1][0]
+        self.dist_scale, self.map_col = [], [[0] * 16, [0] * 16]
+        for r in self.lists[0]:
+            td = max(-128, min(127, col.poc - r.poc))
+            if td == 0 or r.long_idx >= 0:
+                self.dist_scale.append(256)
+                continue
+            tb = max(-128, min(127, self.poc - r.poc))
+            tx = int((16384 + abs(td) // 2) / td)
+            self.dist_scale.append(max(-1024, min(1023, (tb * tx + 32) >> 6)))
+        keys = col.motion["lists"] if col.motion else [[], []]
+        for l in range(2):
+            for old, fn in enumerate(keys[l][:16]):
+                for j, r in enumerate(self.lists[0]):
+                    if r.frame_num == fn:
+                        self.map_col[l][old] = j
+                        break
 
     # ------------------------------------------------------ availability
 
@@ -1072,11 +1316,11 @@ class PictureState:
             return (a + b + 1) >> 1
         return a if a is not None else b if b is not None else 0
 
-    def neighbour(self, mx, my, bx, by):
-        """(available, ref, mv) of the 4x4 block at (bx, by) relative to the
-        macroblock."""
+    def neighbour(self, mx, my, bx, by, l=0):
+        """(available, ref, mv) of list ``l``'s 4x4 block at (bx, by)
+        relative to the macroblock."""
         if 0 <= bx < 4 and 0 <= by < 4:
-            if not (self.done >> (by * 4 + bx)) & 1:
+            if not (self.done[l] >> (by * 4 + bx)) & 1:
                 return False, -1, (0, 0)
         else:
             if by >= 4 or (bx >= 4 and by >= 0):
@@ -1087,14 +1331,15 @@ class PictureState:
             if not self.available((ay >> 2) * self.mb_w + (ax >> 2)):
                 return False, -1, (0, 0)
         y, x = my * 4 + by, mx * 4 + bx
-        return True, int(self.ref[y, x]), (int(self.mv[y, x, 0]), int(self.mv[y, x, 1]))
+        return True, int(self.refs[l][y, x]), (int(self.mvs[l][y, x, 0]),
+                                               int(self.mvs[l][y, x, 1]))
 
-    def predict(self, mx, my, bx, by, w, ref, shape):
-        ha, ra, ma = self.neighbour(mx, my, bx - 1, by)
-        hb, rb, mb = self.neighbour(mx, my, bx, by - 1)
-        hc, rc, mc = self.neighbour(mx, my, bx + w, by - 1)
+    def predict(self, mx, my, bx, by, w, ref, shape, l=0):
+        ha, ra, ma = self.neighbour(mx, my, bx - 1, by, l)
+        hb, rb, mb = self.neighbour(mx, my, bx, by - 1, l)
+        hc, rc, mc = self.neighbour(mx, my, bx + w, by - 1, l)
         if not hc:
-            hc, rc, mc = self.neighbour(mx, my, bx - 1, by - 1)
+            hc, rc, mc = self.neighbour(mx, my, bx - 1, by - 1, l)
         if shape == 1 and rb == ref:
             return mb
         if shape in (2, 3) and ra == ref:
@@ -1115,12 +1360,105 @@ class PictureState:
             return (0, 0)
         return self.predict(mx, my, 0, 0, 4, 0, 0)
 
-    def set_motion(self, mx, my, bx, by, w, h, ref, mv):
-        self.ref[my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = ref
-        self.mv[my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = mv
+    def set_motion(self, mx, my, bx, by, w, h, ref, mv, l=0):
+        self.refs[l][my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = ref
+        self.mvs[l][my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = mv
         for j in range(by, by + h):
             for i in range(bx, bx + w):
-                self.done |= 1 << (j * 4 + i)
+                self.done[l] |= 1 << (j * 4 + i)
+
+    def direct_motion(self, mx, my, mask, whole):
+        """8.4.1.2 as the decoder derives it: the direct motion of the 8x8
+        blocks ``mask`` into the grids; the macroblock's shape when
+        ``whole`` (B_Skip, B_Direct_16x16)."""
+        col = self.lists[1][0]
+        at = my * self.mb_w + mx
+        motion = col.motion
+        col_intra = motion is None or motion["intra"][at]
+        col_shape = S16X16 if motion is None else motion["shape"][at]
+        inference = self.sps.direct_8x8_inference
+
+        def col_block(x, y):
+            if inference:
+                x, y = (0 if x < 2 else 3), (0 if y < 2 else 3)
+            return my * 4 + y, mx * 4 + x
+        ref = [[0] * 16, [0] * 16]
+        vec = [[(0, 0)] * 16, [(0, 0)] * 16]
+        zero = [False] * 16
+        if self.spatial:
+            r, pm = [-1, -1], [(0, 0), (0, 0)]
+            for l in range(2):
+                _, ra, ma = self.neighbour(mx, my, -1, 0, l)
+                _, rb, mb = self.neighbour(mx, my, 0, -1, l)
+                hc, rc, mc = self.neighbour(mx, my, 4, -1, l)
+                if not hc:
+                    _, rc, mc = self.neighbour(mx, my, -1, -1, l)
+                cand = [v for v in (ra, rb, rc) if v >= 0]
+                if not cand:
+                    continue
+                r[l] = min(cand)
+                match = (ra == r[l]) + (rb == r[l]) + (rc == r[l])
+                if match > 1:
+                    pm[l] = (sorted((ma[0], mb[0], mc[0]))[1], sorted((ma[1], mb[1], mc[1]))[1])
+                else:
+                    pm[l] = ma if ra == r[l] else mb if rb == r[l] else mc
+            if r[0] < 0 and r[1] < 0:
+                r = [0, 0]
+            still = pm[0] == (0, 0) and pm[1] == (0, 0)
+            col_ok = not col_intra and col.long_idx < 0
+            for k in range(16):
+                for l in range(2):
+                    ref[l][k], vec[l][k] = r[l], pm[l]
+                if not col_ok or (whole and still):
+                    continue
+                c = col_block(k & 3, k >> 2)
+                c0, c1 = int(motion["ref"][0][c]), int(motion["ref"][1][c])
+                if c0 != 0 and not (c0 < 0 and c1 == 0):
+                    continue
+                cm = motion["mv"][0 if c0 == 0 else 1][c]
+                if abs(int(cm[0])) > 1 or abs(int(cm[1])) > 1:
+                    continue
+                zero[k] = True
+                for l in range(2):
+                    if r[l] == 0:
+                        vec[l][k] = (0, 0)
+            if whole and still:
+                self.write_direct(mx, my, 15, ref, vec)
+                self.shape[at] = S16X16
+                return
+        else:
+            for k in range(16):
+                c = col_block(k & 3, k >> 2)
+                if col_intra:
+                    continue
+                l = 0 if motion["ref"][0][c] >= 0 else 1
+                cr = max(0, min(15, int(motion["ref"][l][c])))
+                cm = (int(motion["mv"][l][c][0]), int(motion["mv"][l][c][1]))
+                r0 = self.map_col[l][cr]
+                scale = self.dist_scale[r0]
+                x, y = (scale * cm[0] + 128) >> 8, (scale * cm[1] + 128) >> 8
+                ref[0][k] = r0
+                vec[0][k] = (wrap16(x), wrap16(y))
+                vec[1][k] = (wrap16(x - cm[0]), wrap16(y - cm[1]))
+        self.write_direct(mx, my, mask, ref, vec)
+        if whole:
+            n = sum(zero)
+            if col_intra or col_shape == S16X16 or (self.spatial and n in (0, 16)):
+                self.shape[at] = S16X16
+            elif col_shape in (S16X8, S8X16):
+                self.shape[at] = col_shape
+            else:
+                self.shape[at] = S8X8
+
+    def write_direct(self, mx, my, mask, ref, vec):
+        for k in range(16):
+            x, y = k & 3, k >> 2
+            if not (mask >> ((y >> 1) * 2 + (x >> 1))) & 1:
+                continue
+            for l in range(2):
+                self.refs[l][my * 4 + y, mx * 4 + x] = ref[l][k]
+                self.mvs[l][my * 4 + y, mx * 4 + x] = vec[l][k]
+            self.direct[my * 4 + y, mx * 4 + x] = True
 
     # ----------------------------------------------------------- writing
 
@@ -1139,63 +1477,100 @@ class PictureState:
                 return None
         return my * 4 + y, mx * 4 + x
 
-    def slice_data(self, b: Bits, s: int, first: int, end: int, p_slice: bool, qp: int,
+    def slice_data(self, b: Bits, s: int, first: int, end: int, kind: int, qp: int,
                    source, idc: int = 0) -> None:
+        """Slice ``s``'s macroblocks ``first`` to ``end`` - 1 in a slice of
+        ``kind`` (0 P, 1 B, 2 I)."""
         self.cur_slice = s
         self.qp = qp
+        inter = kind != 2
         if self.pps.cabac:
             while b.n % 8:
                 b.u(1, 1)  # cabac_alignment_one_bit
-            self.cab = CabacEncoder(b, qp, idc if p_slice else -1)
+            self.cab = CabacEncoder(b, qp, idc if inter else -1)
             self.last_dqp = False
             for addr in range(first, end):
                 mx, my = addr % self.mb_w, addr // self.mb_w
-                self.done = 0
-                mb = source.decide(self, mx, my, p_slice)
+                self.done = [0, 0]
+                mb = source.decide(self, mx, my, inter)
                 skip = mb["kind"] == SKIP
-                if p_slice:
+                if inter:
                     a, c = self.mb_a(addr), self.mb_b(addr)
                     inc = (a >= 0 and self.kind[a] != SKIP) + (c >= 0 and self.kind[c] != SKIP)
-                    self.cab.decision(11 + inc, skip)
+                    self.cab.decision((24 if self.b_slice else 11) + inc, skip)
                 if skip:
                     self.skip(s, addr, mx, my, source)
                     self.last_dqp = False
                 else:
-                    self.macroblock(b, addr, mx, my, mb, p_slice)
+                    self.macroblock(b, addr, mx, my, mb, inter)
                 self.cab.terminate(int(addr == end - 1))  # end_of_slice_flag
             self.cab = None
             return
         run = 0
         for addr in range(first, end):
             mx, my = addr % self.mb_w, addr // self.mb_w
-            self.done = 0
-            mb = source.decide(self, mx, my, p_slice)
+            self.done = [0, 0]
+            mb = source.decide(self, mx, my, inter)
             if mb["kind"] == SKIP:
                 self.skip(s, addr, mx, my, source)
                 run += 1
                 continue
-            if p_slice:
+            if inter:
                 b.ue(run)
                 run = 0
-            self.macroblock(b, addr, mx, my, mb, p_slice)
+            self.macroblock(b, addr, mx, my, mb, inter)
         if run:
             b.ue(run)
 
     def skip(self, s, addr, mx, my, source) -> None:
         self.slice[addr], self.kind[addr] = s, SKIP
+        if self.b_slice:
+            self.mb_direct[addr] = True
+            self.direct_motion(mx, my, 15, True)
+            source.skipped(self, mx, my, None)
+            return
         mv = self.skip_mv(mx, my)
         self.set_motion(mx, my, 0, 0, 4, 4, 0, mv)
         source.skipped(self, mx, my, mv)
 
     # the syntax elements, in CAVLC or CABAC
 
-    def mb_type(self, b: Bits, addr: int, p_slice: bool, code: int) -> None:
-        """mb_type ``code`` as ue(v) numbers it (P slices: intra from 5)."""
+    def mb_type(self, b: Bits, addr: int, inter: bool, code: int) -> None:
+        """mb_type ``code`` as ue(v) numbers it (P slices: intra from 5; B
+        slices: intra from 23)."""
         if not self.cab:
             b.ue(code)
             return
         cab = self.cab
-        if p_slice:
+        if inter and self.b_slice:
+            a, c = self.mb_a(addr), self.mb_b(addr)
+            inc = (a >= 0 and not self.mb_direct[a]) + (c >= 0 and not self.mb_direct[c])
+            cab.decision(27 + inc, int(code != 0))
+            if code == 0:
+                return
+            if code in (1, 2):
+                cab.decision(30, 0)
+                cab.decision(32, code - 1)
+                return
+            cab.decision(30, 1)
+            if code >= 23:
+                bits, extra = 13, None
+            elif code == 11:
+                bits, extra = 14, None
+            elif code == 22:
+                bits, extra = 15, None
+            elif code <= 10:
+                bits, extra = code - 3, None
+            else:
+                bits, extra = (code + 4) >> 1, (code + 4) & 1
+            for i, ctx in enumerate((31, 32, 32, 32)):
+                cab.decision(ctx, (bits >> (3 - i)) & 1)
+            if extra is not None:
+                cab.decision(32, extra)
+            if code >= 23:
+                self.intra_type(32, 0, code - 23)
+            return
+        if inter:
             if code < 5:
                 cab.decision(14, 0)
                 cab.decision(15, code in (1, 2))
@@ -1284,13 +1659,33 @@ class PictureState:
         if not self.cab:
             b.ue(t)
             return
-        self.cab.decision(21, int(t == 0))
+        cab = self.cab
+        if self.b_slice:
+            cab.decision(36, int(t != 0))
+            if t == 0:
+                return
+            if t in (1, 2):
+                cab.decision(37, 0)
+                cab.decision(39, t - 1)
+                return
+            cab.decision(37, 1)
+            cab.decision(38, int(t >= 7))
+            if t >= 7:
+                cab.decision(39, int(t >= 11))
+                if t >= 11:
+                    cab.decision(39, t - 11)
+                    return
+            v = t - (7 if t >= 7 else 3)
+            cab.decision(39, v >> 1)
+            cab.decision(39, v & 1)
+            return
+        cab.decision(21, int(t == 0))
         if t:
-            self.cab.decision(22, int(t != 1))
+            cab.decision(22, int(t != 1))
             if t != 1:
-                self.cab.decision(23, int(t == 2))
+                cab.decision(23, int(t == 2))
 
-    def ref_index(self, b: Bits, n_ref: int, mx, my, bx, by, ref: int) -> None:
+    def ref_index(self, b: Bits, n_ref: int, mx, my, bx, by, ref: int, l: int = 0) -> None:
         if n_ref <= 1:
             return
         if not self.cab:
@@ -1299,19 +1694,20 @@ class PictureState:
 
         def cond(x, y):
             k = self.near(mx, my, x, y)
-            return int(k is not None and self.ref[k] > 0)
+            return int(k is not None and self.refs[l][k] > 0
+                       and not (self.b_slice and self.direct[k]))
         self.cab.decision(54 + cond(bx - 1, by) + 2 * cond(bx, by - 1), int(ref > 0))
         for i in range(1, ref + 1):
             self.cab.decision(58 if i == 1 else 59, int(i < ref))
 
-    def mvd_component(self, b: Bits, comp: int, mx, my, bx, by, v: int) -> None:
+    def mvd_component(self, b: Bits, comp: int, mx, my, bx, by, v: int, l: int = 0) -> None:
         if not self.cab:
             b.se(v)
             return
 
         def near(x, y):
             k = self.near(mx, my, x, y)
-            return 0 if k is None else int(self.mvd[k[0], k[1], comp])
+            return 0 if k is None else int(self.mvds[l][k[0], k[1], comp])
         total, base, a = near(bx - 1, by) + near(bx, by - 1), 47 if comp else 40, abs(v)
         cab = self.cab
         cab.decision(base + (0 if total < 3 else 2 if total > 32 else 1), int(a > 0))
@@ -1386,12 +1782,27 @@ class PictureState:
 
     # the macroblock layer
 
-    def macroblock(self, b: Bits, addr: int, mx: int, my: int, mb: dict, p_slice: bool):
+    def t8_allowed(self, mb: dict) -> bool:
+        """Whether transform_size_8x8_flag may follow an inter macroblock's
+        coded_block_pattern: no sub-partition below 8x8, and direct
+        prediction only with direct_8x8_inference_flag."""
+        if not self.pps.transform_8x8:
+            return False
+        if "btype" not in mb:
+            return not any(mb.get("subs", ()))
+        inference = bool(self.sps.direct_8x8_inference)
+        if mb["btype"] == 0:
+            return inference
+        if mb["btype"] == 22:
+            return all(t <= 3 for t in mb["subs"]) and (inference or 0 not in mb["subs"])
+        return True
+
+    def macroblock(self, b: Bits, addr: int, mx: int, my: int, mb: dict, inter: bool):
         self.slice[addr], self.kind[addr] = self.cur_slice, mb["kind"]
         kind = mb["kind"]
-        offset = 5 if p_slice else 0
+        offset = (23 if self.b_slice else 5) if inter else 0
         if kind == PCM:
-            self.mb_type(b, addr, p_slice, offset + 25)
+            self.mb_type(b, addr, inter, offset + 25)
             b.align()
             b.raw(bytes(mb["samples"]))
             if self.cab:
@@ -1402,7 +1813,7 @@ class PictureState:
             self.cbp[addr], self.dcf[addr], self.last_dqp = 0x2F, 7, False
             return
         if kind in (I4, I8):
-            self.mb_type(b, addr, p_slice, offset + 0)
+            self.mb_type(b, addr, inter, offset + 0)
             if self.pps.transform_8x8:
                 self.transform_flag(b, addr, kind == I8)
             self.t8[addr] = int(kind == I8)
@@ -1416,13 +1827,16 @@ class PictureState:
             self.coded_block_pattern(b, addr, mb["cbp"], True)
         elif kind == I16:
             cbp = mb["cbp"]
-            self.mb_type(b, addr, p_slice,
+            self.mb_type(b, addr, inter,
                          offset + 1 + mb["mode"] + 4 * (cbp >> 4) + (12 if cbp & 15 else 0))
             self.chroma_mode(b, addr, mb["chroma_mode"])
         else:
-            self.inter(b, addr, mx, my, mb)
+            if self.b_slice:
+                self.inter_b(b, addr, mx, my, mb)
+            else:
+                self.inter(b, addr, mx, my, mb)
             self.coded_block_pattern(b, addr, mb["cbp"], False)
-            if (mb["cbp"] & 15) and self.pps.transform_8x8 and not any(mb.get("subs", ())):
+            if (mb["cbp"] & 15) and self.t8_allowed(mb):
                 self.transform_flag(b, addr, bool(mb.get("t8")))
                 self.t8[addr] = int(bool(mb.get("t8")))
         self.cbp[addr] = mb["cbp"]
@@ -1433,6 +1847,7 @@ class PictureState:
     def inter(self, b: Bits, addr: int, mx: int, my: int, mb: dict) -> None:
         t = mb["type"]
         self.mb_type(b, addr, True, t)
+        self.shape[addr] = (S16X16, S16X8, S8X16, S8X8, S8X8)[t]
         n_ref = self.n_active
         parts = mb["parts"]  # (bx, by, w, h, shape, ref, mv) in decoding order
         if t < 3:
@@ -1450,13 +1865,77 @@ class PictureState:
                     self.ref[my * 4 + by:my * 4 + by + 2, mx * 4 + bx:mx * 4 + bx + 2] = \
                         mb["sub_refs"][i]
         for bx, by, w, h, shape, ref, mv in parts:
-            pred = self.predict(mx, my, bx, by, w, ref, shape)
-            d = (mv[0] - pred[0], mv[1] - pred[1])
-            self.mvd_component(b, 0, mx, my, bx, by, d[0])
-            self.mvd_component(b, 1, mx, my, bx, by, d[1])
-            self.mvd[my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = (
-                min(abs(d[0]), 64), min(abs(d[1]), 64))
-            self.set_motion(mx, my, bx, by, w, h, ref, mv)
+            self.part_motion(b, mx, my, (bx, by, w, h, shape, 1, (ref, -1), (mv, (0, 0))), 0)
+
+    def part_motion(self, b: Bits, mx: int, my: int, part, l: int) -> None:
+        """A partition's mvd_lX (where list ``l`` predicts it) and motion;
+        ``part`` is (bx, by, w, h, shape, lists, (ref0, ref1), (mv0, mv1))."""
+        bx, by, w, h, shape, use, refs, mvs = part
+        d = (0, 0)
+        if (use >> l) & 1:
+            pred = self.predict(mx, my, bx, by, w, refs[l], shape, l)
+            d = (mvs[l][0] - pred[0], mvs[l][1] - pred[1])
+            self.mvd_component(b, 0, mx, my, bx, by, d[0], l)
+            self.mvd_component(b, 1, mx, my, bx, by, d[1], l)
+        self.mvds[l][my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = (
+            min(abs(d[0]), 64), min(abs(d[1]), 64))
+        if (use >> l) & 1:
+            self.set_motion(mx, my, bx, by, w, h, refs[l], mvs[l], l)
+        else:
+            self.set_motion(mx, my, bx, by, w, h, -1, (0, 0), l)
+
+    def inter_b(self, b: Bits, addr: int, mx: int, my: int, mb: dict) -> None:
+        """A B macroblock: ``btype`` 0 (B_Direct_16x16), 1-21, 22 (B_8x8,
+        ``subs`` its sub_mb_types); ``parts`` as ``part_motion`` takes them,
+        in decoding order."""
+        t = mb["btype"]
+        self.mb_type(b, addr, True, t)
+        counts = (self.n_active, self.n_active1)
+        if t == 0:
+            self.mb_direct[addr] = True
+            self.direct_motion(mx, my, 15, True)
+            return
+        parts = mb["parts"]
+        if t == 22:
+            self.shape[addr] = S8X8
+            for st in mb["subs"]:
+                self.sub_type(b, st)
+            direct = [st == 0 for st in mb["subs"]]
+            mask = sum(1 << i for i in range(4) if direct[i])
+            if mask:
+                self.direct_motion(mx, my, mask, False)
+            for l in range(2):
+                for i in range(4):
+                    if direct[i]:
+                        continue
+                    bx, by = (i & 1) * 2, (i >> 1) * 2
+                    use, ref = mb["sub_use"][i], mb["sub_refs"][l][i]
+                    if (use >> l) & 1:
+                        self.ref_index(b, counts[l], mx, my, bx, by, ref, l)
+                    self.refs[l][my * 4 + by:my * 4 + by + 2, mx * 4 + bx:mx * 4 + bx + 2] = (
+                        ref if (use >> l) & 1 else -1)
+            for l in range(2):
+                k = 0
+                for i in range(4):
+                    if direct[i]:
+                        for j in range(4):
+                            self.done[l] |= 1 << (((i >> 1) * 2 + (j >> 1)) * 4 + (i & 1) * 2
+                                                  + (j & 1))
+                        continue
+                    for _ in range(SUB_PARTS[mb["subs"][i]]):
+                        self.part_motion(b, mx, my, parts[k], l)
+                        k += 1
+            return
+        self.shape[addr] = (S16X16, S16X8, S8X16)[B_TYPES[t][0]]
+        for l in range(2):
+            for bx, by, w, h, shape, use, refs, mvs in parts:
+                if (use >> l) & 1:
+                    self.ref_index(b, counts[l], mx, my, bx, by, refs[l], l)
+                self.refs[l][my * 4 + by:my * 4 + by + h, mx * 4 + bx:mx * 4 + bx + w] = (
+                    refs[l] if (use >> l) & 1 else -1)
+        for l in range(2):
+            for part in parts:
+                self.part_motion(b, mx, my, part, l)
 
     def residual(self, b: Bits, mx: int, my: int, mb: dict) -> None:
         kind, cbp = mb["kind"], mb["cbp"]
@@ -1687,10 +2166,12 @@ class RandomMbs:
             mb["mode"] = int(rng.choice(ok))
             mb["cbp"] = int(rng.integers(0, 3)) << 4 | int(rng.choice([0, 15]))
         else:
-            self.inter(state, mx, my, mb)
+            if state.b_slice:
+                self.inter_b(state, mx, my, mb)
+            else:
+                self.inter(state, mx, my, mb)
             mb["cbp"] = int(rng.integers(0, 48))
-            mb["t8"] = bool(state.pps.transform_8x8 and mb["cbp"] & 15 and not any(
-                mb.get("subs", ())) and rng.random() < self.t8)
+            mb["t8"] = bool(mb["cbp"] & 15 and state.t8_allowed(mb) and rng.random() < self.t8)
         if kind != INTER:
             left = state.intra_available(mx, my, -1, 0)
             top = state.intra_available(mx, my, 0, -1)
@@ -1741,26 +2222,76 @@ class RandomMbs:
         mb["cac"] = [[[0] + levels(15, qcs[c], lists[c]) for _ in range(4)] for c in range(2)]
         return mb
 
+    def vector(self, state: PictureState, mx: int, my: int, bx: int, by: int, l: int = 0):
+        """A vector near the one left of block (bx, by) in list ``l``, or one
+        reaching off the picture."""
+        rng, w4 = self.rng, 4 * state.mb_w
+        if rng.random() < self.off_frame:
+            x = int(rng.integers(-4 * (16 * mx + 80), 4 * (16 * (state.mb_w - mx) + 80)))
+            y = int(rng.integers(-4 * (16 * my + 80), 4 * (16 * (state.mb_h - my) + 80)))
+            return (x, y)
+        mv = state.mvs[l]
+        ox = int(mv[my * 4 + min(by, 3), (mx * 4 + bx - 1) % w4, 0])
+        oy = int(mv[my * 4 + min(by, 3), (mx * 4 + bx - 1) % w4, 1])
+        x = max(-4 * (16 * mx + 40), min(4 * (16 * (state.mb_w - mx) + 24),
+                                          ox + int(rng.integers(-20, 21))))
+        y = max(-4 * (16 * my + 40), min(4 * (16 * (state.mb_h - my) + 24),
+                                          oy + int(rng.integers(-20, 21))))
+        return (x, y)
+
+    def inter_b(self, state: PictureState, mx: int, my: int, mb: dict) -> None:
+        """A random B macroblock: B_Direct_16x16, a two-partition type or
+        B_8x8 (direct sub-macroblocks among the rest)."""
+        rng = self.rng
+        n = (len(state.lists[0]), len(state.lists[1]))
+        roll = rng.random()
+        t = 0 if roll < 0.15 else 22 if roll < 0.35 and self.sub else int(rng.integers(1, 22))
+        mb["btype"] = t
+        mb["parts"] = []
+        if t == 0:
+            return
+
+        def part(bx, by, w, h, shape, use, refs):
+            mvs = tuple(self.vector(state, mx, my, bx, by, l) if (use >> l) & 1 else (0, 0)
+                        for l in range(2))
+            return (bx, by, w, h, shape, use, tuple(refs), mvs)
+        ref = lambda l: int(rng.integers(0, n[l]))  # noqa: E731
+        if t == 22:
+            subs = [0 if rng.random() < 0.25 else int(rng.integers(1, 13)) for _ in range(4)]
+            use = [B_SUBS[st][0] for st in subs]
+            refs = [[ref(l) if (use[i] >> l) & 1 else -1 for i in range(4)] for l in range(2)]
+            for i, st in enumerate(subs):
+                if st == 0:
+                    continue
+                ox, oy, form = (i & 1) * 2, (i >> 1) * 2, B_SUBS[st][1]
+                r = (refs[0][i], refs[1][i])
+                if form == 0:
+                    shapes = [(ox, oy, 2, 2)]
+                elif form == 1:
+                    shapes = [(ox, oy, 2, 1), (ox, oy + 1, 2, 1)]
+                elif form == 2:
+                    shapes = [(ox, oy, 1, 2), (ox + 1, oy, 1, 2)]
+                else:
+                    shapes = [(ox + (j & 1), oy + (j >> 1), 1, 1) for j in range(4)]
+                for bx, by, w, h in shapes:
+                    mb["parts"].append(part(bx, by, w, h, 0, use[i], r))
+            mb["subs"], mb["sub_use"], mb["sub_refs"] = subs, use, refs
+            return
+        shape, u0, u1 = B_TYPES[t]
+        uses = (u0,) if shape == 0 else (u0, u1)
+        rects = {0: [(0, 0, 4, 4, 0)], 1: [(0, 0, 4, 2, 1), (0, 2, 4, 2, 2)],
+                 2: [(0, 0, 2, 4, 3), (2, 0, 2, 4, 4)]}[shape]
+        for (bx, by, w, h, sh), use in zip(rects, uses):
+            mb["parts"].append(part(bx, by, w, h, sh, use,
+                                    [ref(l) if (use >> l) & 1 else -1 for l in range(2)]))
+
     def inter(self, state: PictureState, mx: int, my: int, mb: dict) -> None:
         rng = self.rng
         n_ref = len([r for r in state.list if r is not None])
         # P_8x8ref0 has no CABAC binarisation
         t = int(rng.integers(0, (4 if state.pps.cabac else 5) if self.sub else 3))
         mb["type"] = t
-        w4 = 4 * state.mb_w
-
-        def vector(bx, by):
-            if rng.random() < self.off_frame:
-                x = int(rng.integers(-4 * (16 * mx + 80), 4 * (16 * (state.mb_w - mx) + 80)))
-                y = int(rng.integers(-4 * (16 * my + 80), 4 * (16 * (state.mb_h - my) + 80)))
-                return (x, y)
-            ox = int(state.mv[my * 4 + min(by, 3), (mx * 4 + bx - 1) % w4, 0])
-            oy = int(state.mv[my * 4 + min(by, 3), (mx * 4 + bx - 1) % w4, 1])
-            x = max(-4 * (16 * mx + 40), min(4 * (16 * (state.mb_w - mx) + 24),
-                                              ox + int(rng.integers(-20, 21))))
-            y = max(-4 * (16 * my + 40), min(4 * (16 * (state.mb_h - my) + 24),
-                                              oy + int(rng.integers(-20, 21))))
-            return (x, y)
+        vector = functools.partial(self.vector, state, mx, my)
 
         ref = lambda: int(rng.integers(0, n_ref))  # noqa: E731
         if t == 0:
@@ -2053,16 +2584,19 @@ class PlainMbs:
     def __init__(self, planes, qp: int, search: int):
         self.src = planes
         self.qp = qp
-        self.search = search
+        self.range = search
 
     def skipped(self, state, mx, my, mv):
-        pred = self.inter_pred(state, mx, my, mv)
+        pred = (self.direct_pred(state, mx, my) if mv is None else
+                self.weighted(state, [0, -1], [self.inter_pred(state, mx, my, mv), None]))
         for c in range(3):
             n = 16 if c == 0 else 8
             state.recon[c][my * n:my * n + n, mx * n:mx * n + n] = pred[c]
 
-    def inter_pred(self, state, mx, my, mv):
-        ref = state.list[0].planes
+    def inter_pred(self, state, mx, my, mv, ref=None):
+        """The prediction of macroblock (mx, my) from ``ref``'s planes (list
+        0's first by default) with the full-sample vector ``mv``."""
+        ref = ref if ref is not None else state.list[0].planes
         out = []
         for c in range(3):
             n = 16 if c == 0 else 8
@@ -2084,6 +2618,120 @@ class PlainMbs:
                         + fx * fy * d + 32) >> 6)
         return out
 
+    def weighted(self, state, refs, preds):
+        """8.4.2.3 on the planes of each list's prediction (None where a list
+        does not predict): the average, or the PPS's explicit or implicit
+        weights."""
+        explicit = state.weights
+        if preds[0] is not None and preds[1] is not None:
+            if explicit is not None:
+                out = []
+                for c in range(3):
+                    d = explicit["chroma_denom" if c else "luma_denom"]
+                    (w0, o0), (w1, o1) = (self.weight(explicit, l, refs[l], c) for l in range(2))
+                    out.append(np.clip(((preds[0][c] * w0 + preds[1][c] * w1 + (1 << d))
+                                        >> (d + 1)) + ((o0 + o1 + 1) >> 1), 0, 255))
+                return out
+            if state.pps.weighted_bipred == 2:
+                w0 = implicit_weight(state, refs[0], refs[1])
+                return [np.clip((a * w0 + b * (64 - w0) + 32) >> 6, 0, 255)
+                        for a, b in zip(*preds)]
+            return [(a + b + 1) >> 1 for a, b in zip(*preds)]
+        l = 0 if preds[0] is not None else 1
+        if explicit is None:
+            return preds[l]
+        out = []
+        for c in range(3):
+            d = explicit["chroma_denom" if c else "luma_denom"]
+            w, o = self.weight(explicit, l, refs[l], c)
+            rounding = 1 << (d - 1) if d else 0
+            out.append(np.clip(((preds[l][c] * w + rounding) >> d) + o, 0, 255))
+        return out
+
+    @staticmethod
+    def weight(table, l, ref, c):
+        """(weight, offset) of list ``l``'s entry ``ref``, component ``c``."""
+        luma, chroma = table["lists"][l][ref]
+        entry = luma if c == 0 else (chroma[c - 1] if chroma is not None else None)
+        d = table["chroma_denom" if c else "luma_denom"]
+        return entry if entry is not None else (1 << d, 0)
+
+    def direct_pred(self, state, mx, my):
+        """The prediction of a direct macroblock from the motion grids (its
+        vectors full-sample)."""
+        out = [np.zeros((16, 16), np.int64), np.zeros((8, 8), np.int64),
+               np.zeros((8, 8), np.int64)]
+        made = {}
+        for k in range(16):
+            bx, by = k & 3, k >> 2
+            gy, gx = my * 4 + by, mx * 4 + bx
+            refs = tuple(int(state.refs[l][gy, gx]) for l in range(2))
+            mvs = tuple(tuple(int(v) for v in state.mvs[l][gy, gx]) for l in range(2))
+            if (refs, mvs) not in made:
+                preds = [None if refs[l] < 0 else
+                         self.inter_pred(state, mx, my, mvs[l], state.lists[l][refs[l]].planes)
+                         for l in range(2)]
+                made[refs, mvs] = self.weighted(state, list(refs), preds)
+            pred = made[refs, mvs]
+            out[0][by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = pred[0][by * 4:by * 4 + 4,
+                                                                   bx * 4:bx * 4 + 4]
+            for c in (1, 2):
+                out[c][by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = pred[c][by * 2:by * 2 + 2,
+                                                                       bx * 2:bx * 2 + 2]
+        return out
+
+    def search(self, state, mx, my, planes, src):
+        """The full-sample vector within the search range whose block is
+        nearest ``src``, and its SAD."""
+        ref = planes[0].astype(np.int64)
+        h, w = ref.shape
+        y0, x0, best = my * 16, mx * 16, None
+        for dy in range(-self.range, self.range + 1):
+            for dx in range(-self.range, self.range + 1):
+                ys = np.clip(np.arange(16) + y0 + dy, 0, h - 1)
+                xs = np.clip(np.arange(16) + x0 + dx, 0, w - 1)
+                sad = int(np.abs(src - ref[np.ix_(ys, xs)]).sum()) + 4 * (abs(dx) + abs(dy))
+                if best is None or sad < best[0]:
+                    best = (sad, (4 * dx, 4 * dy))
+        return best
+
+    def decide_b(self, state, mx, my, src, intra_best, left, top, top_left):
+        """B_Skip / B_Direct_16x16 where the direct vectors are whole
+        samples, else B_L0 / L1 / Bi_16x16 from a search in each list's
+        first picture, or intra, by SAD."""
+        addr = my * state.mb_w + mx
+        cands = []
+        state.direct_motion(mx, my, 15, True)
+        whole = all(not (int(v) & 3) for l in range(2)
+                    for v in state.mvs[l][my * 4:my * 4 + 4, mx * 4:mx * 4 + 4].reshape(-1))
+        if whole:
+            pred = self.direct_pred(state, mx, my)
+            cands.append((int(np.abs(src - pred[0]).sum()) - 64, 0, pred, None))
+        state.direct[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = False
+        found = [self.search(state, mx, my, state.lists[l][0].planes, src) for l in range(2)]
+        for t, use in ((1, (1, 0)), (2, (0, 1)), (3, (1, 1))):
+            refs = [0 if use[l] else -1 for l in range(2)]
+            mvs = [found[l][1] if use[l] else (0, 0) for l in range(2)]
+            preds = [self.inter_pred(state, mx, my, mvs[l], state.lists[l][0].planes)
+                     if use[l] else None for l in range(2)]
+            pred = self.weighted(state, refs, preds)
+            cands.append((int(np.abs(src - pred[0]).sum()) + 32 * (t == 3), t, pred,
+                          (refs, mvs)))
+        sad, t, pred, motion = min(cands, key=lambda c: c[0])
+        if sad > intra_best[0] + 256:
+            return self.code_intra(state, mx, my, intra_best[2], left, top, top_left, src)
+        if t == 0:
+            mb = {"kind": INTER, "btype": 0, "parts": []}
+        else:
+            refs, mvs = motion
+            mb = {"kind": INTER, "btype": t,
+                  "parts": [(0, 0, 4, 4, 0, t, tuple(refs), tuple(mvs))]}
+        mb = self.code_inter(state, mx, my, None, mb, pred)
+        if t == 0 and mb["cbp"] == 0:
+            return {"kind": SKIP}
+        state.mb_direct[addr] = False
+        return mb
+
     def decide(self, state: PictureState, mx: int, my: int, p_slice: bool) -> dict:
         y0, x0 = my * 16, mx * 16
         src = self.src[0][y0:y0 + 16, x0:x0 + 16].astype(np.int64)
@@ -2098,12 +2746,14 @@ class PlainMbs:
             sad = int(np.abs(src - pred).sum())
             if best is None or sad < best[0]:
                 best = (sad, "I16", mode, pred)
+        if state.b_slice:
+            return self.decide_b(state, mx, my, src, best, left, top, top_left)
         inter = None
         if p_slice and state.list and state.list[0].planes is not None:
             ref = state.list[0].planes[0].astype(np.int64)
             h, w = ref.shape
-            for dy in range(-self.search, self.search + 1):
-                for dx in range(-self.search, self.search + 1):
+            for dy in range(-self.range, self.range + 1):
+                for dx in range(-self.range, self.range + 1):
                     ys = np.clip(np.arange(16) + y0 + dy, 0, h - 1)
                     xs = np.clip(np.arange(16) + x0 + dx, 0, w - 1)
                     sad = int(np.abs(src - ref[np.ix_(ys, xs)]).sum()) + 4 * (abs(dx) + abs(dy))
@@ -2159,15 +2809,19 @@ class PlainMbs:
             state.recon[1 + c][my * 8:my * 8 + 8, mx * 8:mx * 8 + 8] = recs[c]
         return cbp_c
 
-    def code_inter(self, state, mx, my, mv) -> dict:
+    def code_inter(self, state, mx, my, mv, mb=None, preds=None) -> dict:
+        """A P_L0_16x16 macroblock of vector ``mv`` (or ``mb`` over
+        ``preds``), its residual quantised; P_Skip where it can be."""
         qp = self.qp
-        preds = self.inter_pred(state, mx, my, mv)
+        if preds is None:
+            preds = self.weighted(state, [0, -1], [self.inter_pred(state, mx, my, mv), None])
         src = self.src[0][my * 16:my * 16 + 16, mx * 16:mx * 16 + 16].astype(np.int64)
         res = src - preds[0]
         cbp = 0
         rec = preds[0].copy()
-        mb = {"kind": INTER, "type": 0, "parts": [(0, 0, 4, 4, 0, 0, mv)], "qp_delta": 0}
-        if state.pps.transform_8x8:
+        mb = mb or {"kind": INTER, "type": 0, "parts": [(0, 0, 4, 4, 0, 0, mv)]}
+        mb["qp_delta"] = 0
+        if state.t8_allowed(mb):
             w8 = state.w8[1]
             mb["luma8"], mb["t8"] = [], True
             for i8 in range(4):
@@ -2195,9 +2849,9 @@ class PlainMbs:
             mb["luma"] = luma
         cbp |= self.chroma(state, mx, my, preds[1:], False, mb) << 4
         state.recon[0][my * 16:my * 16 + 16, mx * 16:mx * 16 + 16] = rec
-        if cbp == 0 and tuple(mv) == tuple(state.skip_mv(mx, my)):
-            return {"kind": SKIP}
         mb["cbp"] = cbp
+        if mv is not None and cbp == 0 and tuple(mv) == tuple(state.skip_mv(mx, my)):
+            return {"kind": SKIP}
         return mb
 
     def chroma_dc_pred(self, state, mx, my, c):

@@ -14,7 +14,9 @@ mutated and read through ``probe_video`` and ``iterate_frames``.  Each still
 of ``tests/fixtures/stills`` (BMP, PNG, PPM, WebP lossy, lossless and
 animated, GIF) decodes through ``decode_rgb``, then ``N`` mutations of it.
 Small writer-made H.264 streams (CAVLC and CABAC, the 8x8 transform,
-scaling lists, I_PCM) add their own.  ``--stream`` also reads every video,
+scaling lists, I_PCM; B pictures with spatial and temporal direct
+prediction, explicit and implicit weights, reordered output) add their
+own.  ``--stream`` also reads every video,
 and mutated copies, through ``native.VideoStream``'s decode thread.  A
 decoder may raise on a mutated input; the run fails only when the process
 does (a sanitizer's report aborts it).
@@ -100,7 +102,7 @@ def decoder_for(index, name: str):
     if index.codec == "vp9":
         return native.Vp9Decoder(name)
     if index.codec == "h264":
-        return native.H264Decoder(index.config, name)
+        return native.H264Decoder(index.config, name, index.reorder)
     return None  # Motion-JPEG: each sample on its own
 
 
@@ -117,6 +119,8 @@ def decode(index, samples, name: str) -> int:
             else:
                 decoder.decode(sample, name)
             done += 1
+        while isinstance(decoder, native.H264Decoder) and decoder.flush() is not None:
+            pass
     except ValueError:
         pass
     finally:
@@ -166,10 +170,25 @@ def replay_stills(rng, mutations: int) -> None:
 
 def writer_streams():
     """Small H.264 streams the fixtures do not hold: CAVLC and CABAC with the
-    8x8 transform, scaling lists, I_PCM and several slices."""
+    8x8 transform, scaling lists, I_PCM and several slices; CAVLC and CABAC
+    B pyramids with temporal and spatial direct prediction and weights."""
     from tests import torch_h264_writer as W
 
     out = []
+    for k, pps in enumerate((W.Pps(weighted_pred=1, weighted_bipred=1, num_ref_idx_default=2,
+                                   num_ref_idx_l1_default=2),
+                             W.Pps(cabac=1, transform_8x8=1, weighted_bipred=2,
+                                   num_ref_idx_default=2, num_ref_idx_l1_default=2))):
+        sps = W.Sps(profile=100, max_num_ref_frames=3, poc_type=0, log2_max_poc_lsb=8,
+                    restriction=2, direct_8x8_inference=k)
+        writer = W.Writer(64, 48, seed=10 + k, sps=sps, pps=pps)
+        units = [writer.parameter_sets() + writer.random_picture("IDR", poc={"lsb": 0})[0]]
+        for base in (0, 8):  # P, a reference B, two B: order counts 4, 2, 1, 3 (times 2)
+            for lsb, ref, kind in ((8, 1, "P"), (4, 1, "B"), (2, 0, "B"), (6, 0, "B")):
+                units.append(writer.random_picture(kind, poc={"lsb": lsb + 2 * base}, ref_idc=ref,
+                                                   direct_spatial=(lsb + k) % 2, slices=2,
+                                                   pcm=0.05)[0])
+        out.append([W.annexb(u) for u in units])
     for k, pps in enumerate((W.Pps(transform_8x8=1, num_ref_idx_default=2),
                              W.Pps(cabac=1, transform_8x8=1, num_ref_idx_default=2, scaling=1,
                                    lists=[None, "default", None, [20] * 16, None, None,
@@ -192,6 +211,8 @@ def replay_writer_streams(rng, mutations: int) -> None:
                 for j, sample in enumerate(samples):
                     decoder.decode(mutate(sample, rng) if k and j == i else sample)
                     decoder.contexts  # noqa: B018 - the call is what is replayed
+                while decoder.flush() is not None:
+                    pass
             except ValueError:
                 pass
             finally:
@@ -218,7 +239,7 @@ def replay_stream(path: str, rng, mutations: int, tmp: str) -> None:
             stream = native.VideoStream(src, index.offsets, index.sizes,
                                         np.arange(index.shown), (64, 64), capacity=4,
                                         codec=index.codec, config=index.config,
-                                        fourcc=index.fourcc)
+                                        fourcc=index.fourcc, reorder=index.reorder)
         except Exception:  # noqa: BLE001
             continue
         try:

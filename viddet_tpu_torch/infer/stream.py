@@ -139,7 +139,8 @@ class NativeFrameSource:
         keep = np.arange(0, index.shown, every)  # the whole frames of a cut file
         self._stream = VideoStream(str(path), index.offsets, index.sizes, keep, size,
                                    letterbox_resize, normalize, queue_size, codec=index.codec,
-                                   config=index.config, fourcc=index.fourcc)
+                                   config=index.config, fourcc=index.fourcc,
+                                   reorder=index.reorder)
 
     def __iter__(self):
         for idx, x, affine in self._stream:

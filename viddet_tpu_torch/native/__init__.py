@@ -21,7 +21,7 @@ For video, ``frame_transform`` is ``data.transforms.ValTransform`` in C++,
 bit for bit, ``Mpeg4Decoder`` decodes MPEG-4 Part 2 video and
 ``Mpeg4Encoder`` encodes it (``mpeg4enc.cpp``), ``Vp8Decoder`` decodes
 VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``),
-``H264Decoder`` decodes I and P H.264, CAVLC or CABAC (``h264.cpp``), and
+``H264Decoder`` decodes I, P and B H.264, CAVLC or CABAC (``h264.cpp``), and
 ``VideoStream`` reads, decodes and transforms the frames of a Motion-JPEG,
 MPEG-4, VP8, VP9 or H.264 stream (indexed by ``native.avi``, ``native.mp4`` or
 ``native.mkv``) on a C++ thread into a ring of frames.
@@ -184,8 +184,10 @@ def library() -> ctypes.CDLL:
             lib.vd_h264_decode.argtypes = [p, p, size, p, i]
             lib.vd_h264_probe.argtypes = [p, p, size, p, i]
             lib.vd_h264_size.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i)]
-            lib.vd_h264_features.argtypes = [p]
-            lib.vd_h264_features.restype = ctypes.c_ulonglong
+            lib.vd_h264_features.argtypes = [p, p]
+            lib.vd_h264_flush.argtypes = [p]
+            lib.vd_h264_set_reorder.argtypes = [p, i]
+            lib.vd_h264_reorder.argtypes = [p]
             lib.vd_h264_info.argtypes = [p, p]
             lib.vd_h264_contexts.argtypes = [p, p]
             lib.vd_h264_rgb.argtypes = [p, p]
@@ -196,8 +198,8 @@ def library() -> ctypes.CDLL:
                                            ctypes.POINTER(ctypes.c_uint), p, i]
             lib.vd_webp_lossy.argtypes = [p, size, i, i, p, p, i]
             lib.vd_gif_lzw.argtypes = [p, size, i, p, size, ctypes.POINTER(size), p, i]
-            lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, p, p, i,
-                                          p, i, i, i, i, i, i, p, i]
+            lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, i, p, p,
+                                          i, p, i, i, i, i, i, i, p, i]
             lib.vd_video_open.restype = p
             lib.vd_video_next.argtypes = [p, p, p, ctypes.POINTER(i), p, i]
             lib.vd_video_stop.argtypes = [p]
@@ -208,7 +210,7 @@ def library() -> ctypes.CDLL:
                        lib.vd_vp8_decode, lib.vd_vp8_rgb, lib.vd_vp8_planes,
                        lib.vd_vp8l_decode, lib.vd_webp_lossy, lib.vd_gif_lzw,
                        lib.vd_h264_decode, lib.vd_h264_probe, lib.vd_h264_rgb,
-                       lib.vd_h264_planes):
+                       lib.vd_h264_planes, lib.vd_h264_flush, lib.vd_h264_reorder):
                 fn.restype = i
             _lib = lib
         return _lib
@@ -817,8 +819,13 @@ H264_FEATURES = {name: 1 << bit for bit, name in enumerate((
     "chroma QP offset", "second chroma QP offset", "Annex B", "length prefixes", "timing info",
     "bitstream restriction", "parameter set ids", "QP deltas", "quarter-sample vectors",
     "level prefix 16", "CABAC", "8x8 transform", "intra 8x8", "SPS scaling matrices",
-    "PPS scaling matrices", "default scaling lists", "I_PCM in CABAC", "scaling fall-back"))}
-H264_CONTEXTS = 460  # h264.h's kContexts: the CABAC context variables I / P frame coding uses
+    "PPS scaling matrices", "default scaling lists", "I_PCM in CABAC", "scaling fall-back",
+    # h264.h's Feature2 bits, from bit 64
+    "B slices", "B_8x8", "spatial direct", "temporal direct", "explicit weights",
+    "implicit weights", "reference B pictures", "reordered output", "bi-prediction", "B_Skip",
+    "B_Direct_16x16", "B_Direct_8x8", "direct 4x4", "list 1 modification", "intra in B slices",
+    "pictures not shown"))}
+H264_CONTEXTS = 460  # h264.h's kContexts: the CABAC context variables frame coding uses
 
 
 class _VpxDecoder:
@@ -858,8 +865,9 @@ class _VpxDecoder:
             raise ValueError(f"{name or self.name}: {self.label} decode: {_message(err)}")
         if not rc:
             return None
-        if not rgb:
-            return True
+        return self._rgb() if rgb else True
+
+    def _rgb(self) -> np.ndarray:
         w, h = self.size
         out = np.empty((h, w, 3), np.uint8)
         self._call("rgb", self._handle, out.ctypes.data)
@@ -917,26 +925,30 @@ class Vp9Decoder(_VpxDecoder):
 
 
 class H264Decoder(_VpxDecoder):
-    """An H.264 decoder of the port's own (``h264.cpp``): I and P pictures,
-    CAVLC or CABAC, progressive, 8-bit 4:2:0, the 4x4 and 8x8 transforms and
-    scaling matrices, bit for bit FFmpeg's.  ``config`` is the track's avcC (its NAL length size
-    and parameter sets); for Annex B samples (an AVI's), parameter sets with
-    start codes or nothing.
+    """An H.264 decoder of the port's own (``h264.cpp``): I, P and B
+    pictures, CAVLC or CABAC, progressive, 8-bit 4:2:0, the 4x4 and 8x8
+    transforms, scaling matrices, direct and weighted prediction, bit for bit
+    FFmpeg's.  ``config`` is the track's avcC (its NAL length size and
+    parameter sets); for Annex B samples (an AVI's), parameter sets with
+    start codes or nothing.  ``reorder`` is the reorder depth FFmpeg starts
+    from (the container's and its stream probe's: ``mp4.check_h264``).
     ``decode(sample)`` decodes one access unit and returns the (H, W, 3)
-    uint8 RGB picture ``cv2.VideoCapture``'s FFmpeg backend returns, cropped
-    and converted with the VUI's colour space and range, or None for a
-    sample of parameter sets or SEI alone; pictures leave in decode order.
-    What the port does not decode (B slices, interlace, weighted
-    prediction, ...) and a damaged sample raise ValueError naming it.
-    ``probe(sample)`` reads a sample's parameter sets and slice headers
-    only, raising for what ``decode`` would refuse there; ``info`` is the
-    active SPS's VUI (matrix_coefficients, full range, num_units_in_tick,
-    time_scale); ``features`` names (``H264_FEATURES``) what the pictures
-    decoded so far used."""
+    uint8 RGB picture ``cv2.VideoCapture``'s FFmpeg backend returns then,
+    cropped and converted with the VUI's colour space and range, or None
+    when none is shown (a picture waiting to be reordered, a sample of
+    parameter sets or SEI alone); pictures leave in FFmpeg's order, and at
+    the end ``flush()`` gives those still waiting.  What the port does not
+    decode (SP / SI slices, interlace, ...) and a damaged sample raise
+    ValueError naming it.  ``probe(sample)`` reads a sample's parameter sets
+    and slice headers only, raising for what ``decode`` would refuse there,
+    and ``probed_reorder`` is then the depth FFmpeg's stream probe leaves;
+    ``info`` is the active SPS's VUI (matrix_coefficients, full range,
+    num_units_in_tick, time_scale); ``features`` names (``H264_FEATURES``)
+    what the pictures decoded so far used."""
 
     prefix, label, features_by_name = "h264", "H.264", H264_FEATURES
 
-    def __init__(self, config: bytes = b"", name: str = "<stream>"):
+    def __init__(self, config: bytes = b"", name: str = "<stream>", reorder: int = 0):
         self._lib = library()
         self.name = name
         self._call = lambda fn, *args: getattr(self._lib, f"vd_h264_{fn}")(*args)
@@ -945,6 +957,27 @@ class H264Decoder(_VpxDecoder):
         self._handle = self._lib.vd_h264_open(config or None, len(config), err, _ERR_LEN)
         if not self._handle:
             raise ValueError(f"{name}: H.264 decoder configuration: {_message(err)}")
+        self._lib.vd_h264_set_reorder(self._handle, int(reorder))
+
+    @property
+    def features(self) -> set:
+        words = (ctypes.c_ulonglong * 2)()
+        self._lib.vd_h264_features(self._handle, words)
+        bits = words[0] | words[1] << 64
+        return {name for name, bit in self.features_by_name.items() if bits & bit}
+
+    def flush(self, rgb: bool = True):
+        """At the end of the stream: the next picture still waiting (as
+        ``decode`` returns it), or None when none is left."""
+        if not self._lib.vd_h264_flush(self._handle):
+            return None
+        return self._rgb() if rgb else True
+
+    @property
+    def probed_reorder(self) -> int:
+        """After ``probe`` over the samples: the reorder depth FFmpeg's
+        avformat_find_stream_info leaves, which its decoder starts from."""
+        return self._lib.vd_h264_reorder(self._handle)
 
     def probe(self, address: int, size: int, name: str = "") -> bool:
         """Read the parameter sets and slice headers of the sample of ``size``
@@ -980,6 +1013,14 @@ def _vpx_frames(decoder: _VpxDecoder, samples, name: str, every: int):
                 if shown % every == 0:
                     yield shown, frame
                 shown += 1
+        flush = getattr(decoder, "flush", None)
+        while flush is not None:
+            frame = flush(rgb=shown % every == 0)
+            if frame is None:
+                break
+            if shown % every == 0:
+                yield shown, frame
+            shown += 1
     finally:
         decoder.close()
 
@@ -998,11 +1039,12 @@ def vp9_frames(samples, name: str, every: int = 1):
     yield from _vpx_frames(Vp9Decoder(name), samples, name, every)
 
 
-def h264_frames(config: bytes, samples, name: str, every: int = 1):
+def h264_frames(config: bytes, samples, name: str, every: int = 1, reorder: int = 0):
     """``vp8_frames`` for an H.264 stream configured by ``config`` (an avcC,
-    or empty for Annex B): a sample that completes no picture takes no
-    index."""
-    yield from _vpx_frames(H264Decoder(config, name), samples, name, every)
+    or empty for Annex B) whose decoder starts at reorder depth ``reorder``:
+    the pictures in FFmpeg's output order, the last ones given at the end;
+    a sample that shows no picture takes no index."""
+    yield from _vpx_frames(H264Decoder(config, name, reorder), samples, name, every)
 
 
 CODECS = {"jpeg": 0, "mpeg4": 1, "vp8": 2, "vp9": 3, "h264": 4}  # VideoStream's codec numbers
@@ -1016,14 +1058,16 @@ class VideoStream:
     only the kept frames; "mpeg4" (configured by ``config``, the stream's
     decoder configuration, and ``fourcc``, the container's tag) decodes the
     samples in decode order up to the last kept picture and transforms only
-    the kept ones, ``indices`` counting pictures in display order.  Iterating yields (index, x,
+    the kept ones, ``indices`` counting pictures in display order; "vp8",
+    "vp9" and "h264" (``reorder``: the depth its decoder starts from) decode
+    every sample up to the last kept picture in the same way.  Iterating yields (index, x,
     affine) in order and raises ValueError for a frame that fails to read
     or decode, after the frames before it.  ``close()`` stops the thread
     and ends an iteration blocked in another thread."""
 
     def __init__(self, path: str, offsets, sizes, indices, size, letterbox: bool = True,
                  normalize: bool = True, capacity: int = 64, codec: str = "jpeg",
-                 config: bytes = b"", fourcc: str = ""):
+                 config: bytes = b"", fourcc: str = "", reorder: int = 0):
         if codec not in CODECS:
             raise ValueError(f"VideoStream decodes jpeg, mpeg4, vp8, vp9 or h264, not {codec!r}")
         self._lib = library()
@@ -1037,7 +1081,8 @@ class VideoStream:
         self._busy = self._closed = False
         self._handle = self._lib.vd_video_open(
             os.fsencode(path), CODECS[codec], config or None, len(config),
-            fourcc.encode("latin-1")[:4], offsets.ctypes.data, sizes.ctypes.data, len(offsets), indices.ctypes.data,
+            fourcc.encode("latin-1")[:4], int(reorder), offsets.ctypes.data, sizes.ctypes.data,
+            len(offsets), indices.ctypes.data,
             len(indices), self._h, self._w, int(letterbox), int(normalize), int(capacity), err,
             _ERR_LEN)
         if not self._handle:

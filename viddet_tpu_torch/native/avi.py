@@ -21,7 +21,9 @@ decoder gives them out in display order.  An H.264 stream (``H264``,
 a chunk, Annex B (start codes), its parameter sets in band or in the
 ``strf`` extradata, for the port's H.264 decoder (``native.H264Decoder``);
 ``native.mp4.check_h264`` refuses what that decoder does not decode before a
-frame is decoded.
+frame is decoded.  B-frames come in decode order with no timestamps, and
+the decoder orders the pictures by order count alone, starting from the
+reorder depth FFmpeg's stream probe leaves (``AviIndex.reorder``).
 
 Reading (``read_index``) walks ``hdrl`` (``avih``; per stream ``strl``
 with ``strh`` and a ``strf`` BITMAPINFOHEADER), then every ``movi`` list in
@@ -88,6 +90,7 @@ class AviIndex:
     codec: str = "jpeg"  # or "mpeg4", "h264" (``native.VideoStream``'s codec)
     config: bytes = b""  # the MPEG-4 decoder configuration (VOS / VO / VOL); H.264's extradata
     fourcc: str = ""  # the strf compression, which FFmpeg's MPEG-4 decoder reads too
+    reorder: int = 0  # H.264: the reorder depth FFmpeg's decoder starts from (its stream probe's)
 
     @property
     def fps(self) -> float:
@@ -185,15 +188,16 @@ class _Walk:
                              f"does not link")
         offsets = np.array([o for o, _ in frames], np.int64)
         sizes = np.array([s for _, s in frames], np.int64)
+        reorder = 0
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
         elif codec == "h264":
             if not len(offsets):
                 self.fail("the H.264 stream has no frames")
-            width, height, _ = check_h264(self.data, offsets, sizes, config, self.path,
-                                          self.fail)
+            width, height, _, reorder = check_h264(self.data, offsets, sizes, config, self.path,
+                                                   self.fail)
         return AviIndex(self.path, width, abs(height), strh[1], strh[0], offsets, sizes,
-                        self.truncated, codec, config, fourcc)
+                        self.truncated, codec, config, fourcc, reorder)
 
     def fail(self, what: str):
         raise ValueError(f"{self.path}: {what}")
@@ -271,7 +275,7 @@ class AviReader:
             return
         if index.codec == "h264":
             yield from h264_frames(index.config, (self.sample(i) for i in range(len(self))),
-                                   index.path, every)
+                                   index.path, every, index.reorder)
             return
         for i in range(0, len(self), every):
             yield i, decode_jpeg(self.sample(i), f"{index.path} frame {i}")

@@ -85,18 +85,22 @@
 //           one), vd_vp9_size, vd_vp9_features, vd_vp9_rgb, vd_vp9_planes,
 //           vd_vp9_free
 //
-// H.264 video (I and P pictures, CAVLC or CABAC: an MP4 / Matroska track configured by
-// its avcC, or Annex B samples of an AVI) is decoded by h264.cpp
+// H.264 video (I, P and B pictures, CAVLC or CABAC: an MP4 / Matroska track configured
+// by its avcC, or Annex B samples of an AVI) is decoded by h264.cpp
 // (vd_h264::Decoder) through the same step, with the VUI's colour space and
-// range:
+// range; pictures leave in FFmpeg's output order:
 //   vd_h264_open(config, size, err, err_len) -> handle or null (config: an
 //           avcC; for Annex B, parameter sets with start codes or nothing)
-//   vd_h264_decode(handle, sample, size, err, err_len): 1 when the sample
-//           completes a picture, 0 when it holds none, -1 and a message
+//   vd_h264_decode(handle, sample, size, err, err_len): 1 when a picture is
+//           shown, 0 when none is, -1 and a message
+//   vd_h264_flush(handle): at the end, 1 while a waiting picture is shown
 //   vd_h264_probe(handle, sample, size, err, err_len) parameter sets and
 //           slice headers only, for the refusals before any frame: 1 when
 //           the sample holds a picture
-//   vd_h264_size, vd_h264_features (64 bits), vd_h264_info (matrix, full
+//   vd_h264_set_reorder(handle, depth) the reorder depth to start from;
+//           vd_h264_reorder(handle) after probing: the depth FFmpeg's stream
+//           probe leaves
+//   vd_h264_size, vd_h264_features (two words of 64 bits), vd_h264_info (matrix, full
 //           range, num_units_in_tick, time_scale), vd_h264_contexts (the
 //           CABAC contexts used, vd_h264::kContexts flags), vd_h264_rgb,
 //           vd_h264_planes, vd_h264_free
@@ -108,16 +112,17 @@
 //           bit: OpenCV's uint8 INTER_LINEAR resize in its integer
 //           arithmetic (transforms.py _resize), the letterbox's 128 border,
 //           and the ImageNet normalisation in float32, step by step
-//   vd_video_open(path, codec, config, config_size, fourcc, offsets, sizes,
-//                 samples, indices, n, h, w, letterbox, normalize, capacity,
-//                 err, err_len) -> handle or null
+//   vd_video_open(path, codec, config, config_size, fourcc, reorder, offsets,
+//                 sizes, samples, indices, n, h, w, letterbox, normalize,
+//                 capacity, err, err_len) -> handle or null
 //           starts a thread that decodes frames `indices` (ascending) of the
 //           file's `samples` samples and transforms each into a ring of
 //           `capacity` frames: codec 0 reads and decodes only the kept
 //           JPEGs; codec 1 (MPEG-4, configured by `config`), codec 2 (VP8),
-//           codec 3 (VP9) and codec 4 (H.264, `config` its avcC or empty)
-//           decode every sample up to the last kept one in order,
-//           since each inter frame needs the pictures before it
+//           codec 3 (VP9) and codec 4 (H.264, `config` its avcC or empty,
+//           starting from reorder depth `reorder`) decode every sample up to
+//           the last kept one in order, since each inter frame needs the
+//           pictures before it
 //   vd_video_next(handle, out, affine, &index, err, err_len)
 //           blocks for the next frame: 1 and the frame, 0 at the end or
 //           after vd_video_stop, -1 and the message of the frame that failed
@@ -2913,6 +2918,7 @@ struct VideoStream {
   int codec = 0;                        // 0 JPEG, 1 MPEG-4 Part 2 (configured by `config`), 2 VP8, 3 VP9, 4 H.264 (an avcC `config`, or none for Annex B)
   std::vector<uint8_t> config;
   std::string fourcc;                   // MPEG-4's container tag
+  int reorder = 0;                      // H.264's reorder depth to start from
   int h, w;
   bool letterbox, normalize;
   size_t frame_bytes;
@@ -3032,61 +3038,55 @@ struct VideoStream {
     }
   }
 
-  // VP8: every frame is decoded in order; the shown ones count in display
-  // order (a hidden alt-ref frame takes no index), and those kept are
-  // converted and transformed.
+  // VP8, VP9 and H.264: every sample is decoded in order (then, at the end,
+  // the pictures `flush` still gives); the pictures shown count in display
+  // order (a hidden VP8 / VP9 frame, or a sample completing no picture, takes
+  // no index), and those kept are converted and transformed.
+  template <typename Read, typename Decoder, typename Error, typename ToRgb, typename Flush>
+  void run_frames(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
+                  std::vector<uint8_t>& staged, Decoder& d, ToRgb to_rgb, Flush flush) {
+    int32_t display = 0;
+    size_t kept = 0;
+    for (size_t k = 0; kept < indices.size(); ++k) {
+      bool shown;
+      try {
+        if (k < offsets.size()) {
+          read(k);
+          shown = d.decode(sample.data(), sample.size());
+        } else if (!(shown = flush(d))) {
+          return;
+        }
+      } catch (const Error& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      } catch (const CodecError& e) {
+        fail("frame %zu: %s", k, e.msg.c_str());
+      }
+      if (!shown || display++ != indices[kept]) continue;
+      if (!wait_slot()) return;
+      rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
+      to_rgb(d, rgb.data());
+      put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
+    }
+  }
+
   template <typename Read>
   void run_vp8(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
                std::vector<uint8_t>& staged) {
     vd_vp8::Decoder d;
-    int32_t display = 0;
-    size_t kept = 0;
-    for (size_t k = 0; k < offsets.size() && kept < indices.size(); ++k) {
-      bool shown;
-      try {
-        read(k);
-        shown = d.decode(sample.data(), sample.size());
-      } catch (const vd_vp8::Error& e) {
-        fail("frame %zu: %s", k, e.msg.c_str());
-      } catch (const CodecError& e) {
-        fail("frame %zu: %s", k, e.msg.c_str());
-      }
-      if (!shown || display++ != indices[kept]) continue;
-      if (!wait_slot()) return;
-      rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
-      vp8_to_rgb(d, rgb.data());
-      put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
-    }
+    run_frames<Read, vd_vp8::Decoder, vd_vp8::Error>(read, sample, rgb, staged, d, vp8_to_rgb,
+                                                     [](vd_vp8::Decoder&) { return false; });
   }
 
-  // VP9: as VP8, a sample (a superframe of hidden frames and the one shown)
-  // counting once when it shows a frame.
   template <typename Read>
   void run_vp9(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
                std::vector<uint8_t>& staged) {
     vd_vp9::Decoder d;
-    int32_t display = 0;
-    size_t kept = 0;
-    for (size_t k = 0; k < offsets.size() && kept < indices.size(); ++k) {
-      bool shown;
-      try {
-        read(k);
-        shown = d.decode(sample.data(), sample.size());
-      } catch (const vd_vp9::Error& e) {
-        fail("frame %zu: %s", k, e.msg.c_str());
-      } catch (const CodecError& e) {
-        fail("frame %zu: %s", k, e.msg.c_str());
-      }
-      if (!shown || display++ != indices[kept]) continue;
-      if (!wait_slot()) return;
-      rgb.resize(static_cast<size_t>(d.width()) * d.height() * 3);
-      vp9_to_rgb(d, rgb.data());
-      put(rgb.data(), d.height(), d.width(), indices[kept++], staged);
-    }
+    run_frames<Read, vd_vp9::Decoder, vd_vp9::Error>(read, sample, rgb, staged, d, vp9_to_rgb,
+                                                     [](vd_vp9::Decoder&) { return false; });
   }
 
-  // H.264: every sample decoded in order; pictures leave in decode order, a
-  // sample completing one counts once.
+  // H.264: the decoder starts from the container's and stream probe's
+  // reorder depth, and the pictures still waiting leave at the end
   template <typename Read>
   void run_h264(Read& read, std::vector<uint8_t>& sample, std::vector<uint8_t>& rgb,
                 std::vector<uint8_t>& staged) {
@@ -3096,24 +3096,9 @@ struct VideoStream {
     } catch (const vd_h264::Error& e) {
       fail("the decoder configuration: %s", e.msg.c_str());
     }
-    int32_t display = 0;
-    size_t kept = 0;
-    for (size_t k = 0; k < offsets.size() && kept < indices.size(); ++k) {
-      bool shown;
-      try {
-        read(k);
-        shown = d->decode(sample.data(), sample.size());
-      } catch (const vd_h264::Error& e) {
-        fail("frame %zu: %s", k, e.msg.c_str());
-      } catch (const CodecError& e) {
-        fail("frame %zu: %s", k, e.msg.c_str());
-      }
-      if (!shown || display++ != indices[kept]) continue;
-      if (!wait_slot()) return;
-      rgb.resize(static_cast<size_t>(d->width()) * d->height() * 3);
-      h264_to_rgb(*d, rgb.data());
-      put(rgb.data(), d->height(), d->width(), indices[kept++], staged);
-    }
+    d->set_reorder(reorder);
+    run_frames<Read, vd_h264::Decoder, vd_h264::Error>(
+        read, sample, rgb, staged, *d, h264_to_rgb, [](vd_h264::Decoder& h) { return h.flush(); });
   }
 
   int next(void* out, float* affine, int* index, char* err, int err_len) {
@@ -3354,9 +3339,19 @@ void vd_h264_size(void* handle, int* width, int* height) {
   *height = d->height();
 }
 
-unsigned long long vd_h264_features(void* handle) {
-  return static_cast<vd_h264::Decoder*>(handle)->features();
+void vd_h264_features(void* handle, unsigned long long* out) {
+  const auto* d = static_cast<vd_h264::Decoder*>(handle);
+  out[0] = d->features();
+  out[1] = d->features2();
 }
+
+int vd_h264_flush(void* handle) { return static_cast<vd_h264::Decoder*>(handle)->flush() ? 1 : 0; }
+
+void vd_h264_set_reorder(void* handle, int depth) {
+  static_cast<vd_h264::Decoder*>(handle)->set_reorder(depth);
+}
+
+int vd_h264_reorder(void* handle) { return static_cast<vd_h264::Decoder*>(handle)->probed_reorder(); }
 
 // matrix_coefficients, full range, num_units_in_tick, time_scale
 void vd_h264_info(void* handle, unsigned* out) {
@@ -3406,7 +3401,8 @@ int vd_frame_transform(const uint8_t* rgb, int ih, int iw, void* out, int h, int
 }
 
 void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned long config_size,
-                    const char* fourcc, const int64_t* offsets, const int64_t* sizes, int samples,
+                    const char* fourcc, int reorder, const int64_t* offsets, const int64_t* sizes,
+                    int samples,
                     const int32_t* indices, int n, int h, int w, int letterbox, int normalize,
                     int capacity, char* err, int err_len) {
   try {
@@ -3421,6 +3417,7 @@ void* vd_video_open(const char* path, int codec, const uint8_t* config, unsigned
     s->codec = codec;
     s->config.assign(config, config + config_size);
     s->fourcc = fourcc ? fourcc : "";
+    s->reorder = reorder;
     s->offsets.assign(offsets, offsets + samples);
     s->sizes.assign(sizes, sizes + samples);
     s->indices.assign(indices, indices + n);

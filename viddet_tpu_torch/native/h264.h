@@ -1,10 +1,10 @@
-// The port's H.264 decoder (h264.cpp): I and P pictures, CAVLC or CABAC,
+// The port's H.264 decoder (h264.cpp): I, P and B pictures, CAVLC or CABAC,
 // progressive, 8-bit 4:2:0, the 4x4 and 8x8 transforms (intra 8x8 prediction
-// included) and scaling matrices, as ITU-T H.264 (ISO/IEC 14496-10) defines
-// them, which is bit for bit FFmpeg's on the planes.  Constrained Baseline,
-// Baseline without FMO, ASO or redundant pictures, and Main and High streams
-// without B slices, interlace or weighted prediction.  No library beyond the
-// C++ standard one.
+// included), scaling matrices, direct prediction and weighted prediction, as
+// ITU-T H.264 (ISO/IEC 14496-10) defines them, which is bit for bit FFmpeg's
+// on the planes, and pictures given out in FFmpeg's order.  Constrained
+// Baseline, Baseline without FMO, ASO or redundant pictures, and Main and High
+// streams without interlace.  No library beyond the C++ standard one.
 #pragma once
 
 #include <cstddef>
@@ -90,7 +90,27 @@ enum Feature : uint64_t {
   kScalingFallback = 1ull << 63,  // a scaling list taken from another by fall-back rule A or B
 };
 
-// The CABAC context variables a frame-coded I / P 4:2:0 stream can use:
+// More of what the pictures decoded so far used (Decoder::features2).
+enum Feature2 : uint64_t {
+  kBSlice = 1ull << 0,            // B slices
+  kB8x8 = 1ull << 1,              // B_8x8
+  kSpatialDirect = 1ull << 2,     // direct_spatial_mv_pred_flag 1
+  kTemporalDirect = 1ull << 3,    // direct_spatial_mv_pred_flag 0
+  kExplicitWeights = 1ull << 4,   // a pred_weight_table other than the defaults
+  kImplicitWeights = 1ull << 5,   // weighted_bipred_idc 2
+  kReferenceB = 1ull << 6,        // B pictures with nal_ref_idc other than 0
+  kReordered = 1ull << 7,         // a picture shown before one decoded earlier
+  kBiPred = 1ull << 8,            // bi-predicted partitions
+  kBSkip = 1ull << 9,             // B_Skip
+  kDirect16x16 = 1ull << 10,      // B_Direct_16x16
+  kDirect8x8 = 1ull << 11,        // B_Direct_8x8 sub-macroblocks
+  kDirect4x4 = 1ull << 12,        // direct prediction without direct_8x8_inference_flag
+  kListModification1 = 1ull << 13,  // ref_pic_list_modification of list 1
+  kIntraInB = 1ull << 14,         // intra macroblocks in B slices
+  kDropped = 1ull << 15,          // a picture FFmpeg does not show (its order count too low)
+};
+
+// The CABAC context variables a frame-coded I / P / B 4:2:0 stream can use:
 // ctxIdx below kContexts (9.3.1.1).
 constexpr int kContexts = 460;
 
@@ -104,17 +124,31 @@ class Decoder {
   Decoder(const Decoder&) = delete;
   Decoder& operator=(const Decoder&) = delete;
 
-  // Decode one sample (an access unit).  True when it completes a picture,
-  // which is then the one shown: pictures leave in decode order, and a
-  // stream whose picture order is not its decode order is refused.  A
-  // sample of parameter sets or SEI alone shows nothing.  Throws Error; the
-  // decoder's state is then undefined.
+  // Decode one sample (an access unit).  True when a picture is shown, the
+  // one FFmpeg gives out then (h264_select_output_frame): pictures wait while
+  // the reorder depth needs and leave by picture order count, a picture
+  // whose order count falls below the last shown is not shown, and the
+  // depth grows with the order counts seen unless the SPS's VUI states it
+  // (bitstream_restriction).  A sample of parameter sets or SEI alone shows
+  // nothing.  Throws Error; the decoder's state is then undefined.
   bool decode(const uint8_t* data, size_t size);
+
+  // At the end of the stream: true while a picture is left to show (the
+  // next, by order count), false when none is.
+  bool flush();
 
   // Parse a sample's parameter sets and slice headers without decoding a
   // macroblock, refusing what decode would refuse for them; true when the
   // sample holds a picture.  A decoder that probes does not decode.
   bool probe(const uint8_t* data, size_t size);
+
+  // The reorder depth (FFmpeg's has_b_frames) to start from: what the
+  // container (an MP4's composition offsets) and FFmpeg's stream probe set
+  // before the first sample.  After probing the samples, probed_reorder is
+  // the depth FFmpeg's avformat_find_stream_info leaves, which a decoder
+  // of the stream then starts from.
+  void set_reorder(int frames);
+  int probed_reorder() const;
 
   // The picture size after cropping, as FFmpeg crops it (0 before the first
   // sequence parameter set).
@@ -125,6 +159,7 @@ class Decoder {
   const uint8_t* plane(int c) const;
   int stride(int c) const;
   uint64_t features() const;
+  uint64_t features2() const;
   // The VUI's matrix_coefficients (2, unspecified, without a colour
   // description) and video_full_range_flag of the active sequence
   // parameter set.

@@ -33,10 +33,14 @@ The codecs:
   before a frame is decoded, a track that does not start with a key frame,
   another profile and a change of frame size.
 * ``V_MPEG4/ISO/AVC``: H.264, its ``CodecPrivate`` an avcC, decoded by the
-  port's H.264 decoder (``h264.cpp``, ``native.H264Decoder``), CAVLC I and P
-  pictures; ``native.mp4.check_h264`` reads the parameter sets and every
-  frame's slice headers and refuses what the decoder does not decode before a
-  frame is decoded.  The size is the SPS's, cropped as FFmpeg crops it.
+  port's H.264 decoder (``h264.cpp``, ``native.H264Decoder``), I, P and B
+  pictures, CAVLC or CABAC; ``native.mp4.check_h264`` reads the parameter
+  sets and every frame's slice headers, refuses what the decoder does not
+  decode before a frame is decoded, and gives the reorder depth FFmpeg's
+  stream probe leaves.  With B-frames the blocks' timestamps are out of
+  decoding order; the rate estimated from them takes their span, which
+  does not depend on it.  The size is the SPS's, cropped as FFmpeg crops
+  it.
 * ``V_MPEG4/ISO/SP``, ``/ASP`` and ``/AP``: MPEG-4 Part 2, configured by the
   track's ``CodecPrivate`` (its VOS / VOL headers; without one, the
   headers at the head of the first frame), for ``native.Mpeg4Decoder``.
@@ -127,6 +131,7 @@ class MkvIndex:
     shown: int  # the frames shown that lie wholly in the file: VP8's hidden frames are not
     stated: int  # the frame count OpenCV reports: Duration x fps where Info has a Duration
     fourcc: str = ""  # a V_MS/VFW/FOURCC track's compression (FFmpeg's MPEG-4 decoder reads it)
+    reorder: int = 0  # H.264: the reorder depth FFmpeg's decoder starts from (its stream probe's)
 
     @property
     def frame_count(self) -> int:
@@ -649,9 +654,10 @@ class _Walk:
             shown, width, height = self.check_vp8(offsets, sizes, width, height)
         elif codec == "vp9":
             shown, width, height = check_vp9(self.data, offsets, sizes, width, height, self.fail)
-        elif codec == "h264":
-            width, height, info = check_h264(self.data, offsets, sizes, config, self.path,
-                                             self.fail)
+        reorder = 0
+        if codec == "h264":
+            width, height, info, reorder = check_h264(self.data, offsets, sizes, config,
+                                                      self.path, self.fail)
         if video.default_duration:
             num, den = reduce_fraction(10**9, video.default_duration, 30000)
             fps = num / den
@@ -663,7 +669,7 @@ class _Walk:
             seconds = int(self.duration * self.scale / 1000) / 1e6
             stated = int(math.floor(seconds * fps + 0.5)) or shown
         return MkvIndex(self.path, width, height, codec, config, fps, offsets, sizes, shown,
-                        stated, fourcc)
+                        stated, fourcc, reorder)
 
     def codec(self, track: _Track) -> Tuple[str, bytes, str]:
         """(codec, decoder configuration, VfW fourcc or "") of the track."""
@@ -756,7 +762,7 @@ class MkvReader:
         elif index.codec == "vp9":
             yield from vp9_frames(samples, index.path, every)
         elif index.codec == "h264":
-            yield from h264_frames(index.config, samples, index.path, every)
+            yield from h264_frames(index.config, samples, index.path, every, index.reorder)
         else:
             yield from vp8_frames(samples, index.path, every)
 

@@ -28,12 +28,15 @@ These sample entries are read:
 * ``avc1`` and ``avc3`` with their ``avcC`` configuration (its NAL length
   size and parameter sets; ``avc3`` may send them in band too): H.264,
   decoded by the port's H.264 decoder (``h264.cpp``, ``native.H264Decoder``):
-  CAVLC I and P pictures, progressive 8-bit 4:2:0.  ``check_h264`` reads the
-  parameter sets and every sample's slice headers and refuses what that
-  decoder does not decode (CABAC, B slices, interlace, ...) before a frame
-  is decoded; a ``ctts`` with composition offsets (frames out of decode
-  order: B-frames) is refused too.  The size is the SPS's, cropped as FFmpeg
-  crops it, which is what OpenCV reports.
+  I, P and B pictures, CAVLC or CABAC, progressive 8-bit 4:2:0.
+  ``check_h264`` reads the parameter sets and every sample's slice headers
+  and refuses what that decoder does not decode (SP / SI slices, interlace,
+  ...) before a frame is decoded.  With B-frames, ``ctts`` gives each sample
+  a composition offset: FFmpeg's demuxer starts the decoder's reorder depth
+  at the largest number of earlier samples any sample is shown before
+  (``composition_delay``, as ``mov_estimate_video_delay``), and its stream
+  probe may raise it (``check_h264``).  The size is the SPS's, cropped as
+  FFmpeg crops it, which is what OpenCV reports.
 * ``vp09`` with its ``vpcC`` configuration: VP9, decoded by the port's VP9
   decoder (``vp9.cpp``, ``native.Vp9Decoder``).  Profile 0 (8-bit 4:2:0) is
   read; the ``vpcC`` box's profile, bit depth and chroma subsampling and
@@ -100,6 +103,7 @@ class Mp4Index:
     keyframes: Optional[np.ndarray]  # sample numbers from stss (0-based); None: every sample
     stated: int  # the sample table's count, which OpenCV reports for a cut file too
     fourcc: str = ""  # "mp4v" for MPEG-4 Part 2 (the codec tag FFmpeg's decoder reads)
+    reorder: int = 0  # H.264: the reorder depth FFmpeg's decoder starts from
 
     @property
     def frame_count(self) -> int:
@@ -143,18 +147,20 @@ def check_vops(data, offsets: np.ndarray, sizes: np.ndarray, fail) -> None:
 
 
 def check_h264(data, offsets: np.ndarray, sizes: np.ndarray, config: bytes, path: str,
-               fail) -> Tuple[int, int, dict]:
+               fail, reorder: int = 0) -> Tuple[int, int, dict, int]:
     """Read the parameter sets of ``config`` (an avcC; for Annex B samples,
     parameter sets with start codes or b"") and every sample's parameter sets
     and slice headers without decoding a macroblock: what the port's H.264
-    decoder refuses (CABAC, B slices, interlace, the High profiles' 8x8
-    transform and scaling matrices, FMO, a change of size, pictures out of
-    decode order, ...) raises here, before any frame is decoded, as does a
-    sample holding no picture.  Returns the pictures' width and height as
-    FFmpeg crops them and the SPS's VUI (``H264Decoder.info``)."""
+    decoder refuses (SP / SI slices, interlace, FMO, a change of size, ...)
+    raises here, before any frame is decoded, as does a sample holding no
+    picture.  Returns the pictures' width and height as FFmpeg crops them,
+    the SPS's VUI (``H264Decoder.info``) and the reorder depth FFmpeg's
+    decoder starts from: ``reorder`` (the container's), raised as
+    ``avformat_find_stream_info``'s decoding of the first pictures raises
+    it."""
     from viddet_tpu_torch.native import H264Decoder
 
-    probe = H264Decoder(config, path)
+    probe = H264Decoder(config, path, reorder)
     view = np.frombuffer(data, np.uint8)
     try:
         base = view.ctypes.data
@@ -163,7 +169,7 @@ def check_h264(data, offsets: np.ndarray, sizes: np.ndarray, config: bytes, path
                 fail(f"frame {i} at offset {offset} holds no H.264 picture (parameter sets or "
                      "SEI alone)")
         width, height = probe.size
-        return width, height, probe.info
+        return width, height, probe.info, probe.probed_reorder
     finally:
         del view
         probe.close()
@@ -289,14 +295,12 @@ class _Walk:
                           f"the end of the file ({self.size} bytes): the 'mdat' box is truncated "
                           "before its first whole frame")
             offsets, sizes = offsets[: int(bad[0])], sizes[: int(bad[0])]
+        reorder = 0
         if codec == "mpeg4":
             check_vops(self.data, offsets, sizes, self.fail)
         elif codec == "h264":
-            if self.any_composition_offset(tables):
-                self.fail("the H.264 track has composition offsets ('ctts'): its frames are shown "
-                          "out of decode order (B-frames), which the port's H.264 decoder does "
-                          "not decode; decoding it needs FFmpeg, which the port does not link")
-            width, height, _ = check_h264(self.data, offsets, sizes, config, self.path, self.fail)
+            width, height, _, reorder = check_h264(self.data, offsets, sizes, config, self.path,
+                                                   self.fail, self.composition_delay(tables))
         elif codec == "vp9":
             from viddet_tpu_torch.native.mkv import check_vp9
 
@@ -310,7 +314,7 @@ class _Walk:
                 self.fail("box 'stss' is truncated")
             keyframes = np.frombuffer(self.data, ">u4", n, s + 8).astype(np.int64) - 1
         return Mp4Index(self.path, width, height, codec, config, fps, offsets, sizes, keyframes,
-                        stated, "mp4v" if codec == "mpeg4" else "")
+                        stated, "mp4v" if codec == "mpeg4" else "", reorder)
 
     def edit_list(self, start: int, end: int, movie_scale: int, timescale: int,
                   media_duration: int, first_offset: int) -> None:
@@ -340,18 +344,37 @@ class _Walk:
                           f"rate {rate + frac / 65536:g}); only the identity edit or the shift by "
                           f"the first composition offset ({first_offset}) is read")
 
-    def any_composition_offset(self, tables) -> bool:
-        """Whether ``ctts`` gives any sample a composition offset other than
-        the first sample's."""
+    def composition_delay(self, tables) -> int:
+        """FFmpeg's mov_estimate_video_delay for an H.264 track with ``ctts``:
+        the most samples, among the 16 before, that a sample is shown
+        before (its composition time, decode time plus offset, below theirs);
+        0 without ``ctts``."""
         if b"ctts" not in tables:
-            return False
+            return 0
         s, e = tables[b"ctts"]
-        version = self.full(s, e, 8, "ctts")
+        self.full(s, e, 8, "ctts")
         (n,) = struct.unpack_from(">I", self.data, s + 4)
         if 8 + 8 * n > e - s:
             self.fail("box 'ctts' is truncated")
-        runs = np.frombuffer(self.data, ">i4" if version else ">u4", 2 * n, s + 8).reshape(n, 2)
-        return bool(n) and bool((runs[:, 1] != runs[0, 1]).any())
+        runs = np.frombuffer(self.data, ">i4", 2 * n, s + 8).reshape(n, 2).astype(np.int64)
+        offsets = np.repeat(runs[:, 1], np.maximum(runs[:, 0], 0))
+        st, et = tables[b"stts"]
+        (m,) = struct.unpack_from(">I", self.data, st + 4)
+        deltas = np.frombuffer(self.data, ">u4", 2 * m, st + 8).reshape(m, 2).astype(np.int64)
+        dts = np.concatenate([[0], np.cumsum(np.repeat(deltas[:, 1], deltas[:, 0]))])
+        count = min(len(offsets), len(dts))
+        pts = (dts[:count] + offsets[:count]).tolist()
+        window: List[int] = []
+        delay = 0
+        for t in pts:  # FFmpeg's buffer of the last 17 times, kept sorted by swaps
+            window.append(t)
+            del window[:-17]
+            j = len(window) - 1
+            while j > 0 and window[j] < window[j - 1]:
+                window[j], window[j - 1] = window[j - 1], window[j]
+                j -= 1
+            delay = max(delay, len(window) - 1 - j)
+        return delay
 
     def first_composition_offset(self, tables) -> int:
         """The first sample's composition offset from ``ctts`` (version 0
@@ -553,7 +576,7 @@ class Mp4Reader:
             return
         if index.codec == "h264":
             yield from h264_frames(index.config, (self.sample(i) for i in range(len(self))),
-                                   index.path, every)
+                                   index.path, every, index.reorder)
             return
         yield from mpeg4_frames(index.config, (self.sample(i) for i in range(len(self))),
                                 index.path, every, index.fourcc)

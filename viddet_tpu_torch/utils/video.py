@@ -17,9 +17,9 @@ The port links no FFmpeg.  It reads
   H.264 (``V_MPEG4/ISO/AVC``), VP8, VP9, MPEG-4 Part 2 or Motion-JPEG
   (``V_MJPEG``, or a VfW fourcc the AVI reader reads).
 
-H.264 (CAVLC I and P pictures, progressive 8-bit 4:2:0: Constrained
-Baseline, Baseline and the Main and High streams that keep to those tools)
-is decoded by the port's own decoder (``native.H264Decoder``), VP8 (every
+H.264 (I, P and B pictures, CAVLC or CABAC, progressive 8-bit 4:2:0:
+Constrained Baseline, Baseline, Main and High without interlace; the
+pictures in FFmpeg's output order) is decoded by the port's own decoder (``native.H264Decoder``), VP8 (every
 version and feature of RFC 6386) by another (``native.Vp8Decoder``), VP9
 profile 0 (8-bit 4:2:0) by another (``native.Vp9Decoder``) and MPEG-4 Part 2 (Simple and Advanced
 Simple Profile: B-VOPs, MPEG quantisation, quarter-sample vectors, and
@@ -29,7 +29,7 @@ fourcc; not interlace or global motion compensation) by another
 backend returns, frames in display order.
 
 Another container, another codec (HEVC, AV1, VP9 profiles 1-3, ...) or what a
-decoder does not decode (H.264's CABAC, B slices, interlace, ...), a
+decoder does not decode (H.264's interlace, SP / SI slices, ...), a
 Matroska ContentEncoding and a webcam index raise ValueError, naming what
 is missing.
 
