@@ -349,22 +349,31 @@ STREAM_FRAMES, STREAM_B, STREAM_SEED = 128, 8, 7
 MULTI_STREAMS, MULTI_FRAMES = 2, 48
 DETECT_FILES, DETECT_SEED = 16, 8
 # The still images cv2 reads beside JPEG and PNG (tests/fixtures/make_image_fixtures.py):
-# WebP, GIF, BMP, PNG with eXIf and 16-bit PPM files with their OpenCV digests.
-# The codec phase decodes each to its digest and times lossy WebP, lossless WebP
-# and GIF over STILL_COPIES copies; the HTTP phase uploads STILL_UPLOADS
-# beside its JPEGs and PNGs; the detect phase reads DETECT_STILL in its
-# directory and DETECT_SINGLE given alone as --input.
+# WebP, GIF, BMP, PNG with eXIf, 16-bit PPM, TIFF (LZW tiles, JPEG strips, 16-bit
+# alpha, palette turned by orientation 6), Sun raster, PFM and Radiance HDR files
+# with their OpenCV digests.  The codec phase decodes each to its digest and
+# times STILL_RATES over STILL_COPIES copies; the HTTP phase uploads
+# STILL_UPLOADS beside its JPEGs and PNGs; the detect phase reads DETECT_STILL
+# in its directory and each of DETECT_SINGLES given alone as --input.
 STILLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                           "stills")
 STILLS_DIGESTS = STILLS_DIR + ".json"
 STILL_COPIES = 32
 STILL_RATES = {"webp_lossy": "webp_lossy_640x480.webp",
                "webp_lossless": "webp_lossless_320x240.webp",
-               "gif": "gif_animated_interlaced_320x240.gif"}
+               "gif": "gif_animated_interlaced_320x240.gif",
+               "tiff_lzw_tiles": "tiff_lzw_tiles_640x480.tif",
+               "tiff_jpeg": "tiff_jpeg_ycbcr_320x240.tif",
+               "sun_raster": "sun_raster_palette_320x240.ras",
+               "pfm": "pfm_160x120.pfm",
+               "hdr_rle": "hdr_rle_320x240.hdr"}
 STILL_UPLOADS = ("webp_lossy_640x480.webp", "webp_lossless_320x240.webp",
                  "gif_animated_interlaced_320x240.gif", "ppm16_160x120.ppm",
-                 "bmp8_320x240.bmp", "png_exif_320x240.png")
-DETECT_STILL, DETECT_SINGLE = "bmp8_320x240.bmp", "webp_lossy_640x480.webp"
+                 "bmp8_320x240.bmp", "png_exif_320x240.png", "tiff_lzw_tiles_640x480.tif",
+                 "tiff_jpeg_ycbcr_320x240.tif", "tiff_palette_orientation6_160x120.tif",
+                 "sun_raster_palette_320x240.ras", "pfm_160x120.pfm", "hdr_rle_320x240.hdr")
+DETECT_STILL = "bmp8_320x240.bmp"
+DETECT_SINGLES = ("webp_lossy_640x480.webp", "tiff_lzw_tiles_640x480.tif")
 # The video phase: two Motion-JPEG AVIs of seeded 640x480 frames at 25 fps,
 # detected at batch 8; extract_frames takes every 4th frame.
 # Random weights score ~100 boxes a frame above 0.5; the threshold is the
@@ -2695,9 +2704,10 @@ def still(name: str) -> bytes:
 
 def stills_check() -> dict:
     """Every still fixture decoded by ``decode_rgb`` to the shape and RGB
-    digest OpenCV gave it; decode rates of lossy WebP, lossless WebP and GIF
-    over STILL_COPIES copies on one thread and on the loader's 4 (host CPU
-    figures, MB/s of the files' bytes)."""
+    digest OpenCV gave it; decode rates of STILL_RATES (lossy and lossless
+    WebP, GIF, TIFF, Sun raster, PFM, HDR) over STILL_COPIES copies on one
+    thread and on the loader's 4 (host CPU figures, MB/s of the files'
+    bytes)."""
     import hashlib
 
     from viddet_tpu_torch.data.base import decode_rgb
@@ -2854,7 +2864,8 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
     """``cli.serve.serve_forever`` on 127.0.0.1, port 0, with the main
     path's model at the CLI's defaults (batch 8, flush 5 ms): ``/healthz``
     answers, then 8 client threads post JPEG and PNG uploads and the still
-    fixtures of STILL_UPLOADS (WebP, GIF, PPM, 8-bit BMP, PNG with eXIf) for
+    fixtures of STILL_UPLOADS (WebP, GIF, PPM, 8-bit BMP, PNG with eXIf,
+    TIFF, Sun raster, PFM, HDR) for
     about HTTP_SECONDS; every reply equal to ``detections_to_json`` of the
     direct predictor on the same decoded image; requests/s, latency p50 /
     p95 and the batch fill."""
@@ -3145,8 +3156,9 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
     cv2's 8-bit palette BMP (DETECT_STILL) with the main path's model at
     batch 8: every ``{stem}.txt`` equal to the direct predictor's lines on
     the same decoded file, every ``{stem}_det.jpg`` decoding to its
-    original's size; images/s.  Then one WebP (DETECT_SINGLE) given alone
-    as ``--input``: its ``.txt`` equal to the direct predictor's, one tail."""
+    original's size; images/s.  Then a WebP and a TIFF (DETECT_SINGLES),
+    each given alone as ``--input``: its ``.txt`` equal to the direct
+    predictor's, one tail each."""
     import tempfile
 
     from viddet_tpu_torch.cli import detect
@@ -3202,29 +3214,31 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
                 lines += len(got.splitlines())
                 drawn = imread_rgb(os.path.join(dst, f"{stem}_det.jpg"))
                 check(drawn.shape == origs[j].shape, f"{stem}_det.jpg decodes")
-        # one WebP given alone as --input, as JAX's collect_inputs takes a single file
-        single = os.path.join(tmp, DETECT_SINGLE)
-        with open(single, "wb") as f:
-            f.write(still(DETECT_SINGLE))
-        set_launches(kernels)
-        check(detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
-                           single, "--output", os.path.join(tmp, "single"), "--data-shape",
-                           str(IMAGE_SIZE), "--batch-size", str(bs), "--thresh", "0.05",
-                           "--save-detections", "--no-draw"], built=(model, classes)) == 1,
-              "detect did the single WebP")
-        torch_sync()
-        check(hier_batches(kernels, "detect single WebP") == 1, "detect single WebP: one tail")
-        orig = imread_rgb(single)
-        x, _, affine = transform(orig)
-        d_ids, d_scores, d_boxes = (t.cpu().numpy()[0] for t in predictor(
-            to_device_batch(x[None], bs, dev)))
-        want = detect.detection_lines(d_ids, d_scores, invert_affine_to_boxes(d_boxes, affine),
-                                      classes, 0.05)
-        stem = os.path.splitext(DETECT_SINGLE)[0]
-        with open(os.path.join(tmp, "single", f"{stem}.txt")) as fh:
-            check(fh.read() == want, f"detect {stem}.txt equal to the direct predictor")
+        # each single file given alone as --input, as JAX's collect_inputs takes one
+        for name in DETECT_SINGLES:
+            single = os.path.join(tmp, name)
+            with open(single, "wb") as f:
+                f.write(still(name))
+            set_launches(kernels)
+            stem = os.path.splitext(name)[0]
+            check(detect.main(["--network", "yolo3_darknet53", "--dataset", "coco", "--input",
+                               single, "--output", os.path.join(tmp, stem), "--data-shape",
+                               str(IMAGE_SIZE), "--batch-size", str(bs), "--thresh", "0.05",
+                               "--save-detections", "--no-draw"], built=(model, classes)) == 1,
+                  f"detect did the single {name}")
+            torch_sync()
+            check(hier_batches(kernels, f"detect single {name}") == 1,
+                  f"detect single {name}: one tail")
+            orig = imread_rgb(single)
+            x, _, affine = transform(orig)
+            d_ids, d_scores, d_boxes = (t.cpu().numpy()[0] for t in predictor(
+                to_device_batch(x[None], bs, dev)))
+            want = detect.detection_lines(d_ids, d_scores,
+                                          invert_affine_to_boxes(d_boxes, affine), classes, 0.05)
+            with open(os.path.join(tmp, stem, f"{stem}.txt")) as fh:
+                check(fh.read() == want, f"detect {stem}.txt equal to the direct predictor")
     emit({"phase": "detect", "model": MODEL, "size": IMAGE_SIZE, "files": DETECT_FILES + 1,
-          "still_in_directory": DETECT_STILL, "single_input": DETECT_SINGLE,
+          "still_in_directory": DETECT_STILL, "single_inputs": list(DETECT_SINGLES),
           "batch": bs, "seconds": wall, "images_per_s": (DETECT_FILES + 1) / wall,
           "lines": lines, "batches": batches, "all_equal_direct": True,
           "phase_s": time.perf_counter() - t_phase})

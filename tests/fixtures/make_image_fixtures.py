@@ -20,7 +20,20 @@ and the writers of ``tests/test_torch_image_formats.py``:
   BMP of a grey image, and an RLE8 one with deltas and end-of-line codes;
 * ``png_exif_320x240.png``: cv2's PNG with an ``eXIf`` chunk of
   orientation 8;
-* ``ppm16_160x120.ppm``: a binary P6 of 16-bit samples.
+* ``ppm16_160x120.ppm``: a binary P6 of 16-bit samples;
+* ``tiff_lzw_tiles_640x480.tif``: RGB in 64x64 tiles, planar 2, LZW with
+  horizontal predictor 2 (the decode rate's file);
+* ``tiff_jpeg_ycbcr_320x240.tif``: YCbCr JPEG strips of 16 rows, 4:2:0,
+  abbreviated, with their ``JPEGTables``;
+* ``tiff16_alpha_deflate_160x120.tif``: big-endian 16-bit RGBA, unassociated
+  alpha, Deflate with predictor 2;
+* ``tiff_palette_orientation6_160x120.tif``: an 8-bit palette in PackBits
+  strips, orientation 6 (it decodes to 120x160);
+* ``sun_raster_palette_320x240.ras``: an 8-bit Sun raster with a colour map
+  (OpenCV 5 reads no RLE Sun raster);
+* ``pfm_160x120.pfm``: a little-endian colour PFM with values past 0 and
+  255 and on rounding ties;
+* ``hdr_rle_320x240.hdr``: a Radiance HDR of new-style RLE scanlines.
 
 And ``stills.json``: each file's shape and the SHA-256 of its RGB as
 ``cv2.imdecode(IMREAD_COLOR)`` and a BGR-to-RGB swap give it.  The card
@@ -36,6 +49,7 @@ import os
 import cv2
 import numpy as np
 
+from tests import torch_tiff_writer as T
 from tests.test_torch_image_formats import (
     bmp,
     bmp_rle,
@@ -51,6 +65,7 @@ from tests.test_torch_image_formats import (
     webp_animation,
     webp_chunks,
 )
+from tests.test_torch_tiff import hdr, pfm, rgbe, sun_raster
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "stills")
@@ -91,6 +106,26 @@ def fixtures() -> dict:
     samples = np.minimum(texture(rng, 120, 160).astype(np.int64) * 257
                          + rng.integers(0, 257, (120, 160, 3)), 65535)
     files["ppm16_160x120.ppm"] = b"P6\n160 120\n65535\n" + samples.astype(">u2").tobytes()
+    files["tiff_lzw_tiles_640x480.tif"] = T.tiff(texture(rng, 480, 640), compression=5,
+                                                 predictor=2, planar=2, tile=(64, 64))
+    files["tiff_jpeg_ycbcr_320x240.tif"] = T.tiff(texture(rng, 240, 320), compression=7,
+                                                  photometric=6, subsampling=(2, 2),
+                                                  rows_per_strip=16, quality=80)
+    rgba = photo(rng, 120, 160, 4).astype(np.int64) * 257 + rng.integers(0, 257, (120, 160, 4))
+    rgba[..., 3] = np.linspace(0, 65535, 160, dtype=np.int64)[None, :]
+    files["tiff16_alpha_deflate_160x120.tif"] = T.tiff(np.minimum(rgba, 65535), bps=16,
+                                                       order=">", compression=8, predictor=2,
+                                                       extra_samples=(2,), rows_per_strip=24)
+    files["tiff_palette_orientation6_160x120.tif"] = T.tiff(
+        texture(rng, 120, 160)[..., :1] // 8 * 8, bps=8, photometric=3,
+        colormap=rng.integers(0, 65536, (256, 3)), compression=32773, orientation=6,
+        rows_per_strip=32)
+    files["sun_raster_palette_320x240.ras"] = sun_raster(
+        texture(rng, 240, 320)[..., 2], 8, colour_map=rng.integers(0, 256, (256, 3)))
+    values = texture(rng, 120, 160).astype(np.float32) * np.float32(1.25) - 20
+    values[:8, :8] = np.float32(127.5)
+    files["pfm_160x120.pfm"] = pfm(values)
+    files["hdr_rle_320x240.hdr"] = hdr(rgbe(texture(rng, 240, 320).astype(np.float32) / 200))
     return files
 
 

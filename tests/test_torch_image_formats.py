@@ -13,9 +13,10 @@ a first frame smaller than the screen), P1-P7 and 16-bit samples, and
 APNG.  Truncated and bit-flipped files raise ValueError where cv2 returns
 None and decode to cv2's pixels where it does not.  The ``serve`` handler
 and the ``detect`` CLI read the new formats as JAX's do, a directory's
-``.webp`` and ``.gif`` files are skipped alike, and the formats the port
-does not read (TIFF, AVIF, JPEG 2000, HDR, PFM, Sun raster) raise naming
-themselves.
+``.webp`` and ``.gif`` files are skipped alike, and the files the port
+does not read (AVIF, JPEG 2000, and the variants of TIFF, HDR, PFM and Sun
+raster it refuses; ``tests/test_torch_tiff.py`` holds the formats
+themselves) raise naming themselves.
 """
 
 import functools
@@ -32,6 +33,7 @@ import pytest
 import torch
 from PIL import Image
 
+from tests import torch_tiff_writer as T
 from viddet_tpu.cli.serve import decode_image_bytes as jax_decode_image_bytes
 from viddet_tpu.cli.serve import detections_to_json as jax_detections_to_json
 from viddet_tpu.data.base import imread_rgb as jax_imread_rgb
@@ -813,16 +815,37 @@ def test_truncated_and_bit_flipped_files_agree_with_cv2(kind):
 # ---------------------------------------------------------------------------
 
 
+def _refused_variant(ext: str, image: np.ndarray) -> tuple:
+    """(bytes, whether cv2 reads them, what the message names) of a file the
+    port refuses: AVIF and JPEG 2000 whole, and of TIFF, HDR, PFM and Sun
+    raster a variant the port refuses (CCITT Group 4, which cv2 reads; the
+    XYZE HDR format, a PFM scale of 0 and the Sun RLE type, which cv2 also
+    refuses)."""
+    if ext == ".tiff":
+        buf = io.BytesIO()
+        Image.fromarray(image).convert("1").save(buf, "TIFF", compression="group4")
+        return buf.getvalue(), True, "TIFF compression CCITT Group 4"
+    if ext == ".hdr":
+        data = cv2.imencode(ext, image.astype(np.float32) / 255)[1].tobytes()
+        return data.replace(b"32-bit_rle_rgbe", b"32-bit_rle_xyze"), False, "Radiance HDR"
+    if ext == ".pfm":
+        data = cv2.imencode(ext, image.astype(np.float32))[1].tobytes()
+        return data.replace(b"\n-1\n", b"\n0\n", 1), False, "PFM scale 0"
+    if ext == ".ras":
+        data = bytearray(cv2.imencode(ext, image)[1].tobytes())
+        data[20:24] = struct.pack(">I", 2)
+        return bytes(data), False, "Sun raster of type RLE"
+    kind = {".avif": "AVIF", ".jp2": "JPEG 2000"}[ext]
+    return cv2.imencode(ext, image)[1].tobytes(), True, f"{kind} images are not decoded"
+
+
 @pytest.mark.parametrize("kind,ext", [("TIFF", ".tiff"), ("AVIF", ".avif"),
                                       ("JPEG 2000", ".jp2"), ("Radiance HDR", ".hdr"),
                                       ("PFM", ".pfm"), ("Sun raster", ".ras")])
 def test_refused_formats_raise_naming_themselves(kind, ext):
-    image = photo(np.random.default_rng(12), 64, 64)
-    if ext in (".hdr", ".pfm"):
-        image = image.astype(np.float32) / 255
-    data = cv2.imencode(ext, image)[1].tobytes()
-    assert cv2_rgb(data) is not None  # cv2 reads it
-    with pytest.raises(ValueError, match=f"upload: {kind} images are not decoded"):
+    data, cv2_reads, feature = _refused_variant(ext, photo(np.random.default_rng(12), 64, 64))
+    assert (cv2_rgb(data) is not None) == cv2_reads
+    with pytest.raises(ValueError, match=f"upload: {feature}"):
         decode_rgb(data, "upload")
 
 
@@ -836,6 +859,14 @@ def _uploads() -> dict:
         "ppm": cv2.imencode(".ppm", photo(rng, 50, 40))[1].tobytes(),
         "bmp8": cv2.imencode(".bmp", photo(rng, 33, 52)[..., 0])[1].tobytes(),
         "png_exif6": png_with_exif(png, tiff_exif(6)),
+        "tiff_lzw_tiles": T.tiff(photo(rng, 52, 75), compression=5, predictor=2, planar=2,
+                                 tile=(32, 32)),
+        "tiff_jpeg": T.tiff(photo(rng, 48, 64), compression=7, photometric=6,
+                            subsampling=(2, 2), rows_per_strip=16),
+        "tiff_orientation6": T.tiff(photo(rng, 40, 56), compression=32773, orientation=6),
+        "sun_raster": cv2.imencode(".ras", photo(rng, 35, 50))[1].tobytes(),
+        "pfm": cv2.imencode(".pfm", photo(rng, 30, 44).astype(np.float32))[1].tobytes(),
+        "hdr": cv2.imencode(".hdr", photo(rng, 33, 47).astype(np.float32) / 255)[1].tobytes(),
     }
 
 
@@ -883,7 +914,9 @@ def test_serve_replies_to_new_uploads_as_jax(server, upload):
 def test_serve_answers_400_for_what_it_cannot_read(server, body):
     data = {"truncated_webp": _uploads()["webp_lossy"][:-100],
             "corrupt_gif": _uploads()["gif"][:-1],
-            "tiff": cv2.imencode(".tiff", photo(np.random.default_rng(14), 8, 8))[1].tobytes()}[body]
+            "tiff": T.tiff(photo(np.random.default_rng(14), 8, 8), compression=34925)}[body]
+    if body == "tiff":  # an LZMA TIFF, which JAX's cv2 does not read either
+        assert cv2_rgb(data) is None
     req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/detect",
                                  data=data, method="POST")
     with pytest.raises(urllib.error.HTTPError) as info:

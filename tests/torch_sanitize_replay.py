@@ -12,7 +12,9 @@ hands it over) is bit-flipped, cut, zeroed or given a forged length and
 decoded after the samples before it, and ``N`` times the file itself is
 mutated and read through ``probe_video`` and ``iterate_frames``.  Each still
 of ``tests/fixtures/stills`` (BMP, PNG, PPM, WebP lossy, lossless and
-animated, GIF) decodes through ``decode_rgb``, then ``N`` mutations of it.
+animated, GIF, TIFF with LZW tiles, JPEG strips, Deflate and PackBits, Sun
+raster, PFM, HDR) decodes through ``decode_rgb``, then ``N`` mutations of
+it.
 Small writer-made H.264 streams (CAVLC and CABAC, the 8x8 transform,
 scaling lists, I_PCM; B pictures with spatial and temporal direct
 prediction, explicit and implicit weights, reordered output) add their

@@ -7,9 +7,12 @@ loader pads to a static count with -1).  Every dataset also exposes
 cross-dataset combination).
 
 Images are read with the port's codec (``native``: JPEG, PNG, BMP, WebP,
-GIF and PNM / PAM) and turned upright by their EXIF orientation (JPEG, PNG
-``eXIf``, WebP ``EXIF``), which together equal the JAX package's
-``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for bit.
+GIF, PNM / PAM, TIFF, Sun raster, PFM and Radiance HDR) and turned upright
+by their EXIF orientation (JPEG, PNG ``eXIf``, WebP ``EXIF``, a TIFF's
+Orientation tag), which together equal the JAX package's
+``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for bit (for a
+TIFF of orientation 5-8, ``cv2.imdecode``'s picture: OpenCV 5's ``imread``
+returns nothing there).
 """
 
 from __future__ import annotations
@@ -21,18 +24,18 @@ import numpy as np
 from viddet_tpu_torch.native import PNG_SIGNATURE, decode_bmp, decode_jpeg, decode_png
 from viddet_tpu_torch.native.gif import GIF_SIGNATURES, decode_gif
 from viddet_tpu_torch.native.pnm import decode_pnm
+from viddet_tpu_torch.native.stills import (
+    HDR_SIGNATURES, SUN_SIGNATURE, decode_hdr, decode_pfm, decode_sunras, is_pfm,
+)
+from viddet_tpu_torch.native.tiff import TIFF_SIGNATURES, decode_tiff
 from viddet_tpu_torch.native.webp import decode_webp
 from viddet_tpu_torch.utils.image import apply_orientation, exif_orientation_of
 
 # Formats cv2 reads that the port does not, by their magic bytes: a file of
 # one of them raises naming it rather than as unknown bytes.
 UNREAD_FORMATS = (
-    ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*")),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
     ("JPEG 2000", lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51"),
-    ("Radiance HDR", lambda d: d.startswith((b"#?RADIANCE", b"#?RGBE"))),
-    ("PFM", lambda d: d[:2] in (b"PF", b"Pf") and d[2:3].isspace()),
-    ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
 )
 
 
@@ -81,8 +84,9 @@ class DetectionDataset:
 
 
 def decode_rgb(data: bytes, name: str) -> np.ndarray:
-    """JPEG, PNG, BMP, WebP, GIF or PNM / PAM bytes (told apart by their
-    magic bytes, as ``cv2.imdecode`` tells them apart) -> upright (H, W, 3)
+    """JPEG, PNG, BMP, WebP, GIF, PNM / PAM, TIFF, Sun raster, PFM or
+    Radiance HDR bytes (told apart by their magic bytes, as
+    ``cv2.imdecode`` tells them apart) -> upright (H, W, 3)
     uint8 RGB; raises ValueError for bytes it cannot decode (``name`` says
     which), naming the format of a file cv2 reads and the port does not."""
     if data[:2] == b"\xff\xd8":
@@ -97,10 +101,19 @@ def decode_rgb(data: bytes, name: str) -> np.ndarray:
         return decode_gif(data, name)
     if len(data) > 2 and data[0] == ord("P") and data[1] in b"1234567" and data[2:3].isspace():
         return decode_pnm(data, name)
+    if data[:4] in TIFF_SIGNATURES:
+        return decode_tiff(data, name)
+    if data[:4] == SUN_SIGNATURE:
+        return decode_sunras(data, name)
+    if is_pfm(data):
+        return decode_pfm(data, name)
+    if data.startswith(HDR_SIGNATURES):
+        return decode_hdr(data, name)
     for kind, matches in UNREAD_FORMATS:
         if matches(data):
             raise ValueError(f"{name}: {kind} images are not decoded by the port")
-    raise ValueError(f"{name}: not a JPEG, PNG, BMP, WebP, GIF or PNM image")
+    raise ValueError(f"{name}: not a JPEG, PNG, BMP, WebP, GIF or PNM image, nor a TIFF, Sun "
+                     f"raster, PFM or Radiance HDR one")
 
 
 def imread_rgb(path: str) -> np.ndarray:

@@ -8,8 +8,10 @@ Huffman, any integral sampling, greyscale, CMYK and YCCK), PNG (every
 colour type and bit depth, Adam7, the ``eXIf`` orientation, an APNG's
 first frame) and every BMP form OpenCV reads (palettes, RLE8 and RLE4,
 16-, 24- and 32-bit, the OS/2 header); WebP (``native.webp`` with
-``webp.cpp``), GIF (``native.gif`` with ``gif.cpp``) and PNM / PAM
-(``native.pnm``) likewise.  A JPEG's EXIF orientation is applied by the
+``webp.cpp``), GIF (``native.gif`` with ``gif.cpp``), PNM / PAM
+(``native.pnm``), TIFF (``native.tiff`` with ``tiff.cpp``, its JPEG strips
+through ``vd_jpeg_decode_as``) and Sun raster, PFM and Radiance HDR
+(``native.stills``) likewise.  A JPEG's EXIF orientation is applied by the
 caller (``data.base.decode_rgb``).
 ``encode_jpeg`` writes the bytes ``cv2.imencode(".jpg", bgr,
 [IMWRITE_JPEG_QUALITY, q])`` writes; ``encode_png`` writes filter-0 PNGs
@@ -26,8 +28,8 @@ VP8 (``vp8.cpp``), ``Vp9Decoder`` decodes VP9 profile 0 (``vp9.cpp``),
 MPEG-4, VP8, VP9 or H.264 stream (indexed by ``native.avi``, ``native.mp4`` or
 ``native.mkv``) on a C++ thread into a ring of frames.
 
-The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp``, ``h264.cpp``, ``mpeg4enc.cpp``, ``webp.cpp``
-and ``gif.cpp``) links nothing beyond the C++ standard library.  Each source is compiled to an object on its own,
+The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp``, ``h264.cpp``, ``mpeg4enc.cpp``, ``webp.cpp``,
+``gif.cpp`` and ``tiff.cpp``) links nothing beyond the C++ standard library.  Each source is compiled to an object on its own,
 all at once, and the objects are linked; the library is built into
 ``build/viddet_tpu_torch/native/<hash>/``
 at the repository root (``build/`` is git-ignored), keyed by a hash of the
@@ -63,6 +65,7 @@ MPEG4ENC_SOURCE = HERE / "mpeg4enc.cpp"  # the MPEG-4 Part 2 encoder
 MPEG4_HEADER = HERE / "mpeg4.h"  # what the MPEG-4 decoder and encoder share
 WEBP_SOURCE = HERE / "webp.cpp"  # WebP's lossless bitstream and lossy RGB step
 GIF_SOURCE = HERE / "gif.cpp"  # GIF's LZW
+TIFF_SOURCE = HERE / "tiff.cpp"  # TIFF's LZW, PackBits, predictor and samples to RGB
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
 # no fused multiply-add: the video transform's float steps round as numpy's do
@@ -84,7 +87,7 @@ _lib: ctypes.CDLL | None = None
 def sources() -> list:
     """The library's C++ sources, each compiled to an object of its own."""
     return [SOURCE, VP8_SOURCE, VP9_SOURCE, H264_SOURCE, MPEG4ENC_SOURCE, WEBP_SOURCE,
-            GIF_SOURCE]
+            GIF_SOURCE, TIFF_SOURCE]
 
 
 def _digest() -> str:
@@ -143,6 +146,7 @@ def library() -> ctypes.CDLL:
             p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulong
             lib.vd_jpeg_header.argtypes = [p, size, ctypes.POINTER(i), ctypes.POINTER(i), p, i]
             lib.vd_jpeg_decode.argtypes = [p, size, p, i, i, p, i]
+            lib.vd_jpeg_decode_as.argtypes = [p, size, p, i, i, i, i, p, i]
             lib.vd_jpeg_encode.argtypes = [p, i, i, i, p, size, ctypes.POINTER(size), p, i]
             lib.vd_png_unfilter.argtypes = [p, size, i, i, i, i, i, p, i, p, p, i]
             lib.vd_png_raw_size.argtypes = [i, i, i, i, i]
@@ -198,6 +202,7 @@ def library() -> ctypes.CDLL:
                                            ctypes.POINTER(ctypes.c_uint), p, i]
             lib.vd_webp_lossy.argtypes = [p, size, i, i, p, p, i]
             lib.vd_gif_lzw.argtypes = [p, size, i, p, size, ctypes.POINTER(size), p, i]
+            lib.vd_tiff_decode.argtypes = [p, size, p, p, p, p, p, p, p, p, i]
             lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, i, p, p,
                                           i, p, i, i, i, i, i, i, p, i]
             lib.vd_video_open.restype = p
@@ -209,6 +214,7 @@ def library() -> ctypes.CDLL:
                        lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_mpeg4enc_encode,
                        lib.vd_vp8_decode, lib.vd_vp8_rgb, lib.vd_vp8_planes,
                        lib.vd_vp8l_decode, lib.vd_webp_lossy, lib.vd_gif_lzw,
+                       lib.vd_jpeg_decode_as, lib.vd_tiff_decode,
                        lib.vd_h264_decode, lib.vd_h264_probe, lib.vd_h264_rgb,
                        lib.vd_h264_planes, lib.vd_h264_flush, lib.vd_h264_reorder):
                 fn.restype = i

@@ -38,6 +38,13 @@
 // returns 0, or -1 with a message in err:
 //   vd_jpeg_header(data, size, &width, &height, err, err_len)
 //   vd_jpeg_decode(data, size, out, width, height, err, err_len)
+//   vd_jpeg_decode_as(data, size, out, width, height, space, components, err, err_len)
+//     as vd_jpeg_decode, with the colour space the caller names rather
+//     than the one the markers give (a TIFF's JPEG strips and tiles, whose
+//     conversion libtiff picks), of exactly `components` components: 1
+//     YCbCr -> RGB, 3 components whose chroma is not subsampled against
+//     the frame; 5 the components as they are, interleaved, every one at
+//     1x1 sampling.
 //   vd_jpeg_encode(rgb, width, height, quality, out, capacity, &size, err, err_len)
 //   vd_png_unfilter(raw, size, width, height, bit_depth, color_type,
 //                   interlace, palette, palette_len, out, err, err_len)
@@ -425,7 +432,7 @@ struct Component {
   int pred = 0;
 };
 
-enum class ColorSpace { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+enum class ColorSpace { kGray, kYCbCr, kRGB, kCMYK, kYCCK, kRaw };
 
 struct JpegDecoder {
   const uint8_t* data;
@@ -437,6 +444,7 @@ struct JpegDecoder {
   bool have_sof = false, progressive = false, saw_scan = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
+  int forced_space = -1;  // a ColorSpace the caller names, else the markers' (-1)
   int max_h = 1, max_v = 1, mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
   std::vector<Component> comps;
@@ -565,6 +573,7 @@ struct JpegDecoder {
   }
 
   ColorSpace color_space() const {
+    if (forced_space >= 0) return static_cast<ColorSpace>(forced_space);
     // jdapimin.c default_decompress_parms
     if (comps.size() == 1) return ColorSpace::kGray;
     if (comps.size() == 3) {
@@ -1029,6 +1038,12 @@ struct JpegDecoder {
     const uint8_t* clamp = t.clamp;
     const uint8_t* p0 = planes[0].data();
     switch (color_space()) {
+      case ColorSpace::kRaw: {
+        const size_t nc = planes.size();
+        for (size_t c = 0; c < nc; ++c)
+          for (size_t i = 0; i < n; ++i) out[nc * i + c] = planes[c][i];
+        return;
+      }
       case ColorSpace::kGray:
         for (size_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = p0[i];
         return;
@@ -1562,6 +1577,32 @@ int vd_jpeg_decode(const uint8_t* data, unsigned long size, uint8_t* out, int wi
     d.parse();
     if (d.width != width || d.height != height)
       fail("decoded size %dx%d differs from the caller's %dx%d", d.width, d.height, width, height);
+    d.output_rgb(out);
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, err_len);
+  } catch (const std::bad_alloc&) {  // an exception must not cross the C interface
+    return report(CodecError{"out of memory"}, err, err_len);
+  }
+}
+
+int vd_jpeg_decode_as(const uint8_t* data, unsigned long size, uint8_t* out, int width, int height,
+                      int space, int components, char* err, int err_len) {
+  try {
+    if (space != static_cast<int>(ColorSpace::kYCbCr) && space != static_cast<int>(ColorSpace::kRaw))
+      fail("JPEG colour space %d is not one a caller may name", space);
+    JpegDecoder d(data, size, false);
+    d.forced_space = space;
+    d.parse();
+    if (d.width != width || d.height != height)
+      fail("decoded size %dx%d differs from the caller's %dx%d", d.width, d.height, width, height);
+    // tif_jpeg.c JPEGPreDecode's checks of the sampling factors
+    const bool ycbcr = space == static_cast<int>(ColorSpace::kYCbCr);
+    if (static_cast<int>(d.comps.size()) != components || (ycbcr && components != 3))
+      fail("JPEG of %d components where %d are wanted", static_cast<int>(d.comps.size()), components);
+    for (size_t c = ycbcr ? 1 : 0; c < d.comps.size(); ++c)
+      if (d.comps[c].h != 1 || d.comps[c].v != 1)
+        fail("JPEG component %d sampled %dx%d", static_cast<int>(c), d.comps[c].h, d.comps[c].v);
     d.output_rgb(out);
     return 0;
   } catch (const CodecError& e) {
