@@ -59,8 +59,10 @@ Phases, each printed as one JSON line:
             exact, each JPEG equal to its decode in a second thread; encode
             and decode rates on one thread and on the loader's 4 (host CPU);
             then the still fixtures (``tests/fixtures/stills/``: WebP, GIF,
-            BMP, PNG with eXIf, 16-bit PPM) each to its OpenCV digest, and
-            lossy WebP, lossless WebP and GIF decode rates;
+            BMP, PNG with eXIf, 16-bit PPM, TIFF with CCITT and CIELab, Sun
+            raster, PFM, HDR, JPEG 2000) each to its OpenCV digest, and the
+            decode rates of STILL_RATES (CCITT Group 4 and both JP2s among
+            them);
 9. evaluate_files: ``cli.evaluate.evaluate`` over 256 of them as JPEG files
             in the VOC layout (XML from seeded boxes), YOLOv3-416
             Darknet-53 over VOC's 20 classes (bf16, seeded weights), batch
@@ -69,9 +71,10 @@ Phases, each printed as one JSON line:
             predictor on the file decoded apart from the loader;
 10. http:   ``cli.serve.serve_forever`` on 127.0.0.1 with the main path's
             model (batch 8, flush 5 ms): ``/healthz``, then 8 client threads
-            posting JPEG and PNG uploads and six still fixtures (WebP
-            lossy and lossless, GIF, PPM, 8-bit BMP, PNG with eXIf) for 5
-            s, every reply equal to
+            posting JPEG and PNG uploads and the still fixtures of
+            STILL_UPLOADS (WebP, GIF, PPM, BMP, PNG with eXIf, TIFF, Sun
+            raster, PFM, HDR, CCITT Group 4, 9/7 JP2) for 5 s, every
+            reply equal to
             ``detections_to_json`` of the direct predictor on the decoded
             upload; requests/s, latency p50 / p95, batch fill, launches;
 11. stream: ``stream_detect`` over 128 frames at batch 8 with the main
@@ -104,7 +107,8 @@ Phases, each printed as one JSON line:
             the card's idle share over one window (``--phases video`` runs
             this phase and ``mp4`` alone);
 13. detect: ``cli.detect.main`` over 8 JPEG and 8 PNG files and an 8-bit
-            BMP with the main path's model, then a WebP given alone: every
+            BMP with the main path's model, then a WebP, a TIFF and a 9/7
+            JP2 each given alone: every
             ``.txt`` equal to the direct predictor, every ``_det.jpg``
             decoding; images/s;
 14. temporal: yolo3_darknet53_k3_vid (VID) at full width, 416 px, bf16,
@@ -350,8 +354,9 @@ MULTI_STREAMS, MULTI_FRAMES = 2, 48
 DETECT_FILES, DETECT_SEED = 16, 8
 # The still images cv2 reads beside JPEG and PNG (tests/fixtures/make_image_fixtures.py):
 # WebP, GIF, BMP, PNG with eXIf, 16-bit PPM, TIFF (LZW tiles, JPEG strips, 16-bit
-# alpha, palette turned by orientation 6), Sun raster, PFM and Radiance HDR files
-# with their OpenCV digests.  The codec phase decodes each to its digest and
+# alpha, palette turned by orientation 6, CCITT Group 4 and Group 3 2-D, CIELab),
+# Sun raster, PFM, Radiance HDR and JPEG 2000 (5/3 tiles, 9/7, a 16-bit raw
+# codestream) files with their OpenCV digests.  The codec phase decodes each to its digest and
 # times STILL_RATES over STILL_COPIES copies; the HTTP phase uploads
 # STILL_UPLOADS beside its JPEGs and PNGs; the detect phase reads DETECT_STILL
 # in its directory and each of DETECT_SINGLES given alone as --input.
@@ -366,14 +371,19 @@ STILL_RATES = {"webp_lossy": "webp_lossy_640x480.webp",
                "tiff_jpeg": "tiff_jpeg_ycbcr_320x240.tif",
                "sun_raster": "sun_raster_palette_320x240.ras",
                "pfm": "pfm_160x120.pfm",
-               "hdr_rle": "hdr_rle_320x240.hdr"}
+               "hdr_rle": "hdr_rle_320x240.hdr",
+               "tiff_ccitt_g4": "tiff_ccitt_g4_640x480.tif",
+               "jp2_reversible": "jp2_reversible_tiles_640x480.jp2",
+               "jp2_irreversible": "jp2_irreversible_640x480.jp2"}
 STILL_UPLOADS = ("webp_lossy_640x480.webp", "webp_lossless_320x240.webp",
                  "gif_animated_interlaced_320x240.gif", "ppm16_160x120.ppm",
                  "bmp8_320x240.bmp", "png_exif_320x240.png", "tiff_lzw_tiles_640x480.tif",
                  "tiff_jpeg_ycbcr_320x240.tif", "tiff_palette_orientation6_160x120.tif",
-                 "sun_raster_palette_320x240.ras", "pfm_160x120.pfm", "hdr_rle_320x240.hdr")
+                 "sun_raster_palette_320x240.ras", "pfm_160x120.pfm", "hdr_rle_320x240.hdr",
+                 "tiff_ccitt_g4_640x480.tif", "jp2_irreversible_640x480.jp2")
 DETECT_STILL = "bmp8_320x240.bmp"
-DETECT_SINGLES = ("webp_lossy_640x480.webp", "tiff_lzw_tiles_640x480.tif")
+DETECT_SINGLES = ("webp_lossy_640x480.webp", "tiff_lzw_tiles_640x480.tif",
+                  "jp2_irreversible_640x480.jp2")
 # The video phase: two Motion-JPEG AVIs of seeded 640x480 frames at 25 fps,
 # detected at batch 8; extract_frames takes every 4th frame.
 # Random weights score ~100 boxes a frame above 0.5; the threshold is the
@@ -2705,7 +2715,8 @@ def still(name: str) -> bytes:
 def stills_check() -> dict:
     """Every still fixture decoded by ``decode_rgb`` to the shape and RGB
     digest OpenCV gave it; decode rates of STILL_RATES (lossy and lossless
-    WebP, GIF, TIFF, Sun raster, PFM, HDR) over STILL_COPIES copies on one
+    WebP, GIF, TIFF, Sun raster, PFM, HDR, CCITT Group 4, JPEG 2000 5/3 and
+    9/7) over STILL_COPIES copies on one
     thread and on the loader's 4 (host CPU figures, MB/s of the files'
     bytes)."""
     import hashlib
@@ -2865,7 +2876,7 @@ def http_phase(dev, kernels, model, classes, predictor) -> dict:
     path's model at the CLI's defaults (batch 8, flush 5 ms): ``/healthz``
     answers, then 8 client threads post JPEG and PNG uploads and the still
     fixtures of STILL_UPLOADS (WebP, GIF, PPM, 8-bit BMP, PNG with eXIf,
-    TIFF, Sun raster, PFM, HDR) for
+    TIFF, Sun raster, PFM, HDR, CCITT Group 4 TIFF, 9/7 JPEG 2000) for
     about HTTP_SECONDS; every reply equal to ``detections_to_json`` of the
     direct predictor on the same decoded image; requests/s, latency p50 /
     p95 and the batch fill."""
@@ -3156,9 +3167,9 @@ def detect_phase(dev, kernels, model, classes, predictor) -> dict:
     cv2's 8-bit palette BMP (DETECT_STILL) with the main path's model at
     batch 8: every ``{stem}.txt`` equal to the direct predictor's lines on
     the same decoded file, every ``{stem}_det.jpg`` decoding to its
-    original's size; images/s.  Then a WebP and a TIFF (DETECT_SINGLES),
-    each given alone as ``--input``: its ``.txt`` equal to the direct
-    predictor's, one tail each."""
+    original's size; images/s.  Then a WebP, a TIFF and a 9/7 JP2
+    (DETECT_SINGLES), each given alone as ``--input``: its ``.txt`` equal to
+    the direct predictor's, one tail each."""
     import tempfile
 
     from viddet_tpu_torch.cli import detect

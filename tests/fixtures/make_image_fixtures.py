@@ -33,7 +33,19 @@ and the writers of ``tests/test_torch_image_formats.py``:
   (OpenCV 5 reads no RLE Sun raster);
 * ``pfm_160x120.pfm``: a little-endian colour PFM with values past 0 and
   255 and on rounding ties;
-* ``hdr_rle_320x240.hdr``: a Radiance HDR of new-style RLE scanlines.
+* ``hdr_rle_320x240.hdr``: a Radiance HDR of new-style RLE scanlines;
+* ``tiff_ccitt_g4_640x480.tif``: a bilevel page (blocks of text-like
+  strokes, rules and a halftone patch), CCITT Group 4, MinIsWhite (the
+  decode rate's file);
+* ``tiff_ccitt_g3_2d_fill_320x240.tif``: Group 3 with 2-D rows and fill
+  bits (T4Options 5) in strips of 64 rows, FillOrder 2;
+* ``tiff_cielab_160x120.tif``: 8-bit CIELab with a D65 WhitePoint;
+* ``jp2_reversible_tiles_640x480.jp2``: the 5/3 in 256x256 tiles, 64x64
+  precincts, 3 layers, RPCL (a decode rate's file);
+* ``jp2_irreversible_640x480.jp2``: the 9/7 at a compression rate of 16 in
+  one tile, 6 resolutions (a decode rate's file);
+* ``j2k_rgb16_320x240.j2k``: a raw codestream of three 16-bit components
+  (cv2's lossless writer; OpenCV refuses a raw codestream of one).
 
 And ``stills.json``: each file's shape and the SHA-256 of its RGB as
 ``cv2.imdecode(IMREAD_COLOR)`` and a BGR-to-RGB swap give it.  The card
@@ -65,6 +77,7 @@ from tests.test_torch_image_formats import (
     webp_animation,
     webp_chunks,
 )
+from tests.test_torch_jpeg2000 import cv2_jp2, pil_jp2, split_jp2
 from tests.test_torch_tiff import hdr, pfm, rgbe, sun_raster
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -126,7 +139,39 @@ def fixtures() -> dict:
     values[:8, :8] = np.float32(127.5)
     files["pfm_160x120.pfm"] = pfm(values)
     files["hdr_rle_320x240.hdr"] = hdr(rgbe(texture(rng, 240, 320).astype(np.float32) / 200))
+    files["tiff_ccitt_g4_640x480.tif"] = T.tiff(page(rng, 480, 640), bps=1, photometric=0,
+                                                compression=4)
+    files["tiff_ccitt_g3_2d_fill_320x240.tif"] = T.tiff(
+        page(rng, 240, 320), bps=1, photometric=0, compression=3, ccitt_options=5, rng=rng,
+        rows_per_strip=64, fill_order=2)
+    files["tiff_cielab_160x120.tif"] = T.tiff(
+        texture(rng, 120, 160), photometric=8,
+        tags={T.WHITE_POINT: (T.RATIONAL, [(3127, 10000), (3290, 10000)])})
+    files["jp2_reversible_tiles_640x480.jp2"] = pil_jp2(
+        texture(rng, 480, 640), tile_size=(256, 256), precinct_size=(64, 64),
+        quality_mode="rates", quality_layers=[40, 10, 1], progression="RPCL")
+    files["jp2_irreversible_640x480.jp2"] = pil_jp2(
+        texture(rng, 480, 640), irreversible=True, quality_mode="rates", quality_layers=[16])
+    deep = np.minimum(texture(rng, 240, 320).astype(np.int64) * 257
+                      + rng.integers(0, 257, (240, 320, 3)), 65535).astype(np.uint16)
+    files["j2k_rgb16_320x240.j2k"] = split_jp2(cv2_jp2(deep, 1000))[1]
     return files
+
+
+def page(rng, h: int, w: int) -> np.ndarray:
+    """(h, w, 1) bits of a scanned page: lines of short strokes, rules and a
+    halftone patch (1 black)."""
+    bits = np.zeros((h, w), np.uint8)
+    for y in range(16, h - 24, 20):
+        x = 24
+        while x < w - 40:
+            word = min(int(rng.integers(12, 60)), w - 24 - x)
+            bits[y : y + 12, x : x + word] = rng.random((12, word)) < 0.35
+            x += word + int(rng.integers(6, 14))
+    bits[h // 2 : h // 2 + 3, 20 : w - 20] = 1
+    patch = texture(rng, h // 4, w // 4)[..., 0]
+    bits[h - h // 4 - 8 : h - 8, w - w // 4 - 8 : w - 8] = patch > rng.integers(0, 256, patch.shape)
+    return bits[..., None]
 
 
 def main() -> None:

@@ -14,9 +14,10 @@ APNG.  Truncated and bit-flipped files raise ValueError where cv2 returns
 None and decode to cv2's pixels where it does not.  The ``serve`` handler
 and the ``detect`` CLI read the new formats as JAX's do, a directory's
 ``.webp`` and ``.gif`` files are skipped alike, and the files the port
-does not read (AVIF, JPEG 2000, and the variants of TIFF, HDR, PFM and Sun
-raster it refuses; ``tests/test_torch_tiff.py`` holds the formats
-themselves) raise naming themselves.
+does not read (AVIF, and the variants of TIFF, JPEG 2000, HDR, PFM and Sun
+raster it refuses; ``tests/test_torch_tiff.py``, ``test_torch_tiff_ccitt.py``
+and ``test_torch_jpeg2000.py`` hold the formats themselves) raise naming
+themselves; CCITT TIFF and JPEG 2000 uploads reach ``serve`` as JAX's do.
 """
 
 import functools
@@ -817,14 +818,18 @@ def test_truncated_and_bit_flipped_files_agree_with_cv2(kind):
 
 def _refused_variant(ext: str, image: np.ndarray) -> tuple:
     """(bytes, whether cv2 reads them, what the message names) of a file the
-    port refuses: AVIF and JPEG 2000 whole, and of TIFF, HDR, PFM and Sun
-    raster a variant the port refuses (CCITT Group 4, which cv2 reads; the
-    XYZE HDR format, a PFM scale of 0 and the Sun RLE type, which cv2 also
-    refuses)."""
+    port refuses: AVIF whole, and of TIFF, JPEG 2000, HDR, PFM and Sun
+    raster a variant the port refuses (CCITT RLEW, which cv2 reads in part;
+    signed JPEG 2000 components, the XYZE HDR format, a PFM scale of 0 and
+    the Sun RLE type, which cv2 also refuses)."""
     if ext == ".tiff":
         buf = io.BytesIO()
-        Image.fromarray(image).convert("1").save(buf, "TIFF", compression="group4")
-        return buf.getvalue(), True, "TIFF compression CCITT Group 4"
+        Image.fromarray(image).convert("1").save(buf, "TIFF", compression="tiff_raw_16")
+        return buf.getvalue(), True, "TIFF compression CCITT RLEW"
+    if ext == ".jp2":
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, "JPEG2000", signed=True)
+        return buf.getvalue(), False, "JPEG 2000 component 0 is signed"
     if ext == ".hdr":
         data = cv2.imencode(ext, image.astype(np.float32) / 255)[1].tobytes()
         return data.replace(b"32-bit_rle_rgbe", b"32-bit_rle_xyze"), False, "Radiance HDR"
@@ -835,8 +840,7 @@ def _refused_variant(ext: str, image: np.ndarray) -> tuple:
         data = bytearray(cv2.imencode(ext, image)[1].tobytes())
         data[20:24] = struct.pack(">I", 2)
         return bytes(data), False, "Sun raster of type RLE"
-    kind = {".avif": "AVIF", ".jp2": "JPEG 2000"}[ext]
-    return cv2.imencode(ext, image)[1].tobytes(), True, f"{kind} images are not decoded"
+    return cv2.imencode(ext, image)[1].tobytes(), True, "AVIF images are not decoded"
 
 
 @pytest.mark.parametrize("kind,ext", [("TIFF", ".tiff"), ("AVIF", ".avif"),
@@ -867,7 +871,18 @@ def _uploads() -> dict:
         "sun_raster": cv2.imencode(".ras", photo(rng, 35, 50))[1].tobytes(),
         "pfm": cv2.imencode(".pfm", photo(rng, 30, 44).astype(np.float32))[1].tobytes(),
         "hdr": cv2.imencode(".hdr", photo(rng, 33, 47).astype(np.float32) / 255)[1].tobytes(),
+        "tiff_ccitt_g4": T.tiff((photo(rng, 45, 61)[..., :1] > 128).astype(np.uint8), bps=1,
+                                photometric=0, compression=4),
+        "jp2_reversible": _jp2(photo(rng, 50, 70), tile_size=(32, 32), progression="RPCL"),
+        "jp2_irreversible": _jp2(photo(rng, 47, 66), irreversible=True, quality_layers=[20, 5],
+                                 quality_mode="rates"),
     }
+
+
+def _jp2(image: np.ndarray, **options) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, "JPEG2000", **options)
+    return buf.getvalue()
 
 
 @pytest.fixture(scope="module")

@@ -188,15 +188,15 @@ def test_codec_build_links_no_image_library():
     """One ``g++ -c`` call per repository source (``codec.cpp``, the VP8
     decoder ``vp8.cpp``, the VP9 decoder ``vp9.cpp``, the H.264 decoder
     ``h264.cpp``, the MPEG-4 encoder ``mpeg4enc.cpp``, WebP's bitstreams
-    ``webp.cpp``, GIF's LZW ``gif.cpp`` and TIFF's codecs ``tiff.cpp``) and
-    one link of their objects, with no ``-l`` flag anywhere: no libjpeg,
-    libpng, zlib, libvpx, libwebp, giflib, libtiff, libx264, OpenH264 or
-    FFmpeg."""
+    ``webp.cpp``, GIF's LZW ``gif.cpp``, TIFF's codecs ``tiff.cpp`` and the
+    JPEG 2000 decoder ``j2k.cpp``) and one link of their objects, with no
+    ``-l`` flag anywhere: no libjpeg, libpng, zlib, libvpx, libwebp, giflib,
+    libtiff, OpenJPEG, libx264, OpenH264 or FFmpeg."""
     from viddet_tpu_torch.native import build_command, compile_commands
 
     compiles = compile_commands(Path("objects"))
     link = build_command(Path("libviddet_codec.so"), Path("objects"))
-    names = ["codec", "vp8", "vp9", "h264", "mpeg4enc", "webp", "gif", "tiff"]
+    names = ["codec", "vp8", "vp9", "h264", "mpeg4enc", "webp", "gif", "tiff", "j2k"]
     assert [[Path(a).name for a in cmd if a.endswith(".cpp")] for cmd in compiles] == [
         [n + ".cpp"] for n in names]
     assert all(cmd[0] == "g++" and "-c" in cmd for cmd in compiles)
@@ -204,7 +204,7 @@ def test_codec_build_links_no_image_library():
     assert [Path(a).name for a in link if a.endswith(".o")] == [n + ".o" for n in names]
     for cmd in compiles + [link]:
         assert not {"-ljpeg", "-lpng", "-lz", "-lvpx", "-lavcodec", "-lwebp", "-lgif", "-ltiff",
-                    "-lx264", "-lopenh264"} & set(cmd)
+                    "-lopenjp2", "-lx264", "-lopenh264"} & set(cmd)
         assert not [a for a in cmd if a.startswith("-l")]
     assert [a for a in link if a == "-pthread"] == ["-pthread"]
 

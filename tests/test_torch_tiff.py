@@ -463,22 +463,17 @@ def _refused(case: str) -> bytes:
 
 
 REFUSALS = {  # case: (what the message names, whether cv2 reads the file)
-    "ccitt_g4": ("compression CCITT Group 4", True),
-    "ccitt_g3": ("compression CCITT Group 3", True),
-    "ccitt_rle": ("compression CCITT modified Huffman", True),
     "lzma": ("compression LZMA", False),
     "zstd": ("compression ZSTD", False),
     "webp": ("compression WebP", False),
     "old_jpeg": ("compression old-style JPEG", False),
     "pixarlog": ("compression PixarLog", False),
     "unknown_compression": ("compression 12345", None),
-    "signed": ("signed samples", True),
     "float": ("floating-point samples", False),
     "bits_12": ("12-bit samples", False),
     "grey_2_bits": ("2-bit samples", False),
     "grey_4_bits": ("4-bit samples", False),
     "palette_16_bits": ("Palette of 16-bit samples", False),
-    "cielab": ("Photometric CIELab", True),
     "inkset_2": ("InkSet 2", False),
     "five_samples": ("5 samples a pixel", False),
     "ycbcr_1x4": ("YCbCr subsampling 1x4", False),
@@ -487,6 +482,13 @@ REFUSALS = {  # case: (what the message names, whether cv2 reads the file)
     "strip_past_end": ("past the end of the file", None),
     "lzw_short": ("LZW data ends", None),
 }
+
+
+@pytest.mark.parametrize("case", ["ccitt_g4", "ccitt_g3", "ccitt_rle", "signed", "cielab"])
+def test_formerly_refused_forms_decode(case):
+    """CCITT, signed samples and 8-bit CIELab, which the port refused before
+    it read them (``tests/test_torch_tiff_ccitt.py`` holds each rule)."""
+    assert_tiff_equals_cv2(_refused(case), case)
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))

@@ -36,6 +36,7 @@ STRIP_OFFSETS, ORIENTATION, SPP, ROWS_PER_STRIP, STRIP_COUNTS = 273, 274, 277, 2
 PLANAR, PREDICTOR, COLORMAP, TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = (
     284, 317, 320, 322, 323, 324, 325)
 INKSET, EXTRA_SAMPLES, SAMPLE_FORMAT, JPEG_TABLES = 332, 338, 339, 347
+T4_OPTIONS, T6_OPTIONS, WHITE_POINT = 292, 293, 318
 YCBCR_COEFFICIENTS, YCBCR_SUBSAMPLING, REFERENCE_BW = 529, 530, 532
 
 REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
@@ -254,7 +255,7 @@ def page(samples: np.ndarray, *, bps: int = 8, photometric: int = 2, order: str 
          rows_per_strip=None, tile=None, extra_samples=None, colormap=None, orientation=None,
          sample_format=None, subsampling=None, coefficients=None, reference=None, inkset=None,
          quality: int = 90, jpeg_sampling=None, old_lzw: bool = False, rng=None,
-         tags=None) -> tuple:
+         ccitt_options: int = 0, tags=None) -> tuple:
     """One page's (tags, chunks, offsets tag, counts tag); see ``tiff``."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
@@ -282,6 +283,9 @@ def page(samples: np.ndarray, *, bps: int = 8, photometric: int = 2, order: str 
                 block[:, vw:] = block[:, vw - 1 : vw]
             if compression == 7:
                 jpeg_streams.append(jpeg_chunk(block, quality, jpeg_sampling))
+                continue
+            if compression in (2, 3, 4):
+                raws.append(fax(block[..., 0], compression, ccitt_options, rng))
                 continue
             if sub is not None:
                 rows_ = ycbcr_units(block, *sub)
@@ -316,6 +320,8 @@ def page(samples: np.ndarray, *, bps: int = 8, photometric: int = 2, order: str 
         t[TILE_WIDTH], t[TILE_LENGTH] = (LONG, [tile[0]]), (LONG, [tile[1]])
     if predictor != 1:
         t[PREDICTOR] = (SHORT, [predictor])
+    if compression in (3, 4):
+        t[T4_OPTIONS if compression == 3 else T6_OPTIONS] = (LONG, [ccitt_options])
     if fill_order != 1:
         t[FILL_ORDER] = (SHORT, [fill_order])
     if extra_samples is not None:
@@ -350,3 +356,139 @@ def tiff(samples: np.ndarray, *, order: str = "<", big: bool = False, pages: int
     first = page(samples, order=order, **options)
     more = [page(np.asarray(samples)[::-1], order=order, **options) for _ in range(pages - 1)]
     return layout([first, *more], order, big)
+
+
+# ---------------------------------------------------------------------------
+# CCITT bilevel coding (ITU-T T.4 and T.6), as a fax encoder writes it
+
+# T.4 tables 2 and 3: runs 0-63, make-up runs 64-1728, extended make-up
+# runs 1792-2560 (both colours)
+_WHITE_TERM = (
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111", "10011", "10100",
+    "00111", "01000", "001000", "000011", "110100", "110101", "101010", "101011", "0100111",
+    "0001100", "0001000", "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011", "00010010", "00010011",
+    "00010100", "00010101", "00010110", "00010111", "00101000", "00101001", "00101010",
+    "00101011", "00101100", "00101101", "00000100", "00000101", "00001010", "00001011",
+    "01010010", "01010011", "01010100", "01010101", "00100100", "00100101", "01011000",
+    "01011001", "01011010", "01011011", "01001010", "01001011", "00110010", "00110011",
+    "00110100",
+)
+_WHITE_MAKE_UP = (
+    "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100", "01100101",
+    "01101000", "01100111", "011001100", "011001101", "011010010", "011010011", "011010100",
+    "011010101", "011010110", "011010111", "011011000", "011011001", "011011010", "011011011",
+    "010011000", "010011001", "010011010", "011000", "010011011",
+)
+_BLACK_TERM = (
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101", "000100",
+    "0000100", "0000101", "0000111", "00000100", "00000111", "000011000", "0000010111",
+    "0000011000", "0000001000", "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010", "000011001011", "000011001100",
+    "000011001101", "000001101000", "000001101001", "000001101010", "000001101011",
+    "000011010010", "000011010011", "000011010100", "000011010101", "000011010110",
+    "000011010111", "000001101100", "000001101101", "000011011010", "000011011011",
+    "000001010100", "000001010101", "000001010110", "000001010111", "000001100100",
+    "000001100101", "000001010010", "000001010011", "000000100100", "000000110111",
+    "000000111000", "000000100111", "000000101000", "000001011000", "000001011001",
+    "000000101011", "000000101100", "000001011010", "000001100110", "000001100111",
+)
+_BLACK_MAKE_UP = (
+    "0000001111", "000011001000", "000011001001", "000001011011", "000000110011", "000000110100",
+    "000000110101", "0000001101100", "0000001101101", "0000001001010", "0000001001011",
+    "0000001001100", "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+    "0000001110101", "0000001110110", "0000001110111", "0000001010010", "0000001010011",
+    "0000001010100", "0000001010101", "0000001011010", "0000001011011", "0000001100100",
+    "0000001100101",
+)
+_EXT_MAKE_UP = (
+    "00000001000", "00000001100", "00000001101", "000000010010", "000000010011", "000000010100",
+    "000000010101", "000000010110", "000000010111", "000000011100", "000000011101",
+    "000000011110", "000000011111",
+)
+_EOL = "000000000001"
+# T.4 table 4: the 2-D modes (vertical offsets -3..3)
+_PASS, _HORIZ = "0001", "001"
+_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000010",
+             -3: "0000010"}
+
+
+def _run(length: int, black: bool) -> str:
+    term, make_up = (_BLACK_TERM, _BLACK_MAKE_UP) if black else (_WHITE_TERM, _WHITE_MAKE_UP)
+    out = ""
+    while length >= 2624:  # libtiff's putspan: 2560 at a time
+        out += _EXT_MAKE_UP[-1]
+        length -= 2560
+    if length >= 64:
+        k = length // 64
+        out += make_up[k - 1] if k <= 27 else _EXT_MAKE_UP[k - 28]
+        length -= 64 * k
+    return out + term[length]
+
+
+def _changes(row: np.ndarray) -> list:
+    """Positions where the colour changes, from white before the row."""
+    padded = np.concatenate([[0], row.astype(np.int8)])
+    return np.nonzero(np.diff(padded))[0].tolist()
+
+
+def _row_1d(row: np.ndarray) -> str:
+    edges = [0] + _changes(row) + [len(row)]
+    return "".join(_run(b - a, bool(i & 1)) for i, (a, b) in enumerate(zip(edges, edges[1:])))
+
+
+def _row_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    """T.4 section 4.2.1.3: pass, vertical and horizontal modes against the
+    reference row."""
+    width = len(row)
+    cur, above = _changes(row), _changes(ref)
+    colour = lambda changes, x: (sum(1 for c in changes if c <= x) & 1) if x >= 0 else 0
+    out, a0 = "", -1
+    while a0 < width:
+        c = colour(cur, a0)
+        a1 = next((e for e in cur if e > a0), width)
+        a2 = next((e for e in cur if e > a1), width)
+        # b1: the first change above, right of a0, to the colour opposite a0's
+        b1 = next((e for i, e in enumerate(above) if e > a0 and (i & 1) == c), width)
+        b2 = next((e for e in above if e > b1), width)
+        if b2 < a1:
+            out += _PASS
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out += _VERTICAL[a1 - b1]
+            a0 = a1
+        else:
+            out += _HORIZ + _run(a1 - max(a0, 0), bool(c)) + _run(a2 - a1, not c)
+            a0 = a2
+    return out
+
+
+def fax(rows: np.ndarray, compression: int, options: int = 0, rng=None) -> bytes:
+    """(R, W) bits (1 black) -> one CCITT strip or tile: modified Huffman
+    (2, each row on a byte), Group 3 (3: an EOL before every row, on a byte
+    end under ``options`` bit 2, a 1-D / 2-D tag bit under bit 0, ``rng``
+    choosing 2-D rows, then the RTC) or Group 4 (4, then EOFB)."""
+    rows = np.asarray(rows).astype(bool)
+    bits, ref = "", np.zeros(rows.shape[1], bool)
+    for i, row in enumerate(rows):
+        if compression == 2:
+            bits += _row_1d(row)
+            bits += "0" * (-len(bits) % 8)
+            continue
+        if compression == 4:
+            bits += _row_2d(row, ref)
+        else:
+            if options & 4:
+                bits += "0" * ((4 - len(bits)) % 8)  # the EOL's last bit on a byte's end
+            bits += _EOL
+            two_d = options & 1 and i > 0 and (rng is None or rng.random() < 0.7)
+            if options & 1:
+                bits += "0" if two_d else "1"
+            bits += _row_2d(row, ref) if two_d else _row_1d(row)
+        ref = row
+    if compression == 3:
+        bits += (_EOL + ("1" if options & 1 else "")) * 6
+    elif compression == 4:
+        bits += _EOL * 2
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""

@@ -8,17 +8,18 @@ detection requests, fused into shared device batches by
 Endpoints:
   GET  /healthz          -> {"status": "ok", model/class info, counters}
   POST /detect           -> body = encoded image (JPEG, PNG, BMP, WebP,
-                            GIF, PNM / PAM, TIFF, Sun raster, PFM or
-                            Radiance HDR, as cv2.imdecode reads them);
+                            GIF, PNM / PAM, TIFF, Sun raster, PFM,
+                            Radiance HDR or JPEG 2000, as cv2.imdecode
+                            reads them);
                             optional ?thresh=0.5 query overrides the default;
                             reply  = {"width", "height", "detections":
                             [{"class_id", "class_name", "score",
                               "box": [x1, y1, x2, y2]}]}   (original coords)
 
 An upload the port's codec cannot decode gets a 400: a truncated or
-corrupt file, an AVIF or JPEG 2000 image (formats cv2 reads and the port does
-not yet), or a variant of a format the port refuses (a CCITT-compressed TIFF,
-say), named in the reply.  ``--quant int8``
+corrupt file, an AVIF image (a format cv2 reads and the port does not yet),
+or a variant of a format the port refuses (an RLEW-compressed TIFF, an
+HTJ2K codestream, say), named in the reply.  ``--quant int8``
 calibrates on ``--calib-images`` before serving, as ``cli.detect`` does.
 
 Example, on the card:

@@ -7,7 +7,7 @@ loader pads to a static count with -1).  Every dataset also exposes
 cross-dataset combination).
 
 Images are read with the port's codec (``native``: JPEG, PNG, BMP, WebP,
-GIF, PNM / PAM, TIFF, Sun raster, PFM and Radiance HDR) and turned upright
+GIF, PNM / PAM, TIFF, Sun raster, PFM, Radiance HDR and JPEG 2000) and turned upright
 by their EXIF orientation (JPEG, PNG ``eXIf``, WebP ``EXIF``, a TIFF's
 Orientation tag), which together equal the JAX package's
 ``cv2.imread(path, IMREAD_COLOR)`` and BGR-to-RGB swap bit for bit (for a
@@ -23,6 +23,7 @@ import numpy as np
 
 from viddet_tpu_torch.native import PNG_SIGNATURE, decode_bmp, decode_jpeg, decode_png
 from viddet_tpu_torch.native.gif import GIF_SIGNATURES, decode_gif
+from viddet_tpu_torch.native.jp2 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
 from viddet_tpu_torch.native.pnm import decode_pnm
 from viddet_tpu_torch.native.stills import (
     HDR_SIGNATURES, SUN_SIGNATURE, decode_hdr, decode_pfm, decode_sunras, is_pfm,
@@ -35,7 +36,6 @@ from viddet_tpu_torch.utils.image import apply_orientation, exif_orientation_of
 # one of them raises naming it rather than as unknown bytes.
 UNREAD_FORMATS = (
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
-    ("JPEG 2000", lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51"),
 )
 
 
@@ -84,8 +84,8 @@ class DetectionDataset:
 
 
 def decode_rgb(data: bytes, name: str) -> np.ndarray:
-    """JPEG, PNG, BMP, WebP, GIF, PNM / PAM, TIFF, Sun raster, PFM or
-    Radiance HDR bytes (told apart by their magic bytes, as
+    """JPEG, PNG, BMP, WebP, GIF, PNM / PAM, TIFF, Sun raster, PFM, Radiance
+    HDR or JPEG 2000 bytes (told apart by their magic bytes, as
     ``cv2.imdecode`` tells them apart) -> upright (H, W, 3)
     uint8 RGB; raises ValueError for bytes it cannot decode (``name`` says
     which), naming the format of a file cv2 reads and the port does not."""
@@ -109,11 +109,13 @@ def decode_rgb(data: bytes, name: str) -> np.ndarray:
         return decode_pfm(data, name)
     if data.startswith(HDR_SIGNATURES):
         return decode_hdr(data, name)
+    if data[:12] == JP2_SIGNATURE or data[:4] == J2K_SIGNATURE:
+        return decode_jpeg2000(data, name)
     for kind, matches in UNREAD_FORMATS:
         if matches(data):
             raise ValueError(f"{name}: {kind} images are not decoded by the port")
     raise ValueError(f"{name}: not a JPEG, PNG, BMP, WebP, GIF or PNM image, nor a TIFF, Sun "
-                     f"raster, PFM or Radiance HDR one")
+                     f"raster, PFM, Radiance HDR or JPEG 2000 one")
 
 
 def imread_rgb(path: str) -> np.ndarray:

@@ -9,9 +9,10 @@ colour type and bit depth, Adam7, the ``eXIf`` orientation, an APNG's
 first frame) and every BMP form OpenCV reads (palettes, RLE8 and RLE4,
 16-, 24- and 32-bit, the OS/2 header); WebP (``native.webp`` with
 ``webp.cpp``), GIF (``native.gif`` with ``gif.cpp``), PNM / PAM
-(``native.pnm``), TIFF (``native.tiff`` with ``tiff.cpp``, its JPEG strips
-through ``vd_jpeg_decode_as``) and Sun raster, PFM and Radiance HDR
-(``native.stills``) likewise.  A JPEG's EXIF orientation is applied by the
+(``native.pnm``), TIFF (``native.tiff`` with ``tiff.cpp``: LZW, PackBits,
+CCITT Group 3 and 4, CIELab; its JPEG strips through ``vd_jpeg_decode_as``),
+Sun raster, PFM and Radiance HDR (``native.stills``) and JPEG 2000
+(``native.jp2`` with ``j2k.cpp``, ``vd_j2k_decode``) likewise.  A JPEG's EXIF orientation is applied by the
 caller (``data.base.decode_rgb``).
 ``encode_jpeg`` writes the bytes ``cv2.imencode(".jpg", bgr,
 [IMWRITE_JPEG_QUALITY, q])`` writes; ``encode_png`` writes filter-0 PNGs
@@ -29,7 +30,7 @@ MPEG-4, VP8, VP9 or H.264 stream (indexed by ``native.avi``, ``native.mp4`` or
 ``native.mkv``) on a C++ thread into a ring of frames.
 
 The library (``codec.cpp``, ``vp8.cpp``, ``vp9.cpp``, ``h264.cpp``, ``mpeg4enc.cpp``, ``webp.cpp``,
-``gif.cpp`` and ``tiff.cpp``) links nothing beyond the C++ standard library.  Each source is compiled to an object on its own,
+``gif.cpp``, ``tiff.cpp`` and ``j2k.cpp``) links nothing beyond the C++ standard library.  Each source is compiled to an object on its own,
 all at once, and the objects are linked; the library is built into
 ``build/viddet_tpu_torch/native/<hash>/``
 at the repository root (``build/`` is git-ignored), keyed by a hash of the
@@ -65,7 +66,8 @@ MPEG4ENC_SOURCE = HERE / "mpeg4enc.cpp"  # the MPEG-4 Part 2 encoder
 MPEG4_HEADER = HERE / "mpeg4.h"  # what the MPEG-4 decoder and encoder share
 WEBP_SOURCE = HERE / "webp.cpp"  # WebP's lossless bitstream and lossy RGB step
 GIF_SOURCE = HERE / "gif.cpp"  # GIF's LZW
-TIFF_SOURCE = HERE / "tiff.cpp"  # TIFF's LZW, PackBits, predictor and samples to RGB
+TIFF_SOURCE = HERE / "tiff.cpp"  # TIFF's LZW, PackBits, CCITT, predictor and samples to RGB
+J2K_SOURCE = HERE / "j2k.cpp"  # the JPEG 2000 codestream decoder
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "viddet_tpu_torch" / "native"
 LIB_NAME = "libviddet_codec.so"
 # no fused multiply-add: the video transform's float steps round as numpy's do
@@ -87,7 +89,7 @@ _lib: ctypes.CDLL | None = None
 def sources() -> list:
     """The library's C++ sources, each compiled to an object of its own."""
     return [SOURCE, VP8_SOURCE, VP9_SOURCE, H264_SOURCE, MPEG4ENC_SOURCE, WEBP_SOURCE,
-            GIF_SOURCE, TIFF_SOURCE]
+            GIF_SOURCE, TIFF_SOURCE, J2K_SOURCE]
 
 
 def _digest() -> str:
@@ -203,6 +205,7 @@ def library() -> ctypes.CDLL:
             lib.vd_webp_lossy.argtypes = [p, size, i, i, p, p, i]
             lib.vd_gif_lzw.argtypes = [p, size, i, p, size, ctypes.POINTER(size), p, i]
             lib.vd_tiff_decode.argtypes = [p, size, p, p, p, p, p, p, p, p, i]
+            lib.vd_j2k_decode.argtypes = [p, size, p, size, p, i, i, p, p, i]
             lib.vd_video_open.argtypes = [ctypes.c_char_p, i, p, size, ctypes.c_char_p, i, p, p,
                                           i, p, i, i, i, i, i, i, p, i]
             lib.vd_video_open.restype = p
@@ -214,7 +217,7 @@ def library() -> ctypes.CDLL:
                        lib.vd_mpeg4_decode, lib.vd_mpeg4_flush, lib.vd_mpeg4enc_encode,
                        lib.vd_vp8_decode, lib.vd_vp8_rgb, lib.vd_vp8_planes,
                        lib.vd_vp8l_decode, lib.vd_webp_lossy, lib.vd_gif_lzw,
-                       lib.vd_jpeg_decode_as, lib.vd_tiff_decode,
+                       lib.vd_jpeg_decode_as, lib.vd_tiff_decode, lib.vd_j2k_decode,
                        lib.vd_h264_decode, lib.vd_h264_probe, lib.vd_h264_rgb,
                        lib.vd_h264_planes, lib.vd_h264_flush, lib.vd_h264_reorder):
                 fn.restype = i

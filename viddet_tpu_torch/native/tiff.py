@@ -4,17 +4,20 @@ OpenCV's TIFF decoder reads the first page through libtiff's RGBA interface
 Orientation tag.  The container and its tags are read here, Deflate is
 inflated with Python's ``zlib``, JPEG strips and tiles go to the port's JPEG
 decoder (``codec.cpp``) with their ``JPEGTables`` spliced in, and
-``tiff.cpp`` expands LZW and PackBits, undoes the predictor and converts the
-samples to RGB.
+``tiff.cpp`` expands LZW, PackBits and CCITT, undoes the predictor and
+converts the samples to RGB.
 
 What OpenCV and libtiff read, and so this module:
 
 * classic TIFF and BigTIFF, either byte order; the first IFD only (a
   multi-page file gives its first page);
 * compression none, LZW (and libtiff's old LSB-first form), Deflate (8 and
-  32946), PackBits and JPEG (7); horizontal predictor 2 at 8 and 16 bits
-  under LZW and Deflate (the tag means nothing to the other schemes);
-  FillOrder 2 reverses the bits of every stored byte;
+  32946), PackBits, JPEG (7) and CCITT of 1-bit samples: modified Huffman
+  (2, rows on a byte), Group 3 (3: an EOL before every row, fill bits, 2-D
+  rows under T4Options bit 0) and Group 4 (4), as tif_fax3.c decodes them;
+  horizontal predictor 2 at 8 and 16 bits under LZW and Deflate (the tag
+  means nothing to the other schemes); FillOrder 2 reverses the bits of
+  every stored byte;
 * strips, and tiles with the edge tiles cropped; PlanarConfiguration 1 and
   2;
 * Photometric MinIsWhite / MinIsBlack of 1, 8 and 16 bits (16-bit grey
@@ -24,7 +27,10 @@ What OpenCV and libtiff read, and so this module:
   8 bits under InkSet 1 as ``(255 - c)(255 - k) // 255``; YCbCr of 8 bits
   at the subsamplings libtiff draws, through libtiff's own conversion, or
   under JPEG converted by the JPEG decoder as libtiff's JPEGCOLORMODE_RGB
-  has libjpeg convert it;
+  has libjpeg convert it; CIELab of three 8- or 16-bit samples through
+  tif_color.c's float conversion (WhitePoint, D50 without it);
+* signed samples (SampleFormat 2) as unsigned ones, as libtiff's RGBA
+  read takes them;
 * alpha: associated (ExtraSamples 1, or an unspecified extra sample beside
   three colours) dropped, unassociated (2) premultiplied as
   ``(c * a + 127) // 255``; separate grey planes are taken as RGB, so their
@@ -34,13 +40,16 @@ What OpenCV and libtiff read, and so this module:
   out mirrored tile by tile.
 
 What it refuses, with a ValueError naming the file, "TIFF" and the feature,
-before any pixel is decoded: the compressions CCITT (2, 3, 4, 32771), old
-JPEG (6), LZMA, ZSTD, WebP, JBIG, LERC, SGILog, PixarLog, NeXT, ThunderScan
-and any other; float and signed samples; bit depths other than those
-above; Photometric CIELab, ICCLab, ITULab, LogL, LogLuv and any other;
-InkSet 2; more than 4 samples a pixel; a tag out of range; a strip or tile
-past the end of the file; missing byte counts; and any strip whose data
-ends short.
+before any pixel is decoded: the compressions CCITT RLEW (32771, which
+libtiff reads in part), old JPEG (6), LZMA, ZSTD, WebP, JBIG, LERC, SGILog,
+PixarLog, NeXT, ThunderScan and any other; float samples; bit depths other
+than those above; Photometric CIELab other than above, ICCLab, ITULab,
+LogL, LogLuv and any other; InkSet 2; more than 4 samples a pixel; a tag
+out of range; a strip or tile past the end of the file; missing byte
+counts; and any strip whose data ends short.  A CCITT stream with a bad
+code word, a row of the wrong length, an early EOFB or uncompressed mode
+(which libtiff does not decode either) raises naming the scheme and the
+row; cv2 keeps what libtiff decoded before it.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 # Tags
 WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILL_ORDER = 256, 257, 258, 259, 262, 266
 STRIP_OFFSETS, ORIENTATION, SPP, ROWS_PER_STRIP, STRIP_COUNTS = 273, 274, 277, 278, 279
-PLANAR, PREDICTOR, COLORMAP = 284, 317, 320
+T4_OPTIONS, PLANAR, PREDICTOR, WHITE_POINT, COLORMAP = 292, 284, 317, 318, 320
 TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = 322, 323, 324, 325
 INKSET, EXTRA_SAMPLES, SAMPLE_FORMAT, JPEG_TABLES = 332, 338, 339, 347
 YCBCR_COEFFICIENTS, YCBCR_SUBSAMPLING, REFERENCE_BW = 529, 530, 532
@@ -68,10 +77,11 @@ _TYPES = {1: (1, "u1"), 2: (1, "u1"), 3: (2, "u2"), 4: (4, "u4"), 5: (8, "u4"), 
           7: (1, "u1"), 8: (2, "i2"), 9: (4, "i4"), 10: (8, "i4"), 11: (4, "f4"),
           12: (8, "f8"), 13: (4, "u4"), 16: (8, "u8"), 17: (8, "i8"), 18: (8, "u8")}
 
-READ_COMPRESSIONS = (1, 5, 7, 8, 32946, 32773)
+READ_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773)
+CCITT = {2: "CCITT modified Huffman", 3: "CCITT Group 3", 4: "CCITT Group 4"}
 REFUSED_COMPRESSIONS = {
-    2: "CCITT modified Huffman", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-    32771: "CCITT RLEW", 32766: "NeXT", 32809: "ThunderScan", 32908: "PixarLog",
+    6: "old-style JPEG", 32771: "CCITT RLEW", 32766: "NeXT", 32809: "ThunderScan",
+    32908: "PixarLog",
     32909: "PixarLog", 32947: "Kodak DCS", 34661: "JBIG", 34676: "SGILog", 34677: "SGILog24",
     34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
 }
@@ -79,7 +89,7 @@ PHOTOMETRIC_NAMES = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette",
                      4: "Transparency mask", 5: "Separated", 6: "YCbCr", 8: "CIELab",
                      9: "ICCLab", 10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
 # tiff.cpp's put routines
-GREY, PALETTE, RGB, CMYK, YCBCR, SEPARATE_RGB, SEPARATE_CMYK, SEPARATE_YCBCR = range(8)
+GREY, PALETTE, RGB, CMYK, YCBCR, SEPARATE_RGB, SEPARATE_CMYK, SEPARATE_YCBCR, CIELAB = range(9)
 NO_ALPHA, ASSOCIATED, UNASSOCIATED = 0, 1, 2
 MAX_TILE_BYTES = 1 << 30  # OpenCV's "TIFF tile size is too large" limit
 _REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
@@ -243,20 +253,20 @@ class _Layout:
         self.spp = ifd.number(SPP, 1)
         self.bps = ifd.same(BITS, 1)
         fmt = ifd.same(SAMPLE_FORMAT, 1)
-        if fmt != 1:
-            what = {2: "signed", 3: "floating-point"}.get(fmt, f"sample format {fmt}")
+        if fmt not in (1, 2):  # libtiff's RGBA read takes signed samples as unsigned
+            what = {3: "floating-point"}.get(fmt, f"sample format {fmt}")
             raise err(f"{what} samples are not decoded by the port")
         if not 1 <= self.spp <= 4:
             raise err(f"of {self.spp} samples a pixel (OpenCV reads 1 to 4)")
         photo = PHOTOMETRIC_NAMES.get(self.photometric, str(self.photometric))
-        if self.photometric not in (0, 1, 2, 3, 5, 6):
+        if self.photometric not in (0, 1, 2, 3, 5, 6, 8):
             raise err(f"Photometric {photo} is not decoded by the port")
         self.planar = ifd.number(PLANAR, 1)
         if self.planar not in (1, 2):
             raise err(f"PlanarConfiguration {self.planar}")
         self.contig = not (self.planar == 2 and self.spp > 1)
         extra = ifd.values(EXTRA_SAMPLES)
-        colours = {0: 1, 1: 1, 3: 1, 2: 3, 6: 3, 5: 4}[self.photometric]
+        colours = {0: 1, 1: 1, 3: 1, 2: 3, 6: 3, 8: 3, 5: 4}[self.photometric]
         if extra is None:  # TIFFReadDirectory: samples past the colours are extra samples
             extra = np.zeros(max(self.spp - colours, 0), np.int64)
         if len(extra) > self.spp:
@@ -273,10 +283,24 @@ class _Layout:
             self.orientation = 1  # libtiff refuses the value and keeps its default
         self.fill_reverse = ifd.number(FILL_ORDER, 1) == 2
         self.predictor = ifd.number(PREDICTOR, 1) if self.compression in (5, 8, 32946) else 1
+        self.t4_options = 0
+        if self.compression in CCITT:
+            self._ccitt(ifd)
         self.sub = (1, 1)
         self.jpeg_space = 0
         self._kind(ifd, photo)
         self._chunks(ifd)
+
+    def _ccitt(self, ifd: _Ifd) -> None:
+        """tif_fax3.c's checks: 1-bit samples, one a pixel; Group 3's 2-D
+        rows under T4Options bit 0.  The options' uncompressed-mode bit
+        changes nothing; a stream that enters that mode raises in
+        ``tiff.cpp``, as libtiff does not decode it either."""
+        if self.bps != 1 or self.spp != 1:
+            raise ifd.error(f"compression {CCITT[self.compression]} of {self.spp} "
+                            f"{self.bps}-bit samples a pixel")
+        if self.compression == 3:
+            self.t4_options = ifd.number(T4_OPTIONS, 0) & 1
 
     def _kind(self, ifd: _Ifd, photo: str) -> None:
         """The put routine tif_getimage.c's PickContigCase / PickSeparateCase
@@ -315,10 +339,14 @@ class _Layout:
                           f"{'' if self.contig else ' in planes'} is not decoded by the port")
         if ph == 6 and self.compression == 7 and self.spp != 3:
             raise err(f"YCbCr JPEG of {self.spp} samples")
+        if ph == 8 and (self.spp != 3 or self.colours != 3 or bps not in (8, 16)
+                        or not self.contig):
+            raise err(f"CIELab of {self.spp} {bps}-bit samples"
+                      f"{'' if self.contig else ' in planes'} is not decoded by the port")
         if self.jpeg_space == 1:
             self.kind = RGB  # the JPEG decoder gives RGB
         elif self.contig:
-            self.kind = {0: GREY, 1: GREY, 2: RGB, 3: PALETTE, 5: CMYK, 6: YCBCR}[ph]
+            self.kind = {0: GREY, 1: GREY, 2: RGB, 3: PALETTE, 5: CMYK, 6: YCBCR, 8: CIELAB}[ph]
         else:
             if bps not in (8, 16) or ph == 3 or (bps == 16 and ph in (5, 6)):
                 raise err(f"{photo} of {bps}-bit samples in planes is not decoded by the port")
@@ -336,6 +364,13 @@ class _Layout:
             self.colormap = np.zeros((3, 256), np.uint8)
             self.colormap[:, :n] = cmap & 255
         self.ycbcr = None
+        if ph == 8:  # the WhitePoint and whether the tag is there, for tiff.cpp's CieLab
+            white = ifd.values(WHITE_POINT)
+            given = white is not None and len(white) >= 2
+            self.ycbcr = np.zeros(9, np.float32)
+            self.ycbcr[:3] = (*white[:2], 1) if given else (0, 0, 0)
+            if given and (not np.isfinite(self.ycbcr).all() or self.ycbcr[1] == 0):
+                raise err("CIELab WhitePoint out of range")
         if ph == 6:
             luma = ifd.values(YCBCR_COEFFICIENTS)
             luma = _DEFAULT_LUMA if luma is None or len(luma) < 3 else luma[:3]
@@ -454,12 +489,12 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 pieces.append(raw)
                 at += len(raw)
         data, compression, reverse = b"".join(pieces), 1, False
-    params = (ctypes.c_int * 22)(
+    params = (ctypes.c_int * 23)(
         compression, int(reverse), lay.predictor, int(ifd.order == ">"), lay.bps, spp, lay.kind,
         lay.alpha, lay.width, lay.height, lay.chunk_w, lay.chunk_h, lay.across, lay.down,
         int(lay.tiled), lay.sub[0], lay.sub[1], int(lay.photometric == 0 and lay.kind == GREY),
         planes, lay.row_bytes, lay.scanline,
-        (lay.spp if lay.contig else 1) if lay.sub == (1, 1) else 3)
+        (lay.spp if lay.contig else 1) if lay.sub == (1, 1) else 3, lay.t4_options)
     cmap = lay.colormap if lay.colormap is not None else np.zeros((3, 256), np.uint8)
     ycc = lay.ycbcr if lay.ycbcr is not None else np.zeros(9, np.float32)
     out = np.empty((lay.height, lay.width, 3), np.uint8)
